@@ -1,0 +1,694 @@
+"""Chip smoke test for the PyTorch/CUDA port (localai_tfp_tpu_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, one result line each; any failure raises and exits non-zero:
+
+1. device  — the card's name and count, and nvidia-smi's name and power
+   limit.
+2. build   — nvcc builds every kernel from csrc/ (all sources at once);
+   prints build seconds and the -Xptxas -v registers / shared memory /
+   spills.
+3. kernels — every kernel against its plain PyTorch version at the
+   Llama-3.1-8B attention width (H 32, Hkv 8, Dh 128, page 256): the
+   decode / prefill / mixed / verify row mixes with shuffled page
+   tables, bf16 and int8 pages, and seeded decode; then the main path's
+   shapes (8 slots, context 2048): a seeded decode step, a mixed step,
+   and a mixed step with a 512-token chunk near the context's end. Every
+   comparison must agree within 1e-4 absolute. Then times the kernel, the
+   plain version and one library call on those main-path cases, and
+   computes each kernel's bound.
+4. main    — writes a Llama-3.1-8B-geometry checkpoint (random bf16
+   weights from a seed), starts the port's HTTP server in-process, sends
+   concurrent streaming and non-streaming /v1/chat/completions requests,
+   checks the responses, and checks that the main path launched the
+   kernel.
+
+The last line of standard output is the result object; the line before
+it lists every kernel with its numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# the 8B model's attention geometry (Llama-3.1-8B config.json)
+H, HKV, DH, PAGE = 32, 8, 128, 256
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+# The JAX harness's bounds (localai_tfp_tpu/ops/kernel_check.py) hold a
+# bf16 Pallas kernel against an f32 reference. Here the kernel and its
+# plain version both compute in f32 from the same bf16/int8 values, so the
+# check fails at a far tighter absolute bound: 1e-4 is well below what a
+# wrong mask, seed row or page (>= ~3e-4 at ctx 2048) moves an output.
+JAX_TOL = {"bf16": 2e-2, "int8": 5e-2}
+TOL = 1e-4
+
+
+def log(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def require_package():
+    if not (ROOT / "localai_tfp_tpu_torch" / "__init__.py").is_file():
+        raise SystemExit("chip_smoke.py must run from a checkout of the repo "
+                         "(localai_tfp_tpu_torch/ not found beside it)")
+    sys.path.insert(0, str(ROOT))
+
+
+# ------------------------------------------------------------------ phase 1
+
+
+def phase_device():
+    import torch
+
+    from localai_tfp_tpu_torch.device import describe
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: chip_smoke.py needs one GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = describe()
+    log("device", **dev, nvidia_smi=smi, torch=torch.__version__,
+        cuda=torch.version.cuda)
+    return dev, smi
+
+
+# ------------------------------------------------------------------ phase 2
+
+
+def phase_build():
+    from localai_tfp_tpu_torch.ops import _build
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import KERNEL
+
+    t0 = time.perf_counter()
+    built = _build.build_all([KERNEL])
+    for name, b in built.items():
+        lines = [ln.strip() for ln in b.ptxas.splitlines()
+                 if "registers" in ln or "spill" in ln
+                 or "Compiling entry" in ln]
+        log("build", kernel=name, nvcc_s=round(b.seconds, 3),
+            wall_s=round(time.perf_counter() - t0, 3), ptxas=lines)
+
+
+# ------------------------------------------------------------------ phase 3
+
+
+def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
+              seed: int, L: int = 2):
+    """Inputs in the style of localai_tfp_tpu/ops/kernel_check.py
+    check_ragged_attention: shuffled page tables over a shared arena, at
+    the 8B attention width, on the card. ``chunk512`` is the main path's
+    mixed step at its fullest: a 512-token prefill chunk (the engine's
+    chunk at 8 slots) beside decode, verify and shorter chunk rows, every
+    row ending within 64 tokens of the context's end."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.models.transformer import _quantize_rows
+
+    rng = np.random.default_rng(seed)
+    kd = 4
+    if mix == "decode":
+        q_lens = np.ones(B, np.int32)
+    elif mix == "prefill":
+        q_lens = rng.integers(2, 257, B).astype(np.int32)
+    elif mix == "verify":
+        q_lens = np.full(B, kd, np.int32)
+    elif mix == "chunk512":
+        q_lens = np.resize(np.asarray([512, 1, 1, 7, kd, 64, 1, 300],
+                                      np.int32), B)
+    else:  # decode rows + chunks + one verify row together
+        q_lens = np.resize(np.asarray([1, 1, 7, 256, kd, 64], np.int32), B)
+    T = int(q_lens.max())
+    cap = max_pages * PAGE
+    lo = (lambda n: cap - n - 64) if mix == "chunk512" else (lambda n: 0)
+    pos0 = np.asarray([int(rng.integers(lo(int(n)), cap - int(n) + 1))
+                       for n in q_lens], np.int32)
+    n_pages = B * max_pages + 1
+    pt = rng.permutation(np.arange(1, n_pages)).reshape(
+        B, max_pages).astype(np.int32)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    F = HKV * DH
+    ak = torch.randn((L, n_pages, PAGE, F), generator=g, device=dev) * 0.5
+    av = torch.randn((L, n_pages, PAGE, F), generator=g, device=dev) * 0.5
+    # logits with a std of about 0.5, so the softmax is not near uniform
+    q = torch.randn((B, T, H, DH), generator=g, device=dev).to(torch.bfloat16)
+    case = {
+        "q": q, "layer": 1, "n_kv_heads": HKV, "scale": DH ** -0.5,
+        "page_table": torch.from_numpy(pt).to(dev),
+        "pos0": torch.from_numpy(pos0).to(dev),
+        "q_lens": torch.from_numpy(q_lens).to(dev),
+    }
+    if quant:
+        kq, ks = _quantize_rows(ak)
+        vq, vs = _quantize_rows(av)
+        case.update(cache_k=kq, cache_v=vq, cache_k_scale=ks,
+                    cache_v_scale=vs)
+    else:
+        case.update(cache_k=ak.to(torch.bfloat16),
+                    cache_v=av.to(torch.bfloat16))
+    if seeded:
+        case["seed_kv"] = (
+            (torch.randn((B, F), generator=g, device=dev) * 0.5
+             ).to(torch.bfloat16),
+            (torch.randn((B, F), generator=g, device=dev) * 0.5
+             ).to(torch.bfloat16))
+    return case
+
+
+def _call(fn, c):
+    return fn(c["q"], c["cache_k"], c["cache_v"], c["layer"],
+              c["page_table"], c["pos0"], c["q_lens"], c["n_kv_heads"],
+              scale=c["scale"], page=PAGE,
+              cache_k_scale=c.get("cache_k_scale"),
+              cache_v_scale=c.get("cache_v_scale"),
+              seed_kv=c.get("seed_kv"))
+
+
+def attention_work(c) -> tuple[int, int]:
+    """(bytes, flops) the call must do on these inputs: q, out and each
+    row's live K/V rows (and scales) read or written once; 4 flops per
+    (query, kv position, head dim) pair actually attended."""
+    q_lens = c["q_lens"].tolist()
+    pos0 = c["pos0"].tolist()
+    elem = c["cache_k"].element_size()
+    F = HKV * DH
+    nbytes = c["q"].numel() * c["q"].element_size()  # q in
+    nbytes += c["q"].shape[0] * c["q"].shape[1] * H * DH * 4  # out f32
+    nbytes += c["page_table"].numel() * 4 + 8 * len(q_lens)
+    flops = 0
+    for n, p0 in zip(q_lens, pos0):
+        ctx = p0 + n
+        nbytes += 2 * ctx * F * elem
+        if "cache_k_scale" in c:
+            nbytes += 2 * ctx * 4
+        attended = sum(p0 + t + 1 for t in range(n))
+        flops += 4 * H * DH * attended
+    return nbytes, flops
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _library_call(c):
+    """One PyTorch call computing the same attention: scaled_dot_product_
+    attention over each row's gathered [B, H, W, Dh] window with the
+    causal/ragged mask (gather and mask built outside the timed call).
+    Used here as a yardstick only; the port never calls it."""
+    import torch
+    import torch.nn.functional as Fnn
+
+    B, T = c["q"].shape[:2]
+    pt = c["page_table"].long()
+    W = pt.shape[1] * PAGE
+    k = c["cache_k"][c["layer"]][pt].reshape(B, W, HKV, DH)
+    v = c["cache_v"][c["layer"]][pt].reshape(B, W, HKV, DH)
+    if "cache_k_scale" in c:
+        ks = c["cache_k_scale"][c["layer"]][pt].reshape(B, W, 1, 1)
+        vs = c["cache_v_scale"][c["layer"]][pt].reshape(B, W, 1, 1)
+        k, v = k.float() * ks, v.float() * vs
+    k = k.to(torch.bfloat16).transpose(1, 2).contiguous()
+    v = v.to(torch.bfloat16).transpose(1, 2).contiguous()
+    q = c["q"].transpose(1, 2).contiguous()
+    kv_pos = torch.arange(W, device=q.device)
+    tq = torch.arange(T, device=q.device)
+    qpos = c["pos0"].long()[:, None] + tq[None]
+    mask = (kv_pos[None, None] <= qpos[..., None]) & (
+        tq[None, :, None] < c["q_lens"].long()[:, None, None])
+    mask = mask | ~mask.any(-1, keepdim=True)  # keep pad rows finite
+    mask = mask[:, None]
+
+    def run():
+        return Fnn.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=c["scale"], enable_gqa=True)
+
+    return run
+
+
+def phase_kernels(n_slots: int, max_pages: int):
+    import torch
+
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_attention_plain, ragged_paged_attention,
+    )
+
+    # the four row mixes on a small arena, then the main path's shapes
+    # (every slot, the full context): a seeded decode step, a mixed step,
+    # and a mixed step with the engine's 512-token chunk near ctx 2048
+    small = [(mix, seeded, 6, 4)
+             for mix in ("decode", "prefill", "mixed", "verify")
+             for seeded in ((False, True) if mix == "decode" else (False,))]
+    full = [(mix, seeded, n_slots, max_pages) for mix, seeded in
+            (("decode", True), ("mixed", False), ("chunk512", False))]
+    worst = {"bf16": 0.0, "int8": 0.0}
+    timed = {}  # the full-shape bf16 cases, timed below on the same inputs
+    for mix, seeded, B, pages in small + full:
+        for quant in (False, True):
+            c = make_case(mix, quant, seeded, B=B, max_pages=pages,
+                          seed=len(mix) + 10 * quant + 100 * seeded + B)
+            if B == n_slots and pages == max_pages and not quant:
+                timed[mix] = (c, seeded)
+            got = _call(ragged_paged_attention, c)
+            want = _call(ragged_attention_plain, c)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            kind = "int8" if quant else "bf16"
+            worst[kind] = max(worst[kind], err)
+            log("kernel_check", kernel="ragged_paged_attention", mix=mix,
+                pages=kind, seeded=seeded, rows=B, max_pages=pages,
+                q_lens=c["q_lens"].tolist(), max_abs_err=err,
+                max_abs_want=float(want.abs().max()), tol=TOL,
+                jax_harness_tol=JAX_TOL[kind])
+            if not err < min(TOL, JAX_TOL[kind]):
+                raise AssertionError(
+                    f"ragged_paged_attention {mix}/{kind}/seeded={seeded} "
+                    f"B={B}: max abs err {err} >= {TOL}")
+    # timing at the main path's shapes, bf16 pages as the engine serves
+    timings = {}
+    for mix, (c, seeded) in timed.items():
+        B = c["q"].shape[0]
+        nbytes, flops = attention_work(c)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
+                    >= flops / BF16_FLOPS else "operations")
+        before = ragged_paged_attention.launches
+        ms = _time_ms(lambda: _call(ragged_paged_attention, c), 50)
+        ragged_paged_attention.launches = before  # timing is not the path
+        plain_ms = _time_ms(lambda: _call(ragged_attention_plain, c), 10)
+        library_ms = _time_ms(_library_call(c), 20)
+        timings[mix] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "bytes": nbytes, "flops": flops,
+            "rows": B, "q_lens": c["q_lens"].tolist(),
+            "ctx": [p + n for p, n in zip(c["pos0"].tolist(),
+                                          c["q_lens"].tolist())],
+        }
+        log("kernel_time", kernel="ragged_paged_attention", mix=mix,
+            seeded=seeded, **timings[mix])
+    return worst, timings
+
+
+# ------------------------------------------------------------------ phase 4
+
+# Llama-3.1-8B-Instruct's published config.json geometry
+GEOMETRY = {
+    "hidden_size": 4096, "intermediate_size": 14336,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128,
+    "num_hidden_layers": 32, "vocab_size": 128256, "rope_theta": 500000.0,
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+    "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "tie_word_embeddings": False,
+}
+CONTEXT = 2048  # the model config's context_size
+SLOTS = 8  # the model config's max_batch_slots
+
+
+def checkpoint_layout(layers: int) -> list[tuple[str, tuple]]:
+    """(name, HF [out, in] shape) of every tensor of the checkpoint."""
+    g = GEOMETRY
+    D, F, V = g["hidden_size"], g["intermediate_size"], g["vocab_size"]
+    q, kv = g["num_attention_heads"] * g["head_dim"], \
+        g["num_key_value_heads"] * g["head_dim"]
+    out = [("model.embed_tokens.weight", (V, D)), ("model.norm.weight", (D,)),
+           ("lm_head.weight", (V, D))]
+    for i in range(layers):
+        lp = f"model.layers.{i}."
+        out += [(lp + "self_attn.q_proj.weight", (q, D)),
+                (lp + "self_attn.k_proj.weight", (kv, D)),
+                (lp + "self_attn.v_proj.weight", (kv, D)),
+                (lp + "self_attn.o_proj.weight", (D, q)),
+                (lp + "mlp.gate_proj.weight", (F, D)),
+                (lp + "mlp.up_proj.weight", (F, D)),
+                (lp + "mlp.down_proj.weight", (D, F)),
+                (lp + "input_layernorm.weight", (D,)),
+                (lp + "post_attention_layernorm.weight", (D,))]
+    return out
+
+
+def choose_depth(want: int, path: Path) -> int:
+    """The deepest model up to ``want`` layers whose bf16 checkpoint fits
+    the disk with 4 GB to spare (only depth is ever cut)."""
+    import math
+    import shutil
+
+    def nbytes(layers):
+        return sum(2 * math.prod(s) for _, s in checkpoint_layout(layers))
+
+    path.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(path).free
+    layers = want
+    while layers > 1 and nbytes(layers) + (4 << 30) > free:
+        layers -= 1
+    if nbytes(layers) + (4 << 30) > free:
+        raise SystemExit(f"disk too small for even one layer ({free} B free)")
+    return layers
+
+
+def write_checkpoint(ckpt: Path, layers: int, seed: int) -> tuple[bool, float]:
+    """A Llama-3.1-8B-geometry HF checkpoint with random bf16 weights made
+    on the card from ``seed`` (``config.json`` as the JAX bench writes it,
+    with the published rope_scaling block; no tokenizer.json, so the
+    byte tokenizer serves). Reused when its marker matches. Returns
+    (written, seconds)."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_iter
+
+    marker = ckpt / "written.json"
+    want = {"seed": seed, "layers": layers, "geometry": GEOMETRY}
+    if marker.is_file() and json.loads(marker.read_text()) == want:
+        return False, 0.0
+    t0 = time.perf_counter()
+    ckpt.mkdir(parents=True, exist_ok=True)
+    marker.unlink(missing_ok=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    layout = checkpoint_layout(layers)
+    shapes = [(n, torch.empty(s, dtype=torch.bfloat16, device="meta"))
+              for n, s in layout]
+
+    def tensors():
+        for name, shape in layout:
+            if len(shape) == 1:  # norm weights
+                yield name, torch.ones(shape, dtype=torch.bfloat16, device=dev)
+            else:
+                w = torch.randn(shape, generator=g, device=dev)
+                yield name, (w * shape[1] ** -0.5).to(torch.bfloat16)
+
+    save_iter(tensors(), str(ckpt / "model.safetensors"), shapes=shapes)
+    g_ = GEOMETRY
+    config = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "hidden_size": g_["hidden_size"],
+        "intermediate_size": g_["intermediate_size"],
+        "num_attention_heads": g_["num_attention_heads"],
+        "num_key_value_heads": g_["num_key_value_heads"],
+        "num_hidden_layers": layers, "vocab_size": g_["vocab_size"],
+        "head_dim": g_["head_dim"], "rope_theta": g_["rope_theta"],
+        "rope_scaling": g_["rope_scaling"],
+        "max_position_embeddings": g_["max_position_embeddings"],
+        "rms_norm_eps": g_["rms_norm_eps"], "torch_dtype": "bfloat16",
+        "tie_word_embeddings": False,
+        "bos_token_id": 128000, "eos_token_id": 128009,
+    }
+    (ckpt / "config.json").write_text(json.dumps(config, indent=1))
+    marker.write_text(json.dumps(want))
+    return True, time.perf_counter() - t0
+
+
+def _http(port: int, body: dict, timeout: float = 600.0):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read().decode()
+
+
+def check_reply(name: str, body: dict, status: int, ctype: str,
+                text: str) -> dict:
+    """The response's shape and usage, as the JAX server frames them."""
+    if status != 200:
+        raise AssertionError(f"{name}: HTTP {status}")
+    max_tokens = body["max_tokens"]
+    if body.get("stream"):
+        if not ctype.startswith("text/event-stream"):
+            raise AssertionError(f"{name}: content type {ctype}")
+        frames = text.split("\n\n")
+        if frames[-1] != "" or frames[-2] != "data: [DONE]":
+            raise AssertionError(f"{name}: stream does not end in [DONE]")
+        chunks = []
+        for f in frames[:-2]:
+            if not f.startswith("data: "):
+                raise AssertionError(f"{name}: bad SSE frame {f[:80]!r}")
+            chunks.append(json.loads(f[len("data: "):]))
+        if any(c["object"] != "chat.completion.chunk" for c in chunks):
+            raise AssertionError(f"{name}: wrong chunk object")
+        if chunks[0]["choices"][0]["delta"] != {"role": "assistant",
+                                                "content": ""}:
+            raise AssertionError(f"{name}: first delta is not the role")
+        last = chunks[-1]
+        finish = last["choices"][0]["finish_reason"]
+        usage = last["usage"]
+        content = "".join(c["choices"][0]["delta"].get("content", "")
+                          for c in chunks[1:-1])
+    else:
+        obj = json.loads(text)
+        if obj["object"] != "chat.completion":
+            raise AssertionError(f"{name}: object {obj['object']}")
+        finish = obj["choices"][0]["finish_reason"]
+        usage = obj["usage"]
+        content = obj["choices"][0]["message"]["content"]
+    n = usage["completion_tokens"]
+    ok = n > 0 and ((finish == "length" and n == max_tokens)
+                    or (finish == "stop" and n <= max_tokens))
+    if not ok or usage["total_tokens"] != n + usage["prompt_tokens"]:
+        raise AssertionError(f"{name}: finish {finish!r} with usage {usage}")
+    return {"name": name, "stream": bool(body.get("stream")),
+            "finish_reason": finish, "prompt_tokens": usage["prompt_tokens"],
+            "completion_tokens": n, "content_chars": len(content)}
+
+
+def reference_check(backend, layers: int) -> dict:
+    """Greedy tokens the engine serves (paged arena, the CUDA kernel) must
+    be argmax — within a tolerance for bf16 rounding — of the plain dense
+    forward (``_attend``) over the same prompt and tokens."""
+    import torch
+
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+    from localai_tfp_tpu_torch.models.transformer import KVCache, forward
+
+    eng = backend.engine
+    got = {}
+    orig = eng._finish
+
+    def spy(slot, reason):
+        got["ids"] = list(slot.generated)
+        return orig(slot, reason)
+
+    eng._finish = spy
+    try:
+        prompt = backend.tokenizer.encode(
+            "A reference prompt for the dense path check. " * 3, add_bos=True)
+        ev = eng.generate(GenRequest(prompt_ids=prompt, max_tokens=12,
+                                     ignore_eos=True))
+    finally:
+        eng._finish = orig
+    if ev.error:
+        raise AssertionError(f"reference request failed: {ev.error}")
+    ids = got["ids"]
+    seq = prompt + ids[:-1]
+    dev = eng.device
+    cache = KVCache.create(eng.spec, 1, len(seq), torch.bfloat16, device=dev)
+    with torch.inference_mode():
+        logits, _ = forward(eng.spec, eng.params,
+                            torch.tensor([seq], device=dev),
+                            torch.zeros(1, dtype=torch.int32, device=dev),
+                            cache)
+    rows = logits[0, len(prompt) - 1:].float()  # one row per generated token
+    tok = torch.tensor(ids, device=dev)
+    deficit = rows.max(-1).values - rows.gather(-1, tok[:, None])[:, 0]
+    tol = 0.25 * float(rows.std())
+    worst = float(deficit.max())
+    exact = int((rows.argmax(-1) == tok).sum())
+    if not worst <= tol or not torch.isfinite(rows).all():
+        raise AssertionError(
+            f"served greedy tokens are not the dense reference's argmax: "
+            f"worst logit deficit {worst} > tol {tol}")
+    return {"tokens": len(ids), "exact_argmax": exact,
+            "worst_logit_deficit": worst, "tol": tol}
+
+
+def phase_main(layers_wanted: int, seed: int) -> dict:
+    """Serve the 8B-geometry model on the card through the port's HTTP
+    server."""
+    import threading
+
+    import torch
+
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+    from localai_tfp_tpu_torch.server.app import build_server
+
+    models = ROOT / "build" / "chip_smoke" / "models"
+    layers = choose_depth(layers_wanted, models)
+    ckpt_name = f"llama31-8b-geometry-L{layers}-s{seed}"
+    written, write_s = write_checkpoint(models / ckpt_name, layers, seed)
+    (models / "llama-3.1-8b.yaml").write_text(json.dumps({
+        "name": "llama-3.1-8b", "backend": "torch-llm",
+        "parameters": {"model": ckpt_name, "temperature": 0.0,
+                       "max_tokens": 32},
+        "context_size": CONTEXT, "max_batch_slots": SLOTS,
+        "dtype": "bfloat16",
+        "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
+                     "chat": "{{.Input}}\nassistant:"},
+    }, indent=1))
+    log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
+        written=written, write_s=round(write_s, 3), dir=ckpt_name)
+    srv = build_server(str(models), port=0, device="cuda")
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        t0 = time.perf_counter()
+        warm = {"model": "llama-3.1-8b", "max_tokens": 4,
+                "messages": [{"role": "user", "content": "warm up"}]}
+        check_reply("load", warm, *_http(port, warm))
+        backend = srv.app.loaded()["llama-3.1-8b"]
+        eng = backend.engine
+        log("main_load", load_and_first_request_s=round(
+            time.perf_counter() - t0, 3), n_slots=eng.n_slots,
+            page=eng.page, kv_pages=eng.kv_pages)
+        long_text = ("The paged arena holds every slot's keys and values. "
+                     * 30)
+        first = [
+            ("short_stream", {"stream": True, "max_tokens": 48,
+                              "messages": [{"role": "user",
+                                            "content": "Say hello."}]}),
+            ("medium", {"max_tokens": 32, "messages": [
+                {"role": "system", "content": "You answer briefly."},
+                {"role": "user", "content": "Describe ragged attention. "
+                 * 12}]}),
+        ]
+        later = [
+            ("long_stream", {"stream": True, "max_tokens": 24,
+                             "messages": [{"role": "user",
+                                           "content": long_text}]}),
+            ("sampled", {"max_tokens": 16, "temperature": 0.8, "seed": 7,
+                         "top_k": 40, "top_p": 0.9, "messages": [
+                             {"role": "user", "content": "Pick a word."}]}),
+        ]
+        results: dict = {}
+        errors: list = []
+
+        def send(name, body):
+            body = {"model": "llama-3.1-8b", **body}
+            try:
+                results[name] = check_reply(name, body, *_http(port, body))
+            except Exception as e:  # re-raised below
+                errors.append(f"{name}: {e!r}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps0 = eng.metrics.forward_steps
+        mixed0, decode0 = eng.metrics.mixed_steps, eng.metrics.decode_steps
+        ragged_paged_attention.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=a) for a in first]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)  # the first two are decoding when the rest arrive
+        threads += [threading.Thread(target=send, args=a) for a in later]
+        for t in threads[len(first):]:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = ragged_paged_attention.launches
+        steps = eng.metrics.forward_steps - steps0
+        if errors or len(results) != len(first) + len(later):
+            raise AssertionError(f"main path requests failed: {errors}")
+        need = layers * steps
+        if steps == 0 or launches < need:
+            raise AssertionError(
+                f"attention kernel launched {launches} times on the main "
+                f"path; {layers} layers x {steps} forwards need {need}")
+        mixed = eng.metrics.mixed_steps - mixed0
+        decode = eng.metrics.decode_steps - decode0
+        if not mixed or not decode:
+            raise AssertionError(f"mixed {mixed} / decode {decode} forwards: "
+                                 "both kinds must run")
+        tokens = sum(r["completion_tokens"] for r in results.values())
+        log("main_requests", requests=list(results.values()),
+            wall_s=round(wall, 3), completion_tokens=tokens,
+            forward_steps=steps, mixed_forwards=mixed,
+            decode_forwards=decode, kernel_launches=launches,
+            peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+        ref = reference_check(backend, layers)
+        log("main_reference", **ref)
+        eng.leak_check()
+        return {"layers": layers, "launches": launches}
+    finally:
+        srv.close()
+        th.join(timeout=30)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="device,build,kernels,main")
+    ap.add_argument("--layers", type=int, default=32,
+                    help="decoder depth of the main-path model (8B: 32)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    require_package()
+    dev, smi = phase_device()
+    if "build" in phases:
+        phase_build()
+    entries = []
+    if "kernels" in phases:  # correctness first, then times at 8B shapes
+        worst, timings = phase_kernels(n_slots=SLOTS,
+                                       max_pages=CONTEXT // PAGE)
+        t = timings["decode"]
+        entries.append({
+            "name": "ragged_paged_attention", "route": "cuda",
+            "source": "localai_tfp_tpu_torch/csrc/ragged_paged_attention.cu",
+            "replaces": "localai_tfp_tpu/ops/ragged_paged_attention.py:68",
+            "launches": None,
+            "max_abs_err": max(worst.values()),
+            "max_abs_err_bf16": worst["bf16"],
+            "max_abs_err_int8": worst["int8"], "tol": TOL,
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": "decode",
+            **{f"{mix}_step": {k: timings[mix][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+               for mix in ("mixed", "chunk512")},
+        })
+    if "main" in phases:
+        launches = phase_main(args.layers, args.seed)["launches"]
+        for e in entries:  # the main path's count, read just after it ran
+            e["launches"] = launches
+    print(json.dumps({"kernels": entries}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": dev}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

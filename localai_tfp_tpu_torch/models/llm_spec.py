@@ -1,0 +1,298 @@
+"""Architecture spec for decoder-only LLMs (the port's own copy of
+localai_tfp_tpu/models/llm_spec.py, kept field-for-field identical).
+
+One spec dataclass drives a single stacked-scan transformer implementation
+(models/transformer.py) across the model families the reference serves via
+its llama.cpp / vLLM / transformers backends (ref: backend/cpp/llama
+grpc-server.cpp LoadModel; backend/python/vllm/backend.py:92-128;
+backend/python/transformers/backend.py:68-200). Instead of per-family
+modeling code, family differences are expressed as data: norm type, MLP
+gating, rotary fraction, biases, residual topology.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+
+@dataclass(frozen=True, eq=False)  # eq=False: identity hash despite
+# dict-typed fields; the engine holds exactly one spec object per loaded
+# model.
+class LLMSpec:
+    vocab_size: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    max_position: int = 4096
+
+    # rotary
+    rope_theta: float = 10000.0
+    rotary_pct: float = 1.0  # phi uses partial rotary
+    rope_scaling: Optional[dict] = None  # llama3 / yarn / linear scaling block
+
+    # norm
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    norm_weight_plus_one: bool = False  # gemma convention
+
+    # mlp
+    gated_mlp: bool = True  # llama-style gate*up; False => single up (phi)
+    hidden_act: str = "silu"  # silu | gelu | gelu_tanh
+    # mixture-of-experts (mixtral, qwen2_moe): 0 = dense MLP
+    n_experts: int = 0
+    experts_per_token: int = 2
+    moe_d_ff: int = 0  # expert intermediate size; 0 = d_ff (mixtral)
+    # qwen2_moe: always-on shared expert, scaled by sigmoid(router·x)
+    moe_shared_expert: bool = False
+    moe_shared_d_ff: int = 0  # shared expert intermediate size; 0 = d_ff
+    # True (mixtral): renormalize the top-k router weights to sum to 1.
+    # False (qwen2_moe norm_topk_prob=false): keep raw softmax-over-all-E
+    # probabilities for the selected experts.
+    moe_norm_topk: bool = True
+    # qwen2_moe decoder_sparse_step / mlp_only_layers: these layer indices
+    # use a plain dense MLP (stored in the shared-expert slots, gate
+    # forced to 1, expert weights zeroed) instead of the sparse mixture
+    moe_dense_layers: tuple[int, ...] = ()
+
+    # biases
+    qkv_bias: bool = False  # qwen2, phi
+    o_bias: bool = False  # phi
+    mlp_bias: bool = False  # phi
+    lm_head_bias: bool = False  # phi
+
+    # topology
+    parallel_residual: bool = False  # phi: x + attn(ln(x)) + mlp(ln(x))
+    tie_word_embeddings: bool = False
+    final_norm: bool = True
+    qk_norm: bool = False  # qwen3: per-head RMSNorm on q/k before rope
+    sandwich_norms: bool = False  # gemma2/3: post-attn + pre/post-ffw norms
+
+    # scaling oddities
+    embedding_multiplier: float = 1.0  # gemma: sqrt(d_model)
+    logit_softcap: float = 0.0  # gemma2
+    attn_logit_softcap: float = 0.0  # gemma2
+    query_pre_attn_scalar: Optional[float] = None  # gemma2 attention scale
+
+    # sliding window attention (mistral); None = full causal
+    sliding_window: Optional[int] = None
+    # gemma2/3: every Nth layer is GLOBAL (full attention), the rest use
+    # sliding_window; 0 = uniform window on all layers
+    sliding_window_pattern: int = 0
+    # explicit per-layer kinds ("sliding_attention"/"full_attention") —
+    # HF layer_types; wins over the pattern when present
+    layer_types: Optional[tuple[str, ...]] = None
+    # gemma3: sliding layers rope on a separate (local) base frequency
+    rope_local_base_freq: float = 0.0
+
+    extra: dict = field(default_factory=dict)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+    @property
+    def rotary_dim(self) -> int:
+        rd = int(self.d_head * self.rotary_pct)
+        return rd - (rd % 2)
+
+
+def spec_from_hf_config(cfg: dict[str, Any]) -> LLMSpec:
+    """Map a HuggingFace ``config.json`` dict onto an LLMSpec.
+
+    Covers: llama / llama3 / mistral / qwen2 / qwen2.5 / phi / phi3 /
+    gemma / gemma2 / tinyllama-class checkpoints (the families the
+    reference's GGUF-introspection defaults table recognizes —
+    ref: core/config/gguf.go:36-123).
+    """
+    mt = (cfg.get("model_type") or "").lower()
+    if mt == "gemma3" and isinstance(cfg.get("text_config"), dict):
+        # multimodal gemma3 checkpoints nest the text params; the vision
+        # tower is not served here, only the language model
+        cfg = {**cfg["text_config"], "model_type": "gemma3_text"}
+        mt = "gemma3_text"
+    elif mt == "llava" and isinstance(cfg.get("text_config"), dict):
+        # plain-llava wrappers nest a standard text config (usually
+        # llama/mistral); the CLIP tower loads via load_multimodal.
+        # llava_next (anyres grids) / vipllava (multi-layer features)
+        # need different vision semantics — refuse rather than serve
+        # silently-wrong image embeddings.
+        cfg = dict(cfg["text_config"])
+        mt = (cfg.get("model_type") or "llama").lower()
+    d_model = cfg.get("hidden_size") or cfg.get("n_embd") or 2048
+    n_heads = cfg.get("num_attention_heads") or cfg.get("n_head") or 16
+    n_kv = cfg.get("num_key_value_heads") or n_heads
+    d_head = cfg.get("head_dim") or d_model // n_heads
+    n_layers = cfg.get("num_hidden_layers") or cfg.get("n_layer") or 24
+    d_ff = cfg.get("intermediate_size") or cfg.get("n_inner") or 4 * d_model
+    act = (cfg.get("hidden_act") or cfg.get("activation_function") or "silu").lower()
+    if act in ("gelu_new", "gelu_pytorch_tanh", "gelu_fast"):
+        act = "gelu_tanh"
+
+    kw: dict[str, Any] = dict(
+        vocab_size=cfg.get("vocab_size", 32000),
+        d_model=d_model,
+        n_layers=n_layers,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        d_head=d_head,
+        d_ff=d_ff,
+        max_position=cfg.get("max_position_embeddings", 4096),
+        rope_theta=float(cfg.get("rope_theta", 10000.0)),
+        rope_scaling=cfg.get("rope_scaling"),
+        norm_eps=float(
+            cfg.get("rms_norm_eps")
+            or cfg.get("layer_norm_eps")
+            or cfg.get("layer_norm_epsilon")
+            or 1e-5
+        ),
+        hidden_act=act,
+        tie_word_embeddings=bool(cfg.get("tie_word_embeddings", False)),
+        sliding_window=cfg.get("sliding_window"),
+    )
+
+    if mt in ("llama", "mistral", ""):
+        pass
+    elif mt == "mixtral":
+        kw.update(
+            n_experts=int(cfg.get("num_local_experts") or 8),
+            experts_per_token=int(cfg.get("num_experts_per_tok") or 2),
+        )
+    elif mt in ("qwen2", "qwen2_5"):
+        kw["qkv_bias"] = True
+    elif mt == "qwen3":
+        kw["qk_norm"] = True  # per-head RMSNorm on q/k before rope
+    elif mt == "qwen2_moe":
+        # qwen1.5/qwen2 MoE (HF Qwen2MoeForCausalLM): top-k sparse experts
+        # + an always-on shared expert gated by sigmoid(x·g); layers listed
+        # in mlp_only_layers (or off the decoder_sparse_step grid) fall
+        # back to a plain dense MLP
+        step = int(cfg.get("decoder_sparse_step") or 1)
+        mlp_only = {int(x) for x in (cfg.get("mlp_only_layers") or [])}
+        dense_layers = tuple(sorted(
+            layer for layer in range(n_layers)
+            if layer in mlp_only or (step > 0 and (layer + 1) % step != 0)
+        ))
+        kw.update(
+            qkv_bias=True,
+            n_experts=int(cfg.get("num_experts") or 60),
+            experts_per_token=int(cfg.get("num_experts_per_tok") or 4),
+            moe_d_ff=int(cfg.get("moe_intermediate_size") or d_ff),
+            moe_shared_expert=True,
+            moe_shared_d_ff=int(
+                cfg.get("shared_expert_intermediate_size") or d_ff),
+            moe_norm_topk=bool(cfg.get("norm_topk_prob", False)),
+            moe_dense_layers=dense_layers,
+        )
+    elif mt == "qwen3_moe":
+        # qwen3 MoE: per-head q/k RMSNorm (no qkv bias) + top-k sparse
+        # experts with renormalized weights and NO shared expert
+        step = int(cfg.get("decoder_sparse_step") or 1)
+        mlp_only = {int(x) for x in (cfg.get("mlp_only_layers") or [])}
+        dense_layers = tuple(sorted(
+            layer for layer in range(n_layers)
+            if layer in mlp_only or (step > 0 and (layer + 1) % step != 0)
+        ))
+        if dense_layers:
+            # without a shared expert there is no slot to park a dense
+            # MLP in the stacked scan; no released checkpoint uses this
+            raise NotImplementedError(
+                "qwen3_moe with dense (mlp_only/off-step) layers is not "
+                "supported yet")
+        kw.update(
+            qk_norm=True,
+            n_experts=int(cfg.get("num_experts") or 128),
+            experts_per_token=int(cfg.get("num_experts_per_tok") or 8),
+            moe_d_ff=int(cfg.get("moe_intermediate_size") or d_ff),
+            # released qwen3-MoE checkpoints set norm_topk_prob=true in
+            # config.json, but the HF CLASS default for an omitted key is
+            # False — mirror that so omitted-key configs stay bit-parity
+            moe_norm_topk=bool(cfg.get("norm_topk_prob", False)),
+        )
+    elif mt == "phi":
+        kw.update(
+            norm_type="layernorm",
+            gated_mlp=False,
+            hidden_act="gelu_tanh",
+            qkv_bias=True,
+            o_bias=True,
+            mlp_bias=True,
+            lm_head_bias=True,
+            parallel_residual=True,
+            rotary_pct=float(cfg.get("partial_rotary_factor", 0.4)),
+        )
+    elif mt == "phi3":
+        pass  # llama-topology with fused proj names (handled in hf_loader)
+    elif mt == "gemma":
+        kw.update(
+            norm_weight_plus_one=True,
+            hidden_act="gelu_tanh",
+            embedding_multiplier=float(d_model) ** 0.5,
+            tie_word_embeddings=True,
+        )
+    elif mt == "gemma2":
+        kw.update(
+            norm_weight_plus_one=True,
+            hidden_act="gelu_tanh",
+            embedding_multiplier=float(d_model) ** 0.5,
+            tie_word_embeddings=True,
+            sandwich_norms=True,
+            attn_logit_softcap=float(cfg.get("attn_logit_softcapping")
+                                     or 0.0),
+            logit_softcap=float(cfg.get("final_logit_softcapping") or 0.0),
+            query_pre_attn_scalar=float(
+                cfg.get("query_pre_attn_scalar") or d_head),
+            # every other layer is sliding, odd layers are global
+            sliding_window_pattern=2,
+        )
+    elif mt in ("gemma3", "gemma3_text"):
+        kw.update(
+            norm_weight_plus_one=True,
+            hidden_act="gelu_tanh",
+            embedding_multiplier=float(d_model) ** 0.5,
+            tie_word_embeddings=True,
+            sandwich_norms=True,
+            qk_norm=True,
+            query_pre_attn_scalar=float(
+                cfg.get("query_pre_attn_scalar") or d_head),
+            rope_local_base_freq=float(
+                cfg.get("rope_local_base_freq") or 10000.0),
+            sliding_window_pattern=int(
+                cfg.get("sliding_window_pattern") or 6),
+            norm_eps=float(cfg.get("rms_norm_eps") or 1e-6),
+        )
+    else:
+        raise NotImplementedError(f"unknown model_type '{mt}'")
+    if isinstance(cfg.get("layer_types"), list):
+        kw["layer_types"] = tuple(cfg["layer_types"])
+    sc = kw.get("rope_scaling") or {}
+    rtype = (sc.get("rope_type") or sc.get("type") or "").lower()
+    if rtype not in ("", "default", "linear", "llama3", "yarn"):
+        raise NotImplementedError(
+            f"rope_scaling type '{rtype}' is not supported yet"
+        )
+    kw["extra"] = {"model_type": mt}
+    return LLMSpec(**kw)
+
+
+def tiny_spec(vocab_size: int = 256, **over: Any) -> LLMSpec:
+    """A small spec for tests: runs on CPU in milliseconds."""
+    kw: dict[str, Any] = dict(
+        vocab_size=vocab_size,
+        d_model=64,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        d_head=16,
+        d_ff=128,
+        max_position=512,
+    )
+    kw.update(over)
+    return LLMSpec(**kw)

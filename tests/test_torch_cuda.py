@@ -1,0 +1,189 @@
+"""Card-only tests of the PyTorch/CUDA port (marker ``cuda``).
+
+This file imports no JAX, so it also runs on the GPU machine, which has
+none. The suite's ``conftest.py`` imports jax, so run it there with
+
+    python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
+
+Each test asks a fixture whether a card is present and skips without
+one (collection is the same everywhere). ``make_case`` is shared with
+tests/test_torch_ragged_attention.py, which holds the plain version
+against the JAX package on the same cases.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from localai_tfp_tpu_torch.engine.engine import GenRequest, LLMEngine
+from localai_tfp_tpu_torch.engine.tokenizer import ByteTokenizer
+from localai_tfp_tpu_torch.models import transformer as tt
+from localai_tfp_tpu_torch.models.llm_spec import tiny_spec
+from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+    ragged_attention_plain, ragged_paged_attention,
+)
+
+L, HKV, DH, H, PAGE, B, MAX_PAGES = 2, 2, 16, 4, 8, 4, 4
+
+
+def make_case(mix: str, quant: bool, seeded: bool, seed: int,
+              window=None, dh: int = DH) -> dict:
+    """Numpy inputs in the style of ops/kernel_check.py
+    check_ragged_attention, at a small width (page 8): decode, prefill,
+    mixed or verify rows, shuffled page tables, f32 or int8 pages (the
+    port's row quantization, bit-identical to the JAX package's)."""
+    rng = np.random.default_rng(seed)
+    if mix == "decode":
+        q_lens = np.ones(B, np.int32)
+    elif mix == "prefill":
+        q_lens = rng.integers(2, 12, B).astype(np.int32)
+    elif mix == "verify":
+        q_lens = np.full(B, 4, np.int32)
+    else:  # decode rows + a chunk + a verify row together
+        q_lens = np.asarray([1, 1, 9, 4], np.int32)
+    T = int(q_lens.max())
+    cap = MAX_PAGES * PAGE
+    pos0 = np.asarray([int(rng.integers(0, cap - int(n) + 1))
+                       for n in q_lens], np.int32)
+    n_pages = B * MAX_PAGES + 1
+    pt = rng.permutation(np.arange(1, n_pages)).reshape(
+        B, MAX_PAGES).astype(np.int32)
+    F = HKV * dh
+    ak = (rng.standard_normal((L, n_pages, PAGE, F)) * 0.5).astype(np.float32)
+    av = (rng.standard_normal((L, n_pages, PAGE, F)) * 0.5).astype(np.float32)
+    case = {
+        "q": (rng.standard_normal((B, T, H, dh)) * 0.3).astype(np.float32),
+        "page_table": pt, "pos0": pos0, "q_lens": q_lens, "window": window,
+    }
+    if quant:
+        kq, ks = tt._quantize_rows(torch.from_numpy(ak))
+        vq, vs = tt._quantize_rows(torch.from_numpy(av))
+        case.update(cache_k=kq.numpy(), cache_v=vq.numpy(),
+                    cache_k_scale=ks.numpy(), cache_v_scale=vs.numpy())
+    else:
+        case.update(cache_k=ak, cache_v=av)
+    if seeded:
+        case["seed_kv"] = tuple(
+            (rng.standard_normal((B, F)) * 0.5).astype(np.float32)
+            for _ in range(2))
+    return case
+
+
+CASES = [(mix, quant, False, None) for mix in ("decode", "prefill", "mixed",
+                                                "verify")
+         for quant in (False, True)]
+CASES += [("decode", quant, True, None) for quant in (False, True)]
+CASES += [("mixed", False, False, 5), ("decode", True, True, 6)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel is built with nvcc)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix,quant,seeded,window", CASES)
+def test_kernel_matches_plain_on_card(cuda_device, mix, quant, seeded,
+                                      window):
+    """The hand-written kernel against the plain version, on the card,
+    at the small shapes of the CPU tests (Dh 16 is not a kernel head dim,
+    so the card case widens to Dh 64): f32 both, tolerance 1e-4."""
+    dh = 64
+    c = make_case(mix, quant, seeded, seed=11, window=window, dh=dh)
+
+    def run(fn):
+        seed = c.get("seed_kv")
+        t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+        return fn(t(c["q"]), t(c["cache_k"]), t(c["cache_v"]), 1,
+                  t(c["page_table"]), t(c["pos0"]), t(c["q_lens"]), HKV,
+                  scale=dh ** -0.5, page=PAGE, sliding_window=window,
+                  cache_k_scale=(t(c["cache_k_scale"])
+                                 if "cache_k_scale" in c else None),
+                  cache_v_scale=(t(c["cache_v_scale"])
+                                 if "cache_v_scale" in c else None),
+                  seed_kv=None if seed is None else tuple(t(s) for s in seed))
+
+    before = ragged_paged_attention.launches
+    got = run(ragged_paged_attention)
+    want = run(ragged_attention_plain)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 1
+    assert float((got - want).abs().max()) < 1e-4
+
+
+def _tiny_model(device):
+    """A 2-layer Llama-style model with kernel-sized heads (Dh 64) and
+    random f32 weights from a seed, in the port's [in, out] layout."""
+    spec = tiny_spec(vocab_size=258, d_model=128, n_heads=4, n_kv_heads=2,
+                     d_head=64, d_ff=256, max_position=256)
+    g = torch.Generator().manual_seed(0)
+    D, Q, F, FF, V, NL = (spec.d_model, spec.q_dim, spec.kv_dim, spec.d_ff,
+                          spec.vocab_size, spec.n_layers)
+    shapes = {"embed": (V, D), "wq": (NL, D, Q), "wk": (NL, D, F),
+              "wv": (NL, D, F), "wo": (NL, Q, D), "w_gate": (NL, D, FF),
+              "w_up": (NL, D, FF), "w_down": (NL, FF, D), "lm_head": (D, V)}
+    params = {k: (torch.randn(s, generator=g) * s[-2] ** -0.5).to(device)
+              for k, s in shapes.items()}
+    for k in ("ln1_w", "ln2_w"):
+        params[k] = torch.ones((NL, D), device=device)
+    params["final_norm_w"] = torch.ones(D, device=device)
+    return spec, params
+
+
+@pytest.mark.cuda
+def test_paged_forward_on_card_matches_cpu(cuda_device):
+    """The paged ragged forward on the card (the kernel in every layer)
+    against the same forward on the CPU (the plain version): f32 logits
+    within 1e-3 for a ragged prefill and a seeded decode step."""
+    outs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        spec, params = _tiny_model(dev)
+        pt = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
+        cache = tt.KVCache.create(spec, 9, 16, torch.float32, device=dev)
+        kw = dict(page_table=pt, kv_page=16, write_table=pt)
+        toks = torch.arange(2 * 20, device=dev).reshape(2, 20) % 258
+        lens = torch.tensor([20, 13], dtype=torch.int32, device=dev)
+        before = ragged_paged_attention.launches
+        lg1, cache = tt.forward(spec, params, toks,
+                                torch.zeros(2, dtype=torch.int32, device=dev),
+                                cache, q_lens=lens, **kw)
+        lg2, _ = tt.forward(spec, params, toks[:, :1], lens, cache,
+                            q_lens=torch.ones_like(lens), **kw)
+        launched = ragged_paged_attention.launches - before
+        assert launched == (2 * spec.n_layers if dev.type == "cuda" else 0)
+        outs[dev.type] = (lg1[0].cpu(), lg1[1, :13].cpu(), lg2.cpu())
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        assert float((a - b).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_engine_serves_on_card(cuda_device):
+    """The engine on the card: two concurrent requests of different
+    prompt lengths finish with their token counts, the kernel ran in
+    every layer of every forward, and the page pool is leak-free."""
+    spec, params = _tiny_model(cuda_device)
+    eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=2, max_seq=256,
+                    cache_dtype=torch.float32, device=cuda_device)
+    try:
+        before = ragged_paged_attention.launches
+        qs = eng.submit_many([
+            GenRequest(prompt_ids=list(range(1, 40)), max_tokens=9,
+                       ignore_eos=True),
+            GenRequest(prompt_ids=list(range(1, 180)), max_tokens=5,
+                       ignore_eos=True, temperature=0.7, seed=3)])
+        finals = []
+        for q in qs:
+            ev = q.get(timeout=300)
+            while not ev.done:
+                ev = q.get(timeout=300)
+            finals.append(ev)
+        assert [e.finish_reason for e in finals] == ["length", "length"]
+        assert [e.completion_tokens for e in finals] == [9, 5]
+        launched = ragged_paged_attention.launches - before
+        assert eng.metrics.forward_steps > 0
+        assert launched == spec.n_layers * eng.metrics.forward_steps
+        eng.leak_check()
+    finally:
+        eng.close()
