@@ -11,20 +11,27 @@ Phases, one result line each; any failure raises and exits non-zero:
 2. build   — nvcc builds every kernel from csrc/ (all sources at once);
    prints build seconds and the -Xptxas -v registers / shared memory /
    spills.
-3. kernels — every kernel against its plain PyTorch version at the
-   Llama-3.1-8B attention width (H 32, Hkv 8, Dh 128, page 256): the
-   decode / prefill / mixed / verify row mixes with shuffled page
-   tables, bf16 and int8 pages, and seeded decode; then the main path's
-   shapes (8 slots, context 2048): a seeded decode step, a mixed step,
-   and a mixed step with a 512-token chunk near the context's end. Every
-   comparison must agree within 1e-4 absolute. Then times the kernel, the
-   plain version and one library call on those main-path cases, and
-   computes each kernel's bound.
+3. kernels — every kernel against its plain PyTorch version.
+   ragged_paged_attention at the Llama-3.1-8B attention width (H 32,
+   Hkv 8, Dh 128, page 256): the decode / prefill / mixed / verify row
+   mixes with shuffled page tables, bf16 and int8 pages, and seeded
+   decode; then the main path's shapes (8 slots, context 2048): a seeded
+   decode step, a mixed step, and a mixed step with a 512-token chunk
+   near the context's end; every comparison within 1e-4 absolute.
+   int8_matmul at every 8B projection shape (K x N 4096 x 4096,
+   4096 x 1024, 4096 x 14336, 14336 x 4096), M in {1, 8, 37, 128, 1024},
+   bf16 and f32 x, bf16 and f32 out: f32 out within 1e-4 of the largest
+   output, bf16 out within one bf16 ulp of each output plus that bound. Then times each kernel, its plain
+   version, one library call and (int8) the bf16 cuBLAS product over the
+   dequantized weight, and computes each kernel's bound.
 4. main    — writes a Llama-3.1-8B-geometry checkpoint (random bf16
    weights from a seed), starts the port's HTTP server in-process, sends
    concurrent streaming and non-streaming /v1/chat/completions requests,
    checks the responses, and checks that the main path launched the
-   kernel.
+   kernels. Twice: the bf16 model (attention kernel), then the same
+   checkpoint served with ``quantization: int8`` (both kernels),
+   quantized on the card at a cold load, then reloaded from its on-disk
+   artifact.
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -33,6 +40,7 @@ it lists every kernel with its numbers.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -91,11 +99,11 @@ def phase_device():
 
 
 def phase_build():
-    from localai_tfp_tpu_torch.ops import _build
-    from localai_tfp_tpu_torch.ops.ragged_paged_attention import KERNEL
+    from localai_tfp_tpu_torch.ops import _build, int8_matmul
+    from localai_tfp_tpu_torch.ops import ragged_paged_attention as rpa
 
     t0 = time.perf_counter()
-    built = _build.build_all([KERNEL])
+    built = _build.build_all([rpa.KERNEL, int8_matmul.KERNEL])
     for name, b in built.items():
         lines = [ln.strip() for ln in b.ptxas.splitlines()
                  if "registers" in ln or "spill" in ln
@@ -317,6 +325,178 @@ def phase_kernels(n_slots: int, max_pages: int):
     return worst, timings
 
 
+# the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
+PROJ_8B = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336),
+           "w_down": (14336, 4096)}
+INT8_M = (1, 8, 37, 128, 1024)  # decode rows up to a full mixed step
+INT8_REL_TOL = 1e-4  # of the largest |output|: f32 out, and bf16 out
+# beyond one bf16 unit of each output
+L2_BYTES = 50 << 20
+
+
+def _int8_operands(m: int, k: int, n: int, x_dtype, seed: int):
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device=dev) * 2e-3 + 1e-4
+    x = torch.randn((m, k), generator=g, device=dev).to(x_dtype)
+    return x, q, scale
+
+
+def bf16_errors(got, want) -> tuple[float, float]:
+    """(max |got - want| in units of want's bf16 spacing, max error beyond
+    one such unit relative to max |want|). Both sides round an f32 sum to
+    bf16; the two sums differ by their summation order, which moves an
+    output that cancels to near zero by many of its own tiny units, so the
+    check is one unit plus the f32 bound."""
+    import torch
+
+    w = want.float()
+    d = (got.float() - w).abs()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        w.abs().clamp_min(2 ** -126))) - 7)
+    excess = (d - spacing).clamp_min(0).max() / w.abs().max()
+    return float((d / spacing).max()), float(excess)
+
+
+def int8_work(m: int, k: int, n: int, x_elem: int, out_elem: int):
+    """(bytes, flops): x, q, scale read once, y written once; 2 flops per
+    multiply-add."""
+    return m * k * x_elem + k * n + n * 4 + m * n * out_elem, 2 * m * n * k
+
+
+def _time_graph(fn, iters: int) -> float:
+    """Device ms per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the host's per-call cost (Python, allocation, the ctypes
+    call) is not in the figure."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
+
+
+def _cycled(fn, sets):
+    """fn over operand copies in turn: together they exceed the L2
+    cache, so each call reads its weight from device memory, as a decode
+    step does."""
+    cyc = itertools.cycle(sets)
+    return lambda: fn(*next(cyc))
+
+
+def phase_int8_kernels():
+    """int8_matmul against its plain version at the 8B shapes, then times
+    at M = 8 and M = 1024 for w_gate and wk (bf16 x and out, as served)."""
+    import torch
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import (
+        int8_matmul, int8_matmul_plain, plan,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = {"abs_f32out": 0.0, "abs_bf16out": 0.0, "rel_f32out": 0.0,
+             "ulp_bf16out": 0.0, "excess_bf16out": 0.0}
+    for name, (k, n) in PROJ_8B.items():
+        for m in INT8_M:
+            for x_dtype in (torch.bfloat16, torch.float32):
+                x, q, s = _int8_operands(m, k, n, x_dtype, seed=m + k + n)
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    got = int8_matmul(x, q, s, out_dtype)
+                    want = int8_matmul_plain(x, q, s, out_dtype)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want.float()).abs().max())
+                    top = float(want.float().abs().max())
+                    rec = {"kernel": "int8_matmul", "proj": name, "m": m,
+                           "k": k, "n": n, "x": str(x_dtype)[6:],
+                           "out": str(out_dtype)[6:], "max_abs_err": err,
+                           "max_abs_want": top, "plan": plan(m, n, k, sms)}
+                    out = "f32out" if out_dtype == torch.float32 \
+                        else "bf16out"
+                    worst[f"abs_{out}"] = max(worst[f"abs_{out}"], err)
+                    if out_dtype == torch.float32:
+                        rel = err / top
+                        worst["rel_f32out"] = max(worst["rel_f32out"], rel)
+                        ok = err <= INT8_REL_TOL * top
+                        rec["rel_err"] = rel
+                    else:
+                        ulps, excess = bf16_errors(got, want)
+                        worst["ulp_bf16out"] = max(worst["ulp_bf16out"],
+                                                   ulps)
+                        worst["excess_bf16out"] = max(
+                            worst["excess_bf16out"], excess)
+                        ok = excess <= INT8_REL_TOL
+                        rec.update(bf16_ulps=ulps, rel_err_beyond_1ulp=excess)
+                    log("kernel_check", **rec)
+                    if not ok:
+                        raise AssertionError(f"int8_matmul disagrees: {rec}")
+    timings = {}
+    for name in ("w_gate", "wk"):
+        k, n = PROJ_8B[name]
+        copies = max(1, -(-2 * L2_BYTES // (k * n)))
+        for m in (8, 1024):
+            sets = [_int8_operands(m, k, n, torch.bfloat16, seed=i)
+                    for i in range(copies)]
+            nbytes, flops = int8_work(m, k, n, 2, 2)
+            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+            before = int8_matmul.launches
+            ms = _time_graph(_cycled(int8_matmul, sets), 50)
+            # the same calls launched one by one from Python, as the
+            # engine launches them today
+            eager_ms = _time_ms(_cycled(int8_matmul, sets), 50)
+            int8_matmul.launches = before  # timing is not the path
+            plain_ms = _time_graph(_cycled(int8_matmul_plain, sets), 10)
+            lib_sets = [(x, q.T.contiguous(), s.to(x.dtype))
+                        for x, q, s in sets]
+            try:
+                library_ms = _time_graph(
+                    _cycled(torch._weight_int8pack_mm, lib_sets),
+                    20 if m <= 16 else 2)
+                library_error = None
+            except (RuntimeError, NotImplementedError) as e:
+                library_ms, library_error = None, str(e).splitlines()[0][:160]
+            del lib_sets
+            bf_sets = [(x, (q.float() * s).to(torch.bfloat16))
+                       for x, q, s in sets]
+            bf16_matmul_ms = _time_graph(_cycled(torch.matmul, bf_sets), 50)
+            del bf_sets
+            key = f"{name}_m{m}"
+            timings[key] = {
+                "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                             >= flops / BF16_FLOPS else "operations"),
+                "library_ms": library_ms, "library_error": library_error,
+                "bf16_matmul_ms": bf16_matmul_ms, "bytes": nbytes,
+                "flops": flops, "m": m, "k": k, "n": n,
+                "weight_copies": copies,
+            }
+            log("kernel_time", kernel="int8_matmul", case=key, **timings[key])
+    return worst, timings
+
+
 # ------------------------------------------------------------------ phase 4
 
 # Llama-3.1-8B-Instruct's published config.json geometry
@@ -357,14 +537,35 @@ def checkpoint_layout(layers: int) -> list[tuple[str, tuple]]:
     return out
 
 
+PROJ_SUFFIXES = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                 "o_proj.weight", "gate_proj.weight", "up_proj.weight",
+                 "down_proj.weight")
+
+
+def artifact_bytes(layers: int) -> int:
+    """Bytes of the int8 model's on-disk artifact: int8 projections with
+    f32 per-output scales, everything else bf16."""
+    import math
+
+    total = 0
+    for name, shape in checkpoint_layout(layers):
+        if name.endswith(PROJ_SUFFIXES):
+            total += math.prod(shape) + 4 * shape[0]
+        else:
+            total += 2 * math.prod(shape)
+    return total
+
+
 def choose_depth(want: int, path: Path) -> int:
-    """The deepest model up to ``want`` layers whose bf16 checkpoint fits
-    the disk with 4 GB to spare (only depth is ever cut)."""
+    """The deepest model up to ``want`` layers whose bf16 checkpoint and
+    int8 artifact fit the disk with 4 GB to spare (only depth is ever
+    cut)."""
     import math
     import shutil
 
     def nbytes(layers):
-        return sum(2 * math.prod(s) for _, s in checkpoint_layout(layers))
+        return (sum(2 * math.prod(s) for _, s in checkpoint_layout(layers))
+                + artifact_bytes(layers))
 
     path.mkdir(parents=True, exist_ok=True)
     free = shutil.disk_usage(path).free
@@ -533,119 +734,226 @@ def reference_check(backend, layers: int) -> dict:
             "worst_logit_deficit": worst, "tol": tol}
 
 
-def phase_main(layers_wanted: int, seed: int) -> dict:
-    """Serve the 8B-geometry model on the card through the port's HTTP
-    server."""
+def param_bytes(params: dict) -> int:
+    from localai_tfp_tpu_torch.models.quant import leaves
+
+    return sum(t.numel() * t.element_size() for v in params.values()
+               for t in leaves(v))
+
+
+def run_burst(port: int, model: str, eng) -> dict:
+    """Four concurrent requests (two first, two a second later, so both
+    arrive while others decode); every kernel count is set to 0 just
+    before and read just after."""
     import threading
 
     import torch
 
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
     from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention,
     )
+
+    long_text = ("The paged arena holds every slot's keys and values. "
+                 * 30)
+    first = [
+        ("short_stream", {"stream": True, "max_tokens": 48,
+                          "messages": [{"role": "user",
+                                        "content": "Say hello."}]}),
+        ("medium", {"max_tokens": 32, "messages": [
+            {"role": "system", "content": "You answer briefly."},
+            {"role": "user", "content": "Describe ragged attention. "
+             * 12}]}),
+    ]
+    later = [
+        ("long_stream", {"stream": True, "max_tokens": 24,
+                         "messages": [{"role": "user",
+                                       "content": long_text}]}),
+        ("sampled", {"max_tokens": 16, "temperature": 0.8, "seed": 7,
+                     "top_k": 40, "top_p": 0.9, "messages": [
+                         {"role": "user", "content": "Pick a word."}]}),
+    ]
+    results: dict = {}
+    errors: list = []
+
+    def send(name, body):
+        body = {"model": model, **body}
+        try:
+            results[name] = check_reply(name, body, *_http(port, body))
+        except Exception as e:  # re-raised below
+            errors.append(f"{name}: {e!r}")
+
+    # host-clock seconds inside the engine's step functions (each ends in
+    # a host read of the sampled tokens, so device time is included)
+    spent = {"_decode_step": 0.0, "_mixed_step": 0.0}
+
+    def clocked(name):
+        fn = getattr(eng, name)
+
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return run
+
+    for name in spent:
+        setattr(eng, name, clocked(name))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps0 = eng.metrics.forward_steps
+    mixed0, decode0 = eng.metrics.mixed_steps, eng.metrics.decode_steps
+    ragged_paged_attention.launches = 0
+    int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=a) for a in first]
+    for t in threads:
+        t.start()
+    time.sleep(1.0)  # the first two are decoding when the rest arrive
+    threads += [threading.Thread(target=send, args=a) for a in later]
+    for t in threads[len(first):]:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = {"ragged_paged_attention": ragged_paged_attention.launches,
+                "int8_matmul": int8_matmul.launches}
+    for name in spent:
+        delattr(eng, name)  # the class's methods again
+    if errors or len(results) != len(first) + len(later):
+        raise AssertionError(f"main path requests failed: {errors}")
+    decode = eng.metrics.decode_steps - decode0
+    return {
+        "requests": list(results.values()), "wall_s": round(wall, 3),
+        "completion_tokens": sum(r["completion_tokens"]
+                                 for r in results.values()),
+        "forward_steps": eng.metrics.forward_steps - steps0,
+        "mixed_forwards": eng.metrics.mixed_steps - mixed0,
+        "decode_forwards": decode,
+        "decode_ms_per_forward": round(
+            spent["_decode_step"] * 1e3 / max(1, decode), 3),
+        "mixed_steps_s": round(spent["_mixed_step"], 3),
+        "launches": launches,
+        "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+    }
+
+
+def serve_model(models: Path, model: str, layers: int,
+                quantized: bool) -> dict:
+    """Serve one model config through the port's HTTP server: load, the
+    burst, its checks, (int8) a reload from the artifact, and the dense
+    reference check."""
+    import threading
+
+    import torch
+
     from localai_tfp_tpu_torch.server.app import build_server
 
-    models = ROOT / "build" / "chip_smoke" / "models"
-    layers = choose_depth(layers_wanted, models)
-    ckpt_name = f"llama31-8b-geometry-L{layers}-s{seed}"
-    written, write_s = write_checkpoint(models / ckpt_name, layers, seed)
-    (models / "llama-3.1-8b.yaml").write_text(json.dumps({
-        "name": "llama-3.1-8b", "backend": "torch-llm",
-        "parameters": {"model": ckpt_name, "temperature": 0.0,
-                       "max_tokens": 32},
-        "context_size": CONTEXT, "max_batch_slots": SLOTS,
-        "dtype": "bfloat16",
-        "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
-                     "chat": "{{.Input}}\nassistant:"},
-    }, indent=1))
-    log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
-        written=written, write_s=round(write_s, 3), dir=ckpt_name)
     srv = build_server(str(models), port=0, device="cuda")
     port = srv.server_address[1]
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     try:
-        t0 = time.perf_counter()
-        warm = {"model": "llama-3.1-8b", "max_tokens": 4,
-                "messages": [{"role": "user", "content": "warm up"}]}
-        check_reply("load", warm, *_http(port, warm))
-        backend = srv.app.loaded()["llama-3.1-8b"]
-        eng = backend.engine
-        log("main_load", load_and_first_request_s=round(
-            time.perf_counter() - t0, 3), n_slots=eng.n_slots,
-            page=eng.page, kv_pages=eng.kv_pages)
-        long_text = ("The paged arena holds every slot's keys and values. "
-                     * 30)
-        first = [
-            ("short_stream", {"stream": True, "max_tokens": 48,
-                              "messages": [{"role": "user",
-                                            "content": "Say hello."}]}),
-            ("medium", {"max_tokens": 32, "messages": [
-                {"role": "system", "content": "You answer briefly."},
-                {"role": "user", "content": "Describe ragged attention. "
-                 * 12}]}),
-        ]
-        later = [
-            ("long_stream", {"stream": True, "max_tokens": 24,
-                             "messages": [{"role": "user",
-                                           "content": long_text}]}),
-            ("sampled", {"max_tokens": 16, "temperature": 0.8, "seed": 7,
-                         "top_k": 40, "top_p": 0.9, "messages": [
-                             {"role": "user", "content": "Pick a word."}]}),
-        ]
-        results: dict = {}
-        errors: list = []
-
-        def send(name, body):
-            body = {"model": "llama-3.1-8b", **body}
-            try:
-                results[name] = check_reply(name, body, *_http(port, body))
-            except Exception as e:  # re-raised below
-                errors.append(f"{name}: {e!r}")
-
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        steps0 = eng.metrics.forward_steps
-        mixed0, decode0 = eng.metrics.mixed_steps, eng.metrics.decode_steps
-        ragged_paged_attention.launches = 0
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=send, args=a) for a in first]
-        for t in threads:
-            t.start()
-        time.sleep(1.0)  # the first two are decoding when the rest arrive
-        threads += [threading.Thread(target=send, args=a) for a in later]
-        for t in threads[len(first):]:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = ragged_paged_attention.launches
-        steps = eng.metrics.forward_steps - steps0
-        if errors or len(results) != len(first) + len(later):
-            raise AssertionError(f"main path requests failed: {errors}")
-        need = layers * steps
-        if steps == 0 or launches < need:
-            raise AssertionError(
-                f"attention kernel launched {launches} times on the main "
-                f"path; {layers} layers x {steps} forwards need {need}")
-        mixed = eng.metrics.mixed_steps - mixed0
-        decode = eng.metrics.decode_steps - decode0
-        if not mixed or not decode:
-            raise AssertionError(f"mixed {mixed} / decode {decode} forwards: "
-                                 "both kinds must run")
-        tokens = sum(r["completion_tokens"] for r in results.values())
-        log("main_requests", requests=list(results.values()),
-            wall_s=round(wall, 3), completion_tokens=tokens,
-            forward_steps=steps, mixed_forwards=mixed,
-            decode_forwards=decode, kernel_launches=launches,
-            peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
-        ref = reference_check(backend, layers)
-        log("main_reference", **ref)
+        warm = {"model": model, "max_tokens": 4,
+                "messages": [{"role": "user", "content": "warm up"}]}
+        check_reply("load", warm, *_http(port, warm))
+        backend = srv.app.loaded()[model]
+        eng = backend.engine
+        load = {"mode": backend.load_mode, "load_s": round(backend.load_s, 3),
+                "load_and_first_request_s": round(time.perf_counter() - t0, 3),
+                "param_bytes": param_bytes(eng.params),
+                "load_peak_mem_gib": round(
+                    torch.cuda.max_memory_allocated() / 2**30, 3)}
+        log("main_load", model=model, **load, n_slots=eng.n_slots,
+            page=eng.page, kv_pages=eng.kv_pages)
+        if load["mode"] != ("quantized" if quantized else "full"):
+            raise AssertionError(f"{model}: load mode {load['mode']}")
+        burst = run_burst(port, model, eng)
+        log("main_requests", model=model, **burst)
+        steps = burst["forward_steps"]
+        got = burst["launches"]
+        if not burst["mixed_forwards"] or not burst["decode_forwards"]:
+            raise AssertionError(f"{model}: mixed {burst['mixed_forwards']} / "
+                                 f"decode {burst['decode_forwards']} "
+                                 "forwards: both kinds must run")
+        need = {"ragged_paged_attention": layers * steps}
+        if quantized:  # 7 projections per layer in every decode forward
+            need["int8_matmul"] = 7 * layers * burst["decode_forwards"]
+        for name, n in need.items():
+            if steps == 0 or got[name] < n:
+                raise AssertionError(
+                    f"{model}: {name} launched {got[name]} times on the main "
+                    f"path; it needs at least {n}")
         eng.leak_check()
-        return {"layers": layers, "launches": launches}
+        reload = None
+        if quantized:  # the second load reads the on-disk int8 tree
+            del eng
+            res = backend.load_model(srv.app.load_options(
+                srv.app.configs[model]))
+            if not res.success or backend.load_mode != "artifact":
+                raise AssertionError(f"{model}: reload {res.message!r} in "
+                                     f"mode {backend.load_mode}")
+            reload = {"mode": backend.load_mode,
+                      "load_s": round(backend.load_s, 3),
+                      "param_bytes": param_bytes(backend.engine.params)}
+            if reload["param_bytes"] != load["param_bytes"]:
+                raise AssertionError(f"{model}: reloaded tree differs")
+            log("main_reload", model=model, **reload)
+        ref = reference_check(backend, layers)
+        log("main_reference", model=model, **ref)
+        backend.engine.leak_check()
+        return {"load": load, "burst": burst, "reload": reload,
+                "reference": ref}
     finally:
         srv.close()
         th.join(timeout=30)
+
+
+def phase_main(layers_wanted: int, seed: int) -> dict:
+    """Serve the 8B-geometry model on the card through the port's HTTP
+    server: bf16, then the same checkpoint with int8 weights."""
+    import gc
+    import shutil
+
+    import torch
+
+    models = ROOT / "build" / "chip_smoke" / "models"
+    quant_cache = ROOT / "build" / "chip_smoke" / "quant"
+    layers = choose_depth(layers_wanted, models)
+    ckpt_name = f"llama31-8b-geometry-L{layers}-s{seed}"
+    written, write_s = write_checkpoint(models / ckpt_name, layers, seed)
+    for name, extra in (("llama-3.1-8b", {}),
+                        ("llama-3.1-8b-int8", {"quantization": "int8"})):
+        (models / f"{name}.yaml").write_text(json.dumps({
+            "name": name, "backend": "torch-llm",
+            "parameters": {"model": ckpt_name, "temperature": 0.0,
+                           "max_tokens": 32},
+            "context_size": CONTEXT, "max_batch_slots": SLOTS,
+            "dtype": "bfloat16", **extra,
+            "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
+                         "chat": "{{.Input}}\nassistant:"},
+        }, indent=1))
+    log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
+        written=written, write_s=round(write_s, 3), dir=ckpt_name)
+    bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a cold int8 load: quantize on the card, then write the artifact
+    shutil.rmtree(quant_cache, ignore_errors=True)
+    os.environ["LOCALAI_QUANT_CACHE_DIR"] = str(quant_cache)
+    os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
+    int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True)
+    log("main_models", layers=layers,
+        param_gb={"bf16": bf16["load"]["param_bytes"] / 1e9,
+                  "int8": int8["load"]["param_bytes"] / 1e9},
+        load_s={"bf16": bf16["load"]["load_s"],
+                "int8_cold": int8["load"]["load_s"],
+                "int8_warm": int8["reload"]["load_s"]})
+    return {"layers": layers, "bf16": bf16, "int8": int8}
 
 
 def main() -> int:
@@ -680,10 +988,39 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                for mix in ("mixed", "chunk512")},
         })
+        worst8, t8 = phase_int8_kernels()
+        t = t8["w_gate_m8"]
+        entries.append({
+            "name": "int8_matmul", "route": "cuda",
+            "source": "localai_tfp_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "localai_tfp_tpu/ops/int8_matmul.py:32",
+            "launches": None,
+            "max_abs_err": worst8["abs_f32out"],
+            "max_abs_err_bf16out": worst8["abs_bf16out"],
+            "max_rel_err_f32out": worst8["rel_f32out"],
+            "max_ulps_bf16out": worst8["ulp_bf16out"],
+            "max_rel_err_beyond_1ulp_bf16out": worst8["excess_bf16out"],
+            "tol": f"f32 out {INT8_REL_TOL} x max|want|; bf16 out 1 ulp "
+                   f"+ {INT8_REL_TOL} x max|want|",
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "bf16_matmul_ms", "eager_ms")},
+            "shape": "w_gate_m8",
+            **{case: {k: t8[case][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "bf16_matmul_ms", "eager_ms")}
+               for case in ("w_gate_m1024", "wk_m8", "wk_m1024")},
+        })
     if "main" in phases:
-        launches = phase_main(args.layers, args.seed)["launches"]
-        for e in entries:  # the main path's count, read just after it ran
-            e["launches"] = launches
+        res = phase_main(args.layers, args.seed)
+        # each kernel's count on its own path, read just after that path
+        # ran: attention on the bf16 model, the int8 product on the int8
+        # model (which also runs attention)
+        own = {"ragged_paged_attention": res["bf16"]["burst"]["launches"],
+               "int8_matmul": res["int8"]["burst"]["launches"]}
+        for e in entries:
+            e["launches"] = own[e["name"]][e["name"]]
+            e["launches_int8_model"] = \
+                res["int8"]["burst"]["launches"][e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

@@ -17,7 +17,13 @@ _DEFAULTS = {
     "LOCALAI_MAX_QUEUE": "0",
     # token budget per mixed prefill/decode dispatch
     "LOCALAI_PREFILL_GROUP_TOKENS": "8192",
+    # persist/reuse int8 quantization artifacts on disk
+    "LOCALAI_QUANT_ARTIFACTS": "on",
+    # quant-artifact cache root ('' = $XDG_CACHE_HOME/localai_tpu/quant)
+    "LOCALAI_QUANT_CACHE_DIR": "",
 }
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("", "0", "false", "no", "off")
 
 
 def raw(name: str) -> str:
@@ -30,3 +36,13 @@ def int_(name: str) -> int:
         return int(raw(name) or _DEFAULTS[name])
     except ValueError:
         return int(_DEFAULTS[name])
+
+
+def flag(name: str) -> bool:
+    """On/off knob; a value that is neither reads as the default."""
+    v = raw(name).strip().lower()
+    if v in _TRUE:
+        return True
+    if v in _FALSE:
+        return False
+    return _DEFAULTS[name] in _TRUE

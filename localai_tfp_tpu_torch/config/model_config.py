@@ -77,6 +77,7 @@ class ModelConfig:
     max_batch_slots: int = 8
     dtype: str = ""
     kv_cache_dtype: str = ""  # "" = same as dtype; "int8" quantizes KV
+    quantization: str = ""  # weight-only int8: "int8" / "int8_full"
 
     @classmethod
     def from_dict(cls, data: Any) -> "ModelConfig":

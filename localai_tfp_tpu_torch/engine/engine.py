@@ -47,6 +47,7 @@ import torch
 from ..config import knobs
 from ..device import resolve
 from ..models.llm_spec import LLMSpec
+from ..models.quant import leaves
 from ..models.transformer import KVCache, Params, _lm_head, forward_hidden
 from ..ops import sampling as smp
 from .kv_pool import TRASH_PAGE, PagePool, PagePoolExhausted
@@ -196,9 +197,10 @@ class LLMEngine:
     ) -> None:
         self.device = resolve(device)
         for k, v in params.items():
-            if v.device != self.device:
-                raise ValueError(f"param {k} lives on {v.device}, the engine "
-                                 f"on {self.device}")
+            for t in leaves(v):  # both planes of an int8 QTensor leaf
+                if t.device != self.device:
+                    raise ValueError(f"param {k} lives on {t.device}, the "
+                                     f"engine on {self.device}")
         self.spec = spec
         self.params = params
         self.tokenizer = tokenizer

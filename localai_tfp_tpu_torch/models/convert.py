@@ -16,6 +16,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from .quant import QTensor
 from .transformer import Params
 
 
@@ -36,5 +37,14 @@ def to_tensor(a: Any, device: Any = "cpu",
 
 def params_from_numpy(tree: Mapping[str, Any], device: Any = "cpu",
                       dtype: Optional[torch.dtype] = None) -> Params:
-    """The JAX package's params tree (numpy leaves) -> the port's tree."""
-    return {k: to_tensor(v, device, dtype) for k, v in tree.items()}
+    """The JAX package's params tree (numpy leaves) -> the port's tree. A
+    quantized leaf (anything with ``.q`` and ``.scale`` planes, such as
+    the JAX package's ``QTensor``) becomes the port's ``QTensor`` with its
+    int8 and f32 planes as they are (``dtype`` casts neither)."""
+    out: Params = {}
+    for k, v in tree.items():
+        if hasattr(v, "q") and hasattr(v, "scale"):
+            out[k] = QTensor(to_tensor(v.q, device), to_tensor(v.scale, device))
+        else:
+            out[k] = to_tensor(v, device, dtype)
+    return out

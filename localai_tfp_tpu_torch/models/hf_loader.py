@@ -7,6 +7,15 @@ from the memory-mapped file, moved to the device and written into its
 slot of a preallocated stacked ``[L, ...]`` tensor, transposed to the
 ``[in, out]`` layout the forward consumes, so the host never holds more
 than one layer's tensor and the device never holds a transient stack.
+
+``quantize="int8"`` (or ``"int8_full"``) quantizes on the device as it
+loads, layer by layer, into preallocated int8 ``[L, in, out]`` and f32
+``[L, out]`` stacks, so the full-precision stack of a quantized leaf
+never exists whole (the counterpart of the JAX package's
+``staging.commit_deferred``). Each raw tensor is rounded to the serving
+dtype before it is quantized, so an f32 checkpoint served at bf16 yields
+the JAX package's int8 codes. ``int8_full`` also quantizes the embedding
+(per-row) and an untied LM head.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import Any, Callable
 import torch
 
 from .llm_spec import LLMSpec, spec_from_hf_config
+from .quant import QUANTIZABLE, QTensor, quantize_embed, quantize_raw_tensor
 from .safetensors_io import SafeTensorsFile
 from .transformer import Params, check_supported
 
@@ -46,17 +56,29 @@ def load_hf_state(model_dir: str) -> tuple[dict, Callable[[str], torch.Tensor],
     return config, get, list(index)
 
 
-def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
-                device: Any = "cpu") -> tuple[LLMSpec, Params]:
-    """Load an HF checkpoint directory -> (spec, stacked params)."""
-    config, get, names = load_hf_state(model_dir)
+def spec_from_config(config: dict) -> LLMSpec:
+    """The spec of a served family's ``config.json``; raises for the
+    rest."""
     mt = (config.get("model_type") or "").lower()
     if mt not in FAMILIES:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported yet (served: {FAMILIES})")
     spec = spec_from_hf_config(config)
     check_supported(spec)
+    return spec
+
+
+def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
+                device: Any = "cpu",
+                quantize: str = "") -> tuple[LLMSpec, Params]:
+    """Load an HF checkpoint directory -> (spec, stacked params).
+    ``quantize``: "" (none), "int8" or "int8_full"."""
+    if quantize not in ("", "int8", "int8_full"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    config, get, names = load_hf_state(model_dir)
+    spec = spec_from_config(config)
     L = spec.n_layers
+    full = quantize == "int8_full"
     prefix = next((c for c in ("language_model.model.",
                                "model.language_model.", "model.")
                    if f"{c}embed_tokens.weight" in names), "")
@@ -74,16 +96,33 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
             out[i].copy_(w.T if transpose else w)
         return out
 
-    p: Params = {"embed": dev(f"{prefix}embed_tokens.weight")}
+    def stacked_int8(suffix: str) -> QTensor:
+        n_out, n_in = get(lp.format(i=0) + suffix).shape
+        q = torch.empty((L, n_in, n_out), dtype=torch.int8, device=device)
+        scale = torch.empty((L, n_out), dtype=torch.float32, device=device)
+        for i in range(L):
+            qt = quantize_raw_tensor(dev(lp.format(i=i) + suffix))
+            q[i].copy_(qt.q)
+            scale[i].copy_(qt.scale)
+        return QTensor(q, scale)
+
+    def projection(key: str, suffix: str):
+        if quantize and key in QUANTIZABLE:
+            return stacked_int8(suffix)
+        return stacked(suffix, transpose=True)
+
+    embed = dev(f"{prefix}embed_tokens.weight")
+    p: Params = {"embed": quantize_embed(embed) if full else embed}
+    del embed
     for key, suffix in (("wq", "self_attn.q_proj.weight"),
                         ("wk", "self_attn.k_proj.weight"),
                         ("wv", "self_attn.v_proj.weight"),
                         ("wo", "self_attn.o_proj.weight"),
                         ("w_up", "mlp.up_proj.weight"),
                         ("w_down", "mlp.down_proj.weight")):
-        p[key] = stacked(suffix, transpose=True)
+        p[key] = projection(key, suffix)
     if spec.gated_mlp:
-        p["w_gate"] = stacked("mlp.gate_proj.weight", transpose=True)
+        p["w_gate"] = projection("w_gate", "mlp.gate_proj.weight")
     if spec.qkv_bias:
         for key, proj in (("bq", "q_proj"), ("bk", "k_proj"),
                           ("bv", "v_proj")):
@@ -97,7 +136,8 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
     if not spec.tie_word_embeddings:
         for head in ("lm_head.weight", "language_model.lm_head.weight"):
             if head in names:
-                p["lm_head"] = dev(head).T.contiguous()
+                p["lm_head"] = (quantize_raw_tensor(dev(head)) if full
+                                else dev(head).T.contiguous())
                 break
         else:  # checkpoint ties despite config
             object.__setattr__(spec, "tie_word_embeddings", True)

@@ -4,9 +4,11 @@ Counterpart of localai_tfp_tpu/models/transformer.py. Parameters keep the
 JAX package's tree: a dict of tensors with every per-layer weight stacked
 on a leading ``[L, ...]`` axis and projections in ``[in, out]`` layout,
 so both packages compute the same thing on the same weights
-(models/convert.py carries a JAX tree across). The layer loop is a Python
-loop; the KV arena is updated in place (the JAX package donates it
-through jit instead).
+(models/convert.py carries a JAX tree across). In int8 serving the
+projection leaves are ``quant.QTensor`` stacks and every projection goes
+through ``quant.mm`` (the int8 kernel for eligible shapes). The layer
+loop is a Python loop; the KV arena is updated in place (the JAX package
+donates it through jit instead).
 
 Two attention paths:
 - the paged ragged path (``page_table``/``write_table``/``q_lens``): the
@@ -28,8 +30,9 @@ import torch.nn.functional as F
 
 from ..ops.ragged_paged_attention import ragged_paged_attention
 from .llm_spec import LLMSpec
+from .quant import QTensor, mm
 
-Params = dict[str, torch.Tensor]
+Params = dict[str, Any]  # tensors, and QTensor leaves in int8 serving
 NEG_INF = -1e30
 
 
@@ -238,9 +241,9 @@ def _layer_body(spec: LLMSpec, x, lp: dict, positions, inv_freq,
     owns where K/V live and the attention contraction."""
     B, T = x.shape[0], x.shape[1]
     h = _norm(spec, x, lp["ln1_w"])
-    q = h @ lp["wq"]
-    k = h @ lp["wk"]
-    v = h @ lp["wv"]
+    q = mm(h, lp["wq"])
+    k = mm(h, lp["wk"])
+    v = mm(h, lp["wv"])
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(B, T, spec.n_heads, spec.d_head)
@@ -251,20 +254,47 @@ def _layer_body(spec: LLMSpec, x, lp: dict, positions, inv_freq,
         k = _norm(spec, k, lp["k_norm_w"])
     q = apply_rope(q, positions, inv_freq, spec.rotary_dim, rope_scale)
     k = apply_rope(k, positions, inv_freq, spec.rotary_dim, rope_scale)
-    x = x + attn_fn(q, k, v) @ lp["wo"]
+    x = x + mm(attn_fn(q, k, v), lp["wo"])
     h = _norm(spec, x, lp["ln2_w"])
-    return x + (_act(spec, h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    return x + mm(_act(spec, mm(h, lp["w_gate"])) * mm(h, lp["w_up"]),
+                  lp["w_down"])
 
 
 def _embed_in(spec: LLMSpec, params: Params, tokens: torch.Tensor):
-    return params["embed"][tokens.long()]
+    emb = params["embed"]
+    tok = tokens.long()
+    if isinstance(emb, QTensor):  # int8 table, per-row scales
+        dt = params["ln1_w"].dtype  # the model's compute dtype
+        return emb.q[tok].to(dt) * emb.scale[tok][..., None].to(dt)
+    return emb[tok]
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[..., D] @ [D, V] -> f32, never rounded to x's dtype: on the CPU
+    in f32 (bf16 values are exact there), on the card one cuBLAS product
+    with an f32 output, so no f32 copy of the head is made."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cpu":
+        return x.float() @ w.float()
+    x2 = x.reshape(-1, x.shape[-1])
+    out = torch.mm(x2, w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def _lm_head(spec: LLMSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
-    """[B, T, D] -> f32 logits [B, T, V]. f32 models multiply in f32; bf16
-    models multiply in bf16 with f32 accumulation."""
-    head = params["embed"].T if spec.tie_word_embeddings else params["lm_head"]
-    return (x @ head).float()
+    """[B, T, D] -> f32 logits [B, T, V], as the JAX package computes
+    them: the product's f32 sum is returned unrounded (bf16 models
+    multiply bf16 values with f32 accumulation and f32 output). An int8
+    head (``int8_full``) carries a per-logit scale in both layouts (tied:
+    per-row ``[V, D]``; untied: per-column ``[D, V]``), applied to the f32
+    logits."""
+    tied = spec.tie_word_embeddings
+    head = params["embed"] if tied else params["lm_head"]
+    if isinstance(head, QTensor):
+        w = head.q.to(x.dtype)
+        return _matmul_f32(x, w.T if tied else w) * head.scale.float()
+    return _matmul_f32(x, head.T if tied else head)
 
 
 def forward_hidden(
@@ -311,7 +341,8 @@ def forward_hidden(
     scale = _attn_scale(spec)
 
     for layer in range(spec.n_layers):
-        lp = {k: v[layer] for k, v in stacked.items()}
+        lp = {k: v.layer(layer) if isinstance(v, QTensor) else v[layer]
+              for k, v in stacked.items()}
 
         def ragged_attn(q, k, v, layer=layer):
             kf = k.reshape(B, T, spec.kv_dim)

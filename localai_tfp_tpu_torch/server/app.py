@@ -61,6 +61,15 @@ class Application:
                 return self.configs[n]
         raise HTTPError(404, "no model available")
 
+    def load_options(self, cfg: ModelConfig) -> ModelLoadOptions:
+        return ModelLoadOptions(
+            model=cfg.model, model_path=self.models_path,
+            context_size=cfg.context_size or 4096,
+            batch_slots=cfg.max_batch_slots,
+            dtype=cfg.dtype or "bfloat16",
+            kv_cache_dtype=cfg.kv_cache_dtype,
+            quantization=cfg.quantization)
+
     def backend(self, cfg: ModelConfig) -> TorchLLMBackend:
         """The model's worker, loaded on first use (one load at a time)."""
         with self._lock:
@@ -68,12 +77,7 @@ class Application:
             if b is not None:
                 return b
             b = TorchLLMBackend(self.device)
-            res = b.load_model(ModelLoadOptions(
-                model=cfg.model, model_path=self.models_path,
-                context_size=cfg.context_size or 4096,
-                batch_slots=cfg.max_batch_slots,
-                dtype=cfg.dtype or "bfloat16",
-                kv_cache_dtype=cfg.kv_cache_dtype))
+            res = b.load_model(self.load_options(cfg))
             if not res.success:
                 raise HTTPError(500, res.message)
             self._backends[cfg.name] = b

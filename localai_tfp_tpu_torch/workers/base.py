@@ -69,6 +69,8 @@ class ModelLoadOptions:
     batch_slots: int = 8
     dtype: str = "bfloat16"
     kv_cache_dtype: str = ""
+    quantization: str = ""  # "int8" (q8, q8_0, w8): weight-only int8
+    # projections; "int8_full": also embed / lm_head; "" or none/bf16: off
 
 
 @dataclass

@@ -3,9 +3,11 @@ of localai_tfp_tpu/workers/llm.py::JaxLLMBackend, LLM path only)."""
 
 from __future__ import annotations
 
+import json
 import os
 import queue
 import threading
+import time
 from typing import Any, Iterator, Optional
 
 import torch
@@ -13,7 +15,8 @@ import torch
 from ..device import resolve
 from ..engine.engine import GenRequest, LLMEngine, StreamEvent
 from ..engine.tokenizer import Tokenizer, load_tokenizer
-from ..models.hf_loader import load_params
+from ..models import artifact_cache
+from ..models.hf_loader import load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
 from .base import Backend, ModelLoadOptions, PredictOptions, Reply, Result
 
@@ -26,6 +29,10 @@ _DTYPES = {
 # KV-cache-only dtypes: int8 rows with per-row scales
 _KV_DTYPES = {**_DTYPES, "int8": torch.int8, "i8": torch.int8,
               "q8": torch.int8, "q8_0": torch.int8}
+# weight-only quantization values (the JAX worker's): int8 aliases, and
+# the names that mean "none"
+_INT8 = ("int8", "q8", "q8_0", "w8", "int8_full")
+_NO_QUANT = ("none", "f16", "fp16", "bf16", "bfloat16")
 
 
 class TorchLLMBackend(Backend):
@@ -38,9 +45,20 @@ class TorchLLMBackend(Backend):
         self.spec: Optional[LLMSpec] = None
         self._state = "UNINITIALIZED"
         self._lock = threading.Lock()
+        # how the last load got its weights ("full", "quantized": int8 at
+        # load, "artifact": the on-disk int8 tree) and its wall seconds
+        self.load_mode = ""
+        self.load_s = 0.0
 
     def load_model(self, opts: ModelLoadOptions) -> Result:
         with self._lock:
+            quant = (opts.quantization or "").lower()
+            if quant and quant not in _INT8 + _NO_QUANT:
+                self._state = "ERROR"
+                return Result(
+                    False,
+                    f"load failed: unsupported quantization "
+                    f"'{opts.quantization}' (supported: int8, int8_full)")
             model_dir = opts.model
             if not os.path.isabs(model_dir):
                 model_dir = os.path.join(opts.model_path or "", model_dir)
@@ -59,8 +77,10 @@ class TorchLLMBackend(Backend):
                 if self.engine is not None:
                     self.engine.close()
                     self.engine = None
-                self.spec, params = load_params(
-                    model_dir, dtype=_DTYPES[name], device=self.device)
+                t0 = time.perf_counter()
+                self.spec, params = self._load_weights(
+                    model_dir, _DTYPES[name],
+                    quant if quant in _INT8 else "")
                 self.tokenizer = load_tokenizer(model_dir)
                 self.engine = LLMEngine(
                     self.spec, params, self.tokenizer,
@@ -72,8 +92,34 @@ class TorchLLMBackend(Backend):
                     RuntimeError) as e:
                 self._state = "ERROR"
                 return Result(False, f"load failed: {e}")
+            self.load_s = time.perf_counter() - t0
             self._state = "READY"
             return Result(True, "model loaded")
+
+    def _load_weights(self, model_dir: str, dtype: torch.dtype,
+                      quant: str) -> tuple[LLMSpec, dict]:
+        """(spec, params): full precision, or int8 from the on-disk
+        artifact when there is one, else quantized while loading and then
+        written as the artifact for the next load."""
+        if not quant:
+            self.load_mode = "full"
+            return load_params(model_dir, dtype=dtype, device=self.device)
+        mode = artifact_cache.canonical_quant(quant)
+        path = artifact_cache.artifact_path(
+            model_dir, mode, str(dtype).removeprefix("torch."))
+        params = artifact_cache.try_load(path, self.device)
+        if params is not None:
+            with open(os.path.join(model_dir, "config.json")) as f:
+                spec = spec_from_config(json.load(f))
+            if "lm_head" not in params:  # the checkpoint tied its head
+                object.__setattr__(spec, "tie_word_embeddings", True)
+            self.load_mode = "artifact"
+            return spec, params
+        spec, params = load_params(model_dir, dtype=dtype,
+                                   device=self.device, quantize=mode)
+        artifact_cache.save(path, params)
+        self.load_mode = "quantized"
+        return spec, params
 
     def shutdown(self) -> None:
         if self.engine is not None:

@@ -6,7 +6,9 @@ none. The suite's ``conftest.py`` imports jax, so run it there with
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py
 
 Each test asks a fixture whether a card is present and skips without
-one (collection is the same everywhere). ``make_case`` is shared with
+one (collection is the same everywhere). The int8 kernel's tests hold it
+against its plain version and check that its wrapper raises rather than
+falls back. ``make_case`` is shared with
 tests/test_torch_ragged_attention.py, which holds the plain version
 against the JAX package on the same cases.
 """
@@ -18,7 +20,11 @@ import torch
 from localai_tfp_tpu_torch.engine.engine import GenRequest, LLMEngine
 from localai_tfp_tpu_torch.engine.tokenizer import ByteTokenizer
 from localai_tfp_tpu_torch.models import transformer as tt
+from localai_tfp_tpu_torch.models import quant as tq
 from localai_tfp_tpu_torch.models.llm_spec import tiny_spec
+from localai_tfp_tpu_torch.ops.int8_matmul import (
+    int8_matmul, int8_matmul_plain,
+)
 from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
     ragged_attention_plain, ragged_paged_attention,
 )
@@ -187,3 +193,97 @@ def test_engine_serves_on_card(cuda_device):
         eng.leak_check()
     finally:
         eng.close()
+
+
+# ------------------------------------------------------------ int8 kernel
+
+
+def _int8_operands(m, k, n, x_dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((k, n), generator=g) * 0.05
+    qt = tq.quantize_tensor(w)
+    x = torch.randn((m, k), generator=g).to(x_dtype)
+    return x.to(device), qt.q.to(device), qt.scale.to(device)
+
+
+def _bf16_excess(got, want):
+    """max error beyond one unit of want's bf16 spacing (2^(exponent -
+    7)), relative to max |want|."""
+    w = want.float()
+    spacing = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2 ** -126)))
+                         - 7)
+    d = (got.float() - w).abs()
+    return float((d - spacing).clamp_min(0).max() / w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32out", "bf16out"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("m", [1, 3, 1000])
+def test_int8_kernel_matches_plain_on_card(cuda_device, m, x_dtype,
+                                           out_dtype):
+    """The hand-written kernel against its plain version at odd row counts
+    (one 16-row tile, a ragged 64-row tile edge): f32 out within 1e-4 of
+    the largest output; bf16 out within one bf16 unit of each output plus
+    that bound. The two sum the same products in another order, which moves
+    an output that cancels to near zero by many of its own tiny units."""
+    x, q, s = _int8_operands(m, 1024, 1536, x_dtype, cuda_device, seed=m)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, s, out_dtype)
+    want = int8_matmul_plain(x, q, s, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, 1536)
+    if out_dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+    else:
+        assert _bf16_excess(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_int8_wrapper_raises_instead_of_falling_back(cuda_device):
+    x, q, s = _int8_operands(8, 1024, 512, torch.bfloat16, cuda_device)
+    with pytest.raises(ValueError, match="not eligible"):
+        int8_matmul(x[:, :96].contiguous(), q[:96], s)
+    big = torch.zeros((1025, 1024), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="not eligible"):
+        int8_matmul(big, q, s)
+    with pytest.raises(ValueError, match="lives on cpu"):
+        int8_matmul(x, q.cpu(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul(x, q.T.contiguous().T, s)
+
+
+@pytest.mark.cuda
+def test_mm_on_a_cuda_qtensor_launches_the_kernel(cuda_device):
+    x, q, s = _int8_operands(8, 512, 512, torch.bfloat16, cuda_device)
+    before = int8_matmul.launches
+    y = tq.mm(x.reshape(2, 4, 512), tq.QTensor(q, s))
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1 and y.shape == (2, 4, 512)
+    # an ineligible shape takes the upcast product, no launch
+    tq.mm(x[:, :96], tq.QTensor(q[:96].contiguous(), s))
+    assert int8_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_lm_head_bf16_on_card_returns_f32_sums(cuda_device):
+    """The card's f32-output bf16 product against the CPU's f32 product of
+    the same bf16 values, untied and tied (a transposed head)."""
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 3, 256), generator=g).bfloat16()
+    head = (torch.randn((256, 1000), generator=g) * 0.05).bfloat16()
+    for tied in (False, True):
+        spec = tiny_spec(vocab_size=1000, d_model=256,
+                         tie_word_embeddings=tied)
+        params = {"embed" if tied else "lm_head":
+                  head.T.contiguous() if tied else head}
+        want = tt._lm_head(spec, params, x)
+        got = tt._lm_head(spec, {k: v.to(cuda_device)
+                                 for k, v in params.items()},
+                          x.to(cuda_device))
+        assert got.dtype == torch.float32
+        assert float((got.cpu() - want).abs().max()) < 1e-5

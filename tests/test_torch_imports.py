@@ -68,7 +68,8 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     # every module of the slice was imported, the kernel wrapper included
     for m in ("engine.engine", "models.transformer", "ops.sampling",
-              "ops.ragged_paged_attention", "server.app", "workers.llm"):
+              "ops.ragged_paged_attention", "server.app", "workers.llm",
+              "models.quant", "models.artifact_cache", "ops.int8_matmul"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)
