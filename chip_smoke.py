@@ -9,15 +9,20 @@ Phases, one result line each; any failure raises and exits non-zero:
 1. device  — the card's name and count, and nvidia-smi's name and power
    limit.
 2. build   — nvcc builds every kernel from csrc/ (all sources at once);
-   prints build seconds and the -Xptxas -v registers / shared memory /
-   spills.
+   prints build seconds, each instance's -Xptxas -v registers and spill
+   bytes (ragged_paged_attention must spill nothing), and its shared
+   memory and resident blocks per SM.
 3. kernels — every kernel against its plain PyTorch version.
    ragged_paged_attention at the Llama-3.1-8B attention width (H 32,
    Hkv 8, Dh 128, page 256): the decode / prefill / mixed / verify row
    mixes with shuffled page tables, bf16 and int8 pages, and seeded
    decode; then the main path's shapes (8 slots, context 2048): a seeded
-   decode step, a mixed step, and a mixed step with a 512-token chunk
-   near the context's end; every comparison within 1e-4 absolute.
+   decode step, one with every row near the context's end, a windowed
+   one, a mixed step, and a mixed step with a 512-token chunk near the
+   context's end; every comparison within 1e-4 absolute, and every call
+   repeated bitwise. Its times are cold: each timed call reads another
+   layer of a 4-layer arena, so a layer's K/V has left the L2 when its
+   turn comes round.
    int8_matmul at every 8B projection shape (K x N 4096 x 4096,
    4096 x 1024, 4096 x 14336, 14336 x 4096), M in {1, 8, 37, 128, 1024},
    bf16 and f32 x, bf16 and f32 out: f32 out within 1e-4 of the largest
@@ -28,7 +33,9 @@ Phases, one result line each; any failure raises and exits non-zero:
    weights from a seed), starts the port's HTTP server in-process, sends
    concurrent streaming and non-streaming /v1/chat/completions requests,
    checks the responses, and checks that the main path launched the
-   kernels. Twice: the bf16 model (attention kernel), then the same
+   kernels (attention exactly once per layer of every forward). Then
+   eight decoding requests run under torch.profiler: device busy time
+   against the host clock of the decode steps, and the top kernels. Twice: the bf16 model (attention kernel), then the same
    checkpoint served with ``quantization: int8`` (both kernels),
    quantized on the card at a cold load, then reloaded from its on-disk
    artifact.
@@ -104,25 +111,62 @@ def phase_build():
 
     t0 = time.perf_counter()
     built = _build.build_all([rpa.KERNEL, int8_matmul.KERNEL])
+    report = {}
     for name, b in built.items():
-        lines = [ln.strip() for ln in b.ptxas.splitlines()
-                 if "registers" in ln or "spill" in ln
-                 or "Compiling entry" in ln]
+        report[name] = ptxas_summary(b.ptxas)
         log("build", kernel=name, nvcc_s=round(b.seconds, 3),
-            wall_s=round(time.perf_counter() - t0, 3), ptxas=lines)
+            wall_s=round(time.perf_counter() - t0, 3), ptxas=report[name])
+    occ = rpa.occupancy()
+    log("build_occupancy", kernel=rpa.KERNEL, instances=occ)
+    spilled = [r for r in report[rpa.KERNEL] if r["spill_bytes"]]
+    if spilled:
+        raise AssertionError(f"{rpa.KERNEL} spills registers: {spilled}")
+    return report, occ
+
+
+def ptxas_summary(text: str) -> list[dict]:
+    """Per kernel instance: registers and spill bytes from -Xptxas -v."""
+    import re
+
+    def short(entry: str) -> str:
+        # rpa_kernel<QT, KT, DH, BM> as "q/kv/dh/bm"; other kernels whole
+        m = re.search(r"rpa_kernelI(13__nv_bfloat16|f)(S1_|a|f)Li(\d+)ELi(\d+)E",
+                      entry)
+        if not m:
+            return entry
+        q = "bf16" if m.group(1) != "f" else "f32"
+        kv = {"S1_": "bf16", "a": "i8", "f": "f32"}[m.group(2)]
+        return f"rpa q {q} kv {kv} dh {m.group(3)} bm {m.group(4)}"
+
+    rows = []
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            rows.append({"entry": short(m.group(1)), "registers": None,
+                         "spill_bytes": 0})
+        elif rows and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            rows[-1]["spill_bytes"] = int(st) + int(ld)
+        elif rows and "Used" in ln and "registers" in ln:
+            rows[-1]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return rows
 
 
 # ------------------------------------------------------------------ phase 3
 
 
 def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
-              seed: int, L: int = 2):
+              seed: int, L: int = 2, window=None):
     """Inputs in the style of localai_tfp_tpu/ops/kernel_check.py
     check_ragged_attention: shuffled page tables over a shared arena, at
     the 8B attention width, on the card. ``chunk512`` is the main path's
     mixed step at its fullest: a 512-token prefill chunk (the engine's
     chunk at 8 slots) beside decode, verify and shorter chunk rows, every
-    row ending within 64 tokens of the context's end."""
+    row ending within 64 tokens of the context's end; ``decode_long``
+    a decode step whose every row ends within 160 tokens of it. ``L``
+    layers of arena; the call reads layer 1, or ``layer`` as cycled by
+    the timing."""
     import numpy as np
     import torch
 
@@ -130,7 +174,7 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
 
     rng = np.random.default_rng(seed)
     kd = 4
-    if mix == "decode":
+    if mix in ("decode", "decode_long"):
         q_lens = np.ones(B, np.int32)
     elif mix == "prefill":
         q_lens = rng.integers(2, 257, B).astype(np.int32)
@@ -143,7 +187,8 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
         q_lens = np.resize(np.asarray([1, 1, 7, 256, kd, 64], np.int32), B)
     T = int(q_lens.max())
     cap = max_pages * PAGE
-    lo = (lambda n: cap - n - 64) if mix == "chunk512" else (lambda n: 0)
+    near = {"chunk512": 64, "decode_long": 160}.get(mix)
+    lo = (lambda n: cap - n - near) if near else (lambda n: 0)
     pos0 = np.asarray([int(rng.integers(lo(int(n)), cap - int(n) + 1))
                        for n in q_lens], np.int32)
     n_pages = B * max_pages + 1
@@ -160,7 +205,7 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
         "q": q, "layer": 1, "n_kv_heads": HKV, "scale": DH ** -0.5,
         "page_table": torch.from_numpy(pt).to(dev),
         "pos0": torch.from_numpy(pos0).to(dev),
-        "q_lens": torch.from_numpy(q_lens).to(dev),
+        "q_lens": torch.from_numpy(q_lens).to(dev), "window": window,
     }
     if quant:
         kq, ks = _quantize_rows(ak)
@@ -182,7 +227,7 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
 def _call(fn, c):
     return fn(c["q"], c["cache_k"], c["cache_v"], c["layer"],
               c["page_table"], c["pos0"], c["q_lens"], c["n_kv_heads"],
-              scale=c["scale"], page=PAGE,
+              scale=c["scale"], page=PAGE, sliding_window=c["window"],
               cache_k_scale=c.get("cache_k_scale"),
               cache_v_scale=c.get("cache_v_scale"),
               seed_kv=c.get("seed_kv"))
@@ -261,6 +306,17 @@ def _library_call(c):
     return run
 
 
+ATTN_LAYERS = 4  # arena depth of the timed cases: see _layers
+
+
+def _layers(c):
+    """The case at each layer of its arena, in turn, as a decode step
+    walks its layers: a decode step's live K/V (~30 MB a layer at the
+    main path's shapes) is cold again when its layer comes round, since
+    the other layers' (~90 MB) pass through the 50 MB L2 in between."""
+    return [({**c, "layer": i},) for i in range(ATTN_LAYERS)]
+
+
 def phase_kernels(n_slots: int, max_pages: int):
     import torch
 
@@ -269,37 +325,59 @@ def phase_kernels(n_slots: int, max_pages: int):
     )
 
     # the four row mixes on a small arena, then the main path's shapes
-    # (every slot, the full context): a seeded decode step, a mixed step,
-    # and a mixed step with the engine's 512-token chunk near ctx 2048
-    small = [(mix, seeded, 6, 4)
+    # (every slot, the full context): a seeded decode step, a seeded
+    # decode step with every row near the context's end (the longest
+    # split ranges), a windowed seeded decode step (window edges inside
+    # splits, whole splits outside), a mixed step with and without a
+    # window (its chunk rows see the window's edge move), and a step with
+    # the engine's 512-token chunk near ctx 2048
+    small = [(mix, seeded, 6, 4, None)
              for mix in ("decode", "prefill", "mixed", "verify")
              for seeded in ((False, True) if mix == "decode" else (False,))]
-    full = [(mix, seeded, n_slots, max_pages) for mix, seeded in
-            (("decode", True), ("mixed", False), ("chunk512", False))]
+    full = [(mix, seeded, n_slots, max_pages, window)
+            for mix, seeded, window in (
+                ("decode", True, None), ("decode_long", True, None),
+                ("decode", True, 300), ("mixed", False, None),
+                ("mixed", False, 300),
+                ("chunk512", False, None))]
     worst = {"bf16": 0.0, "int8": 0.0}
-    timed = {}  # the full-shape bf16 cases, timed below on the same inputs
-    for mix, seeded, B, pages in small + full:
+    timed = {}  # the full-shape bf16 cases, timed below
+    for mix, seeded, B, pages, window in small + full:
         for quant in (False, True):
+            seed = len(mix) + 10 * quant + 100 * seeded + B
+            is_timed = (B == n_slots and window is None and not quant
+                        and mix != "decode_long")
             c = make_case(mix, quant, seeded, B=B, max_pages=pages,
-                          seed=len(mix) + 10 * quant + 100 * seeded + B)
-            if B == n_slots and pages == max_pages and not quant:
+                          seed=seed, window=window,
+                          L=ATTN_LAYERS if is_timed else 2)
+            if is_timed:
                 timed[mix] = (c, seeded)
             got = _call(ragged_paged_attention, c)
             want = _call(ragged_attention_plain, c)
+            again = _call(ragged_paged_attention, c)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
+            repeat = bool(torch.equal(got, again))
             kind = "int8" if quant else "bf16"
             worst[kind] = max(worst[kind], err)
             log("kernel_check", kernel="ragged_paged_attention", mix=mix,
-                pages=kind, seeded=seeded, rows=B, max_pages=pages,
-                q_lens=c["q_lens"].tolist(), max_abs_err=err,
-                max_abs_want=float(want.abs().max()), tol=TOL,
-                jax_harness_tol=JAX_TOL[kind])
+                pages=kind, seeded=seeded, window=window, rows=B,
+                max_pages=pages, q_lens=c["q_lens"].tolist(),
+                ctx=[p + n for p, n in zip(c["pos0"].tolist(),
+                                           c["q_lens"].tolist())],
+                max_abs_err=err, max_abs_want=float(want.abs().max()),
+                tol=TOL, jax_harness_tol=JAX_TOL[kind],
+                bitwise_repeat=repeat)
             if not err < min(TOL, JAX_TOL[kind]):
                 raise AssertionError(
                     f"ragged_paged_attention {mix}/{kind}/seeded={seeded} "
-                    f"B={B}: max abs err {err} >= {TOL}")
-    # timing at the main path's shapes, bf16 pages as the engine serves
+                    f"window={window} B={B}: max abs err {err} >= {TOL}")
+            if not repeat:
+                raise AssertionError(
+                    f"ragged_paged_attention {mix}/{kind}: two calls on the "
+                    "same inputs differ")
+    # timing at the main path's shapes, bf16 pages as the engine serves,
+    # each call on a cold layer (_layers)
     timings = {}
     for mix, (c, seeded) in timed.items():
         B = c["q"].shape[0]
@@ -307,18 +385,29 @@ def phase_kernels(n_slots: int, max_pages: int):
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
         bound_by = ("bytes" if nbytes / HBM_BYTES_PER_S
                     >= flops / BF16_FLOPS else "operations")
+        sets = _layers(c)
         before = ragged_paged_attention.launches
-        ms = _time_ms(lambda: _call(ragged_paged_attention, c), 50)
+        ms = _time_graph(_cycled(
+            lambda c: _call(ragged_paged_attention, c), sets), 48)
+        # the same calls launched one by one from Python, as the engine
+        # launches them today
+        eager_ms = _time_ms(_cycled(
+            lambda c: _call(ragged_paged_attention, c), sets), 48)
         ragged_paged_attention.launches = before  # timing is not the path
-        plain_ms = _time_ms(lambda: _call(ragged_attention_plain, c), 10)
-        library_ms = _time_ms(_library_call(c), 20)
+        plain_ms = _time_ms(_cycled(
+            lambda c: _call(ragged_attention_plain, c), sets), 8)
+        lib_runs = [_library_call(cl) for (cl,) in sets]
+        library_ms = _time_graph(_cycled(lambda run: run(),
+                                         [(r,) for r in lib_runs]), 24)
+        del lib_runs
         timings[mix] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "bytes": nbytes, "flops": flops,
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bytes": nbytes, "flops": flops,
             "rows": B, "q_lens": c["q_lens"].tolist(),
             "ctx": [p + n for p, n in zip(c["pos0"].tolist(),
                                           c["q_lens"].tolist())],
+            "layers_cycled": ATTN_LAYERS,
         }
         log("kernel_time", kernel="ragged_paged_attention", mix=mix,
             seeded=seeded, **timings[mix])
@@ -839,6 +928,55 @@ def run_burst(port: int, model: str, eng) -> dict:
     }
 
 
+def profile_decode(eng) -> dict:
+    """Where a decode forward's time goes: 8 concurrent requests (all 8
+    slots decoding after one mixed step) under torch.profiler; device
+    busy time is the sum of the CUDA kernels' own times, host time the
+    host clock around the engine's decode steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    spent = [0.0]
+    fn = eng._decode_step
+
+    def clocked(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    reqs = [GenRequest(prompt_ids=list(range(1 + i, 101 + i)),
+                       max_tokens=24, ignore_eos=True) for i in range(8)]
+    eng._decode_step = clocked
+    decode0 = eng.metrics.decode_steps
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for q in eng.submit_many(reqs):
+                ev = q.get(timeout=600)
+                while not ev.done:
+                    ev = q.get(timeout=600)
+            torch.cuda.synchronize()
+    finally:
+        del eng._decode_step  # the class's method again
+    decode = eng.metrics.decode_steps - decode0
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"decode_forwards": decode,
+            "host_ms_per_decode_forward": spent[0] * 1e3 / max(1, decode),
+            "device_busy_ms_total": busy,
+            "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
 def serve_model(models: Path, model: str, layers: int,
                 quantized: bool) -> dict:
     """Serve one model config through the port's HTTP server: load, the
@@ -880,14 +1018,19 @@ def serve_model(models: Path, model: str, layers: int,
             raise AssertionError(f"{model}: mixed {burst['mixed_forwards']} / "
                                  f"decode {burst['decode_forwards']} "
                                  "forwards: both kinds must run")
-        need = {"ragged_paged_attention": layers * steps}
-        if quantized:  # 7 projections per layer in every decode forward
-            need["int8_matmul"] = 7 * layers * burst["decode_forwards"]
-        for name, n in need.items():
-            if steps == 0 or got[name] < n:
-                raise AssertionError(
-                    f"{model}: {name} launched {got[name]} times on the main "
-                    f"path; it needs at least {n}")
+        # attention: exactly one launch per layer of every forward
+        if steps == 0 or got["ragged_paged_attention"] != layers * steps:
+            raise AssertionError(
+                f"{model}: ragged_paged_attention launched "
+                f"{got['ragged_paged_attention']} times on the main path "
+                f"for {steps} forwards of {layers} layers")
+        # 7 projections per layer in every decode forward, and those of
+        # mixed steps of eligible size
+        need = 7 * layers * burst["decode_forwards"]
+        if quantized and got["int8_matmul"] < need:
+            raise AssertionError(
+                f"{model}: int8_matmul launched {got['int8_matmul']} times "
+                f"on the main path; it needs at least {need}")
         eng.leak_check()
         reload = None
         if quantized:  # the second load reads the on-disk int8 tree
@@ -905,9 +1048,11 @@ def serve_model(models: Path, model: str, layers: int,
             log("main_reload", model=model, **reload)
         ref = reference_check(backend, layers)
         log("main_reference", model=model, **ref)
+        prof = profile_decode(backend.engine)
+        log("main_profile", model=model, **prof)
         backend.engine.leak_check()
         return {"load": load, "burst": burst, "reload": reload,
-                "reference": ref}
+                "reference": ref, "profile": prof}
     finally:
         srv.close()
         th.join(timeout=30)
@@ -966,8 +1111,9 @@ def main() -> int:
     phases = set(args.phases.split(","))
     require_package()
     dev, smi = phase_device()
+    build = occupancy = None
     if "build" in phases:
-        phase_build()
+        build, occupancy = phase_build()
     entries = []
     if "kernels" in phases:  # correctness first, then times at 8B shapes
         worst, timings = phase_kernels(n_slots=SLOTS,
@@ -981,13 +1127,24 @@ def main() -> int:
             "max_abs_err": max(worst.values()),
             "max_abs_err_bf16": worst["bf16"],
             "max_abs_err_int8": worst["int8"], "tol": TOL,
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "eager_ms": t["eager_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": "decode",
+            "timing": "cold: layers cycled past the L2; ms by CUDA-graph "
+                      "replay, eager_ms call by call",
             **{f"{mix}_step": {k: timings[mix][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
                for mix in ("mixed", "chunk512")},
         })
+        if build is not None:
+            rows = build["ragged_paged_attention"]
+            entries[-1].update(
+                registers={r["entry"]: r["registers"] for r in rows},
+                spill_bytes=sum(r["spill_bytes"] for r in rows),
+                blocks_per_sm={f"{o['q']}/{o['kv']}/dh{o['dh']}/bm{o['bm']}":
+                               o["blocks_per_sm"] for o in occupancy})
         worst8, t8 = phase_int8_kernels()
         t = t8["w_gate_m8"]
         entries.append({

@@ -119,6 +119,198 @@ def test_kernel_matches_plain_on_card(cuda_device, mix, quant, seeded,
     assert float((got - want).abs().max()) < 1e-4
 
 
+def make_wide_case(q_lens, pos0, *, max_pages, page, dh=128, hkv=2, h=8,
+                   quant=False, seeded=False, window=None, q_dtype=None,
+                   seed=0, device="cpu") -> dict:
+    """Torch inputs at a kernel head dim with given rows (q_lens, pos0):
+    bf16 queries with bf16 or int8 pages by default, shuffled page
+    tables, a 2-layer arena; the call's keyword arguments included."""
+    rng = np.random.default_rng(seed)
+    q_lens = np.asarray(q_lens, np.int32)
+    pos0 = np.asarray(pos0, np.int32)
+    nb, T = len(q_lens), int(q_lens.max())
+    n_pages = nb * max_pages + 1
+    pt = rng.permutation(np.arange(1, n_pages)).reshape(
+        nb, max_pages).astype(np.int32)
+    F = hkv * dh
+    qd = q_dtype or torch.bfloat16
+    ak = torch.from_numpy(
+        (rng.standard_normal((2, n_pages, page, F)) * 0.5).astype(np.float32))
+    av = torch.from_numpy(
+        (rng.standard_normal((2, n_pages, page, F)) * 0.5).astype(np.float32))
+    c = {"q": torch.from_numpy(rng.standard_normal((nb, T, h, dh)).astype(
+             np.float32)).to(qd),
+         "page_table": torch.from_numpy(pt), "pos0": torch.from_numpy(pos0),
+         "q_lens": torch.from_numpy(q_lens)}
+    if quant:
+        c["cache_k"], c["cache_k_scale"] = tt._quantize_rows(ak)
+        c["cache_v"], c["cache_v_scale"] = tt._quantize_rows(av)
+    else:
+        c["cache_k"], c["cache_v"] = ak.to(qd), av.to(qd)
+    if seeded:
+        c["seed_kv"] = tuple(torch.from_numpy(
+            (rng.standard_normal((nb, F)) * 0.5).astype(np.float32)).to(qd)
+            for _ in range(2))
+    c = {k: (tuple(s.to(device) for s in v) if isinstance(v, tuple)
+             else v.to(device)) for k, v in c.items()}
+    c.update(layer=1, n_kv_heads=hkv, scale=dh ** -0.5, page=page,
+             sliding_window=window)
+    return c
+
+
+def call_case(fn, c):
+    return fn(c["q"], c["cache_k"], c["cache_v"], c["layer"],
+              c["page_table"], c["pos0"], c["q_lens"], c["n_kv_heads"],
+              scale=c["scale"], page=c["page"],
+              sliding_window=c["sliding_window"],
+              cache_k_scale=c.get("cache_k_scale"),
+              cache_v_scale=c.get("cache_v_scale"),
+              seed_kv=c.get("seed_kv"))
+
+
+def _check_wide(c, tol=1e-4):
+    before = ragged_paged_attention.launches
+    got = call_case(ragged_paged_attention, c)
+    want = call_case(ragged_attention_plain, c)
+    torch.cuda.synchronize()
+    assert ragged_paged_attention.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = float((got - want).abs().max())
+    assert err < tol, err
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16kv", "int8kv"])
+@pytest.mark.parametrize("mix", ["decode", "seeded", "prefill", "mixed",
+                                 "verify"])
+def test_bf16_kernel_matches_plain_on_card(cuda_device, mix, quant, dh):
+    """bf16 queries on the tensor-core path, bf16 and int8 pages, both
+    kernel head dims, page 8 (tiles span pages), every row kind."""
+    rows = {"decode": ([1, 1, 1, 1], [37, 200, 5, 254]),
+            "seeded": ([1, 1, 1, 1], [37, 200, 5, 254]),
+            "prefill": ([40, 17, 70, 3], [0, 100, 150, 9]),
+            "mixed": ([1, 1, 70, 4], [90, 3, 120, 60]),
+            "verify": ([4, 4, 4, 4], [0, 61, 130, 251])}[mix]
+    c = make_wide_case(*rows, max_pages=32, page=8, dh=dh, quant=quant,
+                       seeded=mix == "seeded", seed=dh + quant,
+                       device=cuda_device)
+    _check_wide(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page,max_pages", [(8, 128), (256, 4)])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16kv", "int8kv"])
+def test_long_decode_spans_many_splits(cuda_device, page, max_pages, quant):
+    """Decode rows whose contexts cover 8 or more kv splits (the plan
+    splits a 1024-token range into 64-token chunks at 2 rows x 2 kv
+    heads), one seeded with its current row in a middle split."""
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import _plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, _, splits, split_len = _plan(2, 2, 1, 4, page * max_pages, sms)
+    assert splits >= 8 and split_len == 64
+    for seeded, pos0 in ((False, [1023, 700]), (True, [540, 1000])):
+        c = make_wide_case([1, 1], pos0, max_pages=max_pages, page=page,
+                           quant=quant, seeded=seeded, seed=page,
+                           device=cuda_device)
+        _check_wide(c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [100, 200], ids=["edge_inside_split",
+                                                    "whole_splits_out"])
+def test_windowed_decode_across_splits(cuda_device, window):
+    """A sliding window whose edge falls inside a 64-token split, and one
+    that leaves whole splits with no visible position (they must add
+    nothing and make no NaN), beside a short row the window does not cut."""
+    for seeded in (False, True):
+        c = make_wide_case([1, 1, 1], [900, 530, 40], max_pages=128, page=8,
+                           seeded=seeded, window=window, seed=window,
+                           device=cuda_device)
+        got = _check_wide(c)
+        assert torch.isfinite(got).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16kv", "int8kv"])
+def test_pad_queries_beside_a_long_chunk(cuda_device, quant):
+    """Rows whose q_len is far below the step's T (512) write zeros past
+    their q_len; the 512-token chunk beside them is attended in full."""
+    c = make_wide_case([512, 3, 1, 0], [1400, 77, 1200, 5], max_pages=8,
+                       page=256, quant=quant, seed=5, device=cuda_device)
+    got = _check_wide(c)
+    assert not got[1, 3:].any() and not got[2, 1:].any()
+    assert not got[3].any()
+
+
+@pytest.mark.cuda
+def test_kernel_reads_strided_queries_and_writes_rows(cuda_device):
+    """The kernel's own layout: q as a strided view of a wider
+    [B, T, H + 2, Dh] tensor is read in place, and query (t, head j) of
+    row b lands at out[b, t, j * Dh:(j + 1) * Dh], for a split decode
+    step and for a prefill tile."""
+    for q_lens, pos0 in (([1, 1], [900, 300]), ([50, 20], [10, 500])):
+        c = make_wide_case(q_lens, pos0, max_pages=128, page=8, seed=3,
+                           device=cuda_device)
+        B, T, H, Dh = c["q"].shape
+        wide = torch.randn((B, T, H + 2, Dh), device=cuda_device).to(
+            torch.bfloat16)
+        wide[:, :, 1:H + 1] = c["q"]
+        c["q"] = wide[:, :, 1:H + 1]
+        assert not c["q"].is_contiguous()
+        got = _check_wide(c)
+        assert got.shape == (B, T, H * Dh) and got.is_contiguous()
+        dense = call_case(ragged_attention_plain,
+                          {**c, "q": c["q"].contiguous()})
+        b, t, j = 1, q_lens[1] - 1, H - 1
+        assert float((got[b, t, j * Dh:(j + 1) * Dh]
+                      - dense[b, t, j * Dh:(j + 1) * Dh]).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_kernel_is_bitwise_repeatable(cuda_device):
+    """Split partials are merged in a fixed order: the same inputs give
+    identical outputs, for a split decode step and a mixed step."""
+    for q_lens, pos0, seeded in (([1, 1], [1000, 333], True),
+                                 ([1, 64, 4], [700, 100, 20], False)):
+        c = make_wide_case(q_lens, pos0, max_pages=128, page=8,
+                           seeded=seeded, seed=9, device=cuda_device)
+        a = call_case(ragged_paged_attention, c)
+        b = call_case(ragged_paged_attention, c)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_captures_in_a_cuda_graph(cuda_device):
+    """One split call captured in a CUDA graph and replayed on new inputs
+    copied into the captured tensors equals an eager call on those
+    inputs: the wrapper never syncs with the host, and the merge
+    counters reset themselves between replays."""
+    c = make_wide_case([1, 1], [1000, 333], max_pages=128, page=8,
+                       seeded=True, seed=1, device=cuda_device)
+    new = make_wide_case([1, 1], [640, 999], max_pages=128, page=8,
+                         seeded=True, seed=2, device=cuda_device)
+    call_case(ragged_paged_attention, c)  # build, plan and counters eagerly
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call_case(ragged_paged_attention, c)
+    for _ in range(2):
+        for k in ("q", "cache_k", "cache_v", "page_table", "pos0", "q_lens"):
+            c[k].copy_(new[k])
+        for s, t in zip(c["seed_kv"], new["seed_kv"]):
+            s.copy_(t)
+        graph.replay()
+        want = call_case(ragged_paged_attention, new)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert float((want - call_case(ragged_attention_plain, new)).abs().max()
+                 ) < 1e-4
+
+
 def _tiny_model(device):
     """A 2-layer Llama-style model with kernel-sized heads (Dh 64) and
     random f32 weights from a seed, in the port's [in, out] layout."""
