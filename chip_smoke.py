@@ -10,10 +10,11 @@ Phases, one result line each; any failure raises and exits non-zero:
    limit.
 2. build   — nvcc builds every kernel from csrc/ (all sources at once);
    prints build seconds, each instance's -Xptxas -v registers and spill
-   bytes (ragged_paged_attention must spill nothing), and its shared
-   memory and resident blocks per SM.
-3. kernels — every kernel against its plain PyTorch version.
-   ragged_paged_attention at the Llama-3.1-8B attention width (H 32,
+   bytes (no instance of either kernel may spill), and the shared memory
+   and resident blocks per SM of B1's instances and of B2's mixed-step
+   instance.
+3. kernels — ragged_paged_attention against its plain PyTorch version
+   at the Llama-3.1-8B attention width (H 32,
    Hkv 8, Dh 128, page 256): the decode / prefill / mixed / verify row
    mixes with shuffled page tables, bf16 and int8 pages, and seeded
    decode; then the main path's shapes (8 slots, context 2048): a seeded
@@ -22,23 +23,31 @@ Phases, one result line each; any failure raises and exits non-zero:
    context's end; every comparison within 1e-4 absolute, and every call
    repeated bitwise. Its times are cold: each timed call reads another
    layer of a 4-layer arena, so a layer's K/V has left the L2 when its
-   turn comes round.
-   int8_matmul at every 8B projection shape (K x N 4096 x 4096,
-   4096 x 1024, 4096 x 14336, 14336 x 4096), M in {1, 8, 37, 128, 1024},
-   bf16 and f32 x, bf16 and f32 out: f32 out within 1e-4 of the largest
-   output, bf16 out within one bf16 ulp of each output plus that bound. Then times each kernel, its plain
-   version, one library call and (int8) the bf16 cuBLAS product over the
-   dequantized weight, and computes each kernel's bound.
-4. main    — writes a Llama-3.1-8B-geometry checkpoint (random bf16
+   turn comes round. Then its time, its plain version's, SDPA's, and
+   its bound.
+4. int8    — int8_matmul against its plain version at every 8B
+   projection shape (K x N 4096 x 4096, 4096 x 1024, 4096 x 14336,
+   14336 x 4096), M in INT8_M (decode rows and the mixed-step
+   instance's tile edges up to 1024), bf16 and f32 x, bf16 and f32 out:
+   f32 out within 1e-4 of the largest output, bf16 out within one bf16
+   ulp of each output plus that bound. Then, cold (operand copies past
+   the L2), at the INT8_TIMED shapes: the kernel by graph replay and
+   call by call, its plain version, torch._weight_int8pack_mm, the bf16
+   cuBLAS product over the dequantized weight, its bound and its plan,
+   and for M > 16 the kernel at the row tile its plan did not pick; and
+   the sum over one layer's seven projections at M = 1024
+   (``layer_m1024``).
+5. main    — writes a Llama-3.1-8B-geometry checkpoint (random bf16
    weights from a seed), starts the port's HTTP server in-process, sends
    concurrent streaming and non-streaming /v1/chat/completions requests,
    checks the responses, and checks that the main path launched the
    kernels (attention exactly once per layer of every forward). Then
    eight decoding requests run under torch.profiler: device busy time
-   against the host clock of the decode steps, and the top kernels. Twice: the bf16 model (attention kernel), then the same
-   checkpoint served with ``quantization: int8`` (both kernels),
-   quantized on the card at a cold load, then reloaded from its on-disk
-   artifact.
+   against the host clock of the decode steps, the top kernels, and
+   int8_matmul's kernels by name. Twice: the bf16 model (attention
+   kernel), then the same checkpoint served with ``quantization: int8``
+   (both kernels), quantized on the card at a cold load, then reloaded
+   from its on-disk artifact.
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -118,10 +127,13 @@ def phase_build():
             wall_s=round(time.perf_counter() - t0, 3), ptxas=report[name])
     occ = rpa.occupancy()
     log("build_occupancy", kernel=rpa.KERNEL, instances=occ)
-    spilled = [r for r in report[rpa.KERNEL] if r["spill_bytes"]]
-    if spilled:
-        raise AssertionError(f"{rpa.KERNEL} spills registers: {spilled}")
-    return report, occ
+    occ8 = int8_matmul.occupancy()
+    log("build_occupancy", kernel=int8_matmul.KERNEL, instances=occ8)
+    for name in (rpa.KERNEL, int8_matmul.KERNEL):
+        spilled = [r for r in report[name] if r["spill_bytes"]]
+        if spilled:
+            raise AssertionError(f"{name} spills registers: {spilled}")
+    return report, occ, occ8
 
 
 def ptxas_summary(text: str) -> list[dict]:
@@ -129,11 +141,15 @@ def ptxas_summary(text: str) -> list[dict]:
     import re
 
     def short(entry: str) -> str:
-        # rpa_kernel<QT, KT, DH, BM> as "q/kv/dh/bm"; other kernels whole
+        # rpa_kernel<QT, KT, DH, BM> as "q/kv/dh/bm"
         m = re.search(r"rpa_kernelI(13__nv_bfloat16|f)(S1_|a|f)Li(\d+)ELi(\d+)E",
                       entry)
         if not m:
-            return entry
+            # i8mm_<name><BM> as "i8mm_<name> bm BM"
+            m = re.search(r"(i8mm_[a-z0-9]+)(?:ILi(\d+)E)?", entry)
+            if not m:
+                return entry
+            return m.group(1) + (f" bm {m.group(2)}" if m.group(2) else "")
         q = "bf16" if m.group(1) != "f" else "f32"
         kv = {"S1_": "bf16", "a": "i8", "f": "f32"}[m.group(2)]
         return f"rpa q {q} kv {kv} dh {m.group(3)} bm {m.group(4)}"
@@ -417,7 +433,16 @@ def phase_kernels(n_slots: int, max_pages: int):
 # the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
 PROJ_8B = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336),
            "w_down": (14336, 4096)}
-INT8_M = (1, 8, 37, 128, 1024)  # decode rows up to a full mixed step
+# decode rows up to a full mixed step, with the mixed-step instance's tile
+# edges (17: its first row count; 127 / 128 / 129 and 1000: 128-row tiles)
+INT8_M = (1, 8, 17, 37, 127, 128, 129, 1000, 1024)
+# timed (projection, M): decode and mixed-step sizes, bf16 x and out
+INT8_TIMED = (("w_gate", 8), ("w_gate", 1024), ("wk", 8), ("wk", 1024),
+              ("wq", 1024), ("w_down", 1024), ("w_gate", 128),
+              ("w_gate", 512))
+# one decoder layer's seven projections by shape: wq / wo, wk / wv,
+# w_gate / w_up, w_down
+LAYER_PROJ = {"wq": 2, "wk": 2, "w_gate": 2, "w_down": 1}
 INT8_REL_TOL = 1e-4  # of the largest |output|: f32 out, and bf16 out
 # beyond one bf16 unit of each output
 L2_BYTES = 50 << 20
@@ -497,11 +522,12 @@ def _cycled(fn, sets):
 
 def phase_int8_kernels():
     """int8_matmul against its plain version at the 8B shapes, then times
-    at M = 8 and M = 1024 for w_gate and wk (bf16 x and out, as served)."""
+    at the INT8_TIMED shapes (bf16 x and out, as served) and sums one
+    layer's seven projections at M = 1024."""
     import torch
 
     from localai_tfp_tpu_torch.ops.int8_matmul import (
-        int8_matmul, int8_matmul_plain, plan,
+        _launch, int8_matmul, int8_matmul_plain, mma_plan, plan,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
@@ -521,7 +547,9 @@ def phase_int8_kernels():
                     rec = {"kernel": "int8_matmul", "proj": name, "m": m,
                            "k": k, "n": n, "x": str(x_dtype)[6:],
                            "out": str(out_dtype)[6:], "max_abs_err": err,
-                           "max_abs_want": top, "plan": plan(m, n, k, sms)}
+                           "max_abs_want": top,
+                           "plan": plan(m, n, k, sms,
+                                        x_dtype == torch.bfloat16)}
                     out = "f32out" if out_dtype == torch.float32 \
                         else "bf16out"
                     worst[f"abs_{out}"] = max(worst[f"abs_{out}"], err)
@@ -542,47 +570,65 @@ def phase_int8_kernels():
                     if not ok:
                         raise AssertionError(f"int8_matmul disagrees: {rec}")
     timings = {}
-    for name in ("w_gate", "wk"):
+    for name, m in INT8_TIMED:
         k, n = PROJ_8B[name]
         copies = max(1, -(-2 * L2_BYTES // (k * n)))
-        for m in (8, 1024):
-            sets = [_int8_operands(m, k, n, torch.bfloat16, seed=i)
-                    for i in range(copies)]
-            nbytes, flops = int8_work(m, k, n, 2, 2)
-            bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-            before = int8_matmul.launches
-            ms = _time_graph(_cycled(int8_matmul, sets), 50)
-            # the same calls launched one by one from Python, as the
-            # engine launches them today
-            eager_ms = _time_ms(_cycled(int8_matmul, sets), 50)
-            int8_matmul.launches = before  # timing is not the path
-            plain_ms = _time_graph(_cycled(int8_matmul_plain, sets), 10)
-            lib_sets = [(x, q.T.contiguous(), s.to(x.dtype))
-                        for x, q, s in sets]
-            try:
-                library_ms = _time_graph(
-                    _cycled(torch._weight_int8pack_mm, lib_sets),
-                    20 if m <= 16 else 2)
-                library_error = None
-            except (RuntimeError, NotImplementedError) as e:
-                library_ms, library_error = None, str(e).splitlines()[0][:160]
-            del lib_sets
-            bf_sets = [(x, (q.float() * s).to(torch.bfloat16))
-                       for x, q, s in sets]
-            bf16_matmul_ms = _time_graph(_cycled(torch.matmul, bf_sets), 50)
-            del bf_sets
-            key = f"{name}_m{m}"
-            timings[key] = {
-                "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                             >= flops / BF16_FLOPS else "operations"),
-                "library_ms": library_ms, "library_error": library_error,
-                "bf16_matmul_ms": bf16_matmul_ms, "bytes": nbytes,
-                "flops": flops, "m": m, "k": k, "n": n,
-                "weight_copies": copies,
-            }
-            log("kernel_time", kernel="int8_matmul", case=key, **timings[key])
+        sets = [_int8_operands(m, k, n, torch.bfloat16, seed=i)
+                for i in range(copies)]
+        nbytes, flops = int8_work(m, k, n, 2, 2)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        before = int8_matmul.launches
+        ms = _time_graph(_cycled(int8_matmul, sets), 50)
+        # the same calls launched one by one from Python, as the engine
+        # launches them today
+        eager_ms = _time_ms(_cycled(int8_matmul, sets), 50)
+        int8_matmul.launches = before  # timing is not the path
+        plain_ms = _time_graph(_cycled(int8_matmul_plain, sets), 10)
+        lib_sets = [(x, q.T.contiguous(), s.to(x.dtype)) for x, q, s in sets]
+        try:
+            library_ms = _time_graph(
+                _cycled(torch._weight_int8pack_mm, lib_sets),
+                20 if m <= 16 else 2)
+            library_error = None
+        except (RuntimeError, NotImplementedError) as e:
+            library_ms, library_error = None, str(e).splitlines()[0][:160]
+        del lib_sets
+        bf_sets = [(x, (q.float() * s).to(torch.bfloat16)) for x, q, s in sets]
+        bf16_matmul_ms = _time_graph(_cycled(torch.matmul, bf_sets), 50)
+        del bf_sets
+        other = None
+        if m > 16:  # the mixed-step instance at the row tile not picked
+            opl = mma_plan({64: 128, 128: 64}[plan(m, n, k, sms)[0]],
+                           m, n, k, sms)
+
+            def run(x, q, s, opl=opl):  # the kernel, launch not counted
+                return _launch(x, q, s, torch.bfloat16, *opl)
+
+            excess = bf16_errors(run(*sets[0]), int8_matmul_plain(
+                *sets[0], torch.bfloat16))[1]
+            if excess > INT8_REL_TOL:
+                raise AssertionError(f"{name} M{m} at plan {opl}: {excess}")
+            other = {"plan": opl, "ms": _time_graph(_cycled(run, sets), 50)}
+        del sets
+        key = f"{name}_m{m}"
+        timings[key] = {
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / BF16_FLOPS else "operations"),
+            "library_ms": library_ms, "library_error": library_error,
+            "bf16_matmul_ms": bf16_matmul_ms, "bytes": nbytes,
+            "flops": flops, "m": m, "k": k, "n": n,
+            "plan": plan(m, n, k, sms), "other_tile": other,
+            "weight_copies": copies,
+        }
+        log("kernel_time", kernel="int8_matmul", case=key, **timings[key])
+    # one decoder layer of a 1024-row mixed step: its seven projections
+    layer = {f: sum(c * timings[f"{name}_m1024"][f]
+                    for name, c in LAYER_PROJ.items())
+             for f in ("ms", "eager_ms", "bound_ms", "bf16_matmul_ms")}
+    timings["layer_m1024"] = layer
+    log("kernel_time", kernel="int8_matmul", case="layer_m1024", **layer)
     return worst, timings
 
 
@@ -971,10 +1017,13 @@ def profile_decode(eng) -> dict:
             kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    # B2's kernels by name (its instances and the split-K second pass)
+    b2 = {k[:80]: v for k, v in kernels.items() if "i8mm" in k}
     return {"decode_forwards": decode,
             "host_ms_per_decode_forward": spent[0] * 1e3 / max(1, decode),
             "device_busy_ms_total": busy,
-            "top_kernels_ms": {k[:80]: v for k, v in top}}
+            "top_kernels_ms": {k[:80]: v for k, v in top},
+            "int8_matmul_ms": b2, "int8_matmul_ms_total": sum(b2.values())}
 
 
 def serve_model(models: Path, model: str, layers: int,
@@ -1103,7 +1152,7 @@ def phase_main(layers_wanted: int, seed: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,main")
+    ap.add_argument("--phases", default="device,build,kernels,int8,main")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -1111,11 +1160,12 @@ def main() -> int:
     phases = set(args.phases.split(","))
     require_package()
     dev, smi = phase_device()
-    build = occupancy = None
+    build = occupancy = occ8 = None
     if "build" in phases:
-        build, occupancy = phase_build()
+        build, occupancy, occ8 = phase_build()
     entries = []
-    if "kernels" in phases:  # correctness first, then times at 8B shapes
+    # each kernel: correctness first, then times at 8B shapes
+    if "kernels" in phases:
         worst, timings = phase_kernels(n_slots=SLOTS,
                                        max_pages=CONTEXT // PAGE)
         t = timings["decode"]
@@ -1145,8 +1195,11 @@ def main() -> int:
                 spill_bytes=sum(r["spill_bytes"] for r in rows),
                 blocks_per_sm={f"{o['q']}/{o['kv']}/dh{o['dh']}/bm{o['bm']}":
                                o["blocks_per_sm"] for o in occupancy})
+    if "int8" in phases:
         worst8, t8 = phase_int8_kernels()
         t = t8["w_gate_m8"]
+        cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "bf16_matmul_ms", "eager_ms", "plan", "other_tile")
         entries.append({
             "name": "int8_matmul", "route": "cuda",
             "source": "localai_tfp_tpu_torch/csrc/int8_matmul.cu",
@@ -1159,14 +1212,21 @@ def main() -> int:
             "max_rel_err_beyond_1ulp_bf16out": worst8["excess_bf16out"],
             "tol": f"f32 out {INT8_REL_TOL} x max|want|; bf16 out 1 ulp "
                    f"+ {INT8_REL_TOL} x max|want|",
-            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "bf16_matmul_ms", "eager_ms")},
-            "shape": "w_gate_m8",
-            **{case: {k: t8[case][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "bf16_matmul_ms", "eager_ms")}
-               for case in ("w_gate_m1024", "wk_m8", "wk_m1024")},
+            **{k: t[k] for k in cols}, "shape": "w_gate_m8",
+            "timing": "cold: operand copies past the L2; ms by CUDA-graph "
+                      "replay, eager_ms call by call",
+            **{f"{name}_m{m}": {k: t8[f"{name}_m{m}"][k] for k in cols}
+               for name, m in INT8_TIMED[1:]},
+            "layer_m1024": t8["layer_m1024"],
         })
+        if build is not None:
+            rows = build["int8_matmul"]
+            entries[-1].update(
+                registers={r["entry"]: r["registers"] for r in rows},
+                spill_bytes=sum(r["spill_bytes"] for r in rows),
+                blocks_per_sm={o["instance"]: o["blocks_per_sm"]
+                               for o in occ8},
+                smem_bytes={o["instance"]: o["smem_bytes"] for o in occ8})
     if "main" in phases:
         res = phase_main(args.layers, args.seed)
         # each kernel's count on its own path, read just after that path

@@ -45,23 +45,42 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return ((x.float() @ q.float()) * scale).to(out_dtype)
 
 
-def plan(m: int, n: int, k: int, sms: int) -> tuple[int, int, int]:
-    """(rows per block, K splits, K elements per split). Decode-sized M
-    takes 16-row tiles; K splits until the grid has about four blocks per
-    SM (blocks are short, several reside on each SM), in whole 64-element
-    steps, every split non-empty."""
-    bm = 16 if m <= 16 else 64
-    tiles = -(-m // bm) * (n // TILE_N)
+def plan(m: int, n: int, k: int, sms: int,
+         bf16_x: bool = True) -> tuple[int, int, int]:
+    """(rows per block, K splits, K elements per split), from static shapes
+    only. Decode-sized M (<= 16) and f32 x keep their tiles (16 rows, else
+    64) and split K until the grid has about four blocks per SM: their
+    blocks are short and several reside on each SM. bf16 x with M > 16
+    takes the mixed-step instance: 64-row tiles for M <= 64, else 128-row
+    tiles (on the card these beat 64-row tiles even where they leave SMs
+    idle; chip_smoke.py times both)."""
+    if m <= 16 or not bf16_x:
+        bm = 16 if m <= 16 else 64
+        return (bm, *split_k(k, -(-4 * sms // (-(-m // bm) * (n // TILE_N)))))
+    return mma_plan(64 if m <= 64 else 128, m, n, k, sms)
+
+
+def mma_plan(bm: int, m: int, n: int, k: int,
+             sms: int) -> tuple[int, int, int]:
+    """The mixed-step instance's plan at ``bm`` rows: K splits only where
+    the tiles leave more than half the SMs idle, into as many splits as
+    give each SM one block."""
+    return (bm, *split_k(k, sms // (-(-m // bm) * (n // TILE_N))))
+
+
+def split_k(k: int, want: int) -> tuple[int, int]:
+    """(splits, K elements per split): about ``want`` splits (at least one)
+    of whole 64-element steps, every split non-empty."""
     steps = k // TILE_K
-    want = max(1, min(steps, -(-4 * sms // tiles)))
-    per = -(-steps // want)
-    return bm, -(-steps // per), per * TILE_K
+    per = -(-steps // max(1, min(steps, want)))
+    return -(-steps // per), per * TILE_K
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_on(index: int, m: int, n: int, k: int) -> tuple[int, int, int]:
+def _plan_on(index: int, m: int, n: int, k: int,
+             bf16_x: bool) -> tuple[int, int, int]:
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return plan(m, n, k, sms)
+    return plan(m, n, k, sms, bf16_x)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -70,8 +89,27 @@ def _declare(lib: ctypes.CDLL) -> None:
     # 2 dtype codes, the stream
     lib.i8mm_forward.argtypes = [p] * 5 + [i] * 8 + [p]
     lib.i8mm_forward.restype = i
+    lib.i8mm_occupancy.argtypes = [i, ctypes.POINTER(i)]
+    lib.i8mm_occupancy.restype = i
     lib.i8mm_error_string.argtypes = [i]
     lib.i8mm_error_string.restype = ctypes.c_char_p
+
+
+def occupancy() -> list[dict]:
+    """Dynamic shared memory and resident blocks per SM of the mixed-step
+    instance at each row tile, on the current card (the build report's
+    numbers)."""
+    lib = _build.load(KERNEL, _declare)
+    rows = []
+    for bm in (64, 128):
+        occ = (ctypes.c_int * 2)()
+        rc = lib.i8mm_occupancy(bm, occ)
+        if rc != 0:
+            raise RuntimeError(
+                f"i8mm_occupancy: {lib.i8mm_error_string(rc).decode()}")
+        rows.append({"instance": f"i8mm_mma bm {bm}", "smem_bytes": occ[0],
+                     "blocks_per_sm": occ[1]})
+    return rows
 
 
 def _why_not(x, q, scale, out_dtype) -> str:
@@ -99,6 +137,28 @@ def _why_not(x, q, scale, out_dtype) -> str:
     return "x and q must be 16-byte aligned"
 
 
+def _launch(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+            out_dtype: torch.dtype, bm: int, splits: int,
+            k_split: int) -> torch.Tensor:
+    """The kernel call at a given plan, on operands the wrapper checked;
+    raises if a launch is refused. Counts nothing."""
+    (M, K), N = x.shape, q.shape[1]
+    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
+    lib = _build.load(KERNEL, _declare)
+    rc = lib.i8mm_forward(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, N, K, bm, splits, k_split,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            "int8_matmul kernel launch failed: "
+            f"{lib.i8mm_error_string(rc).decode()} (cudaError {rc})")
+    return y
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x [M, K] @ q [K, N] int8, times scale [N] f32 -> [M, N] out_dtype
@@ -121,21 +181,9 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
           and x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
     if not ok:
         raise ValueError(f"int8_matmul: {_why_not(x, q, scale, out_dtype)}")
-    (M, K), N = x.shape, q.shape[1]
-    bm, splits, k_split = _plan_on(x.device.index, M, N, K)
-    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
-    lib = _build.load(KERNEL, _declare)
-    rc = lib.i8mm_forward(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), M, N, K, bm, splits, k_split,
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            "int8_matmul kernel launch failed: "
-            f"{lib.i8mm_error_string(rc).decode()} (cudaError {rc})")
+    y = _launch(x, q, scale, out_dtype,
+                *_plan_on(x.device.index, x.shape[0], q.shape[1], x.shape[1],
+                          x.dtype == torch.bfloat16))
     int8_matmul.launches += 1
     return y
 

@@ -23,7 +23,7 @@ from localai_tfp_tpu_torch.models import transformer as tt
 from localai_tfp_tpu_torch.models import quant as tq
 from localai_tfp_tpu_torch.models.llm_spec import tiny_spec
 from localai_tfp_tpu_torch.ops.int8_matmul import (
-    int8_matmul, int8_matmul_plain,
+    int8_matmul, int8_matmul_plain, plan,
 )
 from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
     ragged_attention_plain, ragged_paged_attention,
@@ -433,6 +433,91 @@ def test_int8_kernel_matches_plain_on_card(cuda_device, m, x_dtype,
         assert err <= 1e-4 * float(want.abs().max())
     else:
         assert _bf16_excess(got, want) <= 1e-4
+
+
+def _int8_operands_on_card(m, k, n, device, seed):
+    """bf16 x, int8 weights over the whole range and positive scales,
+    made on the card from a seed (the 8B shapes are large for the CPU)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randint(-128, 128, (k, n), generator=g, device=device,
+                      dtype=torch.int8)
+    scale = torch.rand((n,), generator=g, device=device) * 2e-3 + 1e-4
+    x = torch.randn((m, k), generator=g, device=device).bfloat16()
+    return x, q, scale
+
+
+def _mma_plan(x, q):
+    (m, k), n = x.shape, q.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return plan(m, n, k, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32out", "bf16out"])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 14336), (14336, 4096)],
+                         ids=["n1024", "n14336", "k14336"])
+@pytest.mark.parametrize("m", [17, 64, 65, 127, 128, 129, 1000, 1024])
+def test_int8_mma_instance_matches_plain_on_card(cuda_device, m, k, n,
+                                                 out_dtype):
+    """The mixed-step instance (bf16 x, M > 16) at its tile edges (64 and
+    128 rows), with split K (N 1024), wide N and long K, under the
+    tolerance of test_int8_kernel_matches_plain_on_card. One call is one
+    counted launch."""
+    x, q, s = _int8_operands_on_card(m, k, n, cuda_device, seed=m + k + n)
+    assert _mma_plan(x, q)[0] in (64, 128)
+    before = int8_matmul.launches
+    got = int8_matmul(x, q, s, out_dtype)
+    want = int8_matmul_plain(x, q, s, out_dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    if out_dtype == torch.float32:
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max())
+    else:
+        assert _bf16_excess(got, want) <= 1e-4
+
+
+# (m, k, n) at 132 SMs: 128-row tiles; 64-row tiles; 128-row tiles with K
+# split 2 ways; 64-row tiles with K split 16 ways
+MMA_PLANS = [(1000, 4096, 14336), (64, 4096, 14336), (1024, 4096, 1024),
+             (37, 4096, 1024)]
+MMA_IDS = ["bm128", "bm64", "bm128_split", "bm64_split"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MMA_PLANS, ids=MMA_IDS)
+def test_int8_mma_instance_is_bitwise_repeatable(cuda_device, m, k, n):
+    x, q, s = _int8_operands_on_card(m, k, n, cuda_device, seed=7)
+    a = int8_matmul(x, q, s)
+    b = int8_matmul(x, q, s)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MMA_PLANS, ids=MMA_IDS)
+def test_int8_mma_instance_captures_in_a_cuda_graph(cuda_device, m, k, n):
+    """A call captured in a CUDA graph and replayed on new operands copied
+    into the captured ones equals an eager call on those operands; the
+    counter rises once per wrapper call, not per replay."""
+    ops = _int8_operands_on_card(m, k, n, cuda_device, seed=1)
+    new = _int8_operands_on_card(m, k, n, cuda_device, seed=2)
+    int8_matmul(*ops)  # build and set the shared memory size eagerly
+    torch.cuda.synchronize()
+    before = int8_matmul.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int8_matmul(*ops)
+    assert int8_matmul.launches == before + 1
+    for t, v in zip(ops, new):
+        t.copy_(v)
+    graph.replay()
+    want = int8_matmul(*new)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert int8_matmul.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ against the JAX package's Pallas kernel, on the CPU.
   launch counted), refuses any other non-CUDA device instead of falling
   back, and keeps the JAX package's eligibility rule.
 - The launch plan (``plan``) covers K exactly with non-empty splits at
-  every projection shape of the 8B path.
+  every projection shape of the 8B path, picks the mixed-step
+  instance's 64- or 128-row tile from static shapes, and keeps the
+  decode and f32-x plans.
 """
 
 import jax.numpy as jnp
@@ -91,15 +93,77 @@ SHAPES_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
 @pytest.mark.parametrize("m", [1, 8, 37, 128, 1024])
 @pytest.mark.parametrize("k,n", SHAPES_8B)
 def test_plan_covers_k_with_nonempty_splits(m, k, n):
-    bm, splits, k_split = tmm.plan(m, n, k, sms=132)
-    assert bm == (16 if m <= 16 else 64)
+    """bf16 x, as served: tiles cover M and N, splits cover K with none
+    empty, M <= 16 keeps the 16-row decode plan (about four blocks per
+    SM), and the mixed-step instance's grid gives more than half the SMs
+    a block, splitting K only where its tiles alone would not, and then
+    no further than one block per SM."""
+    sms = 132
+    bm, splits, k_split = tmm.plan(m, n, k, sms)
     assert k_split % tmm.TILE_K == 0 and splits >= 1
     assert (splits - 1) * k_split < k <= splits * k_split
     tiles = -(-m // bm) * (n // tmm.TILE_N)
-    if tiles >= 4 * 132:  # the output tiles alone fill the card
-        assert splits == 1
-    else:  # K splits until every SM has a block
-        assert splits > 1 and tiles * splits >= 132
+    assert tiles * bm >= m * (n // tmm.TILE_N)
+    if m <= 16:
+        assert bm == 16
+        if tiles >= 4 * sms:  # the output tiles alone fill the card
+            assert splits == 1
+        else:  # K splits until every SM has a block
+            assert splits > 1 and tiles * splits >= sms
+    else:
+        assert bm == (64 if m <= 64 else 128)
+        assert tiles * splits * 2 > sms
+        assert (splits > 1) == (tiles <= sms // 2)
+        if splits > 1:
+            assert tiles * splits <= sms
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (17, 4096, 14336, (64, 1, 4096)),     # M <= 64: 64-row tiles
+    (64, 4096, 4096, (64, 4, 1024)),      # 32 tiles: K splits 4 ways
+    (37, 4096, 1024, (64, 16, 256)),      # 8 tiles: 16 splits
+    (65, 4096, 14336, (128, 1, 4096)),    # M > 64: 128-row tiles
+    (128, 4096, 14336, (128, 1, 4096)),   # 112 tiles: most SMs busy
+    (128, 4096, 4096, (128, 4, 1024)),
+    (128, 4096, 1024, (128, 16, 256)),
+    (512, 4096, 14336, (128, 1, 4096)),
+    (800, 14336, 4096, (128, 1, 14336)),  # the 8 x 100-token mixed step
+    (800, 4096, 1024, (128, 2, 2048)),
+    (1024, 4096, 14336, (128, 1, 4096)),  # 896 tiles
+    (1024, 4096, 1024, (128, 2, 2048)),   # 64 tiles: K splits 2 ways
+], ids=lambda v: str(v) if not isinstance(v, tuple) else "x".join(map(str, v)))
+def test_plan_picks_the_mixed_step_tile(m, k, n, want):
+    assert tmm.plan(m, n, k, sms=132) == want
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("m", [17, 128, 1024])
+@pytest.mark.parametrize("k,n", SHAPES_8B)
+def test_mma_plan_at_either_row_tile_covers_k(bm, m, k, n):
+    """The plan at the row tile the rule did not pick (timed beside the
+    chosen one on the card) is a valid launch too."""
+    got_bm, splits, k_split = tmm.mma_plan(bm, m, n, k, sms=132)
+    assert got_bm == bm and k_split % tmm.TILE_K == 0
+    assert (splits - 1) * k_split < k <= splits * k_split
+    assert -(-m // bm) * (n // tmm.TILE_N) * splits <= max(
+        132, -(-m // bm) * (n // tmm.TILE_N))
+
+
+@pytest.mark.parametrize("k,want,splits", [(4096, 2, 2), (4096, 0, 1),
+                                           (4096, 500, 64), (14336, 3, 3),
+                                           (4096, 3, 3), (832, 5, 5)])
+def test_split_k_covers_k_with_whole_nonempty_steps(k, want, splits):
+    got, k_split = tmm.split_k(k, want)
+    assert got == splits and k_split % tmm.TILE_K == 0
+    assert (got - 1) * k_split < k <= got * k_split
+
+
+@pytest.mark.parametrize("m,want", [(8, (16, 64, 64)), (37, (64, 64, 64)),
+                                    (1024, (64, 5, 832))])
+def test_plan_keeps_the_f32_x_tiles(m, want):
+    """f32 x keeps 16- / 64-row tiles and splits K toward four blocks per
+    SM (the f32 kernel has no 128-row instance)."""
+    assert tmm.plan(m, 1024, 4096, sms=132, bf16_x=False) == want
 
 
 def _why(**over):
