@@ -20,8 +20,9 @@ Phases, one result line each; any failure raises and exits non-zero:
    decode; then the main path's shapes (8 slots, context 2048): a seeded
    decode step, one with every row near the context's end, a windowed
    one, a mixed step, and a mixed step with a 512-token chunk near the
-   context's end; every comparison within 1e-4 absolute, and every call
-   repeated bitwise. Its times are cold: each timed call reads another
+   context's end, and prefix sharing's aliased page tables (rows 1-5
+   reading row 0's first 4 physical pages); every comparison within 1e-4
+   absolute, and every call repeated bitwise. Its times are cold: each timed call reads another
    layer of a 4-layer arena, so a layer's K/V has left the L2 when its
    turn comes round. Then its time, its plain version's, SDPA's, and
    its bound.
@@ -48,6 +49,18 @@ Phases, one result line each; any failure raises and exits non-zero:
    kernel), then the same checkpoint served with ``quantization: int8``
    (both kernels), quantized on the card at a cold load, then reloaded
    from its on-disk artifact.
+6. engine  — on each model's server after phase 5: prefix sharing, six
+   greedy requests behind one 1100-token system prompt (one alone, then
+   five at once) on a fresh engine with sharing on and again with it off
+   (prompt tokens computed, tokens reused, tail-page copies, the wave's
+   TTFT, the page pool after it and leak_check, the kernels' launches);
+   the greedy ids of on and off must agree except where the off run's
+   top-2 logit gap at the first divergent step is below 1e-3. Then a
+   raw GBNF grammar, response_format json_schema, one tool and a
+   logit_bias ban, every output accepted by the port's grammar matcher,
+   with the host ms of masked decode forwards beside unmasked ones; then
+   a 1e-6 s timeout (504) and a deadline that expires mid-decode (200,
+   finish_reason deadline_exceeded, partial text).
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -180,7 +193,10 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
     mixed step at its fullest: a 512-token prefill chunk (the engine's
     chunk at 8 slots) beside decode, verify and shorter chunk rows, every
     row ending within 64 tokens of the context's end; ``decode_long``
-    a decode step whose every row ends within 160 tokens of it. ``L``
+    a decode step whose every row ends within 160 tokens of it;
+    ``aliased`` prefix sharing's tables: rows 1-5 alias row 0's first 4
+    physical pages (a 1024-token shared prefix) and then read their own
+    pages, as decode rows and suffix prefill chunks past the prefix. ``L``
     layers of arena; the call reads layer 1, or ``layer`` as cycled by
     the timing."""
     import numpy as np
@@ -199,6 +215,9 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
     elif mix == "chunk512":
         q_lens = np.resize(np.asarray([512, 1, 1, 7, kd, 64, 1, 300],
                                       np.int32), B)
+    elif mix == "aliased":
+        q_lens = np.resize(np.asarray([1, 40, 1, 23, 60, 1, 1, 128],
+                                      np.int32), B)
     else:  # decode rows + chunks + one verify row together
         q_lens = np.resize(np.asarray([1, 1, 7, 256, kd, 64], np.int32), B)
     T = int(q_lens.max())
@@ -210,6 +229,10 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
     n_pages = B * max_pages + 1
     pt = rng.permutation(np.arange(1, n_pages)).reshape(
         B, max_pages).astype(np.int32)
+    if mix == "aliased":  # every row past the 1024-token shared prefix
+        pos0 = np.resize(np.asarray([1500, 1100, 1180, 1076, 1090, 1300,
+                                     700, 0], np.int32), B)
+        pt[1:6, :4] = pt[0, :4]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     F = HKV * DH
@@ -355,14 +378,15 @@ def phase_kernels(n_slots: int, max_pages: int):
                 ("decode", True, None), ("decode_long", True, None),
                 ("decode", True, 300), ("mixed", False, None),
                 ("mixed", False, 300),
-                ("chunk512", False, None))]
+                ("chunk512", False, None), ("aliased", False, None))]
     worst = {"bf16": 0.0, "int8": 0.0}
+    aliased = {}  # the aliased-table case's error by page type
     timed = {}  # the full-shape bf16 cases, timed below
     for mix, seeded, B, pages, window in small + full:
         for quant in (False, True):
             seed = len(mix) + 10 * quant + 100 * seeded + B
             is_timed = (B == n_slots and window is None and not quant
-                        and mix != "decode_long")
+                        and mix not in ("decode_long", "aliased"))
             c = make_case(mix, quant, seeded, B=B, max_pages=pages,
                           seed=seed, window=window,
                           L=ATTN_LAYERS if is_timed else 2)
@@ -376,6 +400,8 @@ def phase_kernels(n_slots: int, max_pages: int):
             repeat = bool(torch.equal(got, again))
             kind = "int8" if quant else "bf16"
             worst[kind] = max(worst[kind], err)
+            if mix == "aliased":
+                aliased[kind] = err
             log("kernel_check", kernel="ragged_paged_attention", mix=mix,
                 pages=kind, seeded=seeded, window=window, rows=B,
                 max_pages=pages, q_lens=c["q_lens"].tolist(),
@@ -427,7 +453,7 @@ def phase_kernels(n_slots: int, max_pages: int):
         }
         log("kernel_time", kernel="ragged_paged_attention", mix=mix,
             seeded=seeded, **timings[mix])
-    return worst, timings
+    return worst, timings, aliased
 
 
 # the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
@@ -846,7 +872,24 @@ def reference_check(backend, layers: int) -> dict:
         eng._finish = orig
     if ev.error:
         raise AssertionError(f"reference request failed: {ev.error}")
-    ids = got["ids"]
+    ref = dense_deficits(eng, prompt, got["ids"])
+    if not ref["worst_logit_deficit"] <= ref["tol"]:
+        raise AssertionError(
+            f"served greedy tokens are not the dense reference's argmax: "
+            f"{ref}")
+    return ref
+
+
+def dense_deficits(eng, prompt: list, ids: list) -> dict:
+    """How far each served greedy token ``ids`` falls below the argmax of
+    the plain dense forward (``_attend``) over prompt + ids: the worst
+    logit deficit against a tolerance of a quarter of the logits' std
+    (bf16 rounding moves logits by a few hundredths; a wrong key or
+    value moves them by whole units). inf when a logit is not finite."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.transformer import KVCache, forward
+
     seq = prompt + ids[:-1]
     dev = eng.device
     cache = KVCache.create(eng.spec, 1, len(seq), torch.bfloat16, device=dev)
@@ -858,15 +901,12 @@ def reference_check(backend, layers: int) -> dict:
     rows = logits[0, len(prompt) - 1:].float()  # one row per generated token
     tok = torch.tensor(ids, device=dev)
     deficit = rows.max(-1).values - rows.gather(-1, tok[:, None])[:, 0]
-    tol = 0.25 * float(rows.std())
-    worst = float(deficit.max())
-    exact = int((rows.argmax(-1) == tok).sum())
-    if not worst <= tol or not torch.isfinite(rows).all():
-        raise AssertionError(
-            f"served greedy tokens are not the dense reference's argmax: "
-            f"worst logit deficit {worst} > tol {tol}")
-    return {"tokens": len(ids), "exact_argmax": exact,
-            "worst_logit_deficit": worst, "tol": tol}
+    finite = bool(torch.isfinite(rows).all())
+    return {"tokens": len(ids), "exact_argmax": int(
+                (rows.argmax(-1) == tok).sum()),
+            "worst_logit_deficit": float(deficit.max()) if finite
+            else float("inf"),
+            "tol": 0.25 * float(rows.std())}
 
 
 def param_bytes(params: dict) -> int:
@@ -1026,11 +1066,550 @@ def profile_decode(eng) -> dict:
             "int8_matmul_ms": b2, "int8_matmul_ms_total": sum(b2.values())}
 
 
-def serve_model(models: Path, model: str, layers: int,
-                quantized: bool) -> dict:
+# ------------------------------------------------------------ phase 6
+
+SHARED_PREFIX = 1100  # tokens: 4 full 256-token pages and a 76-token tail
+NEAR_TIE = 1e-3  # top-2 logit gap below which greedy ids may differ
+# largest first-step logit difference (max over the vocabulary) allowed
+# between a request served in two waves: on the H100 a row's bf16 logits
+# move by up to 0.0925 with the rows it is batched with, and a planted
+# sharing fault moved them by 0.333 or more (PERF.md, PR 7)
+FIRST_STEP_LIMIT = 0.2
+# sharing faults planted on one engine instance to show that the on/off
+# comparison fails them: the tail page left as the pool handed it, or
+# filled from the donor's first page instead of its tail page
+FAULTS = ("skip_tail_copy", "wrong_tail_page")
+YES_NO = 'root ::= "yes" | "no"'
+PERSON = {"type": "object", "properties": {"name": {"type": "string"},
+                                           "age": {"type": "integer"}},
+          "required": ["name", "age"]}
+TOOL = {"name": "set_unit", "description": "Set the temperature unit.",
+        "parameters": {"type": "object",
+                       "properties": {"unit": {"enum": ["c", "f"]}},
+                       "required": ["unit"]}}
+
+
+def _post(port: int, body: dict, headers: dict | None = None,
+          timeout: float = 600.0) -> tuple[int, str]:
+    """(status, body text) of a chat request; error statuses returned."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prefix_prompts(seed: int) -> tuple[str, list[str]]:
+    """A system prompt whose chat-templated prefix (BOS, "system: ", the
+    text, "\nuser: ") is SHARED_PREFIX byte tokens, and six user messages
+    of 20-60 tokens that differ from their first character."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ("page", "arena", "kernel", "prefix", "share", "tile", "token",
+             "slot", "decode", "ring", "warp", "card", "queue", "grammar")
+    text = ""
+    while len(text) < SHARED_PREFIX - 16:
+        text += str(rng.choice(words)) + " "
+    system = text[:SHARED_PREFIX - 16]
+    users = []
+    for i, lead in enumerate("ABCDEF"):
+        n = int(rng.integers(20, 61))
+        u = f"{lead}{i} "
+        while len(u) < n:
+            u += str(rng.choice(words)) + " "
+        users.append(u[:n])
+    return system, users
+
+
+class EngineSpy:
+    """On one engine: each request's generated ids and text at finish (by
+    prompt), the per-step top-2 logit gap of every sampled row (``gaps``:
+    kept on the card and read after the run), and the host seconds of
+    decode steps, split by whether a sampling mask was built."""
+
+    def __init__(self, eng, gaps: bool = False):
+        import torch
+
+        self.eng = eng
+        self.done = {}
+        self.gap_rows = []
+        self.first_logits = {}  # request id -> its first step's logits
+        self.decode = {"masked": [0, 0.0, 0.0], "plain": [0, 0.0, 0]}
+        fin, sample = eng._finish, eng._sample
+        step, mask = eng._decode_step, eng._step_mask
+        last_mask = [0.0, False]
+
+        def finish(slot, reason):
+            if slot.request is not None:
+                req = slot.request
+                self.done[tuple(req.prompt_ids)] = {
+                    "id": req.id, "ids": list(slot.generated),
+                    "text": slot.decoder.text if slot.decoder else "",
+                    "reason": reason,
+                    "ttft_ms": ((slot.t_first - req.t_submit) * 1e3
+                                if slot.t_first else None)}
+            return fin(slot, reason)
+
+        def sample_(rows, logits, m=None):
+            if gaps:
+                top = torch.topk(logits.float(), 2, dim=-1).values
+                self.gap_rows.append(([s.request.id for s in rows],
+                                      top[:, 0] - top[:, 1]))
+                for i, s in enumerate(rows):
+                    if not s.generated:
+                        self.first_logits[s.request.id] = logits[i].float()
+            return sample(rows, logits, m)
+
+        def mask_(rows):
+            t0 = time.perf_counter()
+            out = mask(rows)
+            last_mask[0] = time.perf_counter() - t0
+            last_mask[1] = out is not None
+            return out
+
+        def step_(decoding):
+            f0 = eng.metrics.decode_steps
+            t0 = time.perf_counter()
+            step(decoding)
+            dt = time.perf_counter() - t0
+            kind = "masked" if last_mask[1] else "plain"
+            d = self.decode[kind]
+            d[0] += eng.metrics.decode_steps - f0
+            d[1] += dt
+            if kind == "masked":
+                d[2] += last_mask[0]
+            last_mask[1] = False
+
+        eng._finish, eng._sample = finish, sample_
+        eng._decode_step, eng._step_mask = step_, mask_
+
+    def gaps(self) -> dict:
+        """request id -> top-2 logit gap of each sampled step, in order."""
+        out: dict = {}
+        for rids, g in self.gap_rows:
+            for rid, v in zip(rids, g.tolist()):
+                out.setdefault(rid, []).append(v)
+        return out
+
+    def step_ms(self) -> dict:
+        (nm, tm, mm), (np_, tp, _) = (self.decode["masked"],
+                                      self.decode["plain"])
+        return {"masked_forwards": nm,
+                "masked_host_ms_per_forward": tm * 1e3 / max(1, nm),
+                "mask_build_copy_ms_per_forward": mm * 1e3 / max(1, nm),
+                "plain_forwards": np_,
+                "plain_host_ms_per_forward": tp * 1e3 / max(1, np_)}
+
+
+def plant_fault(eng, kind: str) -> None:
+    """Break the engine's page copies on this instance only (a planted
+    fault; the engine's code is untouched)."""
+    copy = eng._kv_copy
+
+    def skip_tail_copy(src, dst):
+        pass
+
+    def wrong_tail_page(src, dst):
+        for s in eng.slots:
+            t = eng._pool.table(s.idx)
+            if src in t:
+                return copy(t[0], dst)
+        raise AssertionError(f"page {src} is in no slot's table")
+
+    eng._kv_copy = {"skip_tail_copy": skip_tail_copy,
+                    "wrong_tail_page": wrong_tail_page}[kind]
+
+
+def shared_kv(eng, prompts: list, n: int) -> dict:
+    """After a wave with sharing on: each sharer's K/V rows (and int8
+    scales) over the first ``n`` positions, read through its own page
+    table, must equal bitwise those of the slot that served prompts[0]
+    (its full pages are that slot's by reference, the tail page a copy)."""
+    import torch
+
+    slots = [next(s for s in eng.slots if s.cache_tokens[:len(p)] == p)
+             for p in prompts]
+
+    def rows(s):
+        pages = eng._pool.table(s.idx)[:-(-n // eng.page)]
+        return [t[:, pages].flatten(1, 2)[:, :n] for t in (
+            eng.cache.k, eng.cache.v, eng.cache.k_scale, eng.cache.v_scale)
+            if t is not None]
+
+    want = rows(slots[0])
+    equal = [all(torch.equal(a, b) for a, b in zip(rows(s), want))
+             for s in slots[1:]]
+    return {"positions": n, "sharers": len(equal),
+            "bitwise_equal": sum(equal)}
+
+
+def fresh_engine(backend, prefix_cache: bool):
+    """Swap a new engine (same model, settings and weights; empty arena and
+    slots) into the worker, with prefix sharing on or off."""
+    import gc
+
+    import torch
+
+    from localai_tfp_tpu_torch.engine.engine import LLMEngine
+
+    old = backend.engine
+    kw = dict(n_slots=old.n_slots, max_seq=old.max_seq,
+              cache_dtype=old.cache.k.dtype, device=old.device)
+    spec, params, tok = old.spec, old.params, old.tokenizer
+    old.close()
+    backend.engine = None
+    del old
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["LOCALAI_PREFIX_CACHE"] = "on" if prefix_cache else "off"
+    try:
+        backend.engine = LLMEngine(spec, params, tok, **kw)
+    finally:
+        os.environ.pop("LOCALAI_PREFIX_CACHE", None)
+    return backend.engine
+
+
+def prefix_wave(port: int, app, model: str, backend, prefix_cache: bool,
+                seed: int, layers: int, first_alone: bool = True,
+                fault: str | None = None) -> dict:
+    """Six greedy requests sharing the system prompt: one alone, then five
+    at once (else all six at once), on a fresh engine (with ``fault``
+    planted); counts, the wave's TTFT, the pool after it (leak_check), and
+    the kernels' launches in the run."""
+    import threading
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    eng = fresh_engine(backend, prefix_cache)
+    if fault is not None:
+        plant_fault(eng, fault)
+    spy = EngineSpy(eng, gaps=True)
+    system, users = prefix_prompts(seed)
+    bodies = [{"model": model, "max_tokens": 16, "temperature": 0.0,
+               "messages": [{"role": "system", "content": system},
+                            {"role": "user", "content": u}]}
+              for u in users]
+    usage: dict = {}
+    errors: list = []
+
+    def send(i):
+        status, text = _post(port, bodies[i])
+        if status != 200:
+            errors.append(f"request {i}: HTTP {status} {text[:200]}")
+            return
+        usage[i] = json.loads(text)["usage"]
+
+    m0 = dict(vars(eng.metrics))
+    ragged_paged_attention.launches = 0
+    int8_matmul.launches = 0
+    if first_alone:
+        send(0)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(1 if first_alone else 0, 6)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = {"ragged_paged_attention": ragged_paged_attention.launches,
+                "int8_matmul": int8_matmul.launches}
+    if errors or len(usage) != 6:
+        raise AssertionError(f"prefix wave failed: {errors}")
+    m = {k: v - m0[k] for k, v in vars(eng.metrics).items()}
+    steps = m["forward_steps"]
+    on_card = eng.device.type == "cuda"  # (a CPU dry run launches none)
+    if on_card and launches["ragged_paged_attention"] != layers * steps:
+        raise AssertionError(
+            f"prefix wave: ragged_paged_attention launched "
+            f"{launches['ragged_paged_attention']} times for {steps} "
+            f"forwards of {layers} layers")
+    deadline = time.time() + 30
+    while any(s.active for s in eng.slots) and time.time() < deadline:
+        time.sleep(0.01)
+    eng.leak_check()
+    st = eng._pool.stats()
+    prompts = [backend.tokenizer.encode(srv_prompt(app, b), add_bos=True)
+               for b in bodies]
+    shared = min(_common(prompts[0], p) for p in prompts[1:])
+    # submit to first token on the engine's host clock
+    ttft = [spy.done[tuple(p)]["ttft_ms"] for p in prompts[1:]]
+    return {
+        "prefix_cache": prefix_cache, "first_alone": first_alone,
+        "fault": fault,
+        "prompt_tokens": [len(p) for p in prompts],
+        "shared_prefix_tokens": shared,
+        "shared_kv": shared_kv(eng, prompts, shared) if prefix_cache
+        else None,
+        "prompt_tokens_processed": m["prompt_tokens_processed"],
+        "prefill_tokens": m["prefill_tokens"],
+        "prefix_reused_tokens": m["prefix_reused_tokens"],
+        "prefix_copies": m["prefix_copies"],
+        "forward_steps": steps, "launches": launches,
+        "wave_ttft_ms": {"mean": sum(ttft) / len(ttft), "max": max(ttft),
+                         "each": ttft},
+        "first_ttft_ms": spy.done[tuple(prompts[0])]["ttft_ms"],
+        "wave_wall_s": wall,
+        "pool": {"free": st.free, "in_use": st.in_use, "shared": st.shared,
+                 "refs": st.refs, "total": st.total, "leak_check": "ok"},
+        "worker_prefix_cache": backend.engine_stats()["prefix_cache"],
+        "_done": {p: spy.done[tuple(p)] for p in map(tuple, prompts)},
+        "_gaps": spy.gaps(), "_first": spy.first_logits,
+    }
+
+
+def srv_prompt(app, body: dict) -> str:
+    """The chat-templated prompt the server builds for ``body``."""
+    tools = [t["function"] for t in body.get("tools") or []]
+    return app.evaluator.template_messages(
+        app.configs[body["model"]], body["messages"],
+        functions=tools or None, use_function_template=bool(tools))
+
+
+def _common(a, b) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def compare_waves(got: dict, want: dict, eng, what: str) -> dict:
+    """Greedy ids and first-step logits of two waves over the same
+    prompts. A divergence is a near tie where ``want``'s top-2 logit gap
+    at the first divergent step is below NEAR_TIE. Any other divergence
+    must leave both sequences the argmax of the plain dense forward
+    within the main phase's tolerance (``dense_deficits``): the step's
+    batch differs between the runs, and on the card that alone moves
+    bf16 logits by a few hundredths (the engine phase measures it with
+    sharing off on both sides). Every request's first-step logits must
+    agree within FIRST_STEP_LIMIT, which a wrong shared or copied page
+    exceeds. ``faults`` lists the requests that fail."""
+    same, exempt, batch, bad, first = 0, [], [], [], []
+    for prompt, g in got["_done"].items():
+        w = want["_done"][prompt]
+        a, b = got["_first"][g["id"]], want["_first"][w["id"]]
+        first.append(float((a - b).abs().max()))
+        if first[-1] > FIRST_STEP_LIMIT:
+            bad.append({"prompt_tokens": len(prompt),
+                        "first_step_logits_max_abs_diff": first[-1],
+                        "limit": FIRST_STEP_LIMIT})
+        if g["ids"] == w["ids"]:
+            same += 1
+            continue
+        j = _common(g["ids"], w["ids"])
+        gaps = want["_gaps"].get(w["id"], [])
+        row = {"prompt_tokens": len(prompt), "step": j,
+               "top2_gap": gaps[j] if j < len(gaps) else None}
+        if row["top2_gap"] is not None and row["top2_gap"] < NEAR_TIE:
+            exempt.append(row)
+            log("engine_near_tie", compare=what, **row, limit=NEAR_TIE)
+            continue
+        row["dense"] = [dense_deficits(eng, list(prompt), ids)
+                        for ids in (g["ids"], w["ids"])]
+        ok = all(d["worst_logit_deficit"] <= d["tol"] for d in row["dense"])
+        (batch if ok else bad).append(row)
+    return {"compare": what, "requests": len(got["_done"]),
+            "identical": same, "near_tie_exempt": exempt,
+            "beyond_near_tie_both_dense_argmax": batch,
+            "first_step_logits_max_abs_diff": first, "faults": bad}
+
+
+def grammar_checks(port: int, app, model: str, backend) -> dict:
+    """(a) a raw GBNF grammar, (b) response_format json_schema, (c) one
+    tool, (d) logit_bias banning (a)'s first token; every output accepted
+    by the port's matcher, in full when it stopped, as a live prefix when
+    cut by max_tokens. Then the host ms of masked decode steps beside
+    unmasked ones, on the same engine."""
+    from localai_tfp_tpu_torch.grammars.gbnf import (
+        GrammarMatcher, parse_gbnf,
+    )
+    from localai_tfp_tpu_torch.grammars.json_schema import (
+        functions_grammar, schema_to_gbnf,
+    )
+
+    eng = backend.engine
+    spy = EngineSpy(eng)
+    msgs = lambda s: [{"role": "user", "content": s}]  # noqa: E731
+    cases = {
+        "a_grammar": ({"grammar": YES_NO, "max_tokens": 8,
+                       "messages": msgs("Answer yes or no.")}, YES_NO),
+        "b_json_schema": ({"max_tokens": 64, "response_format": {
+            "type": "json_schema", "json_schema": {"schema": PERSON}},
+            "messages": msgs("Describe a person as JSON.")},
+            schema_to_gbnf(PERSON)),
+        "c_tools": ({"max_tokens": 64,
+                     "tools": [{"type": "function", "function": TOOL}],
+                     "messages": msgs("Use Fahrenheit.")},
+                    functions_grammar([TOOL])),
+    }
+    out = {}
+
+    def run(name, body, grammar):
+        body = {"model": model, "temperature": 0.0, **body}
+        status, text = _post(port, body)
+        if status != 200:
+            raise AssertionError(f"{name}: HTTP {status} {text[:300]}")
+        choice = json.loads(text)["choices"][0]
+        prompt = backend.tokenizer.encode(srv_prompt(app, body),
+                                          add_bos=True)
+        done = spy.done[tuple(prompt)]
+        m = GrammarMatcher(parse_gbnf(grammar))
+        st = m.accept_string(m.initial_state(), done["text"])
+        finish = choice["finish_reason"]
+        full = finish in ("stop", "tool_calls")
+        ok = m.can_end(st) if full else bool(st)
+        if not ok or finish not in ("stop", "tool_calls", "length"):
+            raise AssertionError(f"{name}: output {done['text']!r} "
+                                 f"({finish}) is not accepted by the "
+                                 "grammar matcher")
+        out[name] = {"finish_reason": finish, "text": done["text"],
+                     "tokens": len(done["ids"]),
+                     "tool_calls": [c["function"] for c in
+                                    choice["message"].get("tool_calls")
+                                    or []]}
+        return done
+
+    first = run("a_grammar", *cases["a_grammar"])
+    if out["a_grammar"]["finish_reason"] != "stop":
+        raise AssertionError(f"(a) finished {out['a_grammar']}")
+    for name in ("b_json_schema", "c_tools"):
+        run(name, *cases[name])
+    c = out["c_tools"]
+    if c["finish_reason"] == "tool_calls" and [
+            t["name"] for t in c["tool_calls"]] != ["set_unit"]:
+        raise AssertionError(f"(c) tool calls {c['tool_calls']}")
+    ban = {str(first["ids"][0]): -100}
+    body, g = cases["a_grammar"]
+    run("d_logit_bias", {**body, "logit_bias": ban}, g)
+    d = out["d_logit_bias"]
+    if d["finish_reason"] != "stop" or {d["text"], first["text"]} != {
+            "yes", "no"}:
+        raise AssertionError(f"(d) {d} after (a) {out['a_grammar']}")
+    # masked against unmasked decode steps, one request each
+    for body in ({"max_tokens": 32, "ignore_eos": True,
+                  "messages": msgs("Tell a story.")},
+                 {"max_tokens": 32, "response_format": {
+                     "type": "json_object"},
+                  "messages": msgs("Tell a story as JSON.")}):
+        status, text = _post(port, {"model": model, "temperature": 0.0,
+                                    **body})
+        if status != 200:
+            raise AssertionError(f"step timing: HTTP {status} {text[:200]}")
+    out["decode_steps"] = spy.step_ms()
+    return out
+
+
+def deadline_checks(port: int, model: str) -> dict:
+    """A timeout of 1e-6 s is a 504 while queued; an X-Request-Timeout that
+    expires mid-decode returns partial text with deadline_exceeded."""
+    body = {"model": model, "max_tokens": 8,
+            "messages": [{"role": "user", "content": "Too late."}]}
+    status, text = _post(port, {**body, "timeout": 1e-6})
+    if status != 504:
+        raise AssertionError(f"timeout 1e-6: HTTP {status} {text[:200]}")
+    # a grammar of letters, so every token is text (a random model's
+    # free choice is mostly ids past the byte tokenizer's, which decode
+    # to nothing, and a deadline with no text is the 504 above)
+    long = {"model": model, "max_tokens": 1024, "ignore_eos": True,
+            "temperature": 0.0, "grammar": "root ::= [a-z]+",
+            "messages": [{"role": "user", "content": "Count slowly."}]}
+    t0 = time.perf_counter()
+    status, text = _post(port, long, {"X-Request-Timeout": "1.5"})
+    wall = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"mid-decode deadline: HTTP {status} "
+                             f"{text[:200]}")
+    obj = json.loads(text)
+    finish = obj["choices"][0]["finish_reason"]
+    content = obj["choices"][0]["message"]["content"]
+    n = obj["usage"]["completion_tokens"]
+    if finish != "deadline_exceeded" or not content or n >= 1024:
+        raise AssertionError(f"mid-decode deadline: {finish} after {n} "
+                             "tokens")
+    return {"queued_1e-6_status": 504, "mid_decode_finish": finish,
+            "mid_decode_tokens": n, "mid_decode_wall_s": wall,
+            "timeout_s": 1.5}
+
+
+def phase_engine(port: int, app, model: str, backend, layers: int,
+                 seed: int) -> dict:
+    """Prefix sharing (on against off), grammars and deadlines over HTTP
+    on the served 8B-geometry model."""
+    on = prefix_wave(port, app, model, backend, True, seed, layers)
+    off = prefix_wave(port, app, model, backend, False, seed, layers)
+    # sharing off and all six at once: no prompt token is reused, only
+    # the batches differ from the off wave's; how far batch composition
+    # alone moves greedy ids and logits on the card
+    six = prefix_wave(port, app, model, backend, False, seed, layers,
+                      first_alone=False)
+    cmp = compare_waves(on, off, backend.engine, "sharing on vs off")
+    noise = compare_waves(six, off, backend.engine,
+                          "off, six at once vs one then five")
+    for c in (cmp, noise):
+        if c["faults"]:
+            raise AssertionError(
+                f"{c['compare']}: ids off the dense reference beyond near "
+                f"ties, or first-step logits apart: {c['faults']}")
+    kv = on["shared_kv"]
+    if kv["bitwise_equal"] != kv["sharers"]:
+        raise AssertionError(f"shared prefix K/V differs from its donor's: "
+                             f"{kv}")
+    # the same checks must fail a wave with a sharing fault planted
+    planted = {}
+    for kind in FAULTS:
+        w = prefix_wave(port, app, model, backend, True, seed, layers,
+                        fault=kind)
+        planted[kind] = {"shared_kv": w["shared_kv"], **compare_waves(
+            w, off, backend.engine, f"planted {kind} vs off")}
+        log("engine_planted_fault", model=model, **planted[kind])
+    # each check on its own must catch each fault
+    missed = [k for k, p in planted.items() if not p["faults"] or
+              p["shared_kv"]["bitwise_equal"] == p["shared_kv"]["sharers"]]
+    if missed:
+        raise AssertionError(f"planted sharing faults passed a check: "
+                             f"{missed}")
+    if not on["prefill_tokens"] < off["prefill_tokens"]:
+        raise AssertionError(f"sharing computed {on['prefill_tokens']} "
+                             f"prompt tokens, not fewer than "
+                             f"{off['prefill_tokens']}")
+    if on["shared_prefix_tokens"] != SHARED_PREFIX:
+        raise AssertionError(f"shared prefix {on['shared_prefix_tokens']}")
+    for w in (on, off, six):
+        log("engine_prefix", model=model,
+            **{k: v for k, v in w.items() if not k.startswith("_")})
+    log("engine_prefix_compare", model=model, **cmp)
+    log("engine_prefix_compare", model=model, **noise)
+    fresh_engine(backend, True)  # sharing on, as served
+    gram = grammar_checks(port, app, model, backend)
+    log("engine_grammar", model=model, **gram)
+    dl = deadline_checks(port, model)
+    log("engine_deadline", model=model, **dl)
+    backend.engine.leak_check()
+    return {"on": {k: v for k, v in on.items() if not k.startswith("_")},
+            "off": {k: v for k, v in off.items() if not k.startswith("_")},
+            "compare": cmp, "batch_noise": noise, "planted": planted,
+            "grammar": gram,
+            "deadline": dl}
+
+
+def serve_model(models: Path, model: str, layers: int, quantized: bool,
+                engine: bool, seed: int) -> dict:
     """Serve one model config through the port's HTTP server: load, the
-    burst, its checks, (int8) a reload from the artifact, and the dense
-    reference check."""
+    burst, its checks, (int8) a reload from the artifact, the dense
+    reference check, and (``engine``) phase 6 on the same server."""
     import threading
 
     import torch
@@ -1100,14 +1679,16 @@ def serve_model(models: Path, model: str, layers: int,
         prof = profile_decode(backend.engine)
         log("main_profile", model=model, **prof)
         backend.engine.leak_check()
+        eng_res = (phase_engine(port, srv.app, model, backend, layers, seed)
+                   if engine else None)
         return {"load": load, "burst": burst, "reload": reload,
-                "reference": ref, "profile": prof}
+                "reference": ref, "profile": prof, "engine": eng_res}
     finally:
         srv.close()
         th.join(timeout=30)
 
 
-def phase_main(layers_wanted: int, seed: int) -> dict:
+def phase_main(layers_wanted: int, seed: int, engine: bool) -> dict:
     """Serve the 8B-geometry model on the card through the port's HTTP
     server: bf16, then the same checkpoint with int8 weights."""
     import gc
@@ -1133,14 +1714,16 @@ def phase_main(layers_wanted: int, seed: int) -> dict:
         }, indent=1))
     log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
         written=written, write_s=round(write_s, 3), dir=ckpt_name)
-    bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False)
+    bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False,
+                       engine=engine, seed=seed)
     gc.collect()
     torch.cuda.empty_cache()
     # a cold int8 load: quantize on the card, then write the artifact
     shutil.rmtree(quant_cache, ignore_errors=True)
     os.environ["LOCALAI_QUANT_CACHE_DIR"] = str(quant_cache)
     os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
-    int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True)
+    int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True,
+                       engine=engine, seed=seed)
     log("main_models", layers=layers,
         param_gb={"bf16": bf16["load"]["param_bytes"] / 1e9,
                   "int8": int8["load"]["param_bytes"] / 1e9},
@@ -1152,7 +1735,8 @@ def phase_main(layers_wanted: int, seed: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="device,build,kernels,int8,main")
+    ap.add_argument("--phases",
+                    default="device,build,kernels,int8,main,engine")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -1166,8 +1750,8 @@ def main() -> int:
     entries = []
     # each kernel: correctness first, then times at 8B shapes
     if "kernels" in phases:
-        worst, timings = phase_kernels(n_slots=SLOTS,
-                                       max_pages=CONTEXT // PAGE)
+        worst, timings, aliased = phase_kernels(n_slots=SLOTS,
+                                                max_pages=CONTEXT // PAGE)
         t = timings["decode"]
         entries.append({
             "name": "ragged_paged_attention", "route": "cuda",
@@ -1177,6 +1761,7 @@ def main() -> int:
             "max_abs_err": max(worst.values()),
             "max_abs_err_bf16": worst["bf16"],
             "max_abs_err_int8": worst["int8"], "tol": TOL,
+            "aliased_tables_max_abs_err": aliased,
             "ms": t["ms"], "eager_ms": t["eager_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1227,8 +1812,11 @@ def main() -> int:
                 blocks_per_sm={o["instance"]: o["blocks_per_sm"]
                                for o in occ8},
                 smem_bytes={o["instance"]: o["smem_bytes"] for o in occ8})
+    if "engine" in phases and "main" not in phases:
+        raise SystemExit("phase engine runs on phase main's server: "
+                         "--phases must include main")
     if "main" in phases:
-        res = phase_main(args.layers, args.seed)
+        res = phase_main(args.layers, args.seed, "engine" in phases)
         # each kernel's count on its own path, read just after that path
         # ran: attention on the bf16 model, the int8 product on the int8
         # model (which also runs attention)
@@ -1238,6 +1826,13 @@ def main() -> int:
             e["launches"] = own[e["name"]][e["name"]]
             e["launches_int8_model"] = \
                 res["int8"]["burst"]["launches"][e["name"]]
+            if "engine" in phases:
+                # the prefix wave with sharing on: attention over aliased
+                # page tables (bf16 model), the int8 product's mixed
+                # steps beside them (int8 model)
+                e["launches_engine_prefix_wave"] = {
+                    m: res[m]["engine"]["on"]["launches"][e["name"]]
+                    for m in ("bf16", "int8")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

@@ -1,5 +1,5 @@
-"""Environment knobs the port reads (own copy of the few entries of
-localai_tfp_tpu/config/knobs.py this slice needs: same names, same
+"""Environment knobs the port reads (own copy of the entries of
+localai_tfp_tpu/config/knobs.py the port serves: same names, same
 defaults)."""
 
 from __future__ import annotations
@@ -15,6 +15,12 @@ _DEFAULTS = {
     # admission queue cap: submit_many sheds beyond it with a terminal
     # "shed" event (0 = unbounded)
     "LOCALAI_MAX_QUEUE": "0",
+    # cross-request prefix KV reuse (share a resident shared prefix
+    # instead of re-prefilling)
+    "LOCALAI_PREFIX_CACHE": "on",
+    # default per-request deadline in seconds (0 = off; a request's own
+    # timeout_s overrides)
+    "LOCALAI_REQUEST_DEADLINE_S": "0",
     # token budget per mixed prefill/decode dispatch
     "LOCALAI_PREFILL_GROUP_TOKENS": "8192",
     # persist/reuse int8 quantization artifacts on disk
@@ -36,6 +42,13 @@ def int_(name: str) -> int:
         return int(raw(name) or _DEFAULTS[name])
     except ValueError:
         return int(_DEFAULTS[name])
+
+
+def float_(name: str) -> float:
+    try:
+        return float(raw(name) or _DEFAULTS[name])
+    except ValueError:
+        return float(_DEFAULTS[name])
 
 
 def flag(name: str) -> bool:

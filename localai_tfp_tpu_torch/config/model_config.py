@@ -59,8 +59,33 @@ class TemplateConfig:
 
     chat: str = ""
     chat_message: str = ""
+    function: str = ""  # chat template used when tools are requested
     use_tokenizer_template: bool = False
     join_chat_messages_by_character: Optional[str] = None
+
+
+@dataclass
+class FunctionsConfig:
+    """Tool-calling / grammar config (ref: pkg/functions/parse.go:16-60
+    FunctionsConfig)."""
+
+    disable_no_action: bool = False
+    no_action_function_name: str = ""
+    no_action_description_name: str = ""
+    function_name_key: str = ""
+    function_arguments_key: str = ""
+    response_regex: list[str] = field(default_factory=list)
+    json_regex_match: list[str] = field(default_factory=list)
+    argument_regex: list[str] = field(default_factory=list)
+    argument_regex_key_name: str = ""
+    argument_regex_value_name: str = ""
+    capture_llm_results: list[str] = field(default_factory=list)
+    replace_function_results: list[dict] = field(default_factory=list)
+    replace_llm_results: list[dict] = field(default_factory=list)
+    grammar: dict = field(default_factory=dict)
+
+    def grammar_options(self) -> dict:
+        return self.grammar or {}
 
 
 @dataclass
@@ -70,8 +95,10 @@ class ModelConfig:
     model: str = ""  # checkpoint dir (parameters.model)
     parameters: SamplingParams = field(default_factory=SamplingParams)
     template: TemplateConfig = field(default_factory=TemplateConfig)
+    function: FunctionsConfig = field(default_factory=FunctionsConfig)
     roles: dict[str, str] = field(default_factory=dict)
     system_prompt: str = ""
+    grammar: str = ""  # a GBNF grammar every request of the model obeys
     stopwords: list[str] = field(default_factory=list)
     context_size: Optional[int] = None
     max_batch_slots: int = 8
@@ -92,12 +119,16 @@ class ModelConfig:
         model = params.pop("model", "") if isinstance(params, dict) else ""
         kw = _filter(cls, data, "config")
         kw.pop("parameters", None)
-        cfg = cls(**{k: v for k, v in kw.items() if k != "template"})
+        cfg = cls(**{k: v for k, v in kw.items()
+                     if k not in ("template", "function")})
         cfg.parameters = SamplingParams(**_filter(SamplingParams, params,
                                                   "parameters"))
         cfg.template = TemplateConfig(**_filter(TemplateConfig,
                                                 data.get("template"),
                                                 "template"))
+        cfg.function = FunctionsConfig(**_filter(FunctionsConfig,
+                                                 data.get("function"),
+                                                 "function"))
         cfg.model = cfg.model or model
         cfg.set_defaults()
         return cfg

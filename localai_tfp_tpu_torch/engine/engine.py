@@ -19,11 +19,29 @@ free slots and then runs one device step per iteration:
   Python loop that stands in for the JAX package's ``lax.scan``.
 
 Tokens then go through ``_emit_token``: EOS, stop strings (with partial
-match withholding), ``max_tokens`` and context exhaustion end a request,
-exactly as in the JAX package. Out of scope for this slice (and refused
-at submit rather than ignored): prefix sharing, speculative decoding,
-grammars and logit bias, prompt caches, multimodal soft tokens,
-deadlines, disaggregation and meshes.
+match withholding), grammar advance, ``max_tokens`` and context
+exhaustion end a request, exactly as in the JAX package.
+
+- **Prefix sharing** (``LOCALAI_PREFIX_CACHE``): a finished slot keeps
+  its pages and ``cache_tokens`` as a resident prefix. ``PrefixIndex``
+  finds the longest committed prefix held by any slot (free or active);
+  its full pages are shared by reference (``PagePool.share``) and only a
+  sub-page tail is copied (``_kv_copy``). The write frontier is made
+  private by ``PagePool.prepare_write`` (copy-on-write) before a prefill
+  writes it. Same-wave sharers defer behind the wave-mate that prefills
+  the prefix; under pool pressure free slots' residents are reclaimed,
+  least valuable first.
+- **Constrained decoding**: a request's grammar constraint and its
+  ``logit_bias`` bans become one ``[B, V]`` bool mask per step, built on
+  the host and copied to the device from pinned memory; while any row is
+  masked a decode step runs one forward per host round trip.
+- **Deadlines** (``timeout_s``, ``LOCALAI_REQUEST_DEADLINE_S``): a
+  queued request past its deadline gets a terminal
+  ``deadline_exceeded`` event; a running one finishes with its partial
+  text.
+
+Out of scope (and refused at submit rather than ignored): speculative
+decoding, prompt caches, multimodal soft tokens, disaggregation, meshes.
 
 Batch rows are the participating slots only (the JAX package dispatches
 every slot at a static shape for jit; eager PyTorch needs no padding).
@@ -51,11 +69,18 @@ from ..models.quant import leaves
 from ..models.transformer import KVCache, Params, _lm_head, forward_hidden
 from ..ops import sampling as smp
 from .kv_pool import TRASH_PAGE, PagePool, PagePoolExhausted
+from .prefix_index import PrefixIndex, common_prefix_len
 from .tokenizer import StreamDecoder, Tokenizer
 
 log = logging.getLogger(__name__)
 
 DEFAULT_PREFILL_BUCKETS = (4, 16, 128, 512, 2048)
+# minimum token GAIN over the destination's own resident prefix before a
+# share (and its tail copy) is worth doing
+PREFIX_MIN_COPY = 8
+# minimum SHARED-prefix length before a same-wave request defers behind a
+# wave-mate's prefill
+PREFIX_DEFER_MIN = 64
 
 
 @dataclass
@@ -81,8 +106,8 @@ class GenRequest:
     seed: Optional[int] = None
     stop: list[str] = field(default_factory=list)
     ignore_eos: bool = False
-    logit_bias: Optional[dict[int, float]] = None  # not served yet
-    constraint: Optional[Any] = None  # grammar: not served yet
+    logit_bias: Optional[dict[int, float]] = None
+    constraint: Optional[Any] = None  # grammars/constrain.py contract
     prompt_cache_path: str = ""  # not served yet
     prompt_cache_all: bool = False
     prompt_cache_ro: bool = False
@@ -92,8 +117,8 @@ class GenRequest:
     id: str = field(default_factory=lambda: uuid.uuid4().hex)
     trace_id: str = ""
     t_submit: float = 0.0  # perf_counter at submit
-    timeout_s: float = 0.0  # deadlines: not served yet
-    deadline: float = 0.0
+    timeout_s: float = 0.0  # deadline budget (0: the engine default)
+    deadline: float = 0.0  # perf_counter clock, set at submit
     prefix_chain: tuple = ()
     disagg: Optional[Any] = None  # disaggregated serving: not served yet
 
@@ -106,6 +131,7 @@ class StreamEvent:
     token_id: Optional[int] = None
     done: bool = False
     finish_reason: str = ""  # stop | length | error | shed | cancelled
+    # | deadline_exceeded
     error: str = ""
     full_text: str = ""
     prompt_tokens: int = 0
@@ -132,6 +158,11 @@ class _Slot:
     out: Optional[queue.SimpleQueue] = None
     n_past: int = 0  # positions of this slot's KV written so far
     n_prompt: int = 0
+    # the token ids whose KV this slot's pages hold, [0, n_past): kept
+    # after the request finishes, as the slot's resident prefix
+    cache_tokens: list[int] = field(default_factory=list)
+    n_reused: int = 0  # prompt tokens served from a resident prefix
+    constraint_state: Any = None
     generated: list[int] = field(default_factory=list)
     decoder: Optional[StreamDecoder] = None
     pending_text: str = ""  # withheld tail that may begin a stop string
@@ -157,6 +188,11 @@ class EngineMetrics:
     # call per layer)
     mixed_steps: int = 0
     decode_steps: int = 0
+    # prefix sharing: prompt tokens served from resident prefixes vs
+    # tokens actually pushed through prefill, and tail-page copies
+    prefix_reused_tokens: int = 0
+    prefill_tokens: int = 0
+    prefix_copies: int = 0
 
 
 def _refusal(req: GenRequest, max_seq: int) -> str:
@@ -166,13 +202,11 @@ def _refusal(req: GenRequest, max_seq: int) -> str:
                 f"size {max_seq}")
     if not req.prompt_ids:
         return "empty prompt"
-    for name in ("logit_bias", "constraint", "soft_embeds", "disagg"):
+    for name in ("soft_embeds", "disagg"):
         if getattr(req, name) is not None:
             return f"{name} is not supported by this port yet"
     if req.prompt_cache_path:
         return "prompt caches are not supported by this port yet"
-    if req.timeout_s:
-        return "request deadlines are not supported by this port yet"
     return ""
 
 
@@ -240,6 +274,20 @@ class LLMEngine:
             n_slots, spec.vocab_size, window=penalty_window,
             device=self.device)
         self.slots = [_Slot(i) for i in range(n_slots)]
+        # cross-slot prefix sharing (engine/prefix_index.py);
+        # LOCALAI_PREFIX_CACHE=off keeps only own-slot reuse
+        self._prefix_enabled = knobs.flag("LOCALAI_PREFIX_CACHE")
+        self._prefix_index = PrefixIndex()
+        # same-wave prefix grouping: request id -> (deadline, want_len)
+        self._deferred: dict[str, tuple[float, int]] = {}
+        # default per-request deadline (a request's timeout_s overrides);
+        # the sweep arms on the first request that carries a deadline
+        self._default_deadline_s = max(
+            0.0, knobs.float_("LOCALAI_REQUEST_DEADLINE_S"))
+        self._deadlines_armed = self._default_deadline_s > 0
+        # host staging of the per-step [B, V] sampling mask (pinned on a
+        # card, so the copy to the device is one DMA), made at first use
+        self._mask_host: Optional[torch.Tensor] = None
         self.max_queue = max(0, knobs.int_("LOCALAI_MAX_QUEUE"))
         self.metrics = EngineMetrics()
         self._lock = threading.Condition()
@@ -272,12 +320,15 @@ class LLMEngine:
         self._fail_all("engine closed")
 
     def leak_check(self) -> None:
-        """Pool invariants (kv_pool.leak_check) plus: no free slot holds
-        pages."""
+        """Pool invariants (kv_pool.leak_check) plus: a free slot holds
+        exactly the pages of its resident prefix."""
         self._pool.leak_check()
         for s in self.slots:
-            if not s.active and self._pool.held(s.idx):
-                raise AssertionError(f"free slot {s.idx} still holds pages")
+            want = self._pool.pages_for(len(s.cache_tokens))
+            if not s.active and self._pool.held(s.idx) != want:
+                raise AssertionError(
+                    f"free slot {s.idx} holds {self._pool.held(s.idx)} "
+                    f"pages for a {len(s.cache_tokens)}-token resident")
 
     # ------------------------------------------------------------ submission
 
@@ -299,6 +350,10 @@ class LLMEngine:
                                     error=why))
             else:
                 req.t_submit = now
+                budget = req.timeout_s or self._default_deadline_s
+                if budget > 0:
+                    req.deadline = now + budget
+                    self._deadlines_armed = True
                 ok.append((req, out))
         shed = []
         with self._lock:
@@ -351,6 +406,7 @@ class LLMEngine:
                     return
             try:
                 self._apply_cancellations()
+                self._apply_deadlines()
                 self._admit()
                 self.step()
             except Exception as e:  # the loop must keep serving
@@ -386,6 +442,7 @@ class LLMEngine:
             keep = []
             for req, out in self._pending:
                 if req.id in ids:
+                    self._deferred.pop(req.id, None)
                     out.put(StreamEvent(done=True, finish_reason="cancelled"))
                 else:
                     keep.append((req, out))
@@ -394,15 +451,51 @@ class LLMEngine:
             if s.active and s.request is not None and s.request.id in ids:
                 self._finish(s, "cancelled")
 
+    def _apply_deadlines(self) -> None:
+        """Terminate requests whose deadline has passed: queued ones get
+        a terminal event at once (no slot was ever held), running ones
+        finish through the slot path with whatever partial text they
+        produced. Skipped until some request carried a deadline."""
+        if not self._deadlines_armed:
+            return
+        now = time.perf_counter()
+        with self._lock:
+            still = []
+            for req, out in self._pending:
+                if req.deadline and now >= req.deadline:
+                    self._deferred.pop(req.id, None)
+                    out.put(StreamEvent(
+                        done=True, finish_reason="deadline_exceeded",
+                        error="deadline exceeded while queued"))
+                else:
+                    still.append((req, out))
+            self._pending = still
+        for s in self.slots:
+            if (s.active and s.request is not None and s.request.deadline
+                    and now >= s.request.deadline):
+                self._finish(s, "deadline_exceeded")
+
     def _admit(self) -> None:
         with self._lock:
             pending, self._pending = self._pending, []
-        requeue, waits = [], []
+        if not pending:
+            return
+        if self._prefix_enabled:
+            # lazy re-register: decode appends since the last wave are
+            # diffed in (extension is the common case)
+            self._prefix_index.sync(
+                (s.idx, s.cache_tokens) for s in self.slots)
+        # prompts admitted but not yet prefilled: their KV is not
+        # committed, so the index cannot serve them yet; same-wave
+        # sharers defer one iteration behind them instead
+        forming = [s.request.prompt_ids for s in self.slots
+                   if s.state is SlotState.PREFILL and s.request is not None]
+        requeue = []
         now = time.perf_counter()
-        free = self._pool.stats().free  # soft admission gate: the step's
-        # _ensure is the backstop
+        # soft admission gate over free + reclaimable pages (the step's
+        # _pool_ensure is the backstop)
+        budget = self._pool.stats().free + self._reclaimable()
         for req, out in pending:
-            slot = next((s for s in self.slots if not s.active), None)
             need = self._pool.pages_for(len(req.prompt_ids) + 1)
             if need > self.kv_pages - 1:
                 out.put(StreamEvent(
@@ -410,41 +503,208 @@ class LLMEngine:
                     error=f"prompt needs {need} KV pages; the pool holds "
                           f"{self.kv_pages - 1}"))
                 continue
-            if slot is None or free < need:
+            if self._defer_for_prefix(req, forming, now):
+                requeue.append((req, out))
+                continue
+            slot = self._pick_slot(req)
+            if slot is None or budget < need:
                 requeue.append((req, out))  # wait for a slot / pages
                 continue
-            free -= need
-            waits.append(max(0.0, now - req.t_submit))
-            slot.request = req
-            slot.out = out
-            slot.state = SlotState.PREFILL
-            slot.n_past = 0
-            slot.n_prompt = len(req.prompt_ids)
-            slot.generated = []
-            slot.decoder = StreamDecoder(self.tokenizer)
-            slot.pending_text = ""
-            slot.emit_buf = []
-            slot.emit_tok = None
-            slot.t_start = now
-            slot.t_first = slot.t_prefill_t0 = 0.0
-            slot.t_prefill_ms = slot.t_decode_ms = 0.0
+            budget -= need
+            self._deferred.pop(req.id, None)
+            self._assign(slot, req, out, now)
+            forming.append(req.prompt_ids)
         with self._lock:  # requeue keeps arrival order ahead of new ones
             self._pending[:0] = requeue
-            self._queue_waits.extend(waits)
+
+    def _reclaimable(self) -> int:
+        """Pages that reclaiming every free slot's resident would free."""
+        return sum(1 for s in self.slots if not s.active
+                   for p in self._pool.table(s.idx)
+                   if self._pool.writable(p))
+
+    def _defer_for_prefix(self, req: GenRequest, forming: list,
+                          now: float) -> bool:
+        """Same-wave prefix grouping: when requests of one admission wave
+        share a >= PREFIX_DEFER_MIN-token prefix the index cannot serve
+        yet, the FIRST prefills it and the rest wait until that prefill
+        commits, then admit as share + tail prefill. Bounded by a
+        deadline so a stalled or cancelled donor never strands its
+        sharers (they then admit normally and prefill in full)."""
+        if not self._prefix_enabled:
+            return False
+        cap = min(len(req.prompt_ids) - 1, self.max_seq - 1)
+        state = self._deferred.get(req.id)
+        if state is not None:
+            deadline, want = state
+            if now > deadline:
+                self._deferred.pop(req.id, None)
+                return False  # donor stalled: admit normally
+            have, _ = self._prefix_index.match(req.prompt_ids)
+            if min(have, cap) >= want:
+                self._deferred.pop(req.id, None)
+                return False  # shared prefix committed: admit and share
+            if not any(common_prefix_len(p, req.prompt_ids) >= want
+                       for p in forming):
+                self._deferred.pop(req.id, None)
+                return False  # donor vanished: admit normally
+            return True
+        share = max((common_prefix_len(p, req.prompt_ids)
+                     for p in forming), default=0)
+        share = min(share, cap)
+        have, _ = self._prefix_index.match(req.prompt_ids)
+        have = min(have, cap)
+        if share >= have + PREFIX_DEFER_MIN:
+            self._deferred[req.id] = (now + 0.25, share)
+            return True
+        return False
+
+    def _pick_slot(self, req: GenRequest) -> Optional[_Slot]:
+        """The free slot to admit onto. Admitting overwrites the slot's
+        resident prefix beyond the overlap, so the victim is the slot
+        whose UNSHARED tail is worth the least (reuse value scaled by the
+        fraction overwritten); ties prefer the larger overlap, whose
+        in-place reuse skips a share. Without prefix sharing: the
+        largest overlap."""
+        free = [s for s in self.slots if not s.active]
+        if not free:
+            return None
+        if not self._prefix_enabled:
+            return max(free, key=lambda s: common_prefix_len(
+                s.cache_tokens, req.prompt_ids))
+        now = time.monotonic()
+
+        def cost(s: _Slot) -> tuple:
+            overlap = common_prefix_len(s.cache_tokens, req.prompt_ids)
+            n = self._prefix_index.registered_len(s.idx)
+            destroyed = 0.0
+            if n:
+                keep = min(overlap, n)
+                destroyed = (self._prefix_index.value(s.idx, now)
+                             * (n - keep) / n)
+            return (destroyed, -overlap)
+
+        return min(free, key=cost)
+
+    def _maybe_prefix_copy(self, slot: _Slot, req: GenRequest,
+                           common: int) -> tuple[int, int]:
+        """Cross-slot prefix reuse: when another slot's committed prefix
+        beats this slot's own by >= PREFIX_MIN_COPY tokens, its full
+        pages become this slot's by reference and only the sub-page tail
+        is copied into a fresh private page. The donor may be ACTIVE: its
+        committed prefix [0, n_past) is never written again, and the copy
+        is issued on the stream before any later write. Returns (new
+        common, tokens gained)."""
+        if not self._prefix_enabled:
+            return common, 0
+        best, donors = self._prefix_index.match(req.prompt_ids)
+        best = min(best, len(req.prompt_ids) - 1, self.max_seq - 1)
+        donors = (donors - {slot.idx}
+                  if best >= common + PREFIX_MIN_COPY else set())
+        if not donors:
+            return common, 0
+        now = time.monotonic()
+        donor = max(donors, key=lambda i: self._prefix_index.value(i, now))
+        P = self.page
+        full = best // P
+        self._pool.share(slot.idx, donor, full)
+        tail = best - full * P
+        if tail > 0:
+            src = self._pool.table(donor)[full]
+            if self._pool_ensure(slot, best):  # the tail page
+                self._kv_copy(src, self._pool.table(slot.idx)[full])
+                self.metrics.prefix_copies += 1
+            else:
+                best = full * P  # no page for the tail: share only
+        self._prefix_index.touch(donor, now)
+        slot.cache_tokens = list(req.prompt_ids[:best])
+        slot.n_past = best
+        return best, max(0, best - common)
+
+    def _assign(self, slot: _Slot, req: GenRequest, out: queue.SimpleQueue,
+                now: float) -> None:
+        self._queue_waits.append(max(0.0, now - req.t_submit))
+        common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
+        common, _ = self._maybe_prefix_copy(slot, req, common)
+        if common == len(req.prompt_ids):
+            common -= 1  # the last prompt token runs again for its logits
+        # the write frontier must be privately writable: a SHARED
+        # boundary page (this slot donated its full pages, or the step
+        # back above landed in a shared page) is swapped for a private
+        # copy before any prefill write can reach it
+        cow = self._pool.prepare_write(slot.idx, common)
+        if cow is not None:
+            self._kv_copy(*cow)
+        slot.request = req
+        slot.out = out
+        slot.state = SlotState.PREFILL
+        slot.n_past = common
+        slot.n_prompt = len(req.prompt_ids)
+        slot.cache_tokens = list(req.prompt_ids[:common])
+        slot.n_reused = common
+        if self._prefix_enabled:
+            # eager re-register: later admissions of this wave must not
+            # match the slot's stale longer registration
+            self._prefix_index.set_tokens(slot.idx, slot.cache_tokens)
+            self._prefix_index.touch(slot.idx)
+        self.metrics.prefix_reused_tokens += common
+        slot.generated = []
+        slot.decoder = StreamDecoder(self.tokenizer)
+        slot.pending_text = ""
+        slot.emit_buf = []
+        slot.emit_tok = None
+        slot.t_start = now
+        slot.t_first = slot.t_prefill_t0 = 0.0
+        slot.t_prefill_ms = slot.t_decode_ms = 0.0
+        slot.constraint_state = (req.constraint.initial_state()
+                                 if req.constraint is not None else None)
 
     # ------------------------------------------------------------ device steps
 
-    def _ensure(self, slot: _Slot, n_tokens: int) -> bool:
-        """Grow the slot's pages to cover ``n_tokens`` positions; on an
-        exhausted pool the request ends with "length"."""
+    @torch.inference_mode()
+    def _kv_copy(self, src: int, dst: int) -> None:
+        """Copy one physical page across every layer: K and V, and for
+        int8 pages their per-row scales."""
+        c = self.cache
+        for t in (c.k, c.v, c.k_scale, c.v_scale):
+            if t is not None:
+                t[:, dst].copy_(t[:, src])
+
+    def _pool_ensure(self, slot: _Slot, n_tokens: int) -> bool:
+        """Grow the slot's pages to cover ``n_tokens`` positions,
+        reclaiming free slots' resident prefixes (least valuable first)
+        under pool pressure. False: the pool is full of active state."""
         try:
             self._pool.ensure(slot.idx, n_tokens)
             return True
         except PagePoolExhausted:
-            log.warning("KV page pool exhausted: slot %d needs %d tokens",
-                        slot.idx, n_tokens)
-            self._finish(slot, "length")
-            return False
+            pass
+        now = time.monotonic()
+        victims = sorted(
+            (s for s in self.slots
+             if not s.active and s is not slot and self._pool.held(s.idx)),
+            key=lambda s: self._prefix_index.value(s.idx, now))
+        for v in victims:
+            self._pool.drop(v.idx)
+            v.cache_tokens = []
+            v.n_past = 0
+            self._prefix_index.remove(v.idx)
+            try:
+                self._pool.ensure(slot.idx, n_tokens)
+                return True
+            except PagePoolExhausted:
+                continue
+        return False
+
+    def _ensure(self, slot: _Slot, n_tokens: int) -> bool:
+        """``_pool_ensure``; on an exhausted pool the request ends with
+        "length"."""
+        if self._pool_ensure(slot, n_tokens):
+            return True
+        log.warning("KV page pool exhausted: slot %d needs %d tokens",
+                    slot.idx, n_tokens)
+        self._finish(slot, "length")
+        return False
 
     def _tables(self, rows: list[_Slot], spans: list[tuple[int, int]]
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -478,14 +738,64 @@ class LLMEngine:
                                 min(smp.CAND, self.spec.vocab_size),
                                 stochastic)
 
-    def _sample(self, rows: list[_Slot], logits: torch.Tensor) -> torch.Tensor:
+    def _sample(self, rows: list[_Slot], logits: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         noise = self._noise(rows)
         if noise is None:
             noise = torch.zeros((len(rows), min(smp.CAND, logits.shape[-1])),
                                 device=self.device)
         tok, _ = smp.sample(self.sampling, self._ints([s.idx for s in rows]),
-                            logits, noise=noise)
+                            logits, mask=mask, noise=noise)
         return tok
+
+    @staticmethod
+    def _masked(rows: list[_Slot]) -> bool:
+        """Whether any row samples under a grammar or logit-bias mask."""
+        return any(s.request is not None and (
+            s.request.constraint is not None or s.request.logit_bias)
+            for s in rows)
+
+    def _constraint_mask_rows(self, rows: list[_Slot]
+                              ) -> Optional[np.ndarray]:
+        """[B, V] bool masks for the rows (None when no row is masked):
+        the grammar's admissible next tokens (padded with False where the
+        tokenizer's vocab is smaller than the model's) and the
+        ``logit_bias`` bans (bias <= -100)."""
+        if not self._masked(rows):
+            return None
+        V = self.spec.vocab_size
+        out = np.ones((len(rows), V), bool)
+        for r, s in enumerate(rows):
+            req = s.request
+            if req is None:
+                continue
+            if req.constraint is not None:
+                raw = np.asarray(req.constraint.next_mask(s.constraint_state),
+                                 dtype=bool)
+                n = min(raw.shape[0], V)
+                out[r, :n] = raw[:n]
+                out[r, n:] = False
+            for tid, bias in (req.logit_bias or {}).items():
+                if 0 <= int(tid) < V and bias <= -100:
+                    out[r, int(tid)] = False
+        return out
+
+    def _step_mask(self, rows: list[_Slot]) -> Optional[torch.Tensor]:
+        """The step's sampling mask on the device: built on the host into
+        one staging buffer (pinned on a card) and copied in one transfer.
+        The buffer is reused only after the previous step's tokens were
+        read back, so that copy has landed."""
+        host = self._constraint_mask_rows(rows)
+        if host is None:
+            return None
+        B, V = host.shape
+        buf = self._mask_host
+        if buf is None or buf.shape[0] < B:
+            buf = torch.empty((max(B, self.n_slots), V), dtype=torch.bool,
+                              pin_memory=self.device.type == "cuda")
+            self._mask_host = buf
+        buf.numpy()[:B] = host
+        return buf[:B].to(self.device, non_blocking=True)
 
     def _reset_sampler(self, finals: list[_Slot]) -> None:
         """Sampler reset + prompt-tail penalty seed for slots whose first
@@ -552,6 +862,7 @@ class LLMEngine:
                   SlotState.PREFILL and s.n_past + n == s.n_prompt]
         samplers = [s for s in rows if s.state is SlotState.DECODE
                     or s in finals]
+        mask = self._step_mask(samplers) if samplers else None
         ql = self._ints(q_lens)
         hidden, _ = forward_hidden(
             self.spec, self.params, torch.from_numpy(toks).to(self.device),
@@ -566,10 +877,12 @@ class LLMEngine:
             sel = self._ints([rows.index(s) for s in samplers]).long()
             last = hidden[sel, ql.long()[sel] - 1]  # each row's last token
             logits = _lm_head(self.spec, self.params, last[:, None])[:, 0]
-            tok_host = self._sample(samplers, logits).tolist()
+            tok_host = self._sample(samplers, logits, mask).tolist()
         now = time.perf_counter()
         for s, n in zip(rows, q_lens):
             if s.state is SlotState.PREFILL:
+                s.cache_tokens.extend(
+                    s.request.prompt_ids[s.n_past: s.n_past + n])
                 s.n_past += n
                 s.t_prefill_t0 = s.t_prefill_t0 or t0
         for s, tok in zip(samplers, tok_host):
@@ -577,8 +890,10 @@ class LLMEngine:
                 s.state = SlotState.DECODE
                 s.t_prefill_ms = (now - s.t_prefill_t0) * 1e3
                 self.metrics.prompt_tokens_processed += s.n_prompt
+                self.metrics.prefill_tokens += s.n_prompt - s.n_reused
                 self._emit_token(s, tok)
             else:
+                s.cache_tokens.append(s.generated[-1])  # its KV landed
                 s.n_past += 1
                 s.t_decode_ms += (now - t0) * 1e3
                 self._emit_token(s, tok, defer=True)
@@ -589,15 +904,17 @@ class LLMEngine:
     def _decode_step(self, decoding: list[_Slot]) -> None:
         """Up to ``decode_steps`` seeded T == 1 forwards over the decoding
         slots, sampling on the device; one host read at the end, tokens
-        past a row's finish are discarded."""
+        past a row's finish are discarded. One forward when any row is
+        masked: its next mask needs the token just sampled."""
         t0 = time.perf_counter()
         k = min(self.decode_steps,
                 max(s.request.max_tokens - len(s.generated) for s in decoding),
                 min(self.max_seq - 1 - s.n_past for s in decoding))
-        k = max(1, k)
+        k = 1 if self._masked(decoding) else max(1, k)
         rows = [s for s in decoding if self._ensure(s, s.n_past + k)]
         if not rows:
             return
+        mask = self._step_mask(rows)
         pt, wt = self._tables(rows, [(s.n_past, s.n_past + k) for s in rows])
         toks = self._ints([[s.generated[-1]] for s in rows])
         pos = self._ints([s.n_past for s in rows])
@@ -609,7 +926,7 @@ class LLMEngine:
                 page_table=pt, kv_page=self.page, q_lens=ones,
                 write_table=wt)
             logits = _lm_head(self.spec, self.params, hidden)[:, -1]
-            tok = self._sample(rows, logits)
+            tok = self._sample(rows, logits, mask)
             out.append(tok)
             toks = tok[:, None]
             pos = pos + 1
@@ -622,6 +939,7 @@ class LLMEngine:
             for tok in seq:
                 if s.state is not SlotState.DECODE:
                     break  # finished: discard overshoot tokens
+                s.cache_tokens.append(s.generated[-1])  # the input token
                 s.n_past += 1
                 self._emit_token(s, tok, defer=True)
             if s.state is SlotState.DECODE:
@@ -635,6 +953,9 @@ class LLMEngine:
         buffers the text span and flushes one event per step."""
         req = slot.request
         assert req is not None and slot.decoder is not None
+        if req.constraint is not None:
+            slot.constraint_state = req.constraint.advance(
+                slot.constraint_state, token_id)
         if not slot.generated:
             slot.t_first = time.perf_counter()
         slot.generated.append(token_id)
@@ -701,8 +1022,9 @@ class LLMEngine:
         self._release(slot)
 
     def _release(self, slot: _Slot) -> None:
-        # no prefix reuse in this slice: a finished slot frees its pages
-        self._pool.drop(slot.idx)
+        # the pages of cache_tokens stay as the slot's resident prefix;
+        # pages past them (a decode step's overshoot) go back
+        self._pool.truncate(slot.idx, len(slot.cache_tokens))
         slot.state = SlotState.FREE
         slot.request = None
         slot.out = None
@@ -710,7 +1032,8 @@ class LLMEngine:
         slot.pending_text = ""
         slot.emit_buf = []
         slot.emit_tok = None
-        slot.n_past = 0
+        slot.constraint_state = None
+        slot.n_past = len(slot.cache_tokens)
 
 
 def _scan_stops(pending: str, stops: list[str]) -> tuple[str, bool]:

@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import os
 import re
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 from ..config.model_config import ModelConfig
 from .gotmpl import GoTemplate, looks_like_go_template
@@ -42,6 +42,7 @@ class PromptTemplateData:
     SystemPrompt: str = ""
     Input: str = ""
     Instruction: str = ""
+    Functions: list[dict] = field(default_factory=list)
     MessageIndex: int = 0
 
 
@@ -83,11 +84,14 @@ class Evaluator:
             ctx[_snake(k)] = v
         return tpl.render(**ctx)
 
-    def template_messages(self, cfg: ModelConfig,
-                          messages: list[dict]) -> str:
+    def template_messages(self, cfg: ModelConfig, messages: list[dict],
+                          functions: Optional[list[dict]] = None,
+                          use_function_template: bool = False) -> str:
         """Assemble the full chat prompt: each message through
         ``template.chat_message`` (else ``"<role>: <content>"``), joined,
-        then wrapped by ``template.chat`` when set."""
+        then wrapped by ``template.chat`` when set — or by
+        ``template.function`` when tools were requested and the config
+        has one (``.Functions`` holds the tool definitions)."""
         rendered: list[str] = []
         n = len(messages)
         for i, msg in enumerate(messages):
@@ -113,9 +117,13 @@ class Evaluator:
         joiner = cfg.template.join_chat_messages_by_character
         combined = ("\n" if joiner is None else joiner).join(
             r for r in rendered if r)
-        if cfg.template.chat:
-            return self._render(cfg.template.chat, PromptTemplateData(
-                Input=combined, SystemPrompt=cfg.system_prompt))
+        chat_tpl = (cfg.template.function
+                    if use_function_template and cfg.template.function
+                    else cfg.template.chat)
+        if chat_tpl:
+            return self._render(chat_tpl, PromptTemplateData(
+                Input=combined, SystemPrompt=cfg.system_prompt,
+                Functions=functions or []))
         return combined
 
 

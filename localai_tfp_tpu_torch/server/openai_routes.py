@@ -5,8 +5,16 @@ streaming and not, ``/v1/models``, plus ``/readyz``).
 Response bodies and SSE framing match the JAX server field for field:
 ``chat.completion`` / ``chat.completion.chunk`` objects, ``finish_reason``,
 ``usage``, a leading ``{"role": "assistant", "content": ""}`` delta and a
-final ``data: [DONE]``. Tool calls, grammars and ``response_format`` are
-refused with a 400 (not ported yet) rather than ignored.
+final ``data: [DONE]``.
+
+Constrained output as in the JAX routes: ``tools`` / ``functions`` become
+a functions grammar (``tool_calls`` in the reply, the streamed output
+buffered and parsed at the end), ``response_format`` ``json_object`` /
+``json_schema`` a schema grammar, the body's (or the config's)
+``grammar`` is used as given, and ``logit_bias`` bans tokens. A deadline
+(``timeout`` in the body, else the ``X-Request-Timeout`` header) that
+expires before any output is a 504; one that expires mid-decode returns
+the partial text with ``finish_reason: "deadline_exceeded"``.
 """
 
 from __future__ import annotations
@@ -20,13 +28,11 @@ from typing import Any, Optional
 
 from ..config.model_config import ModelConfig
 from ..engine.engine import StreamEvent
+from ..grammars.json_schema import functions_grammar, schema_to_gbnf
+from ..grammars.parse import parse_function_call, parse_text_content
 from ..workers.base import PredictOptions, Reply
 from ..workers.llm import final_reply
 from .app import Application, Handler, HTTPError
-
-# request fields whose features this slice does not serve
-_UNSERVED = ("tools", "functions", "response_format", "grammar",
-             "logit_bias")
 
 
 def readyz(h: Handler, app: Application) -> None:
@@ -55,6 +61,15 @@ def _predict_options(cfg: ModelConfig, body: dict, prompt: str,
     if isinstance(stop, str):
         stop = [stop]
     stop = list(stop or []) + list(cfg.stopwords or [])
+    bias = body.get("logit_bias") or {}
+    if not isinstance(bias, dict):
+        raise ValueError("logit_bias must be an object of token id: bias")
+    logit_bias = {}
+    for k, v in bias.items():
+        try:
+            logit_bias[int(k)] = float(v)
+        except (ValueError, TypeError):
+            pass
     return PredictOptions(
         prompt=prompt,
         tokens=int(pick("max_tokens", p.max_tokens or 2048,
@@ -78,8 +93,93 @@ def _predict_options(cfg: ModelConfig, body: dict, prompt: str,
                                 if p.mirostat_eta is not None else 0.1)),
         stop_prompts=stop,
         ignore_eos=bool(pick("ignore_eos", p.ignore_eos)),
+        grammar=body.get("grammar", "") or cfg.grammar or "",
+        logit_bias=logit_bias,
         correlation_id=correlation_id,
+        timeout_s=max(0.0, float(pick("timeout", 0.0) or 0.0)),
     )
+
+
+def _timeout(h: Handler, body: dict) -> None:
+    """The deadline budget: the body's ``timeout``, else the
+    ``X-Request-Timeout`` header (seconds); negative or non-numeric is a
+    400."""
+    hdr = h.headers.get("X-Request-Timeout")
+    if hdr and body.get("timeout") is None:
+        try:
+            body["timeout"] = float(hdr)
+        except ValueError:
+            raise HTTPError(400, "X-Request-Timeout must be a number of "
+                                 "seconds") from None
+    t = body.get("timeout")
+    if t is None:
+        return
+    if isinstance(t, bool) or not isinstance(t, (int, float)) or t < 0:
+        raise HTTPError(400, "field 'timeout' must be a non-negative "
+                             "number of seconds")
+
+
+def _grammar_for_request(cfg: ModelConfig, body: dict,
+                         tools: list[dict]) -> str:
+    """Grammar injection: tools → functions grammar; response_format
+    json_schema/json_object → schema grammar (ref: chat.go:216-294)."""
+    rf = body.get("response_format") or {}
+    if isinstance(rf, str):
+        rf = {"type": rf}
+    if rf.get("type") == "json_schema":
+        schema = (rf.get("json_schema") or {}).get("schema")
+        return schema_to_gbnf(schema)
+    if rf.get("type") == "json_object":
+        return schema_to_gbnf(None)
+    if tools:
+        opts = cfg.function.grammar_options()
+        if opts.get("disable"):
+            return ""
+        return functions_grammar(
+            tools,
+            parallel_calls=bool(opts.get("parallel_calls")),
+            mixed_mode=bool(opts.get("mixed_mode")),
+            prefix=opts.get("prefix", ""),
+            expect_strings_after_json=bool(
+                opts.get("expect_strings_after_json")),
+            prop_order=(opts.get("properties_order") or "").split(",")
+            if opts.get("properties_order") else None,
+            name_key=cfg.function.function_name_key or "name",
+            args_key=cfg.function.function_arguments_key or "arguments",
+        )
+    return ""
+
+
+def _extract_tools(body: dict) -> tuple[list[dict], bool]:
+    """Normalize tools[]/functions[] (ref: chat.go:250-294). Returns
+    (function defs, tools_requested)."""
+    tools = []
+    if body.get("tools"):
+        for t in body["tools"]:
+            if (isinstance(t, dict) and t.get("type") == "function"
+                    and isinstance(t.get("function"), dict)):
+                tools.append(t["function"])
+    elif body.get("functions"):
+        tools = list(body["functions"])
+    choice = body.get("tool_choice") or body.get("function_call")
+    if choice == "none":
+        return [], False
+    if isinstance(choice, dict):
+        want = (choice.get("function") or choice).get("name")
+        tools = [t for t in tools if t.get("name") == want] or tools
+    return tools, bool(tools)
+
+
+def _tool_call_objects(calls) -> list[dict]:
+    return [
+        {
+            "id": f"call_{uuid.uuid4().hex[:12]}",
+            "type": "function",
+            "index": i,
+            "function": {"name": c.name, "arguments": c.arguments},
+        }
+        for i, c in enumerate(calls)
+    ]
 
 
 def _usage(reply: Reply, extra_usage: bool) -> dict:
@@ -97,10 +197,14 @@ def _usage(reply: Reply, extra_usage: bool) -> dict:
 
 
 def _raise_if_refused(reply: Reply) -> None:
-    """A shed request is backpressure: 429 with Retry-After."""
+    """A shed request is backpressure: 429 with Retry-After. A deadline
+    that expired before any output is a 504 (with partial output the
+    reply is a 200 whose finish_reason is "deadline_exceeded")."""
     if reply.finish_reason == "shed":
         raise HTTPError(429, reply.error or "server overloaded", {
             "Retry-After": str(max(1, round(reply.retry_after_s or 1.0)))})
+    if reply.finish_reason == "deadline_exceeded" and not reply.message:
+        raise HTTPError(504, reply.error or "request deadline exceeded")
 
 
 def _n_choices(body: dict, streaming: bool) -> int:
@@ -121,9 +225,9 @@ def chat_completions(h: Handler, app: Application) -> None:
     messages = body.get("messages") or []
     if not isinstance(messages, list) or not messages:
         raise HTTPError(400, "messages required")
-    for key in _UNSERVED:
-        if body.get(key):
-            raise HTTPError(400, f"'{key}' is not supported by this port yet")
+    _timeout(h, body)
+    tools, tools_requested = _extract_tools(body)
+    grammar = _grammar_for_request(cfg, body, tools)
     streaming = bool(body.get("stream"))
     n = _n_choices(body, streaming)
     corr = h.headers.get("X-Correlation-ID", "")
@@ -132,14 +236,25 @@ def chat_completions(h: Handler, app: Application) -> None:
     except (TypeError, ValueError) as e:
         raise HTTPError(400, f"invalid sampling parameter: {e}") from None
     backend = app.backend(cfg)
-    opts.prompt = app.evaluator.template_messages(cfg, messages)
+    opts.prompt = app.evaluator.template_messages(
+        cfg, messages, functions=tools or None,
+        use_function_template=tools_requested)
+    if grammar:
+        opts.grammar = grammar
+        # lazy-grammar triggers from the model config (function.grammar
+        # .triggers: [{word: ...}])
+        opts.grammar_triggers = [w for w in (
+            t.get("word", "") if isinstance(t, dict) else str(t)
+            for t in (cfg.function.grammar_options().get("triggers") or [])
+        ) if w]
     extra_usage = ("Extra-Usage" in h.headers
                    or bool((body.get("stream_options") or {})
                            .get("include_usage")))
     created = int(time.time())
     cid = f"chatcmpl-{uuid.uuid4().hex[:28]}"
     if streaming:
-        _stream_chat(h, backend, opts, cfg, cid, created, extra_usage)
+        _stream_chat(h, backend, opts, cfg, cid, created, tools_requested,
+                     extra_usage)
         return
     replies: list[Optional[Reply]] = [None] * n
 
@@ -158,11 +273,19 @@ def chat_completions(h: Handler, app: Application) -> None:
         _raise_if_refused(reply)
         if reply.error:
             raise HTTPError(500, reply.error)
-        choices.append({
-            "index": i,
-            "message": {"role": "assistant", "content": reply.message},
-            "finish_reason": reply.finish_reason or "stop",
-        })
+        message: dict[str, Any] = {"role": "assistant"}
+        finish = reply.finish_reason or "stop"
+        calls = (parse_function_call(reply.message, cfg.function)
+                 if tools_requested else None)
+        if calls:
+            message["tool_calls"] = _tool_call_objects(calls)
+            message["content"] = (parse_text_content(reply.message,
+                                                     cfg.function) or None)
+            finish = "tool_calls"
+        else:
+            message["content"] = reply.message
+        choices.append({"index": i, "message": message,
+                        "finish_reason": finish})
         if i == 0:  # one shared prompt: count it once
             total.prompt_tokens = reply.prompt_tokens
         total.tokens += reply.tokens
@@ -180,9 +303,12 @@ def chat_completions(h: Handler, app: Application) -> None:
 
 def _stream_chat(h: Handler, backend, opts: PredictOptions,
                  cfg: ModelConfig, cid: str, created: int,
-                 extra_usage: bool) -> None:
+                 tools_requested: bool, extra_usage: bool) -> None:
     """SSE: a role delta, one content delta per engine text event, the
-    finish chunk with usage, then ``data: [DONE]``."""
+    finish chunk with usage, then ``data: [DONE]``. With tools requested
+    the output is buffered and parsed at the end: ``tool_calls`` deltas
+    (finish_reason "tool_calls") when it holds calls, else one content
+    delta."""
     opts.request_id = uuid.uuid4().hex
     q = backend.stream_queue(opts)
     # a bounded-queue shed lands synchronously inside submit: refuse it
@@ -192,7 +318,8 @@ def _stream_chat(h: Handler, backend, opts: PredictOptions,
         first = q.get_nowait()
     except queue.Empty:
         pass
-    if first is not None and first.done and first.finish_reason == "shed":
+    if first is not None and first.done and first.finish_reason in (
+            "shed", "deadline_exceeded"):
         _raise_if_refused(final_reply(first))
 
     def chunk(delta: dict, finish: Optional[str] = None,
@@ -218,13 +345,25 @@ def _stream_chat(h: Handler, backend, opts: PredictOptions,
         h.wfile.write(chunk({"role": "assistant", "content": ""}))
         h.wfile.flush()
         ev = first if first is not None else q.get()
+        buffered = ""
         while not ev.done:
-            if ev.text:
+            if tools_requested:
+                buffered += ev.text
+            elif ev.text:
                 h.wfile.write(chunk({"content": ev.text}))
                 h.wfile.flush()
             ev = q.get()
         final = final_reply(ev)
-        h.wfile.write(chunk({}, finish=final.finish_reason or "stop",
+        finish = final.finish_reason or "stop"
+        if tools_requested:
+            calls = parse_function_call(final.message, cfg.function)
+            if calls:
+                finish = "tool_calls"
+                for tc in _tool_call_objects(calls):
+                    h.wfile.write(chunk({"tool_calls": [tc]}))
+            elif buffered:
+                h.wfile.write(chunk({"content": buffered}))
+        h.wfile.write(chunk({}, finish=finish,
                             usage=_usage(final, extra_usage)))
         h.wfile.write(b"data: [DONE]\n\n")
         h.wfile.flush()

@@ -32,12 +32,21 @@ class PredictOptions:
     presence_penalty: float = 0.0
     stop_prompts: list[str] = field(default_factory=list)
     ignore_eos: bool = False
+    grammar: str = ""
+    # lazy-grammar trigger words (ref: pb.GrammarTrigger, options.go:118;
+    # grammar constrains only from the first trigger occurrence on)
+    grammar_triggers: list[str] = field(default_factory=list)
+    logit_bias: dict[int, float] = field(default_factory=dict)
     mirostat: int = 0
     mirostat_eta: float = 0.0
     mirostat_tau: float = 0.0
     correlation_id: str = ""
     request_id: str = ""  # caller-chosen id enabling cancel() on
     # client disconnect (ref: llama.cpp task cancel)
+    # per-request deadline budget in seconds (0 = engine default,
+    # LOCALAI_REQUEST_DEADLINE_S; the engine enforces it while queued
+    # and while decoding)
+    timeout_s: float = 0.0
 
 
 @dataclass

@@ -15,6 +15,7 @@ import torch
 from ..device import resolve
 from ..engine.engine import GenRequest, LLMEngine, StreamEvent
 from ..engine.tokenizer import Tokenizer, load_tokenizer
+from ..grammars.native import make_constraint
 from ..models import artifact_cache
 from ..models.hf_loader import load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
@@ -49,6 +50,9 @@ class TorchLLMBackend(Backend):
         # load, "artifact": the on-disk int8 tree) and its wall seconds
         self.load_mode = ""
         self.load_s = 0.0
+        # built grammar constraints by (grammar, triggers): building one
+        # walks the whole vocabulary
+        self._grammar_cache: dict[tuple, Any] = {}
 
     def load_model(self, opts: ModelLoadOptions) -> Result:
         with self._lock:
@@ -82,6 +86,7 @@ class TorchLLMBackend(Backend):
                     model_dir, _DTYPES[name],
                     quant if quant in _INT8 else "")
                 self.tokenizer = load_tokenizer(model_dir)
+                self._grammar_cache = {}
                 self.engine = LLMEngine(
                     self.spec, params, self.tokenizer,
                     n_slots=max(1, opts.batch_slots),
@@ -132,6 +137,15 @@ class TorchLLMBackend(Backend):
 
     def _to_request(self, opts: PredictOptions) -> GenRequest:
         assert self.tokenizer is not None
+        constraint = None
+        if opts.grammar:
+            key = (opts.grammar, tuple(opts.grammar_triggers or ()))
+            constraint = self._grammar_cache.get(key)
+            if constraint is None:
+                constraint = make_constraint(opts.grammar, self.tokenizer,
+                                             triggers=opts.grammar_triggers)
+                if len(self._grammar_cache) < 32:
+                    self._grammar_cache[key] = constraint
         return GenRequest(
             prompt_ids=self.tokenizer.encode(opts.prompt, add_bos=True),
             max_tokens=opts.tokens or 2048,
@@ -150,13 +164,32 @@ class TorchLLMBackend(Backend):
             seed=opts.seed,
             stop=list(opts.stop_prompts),
             ignore_eos=opts.ignore_eos,
+            logit_bias=opts.logit_bias or None,
+            constraint=constraint,
             correlation_id=opts.correlation_id,
+            timeout_s=max(0.0, opts.timeout_s),
             **({"id": opts.request_id} if opts.request_id else {}),
         )
 
     def cancel(self, request_id: str) -> None:
         if self.engine is not None:
             self.engine.cancel(request_id)
+
+    def engine_stats(self) -> Optional[dict]:
+        """The prefix-sharing counters (host-held values only)."""
+        eng = self.engine
+        if eng is None:
+            return None
+        m = eng.metrics
+        reused, filled = m.prefix_reused_tokens, m.prefill_tokens
+        return {
+            "prefix_cache": {
+                "reused_tokens": reused,
+                "prefilled_tokens": filled,
+                "copies": m.prefix_copies,
+                "hit_rate": round(reused / max(reused + filled, 1), 4),
+            },
+        }
 
     def predict(self, opts: PredictOptions) -> Reply:
         if self.engine is None:

@@ -564,3 +564,23 @@ def test_lm_head_bf16_on_card_returns_f32_sums(cuda_device):
                           x.to(cuda_device))
         assert got.dtype == torch.float32
         assert float((got.cpu() - want).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16kv", "int8kv"])
+def test_aliased_page_tables_match_plain_on_card(cuda_device, quant):
+    """Prefix sharing's tables at the 8B attention width (H 32, Hkv 8,
+    Dh 128, page 256): rows 1-5 alias row 0's first 4 physical pages (a
+    shared 1024-token prefix), then read private pages; rows 6-7 are
+    unrelated. Decode rows, suffix prefill chunks after the shared
+    prefix, and a seedless mix; within 1e-4 of the plain version and
+    bitwise on repeat."""
+    q_lens = [1, 40, 1, 23, 60, 1, 1, 128]
+    pos0 = [1500, 1100, 1180, 1076, 1090, 1300, 700, 0]
+    c = make_wide_case(q_lens, pos0, max_pages=8, page=256, dh=128, hkv=8,
+                       h=32, quant=quant, seed=7 + quant, device=cuda_device)
+    pt = c["page_table"].clone()
+    pt[1:6, :4] = pt[0, :4]
+    c["page_table"] = pt
+    got = _check_wide(c)
+    assert torch.equal(got, call_case(ragged_paged_attention, c))

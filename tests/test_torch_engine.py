@@ -193,7 +193,10 @@ def test_max_queue_sheds_with_retry_hint(weights, monkeypatch):
 
 def test_unserved_features_are_refused_not_ignored(torch_engine):
     ev = torch_engine.generate(te.GenRequest(prompt_ids=[1, 2],
-                                             logit_bias={3: -100.0}))
-    assert ev.finish_reason == "error" and "logit_bias" in ev.error
+                                             soft_embeds=np.zeros((1, 64))))
+    assert ev.finish_reason == "error" and "soft_embeds" in ev.error
+    ev = torch_engine.generate(te.GenRequest(prompt_ids=[1, 2],
+                                             prompt_cache_path="/x.npz"))
+    assert ev.finish_reason == "error" and "prompt caches" in ev.error
     ev = torch_engine.generate(te.GenRequest(prompt_ids=list(range(256))))
     assert ev.finish_reason == "error" and "context size" in ev.error

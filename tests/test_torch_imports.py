@@ -69,7 +69,9 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
     # every module of the slice was imported, the kernel wrapper included
     for m in ("engine.engine", "models.transformer", "ops.sampling",
               "ops.ragged_paged_attention", "server.app", "workers.llm",
-              "models.quant", "models.artifact_cache", "ops.int8_matmul"):
+              "models.quant", "models.artifact_cache", "ops.int8_matmul",
+              "engine.prefix_index", "grammars.gbnf", "grammars.constrain",
+              "grammars.json_schema", "grammars.parse", "grammars.native"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)
@@ -119,3 +121,19 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
         out = _chip_smoke(cwd)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_native_grammar_library_is_built_from_the_ports_own_source():
+    from localai_tfp_tpu_torch.grammars import native
+    from localai_tfp_tpu_torch.ops import _build
+
+    assert native.SRC.resolve() == (PORT / "csrc" / "gbnf_mask.cpp").resolve()
+    so = native.build()
+    assert so == native.library_path(native.SRC)
+    assert so.parent.resolve() == _build.BUILD_DIR.resolve()
+    assert str(so.resolve()).startswith(str((ROOT / "build").resolve()))
+    assert native.load_library()._name == str(so)
+    # the port's binding names no file of the JAX package's native dir
+    text = (PORT / "grammars" / "native.py").read_text()
+    assert "localai_tfp_tpu/native" not in text
+    assert "localai_tfp_tpu.native" not in text

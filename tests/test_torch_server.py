@@ -170,10 +170,9 @@ def test_errors(torch_client):
                                        {"role": "user", "content": "x"}]})
     assert status == 404 and json.loads(body)["error"]["code"] == 404
     status, _, body = torch_client("POST", "/v1/chat/completions", {
-        "model": "tiny", "tools": [{"type": "function",
-                                    "function": {"name": "f"}}],
+        "model": "tiny", "timeout": -1,
         "messages": [{"role": "user", "content": "x"}]})
-    assert status == 400 and "not supported" in body
+    assert status == 400 and "timeout" in body
     status, _, _ = torch_client("POST", "/v1/chat/completions",
                                 {"model": "tiny", "messages": []})
     assert status == 400
