@@ -20,18 +20,22 @@ Phases, one result line each; any failure raises and exits non-zero:
    decode; then the main path's shapes (8 slots, context 2048): a seeded
    decode step, one with every row near the context's end, a windowed
    one, a mixed step, and a mixed step with a 512-token chunk near the
-   context's end, and prefix sharing's aliased page tables (rows 1-5
-   reading row 0's first 4 physical pages); every comparison within 1e-4
+   context's end, prefix sharing's aliased page tables (rows 1-5
+   reading row 0's first 4 physical pages), and speculative decoding's
+   ``verify`` rows (q_len 4) and ``draft_decode`` rows (seeded, Dh 64:
+   the Llama-3.2-1B draft) at the decode step's contexts; every
+   comparison within 1e-4
    absolute, and every call repeated bitwise. Its times are cold: each timed call reads another
    layer of a 4-layer arena, so a layer's K/V has left the L2 when its
    turn comes round. Then its time, its plain version's, SDPA's, and
    its bound.
 4. int8    — int8_matmul against its plain version at every 8B
    projection shape (K x N 4096 x 4096, 4096 x 1024, 4096 x 14336,
-   14336 x 4096), M in INT8_M (decode rows and the mixed-step
-   instance's tile edges up to 1024), bf16 and f32 x, bf16 and f32 out:
-   f32 out within 1e-4 of the largest output, bf16 out within one bf16
-   ulp of each output plus that bound. Then, cold (operand copies past
+   14336 x 4096), M in INT8_M (decode rows, the speculative verify's
+   rows x n_draft, and the mixed-step instance's tile edges up to 1024),
+   bf16 and f32 x, bf16 and f32 out: f32 out within 1e-4 of the largest
+   output, bf16 out within one bf16 ulp of each output plus that bound;
+   every call repeated bitwise. Then, cold (operand copies past
    the L2), at the INT8_TIMED shapes: the kernel by graph replay and
    call by call, its plain version, torch._weight_int8pack_mm, the bf16
    cuBLAS product over the dequantized weight, its bound and its plan,
@@ -61,6 +65,24 @@ Phases, one result line each; any failure raises and exits non-zero:
    with the host ms of masked decode forwards beside unmasked ones; then
    a 1e-6 s timeout (504) and a deadline that expires mid-decode (200,
    finish_reason deadline_exceeded, partial text).
+7. spec    — after phase 5 (its checkpoint and int8 artifact):
+   speculative decoding through the HTTP route with a random-weight
+   Llama-3.2-1B-geometry draft (16 layers, Dh 64, tied head, seed 1)
+   written beside the 8B checkpoint, n_draft 4. (a) the main burst's
+   four prompts, greedy, on the 8B target with the draft and on the
+   plain model: ids equal, or apart only at near ties or within the
+   dense reference (``compare_waves``); (b) the 8B checkpoint drafting
+   for itself, the same four at once: greedy ids held to (a)'s plain
+   run as (a) holds its own, every greedy rejection within 0.2 of the
+   verify argmax's logit, sampled (temperature 1) acceptance at least
+   0.5, and two faults planted on that engine instance (a stale draft
+   arena, the target's p read one position late) must each fail its
+   check; (c) the int8 target with the bf16 draft, one request and then
+   eight at once, so its verify forwards reach int8_matmul at M = 4 and
+   M = 32, the greedy ids held to the plain int8 model's; (d) a repeat_penalty request beside a clean one: the
+   penalised row never in a speculative dispatch, both as served alone.
+   In every run attention launches once per layer of every target and
+   draft forward, and int8_matmul's launches equal its calls by M.
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -186,7 +208,7 @@ def ptxas_summary(text: str) -> list[dict]:
 
 
 def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
-              seed: int, L: int = 2, window=None):
+              seed: int, L: int = 2, window=None, dh: int = DH, pos0=None):
     """Inputs in the style of localai_tfp_tpu/ops/kernel_check.py
     check_ragged_attention: shuffled page tables over a shared arena, at
     the 8B attention width, on the card. ``chunk512`` is the main path's
@@ -196,9 +218,10 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
     a decode step whose every row ends within 160 tokens of it;
     ``aliased`` prefix sharing's tables: rows 1-5 alias row 0's first 4
     physical pages (a 1024-token shared prefix) and then read their own
-    pages, as decode rows and suffix prefill chunks past the prefix. ``L``
+    pages, as decode rows and suffix prefill chunks past the prefix;
+    ``draft_decode`` decode rows at the draft's head dim ``dh`` 64. ``L``
     layers of arena; the call reads layer 1, or ``layer`` as cycled by
-    the timing."""
+    the timing. ``pos0`` replaces the rows' drawn start positions."""
     import numpy as np
     import torch
 
@@ -206,7 +229,7 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
 
     rng = np.random.default_rng(seed)
     kd = 4
-    if mix in ("decode", "decode_long"):
+    if mix in ("decode", "decode_long", "draft_decode"):
         q_lens = np.ones(B, np.int32)
     elif mix == "prefill":
         q_lens = rng.integers(2, 257, B).astype(np.int32)
@@ -224,8 +247,9 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
     cap = max_pages * PAGE
     near = {"chunk512": 64, "decode_long": 160}.get(mix)
     lo = (lambda n: cap - n - near) if near else (lambda n: 0)
-    pos0 = np.asarray([int(rng.integers(lo(int(n)), cap - int(n) + 1))
-                       for n in q_lens], np.int32)
+    drawn = np.asarray([int(rng.integers(lo(int(n)), cap - int(n) + 1))
+                        for n in q_lens], np.int32)
+    pos0 = drawn if pos0 is None else np.asarray(pos0, np.int32)
     n_pages = B * max_pages + 1
     pt = rng.permutation(np.arange(1, n_pages)).reshape(
         B, max_pages).astype(np.int32)
@@ -235,13 +259,13 @@ def make_case(mix: str, quant: bool, seeded: bool, *, B: int, max_pages: int,
         pt[1:6, :4] = pt[0, :4]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    F = HKV * DH
+    F = HKV * dh
     ak = torch.randn((L, n_pages, PAGE, F), generator=g, device=dev) * 0.5
     av = torch.randn((L, n_pages, PAGE, F), generator=g, device=dev) * 0.5
     # logits with a std of about 0.5, so the softmax is not near uniform
-    q = torch.randn((B, T, H, DH), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, T, H, dh), generator=g, device=dev).to(torch.bfloat16)
     case = {
-        "q": q, "layer": 1, "n_kv_heads": HKV, "scale": DH ** -0.5,
+        "q": q, "layer": 1, "n_kv_heads": HKV, "scale": dh ** -0.5,
         "page_table": torch.from_numpy(pt).to(dev),
         "pos0": torch.from_numpy(pos0).to(dev),
         "q_lens": torch.from_numpy(q_lens).to(dev), "window": window,
@@ -279,9 +303,10 @@ def attention_work(c) -> tuple[int, int]:
     q_lens = c["q_lens"].tolist()
     pos0 = c["pos0"].tolist()
     elem = c["cache_k"].element_size()
-    F = HKV * DH
+    dh = c["q"].shape[-1]
+    F = HKV * dh
     nbytes = c["q"].numel() * c["q"].element_size()  # q in
-    nbytes += c["q"].shape[0] * c["q"].shape[1] * H * DH * 4  # out f32
+    nbytes += c["q"].shape[0] * c["q"].shape[1] * H * dh * 4  # out f32
     nbytes += c["page_table"].numel() * 4 + 8 * len(q_lens)
     flops = 0
     for n, p0 in zip(q_lens, pos0):
@@ -290,7 +315,7 @@ def attention_work(c) -> tuple[int, int]:
         if "cache_k_scale" in c:
             nbytes += 2 * ctx * 4
         attended = sum(p0 + t + 1 for t in range(n))
-        flops += 4 * H * DH * attended
+        flops += 4 * H * dh * attended
     return nbytes, flops
 
 
@@ -318,11 +343,11 @@ def _library_call(c):
     import torch
     import torch.nn.functional as Fnn
 
-    B, T = c["q"].shape[:2]
+    B, T, _, dh = c["q"].shape
     pt = c["page_table"].long()
     W = pt.shape[1] * PAGE
-    k = c["cache_k"][c["layer"]][pt].reshape(B, W, HKV, DH)
-    v = c["cache_v"][c["layer"]][pt].reshape(B, W, HKV, DH)
+    k = c["cache_k"][c["layer"]][pt].reshape(B, W, HKV, dh)
+    v = c["cache_v"][c["layer"]][pt].reshape(B, W, HKV, dh)
     if "cache_k_scale" in c:
         ks = c["cache_k_scale"][c["layer"]][pt].reshape(B, W, 1, 1)
         vs = c["cache_v_scale"][c["layer"]][pt].reshape(B, W, 1, 1)
@@ -368,8 +393,10 @@ def phase_kernels(n_slots: int, max_pages: int):
     # decode step with every row near the context's end (the longest
     # split ranges), a windowed seeded decode step (window edges inside
     # splits, whole splits outside), a mixed step with and without a
-    # window (its chunk rows see the window's edge move), and a step with
-    # the engine's 512-token chunk near ctx 2048
+    # window (its chunk rows see the window's edge move), a step with
+    # the engine's 512-token chunk near ctx 2048, and speculative
+    # decoding's verify rows (q_len 4) and draft rows (the Llama-3.2-1B
+    # draft's Dh 64, seeded) at the decode step's contexts
     small = [(mix, seeded, 6, 4, None)
              for mix in ("decode", "prefill", "mixed", "verify")
              for seeded in ((False, True) if mix == "decode" else (False,))]
@@ -378,20 +405,31 @@ def phase_kernels(n_slots: int, max_pages: int):
                 ("decode", True, None), ("decode_long", True, None),
                 ("decode", True, 300), ("mixed", False, None),
                 ("mixed", False, 300),
-                ("chunk512", False, None), ("aliased", False, None))]
+                ("chunk512", False, None), ("aliased", False, None),
+                ("verify", False, None), ("draft_decode", True, None))]
     worst = {"bf16": 0.0, "int8": 0.0}
+    decode_ctx = None  # the timed decode step's contexts
     aliased = {}  # the aliased-table case's error by page type
+    spec_err = {}  # the speculative keys' errors by page type
     timed = {}  # the full-shape bf16 cases, timed below
     for mix, seeded, B, pages, window in small + full:
         for quant in (False, True):
             seed = len(mix) + 10 * quant + 100 * seeded + B
             is_timed = (B == n_slots and window is None and not quant
                         and mix not in ("decode_long", "aliased"))
+            spec_key = B == n_slots and mix in ("verify", "draft_decode")
+            pos0 = None
+            if spec_key:
+                n = 4 if mix == "verify" else 1
+                pos0 = [max(0, ctx - n) for ctx in decode_ctx]
             c = make_case(mix, quant, seeded, B=B, max_pages=pages,
                           seed=seed, window=window,
-                          L=ATTN_LAYERS if is_timed else 2)
+                          L=ATTN_LAYERS if is_timed else 2,
+                          dh=64 if mix == "draft_decode" else DH, pos0=pos0)
             if is_timed:
                 timed[mix] = (c, seeded)
+                if mix == "decode":
+                    decode_ctx = [p + 1 for p in c["pos0"].tolist()]
             got = _call(ragged_paged_attention, c)
             want = _call(ragged_attention_plain, c)
             again = _call(ragged_paged_attention, c)
@@ -402,11 +440,14 @@ def phase_kernels(n_slots: int, max_pages: int):
             worst[kind] = max(worst[kind], err)
             if mix == "aliased":
                 aliased[kind] = err
+            if spec_key:
+                spec_err[f"{mix}_{kind}"] = err
             log("kernel_check", kernel="ragged_paged_attention", mix=mix,
                 pages=kind, seeded=seeded, window=window, rows=B,
                 max_pages=pages, q_lens=c["q_lens"].tolist(),
                 ctx=[p + n for p, n in zip(c["pos0"].tolist(),
                                            c["q_lens"].tolist())],
+                head_dim=c["q"].shape[-1],
                 max_abs_err=err, max_abs_want=float(want.abs().max()),
                 tol=TOL, jax_harness_tol=JAX_TOL[kind],
                 bitwise_repeat=repeat)
@@ -453,7 +494,7 @@ def phase_kernels(n_slots: int, max_pages: int):
         }
         log("kernel_time", kernel="ragged_paged_attention", mix=mix,
             seeded=seeded, **timings[mix])
-    return worst, timings, aliased
+    return worst, timings, aliased, spec_err
 
 
 # the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
@@ -461,7 +502,9 @@ PROJ_8B = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336),
            "w_down": (14336, 4096)}
 # decode rows up to a full mixed step, with the mixed-step instance's tile
 # edges (17: its first row count; 127 / 128 / 129 and 1000: 128-row tiles)
-INT8_M = (1, 8, 17, 37, 127, 128, 129, 1000, 1024)
+# and the speculative verify's rows x n_draft (4, 16; 28 and 32: 7 and 8
+# rows on 64-row tiles)
+INT8_M = (1, 4, 8, 16, 17, 28, 32, 37, 127, 128, 129, 1000, 1024)
 # timed (projection, M): decode and mixed-step sizes, bf16 x and out
 INT8_TIMED = (("w_gate", 8), ("w_gate", 1024), ("wk", 8), ("wk", 1024),
               ("wq", 1024), ("w_down", 1024), ("w_gate", 128),
@@ -566,6 +609,7 @@ def phase_int8_kernels():
                 x, q, s = _int8_operands(m, k, n, x_dtype, seed=m + k + n)
                 for out_dtype in (torch.bfloat16, torch.float32):
                     got = int8_matmul(x, q, s, out_dtype)
+                    again = int8_matmul(x, q, s, out_dtype)
                     want = int8_matmul_plain(x, q, s, out_dtype)
                     torch.cuda.synchronize()
                     err = float((got.float() - want.float()).abs().max())
@@ -574,6 +618,7 @@ def phase_int8_kernels():
                            "k": k, "n": n, "x": str(x_dtype)[6:],
                            "out": str(out_dtype)[6:], "max_abs_err": err,
                            "max_abs_want": top,
+                           "bitwise_repeat": bool(torch.equal(got, again)),
                            "plan": plan(m, n, k, sms,
                                         x_dtype == torch.bfloat16)}
                     out = "f32out" if out_dtype == torch.float32 \
@@ -593,7 +638,7 @@ def phase_int8_kernels():
                         ok = excess <= INT8_REL_TOL
                         rec.update(bf16_ulps=ulps, rel_err_beyond_1ulp=excess)
                     log("kernel_check", **rec)
-                    if not ok:
+                    if not (ok and rec["bitwise_repeat"]):
                         raise AssertionError(f"int8_matmul disagrees: {rec}")
     timings = {}
     for name, m in INT8_TIMED:
@@ -672,18 +717,32 @@ GEOMETRY = {
                      "rope_type": "llama3"},
     "tie_word_embeddings": False,
 }
+# the speculative draft: Llama-3.2-1B-Instruct's published config.json
+DRAFT_GEOMETRY = {
+    "hidden_size": 2048, "intermediate_size": 8192,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
+    "num_hidden_layers": 16, "vocab_size": 128256, "rope_theta": 500000.0,
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+    "rope_scaling": {"factor": 32.0, "low_freq_factor": 1.0,
+                     "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "tie_word_embeddings": True,
+}
 CONTEXT = 2048  # the model config's context_size
 SLOTS = 8  # the model config's max_batch_slots
 
 
-def checkpoint_layout(layers: int) -> list[tuple[str, tuple]]:
-    """(name, HF [out, in] shape) of every tensor of the checkpoint."""
-    g = GEOMETRY
+def checkpoint_layout(layers: int, g: dict = GEOMETRY
+                      ) -> list[tuple[str, tuple]]:
+    """(name, HF [out, in] shape) of every tensor of the checkpoint (no
+    lm_head when the geometry ties it to the embedding)."""
     D, F, V = g["hidden_size"], g["intermediate_size"], g["vocab_size"]
     q, kv = g["num_attention_heads"] * g["head_dim"], \
         g["num_key_value_heads"] * g["head_dim"]
-    out = [("model.embed_tokens.weight", (V, D)), ("model.norm.weight", (D,)),
-           ("lm_head.weight", (V, D))]
+    out = [("model.embed_tokens.weight", (V, D)), ("model.norm.weight", (D,))]
+    if not g["tie_word_embeddings"]:
+        out.append(("lm_head.weight", (V, D)))
     for i in range(layers):
         lp = f"model.layers.{i}."
         out += [(lp + "self_attn.q_proj.weight", (q, D)),
@@ -738,18 +797,20 @@ def choose_depth(want: int, path: Path) -> int:
     return layers
 
 
-def write_checkpoint(ckpt: Path, layers: int, seed: int) -> tuple[bool, float]:
-    """A Llama-3.1-8B-geometry HF checkpoint with random bf16 weights made
-    on the card from ``seed`` (``config.json`` as the JAX bench writes it,
-    with the published rope_scaling block; no tokenizer.json, so the
-    byte tokenizer serves). Reused when its marker matches. Returns
-    (written, seconds)."""
+def write_checkpoint(ckpt: Path, layers: int, seed: int,
+                     g_: dict = GEOMETRY) -> tuple[bool, float]:
+    """An HF checkpoint of geometry ``g_`` (Llama-3.1-8B's by default)
+    with random bf16 weights made on the card from ``seed``
+    (``config.json`` as the JAX bench writes it, with the published
+    rope_scaling block; no tokenizer.json, so the byte tokenizer
+    serves). Reused when its marker matches. Returns (written,
+    seconds)."""
     import torch
 
     from localai_tfp_tpu_torch.models.safetensors_io import save_iter
 
     marker = ckpt / "written.json"
-    want = {"seed": seed, "layers": layers, "geometry": GEOMETRY}
+    want = {"seed": seed, "layers": layers, "geometry": g_}
     if marker.is_file() and json.loads(marker.read_text()) == want:
         return False, 0.0
     t0 = time.perf_counter()
@@ -757,7 +818,7 @@ def write_checkpoint(ckpt: Path, layers: int, seed: int) -> tuple[bool, float]:
     marker.unlink(missing_ok=True)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    layout = checkpoint_layout(layers)
+    layout = checkpoint_layout(layers, g_)
     shapes = [(n, torch.empty(s, dtype=torch.bfloat16, device="meta"))
               for n, s in layout]
 
@@ -770,7 +831,6 @@ def write_checkpoint(ckpt: Path, layers: int, seed: int) -> tuple[bool, float]:
                 yield name, (w * shape[1] ** -0.5).to(torch.bfloat16)
 
     save_iter(tensors(), str(ckpt / "model.safetensors"), shapes=shapes)
-    g_ = GEOMETRY
     config = {
         "architectures": ["LlamaForCausalLM"], "model_type": "llama",
         "hidden_size": g_["hidden_size"],
@@ -782,7 +842,7 @@ def write_checkpoint(ckpt: Path, layers: int, seed: int) -> tuple[bool, float]:
         "rope_scaling": g_["rope_scaling"],
         "max_position_embeddings": g_["max_position_embeddings"],
         "rms_norm_eps": g_["rms_norm_eps"], "torch_dtype": "bfloat16",
-        "tie_word_embeddings": False,
+        "tie_word_embeddings": g_["tie_word_embeddings"],
         "bos_token_id": 128000, "eos_token_id": 128009,
     }
     (ckpt / "config.json").write_text(json.dumps(config, indent=1))
@@ -916,19 +976,9 @@ def param_bytes(params: dict) -> int:
                for t in leaves(v))
 
 
-def run_burst(port: int, model: str, eng) -> dict:
-    """Four concurrent requests (two first, two a second later, so both
-    arrive while others decode); every kernel count is set to 0 just
-    before and read just after."""
-    import threading
-
-    import torch
-
-    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
-    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention,
-    )
-
+def burst_bodies() -> tuple[list, list]:
+    """The main burst's four requests, as (name, body): the two sent
+    first and the two sent a second later."""
     long_text = ("The paged arena holds every slot's keys and values. "
                  * 30)
     first = [
@@ -948,6 +998,23 @@ def run_burst(port: int, model: str, eng) -> dict:
                      "top_k": 40, "top_p": 0.9, "messages": [
                          {"role": "user", "content": "Pick a word."}]}),
     ]
+    return first, later
+
+
+def run_burst(port: int, model: str, eng) -> dict:
+    """Four concurrent requests (two first, two a second later, so both
+    arrive while others decode); every kernel count is set to 0 just
+    before and read just after."""
+    import threading
+
+    import torch
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    first, later = burst_bodies()
     results: dict = {}
     errors: list = []
 
@@ -1152,6 +1219,7 @@ class EngineSpy:
                 req = slot.request
                 self.done[tuple(req.prompt_ids)] = {
                     "id": req.id, "ids": list(slot.generated),
+                    "greedy": req.temperature <= 0,
                     "text": slot.decoder.text if slot.decoder else "",
                     "reason": reason,
                     "ttft_ms": ((slot.t_first - req.t_submit) * 1e3
@@ -1190,6 +1258,11 @@ class EngineSpy:
 
         eng._finish, eng._sample = finish, sample_
         eng._decode_step, eng._step_mask = step_, mask_
+
+    def close(self) -> None:
+        """The engine's own methods again."""
+        for name in ("_finish", "_sample", "_decode_step", "_step_mask"):
+            self.eng.__dict__.pop(name, None)
 
     def gaps(self) -> dict:
         """request id -> top-2 logit gap of each sampled step, in order."""
@@ -1730,13 +1803,467 @@ def phase_main(layers_wanted: int, seed: int, engine: bool) -> dict:
         load_s={"bf16": bf16["load"]["load_s"],
                 "int8_cold": int8["load"]["load_s"],
                 "int8_warm": int8["reload"]["load_s"]})
-    return {"layers": layers, "bf16": bf16, "int8": int8}
+    return {"layers": layers, "checkpoint": ckpt_name, "bf16": bf16,
+            "int8": int8}
+
+# ------------------------------------------------------------ phase 7
+
+N_DRAFT = 4
+DRAFT_SEED = 1
+# a rejected greedy draft token of the model drafting for itself must be
+# this near the verify argmax: the two logits differ only by the batch
+# dependence of bf16 rows (up to 0.0925 on the card, PERF.md §6)
+REJECT_TIE = 0.2
+# sampled acceptance below which the rule or the draft arena is broken
+# (a model drafting for itself has p close to q)
+SAMPLED_ACCEPT_MIN = 0.5
+# faults planted on (b)'s engine to show that its checks fail them: the
+# prompt mirror written elsewhere (a stale draft arena; the greedy
+# rejection check must fail it), or the rejection rule reading the
+# target's p one position late (the sampled acceptance check must)
+SPEC_FAULTS = ("stale_draft_arena", "p_one_position_late")
+
+
+class SpecSpy:
+    """On one engine: host seconds of speculative dispatches, the prompts
+    of their rows, and (``gaps``) for each greedy verify forward the
+    logit gap between the verify argmax and the rejected draft token at
+    each row's first rejection (kept on the card, read after the run)."""
+
+    def __init__(self, eng, gaps: bool = False):
+        self.eng = eng
+        self.dispatches, self.seconds, self.rows = 0, 0.0, set()
+        self.gap_parts = []
+        step, verify = eng._spec_decode_step, eng._verify_logits
+
+        def step_(decoding, mode):
+            self.rows.update(tuple(s.request.prompt_ids) for s in decoding)
+            t0 = time.perf_counter()
+            try:
+                return step(decoding, mode)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.dispatches += 1
+
+        def verify_(xin, pos, pt, wt):
+            lg = verify(xin, pos, pt, wt)
+            m = lg[:, :-1].argmax(-1)  # [B, kd - 1] verify argmax
+            d = xin[:, 1:].long()  # the drafted tokens
+            miss = m != d
+            i = miss.int().argmax(1, keepdim=True)  # first rejection
+            row = lg[:, :-1].gather(1, i[..., None].expand(
+                -1, -1, lg.shape[-1]))[:, 0]
+            gap = (row.gather(1, m.gather(1, i))
+                   - row.gather(1, d.gather(1, i)))[:, 0]
+            self.gap_parts.append(gap[miss.any(1)])
+            return lg
+
+        eng._spec_decode_step = step_
+        if gaps:
+            eng._verify_logits = verify_
+
+    def rejection_gaps(self) -> list:
+        import torch
+
+        return (torch.cat(self.gap_parts).tolist() if self.gap_parts
+                else [])
+
+    def close(self) -> None:
+        for name in ("_spec_decode_step", "_verify_logits"):
+            self.eng.__dict__.pop(name, None)
+
+
+def plant_spec_fault(eng, kind: str):
+    """Break speculative decoding on this engine instance only (the
+    engine's code is untouched); returns the undo."""
+    if kind == "stale_draft_arena":
+        from localai_tfp_tpu_torch.models.transformer import KVCache
+
+        mixed = eng._mixed_step
+        elsewhere = KVCache.create(eng.draft[0], eng.kv_pages, eng.page,
+                                   eng.draft_cache.k.dtype,
+                                   device=eng.device)
+
+        def mixed_(prefilling, decoding):
+            real, eng.draft_cache = eng.draft_cache, elsewhere
+            try:
+                return mixed(prefilling, decoding)
+            finally:
+                eng.draft_cache = real
+
+        eng._mixed_step = mixed_
+        return lambda: eng.__dict__.pop("_mixed_step", None)
+    from localai_tfp_tpu_torch.ops import sampling
+
+    reject = sampling.spec_reject
+
+    def late(p_probs, p_idx, *rest):
+        return reject(p_probs.roll(-1, 1), p_idx.roll(-1, 1), *rest)
+
+    sampling.spec_reject = late
+
+    def undo():
+        sampling.spec_reject = reject
+
+    return undo
+
+
+def _b2_by_m():
+    """Count int8_matmul calls by their row count M as ``quant.mm`` makes
+    them (on the card each call launches the kernel or raises). Returns
+    (counts, undo)."""
+    from localai_tfp_tpu_torch.models import quant
+
+    counts: dict = {}
+    orig = quant.int8_matmul
+
+    def counting(x, q, scale, **kw):
+        counts[x.shape[0]] = counts.get(x.shape[0], 0) + 1
+        return orig(x, q, scale, **kw)
+
+    quant.int8_matmul = counting
+
+    def undo():
+        quant.int8_matmul = orig
+
+    return counts, undo
+
+
+def b2_instances(by_m: dict) -> dict:
+    """int8_matmul calls by instance: decode (M <= 16), mixed step."""
+    return {"decode_m_le_16": sum(n for m, n in by_m.items() if m <= 16),
+            "mixed_step_m_gt_16": sum(n for m, n in by_m.items() if m > 16)}
+
+
+def spec_wave(port: int, model: str, backend, bodies: list,
+              at_once: bool = True, gaps: bool = False) -> dict:
+    """Send ``bodies`` (all at once, else one after another) to one model;
+    each request's ids and text (``EngineSpy``), host clocks of decode
+    steps and spec dispatches, the engine's counters over the run, and
+    the kernels' launches with every count set to 0 just before it:
+    attention must have launched once per layer of every target forward
+    (verify forwards included) and of every draft forward."""
+    import threading
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    eng = backend.engine
+    spy = EngineSpy(eng, gaps=True)
+    sspy = SpecSpy(eng, gaps=gaps) if eng.draft is not None else None
+    by_m, undo = _b2_by_m()
+    errors: list = []
+    statuses: dict = {}
+
+    def send(i):
+        status, text = _post(port, {"model": model, **bodies[i]})
+        statuses[i] = status
+        if status != 200:
+            errors.append(f"request {i}: HTTP {status} {text[:200]}")
+
+    m0 = dict(vars(eng.metrics))
+    ragged_paged_attention.launches = 0
+    int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    try:
+        if at_once:
+            threads = [threading.Thread(target=send, args=(i,))
+                       for i in range(len(bodies))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+        else:
+            for i in range(len(bodies)):
+                send(i)
+        wall = time.perf_counter() - t0
+        launches = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+    finally:
+        undo()
+        spy.close()
+        if sspy is not None:
+            sspy.close()
+    if errors or len(statuses) != len(bodies):
+        raise AssertionError(f"{model}: spec wave failed: {errors}")
+    m = {k: v - m0[k] for k, v in vars(eng.metrics).items()}
+    draft_layers = eng.draft[0].n_layers if eng.draft is not None else 0
+    want = eng.spec.n_layers * m["forward_steps"] \
+        + draft_layers * m["draft_forwards"]
+    on_card = eng.device.type == "cuda"  # (a CPU dry run launches none)
+    if on_card and launches["ragged_paged_attention"] != want:
+        raise AssertionError(
+            f"{model}: ragged_paged_attention launched "
+            f"{launches['ragged_paged_attention']} times for "
+            f"{m['forward_steps']} target and {m['draft_forwards']} draft "
+            "forwards")
+    if on_card and sum(by_m.values()) != launches["int8_matmul"]:
+        raise AssertionError(
+            f"{model}: int8_matmul launched {launches['int8_matmul']} "
+            f"times for {sum(by_m.values())} calls")
+    deadline = time.time() + 30
+    while any(s.active for s in eng.slots) and time.time() < deadline:
+        time.sleep(0.01)
+    eng.leak_check()
+    steps = spy.step_ms()
+    rounds = m["spec_rounds"]
+    out = {
+        "model": model, "requests": len(bodies), "at_once": at_once,
+        "wall_s": wall, "forward_steps": m["forward_steps"],
+        "draft_forwards": m["draft_forwards"],
+        "decode_forwards": m["decode_steps"],
+        "spec_dispatches": m["spec_dispatches"],
+        "spec_tokens": m["spec_tokens"], "spec_rounds": rounds,
+        "spec_accepted": m["spec_accepted"],
+        "accepted_per_round": m["spec_accepted"] / max(1, rounds),
+        "acceptance_rate": m["spec_accepted"] / max(
+            1, rounds * (eng.n_draft - 1)),
+        "host_ms_per_spec_dispatch": (
+            sspy.seconds * 1e3 / max(1, sspy.dispatches) if sspy else None),
+        "host_ms_per_decode_forward": steps["plain_host_ms_per_forward"],
+        "launches": launches,
+        "int8_matmul_calls_by_m": dict(sorted(by_m.items())),
+    }
+    out["_done"], out["_gaps"], out["_first"] = (
+        spy.done, spy.gaps(), spy.first_logits)
+    out["_spec_rows"] = sspy.rows if sspy else set()
+    out["_rejection_gaps"] = sspy.rejection_gaps() if sspy else []
+    return out
+
+
+def _public(w: dict) -> dict:
+    return {k: v for k, v in w.items() if not k.startswith("_")}
+
+
+def _greedy_only(w: dict) -> dict:
+    """The wave's greedy requests only (sampled ones differ by batch)."""
+    return {**w, "_done": {p: d for p, d in w["_done"].items()
+                           if d["greedy"]}}
+
+
+def _loaded(port: int, app, model: str):
+    """Load ``model`` through the server (a short warm request) and
+    return its worker."""
+    warm = {"model": model, "max_tokens": 4,
+            "messages": [{"role": "user", "content": "warm up"}]}
+    check_reply(f"{model} load", warm, *_http(port, warm))
+    return app.loaded()[model]
+
+
+def _serve(models: Path):
+    import threading
+
+    from localai_tfp_tpu_torch.server.app import build_server
+
+    srv = build_server(str(models), port=0, device="cuda")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th
+
+
+def _shut(srv, th) -> None:
+    import gc
+
+    import torch
+
+    srv.close()
+    th.join(timeout=30)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_spec(ckpt_name: str, seed: int) -> dict:
+    """Speculative decoding through the HTTP route: (a) the 8B target
+    with a Llama-3.2-1B-geometry draft against the plain server, greedy;
+    (b) the 8B checkpoint as its own draft, greedy and sampled; (c) the
+    int8 target with the bf16 1B draft; (d) a penalised request beside a
+    clean one on (a)'s server."""
+    models = ROOT / "build" / "chip_smoke" / "models"
+    layers = DRAFT_GEOMETRY["num_hidden_layers"]
+    draft_name = f"llama32-1b-geometry-L{layers}-s{DRAFT_SEED}"
+    written, write_s = write_checkpoint(models / draft_name, layers,
+                                        DRAFT_SEED, DRAFT_GEOMETRY)
+    log("spec_checkpoint", dir=draft_name, written=written,
+        write_s=write_s, layers=layers)
+    configs = {"llama-3.1-8b-spec": {"draft_model": draft_name},
+               "llama-3.1-8b-self": {"draft_model": ckpt_name},
+               "llama-3.1-8b-int8-spec": {"draft_model": draft_name,
+                                          "quantization": "int8"}}
+    for name, extra in configs.items():
+        (models / f"{name}.yaml").write_text(json.dumps({
+            "name": name, "backend": "torch-llm",
+            "parameters": {"model": ckpt_name, "temperature": 0.0,
+                           "max_tokens": 32},
+            "context_size": CONTEXT, "max_batch_slots": SLOTS,
+            "dtype": "bfloat16", "n_draft": N_DRAFT, **extra,
+            "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
+                         "chat": "{{.Input}}\nassistant:"},
+        }, indent=1))
+    first, later = burst_bodies()
+    greedy = [{**b, "temperature": 0.0} for _, b in first + later]
+    out = {}
+
+    # (a) the 1B draft against the plain server; (d) on the same server
+    srv, th = _serve(models)
+    try:
+        port = srv.server_address[1]
+        plain_b = _loaded(port, srv.app, "llama-3.1-8b")
+        spec_b = _loaded(port, srv.app, "llama-3.1-8b-spec")
+        if spec_b.engine.draft is None or spec_b.engine.n_draft != N_DRAFT:
+            raise AssertionError("llama-3.1-8b-spec served without its draft")
+        plain = spec_wave(port, "llama-3.1-8b", plain_b, greedy)
+        spec = spec_wave(port, "llama-3.1-8b-spec", spec_b, greedy)
+        cmp = compare_waves(spec, plain, plain_b.engine, "spec vs plain")
+        if cmp["faults"] or not spec["spec_dispatches"]:
+            raise AssertionError(f"(a) spec against plain: {cmp['faults']}, "
+                                 f"{spec['spec_dispatches']} dispatches")
+        out["a"] = {"plain": _public(plain), "spec": _public(spec),
+                    "compare": cmp}
+        log("spec_a", **out["a"])
+        clean = {"max_tokens": 24, "temperature": 0.0, "messages": [
+            {"role": "user", "content": "Say hello."}]}
+        pen = {"max_tokens": 24, "temperature": 0.0, "repeat_penalty": 1.3,
+               "messages": [{"role": "user", "content": "Count to ten."}]}
+        alone = [spec_wave(port, "llama-3.1-8b-spec", spec_b, [b])
+                 for b in (clean, pen)]
+        pair = spec_wave(port, "llama-3.1-8b-spec", spec_b, [clean, pen])
+        singles = {k: {**alone[0][k], **alone[1][k]}
+                   for k in ("_done", "_gaps", "_first")}
+        cmp_d = compare_waves(pair, singles, plain_b.engine,
+                              "pair vs singles")
+        in_spec = {p: p in pair["_spec_rows"] for p in pair["_done"]}
+        pen_prompt = next(iter(alone[1]["_done"]))
+        clean_prompt = next(iter(alone[0]["_done"]))
+        if (cmp_d["faults"] or in_spec.get(pen_prompt)
+                or not in_spec.get(clean_prompt)
+                or pair["decode_forwards"] == 0):
+            raise AssertionError(
+                f"(d) per-slot eligibility: penalised in spec "
+                f"{in_spec.get(pen_prompt)}, clean in spec "
+                f"{in_spec.get(clean_prompt)}, {pair['decode_forwards']} "
+                f"decode forwards, faults {cmp_d['faults']}")
+        out["d"] = {"pair": _public(pair), "compare": cmp_d,
+                    "penalised_in_spec": False, "clean_in_spec": True}
+        log("spec_d", **out["d"])
+    finally:
+        _shut(srv, th)
+
+    # (b) the 8B checkpoint drafting for itself, the four prompts at once
+    # (decode rows run through the later prompts' mixed steps, which
+    # write their draft K/V too); its greedy ids held to (a)'s plain run
+    srv, th = _serve(models)
+    try:
+        port = srv.server_address[1]
+        self_b = _loaded(port, srv.app, "llama-3.1-8b-self")
+        g = spec_wave(port, "llama-3.1-8b-self", self_b, greedy, gaps=True)
+        gaps = g["_rejection_gaps"]
+        cmp_b = compare_waves(g, plain, self_b.engine,
+                              "self-draft vs plain")
+        sampled = [{**b, "temperature": 1.0, "seed": 11 + i}
+                   for i, b in enumerate(greedy)]
+        s_ = spec_wave(port, "llama-3.1-8b-self", self_b, sampled)
+        out["b"] = {"greedy": _public(g), "sampled": _public(s_),
+                    "compare": cmp_b, "greedy_rejections": len(gaps),
+                    "greedy_rejection_gap_max": max(gaps, default=0.0),
+                    "limit": REJECT_TIE, "sampled_min": SAMPLED_ACCEPT_MIN}
+        log("spec_b", **out["b"])
+        if cmp_b["faults"]:
+            raise AssertionError(f"(b) self-draft against plain: "
+                                 f"{cmp_b['faults']}")
+        if any(x > REJECT_TIE for x in gaps):
+            raise AssertionError(f"(b) a greedy rejection off a near tie: "
+                                 f"{sorted(gaps)[-5:]}")
+        if s_["acceptance_rate"] < SAMPLED_ACCEPT_MIN:
+            raise AssertionError(f"(b) sampled acceptance "
+                                 f"{s_['acceptance_rate']}")
+        # the same checks on planted faults, with prompts no resident
+        # prefix serves (so the faulted mirror is what the draft reads)
+        out["b_planted"] = {}
+        for kind in SPEC_FAULTS:
+            undo = plant_spec_fault(self_b.engine, kind)
+            try:
+                fresh = [{**b, "messages": [{"role": "user", "content":
+                          f"{kind} {i}: {b['messages'][-1]['content']}"}]}
+                         for i, b in enumerate(greedy)]
+                fg = spec_wave(port, "llama-3.1-8b-self", self_b, fresh,
+                               gaps=True)
+                fs = spec_wave(port, "llama-3.1-8b-self", self_b, [
+                    {**b, "temperature": 1.0, "seed": 11 + i,
+                     "messages": [{"role": "user", "content":
+                                   "sampled " + b["messages"][-1]["content"]}]}
+                    for i, b in enumerate(fresh)])
+            finally:
+                undo()
+            fgaps = fg["_rejection_gaps"]
+            out["b_planted"][kind] = {
+                "greedy_acceptance": fg["acceptance_rate"],
+                "greedy_rejections": len(fgaps),
+                "greedy_rejection_gap_max": max(fgaps, default=0.0),
+                "sampled_acceptance": fs["acceptance_rate"],
+                "greedy_check_fails": any(x > REJECT_TIE for x in fgaps),
+                "sampled_check_fails":
+                    fs["acceptance_rate"] < SAMPLED_ACCEPT_MIN}
+            log("spec_b_planted", fault=kind, **out["b_planted"][kind])
+        missed = [k for k, key in (
+            ("stale_draft_arena", "greedy_check_fails"),
+            ("p_one_position_late", "sampled_check_fails"))
+            if not out["b_planted"][k][key]]
+        if missed:
+            raise AssertionError(f"(b) planted faults passed their check: "
+                                 f"{missed}")
+    finally:
+        _shut(srv, th)
+
+    # (c) the int8 target (its artifact from phase main) and the bf16
+    # draft: one greedy request (verify M = 4, B2's decode instance),
+    # then 8 at once, greedy and sampled (M = 32, its mixed-step one);
+    # the greedy ids held to the plain int8 model's on the same bodies
+    srv, th = _serve(models)
+    try:
+        port = srv.server_address[1]
+        q_b = _loaded(port, srv.app, "llama-3.1-8b-int8-spec")
+        qp_b = _loaded(port, srv.app, "llama-3.1-8b-int8")
+        if (q_b.load_mode, qp_b.load_mode) != ("artifact", "artifact"):
+            raise AssertionError(f"(c) load modes {q_b.load_mode}, "
+                                 f"{qp_b.load_mode}")
+        one = spec_wave(port, "llama-3.1-8b-int8-spec", q_b, greedy[:1])
+        one_plain = spec_wave(port, "llama-3.1-8b-int8", qp_b, greedy[:1])
+        burst = [{"max_tokens": 32, "messages": [
+            {"role": "user", "content": f"Request {i}: name a colour."}],
+            **({"temperature": 0.8, "seed": i} if i % 2 else
+               {"temperature": 0.0})} for i in range(SLOTS)]
+        eight = spec_wave(port, "llama-3.1-8b-int8-spec", q_b, burst)
+        eight_plain = spec_wave(port, "llama-3.1-8b-int8", qp_b, burst)
+        cmp_c = {"one": compare_waves(one, one_plain, qp_b.engine,
+                                      "int8 spec vs plain, one"),
+                 "eight_greedy": compare_waves(
+                     _greedy_only(eight), _greedy_only(eight_plain),
+                     qp_b.engine, "int8 spec vs plain, eight")}
+        m4 = one["int8_matmul_calls_by_m"].get(N_DRAFT, 0)
+        m32 = eight["int8_matmul_calls_by_m"].get(SLOTS * N_DRAFT, 0)
+        out["c"] = {"one": _public(one), "eight": _public(eight),
+                    "plain_one": _public(one_plain),
+                    "plain_eight": _public(eight_plain), "compare": cmp_c,
+                    "verify_m4_calls": m4, "verify_m32_calls": m32}
+        log("spec_c", **out["c"])
+        faults = [c["faults"] for c in cmp_c.values() if c["faults"]]
+        if faults or cmp_c["eight_greedy"]["requests"] != SLOTS // 2:
+            raise AssertionError(f"(c) int8 spec against plain: {faults}")
+        if not (m4 and m32 and one["spec_dispatches"]
+                and eight["spec_dispatches"]):
+            raise AssertionError(f"(c) B2 in verify forwards: M=4 {m4}, "
+                                 f"M=32 {m32}")
+    finally:
+        _shut(srv, th)
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,int8,main,engine")
+                    default="device,build,kernels,int8,main,engine,spec")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -1750,8 +2277,8 @@ def main() -> int:
     entries = []
     # each kernel: correctness first, then times at 8B shapes
     if "kernels" in phases:
-        worst, timings, aliased = phase_kernels(n_slots=SLOTS,
-                                                max_pages=CONTEXT // PAGE)
+        worst, timings, aliased, spec_err = phase_kernels(
+            n_slots=SLOTS, max_pages=CONTEXT // PAGE)
         t = timings["decode"]
         entries.append({
             "name": "ragged_paged_attention", "route": "cuda",
@@ -1762,6 +2289,7 @@ def main() -> int:
             "max_abs_err_bf16": worst["bf16"],
             "max_abs_err_int8": worst["int8"], "tol": TOL,
             "aliased_tables_max_abs_err": aliased,
+            "spec_keys_max_abs_err": spec_err,
             "ms": t["ms"], "eager_ms": t["eager_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1771,7 +2299,7 @@ def main() -> int:
             **{f"{mix}_step": {k: timings[mix][k] for k in (
                 "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
-               for mix in ("mixed", "chunk512")},
+               for mix in ("mixed", "chunk512", "verify", "draft_decode")},
         })
         if build is not None:
             rows = build["ragged_paged_attention"]
@@ -1812,9 +2340,11 @@ def main() -> int:
                 blocks_per_sm={o["instance"]: o["blocks_per_sm"]
                                for o in occ8},
                 smem_bytes={o["instance"]: o["smem_bytes"] for o in occ8})
-    if "engine" in phases and "main" not in phases:
-        raise SystemExit("phase engine runs on phase main's server: "
-                         "--phases must include main")
+    for ph in ("engine", "spec"):
+        if ph in phases and "main" not in phases:
+            raise SystemExit(f"phase {ph} runs after phase main (its "
+                             "checkpoint and int8 artifact): --phases must "
+                             "include main")
     if "main" in phases:
         res = phase_main(args.layers, args.seed, "engine" in phases)
         # each kernel's count on its own path, read just after that path
@@ -1833,6 +2363,20 @@ def main() -> int:
                 e["launches_engine_prefix_wave"] = {
                     m: res[m]["engine"]["on"]["launches"][e["name"]]
                     for m in ("bf16", "int8")}
+    if "spec" in phases:
+        sp = phase_spec(res["checkpoint"], args.seed)
+        # each run's counts, set to 0 just before it and read just after
+        runs = {"a_spec": sp["a"]["spec"], "b_self_greedy": sp["b"]["greedy"],
+                "b_self_sampled": sp["b"]["sampled"],
+                "c_int8_one": sp["c"]["one"], "c_int8_eight": sp["c"]["eight"],
+                "d_pair": sp["d"]["pair"]}
+        for e in entries:
+            e["launches_spec"] = {k: r["launches"][e["name"]]
+                                  for k, r in runs.items()}
+            if e["name"] == "int8_matmul":
+                e["launches_spec_by_instance"] = {
+                    k: b2_instances(runs[k]["int8_matmul_calls_by_m"])
+                    for k in ("c_int8_one", "c_int8_eight")}
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

@@ -105,6 +105,8 @@ class ModelConfig:
     dtype: str = ""
     kv_cache_dtype: str = ""  # "" = same as dtype; "int8" quantizes KV
     quantization: str = ""  # weight-only int8: "int8" / "int8_full"
+    draft_model: str = ""  # speculative decoding: the draft checkpoint
+    n_draft: int = 0  # draft tokens per round (0: the worker's 4)
 
     @classmethod
     def from_dict(cls, data: Any) -> "ModelConfig":
@@ -154,7 +156,7 @@ class ModelConfig:
 
     def validate(self) -> bool:
         """Reject path traversal in the file-ish fields."""
-        for val in (self.model, self.backend):
+        for val in (self.model, self.backend, self.draft_model):
             if val and (val.startswith("/") or ".." in val):
                 return False
         return True

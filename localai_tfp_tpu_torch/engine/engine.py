@@ -39,9 +39,22 @@ exhaustion end a request, exactly as in the JAX package.
   queued request past its deadline gets a terminal
   ``deadline_exceeded`` event; a running one finishes with its partial
   text.
+- **Speculative decoding** (``draft=(spec, params)``, ``n_draft``): a
+  second paged arena for the draft, with the main pool's page count,
+  page size and page tables. Mixed steps also run the draft over their
+  ragged batch and write its K/V where the target writes (the prompt
+  chunks and the decode rows' tokens), so the draft arena holds every
+  committed position; page copies copy both arenas. A decode iteration
+  without prefill runs the eligible slots (no grammar, bias, penalty,
+  mirostat or soft tokens) through one speculative dispatch: rounds of
+  ``n_draft`` draft forwards and one verify forward of ``n_draft``
+  tokens per row, accepted on the device (greedy: while the draft's
+  token is the verify argmax; sampled: rejection sampling), with one
+  host read per dispatch. The other slots take a normal decode step in
+  the same iteration.
 
-Out of scope (and refused at submit rather than ignored): speculative
-decoding, prompt caches, multimodal soft tokens, disaggregation, meshes.
+Out of scope (and refused at submit rather than ignored): prompt caches,
+multimodal soft tokens, disaggregation, meshes.
 
 Batch rows are the participating slots only (the JAX package dispatches
 every slot at a static shape for jit; eager PyTorch needs no padding).
@@ -193,6 +206,15 @@ class EngineMetrics:
     prefix_reused_tokens: int = 0
     prefill_tokens: int = 0
     prefix_copies: int = 0
+    # speculative decoding: tokens emitted by spec dispatches, the
+    # dispatches, draft-model forwards (draft steps and prompt mirrors),
+    # and per (row, round) emitted: the rounds and their accepted draft
+    # tokens (j - 1 of a round that emits j)
+    spec_tokens: int = 0
+    spec_dispatches: int = 0
+    draft_forwards: int = 0
+    spec_rounds: int = 0
+    spec_accepted: int = 0
 
 
 def _refusal(req: GenRequest, max_seq: int) -> str:
@@ -226,15 +248,26 @@ class LLMEngine:
         penalty_window: int = 256,
         decode_steps: int = 8,
         kv_pages: Optional[int] = None,
+        draft: Optional[tuple[LLMSpec, Params]] = None,  # speculative
+        # decoding's draft model
+        n_draft: int = 4,
         autostart: bool = True,
         device: Any = None,
     ) -> None:
         self.device = resolve(device)
-        for k, v in params.items():
-            for t in leaves(v):  # both planes of an int8 QTensor leaf
-                if t.device != self.device:
-                    raise ValueError(f"param {k} lives on {t.device}, the "
-                                     f"engine on {self.device}")
+        for what, tree in (("param", params),
+                           ("draft param", draft[1] if draft else {})):
+            for k, v in tree.items():
+                for t in leaves(v):  # both planes of an int8 QTensor leaf
+                    if t.device != self.device:
+                        raise ValueError(f"{what} {k} lives on {t.device}, "
+                                         f"the engine on {self.device}")
+        if draft is not None and draft[0].vocab_size != spec.vocab_size:
+            raise ValueError(
+                f"draft vocabulary {draft[0].vocab_size} != the model's "
+                f"{spec.vocab_size}: a draft must propose the model's ids")
+        self.draft = draft
+        self.n_draft = max(2, n_draft)
         self.spec = spec
         self.params = params
         self.tokenizer = tokenizer
@@ -270,6 +303,11 @@ class LLMEngine:
         self._pool = PagePool(self.kv_pages, pg)
         self.cache = KVCache.create(spec, self.kv_pages, pg, cache_dtype,
                                     device=self.device)
+        # the draft's arena: the same pages under the same tables
+        self.draft_cache = (
+            KVCache.create(draft[0], self.kv_pages, pg, cache_dtype,
+                           device=self.device)
+            if draft is not None else None)
         self.sampling = smp.SamplingState.create(
             n_slots, spec.vocab_size, window=penalty_window,
             device=self.device)
@@ -414,12 +452,24 @@ class LLMEngine:
                 self._fail_all(f"engine error: {e!r}")
 
     def step(self) -> None:
-        """Run one device step for the current slot states."""
+        """Run one device step for the current slot states: a mixed step
+        while any slot prefills; else a speculative dispatch for the
+        eligible slots (when every decoding slot has ``n_draft``
+        positions of context left) and a decode step for the rest."""
         prefilling = [s for s in self.slots if s.state is SlotState.PREFILL]
         decoding = [s for s in self.slots if s.state is SlotState.DECODE]
         if prefilling:
             self._mixed_step(prefilling, decoding)
-        elif decoding:
+            return
+        mode, elig = self._spec_mode(decoding)
+        # near the context's end a verify forward's n_draft writes would
+        # run past it: then every slot takes the normal step
+        if mode and min(self.max_seq - 1 - s.n_past
+                        for s in decoding) >= self.n_draft:
+            self._spec_decode_step(elig, mode)
+            decoding = [s for s in decoding if s.state is SlotState.DECODE
+                        and s not in elig]
+        if decoding:
             self._decode_step(decoding)
 
     def _fail_all(self, msg: str) -> None:
@@ -664,11 +714,13 @@ class LLMEngine:
     @torch.inference_mode()
     def _kv_copy(self, src: int, dst: int) -> None:
         """Copy one physical page across every layer: K and V, and for
-        int8 pages their per-row scales."""
-        c = self.cache
-        for t in (c.k, c.v, c.k_scale, c.v_scale):
-            if t is not None:
-                t[:, dst].copy_(t[:, src])
+        int8 pages their per-row scales; in the draft's arena too."""
+        for c in (self.cache, self.draft_cache):
+            if c is None:
+                continue
+            for t in (c.k, c.v, c.k_scale, c.v_scale):
+                if t is not None:
+                    t[:, dst].copy_(t[:, src])
 
     def _pool_ensure(self, slot: _Slot, n_tokens: int) -> bool:
         """Grow the slot's pages to cover ``n_tokens`` positions,
@@ -864,12 +916,21 @@ class LLMEngine:
                     or s in finals]
         mask = self._step_mask(samplers) if samplers else None
         ql = self._ints(q_lens)
+        toks_d = torch.from_numpy(toks).to(self.device)
+        pos_d = self._ints(pos0)
         hidden, _ = forward_hidden(
-            self.spec, self.params, torch.from_numpy(toks).to(self.device),
-            self._ints(pos0), self.cache, None, page_table=pt,
-            kv_page=self.page, q_lens=ql, write_table=wt)
+            self.spec, self.params, toks_d, pos_d, self.cache, None,
+            page_table=pt, kv_page=self.page, q_lens=ql, write_table=wt)
         self.metrics.forward_steps += 1
         self.metrics.mixed_steps += 1
+        if self.draft is not None:
+            # the draft mirrors every row's K/V under the target's write
+            # table: the prompt chunks, and a decode row's token, whose
+            # position the next spec round (from n_past + 1) never writes
+            forward_hidden(*self.draft, toks_d, pos_d, self.draft_cache,
+                           None, page_table=pt, kv_page=self.page,
+                           q_lens=ql, write_table=wt)
+            self.metrics.draft_forwards += 1
         tok_host: list[int] = []
         if samplers:
             if finals:
@@ -944,6 +1005,187 @@ class LLMEngine:
                 self._emit_token(s, tok, defer=True)
             if s.state is SlotState.DECODE:
                 self._flush_emit(s)
+
+    # ------------------------------------------------------- speculative
+
+    @staticmethod
+    def _spec_eligible(s: _Slot) -> bool:
+        """Grammar, bias, penalty, soft-token and mirostat slots need
+        per-token sampler state (or K/V the draft never saw) that a
+        speculative round does not carry."""
+        r = s.request
+        return not (
+            r is None or r.constraint is not None or r.logit_bias
+            or r.repeat_penalty not in (0.0, 1.0)
+            or r.frequency_penalty or r.presence_penalty
+            or r.soft_embeds is not None or r.mirostat)
+
+    def _spec_mode(self, decoding: list[_Slot]
+                   ) -> tuple[Optional[str], list[_Slot]]:
+        """Per-slot eligibility: (mode, eligible slots), the mode
+        "greedy" when every eligible slot is temp <= 0 (exact argmax
+        replay), "sampled" otherwise (rejection sampling; greedy rows
+        ride along as one-hot distributions); (None, []) when no slot
+        can run speculatively."""
+        if self.draft is None:
+            return None, []
+        elig = [s for s in decoding if self._spec_eligible(s)]
+        if not elig:
+            return None, []
+        sampled = any(s.request.temperature > 0 for s in elig)
+        return ("sampled" if sampled else "greedy"), elig
+
+    def _draft_logits(self, tok: torch.Tensor, pos: torch.Tensor,
+                      pt: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+        """One T == 1 draft forward (writes the draft K/V of ``tok`` at
+        ``pos``); [B, V] f32 logits."""
+        dspec, dparams = self.draft
+        hidden, _ = forward_hidden(
+            dspec, dparams, tok, pos, self.draft_cache, None, page_table=pt,
+            kv_page=self.page, q_lens=torch.ones_like(pos), write_table=wt)
+        self.metrics.draft_forwards += 1
+        return _lm_head(dspec, dparams, hidden)[:, -1]
+
+    def _verify_logits(self, xin: torch.Tensor, pos: torch.Tensor,
+                       pt: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
+        """The verify forward: ``xin [B, kd]`` as ragged rows of q_len kd
+        from ``pos``; [B, kd, V] f32 logits."""
+        hidden, _ = forward_hidden(
+            self.spec, self.params, xin, pos, self.cache, None,
+            page_table=pt, kv_page=self.page,
+            q_lens=torch.full_like(pos, xin.shape[1]), write_table=wt)
+        self.metrics.forward_steps += 1
+        return _lm_head(self.spec, self.params, hidden)
+
+    def _spec_draws(self, rows: list[_Slot], rounds: int, kd: int,
+                    k: int) -> smp.SpecDraws:
+        """The sampled dispatch's random numbers, from the rows' slot
+        generators (tests replace this to pin them)."""
+        return smp.spec_draws(self.sampling, [s.idx for s in rows],
+                              [s.request.temperature > 0 for s in rows],
+                              rounds, kd, k)
+
+    def _greedy_rounds(self, rows, tok, pos, pt, wt, rounds):
+        """``rounds`` greedy rounds on the device: kd draft argmax steps
+        (the kd-th writes d_{kd-1}'s draft K/V, so the draft arena covers
+        a fully accepted round), one verify forward, and cumulative
+        acceptance j = 1 + cumprod(match).sum(). Returns drafted [rounds,
+        B, kd - 1], the verify argmax [rounds, B, kd] and j [rounds, B]."""
+        kd = self.n_draft
+        D, M, J = [], [], []
+        for _ in range(rounds):
+            t, p, drafted = tok, pos, []
+            for _ in range(kd):
+                t = torch.argmax(self._draft_logits(t, p, pt, wt), -1,
+                                 keepdim=True).to(torch.int32)
+                drafted.append(t)
+                p = p + 1
+            d = torch.cat(drafted[:kd - 1], 1)
+            m = torch.argmax(self._verify_logits(
+                torch.cat([tok, d], 1), pos, pt, wt), -1).to(torch.int32)
+            ok = (m[:, :kd - 1] == d).to(torch.int32)
+            j = (1 + torch.cumprod(ok, 1).sum(1)).to(torch.int32)
+            tok = torch.gather(m, 1, (j - 1).long()[:, None])
+            pos = pos + j
+            D.append(d)
+            M.append(m)
+            J.append(j)
+        return torch.stack(D), torch.stack(M), torch.stack(J)
+
+    def _sampled_rounds(self, rows, tok, pos, pt, wt, rounds):
+        """``rounds`` rejection-sampled rounds on the device: the draft
+        samples kd tokens from its filtered q, the verify forward gives
+        the filtered p at every position, and ``smp.spec_reject``
+        accepts and replaces. Returns drafted [rounds, B, kd - 1], the
+        replacement tokens [rounds, B, kd] and j [rounds, B]."""
+        kd = self.n_draft
+        B = len(rows)
+        K = min(smp.CAND, self.spec.vocab_size)
+        sids = self._ints([s.idx for s in rows])
+        rep = sids.repeat_interleave(kd)
+        draws = self._spec_draws(rows, rounds, kd, K)
+        D, M, J = [], [], []
+        for r in range(rounds):
+            t, p = tok, pos
+            d, q_sel, q_probs, q_idx = [], [], [], []
+            for i in range(kd):
+                qp, qi = smp.filtered_candidates(
+                    self.sampling, sids, self._draft_logits(t, p, pt, wt))
+                c = smp.gumbel_pick(qp, draws.draft[r, i])[:, None]
+                t = torch.gather(qi, 1, c).to(torch.int32)
+                d.append(t)
+                q_sel.append(torch.gather(qp, 1, c))
+                q_probs.append(qp)
+                q_idx.append(qi)
+                p = p + 1
+            drafted = torch.cat(d, 1)  # [B, kd]
+            logits = self._verify_logits(
+                torch.cat([tok, drafted[:, :kd - 1]], 1), pos, pt, wt)
+            pp, pidx = smp.filtered_candidates(
+                self.sampling, rep, logits.reshape(B * kd, -1))
+            fin, j = smp.spec_reject(
+                pp.reshape(B, kd, K), pidx.reshape(B, kd, K),
+                torch.stack(q_probs, 1), torch.stack(q_idx, 1), drafted,
+                torch.cat(q_sel, 1), draws.accept[r], draws.replace[r])
+            fin, j = fin.to(torch.int32), j.to(torch.int32)
+            tok = torch.gather(fin, 1, (j - 1).long()[:, None])
+            pos = pos + j
+            D.append(drafted[:, :kd - 1])
+            M.append(fin)
+            J.append(j)
+        return torch.stack(D), torch.stack(M), torch.stack(J)
+
+    @torch.inference_mode()
+    def _spec_decode_step(self, decoding: list[_Slot], mode: str) -> None:
+        """One speculative dispatch over the eligible decoding slots:
+        ``rounds`` rounds of ``n_draft`` tokens (no round that every row
+        is sure to discard), on the device, one host read at the end;
+        each round emits the accepted draft tokens and the verify's
+        replacement (or bonus) token through ``_emit_token``. Only these
+        rows are in the batch, so no other slot's pages are written."""
+        t0 = time.perf_counter()
+        kd = self.n_draft
+        room = min(self.max_seq - 1 - s.n_past for s in self.slots
+                   if s.state is SlotState.DECODE)
+        need = max(s.request.max_tokens - len(s.generated)
+                   for s in decoding)
+        rounds = max(1, min(self.decode_steps // kd, max(room // kd, 1),
+                            -(-need // kd)))
+        span = rounds * kd
+        rows = [s for s in decoding if self._ensure(s, s.n_past + span)]
+        if not rows:
+            return
+        pt, wt = self._tables(rows, [(s.n_past, s.n_past + span)
+                                     for s in rows])
+        tok = self._ints([[s.generated[-1]] for s in rows])
+        pos = self._ints([s.n_past for s in rows])
+        run = (self._sampled_rounds if mode == "sampled"
+               else self._greedy_rounds)
+        D, M, J = run(rows, tok, pos, pt, wt, rounds)
+        # the one host read: [rounds, B, (kd - 1) + kd + 1]
+        host = torch.cat([D, M, J[..., None]], -1).tolist()
+        dt = (time.perf_counter() - t0) * 1e3
+        emitted = 0
+        for b, s in enumerate(rows):
+            s.t_decode_ms += dt
+            for r in range(rounds):
+                if s.state is not SlotState.DECODE:
+                    break  # finished: later rounds are discarded
+                row = host[r][b]
+                j = row[-1]
+                self.metrics.spec_rounds += 1
+                self.metrics.spec_accepted += j - 1
+                for tok_out in row[:j - 1] + [row[kd - 1 + j - 1]]:
+                    if s.state is not SlotState.DECODE:
+                        break
+                    s.cache_tokens.append(s.generated[-1])  # input token
+                    s.n_past += 1
+                    emitted += 1
+                    self._emit_token(s, tok_out, defer=True)
+            if s.state is SlotState.DECODE:
+                self._flush_emit(s)
+        self.metrics.spec_tokens += emitted
+        self.metrics.spec_dispatches += 1
 
     # ------------------------------------------------------------ emission
 

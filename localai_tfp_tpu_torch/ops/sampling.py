@@ -278,15 +278,116 @@ def filtered_probs(state: SamplingState, slot_ids: torch.Tensor,
     argmax."""
     V = logits.shape[-1]
     scaled, idx = _topk_scaled(state, slot_ids, logits)
-    sid = slot_ids.long()
-    temp = state.temperature[sid]
-    rank = torch.arange(scaled.shape[-1], device=scaled.device)[None, :]
-    greedy_row = (rank == 0).float().expand_as(scaled)
     chain = _chain_probs(state, slot_ids, scaled)
-    miro = state.mirostat[sid]
+    miro = state.mirostat[slot_ids.long()]
     probs = torch.where((miro > 0)[:, None],
                         _mirostat_probs(state, slot_ids, scaled, V), chain)
-    return torch.where((temp <= 0.0)[:, None], greedy_row, probs), idx
+    return _greedy_one_hot(state, slot_ids, probs), idx
+
+
+def _greedy_one_hot(state: SamplingState, slot_ids: torch.Tensor,
+                    probs: torch.Tensor) -> torch.Tensor:
+    """Greedy (temp <= 0) rows become a one-hot on the first candidate,
+    the argmax (candidates are in descending order)."""
+    temp = state.temperature[slot_ids.long()]
+    rank = torch.arange(probs.shape[-1], device=probs.device)[None, :]
+    greedy = (rank == 0).float().expand_as(probs)
+    return torch.where((temp <= 0.0)[:, None], greedy, probs)
+
+
+def filtered_candidates(state: SamplingState, slot_ids: torch.Tensor,
+                        logits: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row candidate distribution after the temperature / top-k /
+    typical-p / top-p / min-p chain: ``sample``'s pipeline minus
+    penalties and mirostat (speculative decoding serves neither).
+    Returns (probs [B, K], vocab idx [B, K]); temp <= 0 rows are an
+    exact one-hot on the argmax. Speculative rejection sampling needs
+    both models' distributions, not just a draw."""
+    scaled, idx = _topk_scaled(state, slot_ids, logits)
+    return _greedy_one_hot(state, slot_ids,
+                           _chain_probs(state, slot_ids, scaled)), idx
+
+
+def _gumbel(u: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+
+
+def gumbel_pick(probs: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Gumbel-max draw of a candidate index from ``probs [..., K]`` with
+    Gumbel ``noise`` of the same shape (zeros: the most probable)."""
+    logp = torch.where(probs > 0, torch.log(probs.clamp(min=1e-30)),
+                       torch.full_like(probs, NEG_INF))
+    return torch.argmax(logp + noise, dim=-1)
+
+
+@dataclass
+class SpecDraws:
+    """The random numbers of one speculative dispatch (``rounds`` rounds
+    of ``kd`` draft tokens over B rows): Gumbel noise for each draft
+    token's draw, uniforms for the acceptance tests, Gumbel noise for
+    the replacement (residual or bonus) draws."""
+
+    draft: torch.Tensor  # [rounds, kd, B, K]
+    accept: torch.Tensor  # [rounds, B, kd - 1] uniforms in [0, 1)
+    replace: torch.Tensor  # [rounds, B, kd, K]
+
+
+def spec_draws(state: SamplingState, slot_ids: list[int],
+               stochastic: list[bool], rounds: int, kd: int,
+               k: int) -> SpecDraws:
+    """A dispatch's draws from each row's slot generator, one call per
+    row; rows not marked ``stochastic`` (greedy) draw nothing and get
+    zeros, which keep their one-hot distributions exact."""
+    B = len(slot_ids)
+    per = rounds * (2 * kd * k + kd - 1)
+    u = torch.zeros((B, per), dtype=torch.float32, device=state.device)
+    for r, (s, draw) in enumerate(zip(slot_ids, stochastic)):
+        if draw:
+            u[r] = torch.rand((per,), generator=state.generators[s],
+                              device=state.device)
+    u = u.reshape(B, rounds, -1).transpose(0, 1)  # [rounds, B, ...]
+    n = kd * k
+    mask = torch.tensor(stochastic, device=state.device)[None, :, None]
+    g = torch.where(mask, _gumbel(u), torch.zeros_like(u))
+    return SpecDraws(
+        draft=g[..., :n].reshape(rounds, B, kd, k).transpose(1, 2),
+        accept=u[..., n:n + kd - 1],
+        replace=g[..., n + kd - 1:].reshape(rounds, B, kd, k))
+
+
+def spec_reject(p_probs: torch.Tensor, p_idx: torch.Tensor,
+                q_probs: torch.Tensor, q_idx: torch.Tensor,
+                drafted: torch.Tensor, q_drafted: torch.Tensor,
+                accept: torch.Tensor, replace: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Speculative rejection sampling (Leviathan et al.) over one round.
+
+    p_probs, p_idx [B, kd, K]: the target's filtered candidates at each
+    verify position; q_probs, q_idx [B, kd, K]: the draft's at each draft
+    step; drafted [B, kd] the draft's tokens and q_drafted [B, kd] their
+    q; accept [B, kd - 1] uniforms; replace [B, kd, K] Gumbel noise.
+    Draft token i is accepted when u_i < min(1, p(d_i) / q(d_i)),
+    cumulatively; the first rejection resamples from norm(max(p - q,
+    0)) and the bonus position kd - 1 from p. Returns (replacement
+    tokens [B, kd], emitted count j [B] in 1..kd): a row emits
+    drafted[:j - 1] and then replacement[j - 1]."""
+    kd = p_probs.shape[1]
+    p_at_d = (p_probs * (p_idx == drafted[..., None])).sum(-1)
+    ratio = p_at_d[:, :kd - 1] / q_drafted[:, :kd - 1].clamp(min=1e-30)
+    ok = (accept < ratio.clamp(max=1.0)).to(torch.int32)
+    j = 1 + torch.cumprod(ok, dim=1).sum(1)
+    match = q_idx[:, :, :, None] == p_idx[:, :, None, :]  # [B, kd, K, K]
+    q_on_p = (q_probs[:, :, :, None] * match).sum(2)
+    residual = (p_probs - q_on_p).clamp(min=0.0)
+    rsum = residual.sum(-1, keepdim=True)
+    dist = torch.where(rsum > 1e-9, residual / rsum.clamp(min=1e-30),
+                       p_probs)
+    bonus = (torch.arange(kd, device=p_probs.device) == kd - 1)[
+        None, :, None]
+    dist = torch.where(bonus, p_probs, dist)
+    pick = gumbel_pick(dist, replace)
+    return torch.gather(p_idx, -1, pick[..., None])[..., 0], j
 
 
 def gumbel_noise(state: SamplingState, slot_ids: list[int], k: int,
@@ -299,7 +400,7 @@ def gumbel_noise(state: SamplingState, slot_ids: list[int], k: int,
         if draw:
             u = torch.rand((k,), generator=state.generators[s],
                            device=state.device)
-            out[r] = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+            out[r] = _gumbel(u)
     return out
 
 
@@ -326,10 +427,7 @@ def sample(state: SamplingState, slot_ids: torch.Tensor,
     if noise is None:
         noise = gumbel_noise(state, slot_ids.tolist(), probs.shape[-1],
                              (temp > 0).tolist())
-    # Gumbel-max over log probs == a draw from probs
-    logp = torch.where(probs > 0, torch.log(probs.clamp(min=1e-30)),
-                       torch.full_like(probs, NEG_INF))
-    j = torch.argmax(logp + noise, dim=-1)
+    j = gumbel_pick(probs, noise)  # Gumbel-max: a draw from probs
     sampled_tok = torch.gather(idx, -1, j[:, None])[:, 0]
     tok = torch.where(temp <= 0.0, greedy_tok, sampled_tok).to(torch.int32)
     # mirostat mu update: observed surprise (bits) of the drawn token,

@@ -68,7 +68,8 @@ class Application:
             batch_slots=cfg.max_batch_slots,
             dtype=cfg.dtype or "bfloat16",
             kv_cache_dtype=cfg.kv_cache_dtype,
-            quantization=cfg.quantization)
+            quantization=cfg.quantization,
+            draft_model=cfg.draft_model, n_draft=cfg.n_draft or 0)
 
     def backend(self, cfg: ModelConfig) -> TorchLLMBackend:
         """The model's worker, loaded on first use (one load at a time)."""

@@ -80,6 +80,8 @@ class ModelLoadOptions:
     kv_cache_dtype: str = ""
     quantization: str = ""  # "int8" (q8, q8_0, w8): weight-only int8
     # projections; "int8_full": also embed / lm_head; "" or none/bf16: off
+    draft_model: str = ""  # speculative decoding (proto DraftModel)
+    n_draft: int = 0
 
 
 @dataclass

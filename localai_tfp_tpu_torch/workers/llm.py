@@ -87,11 +87,14 @@ class TorchLLMBackend(Backend):
                     quant if quant in _INT8 else "")
                 self.tokenizer = load_tokenizer(model_dir)
                 self._grammar_cache = {}
+                draft = (self._load_draft(opts, _DTYPES[name])
+                         if opts.draft_model else None)
                 self.engine = LLMEngine(
                     self.spec, params, self.tokenizer,
                     n_slots=max(1, opts.batch_slots),
                     max_seq=opts.context_size,
                     cache_dtype=_KV_DTYPES[kv_name],
+                    draft=draft, n_draft=opts.n_draft or 4,
                     device=self.device)
             except (OSError, ValueError, NotImplementedError, KeyError,
                     RuntimeError) as e:
@@ -125,6 +128,24 @@ class TorchLLMBackend(Backend):
         artifact_cache.save(path, params)
         self.load_mode = "quantized"
         return spec, params
+
+    def _load_draft(self, opts: ModelLoadOptions,
+                    dtype: torch.dtype) -> tuple[LLMSpec, dict]:
+        """The speculative-decoding draft: an HF checkpoint directory (a
+        relative path is under ``model_path``) at the target's dtype,
+        never quantized, as the JAX worker loads it. A draft that cannot
+        be loaded fails the model's load: a config that names a draft is
+        never served without it."""
+        ddir = opts.draft_model
+        if not os.path.isabs(ddir):
+            ddir = os.path.join(opts.model_path or "", ddir)
+        if ddir.endswith(".gguf"):
+            raise ValueError(f"draft model {ddir}: GGUF drafts are not "
+                             "supported by this port yet (an HF checkpoint "
+                             "directory is)")
+        if not os.path.isdir(ddir):
+            raise ValueError(f"draft model not found: {ddir}")
+        return load_params(ddir, dtype=dtype, device=self.device)
 
     def shutdown(self) -> None:
         if self.engine is not None:
@@ -176,13 +197,16 @@ class TorchLLMBackend(Backend):
             self.engine.cancel(request_id)
 
     def engine_stats(self) -> Optional[dict]:
-        """The prefix-sharing counters (host-held values only)."""
+        """The prefix-sharing and speculative-decoding counters
+        (host-held values only)."""
         eng = self.engine
         if eng is None:
             return None
         m = eng.metrics
         reused, filled = m.prefix_reused_tokens, m.prefill_tokens
         return {
+            "spec_tokens": m.spec_tokens,
+            "spec_dispatches": m.spec_dispatches,
             "prefix_cache": {
                 "reused_tokens": reused,
                 "prefilled_tokens": filled,

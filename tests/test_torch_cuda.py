@@ -584,3 +584,67 @@ def test_aliased_page_tables_match_plain_on_card(cuda_device, quant):
     c["page_table"] = pt
     got = _check_wide(c)
     assert torch.equal(got, call_case(ragged_paged_attention, c))
+
+
+# ------------------------------------------------ speculative decoding
+
+
+SPEC_POS0 = [143, 1827, 700, 1200, 50, 2043, 512, 1023]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16kv", "int8kv"])
+@pytest.mark.parametrize("shape", ["verify", "draft_decode"])
+def test_spec_shapes_match_plain_on_card(cuda_device, shape, quant):
+    """Speculative decoding's two new attention shapes at the served
+    widths (H 32, Hkv 8, page 256, 8 rows of 8 pages): ``verify`` rows
+    of q_len 4 at Dh 128 (the 8B target), and seeded T == 1
+    ``draft_decode`` rows at Dh 64 (the Llama-3.2-1B draft); within 1e-4
+    of the plain version and bitwise on repeat."""
+    verify = shape == "verify"
+    pos0 = [min(p, 2048 - 4) for p in SPEC_POS0] if verify else SPEC_POS0
+    c = make_wide_case([4 if verify else 1] * 8, pos0, max_pages=8,
+                       page=256, dh=128 if verify else 64, hkv=8, h=32,
+                       quant=quant, seeded=not verify, seed=21 + quant,
+                       device=cuda_device)
+    got = _check_wide(c)
+    assert torch.equal(got, call_case(ragged_paged_attention, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["spec", "spec_s"])
+def test_spec_engine_on_card(cuda_device, temperature):
+    """The speculative engine on the card, the model its own draft's
+    target and a 1-layer draft beside it: every kernel launch is one
+    layer of a target forward (verify rounds included) or of a draft
+    forward, greedy text equals the plain engine's on the card, and a
+    sampled request finishes with its token count."""
+    spec, params = _tiny_model(cuda_device)
+    dspec = tiny_spec(vocab_size=258, d_model=128, n_heads=4, n_kv_heads=2,
+                      d_head=64, d_ff=256, max_position=256, n_layers=1)
+    dparams = {k: (v[:1] if v.dim() > 1 and k not in ("embed", "lm_head")
+                   else v) for k, v in params.items()}
+    dparams["final_norm_w"] = params["final_norm_w"]
+    texts = []
+    for draft in (None, (dspec, dparams)):
+        eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=2,
+                        max_seq=256, cache_dtype=torch.float32, draft=draft,
+                        n_draft=4, device=cuda_device)
+        try:
+            before = ragged_paged_attention.launches
+            ev = eng.generate(GenRequest(
+                prompt_ids=list(range(1, 60)), max_tokens=20,
+                ignore_eos=True, temperature=temperature, seed=4))
+            assert ev.finish_reason == "length" and \
+                ev.completion_tokens == 20
+            m = eng.metrics
+            launched = ragged_paged_attention.launches - before
+            assert launched == (spec.n_layers * m.forward_steps
+                                + dspec.n_layers * m.draft_forwards)
+            assert (m.spec_dispatches > 0) == (draft is not None)
+            texts.append(ev.full_text)
+            eng.leak_check()
+        finally:
+            eng.close()
+    if temperature == 0.0:
+        assert texts[0] == texts[1]

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from localai_tfp_tpu.engine import engine as je
+from localai_tfp_tpu.engine import prefix_index as jax_prefix_index
 from localai_tfp_tpu.engine.prefix_index import PrefixIndex as JaxIndex
 from localai_tfp_tpu.engine.prefix_index import (
     common_prefix_len as jax_common,
@@ -34,6 +35,7 @@ from localai_tfp_tpu.engine.tokenizer import ByteTokenizer as JaxBytes
 from localai_tfp_tpu.models.llm_spec import tiny_spec as jax_tiny
 from localai_tfp_tpu.models.transformer import init_params
 from localai_tfp_tpu_torch.engine import engine as te
+from localai_tfp_tpu_torch.engine import prefix_index as port_prefix_index
 from localai_tfp_tpu_torch.engine.prefix_index import (
     PrefixIndex,
     common_prefix_len,
@@ -191,10 +193,26 @@ def test_common_prefix_len_matches_jax():
         assert common_prefix_len(a, b) == jax_common(a, b)
 
 
+class _Clock:
+    """A ``time`` stand-in whose ``monotonic`` reads a value the test
+    sets: ``sync`` stamps new slots with the clock, and two real reads
+    microseconds apart would make the two indexes' ``value`` differ."""
+
+    def __init__(self, now: float) -> None:
+        self.now = now
+
+    def monotonic(self) -> float:
+        return self.now
+
+
 @pytest.mark.parametrize("seed", range(4))
-def test_prefix_index_matches_jax_under_seeded_ops(seed):
+def test_prefix_index_matches_jax_under_seeded_ops(seed, monkeypatch):
     """The same random sequence of set_tokens / remove / sync / touch on
-    both indexes; every query agrees."""
+    both indexes, under one fake clock the test advances; every query
+    agrees."""
+    clock = _Clock(1000.0)
+    monkeypatch.setattr(port_prefix_index, "time", clock)
+    monkeypatch.setattr(jax_prefix_index, "time", clock)
     rng = np.random.default_rng(seed)
     ours, ref = PrefixIndex(), JaxIndex()
     base = rng.integers(0, 6, 80).tolist()
@@ -207,7 +225,7 @@ def test_prefix_index_matches_jax_under_seeded_ops(seed):
     for step in range(300):
         op = rng.integers(0, 5)
         slot = int(rng.integers(0, 6))
-        now = 1000.0 + step
+        now = clock.now = 1000.0 + step
         if op == 0:
             s = seq()
             ours.set_tokens(slot, s, now=now)

@@ -238,11 +238,13 @@ def test_expired_request_timeout_header_is_a_504(jax_client, torch_client):
 
 
 def test_deadline_mid_decode_returns_partial_text(jax_client, torch_client):
-    """Deadlines at fractions of the server's warm generation time: each
-    reply is a 504 (nothing produced yet), a 200 with finish_reason
-    deadline_exceeded and a non-empty prefix of the undeadlined greedy
-    text, or the whole text (the deadline came after the end); at least
-    one is the partial 200, on both servers."""
+    """A deadline searched for on each server until it expires mid-decode:
+    each reply is a 504 (nothing produced yet: the deadline goes up), the
+    whole text (the deadline came after the end: it goes down), or a 200
+    with finish_reason deadline_exceeded and a non-empty prefix of the
+    undeadlined greedy text; at least one partial 200 on both servers.
+    The search starts at half a warm generation's time, and the host's
+    load moves only where it ends."""
     body = {"model": "tiny", "max_tokens": 200, "ignore_eos": True,
             "messages": _msgs("count")}
     for client in (jax_client, torch_client):
@@ -253,20 +255,26 @@ def test_deadline_mid_decode_returns_partial_text(jax_client, torch_client):
             runs.append(time.perf_counter() - t0)
             assert status == 200
         full = _content(json.loads(full))
+        lo, hi = 0.0, None  # deadlines known too short / too long
+        deadline = min(runs[1:]) * 0.5
         partial = 0
-        for frac in (0.5, 0.3, 0.7, 0.15, 0.9):
+        for _ in range(12):
             status, text = client(body, {
-                "X-Request-Timeout": f"{min(runs[1:]) * frac:.4f}"})
+                "X-Request-Timeout": f"{deadline:.4f}"})
             if status == 504:
                 assert "deadline exceeded" in text
-                continue
-            assert status == 200, text
-            reply = json.loads(text)["choices"][0]
-            got = reply["message"]["content"]
-            if reply["finish_reason"] == "length":
-                assert got == full
-                continue
-            assert reply["finish_reason"] == "deadline_exceeded"
-            assert got and full.startswith(got)
-            partial += 1
+                lo = deadline
+            else:
+                assert status == 200, text
+                reply = json.loads(text)["choices"][0]
+                got = reply["message"]["content"]
+                if reply["finish_reason"] == "length":
+                    assert got == full
+                    hi = deadline
+                else:
+                    assert reply["finish_reason"] == "deadline_exceeded"
+                    assert got and full.startswith(got)
+                    partial += 1
+                    break
+            deadline = (lo + hi) / 2 if hi is not None else deadline * 2
         assert partial, client
