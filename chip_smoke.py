@@ -52,8 +52,23 @@ Phases, one result line each; any failure raises and exits non-zero:
    int8_matmul's kernels by name. Twice: the bf16 model (attention
    kernel), then the same checkpoint served with ``quantization: int8``
    (both kernels), quantized on the card at a cold load, then reloaded
-   from its on-disk artifact.
-6. engine  — on each model's server after phase 5: prefix sharing, six
+   from its on-disk artifact. Every plain decode forward is a replay of
+   a CUDA graph the worker captured at load (one per row bucket); each
+   replay adds the kernel launches its capture recorded to the counts.
+6. graphs  — on each model's server after phase 5: the burst's four
+   requests in one admission wave on a fresh engine (graphs captured
+   as at load) three times: by graph replay as served, with the same
+   variant body run eagerly at its bucket (greedy and seeded sampled
+   ids bitwise equal, and equal kernel launches: per replay against
+   per call), and with the eager loop over exactly the decoding rows
+   (greedy ids equal, or apart beyond a near tie only where both stay
+   the dense reference's argmax); every decode forward of the served
+   run a replay. Then the profile window of 8 decoding requests with
+   the eager loop and with graphs (device busy share), the HTTP burst
+   again, and a /metrics scrape: content type, engine_mfu_ratio in (0,
+   1], engine_hbm_bytes of weights, arena, sampler and graph pool, the
+   ledger's drift; warmup seconds, variants and graph-pool bytes.
+7. engine  — on each model's server after phase 5: prefix sharing, six
    greedy requests behind one 1100-token system prompt (one alone, then
    five at once) on a fresh engine with sharing on and again with it off
    (prompt tokens computed, tokens reused, tail-page copies, the wave's
@@ -65,7 +80,7 @@ Phases, one result line each; any failure raises and exits non-zero:
    with the host ms of masked decode forwards beside unmasked ones; then
    a 1e-6 s timeout (504) and a deadline that expires mid-decode (200,
    finish_reason deadline_exceeded, partial text).
-7. spec    — after phase 5 (its checkpoint and int8 artifact):
+8. spec    — after phase 5 (its checkpoint and int8 artifact):
    speculative decoding through the HTTP route with a random-weight
    Llama-3.2-1B-geometry draft (16 layers, Dh 64, tied head, seed 1)
    written beside the 8B checkpoint, n_draft 4. (a) the main burst's
@@ -1084,8 +1099,10 @@ def run_burst(port: int, model: str, eng) -> dict:
 def profile_decode(eng) -> dict:
     """Where a decode forward's time goes: 8 concurrent requests (all 8
     slots decoding after one mixed step) under torch.profiler; device
-    busy time is the sum of the CUDA kernels' own times, host time the
-    host clock around the engine's decode steps."""
+    busy time is the sum of the CUDA kernels' own times (graph replays'
+    kernels included), its share of the window's host-clock wall the
+    device's busy share, host time the host clock around the engine's
+    decode steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1105,15 +1122,18 @@ def profile_decode(eng) -> dict:
                        max_tokens=24, ignore_eos=True) for i in range(8)]
     eng._decode_step = clocked
     decode0 = eng.metrics.decode_steps
+    replays0 = eng.metrics.graph_replays
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for q in eng.submit_many(reqs):
                 ev = q.get(timeout=600)
                 while not ev.done:
                     ev = q.get(timeout=600)
             torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
     finally:
         del eng._decode_step  # the class's method again
     decode = eng.metrics.decode_steps - decode0
@@ -1127,13 +1147,15 @@ def profile_decode(eng) -> dict:
     # B2's kernels by name (its instances and the split-K second pass)
     b2 = {k[:80]: v for k, v in kernels.items() if "i8mm" in k}
     return {"decode_forwards": decode,
+            "graph_replays": eng.metrics.graph_replays - replays0,
             "host_ms_per_decode_forward": spent[0] * 1e3 / max(1, decode),
-            "device_busy_ms_total": busy,
+            "device_busy_ms_total": busy, "window_ms": window_ms,
+            "device_busy_share": busy / window_ms,
             "top_kernels_ms": {k[:80]: v for k, v in top},
             "int8_matmul_ms": b2, "int8_matmul_ms_total": sum(b2.values())}
 
 
-# ------------------------------------------------------------ phase 6
+# ------------------------------------------------------------ phase 7
 
 SHARED_PREFIX = 1100  # tokens: 4 full 256-token pages and a 76-token tail
 NEAR_TIE = 1e-3  # top-2 logit gap below which greedy ids may differ
@@ -1212,6 +1234,8 @@ class EngineSpy:
         self.decode = {"masked": [0, 0.0, 0.0], "plain": [0, 0.0, 0]}
         fin, sample = eng._finish, eng._sample
         step, mask = eng._decode_step, eng._step_mask
+        launch, fill = eng._decode_launch, eng._fill
+        rows_of: dict = {}  # variant -> its dispatch's real rows
         last_mask = [0.0, False]
 
         def finish(slot, reason):
@@ -1236,6 +1260,20 @@ class EngineSpy:
                         self.first_logits[s.request.id] = logits[i].float()
             return sample(rows, logits, m)
 
+        def fill_(v, rows, k):
+            rows_of[v.bucket] = [s.request.id for s in rows]
+            return fill(v, rows, k)
+
+        def launch_(v):
+            # one step of a decode variant (a graph replay): its logits
+            # stay in the variant until its next launch
+            launch(v)
+            if gaps:
+                ids = rows_of[v.bucket]
+                top = torch.topk(v.logits[:len(ids)].float(), 2,
+                                 dim=-1).values
+                self.gap_rows.append((ids, top[:, 0] - top[:, 1]))
+
         def mask_(rows):
             t0 = time.perf_counter()
             out = mask(rows)
@@ -1256,13 +1294,19 @@ class EngineSpy:
                 d[2] += last_mask[0]
             last_mask[1] = False
 
+        self._planted = eng.__dict__.get("_decode_launch")
         eng._finish, eng._sample = finish, sample_
         eng._decode_step, eng._step_mask = step_, mask_
+        eng._decode_launch, eng._fill = launch_, fill_
 
     def close(self) -> None:
-        """The engine's own methods again."""
-        for name in ("_finish", "_sample", "_decode_step", "_step_mask"):
+        """The engine's own methods again (a launch planted before the
+        spy stays)."""
+        for name in ("_finish", "_sample", "_decode_step", "_step_mask",
+                     "_decode_launch", "_fill"):
             self.eng.__dict__.pop(name, None)
+        if self._planted is not None:
+            self.eng._decode_launch = self._planted
 
     def gaps(self) -> dict:
         """request id -> top-2 logit gap of each sampled step, in order."""
@@ -1326,7 +1370,8 @@ def shared_kv(eng, prompts: list, n: int) -> dict:
 
 def fresh_engine(backend, prefix_cache: bool):
     """Swap a new engine (same model, settings and weights; empty arena and
-    slots) into the worker, with prefix sharing on or off."""
+    slots) into the worker, with prefix sharing on or off, its decode
+    graphs captured as the worker captures them at load."""
     import gc
 
     import torch
@@ -1337,6 +1382,7 @@ def fresh_engine(backend, prefix_cache: bool):
     kw = dict(n_slots=old.n_slots, max_seq=old.max_seq,
               cache_dtype=old.cache.k.dtype, device=old.device)
     spec, params, tok = old.spec, old.params, old.tokenizer
+    old_label = old._mlabel
     old.close()
     backend.engine = None
     del old
@@ -1344,9 +1390,10 @@ def fresh_engine(backend, prefix_cache: bool):
     torch.cuda.empty_cache()
     os.environ["LOCALAI_PREFIX_CACHE"] = "on" if prefix_cache else "off"
     try:
-        backend.engine = LLMEngine(spec, params, tok, **kw)
+        backend.engine = LLMEngine(spec, params, tok, model=old_label, **kw)
     finally:
         os.environ.pop("LOCALAI_PREFIX_CACHE", None)
+    backend.engine.warmup()  # as the worker does at load
     return backend.engine
 
 
@@ -1678,11 +1725,197 @@ def phase_engine(port: int, app, model: str, backend, layers: int,
             "deadline": dl}
 
 
+def burst_requests(app, model: str, backend) -> list:
+    """The main burst's four requests as the engine's GenRequests over
+    the served chat prompts, each running to its max_tokens."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    first, later = burst_bodies()
+    reqs = []
+    for _, body in first + later:
+        body = {"model": model, **body}
+        reqs.append(GenRequest(
+            prompt_ids=backend.tokenizer.encode(srv_prompt(app, body),
+                                                add_bos=True),
+            max_tokens=body["max_tokens"],
+            temperature=body.get("temperature", 0.0),
+            top_k=body.get("top_k", 0), top_p=body.get("top_p", 1.0),
+            seed=body.get("seed"), ignore_eos=True))
+    return reqs
+
+
+GRAPH_MODES = ("graph", "bucket", "eager")
+
+
+def eager_loop(eng):
+    """Plain decode steps through the eager loop over exactly the
+    decoding rows, on this engine instance only; returns it."""
+    eng._decode_graph = eng._decode_eager
+    return eng
+
+
+def graphs_wave(app, model: str, backend, mode: str) -> dict:
+    """The burst's four requests in one admission wave (one schedule,
+    whatever the host's timing) on a fresh engine with its graphs
+    captured: ``graph`` as served, ``bucket`` the same variant body run
+    eagerly at its bucket (no replay), ``eager`` the eager loop over
+    exactly the decoding rows. Ids, gaps and first-step logits
+    (EngineSpy), host ms per decode forward, the engine's counters and
+    the kernels' launches, set to 0 just before and read just after."""
+    import torch
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    eng = fresh_engine(backend, True)
+    if mode == "bucket":
+        eng._decode_launch = eng._decode_body
+    elif mode == "eager":
+        eager_loop(eng)
+    spy = EngineSpy(eng, gaps=True)
+    reqs = burst_requests(app, model, backend)
+    m0 = dict(vars(eng.metrics))
+    torch.cuda.synchronize()
+    ragged_paged_attention.launches = 0
+    int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    try:
+        reasons = []
+        for q in eng.submit_many(reqs):
+            ev = q.get(timeout=600)
+            while not ev.done:
+                ev = q.get(timeout=600)
+            reasons.append(ev.finish_reason)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+    finally:
+        spy.close()
+    if reasons != ["length"] * len(reqs):
+        raise AssertionError(f"graphs wave ({mode}): {reasons}")
+    m = {k: v - m0[k] for k, v in vars(eng.metrics).items()}
+    return {"mode": mode, "wall_s": wall,
+            "forward_steps": m["forward_steps"],
+            "decode_forwards": m["decode_steps"],
+            "graph_replays": m["graph_replays"],
+            "eager_decode_forwards": m["decode_steps"] - m["graph_replays"],
+            "host_ms_per_decode_forward":
+                spy.step_ms()["plain_host_ms_per_forward"],
+            "launches": launches,
+            "_done": spy.done, "_gaps": spy.gaps(), "_first": spy.first_logits}
+
+
+def scrape_metrics(port: int, label: str) -> dict:
+    """GET /metrics: its content type and the engine families the phase
+    reports (``label`` is the engine's model label)."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as r:
+        ctype, text = r.headers.get("Content-Type", ""), r.read().decode()
+    vals: dict = {}
+    for line in text.splitlines():
+        m = re.match(r'^([a-z_]+)\{(.*)\} (\S+)$', line)
+        if not m:
+            continue
+        labels = dict(re.findall(r'([a-z_]+)="([^"]*)"', m.group(2)))
+        if labels.pop("model", None) == label:
+            vals.setdefault(m.group(1), {})[
+                ",".join(f"{k}={v}" for k, v in sorted(labels.items()))] = \
+                float(m.group(3))
+    return {"content_type": ctype,
+            "engine_mfu_ratio": vals.get("engine_mfu_ratio", {}).get(""),
+            "engine_hbm_bytes": {k.split("=", 1)[1]: v for k, v in vals.get(
+                "engine_hbm_bytes", {}).items()},
+            "engine_device_flops_total": vals.get(
+                "engine_device_flops_total", {}),
+            "engine_dispatch_compile_variants_count": vals.get(
+                "engine_dispatch_compile_variants_count", {}).get(""),
+            "engine_warmup_seconds": vals.get("engine_warmup_seconds", {})}
+
+
+def phase_graphs(port: int, app, model: str, backend) -> dict:
+    """The compiled decode on the served model: the burst in one wave as
+    served (graph replays), with the variant body run eagerly at the
+    same bucket (greedy and seeded sampled ids and every kernel's
+    launches equal), and with the eager loop over exactly the decoding
+    rows (greedy ids equal or dense-held); torch.profiler windows of
+    the graph and the eager loop; then the HTTP burst and a /metrics
+    scrape."""
+    from localai_tfp_tpu_torch.telemetry.registry import CONTENT_TYPE
+
+    waves = {mode: graphs_wave(app, model, backend, mode)
+             for mode in GRAPH_MODES}
+    g, b, e = (waves[m] for m in GRAPH_MODES)
+    for w in waves.values():
+        log("graphs_wave", model=model, **_public(w))
+    apart = [len(p) for p in g["_done"]
+             if g["_done"][p]["ids"] != b["_done"][p]["ids"]]
+    if apart:
+        raise AssertionError(f"{model}: graph and eager at the same bucket "
+                             f"differ for prompts of {apart} tokens")
+    if g["launches"] != b["launches"]:
+        raise AssertionError(f"{model}: launches per replay {g['launches']}"
+                             f" != per call {b['launches']}")
+    on_card = backend.engine.device.type == "cuda"  # (a CPU dry run
+    # replays nothing)
+    if not g["decode_forwards"] or (on_card and g["eager_decode_forwards"]) \
+            or b["graph_replays"] or e["graph_replays"]:
+        raise AssertionError(f"{model}: replays {g['graph_replays']} of "
+                             f"{g['decode_forwards']} decode forwards")
+    cmp = compare_waves(_greedy_only(g), _greedy_only(e), backend.engine,
+                        "graph vs unpadded eager")
+    log("graphs_compare", model=model, **cmp)
+    if cmp["faults"]:
+        raise AssertionError(f"{model}: graph against the unpadded eager "
+                             f"loop: {cmp['faults']}")
+    # no engine is held here across fresh_engine: each old one is
+    # collected there, so the ledger below sees only the served engine
+    prof_eager = profile_decode(eager_loop(fresh_engine(backend, True)))
+    log("graphs_profile", model=model, mode="eager", **prof_eager)
+    prof_graph = profile_decode(fresh_engine(backend, True))
+    log("graphs_profile", model=model, mode="graph", **prof_graph)
+    eng = fresh_engine(backend, True)
+    burst = run_burst(port, model, eng)
+    scrape = scrape_metrics(port, eng._mlabel)
+    hbm = eng.hbm_stats()
+    mfu = scrape["engine_mfu_ratio"]
+    if scrape["content_type"] != CONTENT_TYPE or not (
+            mfu is not None and 0 < mfu <= 1) or not all(
+            scrape["engine_hbm_bytes"].get(c, 0) > 0 for c in (
+                "weights", "kv_arena", "sampler")
+            + (("graph_pool",) if on_card else ())):
+        raise AssertionError(f"{model}: /metrics {scrape}")
+    return {
+        "warmup_s": eng.metrics.warmup_s, "load_warmup_s": backend.warmup_s,
+        "variants": len(eng._variants),
+        "graph_pool_bytes": eng._graph_pool_bytes,
+        "host_ms_per_decode_forward": {
+            m: waves[m]["host_ms_per_decode_forward"] for m in GRAPH_MODES},
+        "launches": {m: waves[m]["launches"] for m in GRAPH_MODES},
+        "graph_replays": g["graph_replays"],
+        "eager_decode_forwards": g["eager_decode_forwards"],
+        "ids_graph_vs_bucket": "bitwise equal (4 of 4, sampled included)",
+        "compare_unpadded": cmp,
+        "profile": {"graph": prof_graph, "eager": prof_eager},
+        "burst": burst, "metrics": scrape,
+        "ledger": {k: hbm.get(k) for k in (
+            "attributed", "bytes_in_use", "bytes_allocated", "unattributed",
+            "drift_ratio", "device_used")},
+        "costmodel": eng.cost_stats(),
+    }
+
+
 def serve_model(models: Path, model: str, layers: int, quantized: bool,
-                engine: bool, seed: int) -> dict:
+                engine: bool, graphs: bool, seed: int) -> dict:
     """Serve one model config through the port's HTTP server: load, the
     burst, its checks, (int8) a reload from the artifact, the dense
-    reference check, and (``engine``) phase 6 on the same server."""
+    reference check, and (``graphs``) phase 6 and (``engine``) phase 7
+    on the same server."""
     import threading
 
     import torch
@@ -1733,9 +1966,9 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
                 f"{model}: int8_matmul launched {got['int8_matmul']} times "
                 f"on the main path; it needs at least {need}")
         eng.leak_check()
+        del eng  # later phases swap engines in: hold none of them here
         reload = None
         if quantized:  # the second load reads the on-disk int8 tree
-            del eng
             res = backend.load_model(srv.app.load_options(
                 srv.app.configs[model]))
             if not res.success or backend.load_mode != "artifact":
@@ -1752,16 +1985,23 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
         prof = profile_decode(backend.engine)
         log("main_profile", model=model, **prof)
         backend.engine.leak_check()
+        gr = None
+        if graphs:
+            gr = phase_graphs(port, srv.app, model, backend)
+            log("graphs", model=model, **{k: v for k, v in gr.items()
+                                          if k not in ("profile", "burst")})
         eng_res = (phase_engine(port, srv.app, model, backend, layers, seed)
                    if engine else None)
         return {"load": load, "burst": burst, "reload": reload,
-                "reference": ref, "profile": prof, "engine": eng_res}
+                "reference": ref, "profile": prof, "graphs": gr,
+                "engine": eng_res}
     finally:
         srv.close()
         th.join(timeout=30)
 
 
-def phase_main(layers_wanted: int, seed: int, engine: bool) -> dict:
+def phase_main(layers_wanted: int, seed: int, engine: bool,
+               graphs: bool) -> dict:
     """Serve the 8B-geometry model on the card through the port's HTTP
     server: bf16, then the same checkpoint with int8 weights."""
     import gc
@@ -1788,7 +2028,7 @@ def phase_main(layers_wanted: int, seed: int, engine: bool) -> dict:
     log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
         written=written, write_s=round(write_s, 3), dir=ckpt_name)
     bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False,
-                       engine=engine, seed=seed)
+                       engine=engine, graphs=graphs, seed=seed)
     gc.collect()
     torch.cuda.empty_cache()
     # a cold int8 load: quantize on the card, then write the artifact
@@ -1796,7 +2036,7 @@ def phase_main(layers_wanted: int, seed: int, engine: bool) -> dict:
     os.environ["LOCALAI_QUANT_CACHE_DIR"] = str(quant_cache)
     os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
     int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True,
-                       engine=engine, seed=seed)
+                       engine=engine, graphs=graphs, seed=seed)
     log("main_models", layers=layers,
         param_gb={"bf16": bf16["load"]["param_bytes"] / 1e9,
                   "int8": int8["load"]["param_bytes"] / 1e9},
@@ -1806,7 +2046,7 @@ def phase_main(layers_wanted: int, seed: int, engine: bool) -> dict:
     return {"layers": layers, "checkpoint": ckpt_name, "bf16": bf16,
             "int8": int8}
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------------ phase 8
 
 N_DRAFT = 4
 DRAFT_SEED = 1
@@ -1908,23 +2148,37 @@ def plant_spec_fault(eng, kind: str):
     return undo
 
 
-def _b2_by_m():
+def _b2_by_m(eng):
     """Count int8_matmul calls by their row count M as ``quant.mm`` makes
-    them (on the card each call launches the kernel or raises). Returns
-    (counts, undo)."""
+    them (on the card each call launches the kernel or raises), and for
+    each replay of one of ``eng``'s decode graphs the calls its capture
+    recorded, at M = the graph's row bucket. Returns (counts, undo)."""
     from localai_tfp_tpu_torch.models import quant
 
     counts: dict = {}
     orig = quant.int8_matmul
+    launch = eng._decode_launch
+    planted = "_decode_launch" in eng.__dict__
 
     def counting(x, q, scale, **kw):
         counts[x.shape[0]] = counts.get(x.shape[0], 0) + 1
         return orig(x, q, scale, **kw)
 
+    def launch_(v):
+        launch(v)
+        n = v.launches.get("int8_matmul", 0) if v.graph is not None else 0
+        if n:
+            counts[v.bucket] = counts.get(v.bucket, 0) + n
+
     quant.int8_matmul = counting
+    eng._decode_launch = launch_
 
     def undo():
         quant.int8_matmul = orig
+        if planted:
+            eng._decode_launch = launch
+        else:
+            eng.__dict__.pop("_decode_launch", None)
 
     return counts, undo
 
@@ -1953,7 +2207,7 @@ def spec_wave(port: int, model: str, backend, bodies: list,
     eng = backend.engine
     spy = EngineSpy(eng, gaps=True)
     sspy = SpecSpy(eng, gaps=gaps) if eng.draft is not None else None
-    by_m, undo = _b2_by_m()
+    by_m, undo = _b2_by_m(eng)
     errors: list = []
     statuses: dict = {}
 
@@ -2263,7 +2517,8 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,int8,main,engine,spec")
+                    default="device,build,kernels,int8,main,graphs,engine,"
+                            "spec")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -2340,13 +2595,14 @@ def main() -> int:
                 blocks_per_sm={o["instance"]: o["blocks_per_sm"]
                                for o in occ8},
                 smem_bytes={o["instance"]: o["smem_bytes"] for o in occ8})
-    for ph in ("engine", "spec"):
+    for ph in ("graphs", "engine", "spec"):
         if ph in phases and "main" not in phases:
             raise SystemExit(f"phase {ph} runs after phase main (its "
                              "checkpoint and int8 artifact): --phases must "
                              "include main")
     if "main" in phases:
-        res = phase_main(args.layers, args.seed, "engine" in phases)
+        res = phase_main(args.layers, args.seed, "engine" in phases,
+                         "graphs" in phases)
         # each kernel's count on its own path, read just after that path
         # ran: attention on the bf16 model, the int8 product on the int8
         # model (which also runs attention)
@@ -2356,6 +2612,11 @@ def main() -> int:
             e["launches"] = own[e["name"]][e["name"]]
             e["launches_int8_model"] = \
                 res["int8"]["burst"]["launches"][e["name"]]
+            if "graphs" in phases:
+                # phase graphs' wave: per replay (graph) and per call
+                # (the variant body eagerly at its bucket, the eager loop)
+                e["launches_graphs_wave"] = {
+                    m: res[m]["graphs"]["launches"] for m in ("bf16", "int8")}
             if "engine" in phases:
                 # the prefix wave with sharing on: attention over aliased
                 # page tables (bf16 model), the int8 product's mixed

@@ -27,6 +27,21 @@ _DEFAULTS = {
     "LOCALAI_QUANT_ARTIFACTS": "on",
     # quant-artifact cache root ('' = $XDG_CACHE_HOME/localai_tpu/quant)
     "LOCALAI_QUANT_CACHE_DIR": "",
+    # capture every decode variant's CUDA graph at model load (off: each
+    # variant is captured at its first use instead)
+    "LOCALAI_WARMUP": "on",
+    # per-dispatch FLOPs/bytes accounting and the MFU gauge
+    # (telemetry/costmodel.py)
+    "LOCALAI_COSTMODEL": "on",
+    # component-level device-memory ledger with memory_stats
+    # reconciliation and OOM post-mortems (telemetry/hbm_ledger.py)
+    "LOCALAI_HBM_LEDGER": "on",
+    # per-device peak FLOP/s for MFU/roofline accounting (0 = the
+    # built-in per-device table)
+    "LOCALAI_PEAK_FLOPS": "0",
+    # per-device peak memory bandwidth in GB/s for roofline
+    # classification (0 = the built-in per-device table)
+    "LOCALAI_PEAK_HBM_GBS": "0",
 }
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("", "0", "false", "no", "off")

@@ -16,7 +16,20 @@ free slots and then runs one device step per iteration:
 - otherwise a **decode step**: up to ``decode_steps`` T == 1 forwards
   (the seeded decode contract of the attention kernel), each sampling
   the next token on the device, with one host read at the end — the
-  Python loop that stands in for the JAX package's ``lax.scan``.
+  counterpart of the JAX package's ``lax.scan`` (``_decode_k_fn``). On
+  a card each forward is one replay of a CUDA graph: one graph per
+  decode variant, the row bucket (powers of two up to ``n_slots``),
+  captured by ``warmup()`` before serving (or at the variant's first
+  use) over static buffers. A dispatch copies its tables, tokens,
+  positions, slot ids and Gumbel noise into its variant's buffers in
+  one transfer and replays k times; the graph chains its next input on
+  the device (token into the token buffer, ``pos += 1``). Pad rows
+  read and write only the trash page and sample into the sampler's
+  sentinel row (slot ``n_slots``), which nothing reads. On the CPU the
+  same variant code runs eagerly through the same buffers. A failed
+  capture or replay raises; nothing falls back to eager forwards.
+  Masked decode steps (one forward per host round trip), mixed steps
+  and speculative dispatches stay eager.
 
 Tokens then go through ``_emit_token``: EOS, stop strings (with partial
 match withholding), grammar advance, ``max_tokens`` and context
@@ -53,11 +66,21 @@ exhaustion end a request, exactly as in the JAX package.
   host read per dispatch. The other slots take a normal decode step in
   the same iteration.
 
+Telemetry (``telemetry/``): every dispatch records its analytic
+FLOPs and bytes (``costmodel.ModelCost``) in the engine's ``CostModel``
+and, where the engine reads its tokens back, its device span from a
+pair of CUDA events — no extra host sync; the ``HBMLedger`` attributes
+the device memory the engine owns (weights, arenas, sampler, graph
+pool); the Prometheus families of ``telemetry/metrics.py`` are
+recorded on the engine thread and the gauges refreshed at scrape time
+(``update_gauges``) from host-held values.
+
 Out of scope (and refused at submit rather than ignored): prompt caches,
 multimodal soft tokens, disaggregation, meshes.
 
-Batch rows are the participating slots only (the JAX package dispatches
-every slot at a static shape for jit; eager PyTorch needs no padding).
+Batch rows of mixed steps, masked decode steps and speculative
+dispatches are the participating slots only; a graph decode step pads
+them to its bucket.
 """
 
 from __future__ import annotations
@@ -81,6 +104,10 @@ from ..models.llm_spec import LLMSpec
 from ..models.quant import leaves
 from ..models.transformer import KVCache, Params, _lm_head, forward_hidden
 from ..ops import sampling as smp
+from ..ops.int8_matmul import int8_matmul
+from ..ops.ragged_paged_attention import ragged_paged_attention
+from ..telemetry import costmodel, hbm_ledger
+from ..telemetry import metrics as tm
 from .kv_pool import TRASH_PAGE, PagePool, PagePoolExhausted
 from .prefix_index import PrefixIndex, common_prefix_len
 from .tokenizer import StreamDecoder, Tokenizer
@@ -94,6 +121,9 @@ PREFIX_MIN_COPY = 8
 # minimum SHARED-prefix length before a same-wave request defers behind a
 # wave-mate's prefill
 PREFIX_DEFER_MIN = 64
+# the kernel wrappers whose launch counts a graph replay adds to (the
+# launches each recorded at capture)
+COUNTED = (ragged_paged_attention, int8_matmul)
 
 
 @dataclass
@@ -215,6 +245,69 @@ class EngineMetrics:
     draft_forwards: int = 0
     spec_rounds: int = 0
     spec_accepted: int = 0
+    # decode forwards run as a CUDA-graph replay, and the wall seconds of
+    # the last warmup() (every decode variant captured)
+    graph_replays: int = 0
+    warmup_s: float = 0.0
+
+
+@dataclass
+class _DecodeVariant:
+    """One decode variant: the static buffers of a row bucket and, on a
+    card, the CUDA graph of one forward and sample over them. ``ints``
+    is one int32 device buffer (filled from ``host`` in one transfer)
+    holding the read and write tables, tokens, positions and slot ids,
+    which the other fields view."""
+
+    bucket: int
+    host: torch.Tensor  # int32 staging of ``ints`` (pinned on a card)
+    ints: torch.Tensor
+    pt: torch.Tensor  # [bucket, max_pages] read tables
+    wt: torch.Tensor  # [bucket, max_pages] write tables
+    toks: torch.Tensor  # [bucket, 1] input tokens (the graph writes the next)
+    pos: torch.Tensor  # [bucket] positions (the graph adds 1)
+    sids: torch.Tensor  # [bucket] sampler rows (pad rows: the sentinel)
+    q_lens: torch.Tensor  # [bucket] ones
+    noise: torch.Tensor  # [decode_steps, bucket, K] Gumbel draws per step
+    step: torch.Tensor  # [1] int64: the step a launch reads and writes
+    out: torch.Tensor  # [decode_steps, bucket] sampled tokens per step
+    # the last launch's [bucket, V] logits (on a card the graph's output,
+    # valid until the next launch of any variant), for diagnostics
+    logits: Optional[torch.Tensor] = None
+    graph: Any = None  # torch.cuda.CUDAGraph (card only)
+    launches: dict = field(default_factory=dict)  # per replay, by kernel
+    noisy: bool = False  # noise holds draws (else zeros)
+
+
+class _Span:
+    """Device time of one dispatch: a pair of CUDA events on a card,
+    read after the dispatch's host read of its tokens (so the read
+    costs no sync of its own); the host clock on the CPU, which is the
+    device there."""
+
+    def __init__(self, device: torch.device) -> None:
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._ev = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+        self._t = [0.0, 0.0]
+
+    def start(self) -> None:
+        if self._cuda:
+            self._ev[0].record()
+        else:
+            self._t[0] = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._cuda:
+            self._ev[1].record()
+        else:
+            self._t[1] = time.perf_counter()
+
+    def seconds(self) -> float:
+        if self._cuda:
+            return self._ev[0].elapsed_time(self._ev[1]) / 1e3
+        return self._t[1] - self._t[0]
 
 
 def _refusal(req: GenRequest, max_seq: int) -> str:
@@ -253,8 +346,10 @@ class LLMEngine:
         n_draft: int = 4,
         autostart: bool = True,
         device: Any = None,
+        model: str = "default",  # the metrics' model label
     ) -> None:
         self.device = resolve(device)
+        self._mlabel = model or "default"
         for what, tree in (("param", params),
                            ("draft param", draft[1] if draft else {})):
             for k, v in tree.items():
@@ -308,10 +403,57 @@ class LLMEngine:
             KVCache.create(draft[0], self.kv_pages, pg, cache_dtype,
                            device=self.device)
             if draft is not None else None)
+        # one sampler row per slot and a sentinel, slot n_slots, that the
+        # pad rows of a graph decode step sample into: nothing reads it
         self.sampling = smp.SamplingState.create(
-            n_slots, spec.vocab_size, window=penalty_window,
+            n_slots + 1, spec.vocab_size, window=penalty_window,
             device=self.device)
+        self._pad_sid = n_slots
         self.slots = [_Slot(i) for i in range(n_slots)]
+        # decode variants: one per row bucket (powers of two below
+        # n_slots, then n_slots), a CUDA graph each on a card, all in one
+        # graph memory pool
+        self._buckets = [1 << i for i in range(n_slots.bit_length())
+                         if 1 << i < n_slots] + [n_slots]
+        self._variants: dict[int, _DecodeVariant] = {}
+        cuda = self.device.type == "cuda"
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._graph_pool_bytes = 0
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        self._span = _Span(self.device)
+        self.state_dir = hbm_ledger.default_state_dir()
+        # per-dispatch FLOPs/bytes accounting, the MFU gauge and the
+        # device-time predictor (telemetry/costmodel.py): host-held
+        self._costmodel: Optional[costmodel.CostModel] = None
+        if knobs.flag("LOCALAI_COSTMODEL"):
+            self._costmodel = costmodel.CostModel(
+                self._mlabel, (torch.cuda.get_device_name(self.device)
+                               if cuda else "cpu"))
+            self._mcost = costmodel.ModelCost.of(spec, params, self.cache,
+                                                 pg)
+            self._dcost = (costmodel.ModelCost.of(*draft, self.draft_cache,
+                                                  pg)
+                           if draft is not None else None)
+        # the device memory the engine owns, by component
+        # (telemetry/hbm_ledger.py), reconciled at each /metrics scrape
+        self._ledger: Optional[hbm_ledger.HBMLedger] = None
+        if knobs.flag("LOCALAI_HBM_LEDGER"):
+            dev = self.device
+            led = hbm_ledger.HBMLedger(
+                self._mlabel, lambda: hbm_ledger.device_memory_stats(dev))
+            led.register("weights", params)
+            led.register("kv_arena", (self.cache.k, self.cache.v))
+            if self.cache.k_scale is not None:
+                led.register("kv_scales",
+                             (self.cache.k_scale, self.cache.v_scale))
+            if draft is not None:
+                led.register("draft_weights", draft[1])
+                led.register("draft_cache", self.draft_cache)
+            led.register("sampler", self.sampling)
+            led.register("graph_pool", lambda: self._graph_pool_bytes)
+            self._ledger = led
+        self._tm_generated = tm.ENGINE_GENERATED_TOKENS.labels(
+            model=self._mlabel)
         # cross-slot prefix sharing (engine/prefix_index.py);
         # LOCALAI_PREFIX_CACHE=off keeps only own-slot reuse
         self._prefix_enabled = knobs.flag("LOCALAI_PREFIX_CACHE")
@@ -356,6 +498,14 @@ class LLMEngine:
                 raise RuntimeError("engine scheduler did not stop in 60 s")
             self._thread = None
         self._fail_all("engine closed")
+        self._variants.clear()  # the graphs and their pool go with them
+        m = self._mlabel
+        for g in (tm.ENGINE_SLOTS_BUSY, tm.ENGINE_QUEUE_DEPTH,
+                  tm.ENGINE_KV_UTIL, tm.ENGINE_KV_PAGES_IN_USE,
+                  tm.ENGINE_MFU):
+            g.labels(model=m).set(0)
+        if self._ledger is not None:
+            self._ledger.reset_gauges()
 
     def leak_check(self) -> None:
         """Pool invariants (kv_pool.leak_check) plus: a free slot holds
@@ -402,6 +552,10 @@ class LLMEngine:
             self._lock.notify_all()
             retry = self._retry_after_s() if shed else 0.0
         for _, out in shed:
+            tm.ENGINE_REQUESTS.labels(model=self._mlabel,
+                                      reason="shed").inc()
+            tm.ENGINE_REQUESTS_SHED.labels(model=self._mlabel,
+                                           reason="queue_full").inc()
             out.put(StreamEvent(
                 done=True, finish_reason="shed",
                 error=f"admission queue full ({self.max_queue} queued); "
@@ -449,6 +603,13 @@ class LLMEngine:
                 self.step()
             except Exception as e:  # the loop must keep serving
                 log.exception("engine step failed")
+                if hbm_ledger.looks_like_oom(e):
+                    # the forensics first, while the state that ran out
+                    # of memory is still there
+                    hbm_ledger.dump_post_mortem(
+                        self.state_dir, self._mlabel, e, self._ledger,
+                        self._pool.stats(),
+                        hbm_ledger.device_memory_stats(self.device))
                 self._fail_all(f"engine error: {e!r}")
 
     def step(self) -> None:
@@ -514,6 +675,11 @@ class LLMEngine:
             for req, out in self._pending:
                 if req.deadline and now >= req.deadline:
                     self._deferred.pop(req.id, None)
+                    tm.ENGINE_REQUESTS.labels(
+                        model=self._mlabel,
+                        reason="deadline_exceeded").inc()
+                    tm.ENGINE_DEADLINE_EXCEEDED.labels(
+                        model=self._mlabel, stage="queued").inc()
                     out.put(StreamEvent(
                         done=True, finish_reason="deadline_exceeded",
                         error="deadline exceeded while queued"))
@@ -523,6 +689,10 @@ class LLMEngine:
         for s in self.slots:
             if (s.active and s.request is not None and s.request.deadline
                     and now >= s.request.deadline):
+                tm.ENGINE_DEADLINE_EXCEEDED.labels(
+                    model=self._mlabel, stage=(
+                        "prefill" if s.state is SlotState.PREFILL
+                        else "decode")).inc()
                 self._finish(s, "deadline_exceeded")
 
     def _admit(self) -> None:
@@ -664,6 +834,7 @@ class LLMEngine:
             if self._pool_ensure(slot, best):  # the tail page
                 self._kv_copy(src, self._pool.table(slot.idx)[full])
                 self.metrics.prefix_copies += 1
+                tm.ENGINE_PREFIX_COPIES.labels(model=self._mlabel).inc()
             else:
                 best = full * P  # no page for the tail: share only
         self._prefix_index.touch(donor, now)
@@ -673,11 +844,18 @@ class LLMEngine:
 
     def _assign(self, slot: _Slot, req: GenRequest, out: queue.SimpleQueue,
                 now: float) -> None:
-        self._queue_waits.append(max(0.0, now - req.t_submit))
+        wait = max(0.0, now - req.t_submit)
+        self._queue_waits.append(wait)
+        tm.ENGINE_QUEUE_WAIT.labels(model=self._mlabel).observe(wait)
         common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
-        common, _ = self._maybe_prefix_copy(slot, req, common)
+        common, gained = self._maybe_prefix_copy(slot, req, common)
         if common == len(req.prompt_ids):
             common -= 1  # the last prompt token runs again for its logits
+        copied = min(gained, common)
+        for source, n in (("resident", common - copied), ("copy", copied)):
+            if n:
+                tm.ENGINE_PREFIX_REUSED_TOKENS.labels(
+                    model=self._mlabel, source=source).inc(n)
         # the write frontier must be privately writable: a SHARED
         # boundary page (this slot donated its full pages, or the step
         # back above landed in a shared page) is swapped for a private
@@ -760,9 +938,16 @@ class LLMEngine:
 
     def _tables(self, rows: list[_Slot], spans: list[tuple[int, int]]
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``_table_rows`` on the device."""
+        pt, wt = self._table_rows(rows, spans)
+        return (torch.from_numpy(pt).to(self.device),
+                torch.from_numpy(wt).to(self.device))
+
+    def _table_rows(self, rows: list[_Slot], spans: list[tuple[int, int]]
+                    ) -> tuple[np.ndarray, np.ndarray]:
         """Read tables (each row's pages, trash beyond) and write tables
         (the pages of each row's write span [start, end), trash
-        elsewhere), [B, max_pages] int32 on the device."""
+        elsewhere), [B, max_pages] int32 on the host."""
         P = self.page
         pt = np.full((len(rows), self._max_pages), TRASH_PAGE, np.int32)
         wt = np.full_like(pt, TRASH_PAGE)
@@ -775,8 +960,7 @@ class LLMEngine:
                         f"paged KV: slot {s.idx} page {p} is not privately "
                         "writable — allocator invariant broken")
                 wt[r, p] = t[p]
-        return (torch.from_numpy(pt).to(self.device),
-                torch.from_numpy(wt).to(self.device))
+        return pt, wt
 
     def _ints(self, xs) -> torch.Tensor:
         return torch.tensor(xs, dtype=torch.int32, device=self.device)
@@ -915,6 +1099,16 @@ class LLMEngine:
         samplers = [s for s in rows if s.state is SlotState.DECODE
                     or s in finals]
         mask = self._step_mask(samplers) if samplers else None
+        key = costmodel.dispatch_key("mixed", {"shape": (len(rows), T)})
+        pred = None
+        if self._costmodel is not None:
+            live = list(zip(pos0, q_lens))
+            fl, by = self._mcost.forward(live, len(samplers))
+            if self.draft is not None:
+                dfl, dby = self._dcost.forward(live, 0)
+                fl, by = fl + dfl, by + dby
+            pred = self._cost_row("mixed", key, fl, by)
+        self._span.start()
         ql = self._ints(q_lens)
         toks_d = torch.from_numpy(toks).to(self.device)
         pos_d = self._ints(pos0)
@@ -938,7 +1132,12 @@ class LLMEngine:
             sel = self._ints([rows.index(s) for s in samplers]).long()
             last = hidden[sel, ql.long()[sel] - 1]  # each row's last token
             logits = _lm_head(self.spec, self.params, last[:, None])[:, 0]
-            tok_host = self._sample(samplers, logits, mask).tolist()
+            tok = self._sample(samplers, logits, mask)
+            self._span.stop()
+            tok_host = tok.tolist()
+            self._harvest("mixed", key, pred)
+        elif self._costmodel is not None:  # no host read: no span
+            self._costmodel.on_dispatch("mixed", key)
         now = time.perf_counter()
         for s, n in zip(rows, q_lens):
             if s.state is SlotState.PREFILL:
@@ -952,6 +1151,10 @@ class LLMEngine:
                 s.t_prefill_ms = (now - s.t_prefill_t0) * 1e3
                 self.metrics.prompt_tokens_processed += s.n_prompt
                 self.metrics.prefill_tokens += s.n_prompt - s.n_reused
+                tm.ENGINE_PREFILL.labels(model=self._mlabel).observe(
+                    s.t_prefill_ms / 1e3)
+                tm.ENGINE_PROMPT_TOKENS.labels(model=self._mlabel).inc(
+                    s.n_prompt)
                 self._emit_token(s, tok)
             else:
                 s.cache_tokens.append(s.generated[-1])  # its KV landed
@@ -965,16 +1168,56 @@ class LLMEngine:
     def _decode_step(self, decoding: list[_Slot]) -> None:
         """Up to ``decode_steps`` seeded T == 1 forwards over the decoding
         slots, sampling on the device; one host read at the end, tokens
-        past a row's finish are discarded. One forward when any row is
-        masked: its next mask needs the token just sampled."""
+        past a row's finish are discarded. Unmasked rows run through
+        their bucket's decode variant (``_decode_graph``); a masked
+        step is one eager forward (``_decode_eager``): its next mask
+        needs the token just sampled."""
         t0 = time.perf_counter()
         k = min(self.decode_steps,
                 max(s.request.max_tokens - len(s.generated) for s in decoding),
                 min(self.max_seq - 1 - s.n_past for s in decoding))
-        k = 1 if self._masked(decoding) else max(1, k)
+        masked = self._masked(decoding)
+        k = 1 if masked else max(1, k)
         rows = [s for s in decoding if self._ensure(s, s.n_past + k)]
         if not rows:
             return
+        B = len(rows)
+        key = costmodel.dispatch_key("decodek", {
+            "k": k, "bucket": B if masked else self._bucket(B)})
+        pred = None
+        if self._costmodel is not None:
+            fl = by = 0.0
+            for i in range(k):
+                f, b = self._mcost.forward([(s.n_past + i, 1) for s in rows],
+                                           B)
+                fl, by = fl + f, by + b
+            pred = self._cost_row("decodek", key, fl, by)
+        self._span.start()
+        toks = (self._decode_eager(rows, k) if masked
+                else self._decode_graph(rows, k))
+        self._span.stop()
+        host = toks.tolist()
+        span_s = self._harvest("decodek", key, pred)
+        self.metrics.forward_steps += k
+        self.metrics.decode_steps += k
+        dt = (time.perf_counter() - t0) * 1e3
+        tm.ENGINE_INTER_TOKEN.labels(model=self._mlabel).observe(
+            dt / 1e3 / k)
+        tm.ENGINE_DECODE_STEP.labels(model=self._mlabel).observe(span_s / k)
+        for s, seq in zip(rows, host):
+            s.t_decode_ms += dt
+            for tok in seq:
+                if s.state is not SlotState.DECODE:
+                    break  # finished: discard overshoot tokens
+                s.cache_tokens.append(s.generated[-1])  # the input token
+                s.n_past += 1
+                self._emit_token(s, tok, defer=True)
+            if s.state is SlotState.DECODE:
+                self._flush_emit(s)
+
+    def _decode_eager(self, rows: list[_Slot], k: int) -> torch.Tensor:
+        """k eager forwards over exactly ``rows`` under the step's host
+        mask; [B, k] tokens on the device."""
         mask = self._step_mask(rows)
         pt, wt = self._tables(rows, [(s.n_past, s.n_past + k) for s in rows])
         toks = self._ints([[s.generated[-1]] for s in rows])
@@ -991,20 +1234,218 @@ class LLMEngine:
             out.append(tok)
             toks = tok[:, None]
             pos = pos + 1
-        self.metrics.forward_steps += k
-        self.metrics.decode_steps += k
-        host = torch.stack(out, 1).tolist()
-        dt = (time.perf_counter() - t0) * 1e3
-        for s, seq in zip(rows, host):
-            s.t_decode_ms += dt
-            for tok in seq:
-                if s.state is not SlotState.DECODE:
-                    break  # finished: discard overshoot tokens
-                s.cache_tokens.append(s.generated[-1])  # the input token
-                s.n_past += 1
-                self._emit_token(s, tok, defer=True)
-            if s.state is SlotState.DECODE:
-                self._flush_emit(s)
+        return torch.stack(out, 1)
+
+    # ------------------------------------------------- compiled decode
+
+    def _bucket(self, n: int) -> int:
+        return next(b for b in self._buckets if b >= n)
+
+    def _decode_graph(self, rows: list[_Slot], k: int) -> torch.Tensor:
+        """k launches of the rows' decode variant (a CUDA-graph replay
+        each on a card); [B, k] tokens on the device."""
+        v = self._variant(self._bucket(len(rows)))
+        self._fill(v, rows, k)
+        for _ in range(k):
+            self._decode_launch(v)
+        return v.out[:k, :len(rows)].T
+
+    def _fill(self, v: _DecodeVariant, rows: list[_Slot], k: int) -> None:
+        """A dispatch's inputs into v's static buffers: tables, tokens,
+        positions and sampler rows in one transfer (pad rows: trash
+        page, sentinel row), then the k steps' Gumbel noise, drawn as
+        ``_sample`` draws it (step-major, each stochastic row from its
+        slot's generator), so seeded output is the eager loop's. The
+        staging buffer is rewritten only after the last dispatch's
+        host read, so its copy has landed."""
+        n, B, P = v.bucket, len(rows), self._max_pages
+        pt, wt = self._table_rows(rows, [(s.n_past, s.n_past + k)
+                                         for s in rows])
+        h = v.host.numpy()
+        tables = h[:2 * n * P].reshape(2, n, P)
+        tables[:] = TRASH_PAGE
+        tables[0, :B], tables[1, :B] = pt, wt
+        tail = h[2 * n * P:].reshape(3, n)
+        tail[:2] = 0
+        tail[2] = self._pad_sid
+        tail[0, :B] = [s.generated[-1] for s in rows]
+        tail[1, :B] = [s.n_past for s in rows]
+        tail[2, :B] = [s.idx for s in rows]
+        v.ints.copy_(v.host, non_blocking=True)
+        v.step.zero_()
+        if any(s.request.temperature > 0 for s in rows):
+            v.noise[:k, :B] = torch.stack([self._noise(rows)
+                                           for _ in range(k)])
+            v.noisy = True
+        elif v.noisy:
+            v.noise.zero_()
+            v.noisy = False
+
+    def _decode_body(self, v: _DecodeVariant) -> None:
+        """One forward and sample over v's buffers, chaining the next
+        step's input on the device: what a decode graph holds."""
+        hidden, _ = forward_hidden(
+            self.spec, self.params, v.toks, v.pos, self.cache, None,
+            page_table=v.pt, kv_page=self.page, q_lens=v.q_lens,
+            write_table=v.wt)
+        logits = _lm_head(self.spec, self.params, hidden)[:, -1]
+        tok, _ = smp.sample(self.sampling, v.sids, logits,
+                            noise=v.noise.index_select(0, v.step)[0])
+        v.out.index_copy_(0, v.step, tok[None])
+        v.toks.copy_(tok[:, None])
+        v.pos.add_(1)
+        v.step.add_(1)
+        v.logits = logits
+
+    def _decode_launch(self, v: _DecodeVariant) -> None:
+        """One forward of variant v: a replay of its graph on a card
+        (adding the kernel launches its capture recorded to the
+        kernels' counts), the body run eagerly on the CPU."""
+        if v.graph is None:
+            self._decode_body(v)
+            return
+        v.graph.replay()
+        self.metrics.graph_replays += 1
+        for f in COUNTED:
+            f.launches += v.launches[f.__name__]
+
+    def _variant(self, bucket: int) -> _DecodeVariant:
+        v = self._variants.get(bucket)
+        if v is None:
+            v = self._new_variant(bucket)
+            self._capture(v)
+            self._variants[bucket] = v
+        return v
+
+    def _new_variant(self, n: int) -> _DecodeVariant:
+        """Static buffers of a bucket of n rows, every row a pad row."""
+        P, dev = self._max_pages, self.device
+        cuda = dev.type == "cuda"
+        host = torch.full((2 * n * P + 3 * n,), TRASH_PAGE,
+                          dtype=torch.int32, pin_memory=cuda)
+        host[2 * n * P:] = 0
+        host[2 * n * P + 2 * n:] = self._pad_sid
+        ints = torch.empty_like(host, device=dev).copy_(host)
+        tables = ints[:2 * n * P].view(2, n, P)
+        tail = ints[2 * n * P:].view(3, n)
+        return _DecodeVariant(
+            bucket=n, host=host, ints=ints, pt=tables[0], wt=tables[1],
+            toks=tail[0].view(n, 1), pos=tail[1], sids=tail[2],
+            q_lens=torch.ones(n, dtype=torch.int32, device=dev),
+            noise=torch.zeros((self.decode_steps, n,
+                               min(smp.CAND, self.spec.vocab_size)),
+                              device=dev),
+            step=torch.zeros(1, dtype=torch.long, device=dev),
+            out=torch.zeros((self.decode_steps, n), dtype=torch.int32,
+                            device=dev))
+
+    def _capture(self, v: _DecodeVariant) -> None:
+        """Ready variant v: one eager all-pad forward (it writes only the
+        trash page and the sentinel sampler row); on a card that run is
+        the warm-up of the capture stream (the kernels built, cuBLAS's
+        workspace and B1's merge counters allocated) before the graph
+        is captured on it into the engine's graph pool. A failed
+        capture raises. The pad forwards are not traffic: the kernels'
+        launch counts are restored afterwards, and ``v.launches`` keeps
+        what one replay launches."""
+        counts = {f: f.launches for f in COUNTED}
+        try:
+            if self.device.type != "cuda":
+                self._decode_body(v)
+                return
+            s = self._capture_stream or torch.cuda.Stream(self.device)
+            self._capture_stream = s
+            s.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(s):
+                self._decode_body(v)
+            torch.cuda.current_stream(self.device).wait_stream(s)
+            mid = {f: f.launches for f in COUNTED}
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=self._graph_pool, stream=s,
+                                  capture_error_mode="thread_local"):
+                self._decode_body(v)
+            v.launches = {f.__name__: f.launches - mid[f] for f in COUNTED}
+            v.graph = g
+            self._graph_pool_bytes = self._pool_bytes()
+        finally:
+            for f, n in counts.items():
+                f.launches = n
+
+    def _pool_bytes(self) -> int:
+        """Bytes of the segments the caching allocator holds for the
+        graph pool (allocator state: no device sync)."""
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    @torch.inference_mode()
+    def warmup(self) -> None:
+        """Capture every decode variant before serving (call it before
+        the first request): for each row bucket an all-pad dispatch —
+        every row on the trash page and the sampler's sentinel row —
+        becomes its CUDA graph, so no capture lands mid-request. Touches
+        no slot. Sets ``engine_dispatch_compile_variants_count`` and
+        ``engine_warmup_seconds``."""
+        t0 = time.perf_counter()
+        for b in self._buckets:
+            self._variant(b)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.metrics.warmup_s = time.perf_counter() - t0
+        tm.ENGINE_DISPATCH_VARIANTS.labels(model=self._mlabel).set(
+            len(self._variants))
+        tm.ENGINE_WARMUP_SECONDS.labels(model=self._mlabel,
+                                        mode="cold").set(self.metrics.warmup_s)
+
+    # ------------------------------------------------------- telemetry
+
+    def _cost_row(self, kind: str, key: tuple, flops: float,
+                  bytes_: float) -> Optional[float]:
+        """Record the dispatch's analytic row; its predicted device ms."""
+        self._costmodel.capture(key, flops, bytes_)
+        return self._costmodel.predict_ms(kind, key)
+
+    def _harvest(self, kind: str, key: tuple,
+                 pred: Optional[float]) -> float:
+        """After a dispatch's host read: its device span into the device
+        step histogram and the cost model; returns the span (s)."""
+        span_s = self._span.seconds()
+        tm.ENGINE_DEVICE_STEP.labels(model=self._mlabel,
+                                     kind=kind).observe(span_s)
+        if self._costmodel is not None:
+            self._costmodel.on_harvest(kind, key, span_s, pred)
+        return span_s
+
+    def update_gauges(self) -> None:
+        """Refresh the scheduler and memory gauges from host-held values
+        (a /metrics scrape calls it; it never syncs the device)."""
+        m = self._mlabel
+        with self._lock:
+            depth = len(self._pending)
+        active = [s for s in self.slots if s.active]
+        tm.ENGINE_QUEUE_DEPTH.labels(model=m).set(depth)
+        tm.ENGINE_SLOTS_BUSY.labels(model=m).set(len(active))
+        tm.ENGINE_KV_UTIL.labels(model=m).set(
+            sum(s.n_past for s in active) / float(self.n_slots * self.max_seq))
+        tm.ENGINE_KV_PAGES_IN_USE.labels(model=m).set(
+            self._pool.stats().in_use)
+        if self._ledger is not None:
+            snap = self._ledger.reconcile()
+            if snap["bytes_in_use"] is not None:
+                tm.DEVICE_HBM_USED.labels(
+                    device=str(self.device.index)).set(snap["bytes_in_use"])
+
+    def cost_stats(self) -> Optional[dict]:
+        """The cost model's summary (MFU, per-kind roofline); None when
+        LOCALAI_COSTMODEL=off."""
+        return (self._costmodel.stats()
+                if self._costmodel is not None else None)
+
+    def hbm_stats(self) -> Optional[dict]:
+        """The HBM ledger's last snapshot; None when
+        LOCALAI_HBM_LEDGER=off."""
+        return (self._ledger.snapshot()
+                if self._ledger is not None else None)
 
     # ------------------------------------------------------- speculative
 
@@ -1157,13 +1598,32 @@ class LLMEngine:
             return
         pt, wt = self._tables(rows, [(s.n_past, s.n_past + span)
                                      for s in rows])
+        kind = "spec_s" if mode == "sampled" else "spec"
+        key = costmodel.dispatch_key(kind, {"kd": kd, "rounds": rounds})
+        pred = None
+        if self._costmodel is not None:
+            # contexts from each round's start (kd positions a round, an
+            # upper bound: a round advances a row by what it accepts)
+            B, fl, by = len(rows), 0.0, 0.0
+            for r in range(rounds):
+                at = [s.n_past + r * kd for s in rows]
+                for i in range(kd):
+                    f, b = self._dcost.forward([(c + i, 1) for c in at], B)
+                    fl, by = fl + f, by + b
+                f, b = self._mcost.forward([(c, kd) for c in at], B * kd)
+                fl, by = fl + f, by + b
+            pred = self._cost_row(kind, key, fl, by)
+        self._span.start()
         tok = self._ints([[s.generated[-1]] for s in rows])
         pos = self._ints([s.n_past for s in rows])
         run = (self._sampled_rounds if mode == "sampled"
                else self._greedy_rounds)
         D, M, J = run(rows, tok, pos, pt, wt, rounds)
         # the one host read: [rounds, B, (kd - 1) + kd + 1]
-        host = torch.cat([D, M, J[..., None]], -1).tolist()
+        out = torch.cat([D, M, J[..., None]], -1)
+        self._span.stop()
+        host = out.tolist()
+        self._harvest(kind, key, pred)
         dt = (time.perf_counter() - t0) * 1e3
         emitted = 0
         for b, s in enumerate(rows):
@@ -1200,8 +1660,12 @@ class LLMEngine:
                 slot.constraint_state, token_id)
         if not slot.generated:
             slot.t_first = time.perf_counter()
+            if req.t_submit:
+                tm.ENGINE_TTFT.labels(model=self._mlabel).observe(
+                    slot.t_first - req.t_submit)
         slot.generated.append(token_id)
         self.metrics.tokens_generated += 1
+        self._tm_generated.inc()
         if (not req.ignore_eos) and token_id in self.tokenizer.eos_ids:
             self._finish(slot, "stop")
             return
@@ -1261,6 +1725,7 @@ class LLMEngine:
                 timing_token_generation_ms=slot.t_decode_ms,
                 timing_queue_ms=queue_ms, timing_first_token_ms=ttft_ms))
         self.metrics.requests_completed += 1
+        tm.ENGINE_REQUESTS.labels(model=self._mlabel, reason=reason).inc()
         self._release(slot)
 
     def _release(self, slot: _Slot) -> None:

@@ -257,8 +257,10 @@ def _mirostat_probs(state: SamplingState, slot_ids: torch.Tensor,
     b = torch.log(p_top[:, :-1] / p_top[:, 1:])
     s_hat = (t * b).sum(-1, keepdim=True) / (t * t).sum()
     eps = s_hat - 1.0
-    n_f = torch.tensor(float(vocab), dtype=torch.float32,
-                       device=scaled.device)
+    # a fill, not a host-to-device copy: sample() runs inside the
+    # engine's captured decode graphs
+    n_f = torch.full((), float(vocab), dtype=torch.float32,
+                     device=scaled.device)
     k1 = torch.pow(
         (eps * torch.pow(2.0, mu))
         / (1.0 - torch.pow(n_f, -eps)).clamp(min=1e-6),

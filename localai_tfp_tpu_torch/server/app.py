@@ -4,8 +4,10 @@ in place of the JAX package's aiohttp app.
 
 ``Application`` holds the model configs of the models directory and loads
 each model's worker on first use; the route handlers live in
-``openai_routes``. Error bodies have the JAX server's shape:
-``{"error": {"code": N, "message": "...", "type": ""}}``.
+``openai_routes``, and ``GET /metrics`` here. Error bodies have the JAX
+server's shape: ``{"error": {"code": N, "message": "...", "type": ""}}``.
+Every request's latency lands on ``api_call_seconds``, keyed by the
+matched route template ("other" for no route), as in the JAX server.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 from urllib.parse import urlsplit
@@ -20,6 +23,8 @@ from urllib.parse import urlsplit
 from ..config.model_config import ModelConfig, load_configs
 from ..device import resolve
 from ..engine.templating import Evaluator
+from ..telemetry.metrics import API_CALL
+from ..telemetry.registry import CONTENT_TYPE, REGISTRY
 from ..workers.base import ModelLoadOptions
 from ..workers.llm import TorchLLMBackend
 
@@ -95,6 +100,20 @@ class Application:
             b.shutdown()
 
 
+def metrics(h: "Handler", app: Application) -> None:
+    """Prometheus exposition 0.0.4 of the process's registry, the
+    engines' gauges refreshed first from host-held values."""
+    for b in app.loaded().values():
+        if b.engine is not None:
+            b.engine.update_gauges()
+    body = REGISTRY.render().encode()
+    h.send_response(200)
+    h.send_header("Content-Type", CONTENT_TYPE)
+    h.send_header("Content-Length", str(len(body)))
+    h.end_headers()
+    h.wfile.write(body)
+
+
 class Handler(BaseHTTPRequestHandler):
     server: "Server"
     server_version = "localai-tfp-torch"
@@ -136,11 +155,13 @@ class Handler(BaseHTTPRequestHandler):
     def _route(self, method: str) -> None:
         from . import openai_routes as r
 
+        t0 = time.perf_counter()
         path = urlsplit(self.path).path.rstrip("/") or "/"
         routes = {
             ("GET", "/v1/models"): r.list_models,
             ("GET", "/models"): r.list_models,
             ("GET", "/readyz"): r.readyz,
+            ("GET", "/metrics"): metrics,
             ("POST", "/v1/chat/completions"): r.chat_completions,
             ("POST", "/chat/completions"): r.chat_completions,
         }
@@ -156,6 +177,10 @@ class Handler(BaseHTTPRequestHandler):
         except Exception as e:  # a boundary that must keep serving
             log.exception("request failed")
             self.send_error_json(HTTPError(500, repr(e)))
+        finally:
+            API_CALL.labels(method=method,
+                            path=path if fn is not None else "other"
+                            ).observe(time.perf_counter() - t0)
 
     def do_GET(self) -> None:  # noqa: N802 (http.server naming)
         self._route("GET")

@@ -1,0 +1,210 @@
+"""The metric families the port records: the subset of
+localai_tfp_tpu/telemetry/metrics.py that its layers fill, with the
+reference's names, label names and buckets, so a dashboard built on the
+JAX server reads the port's ``/metrics`` unchanged. Help strings are
+the reference's except where the reference names a mechanism the port
+does not have (XLA's cost analysis, jit variants, the persistent
+compile cache): ``REWORDED`` lists those families.
+
+Layer map (where each family is recorded):
+- HTTP    server/app.py (``API_CALL``, keyed by matched route template)
+- engine  engine/engine.py scheduler (host-held values only — no device
+          sync rides a metric sample); the gauges are refreshed at
+          scrape time by ``LLMEngine.update_gauges``
+- device  telemetry/costmodel.py (FLOPs, bytes, MFU, predictions) and
+          telemetry/hbm_ledger.py (device memory by component)
+
+Not ported yet: the families of KV tiers, weight paging,
+disaggregation, federation, tracing and the model loader.
+"""
+
+from __future__ import annotations
+
+from .registry import REGISTRY
+
+# sub-millisecond ladder for per-token / per-step series; the default
+# ladder (1ms..60s) fits request-scale latencies
+_STEP_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+)
+
+# ------------------------------------------------------------------ HTTP
+
+API_CALL = REGISTRY.histogram(
+    "api_call_seconds",
+    "HTTP API call latency by method and matched route template",
+    labels=("method", "path"),
+    max_label_sets=128,
+    overflow={"path": "other"},
+)
+
+# ---------------------------------------------------------------- engine
+
+ENGINE_QUEUE_WAIT = REGISTRY.histogram(
+    "engine_queue_wait_seconds",
+    "Time a request spent queued before slot admission",
+    labels=("model",),
+)
+ENGINE_TTFT = REGISTRY.histogram(
+    "engine_ttft_seconds",
+    "Submit-to-first-token latency per request",
+    labels=("model",),
+)
+ENGINE_PREFILL = REGISTRY.histogram(
+    "engine_prefill_seconds",
+    "Prompt-processing (prefill) time per request",
+    labels=("model",),
+)
+ENGINE_INTER_TOKEN = REGISTRY.histogram(
+    "engine_inter_token_seconds",
+    "Mean inter-token latency per harvested decode scan",
+    labels=("model",), buckets=_STEP_BUCKETS,
+)
+ENGINE_DECODE_STEP = REGISTRY.histogram(
+    "engine_decode_step_seconds",
+    "Device time per decode step (saturated-pipeline samples only)",
+    labels=("model",), buckets=_STEP_BUCKETS,
+)
+ENGINE_QUEUE_DEPTH = REGISTRY.gauge(
+    "engine_queue_depth_count",
+    "Requests queued awaiting a slot",
+    labels=("model",),
+)
+ENGINE_SLOTS_BUSY = REGISTRY.gauge(
+    "engine_slots_busy_count",
+    "Slots occupied by an active request (batch occupancy)",
+    labels=("model",),
+)
+ENGINE_KV_UTIL = REGISTRY.gauge(
+    "engine_kv_slot_utilization_ratio",
+    "Fraction of KV-cache positions held by active slots",
+    labels=("model",),
+)
+ENGINE_REQUESTS = REGISTRY.counter(
+    "engine_requests_total",
+    "Completed engine requests by finish reason",
+    labels=("model", "reason"),
+)
+ENGINE_PROMPT_TOKENS = REGISTRY.counter(
+    "engine_prompt_tokens_total",
+    "Prompt tokens processed through prefill",
+    labels=("model",),
+)
+ENGINE_GENERATED_TOKENS = REGISTRY.counter(
+    "engine_generated_tokens_total",
+    "Tokens sampled and emitted to streams",
+    labels=("model",),
+)
+ENGINE_PREFIX_REUSED_TOKENS = REGISTRY.counter(
+    "engine_prefix_reused_tokens_total",
+    "Prompt tokens served from KV-resident prefixes instead of prefill "
+    "(source: resident = destination slot already held them, copy = "
+    "row-to-row on-device copy from another slot, disk = on-disk "
+    "prompt cache restore)",
+    labels=("model", "source"),
+)
+ENGINE_PREFIX_COPIES = REGISTRY.counter(
+    "engine_prefix_copies_total",
+    "On-device cross-slot KV prefix row copies dispatched",
+    labels=("model",),
+)
+ENGINE_KV_PAGES_IN_USE = REGISTRY.gauge(
+    "engine_kv_pages_in_use_count",
+    "Distinct KV pool pages currently allocated (arena occupancy; the "
+    "trash page is excluded)",
+    labels=("model",),
+)
+ENGINE_DISPATCH_VARIANTS = REGISTRY.gauge(
+    "engine_dispatch_compile_variants_count",
+    "Decode dispatch variants (one CUDA graph per row bucket) captured "
+    "by the last completed engine warmup pass; 0 until warmup runs",
+    labels=("model",),
+)
+ENGINE_WARMUP_SECONDS = REGISTRY.gauge(
+    "engine_warmup_seconds",
+    "Wall seconds of the last engine warmup pass by mode (cold = every "
+    "decode variant's CUDA graph was captured)",
+    labels=("model", "mode"),
+)
+
+# ------------------------------------------------------------ resilience
+
+ENGINE_REQUESTS_SHED = REGISTRY.counter(
+    "engine_requests_shed_total",
+    "Requests refused at admission by the bounded queue "
+    "(queue_full = LOCALAI_MAX_QUEUE exceeded at submit)",
+    labels=("model", "reason"),
+)
+ENGINE_DEADLINE_EXCEEDED = REGISTRY.counter(
+    "engine_deadline_exceeded_total",
+    "Requests terminated by their deadline, by the stage they were in "
+    "when it expired (queued = still in _pending, decode = already "
+    "holding a slot)",
+    labels=("model", "stage"),
+)
+
+# -------------------------------------------------------- observability
+
+ENGINE_DEVICE_STEP = REGISTRY.histogram(
+    "engine_device_step_seconds",
+    "Device time per dispatch by kind (mixed/decodek/spec/spec_s), from "
+    "a pair of CUDA events read where the engine already reads the "
+    "dispatch's tokens back, so the sample costs no device sync",
+    labels=("model", "kind"), buckets=_STEP_BUCKETS,
+)
+ENGINE_DEVICE_FLOPS = REGISTRY.counter(
+    "engine_device_flops_total",
+    "Device FLOPs accounted per dispatch kind from the analytic cost "
+    "model (telemetry/costmodel.py) — accumulated host-side at harvest, "
+    "zero hot-path syncs",
+    labels=("model", "kind"),
+)
+ENGINE_DEVICE_BYTES = REGISTRY.counter(
+    "engine_device_bytes_total",
+    "Device bytes accessed (HBM traffic) accounted per dispatch kind "
+    "from the analytic cost model",
+    labels=("model", "kind"),
+)
+ENGINE_MFU = REGISTRY.gauge(
+    "engine_mfu_ratio",
+    "EWMA model-FLOPs-utilization: cost-model FLOPs per harvested "
+    "flight divided by (device-step span x peak FLOPs across the mesh)",
+    labels=("model",),
+)
+ENGINE_DISPATCH_PREDICTED = REGISTRY.histogram(
+    "engine_dispatch_predicted_seconds",
+    "Predicted device time per dispatch from the cost-model device-"
+    "time predictor (telemetry/costmodel.py predict_ms) — observed at "
+    "harvest next to engine_device_step_seconds, so the two "
+    "distributions overlay on one dashboard",
+    labels=("model", "kind"), buckets=_STEP_BUCKETS,
+)
+ENGINE_DISPATCH_PREDICTED_RATIO = REGISTRY.histogram(
+    "engine_dispatch_predicted_ratio",
+    "Predicted / measured device time per harvested dispatch — the "
+    "predictor's live calibration error (1.0 = perfect; drift away "
+    "from 1 means the per-kind calibration EWMA is stale)",
+    labels=("model", "kind"),
+    buckets=(0.125, 0.25, 0.5, 0.8, 1.0, 1.25, 2.0, 4.0, 8.0),
+)
+ENGINE_HBM_BYTES = REGISTRY.gauge(
+    "engine_hbm_bytes",
+    "Component-level HBM ledger (telemetry/hbm_ledger.py): bytes "
+    "attributed to weights / kv_arena / kv_scales / draft_cache / "
+    "staging / sampler, plus an 'unattributed' drift row reconciled "
+    "against device.memory_stats()",
+    labels=("model", "component"),
+)
+DEVICE_HBM_USED = REGISTRY.gauge(
+    "device_hbm_used_bytes",
+    "Per-device bytes the caching allocator holds "
+    "(torch.cuda.memory_reserved), refreshed at each /metrics scrape",
+    labels=("device",), max_label_sets=256,
+)
+
+# families whose help text is the port's own (see the module docstring)
+REWORDED = frozenset({
+    "engine_dispatch_compile_variants_count", "engine_warmup_seconds",
+    "engine_device_step_seconds", "engine_device_flops_total",
+    "engine_device_bytes_total", "device_hbm_used_bytes",
+})

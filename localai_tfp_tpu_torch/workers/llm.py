@@ -12,6 +12,7 @@ from typing import Any, Iterator, Optional
 
 import torch
 
+from ..config import knobs
 from ..device import resolve
 from ..engine.engine import GenRequest, LLMEngine, StreamEvent
 from ..engine.tokenizer import Tokenizer, load_tokenizer
@@ -47,9 +48,11 @@ class TorchLLMBackend(Backend):
         self._state = "UNINITIALIZED"
         self._lock = threading.Lock()
         # how the last load got its weights ("full", "quantized": int8 at
-        # load, "artifact": the on-disk int8 tree) and its wall seconds
+        # load, "artifact": the on-disk int8 tree), its wall seconds, and
+        # of those the engine's warmup (every decode graph captured)
         self.load_mode = ""
         self.load_s = 0.0
+        self.warmup_s = 0.0
         # built grammar constraints by (grammar, triggers): building one
         # walks the whole vocabulary
         self._grammar_cache: dict[tuple, Any] = {}
@@ -95,7 +98,13 @@ class TorchLLMBackend(Backend):
                     max_seq=opts.context_size,
                     cache_dtype=_KV_DTYPES[kv_name],
                     draft=draft, n_draft=opts.n_draft or 4,
-                    device=self.device)
+                    device=self.device, model=opts.model)
+                self.warmup_s = 0.0
+                if knobs.flag("LOCALAI_WARMUP"):
+                    # capture the decode graphs now: a capture landing
+                    # mid-request would stall every decoding slot
+                    self.engine.warmup()
+                    self.warmup_s = self.engine.metrics.warmup_s
             except (OSError, ValueError, NotImplementedError, KeyError,
                     RuntimeError) as e:
                 self._state = "ERROR"
@@ -197,14 +206,19 @@ class TorchLLMBackend(Backend):
             self.engine.cancel(request_id)
 
     def engine_stats(self) -> Optional[dict]:
-        """The prefix-sharing and speculative-decoding counters
-        (host-held values only)."""
+        """The engine's counters, the compiled decode's, the cost
+        model's and the HBM ledger's snapshots (host-held values only)."""
         eng = self.engine
         if eng is None:
             return None
         m = eng.metrics
         reused, filled = m.prefix_reused_tokens, m.prefill_tokens
         return {
+            "requests_completed": m.requests_completed,
+            "tokens_generated": m.tokens_generated,
+            "prompt_tokens_processed": m.prompt_tokens_processed,
+            "forward_steps": m.forward_steps,
+            "decode_steps": m.decode_steps,
             "spec_tokens": m.spec_tokens,
             "spec_dispatches": m.spec_dispatches,
             "prefix_cache": {
@@ -213,6 +227,11 @@ class TorchLLMBackend(Backend):
                 "copies": m.prefix_copies,
                 "hit_rate": round(reused / max(reused + filled, 1), 4),
             },
+            "graph_replays": m.graph_replays,
+            "graph_variants": len(eng._variants),
+            "warmup_s": m.warmup_s,
+            "costmodel": eng.cost_stats(),
+            "hbm": eng.hbm_stats(),
         }
 
     def predict(self, opts: PredictOptions) -> Reply:

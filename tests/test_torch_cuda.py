@@ -648,3 +648,169 @@ def test_spec_engine_on_card(cuda_device, temperature):
             eng.close()
     if temperature == 0.0:
         assert texts[0] == texts[1]
+
+
+# ------------------------------------------------ compiled decode (graphs)
+
+
+def _graph_model(device, int8: bool):
+    """A 2-layer bf16 Llama-style model whose projections B2 takes (K, N
+    multiples of 512) and whose heads B1 takes (Dh 64); int8 weights
+    through ``quant.quantize_params``."""
+    spec = tiny_spec(vocab_size=258, d_model=512, n_heads=8, n_kv_heads=8,
+                     d_head=64, d_ff=1024, max_position=256)
+    g = torch.Generator().manual_seed(1)
+    D, Q, F, FF, V, NL = (spec.d_model, spec.q_dim, spec.kv_dim, spec.d_ff,
+                          spec.vocab_size, spec.n_layers)
+    shapes = {"embed": (V, D), "wq": (NL, D, Q), "wk": (NL, D, F),
+              "wv": (NL, D, F), "wo": (NL, Q, D), "w_gate": (NL, D, FF),
+              "w_up": (NL, D, FF), "w_down": (NL, FF, D), "lm_head": (D, V)}
+    params = {k: (torch.randn(s, generator=g) * s[-2] ** -0.5).to(
+        device, torch.bfloat16) for k, s in shapes.items()}
+    for k in ("ln1_w", "ln2_w"):
+        params[k] = torch.ones((NL, D), device=device, dtype=torch.bfloat16)
+    params["final_norm_w"] = torch.ones(D, device=device,
+                                        dtype=torch.bfloat16)
+    return spec, tq.quantize_params(params) if int8 else params
+
+
+def _drive(eng, reqs) -> dict:
+    """Serve ``reqs`` on an engine made with autostart=False, stepping
+    it by hand (one schedule, whatever the host's timing): each
+    request's generated ids by prompt."""
+    ids = {}
+    orig = eng._finish
+
+    def finish(slot, reason):
+        ids[tuple(slot.request.prompt_ids)] = list(slot.generated)
+        return orig(slot, reason)
+
+    eng._finish = finish
+    eng.submit_many(reqs)
+    while eng._pending or any(s.active for s in eng.slots):
+        eng._admit()
+        eng.step()
+    del eng._finish
+    return ids
+
+
+def _graph_pair(cuda_device, int8_weights, kv):
+    spec, params = _graph_model(cuda_device, int8_weights)
+    pair = []
+    for eager in (False, True):
+        eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=4,
+                        max_seq=256, cache_dtype=kv, autostart=False,
+                        device=cuda_device)
+        if eager:  # the same variant body, run eagerly at the bucket
+            eng._decode_launch = eng._decode_body
+        pair.append(eng)
+    return pair
+
+
+def _graph_wave(i: int) -> list:
+    return [GenRequest(prompt_ids=list(range(1 + i + 7 * r, 30 + i + 9 * r)),
+                       max_tokens=11 + 5 * r, ignore_eos=True,
+                       **({"temperature": 0.8, "top_k": 40, "seed": r}
+                          if r % 2 else {}))
+            for r in range(3 - i % 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8],
+                         ids=["bf16kv", "int8kv"])
+@pytest.mark.parametrize("int8_weights", [False, True],
+                         ids=["bf16w", "int8w"])
+def test_graph_decode_equals_eager_at_the_bucket(cuda_device, int8_weights,
+                                                 kv):
+    """Every plain decode step by graph replay against the same body run
+    eagerly at the same bucket: greedy and seeded sampled ids, and every
+    K/V page but the trash page, bitwise; the graph engine ran no eager
+    decode forward, and its kernel counts per replay equal the eager
+    engine's per call."""
+    graph, eager = _graph_pair(cuda_device, int8_weights, kv)
+    try:
+        got, want, launches = [], [], []
+        for eng, out in ((graph, got), (eager, want)):
+            b1, b2 = ragged_paged_attention.launches, int8_matmul.launches
+            out.append(_drive(eng, _graph_wave(0)))
+            launches.append((ragged_paged_attention.launches - b1,
+                             int8_matmul.launches - b2))
+        torch.cuda.synchronize()
+        assert got == want
+        assert torch.equal(graph.cache.k[:, 1:], eager.cache.k[:, 1:])
+        assert torch.equal(graph.cache.v[:, 1:], eager.cache.v[:, 1:])
+        m = graph.metrics
+        assert m.graph_replays == m.decode_steps > 0
+        assert eager.metrics.graph_replays == 0
+        assert launches[0] == launches[1]
+        assert launches[0][0] == 2 * m.forward_steps
+        assert (launches[0][1] > 0) == int8_weights
+    finally:
+        graph.close()
+        eager.close()
+
+
+@pytest.mark.cuda
+def test_graph_replays_on_new_tables_stay_bitwise(cuda_device):
+    """Three waves through the captured graphs (other rows, pages,
+    tokens and buckets each time) stay bitwise the eager body's."""
+    graph, eager = _graph_pair(cuda_device, False, torch.bfloat16)
+    try:
+        for i in range(3):
+            assert _drive(graph, _graph_wave(i)) == \
+                _drive(eager, _graph_wave(i))
+        assert graph.metrics.graph_replays == graph.metrics.decode_steps
+        assert len(graph._variants) >= 2
+    finally:
+        graph.close()
+        eager.close()
+
+
+@pytest.mark.cuda
+def test_warmup_captures_every_bucket_on_card(cuda_device):
+    spec, params = _graph_model(cuda_device, True)
+    eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=8, max_seq=256,
+                    cache_dtype=torch.bfloat16, autostart=False,
+                    device=cuda_device)
+    try:
+        b1, b2 = ragged_paged_attention.launches, int8_matmul.launches
+        eng.warmup()
+        assert sorted(eng._variants) == [1, 2, 4, 8]
+        assert all(v.graph is not None for v in eng._variants.values())
+        assert all(v.launches == {"ragged_paged_attention": 2,
+                                  "int8_matmul": 14}
+                   for v in eng._variants.values())
+        # pad forwards are not traffic
+        assert (ragged_paged_attention.launches, int8_matmul.launches) == \
+            (b1, b2)
+        assert eng._graph_pool_bytes > 0
+        assert eng.hbm_stats()["components"]["graph_pool"] == \
+            eng._graph_pool_bytes
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises_and_fails_the_requests(cuda_device):
+    """A capture that cannot complete (here: a host read inside the
+    captured region) raises; the dispatch's request fails through the
+    loop's error path and nothing runs eagerly in its place. Last in the
+    file: it leaves a failed capture behind."""
+    spec, params = _graph_model(cuda_device, False)
+    eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=2, max_seq=256,
+                    cache_dtype=torch.bfloat16, device=cuda_device)
+    body = eng._decode_body
+
+    def syncing(v):
+        body(v)
+        v.out.sum().item()  # not permitted while the stream captures
+
+    eng._decode_body = syncing
+    try:
+        ev = eng.generate(GenRequest(prompt_ids=list(range(1, 20)),
+                                     max_tokens=8, ignore_eos=True))
+        assert ev.finish_reason == "error" and ev.error
+        assert eng.metrics.decode_steps == 0
+        assert not eng._variants
+    finally:
+        eng.close()
