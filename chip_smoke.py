@@ -52,9 +52,11 @@ Phases, one result line each; any failure raises and exits non-zero:
    int8_matmul's kernels by name. Twice: the bf16 model (attention
    kernel), then the same checkpoint served with ``quantization: int8``
    (both kernels), quantized on the card at a cold load, then reloaded
-   from its on-disk artifact. Every plain decode forward is a replay of
-   a CUDA graph the worker captured at load (one per row bucket); each
-   replay adds the kernel launches its capture recorded to the counts.
+   from its on-disk artifact. Every non-speculative dispatch (plain
+   and masked decode forwards, mixed steps) is a replay of a CUDA graph
+   the worker captured at load (one per variant: row bucket, and token
+   bucket for a mixed step); each replay adds the kernel launches its
+   capture recorded to the counts.
 6. graphs  — on each model's server after phase 5: the burst's four
    requests in one admission wave on a fresh engine (graphs captured
    as at load) three times: by graph replay as served, with the same
@@ -80,7 +82,24 @@ Phases, one result line each; any failure raises and exits non-zero:
    with the host ms of masked decode forwards beside unmasked ones; then
    a 1e-6 s timeout (504) and a deadline that expires mid-decode (200,
    finish_reason deadline_exceeded, partial text).
-8. spec    — after phase 5 (its checkpoint and int8 artifact):
+8. dispatch — on each model's server after phase 7: (a) the burst's
+   four prompts (28-1578 tokens) admitted while four streams decode,
+   stepped by hand (one schedule) on fresh engines three times: by
+   graph replay, with the same variant bodies run eagerly (ids bitwise,
+   launches equal), and through the eager paths over exactly the rows
+   (greedy ids equal or dense-held); every mixed step and decode
+   forward of the replayed run a replay; host and device ms per mixed
+   step, the padded-token share, the burst's TTFT, int8_matmul's
+   launches by M; (b) phase 7's grammar and logit_bias requests by
+   replay, by the bodies eagerly (outputs equal) and by the eager loop
+   (host ms per masked forward); (c) a flood of four 1578-token prompts
+   beside four decoding streams, without and with an ITL budget of
+   twice the measured plain decode forward: the streams' delivery gaps
+   (p50, p99) while the flood prefills, the token buckets chosen, the
+   decode ks; (d) a request whose timeout is below its predicted
+   prefill refused before any prefill (504, the reference's text), and
+   a shed request's Retry-After equal to the predicted drain.
+9. spec    — after phase 5 (its checkpoint and int8 artifact):
    speculative decoding through the HTTP route with a random-weight
    Llama-3.2-1B-geometry draft (16 layers, Dh 64, tied head, seed 1)
    written beside the 8B checkpoint, n_draft 4. (a) the main burst's
@@ -955,12 +974,21 @@ def reference_check(backend, layers: int) -> dict:
     return ref
 
 
-def dense_deficits(eng, prompt: list, ids: list) -> dict:
+def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
+                   repeat_last_n: int = 64, masks: list | None = None
+                   ) -> dict:
     """How far each served greedy token ``ids`` falls below the argmax of
     the plain dense forward (``_attend``) over prompt + ids: the worst
     logit deficit against a tolerance of a quarter of the logits' std
     (bf16 rounding moves logits by a few hundredths; a wrong key or
-    value moves them by whole units). inf when a logit is not finite."""
+    value moves them by whole units). inf when a logit is not finite. A
+    request's ``repeat_penalty`` is applied to each row as the sampler
+    applies it: over the tokens of its window (the last
+    ``repeat_last_n`` of the prompt and the tokens generated before
+    it), positive logits divided by it, negative ones multiplied. With
+    ``masks`` (the [V] bool sampling mask of each generated token, as
+    the engine built it), the argmax is over each step's admitted
+    tokens; the tolerance stays that of the unmasked logits."""
     import torch
 
     from localai_tfp_tpu_torch.models.transformer import KVCache, forward
@@ -974,14 +1002,30 @@ def dense_deficits(eng, prompt: list, ids: list) -> dict:
                             torch.zeros(1, dtype=torch.int32, device=dev),
                             cache)
     rows = logits[0, len(prompt) - 1:].float()  # one row per generated token
+    if repeat_penalty not in (0.0, 1.0):
+        n = min(repeat_last_n if repeat_last_n > 0 else 64,
+                eng.sampling.window)
+        seen = torch.zeros_like(rows, dtype=torch.bool)
+        for j in range(len(ids)):
+            seen[j, (prompt + ids[:j])[-n:]] = True
+        rows = torch.where(seen, torch.where(rows > 0, rows / repeat_penalty,
+                                             rows * repeat_penalty), rows)
+    finite = bool(torch.isfinite(rows).all())
+    tol = 0.25 * float(rows.std())
+    if masks is not None:
+        import numpy as np
+
+        keep = torch.from_numpy(np.stack(masks)).to(dev)
+        rows = rows.masked_fill(~keep, float("-inf"))
     tok = torch.tensor(ids, device=dev)
     deficit = rows.max(-1).values - rows.gather(-1, tok[:, None])[:, 0]
-    finite = bool(torch.isfinite(rows).all())
+    # a step whose mask admits nothing (-inf - -inf) is no argmax either
+    deficit = deficit.nan_to_num(nan=float("inf"))
     return {"tokens": len(ids), "exact_argmax": int(
                 (rows.argmax(-1) == tok).sum()),
             "worst_logit_deficit": float(deficit.max()) if finite
             else float("inf"),
-            "tol": 0.25 * float(rows.std())}
+            "tol": tol}
 
 
 def param_bytes(params: dict) -> int:
@@ -1221,8 +1265,11 @@ def prefix_prompts(seed: int) -> tuple[str, list[str]]:
 class EngineSpy:
     """On one engine: each request's generated ids and text at finish (by
     prompt), the per-step top-2 logit gap of every sampled row (``gaps``:
-    kept on the card and read after the run), and the host seconds of
-    decode steps, split by whether a sampling mask was built."""
+    kept on the card and read after the run) and each request's first
+    step's logits, from the eager paths (``_sample``) and from the
+    variants' logits after each launch; and the host seconds of decode
+    steps, split by whether a row samples under a mask (with the mask's
+    build and copy)."""
 
     def __init__(self, eng, gaps: bool = False):
         import torch
@@ -1233,10 +1280,12 @@ class EngineSpy:
         self.first_logits = {}  # request id -> its first step's logits
         self.decode = {"masked": [0, 0.0, 0.0], "plain": [0, 0.0, 0]}
         fin, sample = eng._finish, eng._sample
-        step, mask = eng._decode_step, eng._step_mask
+        step, fmask = eng._decode_step, eng._fill_mask
         launch, fill = eng._decode_launch, eng._fill
+        mlaunch, mfill = eng._mixed_launch, eng._mixed_fill
         rows_of: dict = {}  # variant -> its dispatch's real rows
-        last_mask = [0.0, False]
+        mixed_of: dict = {}  # mixed variant -> (row index, slot) sampled
+        mask_s = [0.0]
 
         def finish(slot, reason):
             if slot.request is not None:
@@ -1244,69 +1293,89 @@ class EngineSpy:
                 self.done[tuple(req.prompt_ids)] = {
                     "id": req.id, "ids": list(slot.generated),
                     "greedy": req.temperature <= 0,
+                    "repeat_penalty": (req.repeat_penalty,
+                                       req.repeat_last_n),
                     "text": slot.decoder.text if slot.decoder else "",
+                    "request": req,
                     "reason": reason,
                     "ttft_ms": ((slot.t_first - req.t_submit) * 1e3
                                 if slot.t_first else None)}
             return fin(slot, reason)
 
-        def sample_(rows, logits, m=None):
+        def note(ids, logits, first):
             if gaps:
                 top = torch.topk(logits.float(), 2, dim=-1).values
-                self.gap_rows.append(([s.request.id for s in rows],
-                                      top[:, 0] - top[:, 1]))
-                for i, s in enumerate(rows):
-                    if not s.generated:
-                        self.first_logits[s.request.id] = logits[i].float()
+                self.gap_rows.append((ids, top[:, 0] - top[:, 1]))
+                for i, rid in enumerate(ids):
+                    if rid in first:
+                        self.first_logits[rid] = logits[i].float()
+
+        def sample_(rows, logits, m=None):
+            note([s.request.id for s in rows], logits,
+                 {s.request.id for s in rows if not s.generated})
             return sample(rows, logits, m)
 
         def fill_(v, rows, k):
-            rows_of[v.bucket] = [s.request.id for s in rows]
+            rows_of[(v.bucket, v.masked)] = [s.request.id for s in rows]
             return fill(v, rows, k)
 
         def launch_(v):
             # one step of a decode variant (a graph replay): its logits
             # stay in the variant until its next launch
             launch(v)
-            if gaps:
-                ids = rows_of[v.bucket]
-                top = torch.topk(v.logits[:len(ids)].float(), 2,
-                                 dim=-1).values
-                self.gap_rows.append((ids, top[:, 0] - top[:, 1]))
+            ids = rows_of[(v.bucket, v.masked)]
+            note(ids, v.logits[:len(ids)], set())
 
-        def mask_(rows):
+        def mfill_(v, rows, chunks, finals, samplers):
+            mixed_of[(v.rows, v.T)] = [(r, s.request.id, s in finals)
+                                       for r, s in enumerate(rows)
+                                       if s in samplers]
+            return mfill(v, rows, chunks, finals, samplers)
+
+        def mlaunch_(v):
+            mlaunch(v)
+            picked = mixed_of[(v.rows, v.T)]
+            if picked:
+                idx = torch.tensor([r for r, _, _ in picked],
+                                   device=v.logits.device)
+                note([rid for _, rid, _ in picked],
+                     v.logits.index_select(0, idx),
+                     {rid for _, rid, fin_ in picked if fin_})
+
+        def fmask_(rows):
             t0 = time.perf_counter()
-            out = mask(rows)
-            last_mask[0] = time.perf_counter() - t0
-            last_mask[1] = out is not None
-            return out
+            fmask(rows)
+            mask_s[0] += time.perf_counter() - t0
 
         def step_(decoding):
             f0 = eng.metrics.decode_steps
+            kind = "masked" if eng._masked(decoding) else "plain"
+            mask_s[0] = 0.0
             t0 = time.perf_counter()
             step(decoding)
             dt = time.perf_counter() - t0
-            kind = "masked" if last_mask[1] else "plain"
             d = self.decode[kind]
             d[0] += eng.metrics.decode_steps - f0
             d[1] += dt
             if kind == "masked":
-                d[2] += last_mask[0]
-            last_mask[1] = False
+                d[2] += mask_s[0]
 
-        self._planted = eng.__dict__.get("_decode_launch")
+        self._planted = {n: eng.__dict__[n] for n in (
+            "_decode_launch", "_mixed_launch") if n in eng.__dict__}
         eng._finish, eng._sample = finish, sample_
-        eng._decode_step, eng._step_mask = step_, mask_
+        eng._decode_step, eng._fill_mask = step_, fmask_
         eng._decode_launch, eng._fill = launch_, fill_
+        eng._mixed_launch, eng._mixed_fill = mlaunch_, mfill_
 
     def close(self) -> None:
-        """The engine's own methods again (a launch planted before the
-        spy stays)."""
-        for name in ("_finish", "_sample", "_decode_step", "_step_mask",
-                     "_decode_launch", "_fill"):
+        """The engine's own methods again (launches planted before the
+        spy stay)."""
+        for name in ("_finish", "_sample", "_decode_step", "_fill_mask",
+                     "_decode_launch", "_fill",
+                     "_mixed_launch", "_mixed_fill"):
             self.eng.__dict__.pop(name, None)
-        if self._planted is not None:
-            self.eng._decode_launch = self._planted
+        for name, fn in self._planted.items():
+            setattr(self.eng, name, fn)
 
     def gaps(self) -> dict:
         """request id -> top-2 logit gap of each sampled step, in order."""
@@ -1537,7 +1606,8 @@ def compare_waves(got: dict, want: dict, eng, what: str) -> dict:
             exempt.append(row)
             log("engine_near_tie", compare=what, **row, limit=NEAR_TIE)
             continue
-        row["dense"] = [dense_deficits(eng, list(prompt), ids)
+        row["dense"] = [dense_deficits(eng, list(prompt), ids,
+                                       *w.get("repeat_penalty", (0.0, 64)))
                         for ids in (g["ids"], w["ids"])]
         ok = all(d["worst_logit_deficit"] <= d["tol"] for d in row["dense"])
         (batch if ok else bad).append(row)
@@ -1547,12 +1617,15 @@ def compare_waves(got: dict, want: dict, eng, what: str) -> dict:
             "first_step_logits_max_abs_diff": first, "faults": bad}
 
 
-def grammar_checks(port: int, app, model: str, backend) -> dict:
+def grammar_checks(port: int, app, model: str, backend,
+                   served: dict | None = None) -> dict:
     """(a) a raw GBNF grammar, (b) response_format json_schema, (c) one
     tool, (d) logit_bias banning (a)'s first token; every output accepted
     by the port's matcher, in full when it stopped, as a live prefix when
     cut by max_tokens. Then the host ms of masked decode steps beside
-    unmasked ones, on the same engine."""
+    unmasked ones, on the same engine. ``served`` (when given) gets every
+    request's prompt, ids and request (``EngineSpy.done``) by case
+    name."""
     from localai_tfp_tpu_torch.grammars.gbnf import (
         GrammarMatcher, parse_gbnf,
     )
@@ -1586,6 +1659,8 @@ def grammar_checks(port: int, app, model: str, backend) -> dict:
         prompt = backend.tokenizer.encode(srv_prompt(app, body),
                                           add_bos=True)
         done = spy.done[tuple(prompt)]
+        if served is not None:
+            served[name] = {**done, "prompt": tuple(prompt)}
         m = GrammarMatcher(parse_gbnf(grammar))
         st = m.accept_string(m.initial_state(), done["text"])
         finish = choice["finish_reason"]
@@ -1619,16 +1694,21 @@ def grammar_checks(port: int, app, model: str, backend) -> dict:
             "yes", "no"}:
         raise AssertionError(f"(d) {d} after (a) {out['a_grammar']}")
     # masked against unmasked decode steps, one request each
-    for body in ({"max_tokens": 32, "ignore_eos": True,
-                  "messages": msgs("Tell a story.")},
-                 {"max_tokens": 32, "response_format": {
-                     "type": "json_object"},
-                  "messages": msgs("Tell a story as JSON.")}):
-        status, text = _post(port, {"model": model, "temperature": 0.0,
-                                    **body})
+    for name, body in (("story", {"max_tokens": 32, "ignore_eos": True,
+                                  "messages": msgs("Tell a story.")}),
+                       ("json_object", {"max_tokens": 32, "response_format": {
+                           "type": "json_object"},
+                           "messages": msgs("Tell a story as JSON.")})):
+        body = {"model": model, "temperature": 0.0, **body}
+        status, text = _post(port, body)
         if status != 200:
             raise AssertionError(f"step timing: HTTP {status} {text[:200]}")
+        if served is not None:
+            prompt = tuple(backend.tokenizer.encode(srv_prompt(app, body),
+                                                    add_bos=True))
+            served[name] = {**spy.done[prompt], "prompt": prompt}
     out["decode_steps"] = spy.step_ms()
+    spy.close()
     return out
 
 
@@ -1892,7 +1972,7 @@ def phase_graphs(port: int, app, model: str, backend) -> dict:
         raise AssertionError(f"{model}: /metrics {scrape}")
     return {
         "warmup_s": eng.metrics.warmup_s, "load_warmup_s": backend.warmup_s,
-        "variants": len(eng._variants),
+        "variants": eng.variant_count(),
         "graph_pool_bytes": eng._graph_pool_bytes,
         "host_ms_per_decode_forward": {
             m: waves[m]["host_ms_per_decode_forward"] for m in GRAPH_MODES},
@@ -1910,8 +1990,509 @@ def phase_graphs(port: int, app, model: str, backend) -> dict:
     }
 
 
+# ------------------------------------------------------------ phase 9
+
+DISPATCH_STREAMS = 4  # decoding streams the burst and the flood land beside
+FLOOD = 4  # prompts of the flood, each as long as the burst's longest
+HELD = 4  # queued requests of 2000 tokens whose drain a shed request hears
+DISPATCH_MODES = ("graph", "variant", "eager")
+PREDICTED = ("predicted completion exceeds deadline (prefill alone "
+             "overruns it)")
+
+
+class DispatchClock:
+    """On one engine: host seconds of each mixed and decode step, the
+    device span of each dispatch by kind (the engine's CUDA-event spans)
+    and of each mixed step by its variant's padded shape (the eager path
+    keys its step so too), each decode step's k, when each request's
+    tokens were delivered (the end of each step that emitted any), and
+    int8_matmul's launches by M (``_b2_by_m``)."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.host = {"mixed": [], "decode": []}
+        self.span = {"mixed": [], "decodek": []}
+        self.ks: list = []
+        self.shapes: dict = {}  # mixed variant (rows, T) -> its steps
+        self.span_by_shape: dict = {}  # (rows, T) -> mixed steps' spans
+        self.delivered: dict = {}  # request id -> [perf_counter, ...]
+        self.by_m, self._undo = _b2_by_m(eng)
+        mixed, decode = eng._mixed_step, eng._decode_step
+        harvest, emit = eng._harvest, eng._emit_token
+        variant = eng._mixed_variant
+        cur: list = []
+
+        def variant_(R, T):
+            self.shapes[(R, T)] = self.shapes.get((R, T), 0) + 1
+            return variant(R, T)
+
+        def clocked(fn, kind):
+            def run(*a):
+                cur.clear()
+                f0 = eng.metrics.decode_steps
+                t0 = time.perf_counter()
+                fn(*a)
+                t1 = time.perf_counter()
+                self.host[kind].append(t1 - t0)
+                if kind == "decode" and eng.metrics.decode_steps > f0:
+                    self.ks.append(eng.metrics.decode_steps - f0)
+                for rid in set(cur):
+                    self.delivered.setdefault(rid, []).append(t1)
+            return run
+
+        def harvest_(kind, key, pred):
+            span = harvest(kind, key, pred)
+            self.span.setdefault(kind, []).append(span)
+            if kind == "mixed":
+                self.span_by_shape.setdefault(key[1], []).append(span)
+            return span
+
+        def emit_(slot, tok, defer=False):
+            cur.append(slot.request.id)
+            return emit(slot, tok, defer)
+
+        eng._mixed_step = clocked(mixed, "mixed")
+        eng._decode_step = clocked(decode, "decode")
+        eng._harvest, eng._emit_token = harvest_, emit_
+        eng._mixed_variant = variant_
+
+    def close(self) -> None:
+        self._undo()
+        for name in ("_mixed_step", "_decode_step", "_harvest",
+                     "_emit_token", "_mixed_variant"):
+            self.eng.__dict__.pop(name, None)
+
+    def ms(self, what: str, kind: str) -> float | None:
+        xs = (self.host if what == "host" else self.span)[kind]
+        return sum(xs) * 1e3 / len(xs) if xs else None
+
+    def gaps_ms(self, ids: list, t0: float, t1: float) -> list:
+        """Delivery gaps (ms) of requests ``ids`` that end in [t0, t1]."""
+        out = []
+        for rid in ids:
+            ts = self.delivered.get(rid, [])
+            out += [(b - a) * 1e3 for a, b in zip(ts, ts[1:])
+                    if t0 <= b <= t1]
+        return out
+
+
+def _pct(xs: list, q: float) -> float | None:
+    if not xs:
+        return None
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def stream_requests(backend, n_tokens: int) -> list:
+    """DISPATCH_STREAMS greedy requests with short distinct prompts, each
+    decoding ``n_tokens`` tokens."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    return [GenRequest(prompt_ids=backend.tokenizer.encode(
+        f"Stream {i} keeps decoding while others arrive.", add_bos=True),
+        max_tokens=n_tokens, ignore_eos=True)
+        for i in range(DISPATCH_STREAMS)]
+
+
+def _serve_by_hand(eng, first: list, later: list, limit: float = 600.0):
+    """Serve ``first`` until each has its first token, then ``later``,
+    stepping the engine by hand (one schedule, whatever the host's
+    timing); returns the perf_counter at which ``later`` was submitted."""
+    eng._autostart = False
+    qs = eng.submit_many(first)
+    t_end = time.perf_counter() + limit
+
+    def run_until(cond):
+        while not cond():
+            if time.perf_counter() > t_end:
+                raise AssertionError("dispatch wave did not finish")
+            eng._admit()
+            eng.step()
+
+    run_until(lambda: all(s.generated for s in eng.slots if s.active)
+              and not eng._pending)
+    t_later = time.perf_counter()
+    qs += eng.submit_many(later)
+    run_until(lambda: not eng._pending and not any(
+        s.active for s in eng.slots))
+    reasons = []
+    for q in qs:
+        ev = q.get(timeout=5)
+        while not ev.done:
+            ev = q.get(timeout=5)
+        reasons.append(ev.finish_reason)
+    if reasons != ["length"] * len(qs):
+        raise AssertionError(f"dispatch wave: {reasons}")
+    return t_later
+
+
+def ragged_requests(app, model: str, backend) -> tuple[list, list]:
+    """(e) A lone prompt as long as the burst's longest (1578 tokens:
+    three 512-token chunks that sample nothing, so no step reads back,
+    then 42) on the idle engine; once it decodes, two 300-token prompts
+    beside it: a step of 3 rows whose chunks fill 300 of the [4, 512]
+    variant's 512 columns (the eager path runs [3, 300])."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    body = dict(burst_bodies()[1])["long_stream"]
+    p = backend.tokenizer.encode(srv_prompt(app, {"model": model, **body}),
+                                 add_bos=True)
+    lone = GenRequest(prompt_ids=p, max_tokens=24, ignore_eos=True)
+    two = [GenRequest(prompt_ids=p[:1] + [p[1] + i] + p[2:300], max_tokens=8,
+                      ignore_eos=True) for i in (1, 2)]
+    return [lone], two
+
+
+def mixed_wave(app, model: str, backend, mode: str, wave=None) -> dict:
+    """(a) The burst's four prompts (28-1578 tokens) admitted while
+    DISPATCH_STREAMS streams decode (or ``wave()``'s (first, later)
+    requests), on a fresh engine: ``graph`` as served, ``variant`` the
+    same variant bodies run eagerly (no replay), ``eager`` the eager
+    paths over exactly the rows. Ids and first-step logits (EngineSpy),
+    host and device ms per mixed step (device ms also by variant shape),
+    the padded share, the later requests' TTFT (submit to first token),
+    the engine's counters and the kernels' launches, set to 0 just
+    before and read just after."""
+    import torch
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    eng = fresh_engine(backend, True)
+    if mode == "variant":
+        eng._mixed_launch = eng._mixed_body
+        eng._decode_launch = eng._decode_body
+    elif mode == "eager":
+        eng._mixed_graph = eng._mixed_eager
+        eng._decode_graph = eng._decode_eager
+    spy = EngineSpy(eng, gaps=True)
+    clock = DispatchClock(eng)
+    first, burst = wave() if wave else (stream_requests(backend, 48),
+                                        burst_requests(app, model, backend))
+    m0 = dict(vars(eng.metrics))
+    torch.cuda.synchronize()
+    ragged_paged_attention.launches = 0
+    int8_matmul.launches = 0
+    try:
+        t_burst = _serve_by_hand(eng, first, burst)
+        torch.cuda.synchronize()
+        launches = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+    finally:
+        clock.close()
+        spy.close()
+    m = {k: v - m0[k] for k, v in vars(eng.metrics).items()}
+    ttft = [(clock.delivered[r.id][0] - t_burst) * 1e3 for r in burst]
+    on_card = eng.device.type == "cuda"  # (a CPU dry run replays none)
+    if on_card and sum(clock.by_m.values()) != launches["int8_matmul"]:
+        raise AssertionError(f"{model}: int8_matmul launched "
+                             f"{launches['int8_matmul']} times for "
+                             f"{sum(clock.by_m.values())} calls "
+                             f"{clock.by_m}, {m['mixed_replays']} mixed and "
+                             f"{m['graph_replays']} decode replays, "
+                             f"{eng.variant_count()} variants")
+    eng.leak_check()
+    dec = [s * 1e3 / k for s, k in zip(clock.span["decodek"], clock.ks)]
+    return {"mode": mode, "mixed_steps": m["mixed_steps"],
+            "mixed_replays": m["mixed_replays"],
+            "decode_forwards": m["decode_steps"],
+            "graph_replays": m["graph_replays"],
+            "host_ms_per_mixed_step": clock.ms("host", "mixed"),
+            "device_ms_per_mixed_step": clock.ms("span", "mixed"),
+            "device_ms_by_shape": {f"{r}x{t}": sum(xs) * 1e3 / len(xs)
+                                   for (r, t), xs in
+                                   sorted(clock.span_by_shape.items())},
+            "device_ms_per_decode_forward_median": _pct(dec, 0.5),
+            "padded_share": m["mixed_pad_tokens"] / max(1, m["mixed_tokens"]),
+            "mixed_tokens": m["mixed_tokens"],
+            "mixed_pad_tokens": m["mixed_pad_tokens"],
+            "mixed_variants_stepped": {f"{r}x{t}": n for (r, t), n in
+                                       sorted(clock.shapes.items())},
+            "burst_ttft_ms": {"mean": sum(ttft) / len(ttft),
+                              "max": max(ttft)},
+            "launches": launches,
+            "int8_matmul_calls_by_m": dict(sorted(clock.by_m.items())),
+            "_done": spy.done, "_gaps": spy.gaps(),
+            "_first": spy.first_logits}
+
+
+def flood_wave(app, model: str, backend, budget_ms: float) -> dict:
+    """(c) FLOOD prompts of the burst's longest (1578 tokens) admitted
+    while DISPATCH_STREAMS streams decode, on a fresh engine with
+    ``LOCALAI_ITL_BUDGET_MS`` = ``budget_ms`` (0: none): the streams'
+    delivery gaps (host clock) while the flood prefills, the token
+    buckets cost packing chose, the decode ks, the flood's TTFT."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    eng = fresh_engine(backend, True)
+    _, later = burst_bodies()
+    body = {"model": model, **dict(later)["long_stream"]}
+    prompt = backend.tokenizer.encode(srv_prompt(app, body), add_bos=True)
+    flood = [GenRequest(prompt_ids=prompt[:1] + [prompt[1] + i]
+                        + prompt[2:], max_tokens=8, ignore_eos=True)
+             for i in range(FLOOD)]
+    streams = stream_requests(backend, 256)
+    clock = DispatchClock(eng)
+    os.environ["LOCALAI_ITL_BUDGET_MS"] = str(budget_ms)
+    try:
+        t0 = _serve_by_hand(eng, streams, flood)
+    finally:
+        os.environ.pop("LOCALAI_ITL_BUDGET_MS", None)
+        clock.close()
+    firsts = [clock.delivered[r.id][0] for r in flood]
+    gaps = clock.gaps_ms([r.id for r in streams], t0, max(firsts))
+    eng.leak_check()
+    ks: dict = {}
+    for k in clock.ks:
+        ks[k] = ks.get(k, 0) + 1
+    return {"itl_budget_ms": budget_ms, "prompt_tokens": len(prompt),
+            "stream_gaps": len(gaps), "itl_p50_ms": _pct(gaps, 0.5),
+            "itl_p99_ms": _pct(gaps, 0.99),
+            "itl_max_ms": max(gaps) if gaps else None,
+            "flood_ttft_ms": {"mean": sum(f - t0 for f in firsts) * 1e3
+                              / len(firsts),
+                              "max": (max(firsts) - t0) * 1e3},
+            "mixed_steps": len(clock.host["mixed"]),
+            "device_ms_per_mixed_step": clock.ms("span", "mixed"),
+            "cost_buckets": dict(sorted(eng.cost_buckets.items())),
+            "mixed_variants_stepped": {f"{r}x{t}": n for (r, t), n in
+                                       sorted(clock.shapes.items())},
+            "decode_ks": dict(sorted(ks.items()))}
+
+
+def deadline_and_shed(port: int, app, model: str, backend) -> dict:
+    """(d) On a fresh engine: a request whose timeout is 0.8 of its
+    predicted prefill (the cost model's rows from warmup) is refused
+    before any prefill (504, the reference's text, one
+    ``queued_predicted`` deadline); then with the queue capped at
+    HELD queued requests (the engine not yet stepping), a shed
+    request's Retry-After is the predicted drain of that queue, over
+    HTTP and at the engine."""
+    import urllib.error
+    import urllib.request
+
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+    from localai_tfp_tpu_torch.telemetry import metrics as tm
+
+    eng = fresh_engine(backend, True)
+    _, later = burst_bodies()
+    body = {"model": model, **dict(later)["long_stream"], "stream": False}
+    n = len(backend.tokenizer.encode(srv_prompt(app, body), add_bos=True))
+    tok_ms = eng._costmodel.prefill_token_ms()
+    timeout = 0.8 * tok_ms * n / 1e3
+    stage = tm.ENGINE_DEADLINE_EXCEEDED.labels(model=eng._mlabel,
+                                               stage="queued_predicted")
+    before, filled = stage.snapshot()["value"], eng.metrics.prefill_tokens
+    status, text = _post(port, {**body, "timeout": timeout})
+    refused = {"prompt_tokens": n, "prefill_token_ms": tok_ms,
+               "timeout_s": timeout, "status": status,
+               "reference_text": PREDICTED in text,
+               "queued_predicted": stage.snapshot()["value"] - before,
+               "prefill_tokens": eng.metrics.prefill_tokens - filled}
+    if (status, refused["reference_text"], refused["queued_predicted"],
+            refused["prefill_tokens"]) != (504, True, 1.0, 0):
+        raise AssertionError(f"{model}: predicted deadline {refused} "
+                             f"{text[:200]}")
+    eng = fresh_engine(backend, True)  # its loop starts at a submit
+    eng._autostart = False
+    eng.max_queue = HELD
+    eng.submit_many([GenRequest(prompt_ids=list(range(1 + i, 29 + i)),
+                                max_tokens=2000, ignore_eos=True)
+                     for i in range(HELD)])
+    with eng._lock:
+        want = eng._predicted_drain_s()
+    ev = eng.submit(GenRequest(prompt_ids=[1, 2, 3], max_tokens=4)).get(
+        timeout=5)
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions", method="POST",
+        data=json.dumps({**body, "max_tokens": 4}).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            http = (r.status, r.headers.get("Retry-After"))
+    except urllib.error.HTTPError as e:
+        http = (e.code, e.headers.get("Retry-After"))
+    shed = {"predicted_drain_s": want, "engine_retry_after_s":
+            ev.retry_after_s, "engine_finish": ev.finish_reason,
+            "http_status": http[0], "http_retry_after": http[1],
+            "p90_fallback_s": 1.0}
+    # on the card the held work drains in seconds, so the header differs
+    # from the p90 fallback's (1 s with no waits yet)
+    on_card = eng.device.type == "cuda"
+    if (ev.finish_reason != "shed" or ev.retry_after_s != want
+            or http != (429, str(max(1, round(want))))
+            or (on_card and want <= 1.5)):
+        raise AssertionError(f"{model}: shed Retry-After {shed}")
+    return {"refused": refused, "shed": shed}
+
+
+def served_masks(eng, req, ids: list) -> list | None:
+    """The [V] sampling mask of each token of ``ids`` as the engine
+    built it for ``req``: its grammar's admitted tokens from the state
+    the tokens before it reached, and its logit_bias bans (None for a
+    request with neither)."""
+    from types import SimpleNamespace
+
+    if req.constraint is None and not req.logit_bias:
+        return None
+    c = req.constraint
+    slot = SimpleNamespace(request=req, constraint_state=(
+        c.initial_state() if c is not None else None))
+    out = []
+    for t in ids:
+        out.append(eng._constraint_mask_rows([slot])[0])
+        if c is not None:
+            slot.constraint_state = c.advance(slot.constraint_state, t)
+    return out
+
+
+def compare_masked(got: dict, want: dict, eng) -> dict:
+    """Greedy requests served in two runs (by name: ``EngineSpy.done``
+    with prompts): ids equal, or each run's ids the argmax of the plain
+    dense forward over the tokens its sampling masks admitted
+    (``served_masks``), within ``dense_deficits``' tolerance (the runs'
+    step shapes differ, which moves bf16 logits by a few hundredths).
+    ``faults`` lists the requests that fail."""
+    same, held, bad = 0, [], []
+    for name, g in got.items():
+        w = want[name]
+        if g["ids"] == w["ids"]:
+            same += 1
+            continue
+        row = {"request": name, "step": _common(g["ids"], w["ids"]),
+               "dense": [dense_deficits(eng, list(x["prompt"]), x["ids"],
+                                        *x["repeat_penalty"],
+                                        masks=served_masks(
+                                            eng, x["request"], x["ids"]))
+                         for x in (g, w)]}
+        ok = all(d["worst_logit_deficit"] <= d["tol"] for d in row["dense"])
+        (held if ok else bad).append(row)
+    return {"compare": "masked graph vs eager", "requests": len(got),
+            "identical": same, "held_to_masked_dense": held, "faults": bad}
+
+
+def phase_dispatch(port: int, app, model: str, backend) -> dict:
+    """Mixed-step and masked-decode graphs and cost-driven scheduling on
+    the served model: (a) the burst beside decoding streams by replay,
+    by the variant bodies eagerly (ids bitwise, launches equal) and by
+    the eager paths (greedy ids equal or dense-held); (e) a lone long
+    prompt, then a 3-row step of 300-token chunks, by replay and by the
+    eager paths (greedy ids equal or dense-held; device ms by variant
+    shape); (b) phase engine's grammar and logit_bias requests by
+    replay, by the variant bodies (ids equal) and by the eager loop
+    (ids equal or held to the masked dense argmax; host ms per masked
+    forward);
+    (c) a flood beside decoding streams with and without an ITL budget
+    of twice the measured plain decode forward; (d) a predicted-deadline
+    refusal and a shed request's Retry-After."""
+    waves = {mode: mixed_wave(app, model, backend, mode)
+             for mode in DISPATCH_MODES}
+    g, v, e = (waves[m] for m in DISPATCH_MODES)
+    for w in waves.values():
+        log("dispatch_mixed", model=model, **_public(w))
+    apart = [len(p) for p in g["_done"]
+             if g["_done"][p]["ids"] != v["_done"][p]["ids"]]
+    if apart:
+        raise AssertionError(f"{model}: mixed graphs and their bodies run "
+                             f"eagerly differ for prompts of {apart} tokens")
+    if g["launches"] != v["launches"]:
+        raise AssertionError(f"{model}: launches per replay {g['launches']}"
+                             f" != per call {v['launches']}")
+    on_card = backend.engine.device.type == "cuda"
+    if on_card and (g["mixed_replays"] != g["mixed_steps"]
+                    or g["graph_replays"] != g["decode_forwards"]
+                    or v["mixed_replays"] or e["mixed_replays"]):
+        raise AssertionError(f"{model}: replays {g['mixed_replays']} of "
+                             f"{g['mixed_steps']} mixed steps, "
+                             f"{g['graph_replays']} of "
+                             f"{g['decode_forwards']} decode forwards")
+    cmp = compare_waves(_greedy_only(g), _greedy_only(e), backend.engine,
+                        "mixed graph vs eager")
+    log("dispatch_mixed_compare", model=model, **cmp)
+    if cmp["faults"]:
+        raise AssertionError(f"{model}: mixed graphs against the eager "
+                             f"paths: {cmp['faults']}")
+    ragged = {mode: mixed_wave(app, model, backend, mode,
+                               lambda: ragged_requests(app, model, backend))
+              for mode in ("graph", "eager")}
+    for w in ragged.values():
+        log("dispatch_ragged", model=model, **_public(w))
+    cmp_r = compare_waves(ragged["graph"], ragged["eager"], backend.engine,
+                          "ragged graph vs eager")
+    log("dispatch_ragged_compare", model=model, **cmp_r)
+    if cmp_r["faults"] or (on_card and ragged["graph"]["mixed_replays"]
+                           != ragged["graph"]["mixed_steps"]):
+        raise AssertionError(f"{model}: a lone prompt's chunks and a "
+                             f"3-row step by replay against the eager "
+                             f"paths: {cmp_r['faults']}")
+    masked, served = {}, {}
+    for mode in DISPATCH_MODES:
+        eng = fresh_engine(backend, True)
+        if mode == "variant":
+            eng._mixed_launch = eng._mixed_body
+            eng._decode_launch = eng._decode_body
+        elif mode == "eager":
+            eng._mixed_graph = eng._mixed_eager
+            eng._decode_graph = eng._decode_eager
+        r0 = eng.metrics.masked_replays
+        served[mode] = {}
+        masked[mode] = grammar_checks(port, app, model, backend,
+                                      served[mode])
+        masked[mode]["masked_replays"] = eng.metrics.masked_replays - r0
+        log("dispatch_masked", model=model, mode=mode, **masked[mode])
+    texts = {m: {k: c["text"] for k, c in masked[m].items()
+                 if isinstance(c, dict) and "text" in c}
+             for m in DISPATCH_MODES}
+    if [x["ids"] for x in served["graph"].values()] != [
+            x["ids"] for x in served["variant"].values()]:
+        raise AssertionError(f"{model}: masked graphs and their bodies run "
+                             f"eagerly differ: {texts}")
+    cmp_m = compare_masked(served["graph"], served["eager"], backend.engine)
+    log("dispatch_masked_compare", model=model, **cmp_m)
+    if cmp_m["faults"]:
+        raise AssertionError(f"{model}: masked graphs against the eager "
+                             f"loop: {cmp_m['faults']}")
+    graph_steps = masked["graph"]["decode_steps"]
+    if on_card and masked["graph"]["masked_replays"] != \
+            graph_steps["masked_forwards"]:
+        raise AssertionError(f"{model}: {masked['graph']['masked_replays']}"
+                             f" masked replays for "
+                             f"{graph_steps['masked_forwards']} forwards")
+    step_ms = g["device_ms_per_decode_forward_median"]
+    flood = {"off": flood_wave(app, model, backend, 0.0),
+             "on": flood_wave(app, model, backend, 2.0 * step_ms)}
+    for f in flood.values():
+        log("dispatch_flood", model=model, **f)
+    dl = deadline_and_shed(port, app, model, backend)
+    log("dispatch_deadline", model=model, **dl)
+    eng = fresh_engine(backend, True)  # as served
+    return {
+        "warmup_s": eng.metrics.warmup_s, "variants": eng.variant_count(),
+        "graph_pool_bytes": eng._graph_pool_bytes,
+        "mixed": {m: {k: x for k, x in waves[m].items()
+                      if not k.startswith("_") and k != "mode"}
+                  for m in DISPATCH_MODES},
+        "compare_eager": {k: cmp[k] for k in ("requests", "identical")},
+        "ragged": {m: {k: ragged[m][k] for k in (
+            "mixed_steps", "device_ms_by_shape", "padded_share",
+            "mixed_variants_stepped")} for m in ragged},
+        "ragged_compare_eager": {k: cmp_r[k] for k in (
+            "requests", "identical")},
+        "masked_host_ms_per_forward": {
+            m: masked[m]["decode_steps"]["masked_host_ms_per_forward"]
+            for m in DISPATCH_MODES},
+        "masked_outputs_equal_graph_vs_variant": True,
+        "masked_compare_eager": {k: cmp_m[k] for k in (
+            "requests", "identical")},
+        "flood": flood, "deadline": dl,
+    }
+
+
 def serve_model(models: Path, model: str, layers: int, quantized: bool,
-                engine: bool, graphs: bool, seed: int) -> dict:
+                engine: bool, graphs: bool, seed: int,
+                dispatch: bool = False) -> dict:
     """Serve one model config through the port's HTTP server: load, the
     burst, its checks, (int8) a reload from the artifact, the dense
     reference check, and (``graphs``) phase 6 and (``engine``) phase 7
@@ -1992,16 +2573,22 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
                                           if k not in ("profile", "burst")})
         eng_res = (phase_engine(port, srv.app, model, backend, layers, seed)
                    if engine else None)
+        disp = None
+        if dispatch:
+            disp = phase_dispatch(port, srv.app, model, backend)
+            log("dispatch", model=model, **{k: v for k, v in disp.items()
+                                            if k not in ("flood",
+                                                         "deadline")})
         return {"load": load, "burst": burst, "reload": reload,
                 "reference": ref, "profile": prof, "graphs": gr,
-                "engine": eng_res}
+                "engine": eng_res, "dispatch": disp}
     finally:
         srv.close()
         th.join(timeout=30)
 
 
 def phase_main(layers_wanted: int, seed: int, engine: bool,
-               graphs: bool) -> dict:
+               graphs: bool, dispatch: bool = False) -> dict:
     """Serve the 8B-geometry model on the card through the port's HTTP
     server: bf16, then the same checkpoint with int8 weights."""
     import gc
@@ -2028,7 +2615,8 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
     log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
         written=written, write_s=round(write_s, 3), dir=ckpt_name)
     bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False,
-                       engine=engine, graphs=graphs, seed=seed)
+                       engine=engine, graphs=graphs, seed=seed,
+                       dispatch=dispatch)
     gc.collect()
     torch.cuda.empty_cache()
     # a cold int8 load: quantize on the card, then write the artifact
@@ -2036,7 +2624,8 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
     os.environ["LOCALAI_QUANT_CACHE_DIR"] = str(quant_cache)
     os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
     int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True,
-                       engine=engine, graphs=graphs, seed=seed)
+                       engine=engine, graphs=graphs, seed=seed,
+                       dispatch=dispatch)
     log("main_models", layers=layers,
         param_gb={"bf16": bf16["load"]["param_bytes"] / 1e9,
                   "int8": int8["load"]["param_bytes"] / 1e9},
@@ -2132,7 +2721,16 @@ def plant_spec_fault(eng, kind: str):
                 eng.draft_cache = real
 
         eng._mixed_step = mixed_
-        return lambda: eng.__dict__.pop("_mixed_step", None)
+        # a mixed step's graph writes the arena it was captured over: the
+        # fault takes the step's eager path, which reads eng.draft_cache
+        # at each call
+        eng._mixed_graph = eng._mixed_eager
+
+        def undo_stale():
+            for name in ("_mixed_step", "_mixed_graph"):
+                eng.__dict__.pop(name, None)
+
+        return undo_stale
     from localai_tfp_tpu_torch.ops import sampling
 
     reject = sampling.spec_reject
@@ -2151,34 +2749,48 @@ def plant_spec_fault(eng, kind: str):
 def _b2_by_m(eng):
     """Count int8_matmul calls by their row count M as ``quant.mm`` makes
     them (on the card each call launches the kernel or raises), and for
-    each replay of one of ``eng``'s decode graphs the calls its capture
-    recorded, at M = the graph's row bucket. Returns (counts, undo)."""
+    each replay of one of ``eng``'s graphs the calls its capture
+    recorded: a decode graph's at M = its row bucket, a mixed graph's at
+    M = rows x tokens of its variant. Returns (counts, undo)."""
     from localai_tfp_tpu_torch.models import quant
 
     counts: dict = {}
     orig = quant.int8_matmul
-    launch = eng._decode_launch
-    planted = "_decode_launch" in eng.__dict__
+    planted = {n: eng.__dict__[n] for n in ("_decode_launch",
+                                             "_mixed_launch")
+               if n in eng.__dict__}
+    launch, mlaunch = eng._decode_launch, eng._mixed_launch
 
     def counting(x, q, scale, **kw):
         counts[x.shape[0]] = counts.get(x.shape[0], 0) + 1
         return orig(x, q, scale, **kw)
 
-    def launch_(v):
-        launch(v)
-        n = v.launches.get("int8_matmul", 0) if v.graph is not None else 0
+    def add(v, m, replayed):
+        # a launch planted to run the body eagerly makes calls, not a
+        # replay: those are counted by ``counting``
+        n = v.launches.get("int8_matmul", 0) if replayed else 0
         if n:
-            counts[v.bucket] = counts.get(v.bucket, 0) + n
+            counts[m] = counts.get(m, 0) + n
+
+    def launch_(v):
+        r0 = eng.metrics.graph_replays
+        launch(v)
+        add(v, v.bucket, eng.metrics.graph_replays > r0)
+
+    def mlaunch_(v):
+        r0 = eng.metrics.mixed_replays
+        mlaunch(v)
+        add(v, v.rows * v.T, eng.metrics.mixed_replays > r0)
 
     quant.int8_matmul = counting
-    eng._decode_launch = launch_
+    eng._decode_launch, eng._mixed_launch = launch_, mlaunch_
 
     def undo():
         quant.int8_matmul = orig
-        if planted:
-            eng._decode_launch = launch
-        else:
-            eng.__dict__.pop("_decode_launch", None)
+        for name in ("_decode_launch", "_mixed_launch"):
+            eng.__dict__.pop(name, None)
+        for name, fn in planted.items():
+            setattr(eng, name, fn)
 
     return counts, undo
 
@@ -2518,7 +3130,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,main,graphs,engine,"
-                            "spec")
+                            "dispatch,spec")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -2595,14 +3207,14 @@ def main() -> int:
                 blocks_per_sm={o["instance"]: o["blocks_per_sm"]
                                for o in occ8},
                 smem_bytes={o["instance"]: o["smem_bytes"] for o in occ8})
-    for ph in ("graphs", "engine", "spec"):
+    for ph in ("graphs", "engine", "dispatch", "spec"):
         if ph in phases and "main" not in phases:
             raise SystemExit(f"phase {ph} runs after phase main (its "
                              "checkpoint and int8 artifact): --phases must "
                              "include main")
     if "main" in phases:
         res = phase_main(args.layers, args.seed, "engine" in phases,
-                         "graphs" in phases)
+                         "graphs" in phases, "dispatch" in phases)
         # each kernel's count on its own path, read just after that path
         # ran: attention on the bf16 model, the int8 product on the int8
         # model (which also runs attention)
@@ -2617,6 +3229,14 @@ def main() -> int:
                 # (the variant body eagerly at its bucket, the eager loop)
                 e["launches_graphs_wave"] = {
                     m: res[m]["graphs"]["launches"] for m in ("bf16", "int8")}
+            if "dispatch" in phases:
+                # phase dispatch (a): the burst beside four decoding
+                # streams, by replay (graph) and per call (the variant
+                # bodies eagerly, the eager paths)
+                e["launches_dispatch_wave"] = {
+                    m: {w: res[m]["dispatch"]["mixed"][w]["launches"][
+                        e["name"]] for w in DISPATCH_MODES}
+                    for m in ("bf16", "int8")}
             if "engine" in phases:
                 # the prefix wave with sharing on: attention over aliased
                 # page tables (bf16 model), the int8 product's mixed

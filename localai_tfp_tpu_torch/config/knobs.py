@@ -23,12 +23,20 @@ _DEFAULTS = {
     "LOCALAI_REQUEST_DEADLINE_S": "0",
     # token budget per mixed prefill/decode dispatch
     "LOCALAI_PREFILL_GROUP_TOKENS": "8192",
+    # cost-model-driven scheduling: predicted device time packs
+    # dispatches and drives admission/deadline decisions; off restores
+    # the pure token-budget scheduler
+    "LOCALAI_COST_SCHED": "on",
+    # explicit inter-token-latency budget in ms: mixed/decode dispatches
+    # are sized so their PREDICTED device time fits it (0 = token-budget
+    # sizing only)
+    "LOCALAI_ITL_BUDGET_MS": "0",
     # persist/reuse int8 quantization artifacts on disk
     "LOCALAI_QUANT_ARTIFACTS": "on",
     # quant-artifact cache root ('' = $XDG_CACHE_HOME/localai_tpu/quant)
     "LOCALAI_QUANT_CACHE_DIR": "",
-    # capture every decode variant's CUDA graph at model load (off: each
-    # variant is captured at its first use instead)
+    # capture every dispatch variant's CUDA graph (decode, masked decode,
+    # mixed) at model load (off: each is captured at its first use)
     "LOCALAI_WARMUP": "on",
     # per-dispatch FLOPs/bytes accounting and the MFU gauge
     # (telemetry/costmodel.py)

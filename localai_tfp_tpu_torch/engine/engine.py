@@ -7,29 +7,50 @@ free slots and then runs one device step per iteration:
 
 - a **mixed step** whenever any slot is prefilling (the JAX package's
   ``_mixed_fn`` semantics): decode rows carry one token (``q_len`` 1),
-  prefill rows a chunk of their prompt capped by the per-dispatch token
-  budget; one forward over the ragged batch, one ragged paged attention
-  call per layer. Rows whose chunk ends their prompt are the "final"
-  rows: their sampler slot is reset, its penalty window seeded from the
-  prompt tail, and their first token sampled, in that order, in the same
-  step as the decode rows' next tokens;
+  prefill rows a chunk of their prompt: the token bucket is the
+  smallest of ``_mixed_buckets`` covering the largest remainder (capped
+  by the last), each chunk ``min(remainder, bucket)`` (the JAX
+  ``_enqueue_mixed`` rule); under an ITL budget ``_cost_bucket``
+  shrinks the bucket to the largest whose predicted device time fits.
+  One forward over the ragged batch, one ragged paged attention call
+  per layer. Rows whose chunk ends their prompt are the "final" rows:
+  their sampler slot is reset, its penalty window seeded from the
+  prompt tail, and their first token sampled, in that order, in the
+  same step as the decode rows' next tokens;
 - otherwise a **decode step**: up to ``decode_steps`` T == 1 forwards
   (the seeded decode contract of the attention kernel), each sampling
   the next token on the device, with one host read at the end — the
-  counterpart of the JAX package's ``lax.scan`` (``_decode_k_fn``). On
-  a card each forward is one replay of a CUDA graph: one graph per
-  decode variant, the row bucket (powers of two up to ``n_slots``),
-  captured by ``warmup()`` before serving (or at the variant's first
-  use) over static buffers. A dispatch copies its tables, tokens,
-  positions, slot ids and Gumbel noise into its variant's buffers in
-  one transfer and replays k times; the graph chains its next input on
-  the device (token into the token buffer, ``pos += 1``). Pad rows
-  read and write only the trash page and sample into the sampler's
-  sentinel row (slot ``n_slots``), which nothing reads. On the CPU the
-  same variant code runs eagerly through the same buffers. A failed
-  capture or replay raises; nothing falls back to eager forwards.
-  Masked decode steps (one forward per host round trip), mixed steps
-  and speculative dispatches stay eager.
+  counterpart of the JAX package's ``lax.scan`` (``_decode_k_fn``).
+  Under an ITL budget k is clamped as the JAX engine clamps it
+  (``_itl_k``). While any row is masked (grammar, ``logit_bias``) the
+  step is one forward per host round trip: the next mask needs the
+  token just sampled.
+
+Every such dispatch is, on a card, a replay of a CUDA graph captured
+by ``warmup()`` before serving (or at the variant's first use) over
+static buffers, all in one graph memory pool:
+
+- a decode variant per row bucket (powers of two up to ``n_slots``):
+  the dispatch copies its tables, tokens, positions, slot ids and
+  Gumbel noise into the variant's buffers in one transfer and replays
+  k times; the graph chains its next input on the device (token into
+  the token buffer, ``pos += 1``);
+- a masked decode variant per row bucket: the same, k == 1, sampling
+  under a static ``[n_slots, V]`` mask filled from pinned memory before
+  the replay;
+- a mixed variant per (row bucket, token bucket): tokens, positions,
+  ``q_lens``, tables, sampler and reset slot ids, reset columns and
+  penalty-window tails in static buffers; each row's last real token
+  is gathered at a fixed size, the LM head and sampler run over every
+  row under the static mask (all-True when no row is masked), and a
+  loaded draft's mirror forward is in the same graph.
+
+Pad rows and pad positions read and write only the trash page, and
+rows that sample nothing (pad rows, non-final chunks) sample and reset
+into the sampler's sentinel row (slot ``n_slots``), which nothing
+reads. On the CPU the same variant code runs eagerly through the same
+buffers. A failed capture or replay raises; nothing falls back to eager
+forwards. Speculative dispatches stay eager.
 
 Tokens then go through ``_emit_token``: EOS, stop strings (with partial
 match withholding), grammar advance, ``max_tokens`` and context
@@ -51,7 +72,10 @@ exhaustion end a request, exactly as in the JAX package.
 - **Deadlines** (``timeout_s``, ``LOCALAI_REQUEST_DEADLINE_S``): a
   queued request past its deadline gets a terminal
   ``deadline_exceeded`` event; a running one finishes with its partial
-  text.
+  text. With cost scheduling on (``LOCALAI_COST_SCHED``) a queued
+  request whose predicted prefill alone overruns its deadline is
+  refused before it takes a slot, and a shed request's Retry-After is
+  the predicted drain of the queue.
 - **Speculative decoding** (``draft=(spec, params)``, ``n_draft``): a
   second paged arena for the draft, with the main pool's page count,
   page size and page tables. Mixed steps also run the draft over their
@@ -78,9 +102,8 @@ recorded on the engine thread and the gauges refreshed at scrape time
 Out of scope (and refused at submit rather than ignored): prompt caches,
 multimodal soft tokens, disaggregation, meshes.
 
-Batch rows of mixed steps, masked decode steps and speculative
-dispatches are the participating slots only; a graph decode step pads
-them to its bucket.
+Batch rows are the participating slots only (padded to a variant's row
+bucket), so no other slot's pages or sampler row are touched.
 """
 
 from __future__ import annotations
@@ -245,10 +268,17 @@ class EngineMetrics:
     draft_forwards: int = 0
     spec_rounds: int = 0
     spec_accepted: int = 0
-    # decode forwards run as a CUDA-graph replay, and the wall seconds of
-    # the last warmup() (every decode variant captured)
+    # decode forwards run as a CUDA-graph replay (masked ones included,
+    # and counted again in masked_replays), mixed steps run as one, and
+    # the wall seconds of the last warmup() (every variant captured)
     graph_replays: int = 0
+    masked_replays: int = 0
+    mixed_replays: int = 0
     warmup_s: float = 0.0
+    # mixed steps' real tokens and the pad tokens their variants add
+    # (rows x token bucket - real)
+    mixed_tokens: int = 0
+    mixed_pad_tokens: int = 0
 
 
 @dataclass
@@ -257,7 +287,8 @@ class _DecodeVariant:
     card, the CUDA graph of one forward and sample over them. ``ints``
     is one int32 device buffer (filled from ``host`` in one transfer)
     holding the read and write tables, tokens, positions and slot ids,
-    which the other fields view."""
+    which the other fields view. A ``masked`` variant (k == 1) samples
+    under the engine's static mask."""
 
     bucket: int
     host: torch.Tensor  # int32 staging of ``ints`` (pinned on a card)
@@ -277,6 +308,59 @@ class _DecodeVariant:
     graph: Any = None  # torch.cuda.CUDAGraph (card only)
     launches: dict = field(default_factory=dict)  # per replay, by kernel
     noisy: bool = False  # noise holds draws (else zeros)
+    masked: bool = False
+    copied: Any = None  # event after host's last copy (card only)
+
+
+def _mixed_fields(R: int, T: int, P: int, W: int) -> tuple:
+    """The int32 fields of a mixed variant of R rows and T tokens (P
+    pages a table, penalty window W), in their order in its one buffer:
+    (name, shape)."""
+    return (("pt", (R, P)),  # read tables
+            ("wt", (R, P)),  # write tables (the chunk's pages only)
+            ("toks", (R, T)),  # chunk tokens, 0-padded
+            ("pos0", (R,)),  # each row's first position
+            ("q_lens", (R,)),  # real tokens (pad rows: 1)
+            ("sids", (R,)),  # sampler rows (else the sentinel)
+            ("rsids", (R,)),  # rows reset (finals, else the sentinel)
+            ("tail_lens", (R,)),  # finals' prompt-tail lengths
+            ("tails", (R, W)))  # finals' prompt tails
+
+
+@dataclass
+class _MixedVariant:
+    """One mixed variant: the static buffers of a [rows, T] step and, on
+    a card, the CUDA graph of its forward (and the draft's mirror),
+    sampler reset and sample. ``ints`` (viewed by ``_mixed_fields``) is
+    filled from ``host`` in one transfer, the reset columns from
+    ``fhost``."""
+
+    rows: int
+    T: int
+    host: torch.Tensor  # int32 staging of ints (pinned on a card)
+    h: dict  # name -> numpy view of host
+    ints: torch.Tensor
+    f: dict  # name -> device view of ints
+    fhost: torch.Tensor  # f32 staging of cols
+    cols: torch.Tensor  # [len(RESET_FIELDS), rows] reset columns
+    noise: torch.Tensor  # [rows, K] Gumbel draws (zeros: greedy)
+    at: torch.Tensor  # [rows] int64 arange: the fixed-size gather's rows
+    out: torch.Tensor  # [rows] int32 sampled tokens
+    logits: Optional[torch.Tensor] = None  # the last launch's [rows, V]
+    graph: Any = None
+    launches: dict = field(default_factory=dict)
+    noisy: bool = False
+    copied: Any = None  # event after host's and fhost's last copies
+
+
+def _carve(flat: torch.Tensor, fields: tuple) -> dict[str, torch.Tensor]:
+    """Views of a mixed variant's int32 buffer, by field."""
+    out, at = {}, 0
+    for name, shape in fields:
+        n = int(np.prod(shape))
+        out[name] = flat[at:at + n].view(shape)
+        at += n
+    return out
 
 
 class _Span:
@@ -372,11 +456,12 @@ class LLMEngine:
         self._autostart = autostart
         buckets = tuple(b for b in sorted(prefill_buckets) if b <= max_seq) \
             or (max_seq,)
-        # prefill chunk cap: the largest bucket whose full-width dispatch
-        # fits the per-dispatch token budget (the JAX _mixed_buckets rule)
+        # a mixed step's token buckets: the prefill buckets whose
+        # full-width dispatch fits the per-dispatch token budget (the JAX
+        # _mixed_buckets rule; the smallest when none does)
         budget = max(1, knobs.int_("LOCALAI_PREFILL_GROUP_TOKENS"))
-        fits = [b for b in buckets if b * n_slots <= budget]
-        self._chunk = fits[-1] if fits else buckets[0]
+        self._mixed_buckets = tuple(
+            b for b in buckets if b * n_slots <= budget) or buckets[:1]
         # page size: largest power of two <= min(256, max_seq) dividing
         # max_seq; LOCALAI_KV_PAGE overrides within the same constraints
         page_cap = min(256, max_seq)
@@ -410,13 +495,29 @@ class LLMEngine:
             device=self.device)
         self._pad_sid = n_slots
         self.slots = [_Slot(i) for i in range(n_slots)]
-        # decode variants: one per row bucket (powers of two below
-        # n_slots, then n_slots), a CUDA graph each on a card, all in one
-        # graph memory pool
+        # dispatch variants, a CUDA graph each on a card, all in one graph
+        # memory pool: decode and masked decode variants per row bucket
+        # (powers of two below n_slots, then n_slots), mixed variants per
+        # (row bucket, token bucket)
         self._buckets = [1 << i for i in range(n_slots.bit_length())
                          if 1 << i < n_slots] + [n_slots]
         self._variants: dict[int, _DecodeVariant] = {}
+        self._masked_variants: dict[int, _DecodeVariant] = {}
+        self._mixed_variants: dict[tuple[int, int], _MixedVariant] = {}
         cuda = self.device.type == "cuda"
+        # the static [n_slots, V] sampling mask of every masked step
+        # (row r masks the step's row r), its pinned staging, the event
+        # after the staging's last copy, and whether it holds anything
+        # but True
+        self._mask_dev = torch.ones((n_slots, spec.vocab_size),
+                                    dtype=torch.bool, device=self.device)
+        self._mask_stage: Optional[torch.Tensor] = None
+        self._mask_copied: Any = None
+        self._mask_set = False
+        # EWMA of measured device ms per decode step (0: no sample yet),
+        # and the token buckets cost packing chose
+        self._step_ms = 0.0
+        self.cost_buckets: dict[int, int] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self._graph_pool_bytes = 0
         self._capture_stream: Optional[torch.cuda.Stream] = None
@@ -465,9 +566,6 @@ class LLMEngine:
         self._default_deadline_s = max(
             0.0, knobs.float_("LOCALAI_REQUEST_DEADLINE_S"))
         self._deadlines_armed = self._default_deadline_s > 0
-        # host staging of the per-step [B, V] sampling mask (pinned on a
-        # card, so the copy to the device is one DMA), made at first use
-        self._mask_host: Optional[torch.Tensor] = None
         self.max_queue = max(0, knobs.int_("LOCALAI_MAX_QUEUE"))
         self.metrics = EngineMetrics()
         self._lock = threading.Condition()
@@ -498,7 +596,9 @@ class LLMEngine:
                 raise RuntimeError("engine scheduler did not stop in 60 s")
             self._thread = None
         self._fail_all("engine closed")
-        self._variants.clear()  # the graphs and their pool go with them
+        for d in (self._variants, self._masked_variants,
+                  self._mixed_variants):
+            d.clear()  # the graphs and their pool go with them
         m = self._mlabel
         for g in (tm.ENGINE_SLOTS_BUSY, tm.ENGINE_QUEUE_DEPTH,
                   tm.ENGINE_KV_UTIL, tm.ENGINE_KV_PAGES_IN_USE,
@@ -580,11 +680,136 @@ class LLMEngine:
             self._lock.notify_all()
 
     def _retry_after_s(self) -> float:
-        """Backoff hint for shed requests: the p90 of recent admission
-        queue waits, at least 0.5 s."""
-        waits = sorted(self._queue_waits)
-        p90 = waits[int(0.9 * (len(waits) - 1))] if waits else 1.0
-        return max(0.5, p90)
+        """Backoff hint for shed requests: with cost scheduling on, the
+        predicted drain of the queue (``_predicted_drain_s``); else the
+        p90 of recent admission queue waits (1 s with none), clamped to
+        [0.5, 30] s. Caller holds self._lock."""
+        drain = self._predicted_drain_s()
+        if drain is not None:
+            return drain
+        ws = sorted(self._queue_waits)
+        if not ws:
+            return 1.0
+        p90 = ws[min(len(ws) - 1, int(0.9 * len(ws)))]
+        return min(30.0, max(0.5, p90))
+
+    def _predicted_drain_s(self) -> Optional[float]:
+        """Predicted seconds until the queue drains: per queued request
+        its predicted prefill (per-token rate x prompt length) and
+        decode (per-step rate x token budget), spread over the slots and
+        clamped to [0.5, 30] s. None when cost scheduling is off or the
+        cost model has no rate yet. Caller holds self._lock."""
+        if not self._cost_sched_on():
+            return None
+        cm = self._costmodel
+        tok_ms = cm.prefill_token_ms()
+        step_ms = self._step_ms if self._step_ms > 0.0 \
+            else cm.decode_step_ms()
+        if tok_ms is None and step_ms is None:
+            return None
+        total_ms = 0.0
+        for req, _ in self._pending:
+            if tok_ms is not None:
+                total_ms += tok_ms * len(req.prompt_ids)
+            if step_ms is not None:
+                total_ms += step_ms * max(0, req.max_tokens)
+        return min(30.0, max(0.5, total_ms / 1e3 / max(1, self.n_slots)))
+
+    # ------------------------------------------------------ cost scheduling
+
+    def _cost_sched_on(self) -> bool:
+        """Whether predicted device time drives admission and deadline
+        decisions (independent of the ITL packing budget)."""
+        return (self._costmodel is not None
+                and knobs.flag("LOCALAI_COST_SCHED"))
+
+    def _itl_budget_ms(self) -> float:
+        """The ITL budget cost scheduling packs against, in ms; 0.0 (no
+        packing) when cost scheduling is off, the cost model is absent
+        or no budget is set."""
+        if not self._cost_sched_on():
+            return 0.0
+        return max(0.0, knobs.float_("LOCALAI_ITL_BUDGET_MS"))
+
+    @property
+    def _half_k(self) -> int:
+        """The largest power of two <= decode_steps // 2 (floor 4): the
+        JAX engine's half-length scan, one of its warmed ks."""
+        h = max(self.decode_steps // 2, 4)
+        while h & (h - 1):
+            h &= h - 1
+        return h
+
+    @property
+    def _warm_ks(self) -> set:
+        """The decode lengths an ITL clamp may pick (the JAX engine's
+        warmed scan lengths)."""
+        return {k for k in (1, 2, 4, 8, 16) if k <= self.decode_steps} | {
+            self._half_k, self.decode_steps}
+
+    def _itl_k(self, k: int) -> int:
+        """Clamp a decode step's k under an ITL budget: the tokens of a
+        k-step dispatch surface together, so k x step ms is the stream's
+        inter-token gap. The largest of ``_warm_ks`` above 1 that fits,
+        else the smallest above 1 (progress beats stalling). Step ms is
+        the measured EWMA, else the cost model's prediction."""
+        budget = self._itl_budget_ms()
+        if budget <= 0.0:
+            return k
+        step = self._step_ms if self._step_ms > 0.0 \
+            else (self._costmodel.decode_step_ms() or 0.0)
+        if step <= 0.0:
+            return k
+        fits = [kk for kk in self._warm_ks if kk > 1 and kk * step <= budget]
+        return min(k, max(fits) if fits
+                   else min(kk for kk in self._warm_ks if kk > 1))
+
+    def _note_step_ms(self, step: float) -> None:
+        """Fold one measured device ms per decode step into the EWMA
+        (0.8 / 0.2; a sample 8x the estimate or more is an outlier)."""
+        if step > 0.0 and (self._step_ms == 0.0
+                           or step < 8.0 * self._step_ms):
+            self._step_ms = (step if self._step_ms == 0.0
+                             else 0.8 * self._step_ms + 0.2 * step)
+
+    def _cost_bucket(self, prefilling: list[_Slot], decoding: list[_Slot],
+                     cover: int, budget_ms: float) -> int:
+        """A mixed step's token bucket under an ITL budget: the largest
+        candidate <= ``cover`` (the token-budget pick) whose predicted
+        device time fits ``budget_ms``; else the smallest predicted
+        candidate; else ``cover``. Each candidate's cost row is this
+        composition's at that bucket, keyed by the variant's padded
+        shape."""
+        cm = self._costmodel
+        R = self._bucket(len(prefilling) + len(decoding))
+        fit = smallest = None
+        for b in self._mixed_buckets:
+            if b > cover:
+                break
+            key = costmodel.dispatch_key("mixed", {"shape": (R, b)})
+            cm.capture(key, *self._mixed_cost(
+                [(s.n_past, 1) for s in decoding]
+                + [(s.n_past, min(s.n_prompt - s.n_past, b))
+                   for s in prefilling], R, b))
+            pred = cm.predict_ms("mixed", key)
+            if pred is None:
+                continue
+            if smallest is None:
+                smallest = b
+            if pred <= budget_ms:
+                fit = b
+        return fit or smallest or cover
+
+    def _mixed_cost(self, live: list[tuple[int, int]], R: int,
+                    T: int) -> tuple[float, float]:
+        """Analytic (FLOPs, bytes) of a mixed variant [R, T] over the
+        real rows ``live`` ((position, tokens) each): the projections and
+        the LM head run over every row, the draft's mirror too."""
+        fl, by = self._mcost.forward(live, R, tokens=R * T)
+        if self.draft is not None:
+            dfl, dby = self._dcost.forward(live, 0, tokens=R * T)
+            fl, by = fl + dfl, by + dby
+        return fl, by
 
     # ------------------------------------------------------------ scheduler
 
@@ -666,25 +891,38 @@ class LLMEngine:
         """Terminate requests whose deadline has passed: queued ones get
         a terminal event at once (no slot was ever held), running ones
         finish through the slot path with whatever partial text they
-        produced. Skipped until some request carried a deadline."""
+        produced. With cost scheduling on, a queued request whose
+        predicted prefill alone (as if a slot were free now) ends past
+        its deadline is refused at once (stage ``queued_predicted``): it
+        could not produce a token in time. Skipped until some request
+        carried a deadline."""
         if not self._deadlines_armed:
             return
         now = time.perf_counter()
+        tok_ms = (self._costmodel.prefill_token_ms()
+                  if self._cost_sched_on() else None)
         with self._lock:
             still = []
             for req, out in self._pending:
                 if req.deadline and now >= req.deadline:
-                    self._deferred.pop(req.id, None)
-                    tm.ENGINE_REQUESTS.labels(
-                        model=self._mlabel,
-                        reason="deadline_exceeded").inc()
-                    tm.ENGINE_DEADLINE_EXCEEDED.labels(
-                        model=self._mlabel, stage="queued").inc()
-                    out.put(StreamEvent(
-                        done=True, finish_reason="deadline_exceeded",
-                        error="deadline exceeded while queued"))
+                    stage, why = "queued", "deadline exceeded while queued"
+                elif (req.deadline and tok_ms is not None
+                      and now + tok_ms * len(req.prompt_ids) / 1e3
+                      >= req.deadline):
+                    stage, why = ("queued_predicted",
+                                  "predicted completion exceeds deadline "
+                                  "(prefill alone overruns it)")
                 else:
                     still.append((req, out))
+                    continue
+                self._deferred.pop(req.id, None)
+                tm.ENGINE_REQUESTS.labels(
+                    model=self._mlabel, reason="deadline_exceeded").inc()
+                tm.ENGINE_DEADLINE_EXCEEDED.labels(
+                    model=self._mlabel, stage=stage).inc()
+                out.put(StreamEvent(done=True,
+                                    finish_reason="deadline_exceeded",
+                                    error=why))
             self._pending = still
         for s in self.slots:
             if (s.active and s.request is not None and s.request.deadline
@@ -1016,53 +1254,35 @@ class LLMEngine:
                     out[r, int(tid)] = False
         return out
 
-    def _step_mask(self, rows: list[_Slot]) -> Optional[torch.Tensor]:
-        """The step's sampling mask on the device: built on the host into
-        one staging buffer (pinned on a card) and copied in one transfer.
-        The buffer is reused only after the previous step's tokens were
-        read back, so that copy has landed."""
-        host = self._constraint_mask_rows(rows)
-        if host is None:
-            return None
-        B, V = host.shape
-        buf = self._mask_host
-        if buf is None or buf.shape[0] < B:
-            buf = torch.empty((max(B, self.n_slots), V), dtype=torch.bool,
-                              pin_memory=self.device.type == "cuda")
-            self._mask_host = buf
-        buf.numpy()[:B] = host
-        return buf[:B].to(self.device, non_blocking=True)
+    def _reset_cols(self, req: GenRequest) -> list:
+        """A request's per-slot sampler values, in ``smp.RESET_FIELDS``
+        order (``repeat_last_n`` clamped to the window)."""
+        W = self.sampling.window
+        return [req.temperature, req.top_k, req.top_p, req.min_p,
+                req.repeat_penalty, req.frequency_penalty,
+                req.presence_penalty,
+                min(req.repeat_last_n if req.repeat_last_n > 0 else 64, W),
+                req.typical_p, req.mirostat, req.mirostat_tau,
+                req.mirostat_eta]
 
     def _reset_sampler(self, finals: list[_Slot]) -> None:
         """Sampler reset + prompt-tail penalty seed for slots whose first
-        token is sampled in this step."""
+        token is sampled in this step (the eager mixed step's), through
+        the graph's ``reset_rows`` and its column layout."""
         W = self.sampling.window
-        cols: dict[str, list] = {k: [] for k in smp.RESET_FIELDS}
         tails = np.zeros((len(finals), W), np.int32)
         lens = []
         for r, s in enumerate(finals):
-            req = s.request
-            for name, val in (
-                    ("temperature", req.temperature), ("top_k", req.top_k),
-                    ("top_p", req.top_p), ("min_p", req.min_p),
-                    ("repeat_penalty", req.repeat_penalty),
-                    ("freq_penalty", req.frequency_penalty),
-                    ("presence_penalty", req.presence_penalty),
-                    ("repeat_last_n", min(req.repeat_last_n
-                                          if req.repeat_last_n > 0 else 64,
-                                          W)),
-                    ("typical_p", req.typical_p),
-                    ("mirostat", req.mirostat),
-                    ("mirostat_tau", req.mirostat_tau),
-                    ("mirostat_eta", req.mirostat_eta)):
-                cols[name].append(val)
-            tail = req.prompt_ids[-W:]
+            tail = s.request.prompt_ids[-W:]
             tails[r, :len(tail)] = tail
             lens.append(len(tail))
-        ids = [s.idx for s in finals]
-        smp.reset_slots(self.sampling, ids, cols,
-                        [s.request.seed for s in finals])
-        smp.seed_windows(self.sampling, self._ints(ids),
+        ids = self._ints([s.idx for s in finals])
+        smp.reset_rows(self.sampling, ids, torch.tensor(
+            [self._reset_cols(s.request) for s in finals],
+            dtype=torch.float32, device=self.device).T)
+        smp.reseed(self.sampling, [s.idx for s in finals],
+                   [s.request.seed for s in finals])
+        smp.seed_windows(self.sampling, ids,
                          torch.from_numpy(tails).to(self.device),
                          self._ints(lens))
 
@@ -1070,69 +1290,50 @@ class LLMEngine:
     def _mixed_step(self, prefilling: list[_Slot],
                     decoding: list[_Slot]) -> None:
         """One forward over decode rows (one token each) and prefill
-        chunks; samples the decode rows' next tokens and the final rows'
-        first tokens."""
+        chunks at the step's token bucket (the JAX chunk rule, shrunk by
+        ``_cost_bucket`` under an ITL budget while decode rows ride);
+        samples the decode rows' next tokens and the final rows' first
+        tokens. On a card it is one replay of its mixed variant's graph
+        (``_mixed_graph``)."""
         t0 = time.perf_counter()
+        last = self._mixed_buckets[-1]
         decoding = [s for s in decoding if self._ensure(s, s.n_past + 1)]
         prefilling = [s for s in prefilling if self._ensure(
-            s, s.n_past + min(s.n_prompt - s.n_past, self._chunk))]
+            s, s.n_past + min(s.n_prompt - s.n_past, last))]
+        if not prefilling:
+            return  # the composition changed: the next iteration re-plans
+        need = min(max(s.n_prompt - s.n_past for s in prefilling), last)
+        T = next(b for b in self._mixed_buckets if b >= need)
+        budget = self._itl_budget_ms()
+        if budget > 0.0 and decoding:
+            T = self._cost_bucket(prefilling, decoding, T, budget)
+            self.cost_buckets[T] = self.cost_buckets.get(T, 0) + 1
         rows = sorted(decoding + prefilling, key=lambda s: s.idx)
-        if not rows:
-            return
-        chunks = []
-        for s in rows:
-            if s.state is SlotState.DECODE:
-                chunks.append([s.generated[-1]])
-            else:
-                chunks.append(s.request.prompt_ids[
-                    s.n_past: s.n_past + min(s.n_prompt - s.n_past,
-                                             self._chunk)])
-        T = max(len(c) for c in chunks)
-        toks = np.zeros((len(rows), T), np.int32)
-        for r, c in enumerate(chunks):
-            toks[r, :len(c)] = c
+        chunks = [[s.generated[-1]] if s.state is SlotState.DECODE
+                  else s.request.prompt_ids[
+                      s.n_past: s.n_past + min(s.n_prompt - s.n_past, T)]
+                  for s in rows]
         q_lens = [len(c) for c in chunks]
-        pos0 = [s.n_past for s in rows]
-        pt, wt = self._tables(rows, [(p, p + n) for p, n in zip(pos0, q_lens)])
         finals = [s for s, n in zip(rows, q_lens) if s.state is
                   SlotState.PREFILL and s.n_past + n == s.n_prompt]
         samplers = [s for s in rows if s.state is SlotState.DECODE
                     or s in finals]
-        mask = self._step_mask(samplers) if samplers else None
-        key = costmodel.dispatch_key("mixed", {"shape": (len(rows), T)})
+        R = self._bucket(len(rows))
+        self.metrics.mixed_tokens += sum(q_lens)
+        self.metrics.mixed_pad_tokens += R * T - sum(q_lens)
+        key = costmodel.dispatch_key("mixed", {"shape": (R, T)})
         pred = None
         if self._costmodel is not None:
-            live = list(zip(pos0, q_lens))
-            fl, by = self._mcost.forward(live, len(samplers))
-            if self.draft is not None:
-                dfl, dby = self._dcost.forward(live, 0)
-                fl, by = fl + dfl, by + dby
-            pred = self._cost_row("mixed", key, fl, by)
+            pred = self._cost_row("mixed", key, *self._mixed_cost(
+                [(s.n_past, n) for s, n in zip(rows, q_lens)], R, T))
         self._span.start()
-        ql = self._ints(q_lens)
-        toks_d = torch.from_numpy(toks).to(self.device)
-        pos_d = self._ints(pos0)
-        hidden, _ = forward_hidden(
-            self.spec, self.params, toks_d, pos_d, self.cache, None,
-            page_table=pt, kv_page=self.page, q_lens=ql, write_table=wt)
+        tok = self._mixed_graph(rows, chunks, finals, samplers, T)
         self.metrics.forward_steps += 1
         self.metrics.mixed_steps += 1
         if self.draft is not None:
-            # the draft mirrors every row's K/V under the target's write
-            # table: the prompt chunks, and a decode row's token, whose
-            # position the next spec round (from n_past + 1) never writes
-            forward_hidden(*self.draft, toks_d, pos_d, self.draft_cache,
-                           None, page_table=pt, kv_page=self.page,
-                           q_lens=ql, write_table=wt)
             self.metrics.draft_forwards += 1
         tok_host: list[int] = []
         if samplers:
-            if finals:
-                self._reset_sampler(finals)
-            sel = self._ints([rows.index(s) for s in samplers]).long()
-            last = hidden[sel, ql.long()[sel] - 1]  # each row's last token
-            logits = _lm_head(self.spec, self.params, last[:, None])[:, 0]
-            tok = self._sample(samplers, logits, mask)
             self._span.stop()
             tok_host = tok.tolist()
             self._harvest("mixed", key, pred)
@@ -1164,26 +1365,246 @@ class LLMEngine:
                 if s.state is SlotState.DECODE:
                     self._flush_emit(s)
 
+    def _mixed_eager(self, rows: list[_Slot], chunks: list[list[int]],
+                     finals: list[_Slot], samplers: list[_Slot],
+                     T: int) -> torch.Tensor:
+        """The mixed step as eager forwards over exactly ``rows`` at their
+        longest chunk (no padding to T; tests and the chip smoke plant it
+        on an instance in place of ``_mixed_graph``); the samplers'
+        tokens on the device."""
+        width = max(len(c) for c in chunks)
+        toks = np.zeros((len(rows), width), np.int32)
+        for r, c in enumerate(chunks):
+            toks[r, :len(c)] = c
+        q_lens = [len(c) for c in chunks]
+        pos0 = [s.n_past for s in rows]
+        pt, wt = self._tables(rows, [(p, p + n) for p, n in zip(pos0, q_lens)])
+        self._fill_mask(samplers)
+        mask = self._mask_dev[:len(samplers)] if self._masked(samplers) \
+            else None
+        ql = self._ints(q_lens)
+        toks_d = torch.from_numpy(toks).to(self.device)
+        pos_d = self._ints(pos0)
+        hidden, _ = forward_hidden(
+            self.spec, self.params, toks_d, pos_d, self.cache, None,
+            page_table=pt, kv_page=self.page, q_lens=ql, write_table=wt)
+        if self.draft is not None:
+            forward_hidden(*self.draft, toks_d, pos_d, self.draft_cache,
+                           None, page_table=pt, kv_page=self.page,
+                           q_lens=ql, write_table=wt)
+        if not samplers:
+            return ql[:0]
+        if finals:
+            self._reset_sampler(finals)
+        sel = self._ints([rows.index(s) for s in samplers]).long()
+        last = hidden[sel, ql.long()[sel] - 1]  # each row's last token
+        logits = _lm_head(self.spec, self.params, last[:, None])[:, 0]
+        return self._sample(samplers, logits, mask)
+
+    def _mixed_graph(self, rows: list[_Slot], chunks: list[list[int]],
+                     finals: list[_Slot], samplers: list[_Slot],
+                     T: int) -> torch.Tensor:
+        """The mixed step through its variant [row bucket, T] (a CUDA-graph
+        replay on a card); the samplers' tokens on the device."""
+        v = self._mixed_variant(self._bucket(len(rows)), T)
+        self._mixed_fill(v, rows, chunks, finals, samplers)
+        self._mixed_launch(v)
+        return v.out.index_select(0, torch.tensor(
+            [rows.index(s) for s in samplers], dtype=torch.long,
+            device=self.device))
+
+    def _mixed_fill(self, v: _MixedVariant, rows: list[_Slot],
+                    chunks: list[list[int]], finals: list[_Slot],
+                    samplers: list[_Slot]) -> None:
+        """A mixed step's inputs into v's static buffers: the int32 fields
+        in one transfer (pad rows: trash page, q_len 1, the sentinel as
+        sampler and reset row), the finals' reset columns in another.
+        The finals' generators are reseeded before the samplers' Gumbel
+        noise is drawn, as the eager step does; then the step's masks.
+        The staging is rewritten only once its last copies have run
+        (``_await_copy``): a step with no sampler reads nothing back, so
+        the next may be filled while this one's copy still queues."""
+        self._await_copy(v.copied)
+        R, W = v.rows, self.sampling.window
+        h, cols = v.h, v.fhost.numpy()
+        pos0 = [s.n_past for s in rows]
+        q_lens = [len(c) for c in chunks]
+        pt, wt = self._table_rows(rows, [(p, p + n)
+                                         for p, n in zip(pos0, q_lens)])
+        B = len(rows)
+        h["pt"][:], h["wt"][:] = TRASH_PAGE, TRASH_PAGE
+        h["pt"][:B], h["wt"][:B] = pt, wt
+        h["toks"][:] = 0
+        h["pos0"][:] = 0
+        h["q_lens"][:] = 1
+        h["sids"][:] = h["rsids"][:] = self._pad_sid
+        h["tail_lens"][:] = 0
+        h["tails"][:] = 0
+        h["pos0"][:B], h["q_lens"][:B] = pos0, q_lens
+        for r, (s, c) in enumerate(zip(rows, chunks)):
+            h["toks"][r, :len(c)] = c
+            if s in samplers:
+                h["sids"][r] = s.idx
+            if s in finals:
+                tail = s.request.prompt_ids[-W:]
+                h["rsids"][r] = s.idx
+                h["tails"][r, :len(tail)] = tail
+                h["tail_lens"][r] = len(tail)
+                cols[:, r] = self._reset_cols(s.request)
+        v.ints.copy_(v.host, non_blocking=True)
+        v.cols.copy_(v.fhost, non_blocking=True)
+        v.copied = self._copy_event()
+        smp.reseed(self.sampling, [s.idx for s in finals],
+                   [s.request.seed for s in finals])
+        noise = self._noise(samplers) if samplers else None
+        if noise is not None:
+            v.noise.zero_()
+            v.noise.index_copy_(0, torch.tensor(
+                [rows.index(s) for s in samplers], dtype=torch.long,
+                device=self.device), noise)
+            v.noisy = True
+        elif v.noisy:
+            v.noise.zero_()
+            v.noisy = False
+        self._fill_mask([s if s in samplers else None for s in rows])
+
+    def _mixed_body(self, v: _MixedVariant) -> None:
+        """One mixed step over v's buffers, what a mixed graph holds: the
+        forward (and the draft's mirror under the same tables), the
+        finals' sampler reset and penalty-window seed, each row's last
+        real token (a fixed-size gather) through the LM head, and a
+        sample under the static mask."""
+        f = v.f
+        hidden, _ = forward_hidden(
+            self.spec, self.params, f["toks"], f["pos0"], self.cache, None,
+            page_table=f["pt"], kv_page=self.page, q_lens=f["q_lens"],
+            write_table=f["wt"])
+        if self.draft is not None:
+            # the draft mirrors every row's K/V under the target's write
+            # table: the prompt chunks, and a decode row's token, whose
+            # position the next spec round (from n_past + 1) never writes
+            forward_hidden(*self.draft, f["toks"], f["pos0"],
+                           self.draft_cache, None, page_table=f["pt"],
+                           kv_page=self.page, q_lens=f["q_lens"],
+                           write_table=f["wt"])
+        smp.reset_rows(self.sampling, f["rsids"], v.cols)
+        smp.seed_windows(self.sampling, f["rsids"], f["tails"],
+                         f["tail_lens"])
+        last = hidden[v.at, f["q_lens"].long() - 1]
+        logits = _lm_head(self.spec, self.params, last[:, None])[:, 0]
+        tok, _ = smp.sample(self.sampling, f["sids"], logits,
+                            mask=self._mask_dev[:v.rows], noise=v.noise)
+        v.out.copy_(tok)
+        v.logits = logits
+
+    def _mixed_launch(self, v: _MixedVariant) -> None:
+        """One mixed step of variant v: a replay of its graph on a card
+        (adding its capture's kernel launches to the counts), the body
+        run eagerly on the CPU."""
+        if v.graph is None:
+            self._mixed_body(v)
+            return
+        v.graph.replay()
+        self.metrics.mixed_replays += 1
+        for f in COUNTED:
+            f.launches += v.launches[f.__name__]
+
+    def _mixed_variant(self, R: int, T: int) -> _MixedVariant:
+        v = self._mixed_variants.get((R, T))
+        if v is None:
+            v = self._new_mixed(R, T)
+            self._capture(v, self._mixed_body)
+            self._mixed_variants[(R, T)] = v
+        return v
+
+    def _new_mixed(self, R: int, T: int) -> _MixedVariant:
+        """Static buffers of a mixed variant [R, T], every row a pad row."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        fields = _mixed_fields(R, T, self._max_pages, self.sampling.window)
+        n = sum(int(np.prod(shape)) for _, shape in fields)
+        host = torch.zeros((n,), dtype=torch.int32, pin_memory=cuda)
+        h = {k: t.numpy() for k, t in _carve(host, fields).items()}
+        h["pt"][:], h["wt"][:] = TRASH_PAGE, TRASH_PAGE
+        h["q_lens"][:] = 1
+        h["sids"][:] = h["rsids"][:] = self._pad_sid
+        fhost = torch.zeros((len(smp.RESET_FIELDS), R), dtype=torch.float32,
+                            pin_memory=cuda)
+        ints = torch.empty_like(host, device=dev).copy_(host)
+        return _MixedVariant(
+            rows=R, T=T, host=host, h=h, ints=ints,
+            f=_carve(ints, fields), fhost=fhost,
+            cols=torch.empty_like(fhost, device=dev).copy_(fhost),
+            noise=torch.zeros((R, min(smp.CAND, self.spec.vocab_size)),
+                              device=dev),
+            at=torch.arange(R, device=dev),
+            out=torch.zeros(R, dtype=torch.int32, device=dev))
+
+    def _fill_mask(self, rows: list[Optional[_Slot]]) -> None:
+        """The step's sampling masks into the static device mask, row r
+        for ``rows[r]`` (None, or a row with no grammar or bias: all
+        True), in one transfer from pinned staging. An all-True mask is
+        left as it is; a masked step's is reset when the next step has
+        none. The staging is rewritten only once its last copy has run
+        (``_await_copy``)."""
+        live = [(r, s) for r, s in enumerate(rows) if s is not None]
+        host = self._constraint_mask_rows([s for _, s in live])
+        if host is None:
+            if self._mask_set:
+                self._mask_dev.fill_(True)
+                self._mask_set = False
+            return
+        self._await_copy(self._mask_copied)
+        if self._mask_stage is None:
+            self._mask_stage = torch.empty(
+                tuple(self._mask_dev.shape), dtype=torch.bool,
+                pin_memory=self.device.type == "cuda")
+        buf = self._mask_stage.numpy()
+        buf[:] = True
+        for (r, _), m in zip(live, host):
+            buf[r] = m
+        self._mask_dev.copy_(self._mask_stage, non_blocking=True)
+        self._mask_copied = self._copy_event()
+        self._mask_set = True
+
+    def _await_copy(self, ev: Any) -> None:
+        """Block the host until a pinned staging buffer's last copy to
+        the card (``ev``, from ``_copy_event``) has run. A non-blocking
+        copy reads the host memory only when its stream reaches it,
+        which may be behind earlier replays: a staging rewritten before
+        then would hand an earlier step the next step's inputs."""
+        if ev is not None:
+            ev.synchronize()
+
+    def _copy_event(self) -> Any:
+        """An event after the copies just queued on the current stream
+        (None on the CPU, where a copy is done when it returns)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
     @torch.inference_mode()
     def _decode_step(self, decoding: list[_Slot]) -> None:
         """Up to ``decode_steps`` seeded T == 1 forwards over the decoding
         slots, sampling on the device; one host read at the end, tokens
-        past a row's finish are discarded. Unmasked rows run through
-        their bucket's decode variant (``_decode_graph``); a masked
-        step is one eager forward (``_decode_eager``): its next mask
-        needs the token just sampled."""
+        past a row's finish are discarded. Under an ITL budget k is
+        clamped by ``_itl_k``; a masked step is one forward (its next
+        mask needs the token just sampled). The rows run through their
+        bucket's decode or masked decode variant (``_decode_graph``)."""
         t0 = time.perf_counter()
         k = min(self.decode_steps,
                 max(s.request.max_tokens - len(s.generated) for s in decoding),
                 min(self.max_seq - 1 - s.n_past for s in decoding))
         masked = self._masked(decoding)
-        k = 1 if masked else max(1, k)
+        k = 1 if masked else self._itl_k(max(1, k))
         rows = [s for s in decoding if self._ensure(s, s.n_past + k)]
         if not rows:
             return
         B = len(rows)
         key = costmodel.dispatch_key("decodek", {
-            "k": k, "bucket": B if masked else self._bucket(B)})
+            "k": k, "bucket": self._bucket(B), "masked": masked})
         pred = None
         if self._costmodel is not None:
             fl = by = 0.0
@@ -1193,11 +1614,11 @@ class LLMEngine:
                 fl, by = fl + f, by + b
             pred = self._cost_row("decodek", key, fl, by)
         self._span.start()
-        toks = (self._decode_eager(rows, k) if masked
-                else self._decode_graph(rows, k))
+        toks = self._decode_graph(rows, k)
         self._span.stop()
         host = toks.tolist()
         span_s = self._harvest("decodek", key, pred)
+        self._note_step_ms(span_s * 1e3 / k)
         self.metrics.forward_steps += k
         self.metrics.decode_steps += k
         dt = (time.perf_counter() - t0) * 1e3
@@ -1216,9 +1637,11 @@ class LLMEngine:
                 self._flush_emit(s)
 
     def _decode_eager(self, rows: list[_Slot], k: int) -> torch.Tensor:
-        """k eager forwards over exactly ``rows`` under the step's host
-        mask; [B, k] tokens on the device."""
-        mask = self._step_mask(rows)
+        """k eager forwards over exactly ``rows`` under the step's mask
+        (tests and the chip smoke plant it on an instance in place of
+        ``_decode_graph``); [B, k] tokens on the device."""
+        self._fill_mask(rows)
+        mask = self._mask_dev[:len(rows)] if self._masked(rows) else None
         pt, wt = self._tables(rows, [(s.n_past, s.n_past + k) for s in rows])
         toks = self._ints([[s.generated[-1]] for s in rows])
         pos = self._ints([s.n_past for s in rows])
@@ -1236,15 +1659,19 @@ class LLMEngine:
             pos = pos + 1
         return torch.stack(out, 1)
 
-    # ------------------------------------------------- compiled decode
+    # ------------------------------------------------- compiled dispatch
 
     def _bucket(self, n: int) -> int:
         return next(b for b in self._buckets if b >= n)
 
     def _decode_graph(self, rows: list[_Slot], k: int) -> torch.Tensor:
         """k launches of the rows' decode variant (a CUDA-graph replay
-        each on a card); [B, k] tokens on the device."""
-        v = self._variant(self._bucket(len(rows)))
+        each on a card), or one of their masked decode variant when a
+        row samples under a mask; [B, k] tokens on the device."""
+        masked = self._masked(rows)
+        v = self._variant(self._bucket(len(rows)), masked)
+        if masked:
+            self._fill_mask(rows)
         self._fill(v, rows, k)
         for _ in range(k):
             self._decode_launch(v)
@@ -1256,8 +1683,9 @@ class LLMEngine:
         page, sentinel row), then the k steps' Gumbel noise, drawn as
         ``_sample`` draws it (step-major, each stochastic row from its
         slot's generator), so seeded output is the eager loop's. The
-        staging buffer is rewritten only after the last dispatch's
-        host read, so its copy has landed."""
+        staging is rewritten only once its last copy has run
+        (``_await_copy``)."""
+        self._await_copy(v.copied)
         n, B, P = v.bucket, len(rows), self._max_pages
         pt, wt = self._table_rows(rows, [(s.n_past, s.n_past + k)
                                          for s in rows])
@@ -1272,6 +1700,7 @@ class LLMEngine:
         tail[1, :B] = [s.n_past for s in rows]
         tail[2, :B] = [s.idx for s in rows]
         v.ints.copy_(v.host, non_blocking=True)
+        v.copied = self._copy_event()
         v.step.zero_()
         if any(s.request.temperature > 0 for s in rows):
             v.noise[:k, :B] = torch.stack([self._noise(rows)
@@ -1282,14 +1711,17 @@ class LLMEngine:
             v.noisy = False
 
     def _decode_body(self, v: _DecodeVariant) -> None:
-        """One forward and sample over v's buffers, chaining the next
-        step's input on the device: what a decode graph holds."""
+        """One forward and sample over v's buffers (a masked variant's
+        under the static mask), chaining the next step's input on the
+        device: what a decode graph holds."""
         hidden, _ = forward_hidden(
             self.spec, self.params, v.toks, v.pos, self.cache, None,
             page_table=v.pt, kv_page=self.page, q_lens=v.q_lens,
             write_table=v.wt)
         logits = _lm_head(self.spec, self.params, hidden)[:, -1]
         tok, _ = smp.sample(self.sampling, v.sids, logits,
+                            mask=self._mask_dev[:v.bucket] if v.masked
+                            else None,
                             noise=v.noise.index_select(0, v.step)[0])
         v.out.index_copy_(0, v.step, tok[None])
         v.toks.copy_(tok[:, None])
@@ -1306,21 +1738,25 @@ class LLMEngine:
             return
         v.graph.replay()
         self.metrics.graph_replays += 1
+        self.metrics.masked_replays += v.masked
         for f in COUNTED:
             f.launches += v.launches[f.__name__]
 
-    def _variant(self, bucket: int) -> _DecodeVariant:
-        v = self._variants.get(bucket)
+    def _variant(self, bucket: int, masked: bool = False) -> _DecodeVariant:
+        table = self._masked_variants if masked else self._variants
+        v = table.get(bucket)
         if v is None:
-            v = self._new_variant(bucket)
-            self._capture(v)
-            self._variants[bucket] = v
+            v = self._new_variant(bucket, masked)
+            self._capture(v, self._decode_body)
+            table[bucket] = v
         return v
 
-    def _new_variant(self, n: int) -> _DecodeVariant:
-        """Static buffers of a bucket of n rows, every row a pad row."""
+    def _new_variant(self, n: int, masked: bool = False) -> _DecodeVariant:
+        """Static buffers of a bucket of n rows, every row a pad row (a
+        masked variant holds one step)."""
         P, dev = self._max_pages, self.device
         cuda = dev.type == "cuda"
+        steps = 1 if masked else self.decode_steps
         host = torch.full((2 * n * P + 3 * n,), TRASH_PAGE,
                           dtype=torch.int32, pin_memory=cuda)
         host[2 * n * P:] = 0
@@ -1332,44 +1768,49 @@ class LLMEngine:
             bucket=n, host=host, ints=ints, pt=tables[0], wt=tables[1],
             toks=tail[0].view(n, 1), pos=tail[1], sids=tail[2],
             q_lens=torch.ones(n, dtype=torch.int32, device=dev),
-            noise=torch.zeros((self.decode_steps, n,
+            noise=torch.zeros((steps, n,
                                min(smp.CAND, self.spec.vocab_size)),
                               device=dev),
             step=torch.zeros(1, dtype=torch.long, device=dev),
-            out=torch.zeros((self.decode_steps, n), dtype=torch.int32,
-                            device=dev))
+            out=torch.zeros((steps, n), dtype=torch.int32, device=dev),
+            masked=masked)
 
-    def _capture(self, v: _DecodeVariant) -> None:
-        """Ready variant v: one eager all-pad forward (it writes only the
-        trash page and the sentinel sampler row); on a card that run is
-        the warm-up of the capture stream (the kernels built, cuBLAS's
-        workspace and B1's merge counters allocated) before the graph
-        is captured on it into the engine's graph pool. A failed
-        capture raises. The pad forwards are not traffic: the kernels'
-        launch counts are restored afterwards, and ``v.launches`` keeps
-        what one replay launches."""
+    def _capture(self, v: Any, body: Any) -> None:
+        """Ready variant v (decode or mixed) for ``body(v)``: one eager
+        all-pad run (it writes only the trash page and the sentinel
+        sampler row); on a card that run is the warm-up of the capture
+        stream (the kernels built, cuBLAS's workspace and B1's merge
+        counters allocated) before the graph is captured on it into the
+        engine's graph pool. A failed capture raises. The pad runs are
+        not traffic: the kernels' launch counts are restored afterwards,
+        and ``v.launches`` keeps what one replay launches."""
         counts = {f: f.launches for f in COUNTED}
         try:
             if self.device.type != "cuda":
-                self._decode_body(v)
+                body(v)
                 return
             s = self._capture_stream or torch.cuda.Stream(self.device)
             self._capture_stream = s
             s.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(s):
-                self._decode_body(v)
+                body(v)
             torch.cuda.current_stream(self.device).wait_stream(s)
             mid = {f: f.launches for f in COUNTED}
             g = torch.cuda.CUDAGraph()
             with torch.cuda.graph(g, pool=self._graph_pool, stream=s,
                                   capture_error_mode="thread_local"):
-                self._decode_body(v)
+                body(v)
             v.launches = {f.__name__: f.launches - mid[f] for f in COUNTED}
             v.graph = g
             self._graph_pool_bytes = self._pool_bytes()
         finally:
             for f, n in counts.items():
                 f.launches = n
+
+    def variant_count(self) -> int:
+        """Dispatch variants made so far (decode, masked decode, mixed)."""
+        return (len(self._variants) + len(self._masked_variants)
+                + len(self._mixed_variants))
 
     def _pool_bytes(self) -> int:
         """Bytes of the segments the caching allocator holds for the
@@ -1380,20 +1821,41 @@ class LLMEngine:
 
     @torch.inference_mode()
     def warmup(self) -> None:
-        """Capture every decode variant before serving (call it before
-        the first request): for each row bucket an all-pad dispatch —
-        every row on the trash page and the sampler's sentinel row —
-        becomes its CUDA graph, so no capture lands mid-request. Touches
-        no slot. Sets ``engine_dispatch_compile_variants_count`` and
+        """Capture every dispatch variant before serving (call it before
+        the first request), each from an all-pad dispatch — every row on
+        the trash page and the sampler's sentinel row — so no capture
+        lands mid-request: the mixed variants, largest first (later
+        captures reuse the pool's segments), then per row bucket the
+        decode and masked decode variants. Touches no slot. Each mixed
+        variant's cost row is recorded at a nominal full composition
+        (every row T tokens from position 0), and a decode dispatch's
+        (k = decode_steps, every row from position 0) per bucket, so the
+        predictor can cost a step before its first dispatch. Sets
+        ``engine_dispatch_compile_variants_count`` and
         ``engine_warmup_seconds``."""
         t0 = time.perf_counter()
+        shapes = sorted(((R, T) for R in self._buckets
+                         for T in self._mixed_buckets),
+                        key=lambda rt: -rt[0] * rt[1])
+        for R, T in shapes:
+            self._mixed_variant(R, T)
+            if self._costmodel is not None:
+                self._costmodel.capture(
+                    costmodel.dispatch_key("mixed", {"shape": (R, T)}),
+                    *self._mixed_cost([(0, T)] * R, R, T))
         for b in self._buckets:
             self._variant(b)
+            self._variant(b, masked=True)
+            if self._costmodel is not None:
+                fl, by = self._mcost.forward([(0, 1)] * b, b)
+                self._costmodel.capture(costmodel.dispatch_key("decodek", {
+                    "k": self.decode_steps, "bucket": b}),
+                    fl * self.decode_steps, by * self.decode_steps)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.metrics.warmup_s = time.perf_counter() - t0
         tm.ENGINE_DISPATCH_VARIANTS.labels(model=self._mlabel).set(
-            len(self._variants))
+            self.variant_count())
         tm.ENGINE_WARMUP_SECONDS.labels(model=self._mlabel,
                                         mode="cold").set(self.metrics.warmup_s)
 

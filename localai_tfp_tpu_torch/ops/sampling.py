@@ -103,18 +103,40 @@ def reset_slots(state: SamplingState, slot_ids: list[int], cols: dict,
     its generator reseeded, others keep drawing from theirs."""
     if not slot_ids:
         return state
-    idx = torch.tensor(slot_ids, dtype=torch.long, device=state.device)
-    for name in RESET_FIELDS:
+    reset_rows(state, torch.tensor(slot_ids, device=state.device),
+               torch.tensor([cols[name] for name in RESET_FIELDS],
+                            dtype=torch.float32, device=state.device))
+    reseed(state, slot_ids, seeds)
+    return state
+
+
+def reset_rows(state: SamplingState, slot_ids: torch.Tensor,
+               cols: torch.Tensor) -> SamplingState:
+    """``reset_slots``' device half over a fixed-size batch, with no host
+    value in it (the engine's mixed graphs run it): ``cols
+    [len(RESET_FIELDS), B]`` f32, one column per row (integer fields
+    hold exact small integers). Rows may repeat a slot id, as sentinel
+    rows do; that slot's row is then written by one of them."""
+    sid = slot_ids.long()
+    for i, name in enumerate(RESET_FIELDS):
         t = getattr(state, name)
-        t[idx] = torch.tensor(cols[name], dtype=t.dtype, device=t.device)
-    state.token_counts[idx] = 0
-    state.history[idx] = -1
-    state.history_pos[idx] = 0
-    state.mirostat_mu[idx] = 2.0 * state.mirostat_tau[idx]
+        t[sid] = cols[i].to(t.dtype)
+    # fills, not scalar assignments: those copy a host scalar, which a
+    # CUDA graph capture refuses
+    state.token_counts.index_fill_(0, sid, 0)
+    state.history.index_fill_(0, sid, -1)
+    state.history_pos.index_fill_(0, sid, 0)
+    state.mirostat_mu[sid] = 2.0 * state.mirostat_tau[sid]
+    return state
+
+
+def reseed(state: SamplingState, slot_ids: list[int],
+           seeds: list[Optional[int]]) -> None:
+    """``reset_slots``' host half: a slot whose seed is not None gets its
+    generator reseeded."""
     for s, seed in zip(slot_ids, seeds):
         if seed is not None:
             state.generators[s].manual_seed(int(seed) & 0xFFFFFFFFFFFFFFFF)
-    return state
 
 
 def observe_tokens(state: SamplingState, slot_ids: torch.Tensor,

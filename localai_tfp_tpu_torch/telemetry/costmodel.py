@@ -84,15 +84,17 @@ def peak_rates(platform: str) -> tuple[float, float]:
 
 
 def dispatch_key(kind: str, payload: dict) -> tuple:
-    """The signature of one dispatch's variant. ``mixed``: (kind, (rows,
-    tokens per row)); ``decodek``: (kind, k, row bucket) — one CUDA
-    graph per bucket, replayed k times; ``spec`` / ``spec_s``: (kind,
-    n_draft, rounds)."""
+    """The signature of one dispatch's variant. ``mixed``: (kind, (row
+    bucket, token bucket)), the variant's padded shape; ``decodek``:
+    (kind, k, row bucket) — one CUDA graph per bucket, replayed k times
+    — and ``"masked"`` last for a masked step's own graph; ``spec`` /
+    ``spec_s``: (kind, n_draft, rounds)."""
     p = payload
     if kind == "mixed":
         return (kind, tuple(p["shape"]))
     if kind == "decodek":
-        return (kind, p["k"], p["bucket"])
+        return (kind, p["k"], p["bucket"]) + (
+            ("masked",) if p.get("masked") else ())
     if kind in ("spec", "spec_s"):
         return (kind, p.get("kd"), p.get("rounds"))
     return (kind,)
@@ -164,15 +166,17 @@ class ModelCost:
                                 for t in emb),
             kv_token_bytes=per_token, page=page)
 
-    def forward(self, rows: Sequence[tuple[int, int]],
-                head_rows: int) -> tuple[float, float]:
+    def forward(self, rows: Sequence[tuple[int, int]], head_rows: int,
+                tokens: Optional[int] = None) -> tuple[float, float]:
         """(FLOPs, bytes) of one forward over ``rows`` — (positions
         already in the arena, tokens of this forward) per real row —
-        with ``head_rows`` rows through the LM head. Bytes: the weights
-        once, the embedding rows gathered, the KV pages each row reads
-        (each layer), the new K/V written, the logits written."""
+        with ``head_rows`` rows through the LM head; ``tokens`` (default:
+        the rows' own) is the token count the projections run over, a
+        padded variant's rows x token bucket. Bytes: the weights once,
+        the embedding rows gathered, the KV pages each row reads (each
+        layer), the new K/V written, the logits written."""
         L, P = self.n_layers, self.page
-        n = sum(q for _, q in rows)
+        n = sum(q for _, q in rows) if tokens is None else tokens
         keys = sum(_attended(c, q, self.window) for c, q in rows)
         flops = (2.0 * n * self.matmul_params * L
                  + 4.0 * self.attn_width * keys * L

@@ -228,7 +228,14 @@ class TorchLLMBackend(Backend):
                 "hit_rate": round(reused / max(reused + filled, 1), 4),
             },
             "graph_replays": m.graph_replays,
-            "graph_variants": len(eng._variants),
+            "masked_replays": m.masked_replays,
+            "mixed_replays": m.mixed_replays,
+            "graph_variants": eng.variant_count(),
+            # pad tokens the mixed variants added, over the real tokens
+            "mixed_padded_share": round(
+                m.mixed_pad_tokens / max(m.mixed_tokens, 1), 4),
+            # token buckets chosen by cost packing (ITL budget), by bucket
+            "cost_buckets": dict(sorted(eng.cost_buckets.items())),
             "warmup_s": m.warmup_s,
             "costmodel": eng.cost_stats(),
             "hbm": eng.hbm_stats(),

@@ -790,6 +790,169 @@ def test_warmup_captures_every_bucket_on_card(cuda_device):
         eng.close()
 
 
+def _mixed_wave() -> list:
+    """A 199-token prompt (a 128-token chunk, then 71 beside two decode
+    rows: both steps at variant [4, 128]), a seeded sampled row and a
+    logit_bias row (masked decode steps while it decodes)."""
+    return [GenRequest(prompt_ids=list(range(1, 200)), max_tokens=6,
+                       ignore_eos=True),
+            GenRequest(prompt_ids=list(range(3, 30)), max_tokens=9,
+                       ignore_eos=True, temperature=0.8, top_k=40, seed=2),
+            GenRequest(prompt_ids=list(range(5, 21)), max_tokens=7,
+                       ignore_eos=True,
+                       logit_bias={i: -100.0 for i in range(10, 60)})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [torch.bfloat16, torch.int8],
+                         ids=["bf16kv", "int8kv"])
+@pytest.mark.parametrize("int8_weights", [False, True],
+                         ids=["bf16w", "int8w"])
+def test_mixed_and_masked_graphs_equal_eager_at_the_variant(
+        cuda_device, int8_weights, kv):
+    """Every mixed step and masked decode step by graph replay against
+    the same bodies run eagerly at the same variants: greedy and seeded
+    sampled ids and every K/V page but the trash page bitwise; the graph
+    engine ran no eager mixed step or decode forward, and its kernel
+    counts per replay equal the eager engine's per call."""
+    spec, params = _graph_model(cuda_device, int8_weights)
+    engines = []
+    for eager in (False, True):
+        eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=4,
+                        max_seq=256, cache_dtype=kv, autostart=False,
+                        device=cuda_device)
+        if eager:  # the variant bodies, run eagerly
+            eng._mixed_launch = eng._mixed_body
+            eng._decode_launch = eng._decode_body
+        engines.append(eng)
+    graph, eager = engines
+    try:
+        got, want, launches = [], [], []
+        for eng, out in ((graph, got), (eager, want)):
+            b1, b2 = ragged_paged_attention.launches, int8_matmul.launches
+            out.append(_drive(eng, _mixed_wave()))
+            launches.append((ragged_paged_attention.launches - b1,
+                             int8_matmul.launches - b2))
+        torch.cuda.synchronize()
+        assert got == want
+        assert torch.equal(graph.cache.k[:, 1:], eager.cache.k[:, 1:])
+        assert torch.equal(graph.cache.v[:, 1:], eager.cache.v[:, 1:])
+        m = graph.metrics
+        assert m.mixed_replays == m.mixed_steps >= 2
+        assert m.graph_replays == m.decode_steps and m.masked_replays > 0
+        assert (4, 128) in graph._mixed_variants
+        assert eager.metrics.mixed_replays == 0
+        assert eager.metrics.graph_replays == 0
+        assert launches[0] == launches[1]
+        assert launches[0][0] == 2 * m.forward_steps
+        assert (launches[0][1] > 0) == int8_weights
+    finally:
+        graph.close()
+        eager.close()
+
+
+@pytest.mark.cuda
+def test_lone_prompt_chunks_while_the_card_lags(cuda_device):
+    """A lone 192-token prompt on an idle 8-slot engine (token buckets up
+    to 64): three [1, 64] mixed steps in a row, the first two sampling
+    nothing, so no step reads back and the host fills the next step's
+    staging while the card is still behind (a spin queued before every
+    mixed replay keeps it behind). Ids and every K/V page but the trash
+    page bitwise equal to the same engine synchronized after every
+    mixed replay, and greedy ids equal to the eager paths' (the same
+    [1, 64] shapes)."""
+    spec, params = _graph_model(cuda_device, False)
+    engines = {}
+    for mode in ("lagging", "synced", "eager"):
+        eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=8,
+                        max_seq=256, prefill_buckets=(4, 16, 64),
+                        cache_dtype=torch.bfloat16, autostart=False,
+                        device=cuda_device)
+        launch = eng._mixed_launch
+        if mode == "lagging":
+            def lagging(v, launch=launch):
+                torch.cuda._sleep(20_000_000)  # ~10 ms of spinning
+                launch(v)
+            eng._mixed_launch = lagging
+        elif mode == "synced":
+            def synced(v, launch=launch):
+                launch(v)
+                torch.cuda.synchronize()
+            eng._mixed_launch = synced
+        else:
+            eng._mixed_graph = eng._mixed_eager
+            eng._decode_graph = eng._decode_eager
+        engines[mode] = eng
+    try:
+        ids = {m: _drive(e, [GenRequest(prompt_ids=list(range(1, 193)),
+                                        max_tokens=8, ignore_eos=True)])
+               for m, e in engines.items()}
+        torch.cuda.synchronize()
+        lag, synced = engines["lagging"], engines["synced"]
+        assert lag.metrics.mixed_replays == lag.metrics.mixed_steps == 3
+        assert list(lag._mixed_variants) == [(1, 64)]
+        assert ids["lagging"] == ids["synced"] == ids["eager"]
+        assert torch.equal(lag.cache.k[:, 1:], synced.cache.k[:, 1:])
+        assert torch.equal(lag.cache.v[:, 1:], synced.cache.v[:, 1:])
+    finally:
+        for eng in engines.values():
+            eng.close()
+
+
+@pytest.mark.cuda
+def test_warmup_captures_every_variant_on_card(cuda_device):
+    """Decode, masked decode and mixed variants (row buckets 1-8, token
+    buckets 4, 16, 128: every product at M <= 1024, so B2 takes each)
+    captured, with their launches per replay; the pad runs count no
+    launch."""
+    spec, params = _graph_model(cuda_device, True)
+    eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=8, max_seq=256,
+                    cache_dtype=torch.bfloat16, autostart=False,
+                    device=cuda_device)
+    try:
+        b1, b2 = ragged_paged_attention.launches, int8_matmul.launches
+        eng.warmup()
+        assert sorted(eng._mixed_variants) == [
+            (r, t) for r in (1, 2, 4, 8) for t in (4, 16, 128)]
+        assert sorted(eng._masked_variants) == [1, 2, 4, 8]
+        every = (list(eng._variants.values())
+                 + list(eng._masked_variants.values())
+                 + list(eng._mixed_variants.values()))
+        assert len(every) == eng.variant_count() == 20
+        assert all(v.graph is not None and v.launches == {
+            "ragged_paged_attention": 2, "int8_matmul": 14} for v in every)
+        assert (ragged_paged_attention.launches, int8_matmul.launches) == \
+            (b1, b2)
+        assert eng.hbm_stats()["components"]["graph_pool"] == \
+            eng._graph_pool_bytes > 0
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_mixed_capture_failure_raises_and_fails_the_request(cuda_device):
+    """A mixed variant whose capture cannot complete raises; the request
+    fails through the loop's error path with no eager step in its
+    place."""
+    spec, params = _graph_model(cuda_device, False)
+    eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=2, max_seq=256,
+                    cache_dtype=torch.bfloat16, device=cuda_device)
+    body = eng._mixed_body
+
+    def syncing(v):
+        body(v)
+        v.out.sum().item()  # not permitted while the stream captures
+
+    eng._mixed_body = syncing
+    try:
+        ev = eng.generate(GenRequest(prompt_ids=list(range(1, 20)),
+                                     max_tokens=4, ignore_eos=True))
+        assert ev.finish_reason == "error" and ev.error
+        assert eng.metrics.mixed_steps == 0 and not eng._mixed_variants
+    finally:
+        eng.close()
+
+
 @pytest.mark.cuda
 def test_capture_failure_raises_and_fails_the_requests(cuda_device):
     """A capture that cannot complete (here: a host read inside the

@@ -13,7 +13,9 @@ against the JAX engine, on the same ``tiny_spec`` weights in f32; and
 - Pad rows leave every real slot's sampler state (history,
   token_counts, mirostat_mu, ...) and every page but the trash page
   bitwise unchanged.
-- ``warmup()`` makes one variant per bucket and touches no slot.
+- ``warmup()`` makes one decode and one masked decode variant per
+  bucket and one mixed variant per (row bucket, token bucket), and
+  touches no slot.
 - ``/metrics`` renders exposition 0.0.4 with the reference's family
   names and label sets, and its counters agree with ``engine_stats``.
 """
@@ -196,9 +198,15 @@ def test_warmup_makes_one_variant_per_bucket_and_touches_no_slot(weights):
         sentinel = st.history[eng._pad_sid].clone()
         eng.warmup()
         assert sorted(eng._variants) == eng._buckets == [1, 2, 4]
+        # and since mixed and masked steps became variants too: one
+        # masked decode variant per bucket, one mixed variant per (row
+        # bucket, token bucket)
+        assert sorted(eng._masked_variants) == [1, 2, 4]
+        assert sorted(eng._mixed_variants) == [
+            (r, t) for r in (1, 2, 4) for t in (8, 32, 128)]
         assert eng.metrics.warmup_s > 0
         assert tmetrics.ENGINE_DISPATCH_VARIANTS.labels(
-            model="default").snapshot()["value"] == 3
+            model="default").snapshot()["value"] == 3 + 3 + 9
         after = _sampler_rows(eng)
         assert all(torch.equal(before[f], after[f]) for f in before)
         assert _pages_equal_but_trash(pages, _pages(eng))
@@ -354,7 +362,9 @@ def test_metrics_route_shows_the_reference_families(server):
     model = "graphs-metrics-ckpt"
     backend = server.app.loaded()["tiny-metrics"]
     stats = backend.engine_stats()
-    assert stats["graph_variants"] == 3 and stats["warmup_s"] > 0
+    # decode and masked decode variants per row bucket (1, 2, 4), mixed
+    # variants per row bucket and token bucket (4, 16, 128)
+    assert stats["graph_variants"] == 15 and stats["warmup_s"] > 0
     assert stats["costmodel"]["mfu_samples"] > 0
     assert stats["hbm"]["components"]["weights"] > 0
 
@@ -368,7 +378,7 @@ def test_metrics_route_shows_the_reference_families(server):
     assert value("engine_requests_total", model=model, reason="length") + \
         value("engine_requests_total", model=model, reason="stop") == \
         stats["requests_completed"] == 2
-    assert value("engine_dispatch_compile_variants_count", model=model) == 3
+    assert value("engine_dispatch_compile_variants_count", model=model) == 15
     assert 0 < value("engine_mfu_ratio", model=model) <= 1
     assert value("engine_hbm_bytes", model=model, component="weights") == \
         stats["hbm"]["components"]["weights"]
