@@ -81,7 +81,13 @@ Phases, one result line each; any failure raises and exits non-zero:
    logit_bias ban, every output accepted by the port's grammar matcher,
    with the host ms of masked decode forwards beside unmasked ones; then
    a 1e-6 s timeout (504) and a deadline that expires mid-decode (200,
-   finish_reason deadline_exceeded, partial text).
+   finish_reason deadline_exceeded, partial text); then the on-disk
+   prompt cache through the worker: the first prefix prompt (~1131
+   tokens) served on a fresh engine, which saves its rows, and again on
+   a fresh engine on the same weights with its graphs captured, which
+   restores them in place (file bytes, save and restore wall, TTFT
+   restored against cold, prompt tokens computed 1 against all, the
+   restore outcomes, ids equal or dense-held); the file is removed.
 8. dispatch — on each model's server after phase 7: (a) the burst's
    four prompts (28-1578 tokens) admitted while four streams decode,
    stepped by hand (one schedule) on fresh engines three times: by
@@ -117,6 +123,14 @@ Phases, one result line each; any failure raises and exits non-zero:
    penalised row never in a speculative dispatch, both as served alone.
    In every run attention launches once per layer of every target and
    draft forward, and int8_matmul's launches equal its calls by M.
+   Every speculative dispatch is a CUDA-graph replay (16 variants per
+   model with a draft); each of (a) greedy, (b) greedy then sampled
+   (the greedy rejection gaps read here) and (c) one then eight is also
+   stepped by hand on fresh engines by replay and with the variant
+   bodies run eagerly: ids bitwise equal and launches per replay equal
+   to launches per call; host ms per spec dispatch by replay beside the
+   bodies run eagerly and a plain decode forward; warmup seconds,
+   variants and graph-pool bytes with the spec variants.
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -148,8 +162,14 @@ JAX_TOL = {"bf16": 2e-2, "int8": 5e-2}
 TOL = 1e-4
 
 
+T0 = time.perf_counter()
+
+
 def log(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One result line; ``t_s`` is the script's elapsed seconds."""
+    print(json.dumps({"phase": phase,
+                      "t_s": round(time.perf_counter() - T0, 3), **kw}),
+          flush=True)
 
 
 def require_package():
@@ -1438,8 +1458,8 @@ def shared_kv(eng, prompts: list, n: int) -> dict:
 
 
 def fresh_engine(backend, prefix_cache: bool):
-    """Swap a new engine (same model, settings and weights; empty arena and
-    slots) into the worker, with prefix sharing on or off, its decode
+    """Swap a new engine (same model, draft, settings and weights; empty
+    arenas and slots) into the worker, with prefix sharing on or off, its
     graphs captured as the worker captures them at load."""
     import gc
 
@@ -1449,7 +1469,8 @@ def fresh_engine(backend, prefix_cache: bool):
 
     old = backend.engine
     kw = dict(n_slots=old.n_slots, max_seq=old.max_seq,
-              cache_dtype=old.cache.k.dtype, device=old.device)
+              cache_dtype=old.cache.k.dtype, device=old.device,
+              draft=old.draft, n_draft=old.n_draft)
     spec, params, tok = old.spec, old.params, old.tokenizer
     old_label = old._mlabel
     old.close()
@@ -1798,21 +1819,126 @@ def phase_engine(port: int, app, model: str, backend, layers: int,
     dl = deadline_checks(port, model)
     log("engine_deadline", model=model, **dl)
     backend.engine.leak_check()
+    pc = prompt_cache_leg(app, model, backend, seed)
+    log("engine_prompt_cache", model=model, **pc)
     return {"on": {k: v for k, v in on.items() if not k.startswith("_")},
             "off": {k: v for k, v in off.items() if not k.startswith("_")},
             "compare": cmp, "batch_noise": noise, "planted": planted,
             "grammar": gram,
-            "deadline": dl}
+            "deadline": dl, "prompt_cache": pc}
 
 
-def burst_requests(app, model: str, backend) -> list:
-    """The main burst's four requests as the engine's GenRequests over
-    the served chat prompts, each running to its max_tokens."""
+def prompt_cache_leg(app, model: str, backend, seed: int) -> dict:
+    """The on-disk prompt cache through the worker (``PredictOptions``'
+    ``prompt_cache_path``): the prefix waves' first prompt (~1140 tokens)
+    served on a fresh engine, which saves its prompt's K/V rows; then a
+    fresh engine on the same weights (its graphs captured: the live
+    arena) restores them in place and serves the prompt again. Records
+    the file's bytes, the save wall (the request's end to the file in
+    place) and the restore's (inside the engine), TTFT restored against
+    cold, prompt tokens computed, the restore outcomes, and the ids
+    (equal, or held to the dense reference as the prefix waves are).
+    The file (~300 MB at 8B: f32 rows) is removed afterwards."""
+    from localai_tfp_tpu_torch.telemetry import metrics as tm
+    from localai_tfp_tpu_torch.workers.base import PredictOptions
+
+    system, users = prefix_prompts(seed)
+    body = {"model": model, "max_tokens": 16, "temperature": 0.0,
+            "messages": [{"role": "system", "content": system},
+                         {"role": "user", "content": users[0]}]}
+    prompt = srv_prompt(app, body)
+    cache_dir = ROOT / "build" / "chip_smoke" / "prompt_cache"
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    path = cache_dir / f"{model}.npz"
+    path.unlink(missing_ok=True)
+    results = ("restored", "stale", "no_file", "error", "shape_mismatch",
+               "dtype_mismatch", "skipped_draft")
+    runs = {}
+    try:
+        for run in ("cold", "restored"):
+            eng = fresh_engine(backend, True)
+            spy = EngineSpy(eng, gaps=True)
+            load_s = [0.0]
+            load = eng._try_load_prompt_cache
+
+            def timed(slot, req, load=load):
+                t0 = time.perf_counter()
+                try:
+                    return load(slot, req)
+                finally:
+                    load_s[0] += time.perf_counter() - t0
+
+            eng._try_load_prompt_cache = timed
+            counts = [tm.ENGINE_PROMPT_CACHE_RESTORES.labels(
+                model=eng._mlabel, result=r).value for r in results]
+            m0 = dict(vars(eng.metrics))
+            arena = (eng.cache.k.data_ptr(), eng.cache.v.data_ptr())
+            try:
+                rep = backend.predict(PredictOptions(
+                    prompt=prompt, tokens=body["max_tokens"],
+                    ignore_eos=True, prompt_cache_path=str(path)))
+                t_end = time.perf_counter()
+                if rep.finish_reason != "length":
+                    raise AssertionError(f"prompt cache {run}: "
+                                         f"{rep.finish_reason} {rep.error}")
+                if run == "cold":
+                    while not path.exists():
+                        if time.perf_counter() - t_end > 120:
+                            raise AssertionError("prompt cache never "
+                                                 "written")
+                        time.sleep(0.005)
+                    save_s = time.perf_counter() - t_end
+            finally:
+                spy.close()
+                eng.__dict__.pop("_try_load_prompt_cache", None)
+            m = {k: v - m0[k] for k, v in vars(eng.metrics).items()}
+            runs[run] = {
+                "ttft_ms": rep.timing_first_token,
+                "prompt_tokens": rep.prompt_tokens,
+                "prefill_tokens": m["prefill_tokens"],
+                "restore_wall_s": load_s[0],
+                "arena_in_place": arena == (eng.cache.k.data_ptr(),
+                                            eng.cache.v.data_ptr()),
+                "results": {r: tm.ENGINE_PROMPT_CACHE_RESTORES.labels(
+                    model=eng._mlabel, result=r).value - c
+                    for r, c in zip(results, counts)
+                    if tm.ENGINE_PROMPT_CACHE_RESTORES.labels(
+                        model=eng._mlabel, result=r).value != c},
+                "_done": spy.done, "_gaps": spy.gaps(),
+                "_first": spy.first_logits}
+            if run == "cold":
+                runs[run]["save_wall_s"] = save_s
+                runs[run]["file_bytes"] = path.stat().st_size
+        cold, warm = runs["cold"], runs["restored"]
+        cmp = compare_waves(warm, cold, backend.engine,
+                            "prompt cache restored vs cold")
+        n = cold["prompt_tokens"]
+        if (cold["results"] != {"no_file": 1}
+                or warm["results"] != {"restored": 1}
+                or warm["prefill_tokens"] != 1
+                or cold["prefill_tokens"] != n
+                or not warm["arena_in_place"] or cmp["faults"]):
+            raise AssertionError(f"{model}: prompt cache cold "
+                                 f"{_public(cold)}, restored "
+                                 f"{_public(warm)}, {cmp['faults']}")
+    finally:
+        path.unlink(missing_ok=True)
+    return {"cold": _public(cold), "restored": _public(warm),
+            "ttft_restored_over_cold": warm["ttft_ms"] / cold["ttft_ms"],
+            "compare": cmp}
+
+
+def burst_requests(app, model: str, backend, bodies=None) -> list:
+    """The main burst's four requests (else ``bodies``) as the engine's
+    GenRequests over the served chat prompts, each running to its
+    max_tokens."""
     from localai_tfp_tpu_torch.engine.engine import GenRequest
 
-    first, later = burst_bodies()
+    if bodies is None:
+        first, later = burst_bodies()
+        bodies = [b for _, b in first + later]
     reqs = []
-    for _, body in first + later:
+    for body in bodies:
         body = {"model": model, **body}
         reqs.append(GenRequest(
             prompt_ids=backend.tokenizer.encode(srv_prompt(app, body),
@@ -2657,12 +2783,17 @@ class SpecSpy:
     """On one engine: host seconds of speculative dispatches, the prompts
     of their rows, and (``gaps``) for each greedy verify forward the
     logit gap between the verify argmax and the rejected draft token at
-    each row's first rejection (kept on the card, read after the run)."""
+    each row's first rejection (kept on the card, read after the run).
+    A replay calls no Python, so ``gaps`` runs each dispatch's variant
+    body eagerly (``_spec_launch = _spec_body``): the same kernels on the
+    same buffers, held bitwise to the replay by ``spec_pair``."""
 
     def __init__(self, eng, gaps: bool = False):
         self.eng = eng
         self.dispatches, self.seconds, self.rows = 0, 0.0, set()
         self.gap_parts = []
+        self._planted = {n: eng.__dict__[n] for n in ("_spec_launch",)
+                         if n in eng.__dict__}
         step, verify = eng._spec_decode_step, eng._verify_logits
 
         def step_(decoding, mode):
@@ -2690,6 +2821,7 @@ class SpecSpy:
         eng._spec_decode_step = step_
         if gaps:
             eng._verify_logits = verify_
+            eng._spec_launch = eng._spec_body
 
     def rejection_gaps(self) -> list:
         import torch
@@ -2698,8 +2830,10 @@ class SpecSpy:
                 else [])
 
     def close(self) -> None:
-        for name in ("_spec_decode_step", "_verify_logits"):
+        for name in ("_spec_decode_step", "_verify_logits", "_spec_launch"):
             self.eng.__dict__.pop(name, None)
+        for name, fn in self._planted.items():
+            setattr(self.eng, name, fn)
 
 
 def plant_spec_fault(eng, kind: str):
@@ -2739,9 +2873,13 @@ def plant_spec_fault(eng, kind: str):
         return reject(p_probs.roll(-1, 1), p_idx.roll(-1, 1), *rest)
 
     sampling.spec_reject = late
+    # a captured graph runs the rule it was captured with: the fault
+    # takes the variant body eagerly, which calls the module's rule
+    eng._spec_launch = eng._spec_body
 
     def undo():
         sampling.spec_reject = reject
+        eng.__dict__.pop("_spec_launch", None)
 
     return undo
 
@@ -2751,15 +2889,19 @@ def _b2_by_m(eng):
     them (on the card each call launches the kernel or raises), and for
     each replay of one of ``eng``'s graphs the calls its capture
     recorded: a decode graph's at M = its row bucket, a mixed graph's at
-    M = rows x tokens of its variant. Returns (counts, undo)."""
+    M = rows x tokens of its variant, a speculative graph's at M = rows
+    x n_draft (its verify forwards: the drafts here are bf16). Returns
+    (counts, undo)."""
     from localai_tfp_tpu_torch.models import quant
 
     counts: dict = {}
     orig = quant.int8_matmul
     planted = {n: eng.__dict__[n] for n in ("_decode_launch",
-                                             "_mixed_launch")
+                                             "_mixed_launch",
+                                             "_spec_launch")
                if n in eng.__dict__}
     launch, mlaunch = eng._decode_launch, eng._mixed_launch
+    slaunch = eng._spec_launch
 
     def counting(x, q, scale, **kw):
         counts[x.shape[0]] = counts.get(x.shape[0], 0) + 1
@@ -2782,12 +2924,18 @@ def _b2_by_m(eng):
         mlaunch(v)
         add(v, v.rows * v.T, eng.metrics.mixed_replays > r0)
 
+    def slaunch_(v):
+        r0 = eng.metrics.spec_replays
+        slaunch(v)
+        add(v, v.rows * eng.n_draft, eng.metrics.spec_replays > r0)
+
     quant.int8_matmul = counting
     eng._decode_launch, eng._mixed_launch = launch_, mlaunch_
+    eng._spec_launch = slaunch_
 
     def undo():
         quant.int8_matmul = orig
-        for name in ("_decode_launch", "_mixed_launch"):
+        for name in ("_decode_launch", "_mixed_launch", "_spec_launch"):
             eng.__dict__.pop(name, None)
         for name, fn in planted.items():
             setattr(eng, name, fn)
@@ -2855,20 +3003,7 @@ def spec_wave(port: int, model: str, backend, bodies: list,
     if errors or len(statuses) != len(bodies):
         raise AssertionError(f"{model}: spec wave failed: {errors}")
     m = {k: v - m0[k] for k, v in vars(eng.metrics).items()}
-    draft_layers = eng.draft[0].n_layers if eng.draft is not None else 0
-    want = eng.spec.n_layers * m["forward_steps"] \
-        + draft_layers * m["draft_forwards"]
-    on_card = eng.device.type == "cuda"  # (a CPU dry run launches none)
-    if on_card and launches["ragged_paged_attention"] != want:
-        raise AssertionError(
-            f"{model}: ragged_paged_attention launched "
-            f"{launches['ragged_paged_attention']} times for "
-            f"{m['forward_steps']} target and {m['draft_forwards']} draft "
-            "forwards")
-    if on_card and sum(by_m.values()) != launches["int8_matmul"]:
-        raise AssertionError(
-            f"{model}: int8_matmul launched {launches['int8_matmul']} "
-            f"times for {sum(by_m.values())} calls")
+    check_spec_launches(eng, m, launches, by_m, model)
     deadline = time.time() + 30
     while any(s.active for s in eng.slots) and time.time() < deadline:
         time.sleep(0.01)
@@ -2897,6 +3032,136 @@ def spec_wave(port: int, model: str, backend, bodies: list,
     out["_spec_rows"] = sspy.rows if sspy else set()
     out["_rejection_gaps"] = sspy.rejection_gaps() if sspy else []
     return out
+
+
+SPEC_MODES = ("graph", "body")
+
+
+def spec_pair(app, model: str, backend, waves: list,
+              gaps: bool = False) -> dict:
+    """``waves`` (lists of request bodies, served in turn, each in one
+    admission wave) stepped by hand (one schedule) on a fresh engine
+    twice: ``graph`` as served (every speculative dispatch a replay of
+    its variant's graph) and ``body`` with the same variant bodies run
+    eagerly (``_spec_launch = _spec_body``). Per wave the ids must be
+    bitwise equal and B1's and B2's launches per replay equal to theirs
+    per call; ``gaps`` takes the greedy rejection gaps in the body run.
+    Per mode and wave: the spec_wave fields, host ms per spec dispatch
+    and replays; and the graph engine's warmup, variants and graph
+    pool."""
+    import torch
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    out: dict = {}
+    for mode in SPEC_MODES:
+        eng = fresh_engine(backend, True)
+        if mode == "graph":
+            out["warmup"] = {
+                "warmup_s": eng.metrics.warmup_s,
+                "variants": eng.variant_count(),
+                "spec_variants": len(eng._spec_variants),
+                "graph_pool_bytes": eng._graph_pool_bytes}
+        else:
+            eng._spec_launch = eng._spec_body
+        out[mode] = []
+        for bodies in waves:
+            spy = EngineSpy(eng, gaps=True)
+            sspy = SpecSpy(eng, gaps=gaps and mode == "body")
+            by_m, undo = _b2_by_m(eng)
+            m0 = dict(vars(eng.metrics))
+            torch.cuda.synchronize()
+            ragged_paged_attention.launches = 0
+            int8_matmul.launches = 0
+            t0 = time.perf_counter()
+            try:
+                _serve_by_hand(eng, burst_requests(
+                    app, model, backend,
+                    [{"model": model, **b} for b in bodies]), [])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {
+                    "ragged_paged_attention":
+                        ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+            finally:
+                undo()
+                spy.close()
+                sspy.close()
+            m = {k: v - m0[k] for k, v in vars(eng.metrics).items()}
+            check_spec_launches(eng, m, launches, by_m,
+                                f"{model} spec {mode}")
+            rounds = m["spec_rounds"]
+            out[mode].append({
+                "requests": len(bodies), "wall_s": wall,
+                "forward_steps": m["forward_steps"],
+                "draft_forwards": m["draft_forwards"],
+                "decode_forwards": m["decode_steps"],
+                "spec_dispatches": m["spec_dispatches"],
+                "spec_replays": m["spec_replays"],
+                "spec_tokens": m["spec_tokens"], "spec_rounds": rounds,
+                "spec_accepted": m["spec_accepted"],
+                "acceptance_rate": m["spec_accepted"] / max(
+                    1, rounds * (eng.n_draft - 1)),
+                "host_ms_per_spec_dispatch":
+                    sspy.seconds * 1e3 / max(1, sspy.dispatches),
+                "launches": launches,
+                "int8_matmul_calls_by_m": dict(sorted(by_m.items())),
+                "_done": spy.done, "_gaps": spy.gaps(),
+                "_first": spy.first_logits,
+                "_rejection_gaps": sspy.rejection_gaps()})
+    # the worker serves on with the last engine: replays, own thread
+    backend.engine.__dict__.pop("_spec_launch", None)
+    backend.engine._autostart = True
+    for i, (g, b) in enumerate(zip(out["graph"], out["body"])):
+        apart = [len(p) for p in g["_done"]
+                 if g["_done"][p]["ids"] != b["_done"][p]["ids"]]
+        if apart or len(g["_done"]) != len(waves[i]):
+            raise AssertionError(f"{model} wave {i}: spec replay and body "
+                                 f"differ for prompts of {apart} tokens")
+        if g["launches"] != b["launches"] or \
+                g["int8_matmul_calls_by_m"] != b["int8_matmul_calls_by_m"]:
+            raise AssertionError(
+                f"{model} wave {i}: spec launches per replay "
+                f"{g['launches']} != per call {b['launches']}")
+        on_card = backend.engine.device.type == "cuda"
+        if not g["spec_dispatches"] or b["spec_replays"] or (
+                on_card and g["spec_replays"] != g["spec_dispatches"]):
+            raise AssertionError(
+                f"{model} wave {i}: {g['spec_replays']} replays of "
+                f"{g['spec_dispatches']} spec dispatches")
+    out["ids_bitwise_equal"] = [len(g["_done"]) for g in out["graph"]]
+    return out
+
+
+def _pair_public(pair: dict) -> dict:
+    return {k: ([_public(w) for w in v] if k in SPEC_MODES else v)
+            for k, v in pair.items()}
+
+
+def check_spec_launches(eng, m: dict, launches: dict, by_m: dict,
+                        what: str) -> None:
+    """Attention must have launched once per layer of every target and
+    draft forward of the run (counters ``m``), and int8_matmul once per
+    call counted by M (a CPU dry run launches none)."""
+    if eng.device.type != "cuda":
+        return
+    draft_layers = eng.draft[0].n_layers if eng.draft is not None else 0
+    want = eng.spec.n_layers * m["forward_steps"] \
+        + draft_layers * m["draft_forwards"]
+    if launches["ragged_paged_attention"] != want:
+        raise AssertionError(
+            f"{what}: ragged_paged_attention launched "
+            f"{launches['ragged_paged_attention']} times for "
+            f"{m['forward_steps']} target and {m['draft_forwards']} draft "
+            "forwards")
+    if sum(by_m.values()) != launches["int8_matmul"]:
+        raise AssertionError(
+            f"{what}: int8_matmul launched {launches['int8_matmul']} "
+            f"times for {sum(by_m.values())} calls")
 
 
 def _public(w: dict) -> dict:
@@ -2988,6 +3253,18 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
         out["a"] = {"plain": _public(plain), "spec": _public(spec),
                     "compare": cmp}
         log("spec_a", **out["a"])
+        # the same burst by replay and by the variant bodies eagerly
+        pair = spec_pair(srv.app, "llama-3.1-8b-spec", spec_b, [greedy])
+        g = pair["graph"][0]
+        out["a_graphs"] = {
+            **_pair_public(pair),
+            "host_ms_per_spec_dispatch_replay":
+                g["host_ms_per_spec_dispatch"],
+            "host_ms_per_spec_dispatch_body_eagerly":
+                pair["body"][0]["host_ms_per_spec_dispatch"],
+            "host_ms_per_plain_decode_forward":
+                plain["host_ms_per_decode_forward"]}
+        log("spec_a_graphs", **out["a_graphs"])
         clean = {"max_tokens": 24, "temperature": 0.0, "messages": [
             {"role": "user", "content": "Say hello."}]}
         pen = {"max_tokens": 24, "temperature": 0.0, "repeat_penalty": 1.3,
@@ -3023,14 +3300,18 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
     try:
         port = srv.server_address[1]
         self_b = _loaded(port, srv.app, "llama-3.1-8b-self")
-        g = spec_wave(port, "llama-3.1-8b-self", self_b, greedy, gaps=True)
-        gaps = g["_rejection_gaps"]
-        cmp_b = compare_waves(g, plain, self_b.engine,
-                              "self-draft vs plain")
         sampled = [{**b, "temperature": 1.0, "seed": 11 + i}
                    for i, b in enumerate(greedy)]
-        s_ = spec_wave(port, "llama-3.1-8b-self", self_b, sampled)
-        out["b"] = {"greedy": _public(g), "sampled": _public(s_),
+        # greedy, then sampled, each by replay and by the bodies eagerly
+        # (the body run reads the greedy rejection gaps)
+        pair = spec_pair(srv.app, "llama-3.1-8b-self", self_b,
+                         [greedy, sampled], gaps=True)
+        g, s_ = pair["graph"]
+        gaps = pair["body"][0]["_rejection_gaps"]
+        cmp_b = compare_waves(g, plain, self_b.engine,
+                              "self-draft vs plain")
+        out["b"] = {**_pair_public(pair), "greedy": _public(g),
+                    "sampled": _public(s_),
                     "compare": cmp_b, "greedy_rejections": len(gaps),
                     "greedy_rejection_gap_max": max(gaps, default=0.0),
                     "limit": REJECT_TIE, "sampled_min": SAMPLED_ACCEPT_MIN}
@@ -3109,10 +3390,14 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
                      qp_b.engine, "int8 spec vs plain, eight")}
         m4 = one["int8_matmul_calls_by_m"].get(N_DRAFT, 0)
         m32 = eight["int8_matmul_calls_by_m"].get(SLOTS * N_DRAFT, 0)
+        # one request, then the eight, by replay and by the bodies eagerly
+        pair = spec_pair(srv.app, "llama-3.1-8b-int8-spec", q_b,
+                         [greedy[:1], burst])
         out["c"] = {"one": _public(one), "eight": _public(eight),
                     "plain_one": _public(one_plain),
                     "plain_eight": _public(eight_plain), "compare": cmp_c,
-                    "verify_m4_calls": m4, "verify_m32_calls": m32}
+                    "verify_m4_calls": m4, "verify_m32_calls": m32,
+                    "graphs": _pair_public(pair)}
         log("spec_c", **out["c"])
         faults = [c["faults"] for c in cmp_c.values() if c["faults"]]
         if faults or cmp_c["eight_greedy"]["requests"] != SLOTS // 2:
@@ -3254,6 +3539,13 @@ def main() -> int:
         for e in entries:
             e["launches_spec"] = {k: r["launches"][e["name"]]
                                   for k, r in runs.items()}
+            # spec graphs: per replay (graph) against per call (the
+            # variant bodies eagerly), each wave's counts
+            e["launches_spec_graphs"] = {
+                k: {m: [w["launches"][e["name"]] for w in pair[m]]
+                    for m in SPEC_MODES}
+                for k, pair in (("a", sp["a_graphs"]), ("b", sp["b"]),
+                                ("c", sp["c"]["graphs"]))}
             if e["name"] == "int8_matmul":
                 e["launches_spec_by_instance"] = {
                     k: b2_instances(runs[k]["int8_matmul_calls_by_m"])

@@ -43,14 +43,20 @@ static buffers, all in one graph memory pool:
   penalty-window tails in static buffers; each row's last real token
   is gathered at a fixed size, the LM head and sampler run over every
   row under the static mask (all-True when no row is masked), and a
-  loaded draft's mirror forward is in the same graph.
+  loaded draft's mirror forward is in the same graph;
+- with a draft, a speculative variant per (mode, row bucket, rounds):
+  ``rounds`` x (``n_draft`` draft forwards and one verify forward) and
+  the acceptance on the device, greedy (``spec``) or rejection-sampled
+  (``spec_s``, its random draws copied into static buffers before the
+  replay), writing one ``[rounds, R, 2 n_draft]`` buffer the host reads
+  once.
 
-Pad rows and pad positions read and write only the trash page, and
-rows that sample nothing (pad rows, non-final chunks) sample and reset
-into the sampler's sentinel row (slot ``n_slots``), which nothing
-reads. On the CPU the same variant code runs eagerly through the same
-buffers. A failed capture or replay raises; nothing falls back to eager
-forwards. Speculative dispatches stay eager.
+Pad rows and pad positions read and write only the trash page (in the
+draft's arena too), and rows that sample nothing (pad rows, non-final
+chunks) sample and reset into the sampler's sentinel row (slot
+``n_slots``), which nothing reads. On the CPU the same variant code
+runs eagerly through the same buffers. A failed capture or replay
+raises; nothing falls back to eager forwards.
 
 Tokens then go through ``_emit_token``: EOS, stop strings (with partial
 match withholding), grammar advance, ``max_tokens`` and context
@@ -99,8 +105,20 @@ pool); the Prometheus families of ``telemetry/metrics.py`` are
 recorded on the engine thread and the gauges refreshed at scrape time
 (``update_gauges``) from host-held values.
 
-Out of scope (and refused at submit rather than ignored): prompt caches,
-multimodal soft tokens, disaggregation, meshes.
+- **Prompt cache** (``prompt_cache_path``, ``_all``, ``_ro``): a
+  finishing request's prefix K/V is gathered on the device and written
+  off the scheduler thread in the JAX package's npz format
+  (``engine/kv_tier.py``); an admitted request whose file holds a
+  longer prefix than the slot's resident or copied one gets those rows
+  scattered into fresh private pages of the live arena, in place (the
+  captured graphs hold the arena's addresses). No restore while a
+  draft is loaded: the draft arena would miss those rows.
+- **Cancellation**: a cancel id that matches no queued or running
+  request yet is kept for ``_CANCEL_TTL_S`` (a cancel can race ahead of
+  its submit) and then purged, also while the engine is idle.
+
+Out of scope (and refused at submit rather than ignored): multimodal
+soft tokens, disaggregation, meshes.
 
 Batch rows are the participating slots only (padded to a variant's row
 bucket), so no other slot's pages or sampler row are touched.
@@ -109,6 +127,7 @@ bucket), so no other slot's pages or sampler row are touched.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -132,6 +151,7 @@ from ..ops.ragged_paged_attention import ragged_paged_attention
 from ..telemetry import costmodel, hbm_ledger
 from ..telemetry import metrics as tm
 from .kv_pool import TRASH_PAGE, PagePool, PagePoolExhausted
+from .kv_tier import read_cache_file, write_cache_file
 from .prefix_index import PrefixIndex, common_prefix_len
 from .tokenizer import StreamDecoder, Tokenizer
 
@@ -174,7 +194,7 @@ class GenRequest:
     ignore_eos: bool = False
     logit_bias: Optional[dict[int, float]] = None
     constraint: Optional[Any] = None  # grammars/constrain.py contract
-    prompt_cache_path: str = ""  # not served yet
+    prompt_cache_path: str = ""  # on-disk prompt cache (kv_tier format)
     prompt_cache_all: bool = False
     prompt_cache_ro: bool = False
     correlation_id: str = ""
@@ -228,6 +248,8 @@ class _Slot:
     # after the request finishes, as the slot's resident prefix
     cache_tokens: list[int] = field(default_factory=list)
     n_reused: int = 0  # prompt tokens served from a resident prefix
+    # (prompt cache path, rows) this request's prefix was restored from
+    cache_loaded: Optional[tuple] = None
     constraint_state: Any = None
     generated: list[int] = field(default_factory=list)
     decoder: Optional[StreamDecoder] = None
@@ -274,6 +296,7 @@ class EngineMetrics:
     graph_replays: int = 0
     masked_replays: int = 0
     mixed_replays: int = 0
+    spec_replays: int = 0
     warmup_s: float = 0.0
     # mixed steps' real tokens and the pad tokens their variants add
     # (rows x token bucket - real)
@@ -353,6 +376,39 @@ class _MixedVariant:
     copied: Any = None  # event after host's and fhost's last copies
 
 
+def _spec_fields(R: int, P: int) -> tuple:
+    """The int32 fields of a speculative variant of R rows (P pages a
+    table), in their order in its one buffer: (name, shape)."""
+    return (("pt", (R, P)),  # read tables
+            ("wt", (R, P)),  # write tables (the dispatch's span)
+            ("tok", (R, 1)),  # each row's last token
+            ("pos", (R,)),  # its position
+            ("sids", (R,)))  # sampler rows (pad rows: the sentinel)
+
+
+@dataclass
+class _SpecVariant:
+    """One speculative variant: the static buffers of ``rounds`` rounds
+    over ``rows`` rows and, on a card, the CUDA graph of its draft and
+    verify forwards and acceptance. ``ints`` (viewed by ``_spec_fields``)
+    is filled from ``host`` in one transfer. A ``spec_s``
+    (rejection-sampled) variant's random draws (``smp.SpecDraws`` at
+    ``rows`` rows) are copied into ``draws`` before each launch; a
+    ``spec`` (greedy) variant has none."""
+
+    rows: int
+    rounds: int
+    host: torch.Tensor  # int32 staging of ints (pinned on a card)
+    h: dict  # name -> numpy view of host
+    ints: torch.Tensor
+    f: dict  # name -> device view of ints
+    out: torch.Tensor  # [rounds, rows, 2 kd]: drafted, replacement, j
+    draws: Optional[smp.SpecDraws] = None  # pad rows: zeros
+    graph: Any = None
+    launches: dict = field(default_factory=dict)
+    copied: Any = None  # event after host's last copy (card only)
+
+
 def _carve(flat: torch.Tensor, fields: tuple) -> dict[str, torch.Tensor]:
     """Views of a mixed variant's int32 buffer, by field."""
     out, at = {}, 0
@@ -404,8 +460,6 @@ def _refusal(req: GenRequest, max_seq: int) -> str:
     for name in ("soft_embeds", "disagg"):
         if getattr(req, name) is not None:
             return f"{name} is not supported by this port yet"
-    if req.prompt_cache_path:
-        return "prompt caches are not supported by this port yet"
     return ""
 
 
@@ -504,6 +558,8 @@ class LLMEngine:
         self._variants: dict[int, _DecodeVariant] = {}
         self._masked_variants: dict[int, _DecodeVariant] = {}
         self._mixed_variants: dict[tuple[int, int], _MixedVariant] = {}
+        # speculative variants per (kind, row bucket, rounds)
+        self._spec_variants: dict[tuple[str, int, int], _SpecVariant] = {}
         cuda = self.device.type == "cuda"
         # the static [n_slots, V] sampling mask of every masked step
         # (row r masks the step's row r), its pinned staging, the event
@@ -570,7 +626,8 @@ class LLMEngine:
         self.metrics = EngineMetrics()
         self._lock = threading.Condition()
         self._pending: list[tuple[GenRequest, queue.SimpleQueue]] = []
-        self._cancelled: set[str] = set()
+        # cancel ids not matched yet -> when cancel() was called
+        self._cancelled: dict[str, float] = {}
         self._queue_waits: deque[float] = deque(maxlen=64)
         self._stop = False
         self._thread: Optional[threading.Thread] = None
@@ -597,7 +654,7 @@ class LLMEngine:
             self._thread = None
         self._fail_all("engine closed")
         for d in (self._variants, self._masked_variants,
-                  self._mixed_variants):
+                  self._mixed_variants, self._spec_variants):
             d.clear()  # the graphs and their pool go with them
         m = self._mlabel
         for g in (tm.ENGINE_SLOTS_BUSY, tm.ENGINE_QUEUE_DEPTH,
@@ -674,10 +731,29 @@ class LLMEngine:
 
     def cancel(self, request_id: str) -> None:
         """Release a queued or running request at the next iteration; its
-        stream gets a final "cancelled" event."""
+        stream gets a final "cancelled" event. An id that matches no
+        request yet (the cancel raced ahead of its submit) is kept for
+        ``_CANCEL_TTL_S``, so the late request is still dropped."""
         with self._lock:
-            self._cancelled.add(request_id)
+            self._cancelled[request_id] = time.perf_counter()
             self._lock.notify_all()
+
+    _CANCEL_TTL_S = 300.0  # unmatched cancel ids expire (leak bound)
+
+    def _purge_expired_cancels(self, now: float) -> int:
+        """Drop cancel ids older than ``_CANCEL_TTL_S``; returns how many
+        expired. Caller holds self._lock. Called from the sweep and from
+        the idle wait in ``_loop`` (an idle engine runs no sweep)."""
+        expired = [r for r, t in self._cancelled.items()
+                   if now - t > self._CANCEL_TTL_S]
+        for r in expired:
+            del self._cancelled[r]
+        return len(expired)
+
+    def _count_cancels(self, reason: str, n: int) -> None:
+        if n:
+            tm.ENGINE_CANCELLATIONS.labels(model=self._mlabel,
+                                           reason=reason).inc(n)
 
     def _retry_after_s(self) -> float:
         """Backoff hint for shed requests: with cost scheduling on, the
@@ -816,9 +892,15 @@ class LLMEngine:
     def _loop(self) -> None:
         while True:
             with self._lock:
-                while not (self._stop or self._cancelled or self._pending
+                # a kept cancel id is not work: the wait times out to
+                # age such ids out, and wakes on a submit or a stop
+                while not (self._stop or self._pending
                            or any(s.active for s in self.slots)):
-                    self._lock.wait()
+                    self._lock.wait(timeout=0.5)
+                    if self._cancelled:
+                        self._count_cancels("expired",
+                                            self._purge_expired_cancels(
+                                                time.perf_counter()))
                 if self._stop:
                     return
             try:
@@ -871,21 +953,38 @@ class LLMEngine:
             out.put(StreamEvent(done=True, finish_reason="error", error=msg))
 
     def _apply_cancellations(self) -> None:
+        """Cancel the queued and running requests whose ids were
+        cancelled, deleting only the ids that matched; ids past
+        ``_CANCEL_TTL_S`` expire."""
         with self._lock:
             if not self._cancelled:
                 return
-            ids, self._cancelled = self._cancelled, set()
-            keep = []
+            expired = self._purge_expired_cancels(time.perf_counter())
+            ids = self._cancelled
+            keep, dropped = [], 0
             for req, out in self._pending:
                 if req.id in ids:
+                    del ids[req.id]
                     self._deferred.pop(req.id, None)
                     out.put(StreamEvent(done=True, finish_reason="cancelled"))
+                    dropped += 1
                 else:
                     keep.append((req, out))
             self._pending = keep
+        self._count_cancels("expired", expired)
+        self._count_dropped(dropped)
         for s in self.slots:
             if s.active and s.request is not None and s.request.id in ids:
+                with self._lock:
+                    ids.pop(s.request.id, None)
                 self._finish(s, "cancelled")
+
+    def _count_dropped(self, n: int) -> None:
+        """Queued requests cancelled before they took a slot."""
+        if n:
+            tm.ENGINE_REQUESTS.labels(model=self._mlabel,
+                                      reason="cancelled").inc(n)
+            self._count_cancels("client", n)
 
     def _apply_deadlines(self) -> None:
         """Terminate requests whose deadline has passed: queued ones get
@@ -936,6 +1035,15 @@ class LLMEngine:
     def _admit(self) -> None:
         with self._lock:
             pending, self._pending = self._pending, []
+            # a cancel that arrived since this iteration's sweep
+            hit = [p for p in pending if p[0].id in self._cancelled]
+            pending = [p for p in pending if p[0].id not in self._cancelled]
+            for r, _ in hit:
+                del self._cancelled[r.id]
+                self._deferred.pop(r.id, None)
+        for _, out in hit:
+            out.put(StreamEvent(done=True, finish_reason="cancelled"))
+        self._count_dropped(len(hit))
         if not pending:
             return
         if self._prefix_enabled:
@@ -1085,12 +1193,23 @@ class LLMEngine:
         wait = max(0.0, now - req.t_submit)
         self._queue_waits.append(wait)
         tm.ENGINE_QUEUE_WAIT.labels(model=self._mlabel).observe(wait)
+        slot.cache_loaded = None
         common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
         common, gained = self._maybe_prefix_copy(slot, req, common)
+        # the on-disk cache can still beat a resident or copied prefix:
+        # it is restored only when its prefix is longer (a restore that
+        # fails past its drop leaves the slot empty: common is re-read)
+        disk = common
+        self._try_load_prompt_cache(slot, req)
+        common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
+        disk = max(0, common - disk)
         if common == len(req.prompt_ids):
             common -= 1  # the last prompt token runs again for its logits
-        copied = min(gained, common)
-        for source, n in (("resident", common - copied), ("copy", copied)):
+        # reuse by source, clamped so the three sum to common
+        disk = min(disk, common)
+        copied = min(gained, common - disk)
+        for source, n in (("resident", common - disk - copied),
+                          ("copy", copied), ("disk", disk)):
             if n:
                 tm.ENGINE_PREFIX_REUSED_TOKENS.labels(
                     model=self._mlabel, source=source).inc(n)
@@ -1124,6 +1243,132 @@ class LLMEngine:
         slot.t_prefill_ms = slot.t_decode_ms = 0.0
         slot.constraint_state = (req.constraint.initial_state()
                                  if req.constraint is not None else None)
+
+    # ------------------------------------------------- on-disk prompt cache
+
+    def _try_load_prompt_cache(self, slot: _Slot, req: GenRequest) -> str:
+        """Restore a saved prompt's K/V rows into the slot when the file's
+        token prefix beats the slot's current one (resident or copied).
+        The rows go into fresh private pages of the live arena by an
+        indexed copy, in place: every captured graph holds the arena's
+        addresses, so the arena is never rebound. Every outcome is
+        counted in ``engine_prompt_cache_restores_total{result}``; returns
+        it ("unset" when the request names no file: not counted)."""
+        path = req.prompt_cache_path
+        if not path:
+            return "unset"
+
+        def done(result: str) -> str:
+            tm.ENGINE_PROMPT_CACHE_RESTORES.labels(
+                model=self._mlabel, result=result).inc()
+            return result
+
+        if self.draft is not None:
+            return done("skipped_draft")  # the draft arena would be stale
+        if not os.path.exists(path):
+            return done("no_file")
+        c = self.cache
+        try:
+            data = read_cache_file(path)
+            cached = [int(t) for t in data["tokens"]]
+            L, _, P, F = c.k.shape
+            k_all, v_all = data["k"], data["v"]
+            # a file of another model or cache dtype is ignored
+            if (k_all.shape[0] != L or k_all.shape[2] != F
+                    or v_all.shape != k_all.shape):
+                return done("shape_mismatch")
+            if c.quantized != (k_all.dtype == np.int8) or (
+                    c.quantized and "k_scale" not in data):
+                return done("dtype_mismatch")
+            common = common_prefix_len(cached, req.prompt_ids)
+            if common <= common_prefix_len(slot.cache_tokens,
+                                           req.prompt_ids):
+                return done("stale")
+            n = min(common, len(cached), self.max_seq - 1, k_all.shape[1])
+            # the slot's rows are replaced wholesale: its pages (shared
+            # or pinned ones included) go back to the pool, which hands
+            # out fresh private pages
+            self._pool.drop(slot.idx)
+            slot.cache_tokens = []
+            slot.n_past = 0
+            if not self._pool_ensure(slot, n):
+                return done("error")
+            table = self._pool.table(slot.idx)
+            npg = len(table)
+            idx = torch.tensor(table, dtype=torch.long, device=self.device)
+
+            def paged(a, like: torch.Tensor) -> torch.Tensor:
+                """File rows [L, n, ...] as the slot's pages [L, npg, P,
+                ...] on the device in the arena's dtype (zero past n)."""
+                out = torch.zeros((L, npg, P) + like.shape[3:],
+                                  dtype=like.dtype, device=self.device)
+                out.view((L, npg * P) + like.shape[3:])[:, :n].copy_(
+                    torch.from_numpy(np.asarray(a[:, :n])))
+                return out
+
+            with torch.inference_mode():
+                c.k.index_copy_(1, idx, paged(k_all, c.k))
+                c.v.index_copy_(1, idx, paged(v_all, c.v))
+                if c.quantized:
+                    c.k_scale.index_copy_(1, idx,
+                                          paged(data["k_scale"], c.k_scale))
+                    c.v_scale.index_copy_(1, idx,
+                                          paged(data["v_scale"], c.v_scale))
+        except Exception as e:  # unreadable or incompatible: prefill
+            log.warning("prompt cache %s unusable: %r", path, e)
+            return done("error")
+        slot.cache_tokens = cached[:n]
+        slot.n_past = n
+        slot.cache_loaded = (path, n)
+        if self._prefix_enabled:
+            self._prefix_index.set_tokens(slot.idx, slot.cache_tokens)
+        return done("restored")
+
+    @torch.inference_mode()
+    def _maybe_save_prompt_cache(self, slot: _Slot) -> None:
+        """Persist the finishing slot's prefix rows (the prompt's, or with
+        ``prompt_cache_all`` every written position): gathered from its
+        pages on the engine's stream now, before ``_release`` can hand
+        them on, then moved to the host and written by a background
+        thread, whose copy waits on an event recorded after the gather."""
+        req = slot.request
+        if req is None or not req.prompt_cache_path or req.prompt_cache_ro:
+            return
+        n = slot.n_past if req.prompt_cache_all else min(slot.n_past,
+                                                        slot.n_prompt)
+        if n <= 0 or slot.cache_loaded == (req.prompt_cache_path, n):
+            return  # nothing to save, or the file holds exactly this
+        c = self.cache
+        L, _, P, F = c.k.shape
+        tbl = torch.tensor(self._pool.table(slot.idx)[:-(-n // P)],
+                           dtype=torch.long, device=self.device)
+        rows = [c.k[:, tbl].reshape(L, -1, F)[:, :n],
+                c.v[:, tbl].reshape(L, -1, F)[:, :n]]
+        if c.quantized:
+            rows += [t[:, tbl].reshape(L, -1)[:, :n]
+                     for t in (c.k_scale, c.v_scale)]
+        gathered = self._copy_event()
+        tokens = np.asarray(slot.cache_tokens[:n], np.int32)
+        path, dev = req.prompt_cache_path, self.device
+
+        def persist() -> None:
+            try:
+                if gathered is not None:  # on a card: a side stream
+                    side = torch.cuda.Stream(dev)
+                    with torch.cuda.stream(side):
+                        side.wait_event(gathered)
+                        host = [t.to("cpu") for t in rows]
+                else:
+                    host = rows
+                host = [t.float().numpy() if t.dtype not in (
+                    torch.int8, torch.float32) else t.numpy() for t in host]
+                write_cache_file(path, tokens, host[0], host[1],
+                                 tuple(host[2:]) or None)
+            except OSError as e:  # persistence is best-effort
+                log.warning("prompt cache %s not written: %r", path, e)
+
+        threading.Thread(target=persist, daemon=True,
+                         name="prompt-cache-save").start()
 
     # ------------------------------------------------------------ device steps
 
@@ -1776,9 +2021,9 @@ class LLMEngine:
             masked=masked)
 
     def _capture(self, v: Any, body: Any) -> None:
-        """Ready variant v (decode or mixed) for ``body(v)``: one eager
-        all-pad run (it writes only the trash page and the sentinel
-        sampler row); on a card that run is the warm-up of the capture
+        """Ready variant v (decode, mixed or speculative) for ``body(v)``:
+        one eager all-pad run (it writes only the trash pages and the
+        sentinel sampler row); on a card that run is the warm-up of the capture
         stream (the kernels built, cuBLAS's workspace and B1's merge
         counters allocated) before the graph is captured on it into the
         engine's graph pool. A failed capture raises. The pad runs are
@@ -1808,9 +2053,10 @@ class LLMEngine:
                 f.launches = n
 
     def variant_count(self) -> int:
-        """Dispatch variants made so far (decode, masked decode, mixed)."""
+        """Dispatch variants made so far (decode, masked decode, mixed,
+        speculative)."""
         return (len(self._variants) + len(self._masked_variants)
-                + len(self._mixed_variants))
+                + len(self._mixed_variants) + len(self._spec_variants))
 
     def _pool_bytes(self) -> int:
         """Bytes of the segments the caching allocator holds for the
@@ -1825,11 +2071,14 @@ class LLMEngine:
         the first request), each from an all-pad dispatch — every row on
         the trash page and the sampler's sentinel row — so no capture
         lands mid-request: the mixed variants, largest first (later
-        captures reuse the pool's segments), then per row bucket the
-        decode and masked decode variants. Touches no slot. Each mixed
-        variant's cost row is recorded at a nominal full composition
-        (every row T tokens from position 0), and a decode dispatch's
-        (k = decode_steps, every row from position 0) per bucket, so the
+        captures reuse the pool's segments), then with a draft the
+        speculative variants (``spec_s`` and ``spec`` per row bucket and
+        rounds, largest first), then per row bucket the decode and
+        masked decode variants. Touches no slot. Each mixed variant's
+        cost row is recorded at a nominal full composition (every row T
+        tokens from position 0), a decode dispatch's (k = decode_steps,
+        every row from position 0) per bucket and a speculative one's
+        (every slot from position 0) per kind and rounds, so the
         predictor can cost a step before its first dispatch. Sets
         ``engine_dispatch_compile_variants_count`` and
         ``engine_warmup_seconds``."""
@@ -1843,6 +2092,20 @@ class LLMEngine:
                 self._costmodel.capture(
                     costmodel.dispatch_key("mixed", {"shape": (R, T)}),
                     *self._mixed_cost([(0, T)] * R, R, T))
+        if self.draft is not None:
+            rounds = range(self._spec_max_rounds, 0, -1)
+            for R, n in sorted(((R, n) for R in self._buckets
+                                for n in rounds),
+                               key=lambda rn: -rn[0] * rn[1]):
+                for kind in ("spec_s", "spec"):
+                    self._spec_variant(kind, R, n)
+            if self._costmodel is not None:
+                R = self._buckets[-1]
+                for kind in ("spec_s", "spec"):
+                    for n in rounds:
+                        self._costmodel.capture(costmodel.dispatch_key(
+                            kind, {"kd": self.n_draft, "rounds": n}),
+                            *self._spec_cost([0] * R, R, n))
         for b in self._buckets:
             self._variant(b)
             self._variant(b, masked=True)
@@ -1946,7 +2209,6 @@ class LLMEngine:
         hidden, _ = forward_hidden(
             dspec, dparams, tok, pos, self.draft_cache, None, page_table=pt,
             kv_page=self.page, q_lens=torch.ones_like(pos), write_table=wt)
-        self.metrics.draft_forwards += 1
         return _lm_head(dspec, dparams, hidden)[:, -1]
 
     def _verify_logits(self, xin: torch.Tensor, pos: torch.Tensor,
@@ -1957,7 +2219,6 @@ class LLMEngine:
             self.spec, self.params, xin, pos, self.cache, None,
             page_table=pt, kv_page=self.page,
             q_lens=torch.full_like(pos, xin.shape[1]), write_table=wt)
-        self.metrics.forward_steps += 1
         return _lm_head(self.spec, self.params, hidden)
 
     def _spec_draws(self, rows: list[_Slot], rounds: int, kd: int,
@@ -1968,7 +2229,7 @@ class LLMEngine:
                               [s.request.temperature > 0 for s in rows],
                               rounds, kd, k)
 
-    def _greedy_rounds(self, rows, tok, pos, pt, wt, rounds):
+    def _greedy_rounds(self, tok, pos, pt, wt, rounds):
         """``rounds`` greedy rounds on the device: kd draft argmax steps
         (the kd-th writes d_{kd-1}'s draft K/V, so the draft arena covers
         a fully accepted round), one verify forward, and cumulative
@@ -1995,18 +2256,17 @@ class LLMEngine:
             J.append(j)
         return torch.stack(D), torch.stack(M), torch.stack(J)
 
-    def _sampled_rounds(self, rows, tok, pos, pt, wt, rounds):
+    def _sampled_rounds(self, tok, pos, pt, wt, sids, draws, rounds):
         """``rounds`` rejection-sampled rounds on the device: the draft
-        samples kd tokens from its filtered q, the verify forward gives
-        the filtered p at every position, and ``smp.spec_reject``
-        accepts and replaces. Returns drafted [rounds, B, kd - 1], the
+        samples kd tokens from its filtered q (``draws.draft``), the
+        verify forward gives the filtered p at every position, and
+        ``smp.spec_reject`` accepts and replaces. ``sids [B]`` are the
+        rows' sampler rows. Returns drafted [rounds, B, kd - 1], the
         replacement tokens [rounds, B, kd] and j [rounds, B]."""
         kd = self.n_draft
-        B = len(rows)
+        B = tok.shape[0]
         K = min(smp.CAND, self.spec.vocab_size)
-        sids = self._ints([s.idx for s in rows])
-        rep = sids.repeat_interleave(kd)
-        draws = self._spec_draws(rows, rounds, kd, K)
+        rep = sids[:, None].expand(B, kd).reshape(-1)  # a verify row each
         D, M, J = [], [], []
         for r in range(rounds):
             t, p = tok, pos
@@ -2038,54 +2298,188 @@ class LLMEngine:
             J.append(j)
         return torch.stack(D), torch.stack(M), torch.stack(J)
 
+    def _spec_eager(self, rows: list[_Slot], kind: str,
+                    rounds: int) -> torch.Tensor:
+        """The speculative dispatch as eager rounds over exactly ``rows``
+        (tests and the chip smoke plant it on an instance in place of
+        ``_spec_graph``); [rounds, B, 2 kd] on the device."""
+        kd = self.n_draft
+        pt, wt = self._tables(rows, [(s.n_past, s.n_past + rounds * kd)
+                                     for s in rows])
+        tok = self._ints([[s.generated[-1]] for s in rows])
+        pos = self._ints([s.n_past for s in rows])
+        if kind == "spec":
+            D, M, J = self._greedy_rounds(tok, pos, pt, wt, rounds)
+        else:
+            D, M, J = self._sampled_rounds(
+                tok, pos, pt, wt, self._ints([s.idx for s in rows]),
+                self._spec_draws(rows, rounds, kd,
+                                 min(smp.CAND, self.spec.vocab_size)),
+                rounds)
+        return torch.cat([D, M, J[..., None]], -1)
+
+    def _spec_graph(self, rows: list[_Slot], kind: str,
+                    rounds: int) -> torch.Tensor:
+        """The speculative dispatch through its variant (kind, row bucket,
+        rounds): a CUDA-graph replay on a card; [rounds, B, 2 kd] on the
+        device."""
+        v = self._spec_variant(kind, self._bucket(len(rows)), rounds)
+        self._spec_fill(v, rows)
+        self._spec_launch(v)
+        return v.out[:, :len(rows)]
+
+    def _spec_fill(self, v: _SpecVariant, rows: list[_Slot]) -> None:
+        """A dispatch's inputs into v's static buffers: tables, tokens,
+        positions and sampler rows in one transfer (pad rows: trash page
+        in both tables, token 0, position 0, the sentinel sampler row),
+        then for ``spec_s`` the dispatch's draws, drawn as the eager
+        rounds draw them (``_spec_draws`` over the real rows; pad rows
+        get zeros). The staging is rewritten only once its last copy has
+        run (``_await_copy``)."""
+        self._await_copy(v.copied)
+        kd, B = self.n_draft, len(rows)
+        pt, wt = self._table_rows(rows, [(s.n_past,
+                                          s.n_past + v.rounds * kd)
+                                         for s in rows])
+        h = v.h
+        h["pt"][:], h["wt"][:] = TRASH_PAGE, TRASH_PAGE
+        h["pt"][:B], h["wt"][:B] = pt, wt
+        h["tok"][:] = 0
+        h["pos"][:] = 0
+        h["sids"][:] = self._pad_sid
+        h["tok"][:B, 0] = [s.generated[-1] for s in rows]
+        h["pos"][:B] = [s.n_past for s in rows]
+        h["sids"][:B] = [s.idx for s in rows]
+        v.ints.copy_(v.host, non_blocking=True)
+        v.copied = self._copy_event()
+        if v.draws is not None:
+            d = self._spec_draws(rows, v.rounds, kd,
+                                 min(smp.CAND, self.spec.vocab_size))
+            for buf, got, at in ((v.draws.draft, d.draft, 2),
+                                 (v.draws.accept, d.accept, 1),
+                                 (v.draws.replace, d.replace, 1)):
+                buf.narrow(at, 0, B).copy_(got)
+                buf.narrow(at, B, v.rows - B).zero_()
+
+    def _spec_body(self, v: _SpecVariant) -> None:
+        """One speculative dispatch over v's buffers, what a speculative
+        graph holds: ``rounds`` x (kd draft forwards and a verify
+        forward) and the acceptance, into ``v.out``."""
+        f = v.f
+        if v.draws is None:
+            D, M, J = self._greedy_rounds(f["tok"], f["pos"], f["pt"],
+                                          f["wt"], v.rounds)
+        else:
+            D, M, J = self._sampled_rounds(f["tok"], f["pos"], f["pt"],
+                                           f["wt"], f["sids"], v.draws,
+                                           v.rounds)
+        v.out.copy_(torch.cat([D, M, J[..., None]], -1))
+
+    def _spec_launch(self, v: _SpecVariant) -> None:
+        """One speculative dispatch of variant v: a replay of its graph
+        on a card (adding its capture's kernel launches to the counts),
+        the body run eagerly on the CPU."""
+        if v.graph is None:
+            self._spec_body(v)
+            return
+        v.graph.replay()
+        self.metrics.spec_replays += 1
+        for f in COUNTED:
+            f.launches += v.launches[f.__name__]
+
+    def _spec_variant(self, kind: str, R: int, rounds: int) -> _SpecVariant:
+        v = self._spec_variants.get((kind, R, rounds))
+        if v is None:
+            v = self._new_spec(kind, R, rounds)
+            self._capture(v, self._spec_body)
+            self._spec_variants[(kind, R, rounds)] = v
+        return v
+
+    def _new_spec(self, kind: str, R: int, rounds: int) -> _SpecVariant:
+        """Static buffers of a speculative variant, every row a pad row."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        kd, K = self.n_draft, min(smp.CAND, self.spec.vocab_size)
+        fields = _spec_fields(R, self._max_pages)
+        n = sum(int(np.prod(shape)) for _, shape in fields)
+        host = torch.zeros((n,), dtype=torch.int32, pin_memory=cuda)
+        h = {k: t.numpy() for k, t in _carve(host, fields).items()}
+        h["pt"][:], h["wt"][:] = TRASH_PAGE, TRASH_PAGE
+        h["sids"][:] = self._pad_sid
+        ints = torch.empty_like(host, device=dev).copy_(host)
+        draws = None
+        if kind == "spec_s":
+            draws = smp.SpecDraws(
+                draft=torch.zeros((rounds, kd, R, K), device=dev),
+                accept=torch.zeros((rounds, R, kd - 1), device=dev),
+                replace=torch.zeros((rounds, R, kd, K), device=dev))
+        return _SpecVariant(
+            rows=R, rounds=rounds, host=host, h=h, ints=ints,
+            f=_carve(ints, fields),
+            out=torch.zeros((rounds, R, 2 * kd), dtype=torch.int32,
+                            device=dev),
+            draws=draws)
+
+    def _spec_cost(self, pos: list[int], R: int,
+                   rounds: int) -> tuple[float, float]:
+        """Analytic (FLOPs, bytes) of a speculative variant of R rows over
+        the real rows at positions ``pos``: contexts from each round's
+        start (kd positions a round, an upper bound: a round advances a
+        row by what it accepts); the projections and heads run over the
+        padded rows."""
+        kd, fl, by = self.n_draft, 0.0, 0.0
+        for r in range(rounds):
+            at = [c + r * kd for c in pos]
+            for i in range(kd):
+                f, b = self._dcost.forward([(c + i, 1) for c in at], R,
+                                           tokens=R)
+                fl, by = fl + f, by + b
+            f, b = self._mcost.forward([(c, kd) for c in at], R * kd,
+                                       tokens=R * kd)
+            fl, by = fl + f, by + b
+        return fl, by
+
+    @property
+    def _spec_max_rounds(self) -> int:
+        """Rounds a speculative dispatch may take: 1 to this."""
+        return max(1, self.decode_steps // self.n_draft)
+
     @torch.inference_mode()
     def _spec_decode_step(self, decoding: list[_Slot], mode: str) -> None:
         """One speculative dispatch over the eligible decoding slots:
         ``rounds`` rounds of ``n_draft`` tokens (no round that every row
-        is sure to discard), on the device, one host read at the end;
-        each round emits the accepted draft tokens and the verify's
-        replacement (or bonus) token through ``_emit_token``. Only these
-        rows are in the batch, so no other slot's pages are written."""
+        is sure to discard), one host read at the end; each round emits
+        the accepted draft tokens and the verify's replacement (or bonus)
+        token through ``_emit_token``. Only these rows (padded to a row
+        bucket by pad rows on the trash page) are in the batch, so no
+        other slot's pages are written. It runs through its variant
+        (``_spec_graph``)."""
         t0 = time.perf_counter()
         kd = self.n_draft
         room = min(self.max_seq - 1 - s.n_past for s in self.slots
                    if s.state is SlotState.DECODE)
         need = max(s.request.max_tokens - len(s.generated)
                    for s in decoding)
-        rounds = max(1, min(self.decode_steps // kd, max(room // kd, 1),
+        rounds = max(1, min(self._spec_max_rounds, max(room // kd, 1),
                             -(-need // kd)))
         span = rounds * kd
         rows = [s for s in decoding if self._ensure(s, s.n_past + span)]
         if not rows:
             return
-        pt, wt = self._tables(rows, [(s.n_past, s.n_past + span)
-                                     for s in rows])
         kind = "spec_s" if mode == "sampled" else "spec"
         key = costmodel.dispatch_key(kind, {"kd": kd, "rounds": rounds})
         pred = None
         if self._costmodel is not None:
-            # contexts from each round's start (kd positions a round, an
-            # upper bound: a round advances a row by what it accepts)
-            B, fl, by = len(rows), 0.0, 0.0
-            for r in range(rounds):
-                at = [s.n_past + r * kd for s in rows]
-                for i in range(kd):
-                    f, b = self._dcost.forward([(c + i, 1) for c in at], B)
-                    fl, by = fl + f, by + b
-                f, b = self._mcost.forward([(c, kd) for c in at], B * kd)
-                fl, by = fl + f, by + b
-            pred = self._cost_row(kind, key, fl, by)
+            pred = self._cost_row(kind, key, *self._spec_cost(
+                [s.n_past for s in rows], self._bucket(len(rows)), rounds))
         self._span.start()
-        tok = self._ints([[s.generated[-1]] for s in rows])
-        pos = self._ints([s.n_past for s in rows])
-        run = (self._sampled_rounds if mode == "sampled"
-               else self._greedy_rounds)
-        D, M, J = run(rows, tok, pos, pt, wt, rounds)
         # the one host read: [rounds, B, (kd - 1) + kd + 1]
-        out = torch.cat([D, M, J[..., None]], -1)
+        out = self._spec_graph(rows, kind, rounds)
         self._span.stop()
         host = out.tolist()
         self._harvest(kind, key, pred)
+        self.metrics.forward_steps += rounds
+        self.metrics.draft_forwards += rounds * kd
         dt = (time.perf_counter() - t0) * 1e3
         emitted = 0
         for b, s in enumerate(rows):
@@ -2165,6 +2559,7 @@ class LLMEngine:
     def _finish(self, slot: _Slot, reason: str) -> None:
         req = slot.request
         self._flush_emit(slot)  # buffered text precedes the done event
+        self._maybe_save_prompt_cache(slot)
         full = slot.decoder.text if slot.decoder else ""
         if req is not None:
             for st in req.stop:
@@ -2188,6 +2583,8 @@ class LLMEngine:
                 timing_queue_ms=queue_ms, timing_first_token_ms=ttft_ms))
         self.metrics.requests_completed += 1
         tm.ENGINE_REQUESTS.labels(model=self._mlabel, reason=reason).inc()
+        if reason == "cancelled":
+            self._count_cancels("client", 1)
         self._release(slot)
 
     def _release(self, slot: _Slot) -> None:

@@ -85,6 +85,13 @@ ENGINE_REQUESTS = REGISTRY.counter(
     "Completed engine requests by finish reason",
     labels=("model", "reason"),
 )
+ENGINE_CANCELLATIONS = REGISTRY.counter(
+    "engine_cancellations_total",
+    "Cancellation records by outcome (client = a request was cancelled "
+    "while queued or in flight, expired = a race-ahead cancel id aged "
+    "out of the pending-cancel set without ever matching a request)",
+    labels=("model", "reason"),
+)
 ENGINE_PROMPT_TOKENS = REGISTRY.counter(
     "engine_prompt_tokens_total",
     "Prompt tokens processed through prefill",
@@ -107,6 +114,13 @@ ENGINE_PREFIX_COPIES = REGISTRY.counter(
     "engine_prefix_copies_total",
     "On-device cross-slot KV prefix row copies dispatched",
     labels=("model",),
+)
+ENGINE_PROMPT_CACHE_RESTORES = REGISTRY.counter(
+    "engine_prompt_cache_restores_total",
+    "On-disk prompt cache restore attempts by result (restored/stale/"
+    "shape_mismatch/dtype_mismatch/error/skipped_multihost/"
+    "skipped_draft/no_file)",
+    labels=("model", "result"),
 )
 ENGINE_KV_PAGES_IN_USE = REGISTRY.gauge(
     "engine_kv_pages_in_use_count",

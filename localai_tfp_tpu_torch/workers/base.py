@@ -40,6 +40,13 @@ class PredictOptions:
     mirostat: int = 0
     mirostat_eta: float = 0.0
     mirostat_tau: float = 0.0
+    # on-disk prompt cache (ref: backend.proto PromptCachePath / All /
+    # RO): restore the prompt's K/V rows from the file when it holds a
+    # longer prefix; save them when the request finishes (``all``: the
+    # generated rows too; ``ro``: never write)
+    prompt_cache_path: str = ""
+    prompt_cache_all: bool = False
+    prompt_cache_ro: bool = False
     correlation_id: str = ""
     request_id: str = ""  # caller-chosen id enabling cancel() on
     # client disconnect (ref: llama.cpp task cancel)

@@ -198,6 +198,9 @@ class TorchLLMBackend(Backend):
             constraint=constraint,
             correlation_id=opts.correlation_id,
             timeout_s=max(0.0, opts.timeout_s),
+            prompt_cache_path=opts.prompt_cache_path,
+            prompt_cache_all=opts.prompt_cache_all,
+            prompt_cache_ro=opts.prompt_cache_ro,
             **({"id": opts.request_id} if opts.request_id else {}),
         )
 
@@ -230,6 +233,7 @@ class TorchLLMBackend(Backend):
             "graph_replays": m.graph_replays,
             "masked_replays": m.masked_replays,
             "mixed_replays": m.mixed_replays,
+            "spec_replays": m.spec_replays,
             "graph_variants": eng.variant_count(),
             # pad tokens the mixed variants added, over the real tokens
             "mixed_padded_share": round(

@@ -929,6 +929,68 @@ def test_warmup_captures_every_variant_on_card(cuda_device):
         eng.close()
 
 
+def _spec_models(device, int8: bool):
+    """``_graph_model``'s target (int8 weights when asked) and a 1-layer
+    bf16 draft of the same width cut from its first layer."""
+    spec, params = _graph_model(device, False)
+    dspec = tiny_spec(vocab_size=258, d_model=512, n_heads=8, n_kv_heads=8,
+                      d_head=64, d_ff=1024, max_position=256, n_layers=1)
+    dparams = {k: (v[:1] if v.dim() > 1 and k not in ("embed", "lm_head")
+                   else v) for k, v in params.items()}
+    return spec, tq.quantize_params(params) if int8 else params, \
+        (dspec, dparams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("temperature", [0.0, 0.9], ids=["spec", "spec_s"])
+@pytest.mark.parametrize("int8_weights", [False, True],
+                         ids=["bf16w", "int8w"])
+def test_spec_graphs_equal_eager_at_the_variant(cuda_device, int8_weights,
+                                                temperature):
+    """Every speculative dispatch by graph replay against the same body
+    run eagerly at the same variant: greedy or seeded sampled ids, and
+    every target and draft K/V page but the trash page, bitwise; the
+    graph engine ran every dispatch as a replay, and its kernel counts
+    per replay equal the eager engine's per call."""
+    spec, params, draft = _spec_models(cuda_device, int8_weights)
+    engines = []
+    for eager in (False, True):
+        eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=4,
+                        max_seq=256, cache_dtype=torch.bfloat16, draft=draft,
+                        n_draft=4, autostart=False, device=cuda_device)
+        if eager:  # the variant body, run eagerly
+            eng._spec_launch = eng._spec_body
+        engines.append(eng)
+    graph, eager = engines
+    reqs = lambda: [GenRequest(  # noqa: E731
+        prompt_ids=list(range(1 + 5 * r, 40 + 9 * r)), max_tokens=13 + 4 * r,
+        ignore_eos=True, temperature=temperature, seed=r) for r in range(3)]
+    try:
+        got, want, launches = [], [], []
+        for eng, out in ((graph, got), (eager, want)):
+            b1, b2 = ragged_paged_attention.launches, int8_matmul.launches
+            out.append(_drive(eng, reqs()))
+            launches.append((ragged_paged_attention.launches - b1,
+                             int8_matmul.launches - b2))
+        torch.cuda.synchronize()
+        assert got == want
+        for a, b in ((graph.cache, eager.cache),
+                     (graph.draft_cache, eager.draft_cache)):
+            assert torch.equal(a.k[:, 1:], b.k[:, 1:])
+            assert torch.equal(a.v[:, 1:], b.v[:, 1:])
+        m = graph.metrics
+        assert m.spec_replays == m.spec_dispatches > 0
+        assert eager.metrics.spec_replays == 0
+        assert {k for k, _, _ in graph._spec_variants} == {
+            "spec" if temperature == 0.0 else "spec_s"}
+        assert launches[0] == launches[1]
+        assert launches[0][0] == 2 * m.forward_steps + m.draft_forwards
+        assert (launches[0][1] > 0) == int8_weights
+    finally:
+        graph.close()
+        eager.close()
+
+
 @pytest.mark.cuda
 def test_mixed_capture_failure_raises_and_fails_the_request(cuda_device):
     """A mixed variant whose capture cannot complete raises; the request

@@ -196,7 +196,7 @@ def test_unserved_features_are_refused_not_ignored(torch_engine):
                                              soft_embeds=np.zeros((1, 64))))
     assert ev.finish_reason == "error" and "soft_embeds" in ev.error
     ev = torch_engine.generate(te.GenRequest(prompt_ids=[1, 2],
-                                             prompt_cache_path="/x.npz"))
-    assert ev.finish_reason == "error" and "prompt caches" in ev.error
+                                             disagg=object()))
+    assert ev.finish_reason == "error" and "disagg" in ev.error
     ev = torch_engine.generate(te.GenRequest(prompt_ids=list(range(256))))
     assert ev.finish_reason == "error" and "context size" in ev.error

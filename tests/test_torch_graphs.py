@@ -23,6 +23,7 @@ against the JAX engine, on the same ``tiny_spec`` weights in f32; and
 import json
 import re
 import threading
+import time
 import urllib.request
 
 import jax
@@ -341,7 +342,7 @@ def _get(port: int, path: str, body=None):
         return r.status, r.headers.get("Content-Type", ""), r.read().decode()
 
 
-def test_metrics_route_shows_the_reference_families(server):
+def test_metrics_route_shows_the_reference_families(server, tmp_path):
     port = server.server_address[1]
     for text in ("hello", "count to three"):
         status, _, _ = _get(port, "/v1/chat/completions", {
@@ -397,6 +398,34 @@ def test_metrics_route_shows_the_reference_families(server):
     _, _, text = _get(port, "/metrics")
     assert value_in(text, "api_call_seconds_count", method="GET",
                     path="other") >= 1
+    # the cancellation and prompt-cache families: an expired race-ahead
+    # cancel id, and a prompt cache file that does not exist
+    for fam in (tmetrics.ENGINE_CANCELLATIONS,
+                tmetrics.ENGINE_PROMPT_CACHE_RESTORES):
+        assert fam.name in PORTED
+        assert fam.labelnames == FAMILIES[fam.name].labelnames
+    eng = backend.engine
+    with eng._lock:
+        eng._cancelled["ghost"] = time.perf_counter() - 2 * eng._CANCEL_TTL_S
+    deadline = time.perf_counter() + 5
+    while "ghost" in eng._cancelled and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    from localai_tfp_tpu_torch.workers.base import PredictOptions
+
+    rep = backend.predict(PredictOptions(
+        prompt="hi", tokens=2, ignore_eos=True,
+        prompt_cache_path=str(tmp_path / "none.cache"),
+        prompt_cache_ro=True))
+    assert rep.finish_reason == "length", rep.error
+    _, _, text = _get(port, "/metrics")
+    samples = _parse(text)
+    for (sample, labels) in samples:
+        keys = {k for k, _ in labels} - {"le"}
+        assert keys == set(FAMILIES[_family_of(sample)].labelnames), sample
+    assert value_in(text, "engine_cancellations_total", model=model,
+                    reason="expired") >= 1
+    assert value_in(text, "engine_prompt_cache_restores_total",
+                    model=model, result="no_file") >= 1
 
 
 def value_in(text: str, name: str, **labels) -> float:

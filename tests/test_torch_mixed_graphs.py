@@ -402,7 +402,11 @@ def test_warmup_makes_every_variant_and_touches_no_slot(weights):
             [1, 2, 4]
         assert sorted(eng._mixed_variants) == [
             (r, t) for r in (1, 2, 4) for t in (8, 32, 128)]
-        assert eng.variant_count() == 15
+        # with a draft: spec and spec_s per row bucket and rounds (1, 2)
+        assert sorted(eng._spec_variants) == [
+            (k, r, n) for k in ("spec", "spec_s") for r in (1, 2, 4)
+            for n in (1, 2)]
+        assert eng.variant_count() == 27
         # a nominal cost row per mixed variant, keyed by its shape
         rows = eng._costmodel.export_rows()
         assert all(repr(("mixed", rt)) in rows for rt in eng._mixed_variants)
@@ -448,12 +452,16 @@ class _Foreign(TorchDispatchMode):
         super().__init__()
         self.known = known
         self.found = []
+        # every op output stays alive, so no later host tensor can be
+        # allocated at a known address
+        self.outputs = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         flat, _ = tree_flatten((args, kwargs or {}))
         self.found += [str(func) for t in flat if isinstance(t, torch.Tensor)
                        and t.untyped_storage().data_ptr() not in self.known]
         out = func(*args, **(kwargs or {}))
+        self.outputs.append(out)
         self.known.update(t.untyped_storage().data_ptr()
                           for t in tree_flatten(out)[0]
                           if isinstance(t, torch.Tensor))
