@@ -131,6 +131,25 @@ Phases, one result line each; any failure raises and exits non-zero:
    to launches per call; host ms per spec dispatch by replay beside the
    bodies run eagerly and a plain decode forward; warmup seconds,
    variants and graph-pool bytes with the spec variants.
+10. text   — after phase 9 (phase 5's checkpoint, and the TTFT of one
+   chat request that phase 5 reads on the byte-tokenized bf16 model): the
+   8B checkpoint served at full width and depth through a second model
+   directory that links its weights and adds a Llama-3-layout byte-level
+   BPE ``tokenizer.json`` written here without ``tokenizers`` (256 byte
+   symbols, generated merges to id 128000, Llama-3's 256 special tokens,
+   ``ignore_merges``), a ``tokenizer_config.json`` with
+   ``clean_up_tokenization_spaces`` and a Llama-3-style chat template,
+   ``generation_config.json``, and a real-YAML model config (block
+   scalars, a ``trimsuffix``). A streamed chat burst (one with tools),
+   a chat and a completion (echo) streamed and whole, an edit, a
+   tokenize and a grammar request: the prompt ids the engine got must be
+   ``encode(apply_chat_template(...), add_bos=True)``, every SSE frame a
+   ``data:`` JSON object up to ``[DONE]``, the streamed text the whole
+   reply's, and attention must launch. Logs the host costs (tokenizer
+   load, template render, encode tokens/s cold and warm, the grammar's
+   vocabulary table, stream decode per token) and the TTFT of the same
+   chat request here and on the byte tokenizer. Prefix sharing is off
+   for the phase, so a request served alone runs the same shapes twice.
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -2653,6 +2672,8 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
             raise AssertionError(f"{model}: load mode {load['mode']}")
         burst = run_burst(port, model, eng)
         log("main_requests", model=model, **burst)
+        # phase text's TTFT request on the byte tokenizer, alone
+        byte_ttft = None if quantized else text_ttft(port, model, eng)
         steps = burst["forward_steps"]
         got = burst["launches"]
         if not burst["mixed_forwards"] or not burst["decode_forwards"]:
@@ -2707,7 +2728,7 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
                                                          "deadline")})
         return {"load": load, "burst": burst, "reload": reload,
                 "reference": ref, "profile": prof, "graphs": gr,
-                "engine": eng_res, "dispatch": disp}
+                "engine": eng_res, "dispatch": disp, "byte_ttft": byte_ttft}
     finally:
         srv.close()
         th.join(timeout=30)
@@ -3411,11 +3432,540 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 10
+
+# Llama-3's 256 special tokens, in id order from 128000
+# (<|begin_of_text|> 128000, <|eot_id|> 128009)
+LLAMA3_SPECIALS = [
+    "<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+    "<|reserved_special_token_1|>", "<|finetune_right_pad_id|>",
+    "<|reserved_special_token_2|>", "<|start_header_id|>",
+    "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>", "<|python_tag|>",
+    *(f"<|reserved_special_token_{3 + k}|>" for k in range(245)),
+]
+# Llama-3's pre-tokenizer pattern (its tokenizer.json Split)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
+                r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|"
+                r"\s+")
+# a Llama-3-style chat template, written for this script: a system turn
+# with the date and the tools, a raise on an unknown role, the turns
+TEXT_CHAT_TEMPLATE = """{{- bos_token }}
+{%- if not date_string is defined %}
+    {%- set date_string = "26 Jul 2024" %}
+{%- endif %}
+{%- if messages[0]['role'] == 'system' %}
+    {%- set system_message = messages[0]['content'] | trim %}
+    {%- set messages = messages[1:] %}
+{%- else %}
+    {%- set system_message = "" %}
+{%- endif %}
+{%- set ns = namespace(tool_turns=0, users=0) %}
+{{- "<|start_header_id|>system<|end_header_id|>\\n\\n" }}
+{%- if tools is not none %}
+    {{- "Environment: ipython\\n" }}
+{%- endif %}
+{{- "Cutting Knowledge Date: December 2023\\n" }}
+{{- "Today Date: " + date_string + "\\n\\n" }}
+{%- if tools is not none %}
+    {{- "You may call these functions. Reply with JSON {\\"name\\": ..., \\"arguments\\": ...}.\\n\\n" }}
+    {%- for t in tools %}
+        {{- t | tojson(indent=4) }}
+        {{- "\\n\\n" }}
+    {%- endfor %}
+{%- endif %}
+{{- system_message }}
+{{- "<|eot_id|>" }}
+{%- for message in messages %}
+    {%- if message.role not in ['user', 'assistant', 'tool', 'ipython'] %}
+        {{- raise_exception("unknown role: " ~ message.role) }}
+    {%- endif %}
+    {%- if message.role == 'user' %}
+        {%- set ns.users = ns.users + 1 %}
+    {%- endif %}
+    {%- if message.role in ['tool', 'ipython'] %}
+        {%- set ns.tool_turns = ns.tool_turns + 1 %}
+        {{- "<|start_header_id|>ipython<|end_header_id|>\\n\\n" }}
+        {%- if message.content is mapping or message.content is iterable and message.content is not string %}
+            {{- message.content | tojson }}
+        {%- else %}
+            {{- message.content }}
+        {%- endif %}
+        {{- "<|eot_id|>" }}
+    {%- elif message.tool_calls is defined and message.tool_calls %}
+        {{- "<|start_header_id|>assistant<|end_header_id|>\\n\\n" }}
+        {%- for call in message.tool_calls %}
+            {%- set fn = call.function if call.function is defined else call %}
+            {{- '{"name": "' + fn.name + '", "arguments": ' }}
+            {{- fn.arguments | tojson if fn.arguments is not string else fn.arguments }}
+            {{- "}" }}
+        {%- endfor %}
+        {{- "<|eot_id|>" }}
+    {%- else %}
+        {{- "<|start_header_id|>" + message.role + "<|end_header_id|>\\n\\n" + message.content | trim + "<|eot_id|>" }}
+    {%- endif %}
+{%- endfor %}
+{%- if add_generation_prompt %}
+    {{- "<|start_header_id|>assistant<|end_header_id|>\\n\\n" }}
+{%- endif %}
+"""
+
+
+def _byte_alphabet() -> list[str]:
+    """GPT-2's byte-level alphabet, byte 0 first."""
+    keep = (list(range(0x21, 0x7F)) + list(range(0xA1, 0xAD))
+            + list(range(0xAE, 0x100)))
+    out, k = {}, 0
+    for b in range(256):
+        if b in keep:
+            out[b] = chr(b)
+        else:
+            out[b] = chr(256 + k)
+            k += 1
+    return [out[b] for b in range(256)]
+
+
+def write_text_tokenizer(dirpath: Path, vocab_size: int = 128256) -> dict:
+    """A byte-level BPE ``tokenizer.json`` with Llama-3's layout, written
+    without the ``tokenizers`` package: the 256 byte symbols, merges of
+    printable ASCII, space and newline symbols generated up to id
+    ``vocab_size - 256`` (so a sampled id decodes to visible text), and
+    Llama-3's 256 special tokens above them (128000-128255 at the 8B's
+    vocabulary); the Llama-3 ``Split`` pattern, ``ignore_merges`` and the
+    ``ByteLevel`` decoder. Also ``tokenizer_config.json``
+    (``clean_up_tokenization_spaces`` and the chat template above) and
+    ``generation_config.json`` (eos ``<|end_of_text|>`` and
+    ``<|eot_id|>``)."""
+    alphabet = _byte_alphabet()
+    vocab = {c: i for i, c in enumerate(alphabet)}
+    base = [chr(b) for b in range(0x21, 0x7F)] + ["Ġ", "Ċ"]
+    n_merged = vocab_size - len(LLAMA3_SPECIALS)
+    merges: list[list[str]] = []
+    level = list(base)
+    while len(vocab) < n_merged:
+        nxt = []
+        for a in level:
+            for b in base:
+                if len(vocab) >= n_merged:
+                    break
+                if a + b in vocab:
+                    continue
+                vocab[a + b] = len(vocab)
+                merges.append([a, b])
+                nxt.append(a + b)
+        level = nxt
+    added = [{"id": n_merged + k, "content": c, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for k, c in enumerate(LLAMA3_SPECIALS)]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+    dirpath.mkdir(parents=True, exist_ok=True)
+    (dirpath / "tokenizer.json").write_text(json.dumps(spec,
+                                                       ensure_ascii=False))
+    (dirpath / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast",
+        "bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+        "clean_up_tokenization_spaces": True,
+        "model_max_length": 131072,
+        "chat_template": TEXT_CHAT_TEMPLATE,
+    }, indent=1))
+    (dirpath / "generation_config.json").write_text(json.dumps({
+        "bos_token_id": n_merged, "eos_token_id": [n_merged + 1,
+                                                   n_merged + 9]}))
+    return {"vocab": len(vocab) + len(added), "merges": len(merges)}
+
+
+TEXT_MODEL = "llama-3.1-8b-text"
+TEXT_DIR = "llama31-8b-text"
+# a real-YAML model config: the tokenizer's chat template, block-scalar
+# completion and edit templates, and a trimsuffix
+TEXT_YAML = f"""# Llama-3.1-8B geometry with its tokenizer.json and chat template
+name: {TEXT_MODEL}
+backend: torch-llm
+parameters:
+  model: {TEXT_DIR}
+  temperature: 0.0
+  max_tokens: 24
+context_size: {CONTEXT}
+max_batch_slots: {SLOTS}
+dtype: bfloat16
+trimsuffix:
+  - "<|eot_id|>"
+template:
+  use_tokenizer_template: yes
+  completion: |-
+    {{{{.Input}}}}
+  edit: |
+    Instruction: {{{{.Instruction}}}}
+    Input: {{{{.Input}}}}
+    Output:
+"""
+TEXT_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "description": "The weather of a city",
+    "parameters": {"type": "object", "properties": {
+        "city": {"type": "string"}}, "required": ["city"]}}}]
+# the chat request whose time to first token is read on both tokenizers
+# (sent nowhere else, so neither model holds its prompt when it comes)
+TEXT_TTFT_BODY = {"stream": True, "max_tokens": 8, "messages": [
+    {"role": "system", "content": "You are a terse assistant."},
+    {"role": "user", "content": "Explain how a paged KV cache grows. " * 8}]}
+
+
+def text_bodies() -> list:
+    """Phase text's chat burst: (name, body)."""
+    return [
+        ("plain", {"stream": True, "max_tokens": 24, "messages": [
+            {"role": "user", "content": "Say hello, then count to five."}]}),
+        ("system", {"stream": True, "max_tokens": 24, "messages": [
+            {"role": "system", "content": " You answer briefly. "},
+            {"role": "user", "content": "It 's a test , isn't it ?"},
+            {"role": "assistant", "content": "It is."},
+            {"role": "user", "content": "Über café 中文 🎉, why?"}]}),
+        ("tools", {"stream": True, "max_tokens": 48,
+                   "messages": [{"role": "user",
+                                 "content": "What is the weather in Paris?"}],
+                   "tools": TEXT_TOOLS}),
+    ]
+
+
+def stream_post(port: int, path: str, body: dict,
+                headers: dict | None = None) -> dict:
+    """A streamed request read frame by frame: the frames (each checked
+    to be a ``data:`` JSON object, the last ``[DONE]``), the text they
+    carry and the host ms to the first frame with text."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    ttft = None
+    frames, texts = [], []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200 or not r.headers.get(
+                "Content-Type", "").startswith("text/event-stream"):
+            raise AssertionError(f"{path}: HTTP {r.status}")
+        buf = b""
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            buf += line
+            if not buf.endswith(b"\n\n"):
+                continue
+            frame, buf = buf.decode().rstrip("\n"), b""
+            if not frame.startswith("data: "):
+                raise AssertionError(f"{path}: bad SSE frame {frame[:80]!r}")
+            if frame == "data: [DONE]":
+                frames.append(None)
+                continue
+            if frames and frames[-1] is None:
+                raise AssertionError(f"{path}: a frame after [DONE]")
+            obj = json.loads(frame[len("data: "):])
+            choice = obj["choices"][0]
+            text = choice.get("text") or (choice.get("delta") or {}).get(
+                "content") or ""
+            if text and ttft is None:
+                ttft = (time.perf_counter() - t0) * 1e3
+            frames.append(obj)
+            texts.append(text)
+    if not frames or frames[-1] is not None or buf:
+        raise AssertionError(f"{path}: stream does not end in [DONE]")
+    return {"frames": frames[:-1], "text": "".join(texts), "ttft_ms": ttft}
+
+
+def post_json(port: int, path: str, body: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise AssertionError(f"{path}: HTTP {r.status}")
+        return json.loads(r.read().decode())
+
+
+def text_ttft(port: int, model: str, eng) -> dict:
+    """TEXT_TTFT_BODY streamed alone: host ms to the first frame with
+    text (None when no sampled id decodes to text, as on a byte tokenizer
+    over a 128256-id vocabulary), the engine's submit-to-first-token ms
+    and prompt tokens from the final frame's usage, and the prompt
+    tokens the engine computed (the rest it reused)."""
+    filled = eng.metrics.prefill_tokens
+    res = stream_post(port, "/v1/chat/completions",
+                      {"model": model, **TEXT_TTFT_BODY},
+                      {"Extra-Usage": "1"})
+    usage = res["frames"][-1]["usage"]
+    return {"ttft_ms": res["ttft_ms"],
+            "engine_first_token_ms": usage["timing_first_token"],
+            "prompt_tokens": usage["prompt_tokens"],
+            "prompt_tokens_computed": eng.metrics.prefill_tokens - filled,
+            "chars": len(res["text"])}
+
+
+class _FinalTap:
+    """An engine event queue that hands each request's whole generated
+    text (its final event's ``full_text``) to ``record``."""
+
+    def __init__(self, q, record) -> None:
+        self._q = q
+        self._record = record
+
+    def _seen(self, ev):
+        if ev.done:
+            self._record(ev.full_text)
+        return ev
+
+    def get(self, *a, **kw):
+        return self._seen(self._q.get(*a, **kw))
+
+    def get_nowait(self):
+        return self._seen(self._q.get_nowait())
+
+
+def _median(xs: list) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def text_host_costs(backend, prompts: list, grammar: str) -> dict:
+    """Host-clock costs of the text layer on this tokenizer: load, chat
+    template render, encode (cold and warm word cache), the grammar's
+    vocabulary table, and the stream decoder per token."""
+    from localai_tfp_tpu_torch.engine.tokenizer import (StreamDecoder,
+                                                        load_tokenizer)
+    from localai_tfp_tpu_torch.grammars.native import make_constraint
+
+    ckpt = ROOT / "build" / "chip_smoke" / "models" / TEXT_DIR
+    t0 = time.perf_counter()
+    tk = load_tokenizer(str(ckpt))
+    load_s = time.perf_counter() - t0
+    msgs = text_bodies()[1][1]["messages"]
+    render = []
+    for _ in range(20):
+        t = time.perf_counter()
+        tk.apply_chat_template(msgs, add_generation_prompt=True)
+        render.append((time.perf_counter() - t) * 1e3)
+    out = {"tokenizer_load_s": load_s,
+           "template_render_ms_p50": _median(render)}
+    for label in ("cold", "warm"):
+        t = time.perf_counter()
+        n = sum(len(tk.encode(p, add_bos=True)) for p in prompts)
+        out[f"encode_tok_per_s_{label}"] = n / (time.perf_counter() - t)
+        out["encode_tokens"] = n
+    t = time.perf_counter()
+    make_constraint(grammar, backend.tokenizer)
+    out["grammar_table_s"] = time.perf_counter() - t
+    ids = tk.encode(" ".join(prompts))[:512]
+    dec = StreamDecoder(tk)
+    t = time.perf_counter()
+    for i in ids:
+        dec.push(i)
+    out["decode_us_per_token"] = (time.perf_counter() - t) * 1e6 / len(ids)
+    out["decode_tokens"] = len(ids)
+    return out
+
+
+def phase_text(ckpt_name: str, byte_ttft: dict, smi: str) -> dict:
+    """The 8B checkpoint served through a second model directory with a
+    generated Llama-3-layout tokenizer.json, its chat template and a
+    real-YAML config: a chat burst (one with tools), a completion
+    streamed and whole with echo, an edit, a tokenize, a grammar request;
+    the prompt ids against the port's encode(apply_chat_template(...)),
+    the SSE frames, streamed against whole text, attention's launches;
+    the host costs of the layer."""
+    import threading
+
+    import torch
+
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "models"
+    ckpt = models / TEXT_DIR
+    if ckpt.is_dir():
+        for p in ckpt.iterdir():
+            p.unlink()
+    ckpt.mkdir(parents=True, exist_ok=True)
+    for fname in ("model.safetensors", "config.json"):
+        (ckpt / fname).symlink_to(models / ckpt_name / fname)
+    tok_info = write_text_tokenizer(ckpt)
+    (models / f"{TEXT_MODEL}.yaml").write_text(TEXT_YAML)
+    # each prompt computed whole: a streamed request and its whole twin,
+    # each alone, run the same shapes
+    os.environ["LOCALAI_PREFIX_CACHE"] = "off"
+    srv, th = _serve(models)
+    port = srv.server_address[1]
+    try:
+        t0 = time.perf_counter()
+        warm = post_json(port, "/v1/chat/completions", {
+            "model": TEXT_MODEL, "max_tokens": 4,
+            "messages": [{"role": "user", "content": "warm up"}]})
+        load_s = time.perf_counter() - t0
+        backend = srv.app.loaded()[TEXT_MODEL]
+        cfg = srv.app.configs[TEXT_MODEL]
+        tk = backend.tokenizer
+        if type(tk).__name__ != "HFTokenizer" or tk.vocab_size != 128256:
+            raise AssertionError(f"text model tokenizer {type(tk).__name__}"
+                                 f" vocab {tk.vocab_size}")
+        if cfg.trimsuffix != ["<|eot_id|>"]:
+            raise AssertionError(f"YAML config read as {cfg}")
+        from localai_tfp_tpu_torch.grammars.parse import apply_finetune
+
+        def finetuned(text: str) -> str:
+            return apply_finetune(text, trimsuffix=cfg.trimsuffix)
+
+        seen: list = []
+        whole: dict = {}  # prompt ids -> each request's engine text
+        orig = backend._to_request
+        eng = backend.engine
+        submit = eng.submit
+
+        def spy(opts):
+            req = orig(opts)
+            seen.append((opts.prompt, list(req.prompt_ids)))
+            return req
+
+        def tapped(req):
+            texts = whole.setdefault(tuple(req.prompt_ids), [])
+            return _FinalTap(submit(req), texts.append)
+        backend._to_request = spy
+        eng.submit = tapped
+        ragged_paged_attention.launches = 0
+        # (a) the chat burst, all at once
+        results: dict = {}
+        errors: list = []
+
+        def send(name, body):
+            try:
+                results[name] = stream_post(port, "/v1/chat/completions",
+                                            {"model": TEXT_MODEL, **body})
+            except Exception as e:  # re-raised below
+                errors.append(f"{name}: {e!r}")
+        threads = [threading.Thread(target=send, args=a)
+                   for a in text_bodies()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or len(results) != len(threads):
+            raise AssertionError(f"text chat burst failed: {errors}")
+        for name, body in text_bodies():
+            tools = [t["function"] for t in body.get("tools") or []]
+            want = tk.encode(tk.apply_chat_template(
+                body["messages"], add_generation_prompt=True,
+                tools=tools or None), add_bos=True)
+            if not any(ids == want for _, ids in seen):
+                raise AssertionError(f"{name}: the engine's prompt ids are "
+                                     "not encode(apply_chat_template(...))")
+            if not tools and results[name]["text"] != finetuned(
+                    whole[tuple(want)][0]):
+                raise AssertionError(f"{name}: the streamed text is not the "
+                                     "whole reply")
+            fr = results[name]["frames"]
+            if fr[0]["choices"][0]["delta"] != {"role": "assistant",
+                                               "content": ""}:
+                raise AssertionError(f"{name}: first delta is not the role")
+            if any(f["object"] != "chat.completion.chunk" for f in fr):
+                raise AssertionError(f"{name}: wrong chunk object")
+        # (b) a chat and a completion streamed, then whole, each alone:
+        # each reply's text is its own generation's whole text (the
+        # second request reuses the first's resident prompt in its slot,
+        # so the two generations need not agree token for token)
+        pairs = {}
+        for path, body in (
+                ("/v1/chat/completions", {**text_bodies()[0][1]}),
+                ("/v1/completions", {"prompt": "The paged arena holds",
+                                     "max_tokens": 16, "echo": True})):
+            body = {"model": TEXT_MODEL, **body, "stream": True}
+            n0 = len(seen)
+            s = stream_post(port, path, body, {"Extra-Usage": "1"})
+            w = post_json(port, path, {**body, "stream": False})
+            ids = tuple(seen[n0][1])
+            raw = whole[ids][-2:]
+            wc = w["choices"][0]
+            text = wc["message"]["content"] if "message" in wc else \
+                wc["text"]
+            if path == "/v1/completions":
+                if not text.startswith(body["prompt"]):
+                    raise AssertionError("echo did not prepend the prompt")
+                text = text[len(body["prompt"]):]
+            if s["text"] != finetuned(raw[0]) or text != finetuned(raw[1]):
+                raise AssertionError(f"{path}: streamed {s['text']!r} / "
+                                     f"whole {text!r} against the engine's "
+                                     f"{raw!r}")
+            if "timing_prompt_processing" not in s["frames"][-1]["usage"]:
+                raise AssertionError(f"{path}: no extra usage")
+            pairs[path] = {"ttft_ms": s["ttft_ms"], "chars": len(text),
+                           "same_generation": raw[0] == raw[1]}
+        # (c) an edit, a tokenize, a grammar request
+        edit = post_json(port, "/v1/edits", {
+            "model": TEXT_MODEL, "instruction": "Fix the spelling",
+            "input": "teh cat sat", "max_tokens": 12})
+        if edit["object"] != "edit" or len(edit["choices"]) != 1:
+            raise AssertionError(f"edit reply {edit}")
+        text = "Hello, world! It's 2024 <|eot_id|>"
+        tok = post_json(port, "/v1/tokenize", {"model": TEXT_MODEL,
+                                               "content": text})
+        if tok["tokens"] != tk.encode(text) or 128009 not in tok["tokens"]:
+            raise AssertionError(f"tokenize gave {tok}")
+        grammar = 'root ::= "yes" | "no" | "maybe"'
+        g = post_json(port, "/v1/chat/completions", {
+            "model": TEXT_MODEL, "max_tokens": 8, "grammar": grammar,
+            "messages": [{"role": "user", "content": "yes or no?"}]})
+        answer = g["choices"][0]["message"]["content"]
+        if answer not in ("yes", "no", "maybe"):
+            raise AssertionError(f"grammar reply {answer!r}")
+        launches = ragged_paged_attention.launches
+        if launches <= 0:
+            raise AssertionError("attention did not launch in phase text")
+        torch.cuda.synchronize()
+        prompts = [p for p, _ in seen]
+        costs = text_host_costs(backend, prompts, grammar)
+        bpe_ttft = text_ttft(port, TEXT_MODEL, eng)
+        backend._to_request = orig
+        del eng.submit
+        return {
+            "tokenizer": tok_info, "load_s": load_s,
+            "warm_finish": warm["choices"][0]["finish_reason"],
+            "requests": len(seen), "ragged_paged_attention_launches": launches,
+            "burst": {n: {"ttft_ms": r["ttft_ms"], "chars": len(r["text"]),
+                          "frames": len(r["frames"])}
+                      for n, r in results.items()},
+            "stream_vs_whole": pairs, "edit_chars": len(
+                edit["choices"][0]["text"]),
+            "tokenize_len": len(tok["tokens"]), "grammar_answer": answer,
+            "host": costs,
+            "ttft_same_request": {"bpe": bpe_ttft, "byte": byte_ttft},
+            "card": smi, "phase_s": time.perf_counter() - t_phase,
+        }
+    finally:
+        os.environ.pop("LOCALAI_PREFIX_CACHE", None)
+        _shut(srv, th)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,main,graphs,engine,"
-                            "dispatch,spec")
+                            "dispatch,spec,text")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -3492,7 +4042,7 @@ def main() -> int:
                 blocks_per_sm={o["instance"]: o["blocks_per_sm"]
                                for o in occ8},
                 smem_bytes={o["instance"]: o["smem_bytes"] for o in occ8})
-    for ph in ("graphs", "engine", "dispatch", "spec"):
+    for ph in ("graphs", "engine", "dispatch", "spec", "text"):
         if ph in phases and "main" not in phases:
             raise SystemExit(f"phase {ph} runs after phase main (its "
                              "checkpoint and int8 artifact): --phases must "
@@ -3550,6 +4100,17 @@ def main() -> int:
                 e["launches_spec_by_instance"] = {
                     k: b2_instances(runs[k]["int8_matmul_calls_by_m"])
                     for k in ("c_int8_one", "c_int8_eight")}
+    if "text" in phases:
+        from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+
+        int8_matmul.launches = 0
+        tx = phase_text(res["checkpoint"], res["bf16"]["byte_ttft"], smi)
+        log("text", **tx)
+        for e in entries:
+            # the bf16 8B behind the BPE tokenizer: attention only
+            e["launches_text"] = (tx["ragged_paged_attention_launches"]
+                                  if e["name"] == "ragged_paged_attention"
+                                  else int8_matmul.launches)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

@@ -1,17 +1,14 @@
 """Per-model configuration files (the subset of
-localai_tfp_tpu/config/model_config.py the chat route reads).
+localai_tfp_tpu/config/model_config.py the text routes read).
 
-A model config is a ``*.yaml`` file in the models directory. This port
-reads it with ``json``: the file must be written in JSON syntax, which is
-also valid YAML, so the JAX server reads the very same file. A file that
-is not JSON raises a clear error naming it. Field names and defaults are
-the JAX package's (ref: core/config/backend_config.go SetDefaults).
+A model config is a document of a ``*.yaml`` file in the models
+directory, read by ``config/loader.py`` through the port's own YAML
+reader (``config/yaml_lite.py``). Field names and defaults are the JAX
+package's (ref: core/config/backend_config.go SetDefaults).
 """
 
 from __future__ import annotations
 
-import json
-import os
 from dataclasses import dataclass, field, fields
 from typing import Any, Optional
 
@@ -41,6 +38,7 @@ class SamplingParams:
     min_p: Optional[float] = None
     typical_p: Optional[float] = None
     max_tokens: Optional[int] = None
+    echo: bool = False  # prepend the templated prompt to each reply
     ignore_eos: bool = False
     repeat_penalty: float = 0.0
     repeat_last_n: int = 64
@@ -59,6 +57,8 @@ class TemplateConfig:
 
     chat: str = ""
     chat_message: str = ""
+    completion: str = ""  # /v1/completions: wraps each prompt
+    edit: str = ""  # /v1/edits: renders input and instruction
     function: str = ""  # chat template used when tools are requested
     use_tokenizer_template: bool = False
     join_chat_messages_by_character: Optional[str] = None
@@ -100,6 +100,12 @@ class ModelConfig:
     system_prompt: str = ""
     grammar: str = ""  # a GBNF grammar every request of the model obeys
     stopwords: list[str] = field(default_factory=list)
+    # reply post-processing, in this order after ``parameters.echo``
+    # (grammars/parse.py::apply_finetune)
+    cutstrings: list[str] = field(default_factory=list)
+    extract_regex: list[str] = field(default_factory=list)
+    trimspace: list[str] = field(default_factory=list)
+    trimsuffix: list[str] = field(default_factory=list)
     context_size: Optional[int] = None
     max_batch_slots: int = 8
     dtype: str = ""
@@ -161,30 +167,3 @@ class ModelConfig:
                 return False
         return True
 
-
-def read_config_file(path: str) -> ModelConfig:
-    """One JSON-syntax ``*.yaml`` model config."""
-    with open(path) as f:
-        text = f.read()
-    try:
-        data = json.loads(text)
-    except json.JSONDecodeError as e:
-        raise ValueError(
-            f"{path}: model configs are read as JSON-syntax YAML by this "
-            f"port and this file is not JSON ({e}); rewrite it in JSON "
-            "syntax (a YAML reader is not ported yet)") from None
-    return ModelConfig.from_dict(data)
-
-
-def load_configs(models_path: str) -> dict[str, ModelConfig]:
-    """Every ``*.yaml``/``*.yml`` config in the models directory, by name.
-    Raises on a file that cannot be read, so a typo is never silent."""
-    out: dict[str, ModelConfig] = {}
-    for fname in sorted(os.listdir(models_path)):
-        if not fname.endswith((".yaml", ".yml")):
-            continue
-        cfg = read_config_file(os.path.join(models_path, fname))
-        if not cfg.validate():
-            raise ValueError(f"{fname}: model path escapes the models dir")
-        out[cfg.name] = cfg
-    return out

@@ -1,12 +1,14 @@
-"""Chat prompt assembly (the Go-template and no-template branches of
-localai_tfp_tpu/engine/templating.py::Evaluator.template_messages).
+"""Prompt templating: chat assembly and the completion and edit
+templates (localai_tfp_tpu/engine/templating.py::Evaluator).
 
 A template field is inline text when it contains ``{{`` or ``{%``, else
 the name of a ``.tmpl``/``.jinja`` file in the models directory. Go
 text/template sources (the LocalAI model-gallery dialect) render through
-the port's own Go-template interpreter (engine/gotmpl.py); a Jinja source
-imports ``jinja2`` when, and only when, one is rendered. Tokenizer chat
-templates are not applied yet (see engine/tokenizer.py).
+the port's own Go-template interpreter (engine/gotmpl.py), Jinja sources
+through its Jinja subset (engine/jinja_lite.py, the JAX Evaluator's
+environment). A chat takes the tokenizer's chat template when the config
+asks for it (``template.use_tokenizer_template``) or names no chat
+template, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from ..config.model_config import ModelConfig
+from . import jinja_lite
 from .gotmpl import GoTemplate, looks_like_go_template
 
 
@@ -51,6 +54,7 @@ class Evaluator:
 
     def __init__(self, models_path: str = "") -> None:
         self.models_path = models_path
+        self._env = jinja_lite.Environment.config()
         self._cache: dict[str, Any] = {}
 
     def _load_source(self, name_or_text: str) -> str:
@@ -71,11 +75,7 @@ class Evaluator:
                     "{%" not in src:
                 tpl = GoTemplate(src)
             else:
-                import jinja2
-
-                tpl = jinja2.Environment(
-                    loader=jinja2.BaseLoader(), keep_trailing_newline=True
-                ).from_string(src)
+                tpl = self._env.from_string(src)
             self._cache[src] = tpl
         if isinstance(tpl, GoTemplate):
             return tpl.render(data)
@@ -84,19 +84,54 @@ class Evaluator:
             ctx[_snake(k)] = v
         return tpl.render(**ctx)
 
+    def evaluate_completion(self, cfg: ModelConfig, prompt: str) -> str:
+        """A ``/v1/completions`` prompt through ``template.completion``."""
+        if not cfg.template.completion:
+            return prompt
+        return self._render(cfg.template.completion, PromptTemplateData(
+            Input=prompt, SystemPrompt=cfg.system_prompt))
+
+    def evaluate_edit(self, cfg: ModelConfig, input_: str,
+                      instruction: str) -> str:
+        """A ``/v1/edits`` prompt through ``template.edit``, else the
+        instruction, a blank line and the input."""
+        if not cfg.template.edit:
+            return f"{instruction}\n\n{input_}"
+        return self._render(cfg.template.edit, PromptTemplateData(
+            Input=input_, Instruction=instruction,
+            SystemPrompt=cfg.system_prompt))
+
     def template_messages(self, cfg: ModelConfig, messages: list[dict],
+                          tokenizer: Any = None,
                           functions: Optional[list[dict]] = None,
                           use_function_template: bool = False) -> str:
-        """Assemble the full chat prompt: each message through
+        """Assemble the full chat prompt. The tokenizer's chat template
+        when the config asks for it or has no ``chat``/``chat_message``
+        template (``system_prompt`` prepended as a system message when
+        the chat has none); else each message through
         ``template.chat_message`` (else ``"<role>: <content>"``), joined,
-        then wrapped by ``template.chat`` when set — or by
-        ``template.function`` when tools were requested and the config
-        has one (``.Functions`` holds the tool definitions)."""
+        then wrapped by ``template.chat`` — or by ``template.function``
+        when tools were requested and the config has one (``.Functions``
+        holds the tool definitions)."""
+        messages = [m if isinstance(m.get("content"), str)
+                    else {**m, "content": content_to_text(m.get("content"))}
+                    for m in messages]
+        use_tok = cfg.template.use_tokenizer_template or not (
+            cfg.template.chat or cfg.template.chat_message)
+        if use_tok and tokenizer is not None and getattr(
+                tokenizer, "chat_template", None):
+            msgs = list(messages)
+            if cfg.system_prompt and not any(
+                    m.get("role") == "system" for m in msgs):
+                msgs = [{"role": "system", "content": cfg.system_prompt}] \
+                    + msgs
+            return tokenizer.apply_chat_template(
+                msgs, add_generation_prompt=True, tools=functions or None)
         rendered: list[str] = []
         n = len(messages)
         for i, msg in enumerate(messages):
             role = msg.get("role", "user")
-            content = content_to_text(msg.get("content"))
+            content = msg["content"]
             fcall = msg.get("tool_calls") or msg.get("function_call")
             data = ChatMessageData(
                 SystemPrompt=cfg.system_prompt,

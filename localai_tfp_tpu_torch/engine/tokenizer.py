@@ -4,11 +4,12 @@ and ``load_tokenizer`` as there).
 
 - ``ByteTokenizer``: dependency-free bytes <-> ids codec, used by tests
   and whenever a checkpoint ships no tokenizer files.
-- ``HFTokenizer``: a checkpoint's ``tokenizer.json`` through the
-  ``tokenizers`` package, imported only when such a file is present.
-  Chat templates from ``tokenizer_config.json`` are not applied yet: the
-  model config's Go template (or the plain role-prefix join) assembles
-  the prompt.
+- ``HFTokenizer``: a checkpoint's ``tokenizer.json`` read by the port's
+  own BPE (``engine/bpe.py``, no ``tokenizers`` package), with the
+  ``tokenizer_config.json`` chat template rendered by the port's Jinja
+  subset (``engine/jinja_lite.py``, no ``jinja2``). A file it cannot read
+  fails the load with the reason: a checkpoint with a ``tokenizer.json``
+  is never served by the byte tokenizer.
 
 Streaming detokenization is UTF-8-safe: the engine emits byte-complete
 strings only.
@@ -18,7 +19,10 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Protocol
+from typing import Any, Optional, Protocol
+
+from . import jinja_lite
+from .bpe import BPETokenizer
 
 
 class Tokenizer(Protocol):
@@ -52,54 +56,150 @@ class ByteTokenizer:
         return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
 
 
-def _special_id(tk, entry) -> Optional[int]:
-    """A tokenizer_config special-token entry (string or AddedToken dict)
-    -> its id."""
+def _special_token(entry) -> Optional[str]:
+    """A tokenizer_config special-token entry (string or AddedToken
+    dict) -> its content."""
     if isinstance(entry, dict):
         entry = entry.get("content")
-    return tk.token_to_id(entry) if isinstance(entry, str) else None
+    return entry if isinstance(entry, str) else None
+
+
+def clean_up_tokenization(text: str) -> str:
+    """transformers' ``clean_up_tokenization``: the same replacements in
+    the same order."""
+    return (text.replace(" .", ".").replace(" ?", "?").replace(" !", "!")
+            .replace(" ,", ",").replace(" ' ", "'").replace(" n't", "n't")
+            .replace(" 'm", "'m").replace(" 's", "'s").replace(" 've", "'ve")
+            .replace(" 're", "'re"))
 
 
 class HFTokenizer:
-    """A checkpoint directory's ``tokenizer.json`` (``tokenizers``)."""
+    """A checkpoint directory's ``tokenizer.json`` (read by
+    ``engine/bpe.py``), its ``tokenizer_config.json`` and chat template,
+    as transformers' ``AutoTokenizer`` presents them to the JAX worker:
+    ``bos_id``, ``eos_ids`` (widened by ``generation_config.json``),
+    ``vocab_size``, ``decode`` with ``clean_up_tokenization_spaces``, and
+    ``apply_chat_template`` (``engine/jinja_lite.py``, transformers'
+    environment)."""
 
     def __init__(self, model_dir: str) -> None:
-        from tokenizers import Tokenizer as _Tk
-
-        self._tk = _Tk.from_file(os.path.join(model_dir, "tokenizer.json"))
+        self._tk = BPETokenizer(os.path.join(model_dir, "tokenizer.json"))
         cfg = _read_json(os.path.join(model_dir, "tokenizer_config.json"))
-        self.bos_id = _special_id(self._tk, cfg.get("bos_token"))
+        self.special_tokens: dict[str, Any] = {}
+        for key in ("bos_token", "eos_token", "unk_token", "sep_token",
+                    "pad_token", "cls_token", "mask_token"):
+            tok = _special_token(cfg.get(key))
+            if tok is not None:
+                self.special_tokens[key] = tok
+        extra = [t for t in (_special_token(e) for e in
+                             cfg.get("additional_special_tokens") or [])
+                 if t is not None]
+        if extra:
+            self.special_tokens["additional_special_tokens"] = extra
+        bos = self.special_tokens.get("bos_token")
+        self.bos_id = self._tk.token_to_id(bos) if bos is not None else None
         self.eos_ids: set[int] = set()
-        eos = _special_id(self._tk, cfg.get("eos_token"))
-        if eos is not None:
-            self.eos_ids.add(eos)
+        eos = self.special_tokens.get("eos_token")
+        if eos is not None and self._tk.token_to_id(eos) is not None:
+            self.eos_ids.add(self._tk.token_to_id(eos))
         # generation_config may widen eos (llama3: <|eot_id|>)
-        ge = _read_json(os.path.join(model_dir, "generation_config.json")
-                        ).get("eos_token_id")
+        ge = _read_json(os.path.join(model_dir, "generation_config.json"),
+                        strict=False).get("eos_token_id")
         if isinstance(ge, int):
             self.eos_ids.add(ge)
         elif isinstance(ge, list):
             self.eos_ids.update(int(e) for e in ge)
+        self.clean_up_spaces = bool(cfg.get("clean_up_tokenization_spaces",
+                                            False))
+        self.chat_template = _chat_template(model_dir, cfg)
+        self._env = jinja_lite.Environment.chat()
+        # a template that does not parse fails the load, not a request
+        for tpl in (self.chat_template.values()
+                    if isinstance(self.chat_template, dict)
+                    else [self.chat_template]):
+            if tpl:
+                self._env.from_string(tpl)
 
     @property
     def vocab_size(self) -> int:
-        return self._tk.get_vocab_size(with_added_tokens=True)
+        return self._tk.vocab_size
 
     def encode(self, text: str, add_bos: bool = False) -> list[int]:
-        ids = self._tk.encode(text, add_special_tokens=False).ids
+        ids = self._tk.encode(text)
         if add_bos and self.bos_id is not None:
             ids = [self.bos_id] + ids
         return ids
 
     def decode(self, ids: list[int]) -> str:
-        return self._tk.decode(ids, skip_special_tokens=False)
+        text = self._tk.decode(ids)
+        return clean_up_tokenization(text) if self.clean_up_spaces else text
+
+    def apply_chat_template(self, messages: list[dict], *,
+                            add_generation_prompt: bool = True,
+                            tools: Optional[list] = None) -> str:
+        """The chat template rendered as transformers renders it: the
+        messages, ``tools``, ``documents`` (None), the generation prompt
+        flag and the special-token strings."""
+        template = self.chat_template
+        if isinstance(template, dict):
+            if tools is not None and "tool_use" in template:
+                template = template["tool_use"]
+            elif "default" in template:
+                template = template["default"]
+            else:
+                raise ValueError(
+                    "This model has multiple chat templates with no default "
+                    "specified! Available template names are "
+                    f"{sorted(template)}.")
+        if not template:
+            raise ValueError("the tokenizer has no chat template")
+        if tools is not None:
+            for t in tools:
+                if not isinstance(t, dict):
+                    raise ValueError("Tools should be JSON schemas (dicts)")
+        return self._env.from_string(template).render(
+            messages=messages, tools=tools, documents=None,
+            add_generation_prompt=add_generation_prompt,
+            **self.special_tokens)
 
 
-def _read_json(path: str) -> dict:
+def _chat_template(model_dir: str, cfg: dict):
+    """The chat template as transformers 4.57 loads it: ``chat_template.
+    jinja`` (and ``additional_chat_templates/*.jinja``) over the
+    config's ``chat_template``, a list of named templates as a dict."""
+    templates: dict[str, str] = {}
+    path = os.path.join(model_dir, "chat_template.jinja")
+    if os.path.isfile(path):
+        with open(path, encoding="utf-8") as f:
+            templates["default"] = f.read()
+    extra = os.path.join(model_dir, "additional_chat_templates")
+    if os.path.isdir(extra):
+        for fname in sorted(os.listdir(extra)):
+            if fname.endswith(".jinja"):
+                with open(os.path.join(extra, fname), encoding="utf-8") as f:
+                    templates[fname[:-len(".jinja")]] = f.read()
+    if len(templates) == 1 and "default" in templates:
+        return templates["default"]
+    if templates:
+        return templates
+    tpl = cfg.get("chat_template")
+    if isinstance(tpl, list):
+        return {t["name"]: t["template"] for t in tpl}
+    return tpl
+
+
+def _read_json(path: str, strict: bool = True) -> dict:
+    """A JSON object file; {} when it is absent. A file that is not JSON
+    raises (``strict``) or reads as {} (``generation_config.json``, which
+    the JAX worker reads the same way)."""
+    if not os.path.isfile(path):
+        return {}
     try:
-        with open(path) as f:
+        with open(path, encoding="utf-8") as f:
             data = json.load(f)
-    except (OSError, ValueError):
+    except ValueError as e:
+        if strict:
+            raise ValueError(f"{path}: {e}") from None
         return {}
     return data if isinstance(data, dict) else {}
 
@@ -138,6 +238,14 @@ class StreamDecoder:
 
 
 def load_tokenizer(model_dir: str) -> Tokenizer:
+    """The checkpoint's ``tokenizer.json``; the byte tokenizer only for a
+    directory with no tokenizer files at all (the JAX package's rule). A
+    directory with only a slow tokenizer's files is refused."""
     if os.path.exists(os.path.join(model_dir, "tokenizer.json")):
         return HFTokenizer(model_dir)
+    for fname in ("tokenizer_config.json", "vocab.json"):
+        if os.path.exists(os.path.join(model_dir, fname)):
+            raise NotImplementedError(
+                f"{model_dir}: has {fname} but no tokenizer.json; this port "
+                "reads tokenizers from tokenizer.json only")
     return ByteTokenizer()

@@ -2,10 +2,11 @@
 (one thread per connection, HTTP/1.0, server-sent events written by hand)
 in place of the JAX package's aiohttp app.
 
-``Application`` holds the model configs of the models directory and loads
-each model's worker on first use; the route handlers live in
-``openai_routes``, and ``GET /metrics`` here. Error bodies have the JAX
-server's shape: ``{"error": {"code": N, "message": "...", "type": ""}}``.
+``Application`` holds the model configs of the models directory (read by
+``config/loader.py``) and loads each model's worker on first use; the
+route handlers live in ``openai_routes``, and ``GET /metrics`` here.
+Error bodies have the JAX server's shape: ``{"error": {"code": N,
+"message": "...", "type": ""}}``.
 Every request's latency lands on ``api_call_seconds``, keyed by the
 matched route template ("other" for no route), as in the JAX server.
 """
@@ -14,13 +15,15 @@ from __future__ import annotations
 
 import json
 import logging
+import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 from urllib.parse import urlsplit
 
-from ..config.model_config import ModelConfig, load_configs
+from ..config.loader import load_configs_from_path
+from ..config.model_config import ModelConfig
 from ..device import resolve
 from ..engine.templating import Evaluator
 from ..telemetry.metrics import API_CALL
@@ -29,6 +32,9 @@ from ..workers.base import ModelLoadOptions
 from ..workers.llm import TorchLLMBackend
 
 log = logging.getLogger(__name__)
+
+# /v1/engines/{model}/completions and /engines/{model}/completions
+_ENGINE_ROUTE = re.compile(r"(/v1|)/engines/([^/]+)/completions")
 
 
 class HTTPError(Exception):
@@ -48,7 +54,8 @@ class Application:
     def __init__(self, models_path: str, device: Any = None) -> None:
         self.models_path = models_path
         self.device = resolve(device)
-        self.configs: dict[str, ModelConfig] = load_configs(models_path)
+        self.configs: dict[str, ModelConfig] = load_configs_from_path(
+            models_path)
         self.evaluator = Evaluator(models_path)
         self._backends: dict[str, TorchLLMBackend] = {}
         self._lock = threading.Lock()
@@ -162,10 +169,21 @@ class Handler(BaseHTTPRequestHandler):
             ("GET", "/models"): r.list_models,
             ("GET", "/readyz"): r.readyz,
             ("GET", "/metrics"): metrics,
-            ("POST", "/v1/chat/completions"): r.chat_completions,
-            ("POST", "/chat/completions"): r.chat_completions,
+            ("POST", "/v1/tokenize"): r.tokenize,
         }
+        for prefix in ("/v1", ""):
+            routes[("POST", f"{prefix}/chat/completions")] = \
+                r.chat_completions
+            routes[("POST", f"{prefix}/completions")] = r.completions
+            routes[("POST", f"{prefix}/edits")] = r.edits
         fn = routes.get((method, path))
+        route = path
+        self.path_params: dict[str, str] = {}
+        m = _ENGINE_ROUTE.fullmatch(path)
+        if fn is None and method == "POST" and m:
+            fn = r.completions
+            self.path_params = {"model": m.group(2)}
+            route = f"{m.group(1)}/engines/{{model}}/completions"
         try:
             if fn is None:
                 raise HTTPError(404, f"no route {method} {path}")
@@ -179,7 +197,7 @@ class Handler(BaseHTTPRequestHandler):
             self.send_error_json(HTTPError(500, repr(e)))
         finally:
             API_CALL.labels(method=method,
-                            path=path if fn is not None else "other"
+                            path=route if fn is not None else "other"
                             ).observe(time.perf_counter() - t0)
 
     def do_GET(self) -> None:  # noqa: N802 (http.server naming)

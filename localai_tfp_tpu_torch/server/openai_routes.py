@@ -1,11 +1,16 @@
 """OpenAI-compatible routes of the port (counterpart of
-localai_tfp_tpu/server/openai_routes.py: ``/v1/chat/completions``
-streaming and not, ``/v1/models``, plus ``/readyz``).
+localai_tfp_tpu/server/openai_routes.py: ``/v1/chat/completions``,
+``/v1/completions`` (also under ``/v1/engines/{model}/``), ``/v1/edits``
+and ``/v1/tokenize``, each streaming where the JAX route streams, plus
+``/v1/models`` and ``/readyz``).
 
 Response bodies and SSE framing match the JAX server field for field:
-``chat.completion`` / ``chat.completion.chunk`` objects, ``finish_reason``,
-``usage``, a leading ``{"role": "assistant", "content": ""}`` delta and a
-final ``data: [DONE]``.
+``chat.completion`` / ``chat.completion.chunk`` and ``text_completion``
+objects, ``finish_reason``, ``usage``, a leading ``{"role": "assistant",
+"content": ""}`` chat delta and a final ``data: [DONE]``. A config's
+``echo``, ``cutstrings``, ``extract_regex``, ``trimspace`` and
+``trimsuffix`` post-process every reply (``grammars/parse.py``), the
+stream too.
 
 Constrained output as in the JAX routes: ``tools`` / ``functions`` become
 a functions grammar (``tool_calls`` in the reply, the streamed output
@@ -29,7 +34,8 @@ from typing import Any, Optional
 from ..config.model_config import ModelConfig
 from ..engine.engine import StreamEvent
 from ..grammars.json_schema import functions_grammar, schema_to_gbnf
-from ..grammars.parse import parse_function_call, parse_text_content
+from ..grammars.parse import (FinetuneStream, apply_finetune,
+                              parse_function_call, parse_text_content)
 from ..workers.base import PredictOptions, Reply
 from ..workers.llm import final_reply
 from .app import Application, Handler, HTTPError
@@ -219,6 +225,49 @@ def _n_choices(body: dict, streaming: bool) -> int:
     return n
 
 
+def _finetune_kw(cfg: ModelConfig, prompt: str) -> Optional[dict]:
+    """apply_finetune's arguments for this config, or None when it
+    post-processes nothing."""
+    if not (cfg.parameters.echo or cfg.cutstrings or cfg.extract_regex
+            or cfg.trimspace or cfg.trimsuffix):
+        return None
+    return dict(
+        echo_prompt=prompt if cfg.parameters.echo else "",
+        cutstrings=cfg.cutstrings, extract_regex=cfg.extract_regex,
+        trimspace=cfg.trimspace, trimsuffix=cfg.trimsuffix,
+    )
+
+
+def _model_name(h: Handler, body: dict) -> Optional[str]:
+    """The path's model, else the body's, else the X-Model header."""
+    return (h.path_params.get("model") or body.get("model")
+            or h.headers.get("X-Model"))
+
+
+def _options(cfg: ModelConfig, body: dict, prompt: str,
+             corr: str) -> PredictOptions:
+    try:
+        return _predict_options(cfg, body, prompt, corr)
+    except (TypeError, ValueError) as e:
+        raise HTTPError(400, f"invalid sampling parameter: {e}") from None
+
+
+def _predict_all(backend, opts_list: list) -> list:
+    """Every request at once (the engine batches them); their replies."""
+    replies: list[Optional[Reply]] = [None] * len(opts_list)
+
+    def run(i: int) -> None:
+        replies[i] = backend.predict(opts_list[i])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(opts_list))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return replies
+
+
 def chat_completions(h: Handler, app: Application) -> None:
     body = h.read_body()
     cfg = app.resolve_config(body.get("model") or h.headers.get("X-Model"))
@@ -237,7 +286,7 @@ def chat_completions(h: Handler, app: Application) -> None:
         raise HTTPError(400, f"invalid sampling parameter: {e}") from None
     backend = app.backend(cfg)
     opts.prompt = app.evaluator.template_messages(
-        cfg, messages, functions=tools or None,
+        cfg, messages, tokenizer=backend.tokenizer, functions=tools or None,
         use_function_template=tools_requested)
     if grammar:
         opts.grammar = grammar
@@ -256,16 +305,8 @@ def chat_completions(h: Handler, app: Application) -> None:
         _stream_chat(h, backend, opts, cfg, cid, created, tools_requested,
                      extra_usage)
         return
-    replies: list[Optional[Reply]] = [None] * n
-
-    def run(i: int) -> None:
-        replies[i] = backend.predict(opts)
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    replies = _predict_all(backend, [opts] * n)
+    ft_kw = _finetune_kw(cfg, opts.prompt)
     choices = []
     total = Reply()
     for i, reply in enumerate(replies):
@@ -273,6 +314,8 @@ def chat_completions(h: Handler, app: Application) -> None:
         _raise_if_refused(reply)
         if reply.error:
             raise HTTPError(500, reply.error)
+        if ft_kw is not None:  # before the tool-call parse, as in JAX
+            reply.message = apply_finetune(reply.message, **ft_kw)
         message: dict[str, Any] = {"role": "assistant"}
         finish = reply.finish_reason or "stop"
         calls = (parse_function_call(reply.message, cfg.function)
@@ -341,6 +384,8 @@ def _stream_chat(h: Handler, backend, opts: PredictOptions,
     h.send_header("Cache-Control", "no-cache")
     h.send_header("Connection", "close")
     h.end_headers()
+    ft_kw = _finetune_kw(cfg, opts.prompt)
+    ft = FinetuneStream(**ft_kw) if ft_kw and not tools_requested else None
     try:
         h.wfile.write(chunk({"role": "assistant", "content": ""}))
         h.wfile.flush()
@@ -350,12 +395,21 @@ def _stream_chat(h: Handler, backend, opts: PredictOptions,
             if tools_requested:
                 buffered += ev.text
             elif ev.text:
-                h.wfile.write(chunk({"content": ev.text}))
-                h.wfile.flush()
+                text = ft.feed(ev.text) if ft is not None else ev.text
+                if text:
+                    h.wfile.write(chunk({"content": text}))
+                    h.wfile.flush()
             ev = q.get()
+        if ft is not None:
+            tail = ft.finish()
+            if tail:
+                h.wfile.write(chunk({"content": tail}))
         final = final_reply(ev)
         finish = final.finish_reason or "stop"
         if tools_requested:
+            if ft_kw is not None:
+                final.message = apply_finetune(final.message, **ft_kw)
+                buffered = apply_finetune(buffered, **ft_kw)
             calls = parse_function_call(final.message, cfg.function)
             if calls:
                 finish = "tool_calls"
@@ -371,3 +425,181 @@ def _stream_chat(h: Handler, backend, opts: PredictOptions,
         # client went away: free the slot instead of decoding on
         backend.cancel(opts.request_id)
         raise
+
+
+# ------------------------------------------------------------- completion
+
+
+def completions(h: Handler, app: Application) -> None:
+    """``/v1/completions``: each prompt through ``template.completion``;
+    ``n`` choices per prompt, all decoded at once; one prompt may
+    stream."""
+    body = h.read_body()
+    prompts = body.get("prompt", "")
+    if isinstance(prompts, str):
+        prompts = [prompts]
+    if prompts is not None and (not isinstance(prompts, list) or not all(
+            isinstance(p, str) for p in prompts)):
+        raise HTTPError(400, "field 'prompt' must be a string or list of "
+                             "strings")
+    _timeout(h, body)
+    cfg = app.resolve_config(_model_name(h, body))
+    if not prompts:
+        raise HTTPError(400, "prompt required")
+    extra_usage = ("Extra-Usage" in h.headers
+                   or bool((body.get("stream_options") or {})
+                           .get("include_usage")))
+    created = int(time.time())
+    cid = f"cmpl-{uuid.uuid4().hex[:28]}"
+    streaming = bool(body.get("stream"))
+    n = _n_choices(body, streaming)
+    if streaming and len(prompts) > 1:
+        raise HTTPError(400, "multiple prompts are not supported with "
+                             "streaming")
+    corr = h.headers.get("X-Correlation-ID", "")
+    backend = app.backend(cfg)
+    if streaming:
+        opts = _options(cfg, body, app.evaluator.evaluate_completion(
+            cfg, prompts[0]), corr)
+        _stream_completion(h, backend, opts, cfg, cid, created, extra_usage)
+        return
+    jobs = []
+    for prompt in prompts:
+        opts = _options(cfg, body, app.evaluator.evaluate_completion(
+            cfg, prompt), corr)
+        jobs.extend((prompt, opts) for _ in range(n))
+    replies = _predict_all(backend, [o for _, o in jobs])
+    choices = []
+    total = Reply()
+    for i, ((prompt, o), reply) in enumerate(zip(jobs, replies)):
+        _raise_if_refused(reply)
+        if reply.error:
+            raise HTTPError(500, reply.error)
+        text = reply.message
+        ft_kw = _finetune_kw(cfg, o.prompt)
+        if ft_kw is not None:
+            text = apply_finetune(text, **ft_kw)
+        if body.get("echo"):
+            text = prompt + text
+        choices.append({"index": i, "text": text,
+                        "finish_reason": reply.finish_reason or "stop"})
+        if i % n == 0:  # each distinct prompt once, not n times
+            total.prompt_tokens += reply.prompt_tokens
+        total.tokens += reply.tokens
+        total.timing_prompt_processing += reply.timing_prompt_processing
+        total.timing_token_generation += reply.timing_token_generation
+    h.send_json(200, {"id": cid, "object": "text_completion",
+                      "created": created, "model": cfg.name,
+                      "choices": choices,
+                      "usage": _usage(total, extra_usage)})
+
+
+def _stream_completion(h: Handler, backend, opts: PredictOptions,
+                       cfg: ModelConfig, cid: str, created: int,
+                       extra_usage: bool) -> None:
+    """SSE: one ``text_completion`` chunk per engine text event
+    (post-processed as the config says), the finish chunk with usage,
+    then ``data: [DONE]``."""
+    opts.request_id = uuid.uuid4().hex
+    q = backend.stream_queue(opts)
+    first: Optional[StreamEvent] = None
+    try:
+        first = q.get_nowait()
+    except queue.Empty:
+        pass
+    if first is not None and first.done and first.finish_reason in (
+            "shed", "deadline_exceeded"):
+        _raise_if_refused(final_reply(first))
+
+    def chunk(text: str, finish: Optional[str] = None,
+              usage: Optional[dict] = None) -> bytes:
+        payload: dict[str, Any] = {
+            "id": cid, "object": "text_completion", "created": created,
+            "model": cfg.name,
+            "choices": [{"index": 0, "text": text, "finish_reason": finish}],
+        }
+        if usage is not None:
+            payload["usage"] = usage
+        return f"data: {json.dumps(payload)}\n\n".encode()
+
+    ft_kw = _finetune_kw(cfg, opts.prompt)
+    ft = FinetuneStream(**ft_kw) if ft_kw else None
+    h.send_response(200)
+    h.send_header("Content-Type", "text/event-stream")
+    h.send_header("Cache-Control", "no-cache")
+    h.send_header("Connection", "close")
+    h.end_headers()
+    try:
+        ev = first if first is not None else q.get()
+        while not ev.done:
+            if ev.text:
+                text = ft.feed(ev.text) if ft is not None else ev.text
+                if text:
+                    h.wfile.write(chunk(text))
+                    h.wfile.flush()
+            ev = q.get()
+        if ft is not None:
+            tail = ft.finish()
+            if tail:
+                h.wfile.write(chunk(tail))
+        final = final_reply(ev)
+        h.wfile.write(chunk("", finish=final.finish_reason or "stop",
+                            usage=_usage(final, extra_usage)))
+        h.wfile.write(b"data: [DONE]\n\n")
+        h.wfile.flush()
+    except (BrokenPipeError, ConnectionResetError):
+        backend.cancel(opts.request_id)
+        raise
+
+
+# ------------------------------------------------------------------- edit
+
+
+def edits(h: Handler, app: Application) -> None:
+    """``/v1/edits``: each input with the instruction through
+    ``template.edit``, one after another."""
+    body = h.read_body()
+    for key in ("instruction", "input"):
+        if body.get(key) is not None and not isinstance(body[key], str):
+            raise HTTPError(400, f"field '{key}' must be a string")
+    _timeout(h, body)
+    cfg = app.resolve_config(_model_name(h, body))
+    backend = app.backend(cfg)
+    instruction = body.get("instruction", "")
+    inputs = body.get("input", "")
+    if isinstance(inputs, str):
+        inputs = [inputs]
+    corr = h.headers.get("X-Correlation-ID", "")
+    choices = []
+    total = Reply()
+    for i, inp in enumerate(inputs):
+        opts = _options(cfg, body, app.evaluator.evaluate_edit(
+            cfg, inp, instruction), corr)
+        reply = backend.predict(opts)
+        _raise_if_refused(reply)
+        if reply.error:
+            raise HTTPError(500, reply.error)
+        text = reply.message
+        ft_kw = _finetune_kw(cfg, opts.prompt)
+        if ft_kw is not None:
+            text = apply_finetune(text, **ft_kw)
+        choices.append({"index": i, "text": text})
+        total.prompt_tokens += reply.prompt_tokens
+        total.tokens += reply.tokens
+    h.send_json(200, {"object": "edit", "created": int(time.time()),
+                      "choices": choices,
+                      "usage": _usage(total, "Extra-Usage" in h.headers)})
+
+
+# ------------------------------------------------------------------- misc
+
+
+def tokenize(h: Handler, app: Application) -> None:
+    """``/v1/tokenize``: the ids of ``content`` (or ``prompt``), no
+    BOS."""
+    body = h.read_body()
+    cfg = app.resolve_config(_model_name(h, body))
+    backend = app.backend(cfg)
+    res = backend.tokenize_string(PredictOptions(
+        prompt=body.get("content", body.get("prompt", ""))))
+    h.send_json(200, {"tokens": res.tokens})

@@ -76,6 +76,14 @@ class Reply:
 
 
 @dataclass
+class TokenizationResponse:
+    """ref: backend.proto TokenizationResponse."""
+
+    length: int = 0
+    tokens: list[int] = field(default_factory=list)
+
+
+@dataclass
 class ModelLoadOptions:
     """ref: backend.proto ModelOptions (the subset the LLM worker reads)."""
 
@@ -114,6 +122,9 @@ class Backend(abc.ABC):
 
     @abc.abstractmethod
     def predict_stream(self, opts: PredictOptions) -> Iterator[Reply]: ...
+
+    def tokenize_string(self, opts: PredictOptions) -> TokenizationResponse:
+        raise NotImplementedError
 
     def shutdown(self) -> None:
         """Release the model and its device memory."""

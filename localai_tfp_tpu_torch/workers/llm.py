@@ -15,12 +15,14 @@ import torch
 from ..config import knobs
 from ..device import resolve
 from ..engine.engine import GenRequest, LLMEngine, StreamEvent
+from ..engine.jinja_lite import TemplateError
 from ..engine.tokenizer import Tokenizer, load_tokenizer
 from ..grammars.native import make_constraint
 from ..models import artifact_cache
 from ..models.hf_loader import load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
-from .base import Backend, ModelLoadOptions, PredictOptions, Reply, Result
+from .base import (Backend, ModelLoadOptions, PredictOptions, Reply, Result,
+                   TokenizationResponse)
 
 _DTYPES = {
     "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -85,10 +87,12 @@ class TorchLLMBackend(Backend):
                     self.engine.close()
                     self.engine = None
                 t0 = time.perf_counter()
+                # the tokenizer first: a file it cannot read fails the
+                # load before any weight is read
+                self.tokenizer = load_tokenizer(model_dir)
                 self.spec, params = self._load_weights(
                     model_dir, _DTYPES[name],
                     quant if quant in _INT8 else "")
-                self.tokenizer = load_tokenizer(model_dir)
                 self._grammar_cache = {}
                 draft = (self._load_draft(opts, _DTYPES[name])
                          if opts.draft_model else None)
@@ -106,7 +110,7 @@ class TorchLLMBackend(Backend):
                     self.engine.warmup()
                     self.warmup_s = self.engine.metrics.warmup_s
             except (OSError, ValueError, NotImplementedError, KeyError,
-                    RuntimeError) as e:
+                    RuntimeError, TemplateError) as e:
                 self._state = "ERROR"
                 return Result(False, f"load failed: {e}")
             self.load_s = time.perf_counter() - t0
@@ -207,6 +211,13 @@ class TorchLLMBackend(Backend):
     def cancel(self, request_id: str) -> None:
         if self.engine is not None:
             self.engine.cancel(request_id)
+
+    def tokenize_string(self, opts: PredictOptions) -> TokenizationResponse:
+        """The prompt's ids, no BOS (``/v1/tokenize``)."""
+        if self.tokenizer is None:
+            return TokenizationResponse()
+        ids = self.tokenizer.encode(opts.prompt)
+        return TokenizationResponse(length=len(ids), tokens=ids)
 
     def engine_stats(self) -> Optional[dict]:
         """The engine's counters, the compiled decode's, the cost

@@ -1039,3 +1039,67 @@ def test_capture_failure_raises_and_fails_the_requests(cuda_device):
         assert not eng._variants
     finally:
         eng.close()
+
+
+# ------------------------------------------------------------- text routes
+
+
+@pytest.mark.cuda
+def test_text_routes_on_card_match_cpu(cuda_device, tmp_path):
+    """A chat through the tokenizer's chat template and a completion on a
+    tiny Llama whose tokenizer.json is chip_smoke.py's Llama-3-layout BPE
+    at 1024 ids: the port's server on the card hands the engine the same
+    prompt ids as on the CPU and streams the same greedy text."""
+    import json
+    import threading
+    import urllib.request
+
+    import chip_smoke
+    from localai_tfp_tpu_torch.server.app import build_server
+
+    models = tmp_path / "models"
+    ckpt = models / "tiny"
+    chip_smoke.write_text_tokenizer(ckpt, vocab_size=1024)
+    chip_smoke.write_checkpoint(ckpt, 2, 0, {
+        "hidden_size": 128, "intermediate_size": 256,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 64,
+        "num_hidden_layers": 2, "vocab_size": 1024, "rope_theta": 10000.0,
+        "max_position_embeddings": 512, "rms_norm_eps": 1e-5,
+        "rope_scaling": None, "tie_word_embeddings": False})
+    (models / "tiny.yaml").write_text(
+        "name: tiny\nbackend: torch-llm\nparameters:\n  model: tiny\n"
+        "  temperature: 0.0\n  max_tokens: 12\ncontext_size: 256\n"
+        "max_batch_slots: 2\ndtype: float32\ntrimsuffix: [\"<|eot_id|>\"]\n"
+        "template:\n  use_tokenizer_template: yes\n")
+    bodies = [("/v1/chat/completions", {"model": "tiny", "ignore_eos": True,
+                                        "messages": [{"role": "user",
+                                                      "content": "Hello!"}]}),
+              ("/v1/completions", {"model": "tiny", "ignore_eos": True,
+                                   "prompt": "The paged arena"})]
+    got = {}
+    for dev in ("cpu", "cuda"):
+        srv = build_server(str(models), port=0, device=dev)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            backend = srv.app.backend(srv.app.configs["tiny"])
+            seen = []
+            orig = backend._to_request
+            backend._to_request = lambda o: (
+                lambda r: (seen.append(list(r.prompt_ids)), r)[1])(orig(o))
+            texts = []
+            for path, body in bodies:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{srv.server_address[1]}{path}",
+                    data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    c = json.loads(r.read().decode())["choices"][0]
+                texts.append(c.get("text", (c.get("message") or {}).get(
+                    "content")))
+            got[dev] = (seen, texts)
+        finally:
+            srv.close()
+            th.join(timeout=30)
+    assert got["cuda"] == got["cpu"]
+    assert got["cpu"][0][0][:2] == [768, 768]  # BOS, then the template's

@@ -6,7 +6,8 @@
   lacks (aiohttp, yaml, jinja2, tokenizers, safetensors, transformers).
 - An AST scan of the port and ``chip_smoke.py`` finds no import of
   ``jax`` or of ``localai_tfp_tpu`` (other than ``localai_tfp_tpu_torch``),
-  at module level or inside a function.
+  at module level or inside a function, nor of ``yaml``, ``jinja2``,
+  ``tokenizers``, ``transformers`` or ``regex``.
 - Every entry point defaults to the card and raises without one unless it
   is given ``device="cpu"``; ``chip_smoke.py`` exits non-zero and prints
   no result without a card, and alone in a directory.
@@ -26,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "localai_tfp_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "localai_tfp_tpu")
 ABSENT_ON_CARD = ("aiohttp", "yaml", "jinja2", "tokenizers", "safetensors",
-                  "transformers")
+                  "transformers", "regex")
 
 
 def _sources() -> list[Path]:
@@ -47,6 +48,17 @@ def _imported(path: Path) -> list[str]:
 def test_ast_scan_finds_no_jax_or_jax_package_import():
     bad = [(str(p.relative_to(ROOT)), n) for p in _sources()
            for n in _imported(p) if n.split(".")[0] in FORBIDDEN_ROOTS]
+    assert bad == []
+
+
+def test_ast_scan_finds_no_text_library_import():
+    """The port reads YAML, tokenizer.json and Jinja templates itself:
+    no module of it, at module level or in a function, imports yaml,
+    jinja2, tokenizers, transformers or regex (none is on the card
+    machine)."""
+    text_libs = ("yaml", "jinja2", "tokenizers", "transformers", "regex")
+    bad = [(str(p.relative_to(ROOT)), n) for p in _sources()
+           for n in _imported(p) if n.split(".")[0] in text_libs]
     assert bad == []
 
 
@@ -71,7 +83,9 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
               "ops.ragged_paged_attention", "server.app", "workers.llm",
               "models.quant", "models.artifact_cache", "ops.int8_matmul",
               "engine.prefix_index", "grammars.gbnf", "grammars.constrain",
-              "grammars.json_schema", "grammars.parse", "grammars.native"):
+              "grammars.json_schema", "grammars.parse", "grammars.native",
+              "config.yaml_lite", "config.loader", "engine.bpe",
+              "engine.jinja_lite", "engine.templating"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)

@@ -20,7 +20,7 @@ from aiohttp.test_utils import TestClient, TestServer
 from localai_tfp_tpu.config.app_config import ApplicationConfig
 from localai_tfp_tpu.server.app import build_app
 from localai_tfp_tpu.server.state import Application
-from localai_tfp_tpu_torch.config.model_config import read_config_file
+from localai_tfp_tpu_torch.config.loader import load_config_file
 from localai_tfp_tpu_torch.server.app import build_server
 
 # max_batch_slots covers every request of the module, so each lands on a
@@ -179,7 +179,13 @@ def test_errors(torch_client):
 
 
 def test_non_json_config_is_a_clear_error(tmp_path):
+    """A config in real YAML reads (the port has its own YAML reader); a
+    construct the reader does not read is an error naming the file and
+    the line."""
     p = tmp_path / "yamlish.yaml"
     p.write_text("name: tiny\nbackend: jax-llm\n")
-    with pytest.raises(ValueError, match="JSON-syntax"):
-        read_config_file(str(p))
+    (cfg,) = load_config_file(str(p))
+    assert cfg.backend == "jax-llm"
+    p.write_text("name: tiny\nbackend: !!str jax-llm\n")
+    with pytest.raises(ValueError, match=r"yamlish\.yaml:2: tags"):
+        load_config_file(str(p))
