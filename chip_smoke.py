@@ -150,6 +150,28 @@ Phases, one result line each; any failure raises and exits non-zero:
    vocabulary table, stream decode per token) and the TTFT of the same
    chat request here and on the byte tokenizer. Prefix sharing is off
    for the phase, so a request served alone runs the same shapes twice.
+11. lifecycle — after phase 10 (phase 5's checkpoint and int8 artifact;
+   alone, ``--phases device,lifecycle`` writes the checkpoint and
+   quantizes cold): one server built from an ``ApplicationConfig`` with
+   an API key, single-active backend, a Machine-Tag and both watchdogs
+   (0.5 s ticks) over three configs on the checkpoint at 2 slots:
+   lc-bf16 (``embeddings: true``), lc-int8 and lc-bare (a directory with
+   no YAML). (a) a chat without the key is 401, /healthz, /readyz,
+   /metrics and /version answer without it, Machine-Tag and a sent
+   X-Correlation-ID come back; (b) two concurrent first chats to lc-bf16
+   load it once and agree; (c) /v1/embeddings with three inputs (the
+   first repeated): 4096 finite floats each, the repeat bitwise, B1 32
+   launches per forward, the first vector within 2e-2 x max|plain| of
+   the same forward through the plain attention on the card; (d) a chat
+   to lc-int8 evicts lc-bf16 (one single_active eviction), /system lists
+   only lc-int8 with mem_get_info's device memory; (e) /backend/monitor
+   200 (404 for an unknown model), /backend/shutdown; (f) the busy
+   watchdog at 3 s kills a 2048-token stream (it ends with finish_reason
+   "error"), no CUDA error follows, the next chat reloads, and the idle
+   watchdog at 2 s unloads it; (g) a chat to lc-bare answers. After every
+   unload allocated memory must be within 256 MiB of the pre-load
+   baseline; the phase prints the residue and, at its end, what the
+   process still holds (B1's shared merge counters, cuBLAS workspaces).
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -1602,7 +1624,7 @@ def srv_prompt(app, body: dict) -> str:
     """The chat-templated prompt the server builds for ``body``."""
     tools = [t["function"] for t in body.get("tools") or []]
     return app.evaluator.template_messages(
-        app.configs[body["model"]], body["messages"],
+        app.config_loader.get(body["model"]), body["messages"],
         functions=tools or None, use_function_template=bool(tools))
 
 
@@ -2697,8 +2719,8 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
         del eng  # later phases swap engines in: hold none of them here
         reload = None
         if quantized:  # the second load reads the on-disk int8 tree
-            res = backend.load_model(srv.app.load_options(
-                srv.app.configs[model]))
+            res = backend.load_model(srv.app.model_loader.load_options(
+                srv.app.config_loader.get(model)))
             if not res.success or backend.load_mode != "artifact":
                 raise AssertionError(f"{model}: reload {res.message!r} in "
                                      f"mode {backend.load_mode}")
@@ -3820,7 +3842,7 @@ def phase_text(ckpt_name: str, byte_ttft: dict, smi: str) -> dict:
             "messages": [{"role": "user", "content": "warm up"}]})
         load_s = time.perf_counter() - t0
         backend = srv.app.loaded()[TEXT_MODEL]
-        cfg = srv.app.configs[TEXT_MODEL]
+        cfg = srv.app.config_loader.get(TEXT_MODEL)
         tk = backend.tokenizer
         if type(tk).__name__ != "HFTokenizer" or tk.vocab_size != 128256:
             raise AssertionError(f"text model tokenizer {type(tk).__name__}"
@@ -3961,11 +3983,406 @@ def phase_text(ckpt_name: str, byte_ttft: dict, smi: str) -> dict:
         _shut(srv, th)
 
 
+# ------------------------------------------------------------ phase 11
+
+LC_KEY = "lc-key"  # the phase server's API key
+LC_TAG = "chip-smoke-lifecycle"  # its Machine-Tag
+LC_SLACK = 256 << 20  # allocated bytes an unload may leave above baseline
+# an embedding through B1 against the same forward through the plain
+# attention on the card: bf16 activations over 32 layers, held as the
+# JAX harness holds a bf16 kernel (localai_tfp_tpu/ops/kernel_check.py)
+EMB_TOL = JAX_TOL["bf16"]
+LC_CHAT = {"max_tokens": 8, "messages": [
+    {"role": "user", "content": "Name three colours."}]}
+LC_TEXTS = ["The paged arena holds every slot's keys.",
+            "An embedding is the mean of the final hidden states."]
+
+
+def _req(port: int, method: str, path: str, body=None,
+         headers: dict | None = None, timeout: float = 600.0):
+    """(status, headers, body bytes) of one request, errors included."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request(method, path,
+                  body=None if body is None else json.dumps(body).encode(),
+                  headers={"Content-Type": "application/json",
+                           **(headers or {})})
+        r = c.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        c.close()
+
+
+def _mem() -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "device_used": total - free}
+
+
+def _count(family, **labels) -> float:
+    return family.labels(**labels).snapshot()["value"]
+
+
+def _unloaded(backend, limit: float = 60.0) -> dict:
+    """Wait for ``backend``'s shutdown (a watchdog's or the loader's, on
+    another thread) to finish; its unload_stats."""
+    t0 = time.perf_counter()
+    while backend.unload_stats is None:
+        if time.perf_counter() - t0 > limit:
+            raise AssertionError("the backend was not unloaded in "
+                                 f"{limit} s")
+        time.sleep(0.05)
+    return backend.unload_stats
+
+
+def _back(what: str, allocated: int, base: dict) -> int:
+    """Allocated bytes above the baseline after an unload; raises past
+    LC_SLACK."""
+    residue = allocated - base["allocated"]
+    if residue > LC_SLACK:
+        raise AssertionError(f"{what}: {residue} allocated bytes above the "
+                             f"pre-load baseline (limit {LC_SLACK})")
+    return residue
+
+
+def killed_stream(port: int, body: dict, headers: dict) -> dict:
+    """A streamed chat read until the server ends it: its frames, the
+    last finish_reason, whether [DONE] came, and the seconds taken."""
+    import http.client
+
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    frames, finish, done, closed = 0, None, False, False
+    try:
+        c.request("POST", "/v1/chat/completions",
+                  body=json.dumps(body).encode(),
+                  headers={"Content-Type": "application/json", **headers})
+        r = c.getresponse()
+        if r.status != 200:
+            raise AssertionError(f"busy stream: HTTP {r.status}")
+        while True:
+            try:
+                line = r.readline()
+            except (ConnectionError, http.client.IncompleteRead):
+                closed = True
+                break
+            if not line:
+                closed = True
+                break
+            line = line.strip()
+            if line == b"data: [DONE]":
+                done = True
+            elif line.startswith(b"data: "):
+                frames += 1
+                obj = json.loads(line[6:])
+                finish = obj["choices"][0].get("finish_reason") or finish
+    finally:
+        c.close()
+    return {"frames": frames, "finish_reason": finish, "done": done,
+            "closed": closed, "s": round(time.perf_counter() - t0, 3)}
+
+
+def phase_lifecycle(ckpt_name: str, layers: int, smi: str) -> dict:
+    """The server shell on the card: one server built from an
+    ApplicationConfig (an API key, single-active backend, a Machine-Tag,
+    both watchdogs on at 0.5 s ticks) over three configs on phase 5's
+    checkpoint — lc-bf16 (embeddings on), lc-int8 (int8 weights from the
+    artifact phase 5 wrote) and lc-bare (a directory with no YAML)."""
+    import gc
+    import shutil
+    import threading
+
+    import torch
+
+    from localai_tfp_tpu_torch.config.app_config import ApplicationConfig
+    from localai_tfp_tpu_torch.models import transformer as tt
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_attention_plain, ragged_paged_attention,
+    )
+    from localai_tfp_tpu_torch.server.app import Server
+    from localai_tfp_tpu_torch.server.state import Application
+    from localai_tfp_tpu_torch.telemetry import metrics as tm
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke"
+    models = root / "lifecycle"
+    shutil.rmtree(models, ignore_errors=True)
+    models.mkdir(parents=True)
+    for name in ("lc-ckpt", "lc-bare"):
+        (models / name).symlink_to(root / "models" / ckpt_name,
+                                   target_is_directory=True)
+    # two slots: the phase is about the lifecycle, so each load captures
+    # few graph variants
+    base_cfg = {"backend": "torch-llm", "context_size": CONTEXT,
+                "max_batch_slots": 2, "dtype": "bfloat16",
+                "parameters": {"model": "lc-ckpt", "temperature": 0.0},
+                "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
+                             "chat": "{{.Input}}\nassistant:"}}
+    for name, extra in (("lc-bf16", {"embeddings": True}),
+                        ("lc-int8", {"quantization": "int8"})):
+        (models / f"{name}.yaml").write_text(json.dumps(
+            {**base_cfg, "name": name, **extra}, indent=1))
+    os.environ.setdefault("LOCALAI_QUANT_CACHE_DIR", str(root / "quant"))
+    os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
+    app = Application(ApplicationConfig(
+        models_path=str(models), config_dir=str(models / "configuration"),
+        state_dir=str(models / "run"), address="127.0.0.1", port=0,
+        api_keys=[LC_KEY], single_active_backend=True, machine_tag=LC_TAG,
+        enable_watchdog_busy=True, enable_watchdog_idle=True,
+        watchdog_busy_timeout=3600.0, watchdog_idle_timeout=3600.0),
+        device="cuda")
+    app.watchdog.interval = 0.5
+    wd = app.watchdog
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _mem()
+    srv = Server(app)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    auth = {"Authorization": f"Bearer {LC_KEY}"}
+    out: dict = {"baseline": base}
+
+    def chat(model: str, **kw):
+        st, hd, raw = _req(port, "POST", "/v1/chat/completions",
+                           {**LC_CHAT, "model": model, **kw}, auth)
+        if st != 200:
+            raise AssertionError(f"chat to {model}: HTTP {st} {raw[:200]!r}")
+        return json.loads(raw)
+
+    try:
+        # (a) auth and the response headers
+        st, _, _ = _req(port, "POST", "/v1/chat/completions",
+                        {**LC_CHAT, "model": "lc-bf16"})
+        open_ = {p: _req(port, "GET", p)[0]
+                 for p in ("/healthz", "/readyz", "/metrics", "/version")}
+        st_k, hd, _ = _req(port, "GET", "/v1/models", headers={
+            **auth, "X-Correlation-ID": "lc-corr-1"})
+        if st != 401 or set(open_.values()) != {200} or st_k != 200:
+            raise AssertionError(f"auth: chat without a key {st}, "
+                                 f"exempt {open_}, keyed {st_k}")
+        if (hd.get("Machine-Tag"), hd.get("X-Correlation-ID")) != (
+                LC_TAG, "lc-corr-1"):
+            raise AssertionError(f"response headers {hd}")
+        out["auth"] = {"unkeyed_chat": st, "exempt": open_}
+        log("lifecycle_auth", **out["auth"], card=smi)
+
+        # (b) two concurrent first requests: one load
+        loads0 = _count(tm.MODEL_LOADS, model="lc-bf16", result="success")
+        replies: list = [None, None]
+
+        def first(i):
+            replies[i] = chat("lc-bf16")
+
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=first, args=(i,)) for i in (0, 1)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        loads = _count(tm.MODEL_LOADS, model="lc-bf16",
+                       result="success") - loads0
+        texts = [r["choices"][0]["message"]["content"] for r in replies]
+        if loads != 1 or texts[0] != texts[1]:
+            raise AssertionError(f"coalescing: {loads} loads, texts {texts}")
+        bf16 = app.loaded()["lc-bf16"]
+        loaded_bf16 = _mem()
+        out["coalesce"] = {"loads": loads, "wall_s": round(wall, 3),
+                           "load_s": round(bf16.load_s, 3),
+                           "load_mode": bf16.load_mode,
+                           "warmup_s": round(bf16.warmup_s, 3),
+                           "memory": loaded_bf16}
+        log("lifecycle_coalesce", **out["coalesce"], card=smi)
+
+        # (c) embeddings through B1, against the plain attention
+        n0 = ragged_paged_attention.launches
+        inputs = [LC_TEXTS[0], LC_TEXTS[1], LC_TEXTS[0]]
+        t0 = time.perf_counter()
+        st, _, raw = _req(port, "POST", "/v1/embeddings",
+                          {"model": "lc-bf16", "input": inputs}, auth)
+        emb_s = time.perf_counter() - t0
+        launched = ragged_paged_attention.launches - n0
+        if st != 200:
+            raise AssertionError(f"embeddings: HTTP {st} {raw[:200]!r}")
+        body = json.loads(raw)
+        vecs = [torch.tensor(d["embedding"]) for d in body["data"]]
+        if [v.shape for v in vecs] != [(GEOMETRY["hidden_size"],)] * 3 or \
+                not all(bool(torch.isfinite(v).all()) for v in vecs):
+            raise AssertionError("embeddings: shape or non-finite values")
+        if not torch.equal(vecs[0], vecs[2]):
+            raise AssertionError("embeddings: one input, two vectors")
+        if launched != layers * len(inputs):
+            raise AssertionError(f"embeddings: B1 launched {launched} times "
+                                 f"for {len(inputs)} forwards of {layers} "
+                                 "layers")
+        eng = bf16.engine
+        tt.ragged_paged_attention = ragged_attention_plain
+        try:
+            want = eng.embed(LC_TEXTS[0])
+        finally:
+            tt.ragged_paged_attention = ragged_paged_attention
+        del eng
+        err = float((vecs[0] - want).abs().max())
+        bound = EMB_TOL * max(1.0, float(want.abs().max()))
+        if err > bound:
+            raise AssertionError(f"embedding through B1 is {err} from the "
+                                 f"plain attention's (bound {bound})")
+        out["embeddings"] = {"b1_launches": launched,
+                             "per_forward": launched // len(inputs),
+                             "max_abs_err": err, "tol": bound,
+                             "tol_rule": f"{EMB_TOL} x max(1, max|plain|)",
+                             "request_s": round(emb_s, 3)}
+        log("lifecycle_embeddings", **out["embeddings"], card=smi)
+
+        # (d) the single-active swap to the int8 model
+        ev0 = _count(tm.MODEL_EVICTIONS, reason="single_active")
+        b2_0 = int8_matmul.launches
+        chat("lc-int8")
+        evicted = _count(tm.MODEL_EVICTIONS, reason="single_active") - ev0
+        stats = bf16.unload_stats
+        del bf16
+        int8 = app.loaded()["lc-int8"]
+        loaded_int8 = _mem()
+        st, _, raw = _req(port, "GET", "/system", headers=auth)
+        system = json.loads(raw)
+        smi_used = torch.cuda.mem_get_info()
+        row = system["device_memory"][0]
+        if evicted != 1 or system["loaded_models"] != ["lc-int8"]:
+            raise AssertionError(f"swap: {evicted} evictions, loaded "
+                                 f"{system['loaded_models']}")
+        drift = abs(row["bytes_in_use"] - (smi_used[1] - smi_used[0]))
+        if row["bytes_limit"] != smi_used[1] or drift > 64 << 20:
+            raise AssertionError(f"/system device_memory {row} against "
+                                 f"mem_get_info {smi_used}")
+        out["swap"] = {
+            "evictions": evicted, "unload": stats,
+            "residue_before_int8_load": _back(
+                "single-active eviction", stats["allocated_after_gc"], base),
+            "int8_load_mode": int8.load_mode,
+            "int8_load_s": round(int8.load_s, 3),
+            "b2_launches": int8_matmul.launches - b2_0,
+            "memory_int8": loaded_int8,
+            "system_device_memory": row, "system_drift_bytes": drift}
+        log("lifecycle_swap", **out["swap"], card=smi)
+
+        # (e) monitor and shutdown
+        st, _, raw = _req(port, "GET", "/backend/monitor?model=lc-int8",
+                          headers=auth)
+        st404, _, _ = _req(port, "GET", "/backend/monitor?model=nowhere",
+                           headers=auth)
+        mon = json.loads(raw)
+        if st != 200 or mon["status"] != "READY" or st404 != 404:
+            raise AssertionError(f"monitor: {st} {mon.get('status')}, "
+                                 f"unknown {st404}")
+        t0 = time.perf_counter()
+        st, _, _ = _req(port, "POST", "/backend/shutdown",
+                        {"model": "lc-int8"}, auth)
+        shut_s = time.perf_counter() - t0
+        if st != 200:
+            raise AssertionError(f"/backend/shutdown: HTTP {st}")
+        del int8
+        after = _mem()
+        out["shutdown"] = {"monitor_state": mon["status"],
+                           "monitor_memory": mon["memory_info"],
+                           "shutdown_s": round(shut_s, 3), "memory": after,
+                           "residue": _back("/backend/shutdown",
+                                            after["allocated"], base)}
+        log("lifecycle_shutdown", **out["shutdown"], card=smi)
+
+        # (f) the busy watchdog kills a long stream; the next request
+        # reloads; then the idle watchdog unloads
+        chat("lc-bf16")
+        victim = app.loaded()["lc-bf16"]
+        kills0 = _count(tm.WATCHDOG_KILLS, kind="busy")
+        wd.busy_timeout = 3.0
+        try:
+            stream = killed_stream(port, {
+                "model": "lc-bf16", "stream": True, "max_tokens": 2048,
+                "ignore_eos": True,
+                "messages": [{"role": "user", "content": "Count on."}]},
+                auth)
+            stats = _unloaded(victim)
+        finally:
+            wd.busy_timeout = 3600.0
+        del victim
+        kills = _count(tm.WATCHDOG_KILLS, kind="busy") - kills0
+        if kills != 1 or not (stream["finish_reason"] == "error"
+                              or stream["closed"]):
+            raise AssertionError(f"busy kill: {kills} kills, stream {stream}")
+        torch.cuda.synchronize()  # a CUDA error from the kill raises here
+        loads0 = _count(tm.MODEL_LOADS, model="lc-bf16", result="success")
+        reply = chat("lc-bf16")
+        reloads = _count(tm.MODEL_LOADS, model="lc-bf16",
+                         result="success") - loads0
+        out["busy"] = {"stream": stream, "kills": kills, "unload": stats,
+                       "residue": _back("busy kill",
+                                        stats["allocated_after_gc"], base),
+                       "reloads": reloads, "next_finish": reply["choices"][0][
+                           "finish_reason"]}
+        log("lifecycle_busy", **out["busy"], card=smi)
+        idle_victim = app.loaded()["lc-bf16"]
+        kills0 = _count(tm.WATCHDOG_KILLS, kind="idle")
+        t0 = time.perf_counter()
+        wd.idle_timeout = 2.0
+        try:
+            stats = _unloaded(idle_victim)
+        finally:
+            wd.idle_timeout = 3600.0
+        del idle_victim
+        kills = _count(tm.WATCHDOG_KILLS, kind="idle") - kills0
+        if kills != 1 or app.model_loader.loaded_names():
+            raise AssertionError(f"idle kill: {kills} kills, loaded "
+                                 f"{app.model_loader.loaded_names()}")
+        out["idle"] = {"kills": kills, "unload": stats,
+                       "after_s": round(time.perf_counter() - t0, 3),
+                       "residue": _back("idle kill",
+                                        stats["allocated_after_gc"], base)}
+        log("lifecycle_idle", **out["idle"], card=smi)
+
+        # (g) a bare model directory with no YAML
+        bare = chat("lc-bare")
+        out["bare"] = {"finish_reason": bare["choices"][0]["finish_reason"],
+                       "completion_tokens": bare["usage"][
+                           "completion_tokens"]}
+        log("lifecycle_bare", **out["bare"], card=smi)
+    finally:
+        srv.close()
+        th.join(timeout=30)
+    # what the process still holds once every model is gone: B1's merge
+    # counters and cuBLAS's workspaces (one per handle and stream), the
+    # latter measured by clearing them
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import _counters
+
+    held = _mem()
+    counters = sum(t.numel() * t.element_size() for t in _counters.values())
+    cleared = None
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+        cleared = held["allocated"] - _mem()["allocated"]
+    out["held_after_all_unloads"] = {
+        "allocated": held["allocated"], "above_baseline": _back(
+            "server close", held["allocated"], base),
+        "b1_merge_counters": counters, "cublas_workspaces": cleared,
+        "other": held["allocated"] - counters - (cleared or 0)}
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("lifecycle_held", **out["held_after_all_unloads"],
+        phase_s=out["phase_s"], card=smi)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,main,graphs,engine,"
-                            "dispatch,spec,text")
+                            "dispatch,spec,text,lifecycle")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -4111,6 +4528,29 @@ def main() -> int:
             e["launches_text"] = (tx["ragged_paged_attention_launches"]
                                   if e["name"] == "ragged_paged_attention"
                                   else int8_matmul.launches)
+    if "lifecycle" in phases:
+        from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+        from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+            ragged_paged_attention,
+        )
+
+        if "main" in phases:
+            ckpt, layers = res["checkpoint"], res["layers"]
+        else:  # phase main's checkpoint, written here when it is missing
+            models = ROOT / "build" / "chip_smoke" / "models"
+            layers = choose_depth(args.layers, models)
+            ckpt = f"llama31-8b-geometry-L{layers}-s{args.seed}"
+            write_checkpoint(models / ckpt, layers, args.seed)
+        for f in (ragged_paged_attention, int8_matmul):
+            f.launches = 0
+        lc = phase_lifecycle(ckpt, layers, smi)
+        launched = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+        log("lifecycle", launches=launched, phase_s=lc["phase_s"], card=smi)
+        for e in entries:
+            # the whole phase (a load's warmup restores the counts, so
+            # these are the requests' launches, the embeddings' included)
+            e["launches_lifecycle"] = launched[e["name"]]
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

@@ -1,5 +1,5 @@
-"""Model-config discovery and loading (the loading half of
-localai_tfp_tpu/config/loader.py::ConfigLoader).
+"""Model-config discovery, loading and the config registry
+(counterpart of localai_tfp_tpu/config/loader.py::ConfigLoader).
 
 A file may hold several YAML documents, and a document may be a list of
 configs (ref: backend_config_loader.go
@@ -10,14 +10,22 @@ models directory for ``*.yaml``/``*.yml``, skipping dotfiles, as the JAX
 loader does; where the JAX loader logs and skips a file it cannot read,
 this one raises with the file and the reason, so a broken config is never
 served as if it were absent.
+
+``ConfigLoader`` is the registry the server resolves a request's model
+name through, under one lock: a config by name whatever its usecase,
+else a bare ``models_path/<name>`` entry registered as
+``{"name": name, "model": name}``, else (no name) the first config
+serving the usecase.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from typing import Optional
 
 from . import yaml_lite
-from .model_config import ModelConfig
+from .model_config import ModelConfig, Usecase
 
 
 def validated(data) -> ModelConfig:
@@ -58,3 +66,67 @@ def load_configs_from_path(models_path: str) -> dict[str, ModelConfig]:
         for cfg in load_config_file(os.path.join(models_path, fname)):
             out[cfg.name] = cfg
     return out
+
+
+class ConfigLoader:
+    """The model configs the server knows, by name."""
+
+    def __init__(self, models_path: str = "models") -> None:
+        self.models_path = str(models_path)
+        self._configs: dict[str, ModelConfig] = {}
+        self._lock = threading.RLock()
+
+    def load_configs_from_path(self, path: Optional[str] = None) -> int:
+        """Register the models directory's configs; their count."""
+        found = load_configs_from_path(path or self.models_path)
+        for cfg in found.values():
+            self.register(cfg)
+        return len(found)
+
+    def register(self, cfg: ModelConfig) -> None:
+        with self._lock:
+            self._configs[cfg.name] = cfg
+
+    def remove(self, name: str) -> None:
+        with self._lock:
+            self._configs.pop(name, None)
+
+    def get(self, name: str) -> Optional[ModelConfig]:
+        with self._lock:
+            return self._configs.get(name)
+
+    def names(self) -> list[str]:
+        with self._lock:
+            return sorted(self._configs)
+
+    def all(self) -> list[ModelConfig]:
+        with self._lock:
+            return [self._configs[k] for k in sorted(self._configs)]
+
+    def by_usecase(self, usecase: Usecase) -> list[ModelConfig]:
+        return [c for c in self.all() if c.has_usecase(usecase)]
+
+    def first_available(self, usecase: Usecase = Usecase.ANY
+                        ) -> Optional[ModelConfig]:
+        """Default-model selection (ref:
+        core/http/middleware/request.go:84-111)."""
+        matches = self.by_usecase(usecase)
+        return matches[0] if matches else None
+
+    def resolve(self, name: Optional[str], usecase: Usecase = Usecase.ANY
+                ) -> Optional[ModelConfig]:
+        """A request's model name to a config: by name, else a bare
+        on-disk model entry (registered), else — no name given — the
+        first config serving the usecase."""
+        if name:
+            with self._lock:
+                cfg = self._configs.get(name)
+                if cfg is not None:
+                    return cfg
+                cfg = ModelConfig.from_dict({"name": name, "model": name})
+                if cfg.validate() and os.path.exists(
+                        os.path.join(self.models_path, name)):
+                    self._configs[name] = cfg
+                    return cfg
+            return None
+        return self.first_available(usecase)

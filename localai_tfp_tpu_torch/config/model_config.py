@@ -1,5 +1,6 @@
 """Per-model configuration files (the subset of
-localai_tfp_tpu/config/model_config.py the text routes read).
+localai_tfp_tpu/config/model_config.py the text routes and the model
+lifecycle read).
 
 A model config is a document of a ``*.yaml`` file in the models
 directory, read by ``config/loader.py`` through the port's own YAML
@@ -9,13 +10,37 @@ package's (ref: core/config/backend_config.go SetDefaults).
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass, field, fields
 from typing import Any, Optional
 
-# backends whose configs this port serves with its LLM worker (the JAX
-# package's text-generation set, plus the port's own name)
+# backends that serve text-generation usecases by default (the JAX
+# package's set, plus the port's own name)
 LLM_BACKENDS = {"torch-llm", "jax-llm", "llama", "llama-cpp", "llama-grpc",
                 "vllm", "transformers", "exllama2", ""}
+
+
+class Usecase(enum.IntFlag):
+    """Usecase flags for default-model filtering (ref:
+    core/config/backend_config.go:430-580 BackendConfigUsecases)."""
+
+    ANY = 0
+    CHAT = 1 << 0
+    COMPLETION = 1 << 1
+    EDIT = 1 << 2
+    EMBEDDINGS = 1 << 3
+    RERANK = 1 << 4
+    IMAGE = 1 << 5
+    TRANSCRIPT = 1 << 6
+    TTS = 1 << 7
+    SOUND_GENERATION = 1 << 8
+    TOKENIZE = 1 << 9
+    VAD = 1 << 10
+    VIDEO = 1 << 11
+
+    @classmethod
+    def from_string(cls, s: str) -> "Usecase":
+        return cls[s.strip().upper().replace("-", "_")]
 
 
 def _filter(cls, data: Any, what: str) -> dict:
@@ -113,6 +138,10 @@ class ModelConfig:
     quantization: str = ""  # weight-only int8: "int8" / "int8_full"
     draft_model: str = ""  # speculative decoding: the draft checkpoint
     n_draft: int = 0  # draft tokens per round (0: the worker's 4)
+    embeddings: bool = False  # an LLM config that also serves embeddings
+    known_usecases: Optional[list[str]] = None  # overrides the guess
+    isolation: str = ""  # "subprocess": not served by this port yet
+    options: list[str] = field(default_factory=list)  # backend "k=v" pairs
 
     @classmethod
     def from_dict(cls, data: Any) -> "ModelConfig":
@@ -156,9 +185,46 @@ class ModelConfig:
         if not self.name and self.model:
             self.name = self.model
 
-    @property
-    def serves_chat(self) -> bool:
-        return (self.backend or "").lower() in LLM_BACKENDS
+    # -- usecase filtering (ref: backend_config.go:430-580) --
+
+    def usecases(self) -> Usecase:
+        if self.known_usecases is not None:
+            flags = Usecase.ANY
+            for s in self.known_usecases:
+                try:
+                    flags |= Usecase.from_string(s)
+                except KeyError:
+                    pass
+            return flags
+        return self._guess_usecases()
+
+    def _guess_usecases(self) -> Usecase:
+        flags = Usecase.ANY
+        b = (self.backend or "").lower()
+        if self.embeddings or b in ("sentencetransformers", "embeddings",
+                                    "huggingface-embeddings",
+                                    "jax-embeddings"):
+            flags |= Usecase.EMBEDDINGS
+        if b in ("rerankers", "rerank", "jax-rerank"):
+            flags |= Usecase.RERANK
+        if b in ("diffusers", "stablediffusion", "flux", "jax-diffusion"):
+            flags |= Usecase.IMAGE | Usecase.VIDEO
+        if b in ("whisper", "faster-whisper", "jax-whisper"):
+            flags |= Usecase.TRANSCRIPT
+        if b in ("tts", "piper", "bark", "bark-cpp", "coqui", "kokoro",
+                 "jax-tts"):
+            flags |= Usecase.TTS | Usecase.SOUND_GENERATION
+        if b in ("silero-vad", "vad", "jax-vad"):
+            flags |= Usecase.VAD
+        if b in LLM_BACKENDS:
+            flags |= (Usecase.CHAT | Usecase.COMPLETION | Usecase.EDIT
+                      | Usecase.TOKENIZE)
+        return flags
+
+    def has_usecase(self, u: Usecase) -> bool:
+        if u == Usecase.ANY:
+            return True
+        return bool(self.usecases() & u)
 
     def validate(self) -> bool:
         """Reject path traversal in the file-ish fields."""

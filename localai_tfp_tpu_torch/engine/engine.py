@@ -147,6 +147,7 @@ from ..models.quant import leaves
 from ..models.transformer import KVCache, Params, _lm_head, forward_hidden
 from ..ops import sampling as smp
 from ..ops.int8_matmul import int8_matmul
+from ..ops import ragged_paged_attention as rpa
 from ..ops.ragged_paged_attention import ragged_paged_attention
 from ..telemetry import costmodel, hbm_ledger
 from ..telemetry import metrics as tm
@@ -167,6 +168,22 @@ PREFIX_DEFER_MIN = 64
 # the kernel wrappers whose launch counts a graph replay adds to (the
 # launches each recorded at capture)
 COUNTED = (ragged_paged_attention, int8_matmul)
+
+# the stream every engine on a device captures its graphs on, one for the
+# process: cuBLAS keeps a workspace per (handle, stream) until the process
+# exits, so a stream per engine would leave one behind at each unload.
+# The lock keeps two engines' captures (and their warm-up runs) apart;
+# each engine's own B1 merge counters keep its capture-stream work apart
+# from another engine's replays on the current stream.
+_capture_streams: dict = {}
+_capture_lock = threading.Lock()
+
+
+def _capture_stream(device: torch.device) -> Any:
+    s = _capture_streams.get(device.index)
+    if s is None:
+        s = _capture_streams[device.index] = torch.cuda.Stream(device)
+    return s
 
 
 @dataclass
@@ -510,6 +527,7 @@ class LLMEngine:
         self._autostart = autostart
         buckets = tuple(b for b in sorted(prefill_buckets) if b <= max_seq) \
             or (max_seq,)
+        self.prefill_buckets = buckets
         # a mixed step's token buckets: the prefill buckets whose
         # full-width dispatch fits the per-dispatch token budget (the JAX
         # _mixed_buckets rule; the smallest when none does)
@@ -576,7 +594,9 @@ class LLMEngine:
         self.cost_buckets: dict[int, int] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         self._graph_pool_bytes = 0
-        self._capture_stream: Optional[torch.cuda.Stream] = None
+        # the B1 merge counters this engine's graphs bake in (on a card)
+        self._merge_counters = (rpa.new_merge_counters(self.device)
+                                if cuda else None)
         self._span = _Span(self.device)
         self.state_dir = hbm_ledger.default_state_dir()
         # per-dispatch FLOPs/bytes accounting, the MFU gauge and the
@@ -625,6 +645,9 @@ class LLMEngine:
         self.max_queue = max(0, knobs.int_("LOCALAI_MAX_QUEUE"))
         self.metrics = EngineMetrics()
         self._lock = threading.Condition()
+        # held by ``embed`` and ``release``: an embedding in flight keeps
+        # the weights until it ends, and none starts after a release
+        self._device_lock = threading.Lock()
         self._pending: list[tuple[GenRequest, queue.SimpleQueue]] = []
         # cancel ids not matched yet -> when cancel() was called
         self._cancelled: dict[str, float] = {}
@@ -664,6 +687,22 @@ class LLMEngine:
         if self._ledger is not None:
             self._ledger.reset_gauges()
 
+    def release(self) -> None:
+        """After ``close``: drop every device buffer the engine holds —
+        weights, KV arenas, sampler state, the mask and its staging, the
+        graphs and their pool, and the HBM ledger that registered them
+        (its graph-pool source is a closure over the engine). An engine
+        object that something still reaches (a caller's local, a cycle)
+        then keeps no device memory alive. The engine cannot serve
+        again."""
+        with self._device_lock:  # an embedding in flight finishes first
+            self.params = self.draft = None
+            self.cache = self.draft_cache = None
+            self.sampling = None
+            self._mask_dev = self._mask_stage = self._mask_copied = None
+            self._graph_pool = self._merge_counters = None
+            self._ledger = self._costmodel = None
+
     def leak_check(self) -> None:
         """Pool invariants (kv_pool.leak_check) plus: a free slot holds
         exactly the pages of its resident prefix."""
@@ -674,6 +713,48 @@ class LLMEngine:
                 raise AssertionError(
                     f"free slot {s.idx} holds {self._pool.held(s.idx)} "
                     f"pages for a {len(s.cache_tokens)}-token resident")
+
+    # ------------------------------------------------------------ embedding
+
+    @torch.inference_mode()
+    def embed(self, text: str) -> torch.Tensor:
+        """The mean over the real tokens of the final hidden state, f32
+        ``[D]`` on the host (the JAX engine's ``embed``): ``text``
+        encoded with BOS (``[0]`` when empty), cut to ``max_seq``, padded
+        to the smallest prefill bucket that holds it (past the largest,
+        to whole pages), one forward.
+
+        The forward is the paged ragged path over a scratch arena of the
+        padded length: its own pages under its own page table, so B1
+        runs it on a card and nothing of the serving arena, the slots'
+        pages or the graphs' static buffers is read or written. It runs
+        on the calling thread, on the current stream, which orders its
+        kernels with the scheduler's (B1's shared merge counters are
+        used by that stream only)."""
+        ids = self.tokenizer.encode(text, add_bos=True) or [0]
+        ids = ids[: self.max_seq]
+        n = len(ids)
+        pg = self.page
+        T = next((b for b in self.prefill_buckets if b >= n),
+                 -(-n // pg) * pg)
+        n_pages = -(-T // pg)
+        dev = self.device
+        with self._device_lock:
+            if self.params is None:
+                raise RuntimeError("engine released")
+            scratch = KVCache.create(self.spec, 1 + n_pages, pg,
+                                     self.cache.k.dtype, device=dev)
+            toks = torch.zeros((1, T), dtype=torch.int32)
+            toks[0, :n] = torch.tensor(ids, dtype=torch.int32)
+            # scratch page 0 is the trash page the pad positions write
+            table = torch.arange(1, 1 + n_pages, dtype=torch.int32)[None]
+            hidden, _ = forward_hidden(
+                self.spec, self.params, toks.to(dev),
+                torch.zeros(1, dtype=torch.int32, device=dev), scratch,
+                page_table=table.to(dev), kv_page=pg,
+                q_lens=torch.tensor([n], dtype=torch.int32, device=dev),
+                write_table=table.to(dev))
+            return hidden[0, :n].float().mean(0).cpu()
 
     # ------------------------------------------------------------ submission
 
@@ -2034,17 +2115,17 @@ class LLMEngine:
             if self.device.type != "cuda":
                 body(v)
                 return
-            s = self._capture_stream or torch.cuda.Stream(self.device)
-            self._capture_stream = s
-            s.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(s):
-                body(v)
-            torch.cuda.current_stream(self.device).wait_stream(s)
-            mid = {f: f.launches for f in COUNTED}
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=self._graph_pool, stream=s,
-                                  capture_error_mode="thread_local"):
-                body(v)
+            s = _capture_stream(self.device)
+            with _capture_lock, rpa.own_merge_counters(self._merge_counters):
+                s.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(s):
+                    body(v)
+                torch.cuda.current_stream(self.device).wait_stream(s)
+                mid = {f: f.launches for f in COUNTED}
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g, pool=self._graph_pool, stream=s,
+                                      capture_error_mode="thread_local"):
+                    body(v)
             v.launches = {f.__name__: f.launches - mid[f] for f in COUNTED}
             v.graph = g
             self._graph_pool_bytes = self._pool_bytes()

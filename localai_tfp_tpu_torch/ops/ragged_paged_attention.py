@@ -21,15 +21,20 @@ Returns ``[B, T, H * Dh]`` f32; pad queries (t >= q_lens[b]) are 0.
 For a CUDA tensor the wrapper launches the kernel or raises. It takes the
 plain version only for tensors on the CPU. The kernel reads q through its
 strides and writes the output in place, so no layout copy surrounds it.
-A split launch merges through per-device counters that the kernel leaves
-at zero: launches on one device are expected on one stream at a time, as
-the engine issues them.
+A split launch merges through counters that the kernel leaves at zero:
+per device, shared by every launch on the current stream, which orders
+them; inside ``own_merge_counters(buf)`` (an engine capturing its CUDA
+graphs on the capture stream) through the caller's own buffer, which its
+graphs then bake in, so one engine's replays never share counters with
+another engine's capture-stream work.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import Optional
 
 import torch
@@ -77,6 +82,27 @@ def _plan_on(index: int, *shape: int) -> tuple[int, int, int, int]:
 
 
 _counters: dict = {}  # device index -> zeroed int32 merge counters
+_owned = threading.local()  # .buf: this thread's own_merge_counters buffer
+
+
+def new_merge_counters(device: torch.device) -> torch.Tensor:
+    """A zeroed counter buffer for ``own_merge_counters``: one counter per
+    (row, kv head, query tile) of a split launch, which has fewer than
+    SPLIT_BLOCKS_PER_SM * SMs of them."""
+    return torch.zeros(SPLIT_BLOCKS_PER_SM * _sms(device.index),
+                       dtype=torch.int32, device=device)
+
+
+@contextlib.contextmanager
+def own_merge_counters(buf: torch.Tensor):
+    """Split launches this thread makes inside the block merge through
+    ``buf`` instead of the device's shared counters."""
+    prev = getattr(_owned, "buf", None)
+    _owned.buf = buf
+    try:
+        yield
+    finally:
+        _owned.buf = prev
 
 
 def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -85,6 +111,13 @@ def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
     stays zero between launches (and across CUDA-graph replays). Split
     launches have fewer than SPLIT_BLOCKS_PER_SM * SMs such tiles, so the
     first buffer is never outgrown."""
+    buf = getattr(_owned, "buf", None)
+    if buf is not None:
+        if buf.device != device or buf.numel() < n:
+            raise ValueError(f"ragged_paged_attention: own merge counters "
+                             f"{tuple(buf.shape)} on {buf.device} for {n} "
+                             f"tiles on {device}")
+        return buf
     buf = _counters.get(device.index)
     if buf is None or buf.numel() < n:
         size = max(n, SPLIT_BLOCKS_PER_SM * _sms(device.index))

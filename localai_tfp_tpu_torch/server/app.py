@@ -2,39 +2,56 @@
 (one thread per connection, HTTP/1.0, server-sent events written by hand)
 in place of the JAX package's aiohttp app.
 
-``Application`` holds the model configs of the models directory (read by
-``config/loader.py``) and loads each model's worker on first use; the
-route handlers live in ``openai_routes``, and ``GET /metrics`` here.
+``Handler._route`` runs the JAX server's middlewares around every route
+(ref: core/http/app.go:53-215):
+
+- a CORS preflight (``OPTIONS``) is answered 204 when CORS is on;
+- API-key auth: with keys configured, every path outside
+  ``AUTH_EXEMPT`` needs ``Authorization: Bearer <key>`` or
+  ``x-api-key: <key>``, else 401;
+- a body whose ``Content-Length`` exceeds ``upload_limit_mb`` is
+  refused with 413 before it is read;
+- errors: a route's ``HTTPError`` goes out as given; a
+  ``NotImplementedError`` is a 501 and any other exception a 500, both
+  as ``{"error": {"code": N}}`` alone under ``opaque_errors``;
+- every response, errors and streams included, carries ``Machine-Tag``
+  (when set), ``X-Correlation-ID`` (the caller's, else a fresh one) and,
+  with CORS on, the allow headers for a permitted origin;
+- each request's latency lands on ``api_call_seconds`` keyed by the
+  matched route template ("other" for no route), unless metrics are off.
+
 Error bodies have the JAX server's shape: ``{"error": {"code": N,
-"message": "...", "type": ""}}``.
-Every request's latency lands on ``api_call_seconds``, keyed by the
-matched route template ("other" for no route), as in the JAX server.
+"message": "...", "type": ""}}``. The route handlers live in
+``openai_routes`` and ``localai_routes``; the state they read is
+``server/state.py``'s ``Application``.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import re
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
-from ..config.loader import load_configs_from_path
-from ..config.model_config import ModelConfig
-from ..device import resolve
-from ..engine.templating import Evaluator
+from ..config.app_config import ApplicationConfig
 from ..telemetry.metrics import API_CALL
-from ..telemetry.registry import CONTENT_TYPE, REGISTRY
-from ..workers.base import ModelLoadOptions
-from ..workers.llm import TorchLLMBackend
+from ..utils import sysinfo
+from .state import Application
 
 log = logging.getLogger(__name__)
 
-# /v1/engines/{model}/completions and /engines/{model}/completions
-_ENGINE_ROUTE = re.compile(r"(/v1|)/engines/([^/]+)/completions")
+# paths that need no API key (ref: app.go:139-174 default filters)
+AUTH_EXEMPT = {"/healthz", "/readyz", "/metrics", "/telemetry/digest",
+               "/version", "/login"}
+# /v1/engines/{model}/completions|embeddings and /engines/{model}/...
+_ENGINE_ROUTE = re.compile(r"(/v1|)/engines/([^/]+)/(completions|embeddings)")
+MEMORY_GAUGE_S = 10.0  # period of the device-memory and RSS gauge sync
 
 
 class HTTPError(Exception):
@@ -48,77 +65,28 @@ class HTTPError(Exception):
         self.headers = headers or {}
 
 
-class Application:
-    """Server state: model configs, loaded workers, the prompt templater."""
+def _routes() -> dict:
+    from . import localai_routes as lr
+    from . import openai_routes as r
 
-    def __init__(self, models_path: str, device: Any = None) -> None:
-        self.models_path = models_path
-        self.device = resolve(device)
-        self.configs: dict[str, ModelConfig] = load_configs_from_path(
-            models_path)
-        self.evaluator = Evaluator(models_path)
-        self._backends: dict[str, TorchLLMBackend] = {}
-        self._lock = threading.Lock()
-
-    def resolve_config(self, name: Optional[str]) -> ModelConfig:
-        """By name, else the first config (sorted by name) that serves
-        chat."""
-        if name:
-            cfg = self.configs.get(name)
-            if cfg is None or not cfg.serves_chat:
-                raise HTTPError(404, f"model '{name}' not found")
-            return cfg
-        for n in sorted(self.configs):
-            if self.configs[n].serves_chat:
-                return self.configs[n]
-        raise HTTPError(404, "no model available")
-
-    def load_options(self, cfg: ModelConfig) -> ModelLoadOptions:
-        return ModelLoadOptions(
-            model=cfg.model, model_path=self.models_path,
-            context_size=cfg.context_size or 4096,
-            batch_slots=cfg.max_batch_slots,
-            dtype=cfg.dtype or "bfloat16",
-            kv_cache_dtype=cfg.kv_cache_dtype,
-            quantization=cfg.quantization,
-            draft_model=cfg.draft_model, n_draft=cfg.n_draft or 0)
-
-    def backend(self, cfg: ModelConfig) -> TorchLLMBackend:
-        """The model's worker, loaded on first use (one load at a time)."""
-        with self._lock:
-            b = self._backends.get(cfg.name)
-            if b is not None:
-                return b
-            b = TorchLLMBackend(self.device)
-            res = b.load_model(self.load_options(cfg))
-            if not res.success:
-                raise HTTPError(500, res.message)
-            self._backends[cfg.name] = b
-            return b
-
-    def loaded(self) -> dict[str, TorchLLMBackend]:
-        with self._lock:
-            return dict(self._backends)
-
-    def close(self) -> None:
-        with self._lock:
-            backends, self._backends = self._backends, {}
-        for b in backends.values():
-            b.shutdown()
-
-
-def metrics(h: "Handler", app: Application) -> None:
-    """Prometheus exposition 0.0.4 of the process's registry, the
-    engines' gauges refreshed first from host-held values."""
-    for b in app.loaded().values():
-        if b.engine is not None:
-            b.engine.update_gauges()
-    body = REGISTRY.render().encode()
-    h.send_response(200)
-    h.send_header("Content-Type", CONTENT_TYPE)
-    h.send_header("Content-Length", str(len(body)))
-    h.end_headers()
-    h.wfile.write(body)
+    routes = {
+        ("GET", "/v1/models"): r.list_models,
+        ("GET", "/models"): r.list_models,
+        ("POST", "/v1/tokenize"): r.tokenize,
+        ("GET", "/healthz"): lr.health,
+        ("GET", "/readyz"): lr.health,
+        ("GET", "/version"): lr.version,
+        ("GET", "/metrics"): lr.metrics,
+        ("GET", "/system"): lr.system,
+        ("GET", "/backend/monitor"): lr.backend_monitor,
+        ("POST", "/backend/shutdown"): lr.backend_shutdown,
+    }
+    for prefix in ("/v1", ""):
+        routes[("POST", f"{prefix}/chat/completions")] = r.chat_completions
+        routes[("POST", f"{prefix}/completions")] = r.completions
+        routes[("POST", f"{prefix}/edits")] = r.edits
+        routes[("POST", f"{prefix}/embeddings")] = r.embeddings
+    return routes
 
 
 class Handler(BaseHTTPRequestHandler):
@@ -129,6 +97,32 @@ class Handler(BaseHTTPRequestHandler):
         log.debug("%s " + fmt, self.address_string(), *args)
 
     # ---- plumbing used by the route handlers
+
+    def end_headers(self) -> None:
+        """The headers every response carries (ref: app.go:94-100,
+        176-190: Machine-Tag, X-Correlation-ID, matching-origin CORS)."""
+        cfg = self.server.app.config
+        if cfg.machine_tag:
+            self.send_header("Machine-Tag", cfg.machine_tag)
+        corr = getattr(self, "correlation_id", "")
+        if corr:
+            self.send_header("X-Correlation-ID", corr)
+        if cfg.cors:
+            allowed = [o.strip() for o in
+                       (cfg.cors_allow_origins or "*").split(",")]
+            origin = self.headers.get("Origin", "")
+            grant = ("*" if "*" in allowed
+                     else origin if origin in allowed else "")
+            if grant:
+                self.send_header("Access-Control-Allow-Origin", grant)
+                self.send_header("Vary", "Origin")
+                self.send_header("Access-Control-Allow-Methods",
+                                 "GET, POST, PUT, DELETE, OPTIONS")
+                self.send_header(
+                    "Access-Control-Allow-Headers",
+                    "Authorization, Content-Type, X-Correlation-ID, "
+                    "X-Model, x-api-key, Extra-Usage")
+        super().end_headers()
 
     def send_json(self, status: int, obj: Any,
                   headers: Optional[dict] = None) -> None:
@@ -141,10 +135,10 @@ class Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def send_error_json(self, err: HTTPError) -> None:
-        self.send_json(err.status, {"error": {
-            "code": err.status, "message": err.message, "type": ""}},
-            err.headers)
+    def send_error_json(self, err: HTTPError, opaque: bool = False) -> None:
+        body = ({"code": err.status} if opaque else
+                {"code": err.status, "message": err.message, "type": ""})
+        self.send_json(err.status, {"error": body}, err.headers)
 
     def read_body(self) -> dict:
         n = int(self.headers.get("Content-Length") or 0)
@@ -157,48 +151,68 @@ class Handler(BaseHTTPRequestHandler):
             raise HTTPError(400, "body must be a JSON object")
         return data
 
+    def query(self, key: str) -> Optional[str]:
+        vals = parse_qs(urlsplit(self.path).query).get(key)
+        return vals[0] if vals else None
+
     # ---- dispatch
 
-    def _route(self, method: str) -> None:
-        from . import openai_routes as r
+    def _authorized(self, keys: list) -> bool:
+        auth = self.headers.get("Authorization", "")
+        token = (auth[7:] if auth.startswith("Bearer ")
+                 else self.headers.get("x-api-key", ""))
+        return token in keys
 
+    def _route(self, method: str) -> None:
+        app = self.server.app
+        cfg = app.config
         t0 = time.perf_counter()
+        if method == "OPTIONS" and cfg.cors:  # a CORS preflight
+            self.send_response(204)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+            return
+        self.correlation_id = (self.headers.get("X-Correlation-ID")
+                               or uuid.uuid4().hex)
         path = urlsplit(self.path).path.rstrip("/") or "/"
-        routes = {
-            ("GET", "/v1/models"): r.list_models,
-            ("GET", "/models"): r.list_models,
-            ("GET", "/readyz"): r.readyz,
-            ("GET", "/metrics"): metrics,
-            ("POST", "/v1/tokenize"): r.tokenize,
-        }
-        for prefix in ("/v1", ""):
-            routes[("POST", f"{prefix}/chat/completions")] = \
-                r.chat_completions
-            routes[("POST", f"{prefix}/completions")] = r.completions
-            routes[("POST", f"{prefix}/edits")] = r.edits
-        fn = routes.get((method, path))
+        fn = self.server.routes.get((method, path))
         route = path
         self.path_params: dict[str, str] = {}
         m = _ENGINE_ROUTE.fullmatch(path)
         if fn is None and method == "POST" and m:
-            fn = r.completions
+            fn = self.server.routes[("POST", f"/v1/{m.group(3)}")]
             self.path_params = {"model": m.group(2)}
-            route = f"{m.group(1)}/engines/{{model}}/completions"
+            route = f"{m.group(1)}/engines/{{model}}/{m.group(3)}"
         try:
+            if cfg.api_keys and path not in AUTH_EXEMPT \
+                    and not self._authorized(cfg.api_keys):
+                raise HTTPError(401, "unauthorized")
             if fn is None:
                 raise HTTPError(404, f"no route {method} {path}")
-            fn(self, self.server.app)
+            limit = cfg.upload_limit_mb * 1024 * 1024
+            try:
+                n = int(self.headers.get("Content-Length") or 0)
+            except ValueError:
+                raise HTTPError(400, "invalid Content-Length") from None
+            if n > limit:
+                raise HTTPError(413, f"request body of {n} bytes exceeds "
+                                     f"the {limit}-byte upload limit")
+            fn(self, app)
         except HTTPError as e:
             self.send_error_json(e)
         except (BrokenPipeError, ConnectionResetError):
             pass  # client went away; streaming handlers cancel their work
+        except NotImplementedError as e:
+            self.send_error_json(HTTPError(501, f"not implemented: {e}"),
+                                 cfg.opaque_errors)
         except Exception as e:  # a boundary that must keep serving
             log.exception("request failed")
-            self.send_error_json(HTTPError(500, repr(e)))
+            self.send_error_json(HTTPError(500, str(e)), cfg.opaque_errors)
         finally:
-            API_CALL.labels(method=method,
-                            path=route if fn is not None else "other"
-                            ).observe(time.perf_counter() - t0)
+            if not cfg.disable_metrics:
+                API_CALL.labels(method=method,
+                                path=route if fn is not None else "other"
+                                ).observe(time.perf_counter() - t0)
 
     def do_GET(self) -> None:  # noqa: N802 (http.server naming)
         self._route("GET")
@@ -206,25 +220,83 @@ class Handler(BaseHTTPRequestHandler):
     def do_POST(self) -> None:  # noqa: N802
         self._route("POST")
 
+    def do_OPTIONS(self) -> None:  # noqa: N802
+        self._route("OPTIONS")
+
 
 class Server(ThreadingHTTPServer):
+    """Binds to the config's address and port (0 picks a free one: read
+    it back from ``server_address``) and starts the application; call
+    ``serve_forever``, and ``close`` from another thread."""
+
     daemon_threads = True
     allow_reuse_address = True
 
-    def __init__(self, app: Application, host: str, port: int) -> None:
-        super().__init__((host, port), Handler)
+    def __init__(self, app: Application) -> None:
+        super().__init__((app.config.address, app.config.port), Handler)
         self.app = app
+        self.routes = _routes()
+        app.startup()
+        self._gauges_stop = threading.Event()
+        self._gauges: Optional[threading.Thread] = None
+        if not app.config.disable_metrics:
+            # keep the device-memory and RSS gauges fresh even while no
+            # engine is loaded (engines also set them at each scrape)
+            self._gauges = threading.Thread(target=self._gauge_loop,
+                                            name="memory-gauges",
+                                            daemon=True)
+            self._gauges.start()
+
+    def _gauge_loop(self) -> None:
+        while True:
+            try:
+                sysinfo.update_memory_gauges()
+            except Exception:  # a gauge sync must never stop the loop
+                log.debug("memory gauge sync failed", exc_info=True)
+            if self._gauges_stop.wait(MEMORY_GAUGE_S):
+                return
 
     def close(self) -> None:
-        """Stop serving (from another thread than serve_forever's) and
-        release the models."""
+        """Stop serving (from another thread than ``serve_forever``'s),
+        then ``release``."""
         self.shutdown()
+        self.release()
+
+    def release(self) -> None:
+        """Close the socket, stop the gauge loop and the application
+        (its models unloaded), once ``serve_forever`` has returned."""
         self.server_close()
-        self.app.close()
+        self._gauges_stop.set()
+        if self._gauges is not None:
+            self._gauges.join(timeout=5)
+        self.app.shutdown()
 
 
 def build_server(models_path: str, host: str = "127.0.0.1", port: int = 0,
                  device: Any = None) -> Server:
-    """A server bound to (host, port) — port 0 picks a free one, read it
-    back from ``server.server_address``. Call ``serve_forever``."""
-    return Server(Application(models_path, device), host, port)
+    """A server over one models directory with every other setting at
+    its default."""
+    return Server(Application(ApplicationConfig(
+        models_path=models_path, address=host, port=port), device))
+
+
+def run(app: Application) -> None:
+    """Serve until interrupted, with the pid file ``state_dir/server.pid``
+    present while serving and removed on every exit path."""
+    os.makedirs(app.config.state_dir, exist_ok=True)
+    pidfile = os.path.join(app.config.state_dir, "server.pid")
+    srv = Server(app)
+    with open(pidfile, "w") as f:
+        f.write(str(os.getpid()))
+    log.info("serving %s on http://%s:%d", app.config.models_path,
+             *srv.server_address[:2])
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        try:
+            os.unlink(pidfile)
+        except OSError:
+            pass
+        srv.release()

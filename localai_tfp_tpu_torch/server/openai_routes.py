@@ -1,8 +1,15 @@
 """OpenAI-compatible routes of the port (counterpart of
 localai_tfp_tpu/server/openai_routes.py: ``/v1/chat/completions``,
-``/v1/completions`` (also under ``/v1/engines/{model}/``), ``/v1/edits``
-and ``/v1/tokenize``, each streaming where the JAX route streams, plus
-``/v1/models`` and ``/readyz``).
+``/v1/completions`` and ``/v1/embeddings`` (also under
+``/v1/engines/{model}/``), ``/v1/edits`` and ``/v1/tokenize``, each
+streaming where the JAX route streams, plus ``/v1/models``).
+
+A request's model is the path's, else the body's, else the ``X-Model``
+header's: a config by that name whatever its usecase, else a bare
+model directory of that name (served as ``{"name": n, "model": n}``),
+else 404; with no name, the first config serving the route's usecase.
+Every inference call runs inside the model's busy window, so the busy
+watchdog sees it (streams too).
 
 Response bodies and SSE framing match the JAX server field for field:
 ``chat.completion`` / ``chat.completion.chunk`` and ``text_completion``
@@ -31,24 +38,31 @@ import time
 import uuid
 from typing import Any, Optional
 
-from ..config.model_config import ModelConfig
+from ..config.model_config import ModelConfig, Usecase
 from ..engine.engine import StreamEvent
 from ..grammars.json_schema import functions_grammar, schema_to_gbnf
 from ..grammars.parse import (FinetuneStream, apply_finetune,
                               parse_function_call, parse_text_content)
 from ..workers.base import PredictOptions, Reply
 from ..workers.llm import final_reply
-from .app import Application, Handler, HTTPError
-
-
-def readyz(h: Handler, app: Application) -> None:
-    h.send_json(200, {"status": "ok"})
+from .app import Handler, HTTPError
+from .state import Application
 
 
 def list_models(h: Handler, app: Application) -> None:
     h.send_json(200, {"object": "list", "data": [
         {"id": name, "object": "model", "owned_by": "localai_tfp_tpu"}
-        for name in sorted(app.configs)]})
+        for name in app.config_loader.names()]})
+
+
+def _resolve(h: Handler, app: Application, body: dict,
+             usecase: Usecase) -> ModelConfig:
+    name = _model_name(h, body)
+    cfg = app.config_loader.resolve(name, usecase)
+    if cfg is None:
+        raise HTTPError(404, f"model '{name}' not found" if name
+                        else "no model available")
+    return cfg
 
 
 def _predict_options(cfg: ModelConfig, body: dict, prompt: str,
@@ -270,7 +284,7 @@ def _predict_all(backend, opts_list: list) -> list:
 
 def chat_completions(h: Handler, app: Application) -> None:
     body = h.read_body()
-    cfg = app.resolve_config(body.get("model") or h.headers.get("X-Model"))
+    cfg = _resolve(h, app, body, Usecase.CHAT)
     messages = body.get("messages") or []
     if not isinstance(messages, list) or not messages:
         raise HTTPError(400, "messages required")
@@ -284,10 +298,10 @@ def chat_completions(h: Handler, app: Application) -> None:
         opts = _predict_options(cfg, body, "", corr)
     except (TypeError, ValueError) as e:
         raise HTTPError(400, f"invalid sampling parameter: {e}") from None
-    backend = app.backend(cfg)
+    backend = app.model_loader.load(cfg)
     opts.prompt = app.evaluator.template_messages(
-        cfg, messages, tokenizer=backend.tokenizer, functions=tools or None,
-        use_function_template=tools_requested)
+        cfg, messages, tokenizer=getattr(backend, "tokenizer", None),
+        functions=tools or None, use_function_template=tools_requested)
     if grammar:
         opts.grammar = grammar
         # lazy-grammar triggers from the model config (function.grammar
@@ -302,10 +316,12 @@ def chat_completions(h: Handler, app: Application) -> None:
     created = int(time.time())
     cid = f"chatcmpl-{uuid.uuid4().hex[:28]}"
     if streaming:
-        _stream_chat(h, backend, opts, cfg, cid, created, tools_requested,
-                     extra_usage)
+        with app.busy(cfg.name):
+            _stream_chat(h, backend, opts, cfg, cid, created,
+                         tools_requested, extra_usage)
         return
-    replies = _predict_all(backend, [opts] * n)
+    with app.busy(cfg.name):
+        replies = _predict_all(backend, [opts] * n)
     ft_kw = _finetune_kw(cfg, opts.prompt)
     choices = []
     total = Reply()
@@ -443,7 +459,7 @@ def completions(h: Handler, app: Application) -> None:
         raise HTTPError(400, "field 'prompt' must be a string or list of "
                              "strings")
     _timeout(h, body)
-    cfg = app.resolve_config(_model_name(h, body))
+    cfg = _resolve(h, app, body, Usecase.COMPLETION)
     if not prompts:
         raise HTTPError(400, "prompt required")
     extra_usage = ("Extra-Usage" in h.headers
@@ -457,18 +473,21 @@ def completions(h: Handler, app: Application) -> None:
         raise HTTPError(400, "multiple prompts are not supported with "
                              "streaming")
     corr = h.headers.get("X-Correlation-ID", "")
-    backend = app.backend(cfg)
+    backend = app.model_loader.load(cfg)
     if streaming:
         opts = _options(cfg, body, app.evaluator.evaluate_completion(
             cfg, prompts[0]), corr)
-        _stream_completion(h, backend, opts, cfg, cid, created, extra_usage)
+        with app.busy(cfg.name):
+            _stream_completion(h, backend, opts, cfg, cid, created,
+                               extra_usage)
         return
     jobs = []
     for prompt in prompts:
         opts = _options(cfg, body, app.evaluator.evaluate_completion(
             cfg, prompt), corr)
         jobs.extend((prompt, opts) for _ in range(n))
-    replies = _predict_all(backend, [o for _, o in jobs])
+    with app.busy(cfg.name):
+        replies = _predict_all(backend, [o for _, o in jobs])
     choices = []
     total = Reply()
     for i, ((prompt, o), reply) in enumerate(zip(jobs, replies)):
@@ -563,8 +582,8 @@ def edits(h: Handler, app: Application) -> None:
         if body.get(key) is not None and not isinstance(body[key], str):
             raise HTTPError(400, f"field '{key}' must be a string")
     _timeout(h, body)
-    cfg = app.resolve_config(_model_name(h, body))
-    backend = app.backend(cfg)
+    cfg = _resolve(h, app, body, Usecase.EDIT)
+    backend = app.model_loader.load(cfg)
     instruction = body.get("instruction", "")
     inputs = body.get("input", "")
     if isinstance(inputs, str):
@@ -575,7 +594,8 @@ def edits(h: Handler, app: Application) -> None:
     for i, inp in enumerate(inputs):
         opts = _options(cfg, body, app.evaluator.evaluate_edit(
             cfg, inp, instruction), corr)
-        reply = backend.predict(opts)
+        with app.busy(cfg.name):
+            reply = backend.predict(opts)
         _raise_if_refused(reply)
         if reply.error:
             raise HTTPError(500, reply.error)
@@ -598,8 +618,39 @@ def tokenize(h: Handler, app: Application) -> None:
     """``/v1/tokenize``: the ids of ``content`` (or ``prompt``), no
     BOS."""
     body = h.read_body()
-    cfg = app.resolve_config(_model_name(h, body))
-    backend = app.backend(cfg)
+    cfg = _resolve(h, app, body, Usecase.TOKENIZE)
+    backend = app.model_loader.load(cfg)
     res = backend.tokenize_string(PredictOptions(
         prompt=body.get("content", body.get("prompt", ""))))
     h.send_json(200, {"tokens": res.tokens})
+
+
+def embeddings(h: Handler, app: Application) -> None:
+    """``/v1/embeddings``: one vector per input (``input``, else
+    ``prompt``; a string or a list of strings or ints), each the
+    backend's ``embedding`` of its text, one after another."""
+    body = h.read_body()
+    inputs = None
+    for key in ("input", "prompt"):
+        v = body.get(key)
+        if v is None:
+            continue
+        if not isinstance(v, (str, list)) or (isinstance(v, list) and not all(
+                isinstance(x, (str, int)) for x in v)):
+            raise HTTPError(400, f"field '{key}' must be a string or list "
+                                 "of strings")
+        if inputs is None:
+            inputs = v
+    inputs = inputs or ""
+    cfg = _resolve(h, app, body, Usecase.EMBEDDINGS)
+    backend = app.model_loader.load(cfg)
+    if isinstance(inputs, str):
+        inputs = [inputs]
+    data = []
+    for i, text in enumerate(inputs):
+        with app.busy(cfg.name):
+            res = backend.embedding(PredictOptions(embeddings=str(text)))
+        data.append({"object": "embedding", "index": i,
+                     "embedding": res.embeddings})
+    h.send_json(200, {"object": "list", "model": cfg.name, "data": data,
+                      "usage": {"prompt_tokens": 0, "total_tokens": 0}})

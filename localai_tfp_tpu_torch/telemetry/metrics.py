@@ -11,11 +11,15 @@ Layer map (where each family is recorded):
 - engine  engine/engine.py scheduler (host-held values only — no device
           sync rides a metric sample); the gauges are refreshed at
           scrape time by ``LLMEngine.update_gauges``
-- device  telemetry/costmodel.py (FLOPs, bytes, MFU, predictions) and
-          telemetry/hbm_ledger.py (device memory by component)
+- device  telemetry/costmodel.py (FLOPs, bytes, MFU, predictions),
+          telemetry/hbm_ledger.py (device memory by component) and
+          utils/sysinfo.py (device memory and process RSS, refreshed by
+          the server's gauge loop)
+- loader  engine/loader.py (loads, load phases, evictions, the
+          loaded and busy counts, watchdog kills)
 
 Not ported yet: the families of KV tiers, weight paging,
-disaggregation, federation, tracing and the model loader.
+disaggregation, federation and tracing.
 """
 
 from __future__ import annotations
@@ -212,8 +216,49 @@ ENGINE_HBM_BYTES = REGISTRY.gauge(
 DEVICE_HBM_USED = REGISTRY.gauge(
     "device_hbm_used_bytes",
     "Per-device bytes the caching allocator holds "
-    "(torch.cuda.memory_reserved), refreshed at each /metrics scrape",
+    "(torch.cuda.memory_reserved), refreshed at each /metrics scrape "
+    "and by utils/sysinfo.update_memory_gauges()",
     labels=("device",), max_label_sets=256,
+)
+PROCESS_RSS = REGISTRY.gauge(
+    "process_rss_bytes",
+    "Resident set size of the serving process (host RAM pressure; "
+    "includes the KV host-spill tier)",
+)
+
+# ---------------------------------------------------------------- loader
+
+MODEL_LOADS = REGISTRY.counter(
+    "model_loads_total",
+    "Backend model loads by outcome",
+    labels=("model", "result"),
+)
+MODEL_LOAD_PHASE = REGISTRY.counter(
+    "model_load_phase_seconds_total",
+    "Cumulative load wall time by phase (the worker's load_breakdown: "
+    "read, warmup, other)",
+    labels=("phase",),
+)
+MODEL_EVICTIONS = REGISTRY.counter(
+    "model_evictions_total",
+    "Model unloads by reason (api/watchdog/single_active/shutdown)",
+    labels=("reason",),
+)
+MODELS_LOADED = REGISTRY.gauge(
+    "models_loaded_count",
+    "Live loaded backends",
+)
+
+# --------------------------------------------------------------- workers
+
+MODELS_BUSY = REGISTRY.gauge(
+    "models_busy_count",
+    "Loaded backends currently serving at least one request",
+)
+WATCHDOG_KILLS = REGISTRY.counter(
+    "watchdog_kills_total",
+    "Models killed by the busy/idle watchdog",
+    labels=("kind",),
 )
 
 # families whose help text is the port's own (see the module docstring)
@@ -221,4 +266,5 @@ REWORDED = frozenset({
     "engine_dispatch_compile_variants_count", "engine_warmup_seconds",
     "engine_device_step_seconds", "engine_device_flops_total",
     "engine_device_bytes_total", "device_hbm_used_bytes",
+    "model_load_phase_seconds_total",
 })

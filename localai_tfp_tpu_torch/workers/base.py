@@ -19,6 +19,7 @@ class PredictOptions:
     """ref: backend.proto PredictOptions (sampling + prompt surface)."""
 
     prompt: str = ""
+    embeddings: str = ""  # text to embed (proto: Embeddings)
     tokens: int = 0  # max new tokens (proto: Tokens)
     temperature: float = 0.0
     top_k: int = 0
@@ -97,12 +98,24 @@ class ModelLoadOptions:
     # projections; "int8_full": also embed / lm_head; "" or none/bf16: off
     draft_model: str = ""  # speculative decoding (proto DraftModel)
     n_draft: int = 0
+    options: list[str] = field(default_factory=list)  # backend "k=v" pairs
 
 
 @dataclass
 class Result:
     success: bool = True
     message: str = ""
+
+
+@dataclass
+class EmbeddingResult:
+    embeddings: list[float] = field(default_factory=list)
+
+
+@dataclass
+class StatusResponse:
+    state: str = "UNINITIALIZED"  # UNINITIALIZED|BUSY|READY|ERROR
+    memory: dict[str, int] = field(default_factory=dict)
 
 
 class Backend(abc.ABC):
@@ -125,6 +138,17 @@ class Backend(abc.ABC):
 
     def tokenize_string(self, opts: PredictOptions) -> TokenizationResponse:
         raise NotImplementedError
+
+    def embedding(self, opts: PredictOptions) -> EmbeddingResult:
+        raise NotImplementedError
+
+    def stream_queue(self, opts: PredictOptions):
+        """The engine's event queue for a streamed request (the HTTP
+        routes stream from it)."""
+        raise NotImplementedError("streaming through this backend")
+
+    def status(self) -> StatusResponse:
+        return StatusResponse(state="READY")
 
     def shutdown(self) -> None:
         """Release the model and its device memory."""

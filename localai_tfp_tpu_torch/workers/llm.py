@@ -3,6 +3,7 @@ of localai_tfp_tpu/workers/llm.py::JaxLLMBackend, LLM path only)."""
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import queue
@@ -21,7 +22,9 @@ from ..grammars.native import make_constraint
 from ..models import artifact_cache
 from ..models.hf_loader import load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
-from .base import (Backend, ModelLoadOptions, PredictOptions, Reply, Result,
+from ..models.quant import leaves
+from .base import (Backend, EmbeddingResult, ModelLoadOptions,
+                   PredictOptions, Reply, Result, StatusResponse,
                    TokenizationResponse)
 
 _DTYPES = {
@@ -54,7 +57,13 @@ class TorchLLMBackend(Backend):
         # of those the engine's warmup (every decode graph captured)
         self.load_mode = ""
         self.load_s = 0.0
+        self.read_s = 0.0  # tokenizer and weights onto the device
         self.warmup_s = 0.0
+        # the last shutdown's device memory (card only): allocated bytes
+        # when the engine's buffers were dropped, after gc.collect (the
+        # share only a collection frees), and the allocator's and the
+        # device-wide view (mem_get_info) after empty_cache
+        self.unload_stats: Optional[dict] = None
         # built grammar constraints by (grammar, triggers): building one
         # walks the whole vocabulary
         self._grammar_cache: dict[tuple, Any] = {}
@@ -83,9 +92,7 @@ class TorchLLMBackend(Backend):
                                      f"{name!r} / kv_cache_dtype {kv_name!r}")
             try:
                 self._state = "BUSY"
-                if self.engine is not None:
-                    self.engine.close()
-                    self.engine = None
+                self._drop_engine()
                 t0 = time.perf_counter()
                 # the tokenizer first: a file it cannot read fails the
                 # load before any weight is read
@@ -93,6 +100,7 @@ class TorchLLMBackend(Backend):
                 self.spec, params = self._load_weights(
                     model_dir, _DTYPES[name],
                     quant if quant in _INT8 else "")
+                self.read_s = time.perf_counter() - t0
                 self._grammar_cache = {}
                 draft = (self._load_draft(opts, _DTYPES[name])
                          if opts.draft_model else None)
@@ -160,14 +168,68 @@ class TorchLLMBackend(Backend):
             raise ValueError(f"draft model not found: {ddir}")
         return load_params(ddir, dtype=dtype, device=self.device)
 
+    @property
+    def load_breakdown(self) -> dict:
+        """The last load's wall seconds by phase (the loader folds them
+        into ``model_load_phase_seconds_total``)."""
+        return {"read_s": self.read_s, "warmup_s": self.warmup_s,
+                "other_s": max(0.0, self.load_s - self.read_s
+                               - self.warmup_s)}
+
+    def _drop_engine(self) -> None:
+        """Stop the engine's scheduler (its slots end with an error
+        event), then drop its device buffers and every reference the
+        worker holds to them."""
+        eng, self.engine = self.engine, None
+        self._grammar_cache = {}
+        if eng is not None:
+            eng.close()
+            eng.release()
+
     def shutdown(self) -> None:
-        if self.engine is not None:
-            self.engine.close()
-            self.engine = None
-        self._state = "UNINITIALIZED"
+        """Unload: the device memory is back with the caching allocator,
+        and on a card with the device (``empty_cache``), when this
+        returns."""
+        with self._lock:
+            self._drop_engine()
+            self.tokenizer = None
+            self._state = "UNINITIALIZED"
+            if self.device.type == "cuda":
+                dev = self.device
+                torch.cuda.synchronize(dev)
+                before_gc = torch.cuda.memory_allocated(dev)
+                gc.collect()
+                after_gc = torch.cuda.memory_allocated(dev)
+                torch.cuda.empty_cache()
+                free, total = torch.cuda.mem_get_info(dev)
+                self.unload_stats = {
+                    "allocated_before_gc": before_gc,
+                    "allocated_after_gc": after_gc,
+                    "reserved_after": torch.cuda.memory_reserved(dev),
+                    "device_used_after": total - free}
 
     def health(self) -> bool:
         return self._state in ("READY", "BUSY")
+
+    def status(self) -> StatusResponse:
+        """State and the engine's device bytes (``/backend/monitor``)."""
+        mem: dict[str, int] = {}
+        eng = self.engine
+        if eng is not None:
+            mem["kv_cache_bytes"] = eng.cache.nbytes()
+            mem["params_bytes"] = sum(
+                t.numel() * t.element_size()
+                for v in eng.params.values() for t in leaves(v))
+        return StatusResponse(state=self._state, memory=mem)
+
+    def embedding(self, opts: PredictOptions) -> EmbeddingResult:
+        """The mean-pooled final hidden state of ``opts.embeddings`` (or
+        the prompt): ``LLMEngine.embed``."""
+        eng = self.engine
+        if eng is None:
+            raise RuntimeError("model not loaded")
+        vec = eng.embed(opts.embeddings or opts.prompt)
+        return EmbeddingResult(embeddings=vec.tolist())
 
     def _to_request(self, opts: PredictOptions) -> GenRequest:
         assert self.tokenizer is not None

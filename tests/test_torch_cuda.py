@@ -1082,7 +1082,8 @@ def test_text_routes_on_card_match_cpu(cuda_device, tmp_path):
         th = threading.Thread(target=srv.serve_forever, daemon=True)
         th.start()
         try:
-            backend = srv.app.backend(srv.app.configs["tiny"])
+            backend = srv.app.model_loader.load(
+                srv.app.config_loader.get("tiny"))
             seen = []
             orig = backend._to_request
             backend._to_request = lambda o: (
@@ -1103,3 +1104,150 @@ def test_text_routes_on_card_match_cpu(cuda_device, tmp_path):
             th.join(timeout=30)
     assert got["cuda"] == got["cpu"]
     assert got["cpu"][0][0][:2] == [768, 768]  # BOS, then the template's
+
+
+# ------------------------------------------------- lifecycle and embeddings
+
+
+def _small_checkpoint(path, seed=0):
+    import chip_smoke
+
+    chip_smoke.write_checkpoint(path, 2, seed, {
+        "hidden_size": 128, "intermediate_size": 256,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 64,
+        "num_hidden_layers": 2, "vocab_size": 1024, "rope_theta": 10000.0,
+        "max_position_embeddings": 512, "rms_norm_eps": 1e-5,
+        "rope_scaling": None, "tie_word_embeddings": False})
+
+
+@pytest.mark.cuda
+def test_unload_returns_allocated_memory(cuda_device, tmp_path, monkeypatch):
+    """A worker loaded on the card with its graphs captured, one request
+    served, then shut down: allocated memory is back within 1 MiB of
+    what it was before the load. A first load and unload comes before
+    the baseline, for what the process keeps once for all engines (the
+    capture stream's cuBLAS workspace, B1's merge counters)."""
+    from localai_tfp_tpu_torch.workers.base import (ModelLoadOptions,
+                                                    PredictOptions)
+    from localai_tfp_tpu_torch.workers.llm import TorchLLMBackend
+
+    monkeypatch.setenv("LOCALAI_WARMUP", "1")
+    _small_checkpoint(tmp_path / "m")
+    opts = ModelLoadOptions(model=str(tmp_path / "m"), context_size=256,
+                            batch_slots=2, dtype="bfloat16")
+
+    def cycle():
+        b = TorchLLMBackend(cuda_device)
+        assert b.load_model(opts).success
+        assert b.engine.variant_count() > 0
+        out = b.predict(PredictOptions(prompt="hello", tokens=6,
+                                       ignore_eos=True))
+        assert out.tokens == 6
+        loaded = torch.cuda.memory_allocated(cuda_device)
+        b.shutdown()
+        return loaded, b.unload_stats
+
+    cycle()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    loaded, stats = cycle()
+    after = torch.cuda.memory_allocated(cuda_device)
+    assert loaded - base > 1 << 20  # the model held more than the bound
+    assert abs(after - base) <= 1 << 20, (base, loaded, after)
+    # the links are broken before any collection: gc frees nothing more
+    assert stats["allocated_before_gc"] == stats["allocated_after_gc"]
+
+
+@pytest.mark.cuda
+def test_embedding_runs_b1_and_matches_plain(cuda_device, monkeypatch):
+    """``LLMEngine.embed`` on the card launches B1 once per layer of its
+    one forward and equals the same forward through the plain attention
+    on the card within 1e-4 (f32 weights)."""
+    spec, params = _tiny_model(cuda_device)
+    eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=2, max_seq=256,
+                    cache_dtype=torch.float32, device=cuda_device)
+    try:
+        for text in ("hello", "a longer text that pads to 128 tokens " * 2):
+            before = ragged_paged_attention.launches
+            got = eng.embed(text)
+            assert ragged_paged_attention.launches - before == spec.n_layers
+            with monkeypatch.context() as m:
+                m.setattr(tt, "ragged_paged_attention", ragged_attention_plain)
+                want = eng.embed(text)
+            assert got.shape == (spec.d_model,)
+            assert float((got - want).abs().max()) < 1e-4
+            assert torch.equal(got, eng.embed(text))  # repeatable
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_own_merge_counters_are_what_a_split_launch_uses(cuda_device):
+    """Inside ``own_merge_counters(buf)`` a split launch merges through
+    ``buf``, not the device's shared counters: a poisoned ``buf`` stops
+    every merge (its slots move, the shared ones stay zero), a zeroed one
+    gives the shared counters' output bitwise and is zero again after."""
+    from localai_tfp_tpu_torch.ops import ragged_paged_attention as rpa
+
+    c = make_wide_case([1, 1], [1023, 700], max_pages=128, page=8,
+                       device=cuda_device)
+    want = call_case(ragged_paged_attention, c)
+    shared = rpa._counters[cuda_device.index if cuda_device.index is not None
+                           else torch.cuda.current_device()]
+    buf = rpa.new_merge_counters(cuda_device)
+    buf.fill_(1000)
+    with rpa.own_merge_counters(buf):
+        call_case(ragged_paged_attention, c)
+    torch.cuda.synchronize()
+    assert int((buf != 1000).sum()) > 0 and int(shared.abs().sum()) == 0
+    buf.zero_()
+    with rpa.own_merge_counters(buf):
+        got = call_case(ragged_paged_attention, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(buf.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_engine_serves_while_another_engine_captures(cuda_device):
+    """One engine serves greedy requests on its scheduler thread while
+    other engines on the same card are built and capture their graphs
+    (their warm-up runs on the shared capture stream): every reply equals
+    the same request served with no other engine about."""
+    import threading
+
+    spec, params = _tiny_model(cuda_device)
+
+    def engine():
+        return LLMEngine(spec, params, ByteTokenizer(), n_slots=2,
+                         max_seq=256, cache_dtype=torch.float32,
+                         device=cuda_device)
+
+    def serve(eng, n):
+        out = []
+        for i in range(n):
+            qs = eng.submit_many([GenRequest(
+                prompt_ids=list(range(1 + i, 30 + 7 * j)), max_tokens=24,
+                ignore_eos=True) for j in range(2)])
+            for q in qs:
+                ev = q.get(timeout=300)
+                while not ev.done:
+                    ev = q.get(timeout=300)
+                out.append(ev.full_text)
+        return out
+
+    a = engine()
+    try:
+        a.warmup()
+        alone = serve(a, 6)
+        got: list = []
+        th = threading.Thread(target=lambda: got.extend(serve(a, 6)))
+        th.start()
+        for _ in range(3):
+            b = engine()
+            b.warmup()
+            b.close()
+            b.release()
+        th.join(600)
+        assert got == alone
+    finally:
+        a.close()

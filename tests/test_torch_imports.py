@@ -85,7 +85,10 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
               "engine.prefix_index", "grammars.gbnf", "grammars.constrain",
               "grammars.json_schema", "grammars.parse", "grammars.native",
               "config.yaml_lite", "config.loader", "engine.bpe",
-              "engine.jinja_lite", "engine.templating"):
+              "engine.jinja_lite", "engine.templating",
+              "config.app_config", "config.watcher", "engine.loader",
+              "server.state", "server.localai_routes", "utils.sysinfo",
+              "utils.http", "workers.remote", "version"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)

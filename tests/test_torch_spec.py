@@ -475,7 +475,8 @@ def models_dir(tmp_path_factory):
 def test_config_with_draft_loads_it_through_the_worker(models_dir):
     from localai_tfp_tpu.config.model_config import ModelConfig as JaxConfig
     from localai_tfp_tpu_torch.config.model_config import ModelConfig
-    from localai_tfp_tpu_torch.server.app import Application
+    from localai_tfp_tpu_torch.config.app_config import ApplicationConfig
+    from localai_tfp_tpu_torch.server.state import Application
     from localai_tfp_tpu_torch.workers.llm import TorchLLMBackend
 
     raw = {"name": "m", "backend": "torch-llm", "context_size": 128,
@@ -492,8 +493,10 @@ def test_config_with_draft_loads_it_through_the_worker(models_dir):
         assert not ModelConfig.from_dict({**raw, "draft_model": bad}
                                          ).validate()
     (models_dir / "m.yaml").write_text(json.dumps(raw))
-    app = Application(str(models_dir), device="cpu")
-    opts = app.load_options(app.configs["m"])
+    app = Application(ApplicationConfig(models_path=str(models_dir)),
+                      device="cpu")
+    app.config_loader.load_configs_from_path()
+    opts = app.model_loader.load_options(app.config_loader.get("m"))
     assert (opts.draft_model, opts.n_draft) == ("draft", 3)
     b = TorchLLMBackend("cpu")
     res = b.load_model(opts)

@@ -384,7 +384,8 @@ def port_server(workdir):
     srv = build_server(str(workdir / "models"), port=0, device="cpu")
     seen: dict[str, list] = {}
     for name in ("tok", "go", "ft", "ft2"):
-        backend = srv.app.backend(srv.app.configs[name])
+        backend = srv.app.model_loader.load(
+            srv.app.config_loader.get(name))
         seen[name] = []
         _spy(backend, seen[name])
     th = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -619,6 +620,6 @@ def test_unreadable_yaml_or_template_fails_with_the_reason(tmp_path):
 
         with pytest.raises(TemplateError, match="endif"):
             srv.app.evaluator.template_messages(
-                srv.app.configs["bad"], [{"role": "user", "content": "x"}])
+                srv.app.config_loader.get("bad"), [{"role": "user", "content": "x"}])
     finally:
         srv.server_close()
