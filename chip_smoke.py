@@ -28,11 +28,17 @@ Phases, one result line each; any failure raises and exits non-zero:
    absolute, and every call repeated bitwise. Its times are cold: each timed call reads another
    layer of a 4-layer arena, so a layer's K/V has left the L2 when its
    turn comes round. Then its time, its plain version's, SDPA's, and
-   its bound.
+   its bound. The same for the dense families' keys (``FAMILY_KEYS``):
+   Gemma-3-4B's attention (H 8, Hkv 4, Dh 256) at decode and mixed rows,
+   each on a global layer and a window-1024 one, Gemma-2-2B's with its
+   window 4096 and softcap 50 (no single PyTorch call computes it),
+   Phi-3-mini's (H 32, Hkv 32, Dh 96, window 2047) and Phi-2's (Dh 80).
 4. int8    — int8_matmul against its plain version at every 8B
    projection shape (K x N 4096 x 4096, 4096 x 1024, 4096 x 14336,
    14336 x 4096), M in INT8_M (decode rows, the speculative verify's
    rows x n_draft, and the mixed-step instance's tile edges up to 1024),
+   and at Gemma-3-4B's (``PROJ_G3``: K x N 2560 x 2048, 2560 x 1024,
+   2048 x 2560, 2560 x 10240, 10240 x 2560) at M 1, 8, 17, 128 and 129,
    bf16 and f32 x, bf16 and f32 out: f32 out within 1e-4 of the largest
    output, bf16 out within one bf16 ulp of each output plus that bound;
    every call repeated bitwise. Then, cold (operand copies past
@@ -111,9 +117,11 @@ Phases, one result line each; any failure raises and exits non-zero:
    written beside the 8B checkpoint, n_draft 4. (a) the main burst's
    four prompts, greedy, on the 8B target with the draft and on the
    plain model: ids equal, or apart only at near ties or within the
-   dense reference (``compare_waves``); (b) the 8B checkpoint drafting
-   for itself, the same four at once: greedy ids held to (a)'s plain
-   run as (a) holds its own, every greedy rejection within 0.2 of the
+   dense reference (``compare_waves``); (b) the 8B checkpoint's first
+   ``SPEC_B_LAYERS`` (8) layers drafting for themselves (a depth cut that
+   keeps the default run under its time budget), the same four at once:
+   greedy ids held to the plain model of that depth as (a) holds its
+   own, every greedy rejection within 0.2 of the
    verify argmax's logit, sampled (temperature 1) acceptance at least
    0.5, and two faults planted on that engine instance (a stale draft
    arena, the target's p read one position late) must each fail its
@@ -172,6 +180,26 @@ Phases, one result line each; any failure raises and exits non-zero:
    unload allocated memory must be within 256 MiB of the pre-load
    baseline; the phase prints the residue and, at its end, what the
    process still holds (B1's shared merge counters, cuBLAS workspaces).
+
+12. families — the dense families beside Llama, each from its published
+   ``config.json`` with random bf16 weights, through the HTTP server
+   (context 4096, 8 slots, byte tokenizer, LocalAI's Gemma Go
+   template): (a) Gemma-3-4B-it's text tower at full width and depth,
+   written as the multimodal checkpoint lays it out
+   (``language_model.model.``), four streamed chats at once, one past
+   the 1024 window: 34 B1 launches per forward, every forward a replay,
+   the first token's ms and host ms per decode forward, a greedy
+   request held to the dense forward; then the same checkpoint with
+   ``quantization: int8`` (B2 by M; its dense reference dequantizes the
+   projections, so runs no B2); (b) Gemma-2-2B-it at full depth,
+   whose greedy ids must also fail the dense forward without its
+   softcap; (c) Phi-3-mini-4k at 8 of its 32 layers (fused
+   projections). Every line beside nvidia-smi's name and power limit.
+
+Not in the default list: ``softcap_witness`` — Gemma-2-2B at full depth
+with every layer's q_proj at 4x and at 1x the softcap: the served greedy ids
+against the dense forward in bf16 and in f32, and one paged forward
+through B1 against the same forward with the plain attention.
 
 The last line of standard output is the result object; the line before
 it lists every kernel with its numbers.
@@ -386,6 +414,7 @@ def _call(fn, c):
     return fn(c["q"], c["cache_k"], c["cache_v"], c["layer"],
               c["page_table"], c["pos0"], c["q_lens"], c["n_kv_heads"],
               scale=c["scale"], page=PAGE, sliding_window=c["window"],
+              softcap=c.get("softcap", 0.0),
               cache_k_scale=c.get("cache_k_scale"),
               cache_v_scale=c.get("cache_v_scale"),
               seed_kv=c.get("seed_kv"))
@@ -393,24 +422,27 @@ def _call(fn, c):
 
 def attention_work(c) -> tuple[int, int]:
     """(bytes, flops) the call must do on these inputs: q, out and each
-    row's live K/V rows (and scales) read or written once; 4 flops per
-    (query, kv position, head dim) pair actually attended."""
+    row's live K/V rows (and scales) within its window read or written
+    once; 4 flops per (query, kv position, head dim) pair actually
+    attended."""
     q_lens = c["q_lens"].tolist()
     pos0 = c["pos0"].tolist()
     elem = c["cache_k"].element_size()
-    dh = c["q"].shape[-1]
-    F = HKV * dh
+    h, dh = c["q"].shape[2], c["q"].shape[3]
+    F = c["n_kv_heads"] * dh
+    w = c["window"] or 0
     nbytes = c["q"].numel() * c["q"].element_size()  # q in
-    nbytes += c["q"].shape[0] * c["q"].shape[1] * H * dh * 4  # out f32
+    nbytes += c["q"].shape[0] * c["q"].shape[1] * h * dh * 4  # out f32
     nbytes += c["page_table"].numel() * 4 + 8 * len(q_lens)
     flops = 0
     for n, p0 in zip(q_lens, pos0):
-        ctx = p0 + n
-        nbytes += 2 * ctx * F * elem
+        live = p0 + n - (max(0, p0 + 1 - w) if w and n else 0)
+        nbytes += 2 * live * F * elem
         if "cache_k_scale" in c:
-            nbytes += 2 * ctx * 4
-        attended = sum(p0 + t + 1 for t in range(n))
-        flops += 4 * H * dh * attended
+            nbytes += 2 * live * 4
+        attended = sum(min(p0 + t + 1, w) if w else p0 + t + 1
+                       for t in range(n))
+        flops += 4 * h * dh * attended
     return nbytes, flops
 
 
@@ -439,10 +471,11 @@ def _library_call(c):
     import torch.nn.functional as Fnn
 
     B, T, _, dh = c["q"].shape
+    hkv = c["n_kv_heads"]
     pt = c["page_table"].long()
     W = pt.shape[1] * PAGE
-    k = c["cache_k"][c["layer"]][pt].reshape(B, W, HKV, dh)
-    v = c["cache_v"][c["layer"]][pt].reshape(B, W, HKV, dh)
+    k = c["cache_k"][c["layer"]][pt].reshape(B, W, hkv, dh)
+    v = c["cache_v"][c["layer"]][pt].reshape(B, W, hkv, dh)
     if "cache_k_scale" in c:
         ks = c["cache_k_scale"][c["layer"]][pt].reshape(B, W, 1, 1)
         vs = c["cache_v_scale"][c["layer"]][pt].reshape(B, W, 1, 1)
@@ -455,6 +488,8 @@ def _library_call(c):
     qpos = c["pos0"].long()[:, None] + tq[None]
     mask = (kv_pos[None, None] <= qpos[..., None]) & (
         tq[None, :, None] < c["q_lens"].long()[:, None, None])
+    if c["window"]:
+        mask &= kv_pos[None, None] > qpos[..., None] - c["window"]
     mask = mask | ~mask.any(-1, keepdim=True)  # keep pad rows finite
     mask = mask[:, None]
 
@@ -592,6 +627,151 @@ def phase_kernels(n_slots: int, max_pages: int):
     return worst, timings, aliased, spec_err
 
 
+# B1 at the dense families' attention geometries (the published
+# config.json values): (key, H, Hkv, Dh, window, softcap, rows, max pages)
+FAMILY_KEYS = (
+    ("g3_decode", 8, 4, 256, 0, 0.0, "decode", 8),  # Gemma-3-4B global
+    ("g3_decode_local", 8, 4, 256, 1024, 0.0, "decode", 8),  # its sliding
+    ("g3_mixed", 8, 4, 256, 0, 0.0, "mixed", 8),
+    ("g3_mixed_local", 8, 4, 256, 1024, 0.0, "mixed", 8),
+    ("g2_softcap", 8, 4, 256, 4096, 50.0, "decode", 8),  # Gemma-2-2B
+    ("phi3_decode", 32, 32, 96, 2047, 0.0, "decode", 16),  # Phi-3-mini-4k
+    ("phi2_decode", 32, 32, 80, 0, 0.0, "decode", 8),  # Phi-2
+)
+
+
+def family_case(key: tuple, quant: bool, seed: int, L: int) -> dict:
+    """B1's inputs at a family key: 8 rows of bf16 queries over a shuffled
+    bf16 or int8 arena of page 256. ``decode``: seeded decode rows at
+    contexts 144 .. 1831 (3900 where the arena holds 4096 tokens);
+    ``mixed``: six of those decode rows beside a 512-token chunk at
+    1100 (across the 1024 window) and a 64-token chunk at 1700. The
+    softcap key's queries are scaled so the logits reach the cap."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.models.transformer import _quantize_rows
+
+    _, h, hkv, dh, window, cap, rows, max_pages = key
+    B = 8
+    ctx = np.linspace(144, 1831 if max_pages == 8 else 3900,
+                      B).astype(np.int32)
+    if rows == "decode":
+        q_lens, pos0 = np.ones(B, np.int32), ctx - 1
+    else:
+        q_lens = np.asarray([1] * 6 + [512, 64], np.int32)
+        pos0 = np.concatenate([ctx[:6] - 1, [1100, 1700]]).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    n_pages = B * max_pages + 1
+    pt = rng.permutation(np.arange(1, n_pages)).reshape(
+        B, max_pages).astype(np.int32)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    F = hkv * dh
+    ak = torch.randn((L, n_pages, PAGE, F), generator=g, device=dev) * 0.5
+    av = torch.randn((L, n_pages, PAGE, F), generator=g, device=dev) * 0.5
+    T = int(q_lens.max())
+    q = torch.randn((B, T, h, dh), generator=g, device=dev)
+    if cap:
+        q = q * 40  # logits of std ~20 against a cap of 50
+    c = {"q": q.to(torch.bfloat16), "layer": 1, "n_kv_heads": hkv,
+         "scale": dh ** -0.5, "window": window, "softcap": cap,
+         "page_table": torch.from_numpy(pt).to(dev),
+         "pos0": torch.from_numpy(pos0).to(dev),
+         "q_lens": torch.from_numpy(q_lens).to(dev)}
+    if quant:
+        kq, ks = _quantize_rows(ak)
+        vq, vs = _quantize_rows(av)
+        c.update(cache_k=kq, cache_v=vq, cache_k_scale=ks, cache_v_scale=vs)
+    else:
+        c.update(cache_k=ak.to(torch.bfloat16), cache_v=av.to(torch.bfloat16))
+    if rows == "decode":
+        c["seed_kv"] = tuple((torch.randn((B, F), generator=g, device=dev)
+                              * 0.5).to(torch.bfloat16) for _ in range(2))
+    return c
+
+
+def family_kernel_keys() -> tuple[float, dict]:
+    """Every FAMILY_KEYS key against the plain version within 1e-4 (bf16
+    and int8 pages, each call repeated bitwise), then timed cold on bf16
+    pages as the main keys are: by CUDA-graph replay (``ms``) and call by
+    call (``eager_ms``), beside the plain version, the bound and SDPA
+    over the gathered window with the same mask (none for the softcap:
+    SDPA has no softcap, so no single call computes it)."""
+    import torch
+
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_attention_plain, ragged_paged_attention,
+    )
+
+    worst, out = 0.0, {}
+    for i, key in enumerate(FAMILY_KEYS):
+        name = key[0]
+        errs = {}
+        for quant in (False, True):
+            c = family_case(key, quant, seed=1000 + 10 * i + quant,
+                            L=ATTN_LAYERS if not quant else 2)
+            got = _call(ragged_paged_attention, c)
+            want = _call(ragged_attention_plain, c)
+            again = _call(ragged_paged_attention, c)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            kind = "int8" if quant else "bf16"
+            errs[kind] = err
+            if not err < TOL:
+                raise AssertionError(f"ragged_paged_attention {name}/{kind}: "
+                                     f"max abs err {err} >= {TOL}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"ragged_paged_attention {name}/{kind}:"
+                                     " two calls on the same inputs differ")
+            if key[5] and not quant:  # the cap moves the output
+                nocap = _call(ragged_attention_plain, {**c, "softcap": 0.0})
+                errs["uncapped_minus_capped"] = float(
+                    (nocap - want).abs().max())
+                if not errs["uncapped_minus_capped"] > 100 * TOL:
+                    raise AssertionError(f"{name}: the softcap does not "
+                                         "move the output")
+            if not quant:
+                timed = c
+            worst = max(worst, err)
+        c = timed
+        nbytes, flops = attention_work(c)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        sets = _layers(c)
+        before = ragged_paged_attention.launches
+        ms = _time_graph(_cycled(
+            lambda c: _call(ragged_paged_attention, c), sets), 48)
+        eager_ms = _time_ms(_cycled(
+            lambda c: _call(ragged_paged_attention, c), sets), 48)
+        ragged_paged_attention.launches = before  # timing is not the path
+        plain_ms = _time_ms(_cycled(
+            lambda c: _call(ragged_attention_plain, c), sets), 8)
+        library_ms = None
+        if not key[5]:
+            lib_runs = [_library_call(cl) for (cl,) in sets]
+            library_ms = _time_graph(_cycled(lambda run: run(),
+                                             [(r,) for r in lib_runs]), 24)
+            del lib_runs
+        out[name] = {
+            "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= flops / BF16_FLOPS else "operations"),
+            "library_ms": library_ms,
+            "library": None if library_ms is not None else "no single call",
+            "bytes": nbytes, "flops": flops, "max_abs_err": errs,
+            "heads": key[1], "kv_heads": key[2], "head_dim": key[3],
+            "window": key[4], "softcap": key[5],
+            "q_lens": c["q_lens"].tolist(),
+            "ctx": [p + n for p, n in zip(c["pos0"].tolist(),
+                                          c["q_lens"].tolist())]}
+        log("kernel_time", kernel="ragged_paged_attention", key=name,
+            **out[name])
+        del c, timed, sets
+        torch.cuda.empty_cache()
+    return worst, out
+
+
 # the 8B projections (K, N): wq/wo, wk/wv, w_gate/w_up, w_down
 PROJ_8B = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336),
            "w_down": (14336, 4096)}
@@ -600,6 +780,12 @@ PROJ_8B = {"wq": (4096, 4096), "wk": (4096, 1024), "w_gate": (4096, 14336),
 # and the speculative verify's rows x n_draft (4, 16; 28 and 32: 7 and 8
 # rows on 64-row tiles)
 INT8_M = (1, 4, 8, 16, 17, 28, 32, 37, 127, 128, 129, 1000, 1024)
+# Gemma-3-4B's projections (K, N) under ``quantization: int8`` (phase
+# families serves them at M 1 and 128): wq, wk / wv, wo, w_gate / w_up,
+# w_down
+PROJ_G3 = {"wq": (2560, 2048), "wk": (2560, 1024), "wo": (2048, 2560),
+           "w_gate": (2560, 10240), "w_down": (10240, 2560)}
+G3_INT8_M = (1, 8, 17, 128, 129)
 # timed (projection, M): decode and mixed-step sizes, bf16 x and out
 INT8_TIMED = (("w_gate", 8), ("w_gate", 1024), ("wk", 8), ("wk", 1024),
               ("wq", 1024), ("w_down", 1024), ("w_gate", 128),
@@ -685,9 +871,9 @@ def _cycled(fn, sets):
 
 
 def phase_int8_kernels():
-    """int8_matmul against its plain version at the 8B shapes, then times
-    at the INT8_TIMED shapes (bf16 x and out, as served) and sums one
-    layer's seven projections at M = 1024."""
+    """int8_matmul against its plain version at the 8B shapes and at
+    Gemma-3-4B's, then times at the INT8_TIMED shapes (bf16 x and out,
+    as served) and sums one layer's seven projections at M = 1024."""
     import torch
 
     from localai_tfp_tpu_torch.ops.int8_matmul import (
@@ -698,43 +884,47 @@ def phase_int8_kernels():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = {"abs_f32out": 0.0, "abs_bf16out": 0.0, "rel_f32out": 0.0,
              "ulp_bf16out": 0.0, "excess_bf16out": 0.0}
-    for name, (k, n) in PROJ_8B.items():
-        for m in INT8_M:
-            for x_dtype in (torch.bfloat16, torch.float32):
-                x, q, s = _int8_operands(m, k, n, x_dtype, seed=m + k + n)
-                for out_dtype in (torch.bfloat16, torch.float32):
-                    got = int8_matmul(x, q, s, out_dtype)
-                    again = int8_matmul(x, q, s, out_dtype)
-                    want = int8_matmul_plain(x, q, s, out_dtype)
-                    torch.cuda.synchronize()
-                    err = float((got.float() - want.float()).abs().max())
-                    top = float(want.float().abs().max())
-                    rec = {"kernel": "int8_matmul", "proj": name, "m": m,
-                           "k": k, "n": n, "x": str(x_dtype)[6:],
-                           "out": str(out_dtype)[6:], "max_abs_err": err,
-                           "max_abs_want": top,
-                           "bitwise_repeat": bool(torch.equal(got, again)),
-                           "plan": plan(m, n, k, sms,
-                                        x_dtype == torch.bfloat16)}
-                    out = "f32out" if out_dtype == torch.float32 \
-                        else "bf16out"
-                    worst[f"abs_{out}"] = max(worst[f"abs_{out}"], err)
-                    if out_dtype == torch.float32:
-                        rel = err / top
-                        worst["rel_f32out"] = max(worst["rel_f32out"], rel)
-                        ok = err <= INT8_REL_TOL * top
-                        rec["rel_err"] = rel
-                    else:
-                        ulps, excess = bf16_errors(got, want)
-                        worst["ulp_bf16out"] = max(worst["ulp_bf16out"],
-                                                   ulps)
-                        worst["excess_bf16out"] = max(
-                            worst["excess_bf16out"], excess)
-                        ok = excess <= INT8_REL_TOL
-                        rec.update(bf16_ulps=ulps, rel_err_beyond_1ulp=excess)
-                    log("kernel_check", **rec)
-                    if not (ok and rec["bitwise_repeat"]):
-                        raise AssertionError(f"int8_matmul disagrees: {rec}")
+    checks = [("llama31_8b", name, kn, m) for name, kn in PROJ_8B.items()
+              for m in INT8_M]
+    checks += [("gemma3_4b", name, kn, m) for name, kn in PROJ_G3.items()
+               for m in G3_INT8_M]
+    for model, name, (k, n), m in checks:
+        for x_dtype in (torch.bfloat16, torch.float32):
+            x, q, s = _int8_operands(m, k, n, x_dtype, seed=m + k + n)
+            for out_dtype in (torch.bfloat16, torch.float32):
+                got = int8_matmul(x, q, s, out_dtype)
+                again = int8_matmul(x, q, s, out_dtype)
+                want = int8_matmul_plain(x, q, s, out_dtype)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                top = float(want.float().abs().max())
+                rec = {"kernel": "int8_matmul", "model": model,
+                       "proj": name, "m": m,
+                       "k": k, "n": n, "x": str(x_dtype)[6:],
+                       "out": str(out_dtype)[6:], "max_abs_err": err,
+                       "max_abs_want": top,
+                       "bitwise_repeat": bool(torch.equal(got, again)),
+                       "plan": plan(m, n, k, sms,
+                                    x_dtype == torch.bfloat16)}
+                out = "f32out" if out_dtype == torch.float32 \
+                    else "bf16out"
+                worst[f"abs_{out}"] = max(worst[f"abs_{out}"], err)
+                if out_dtype == torch.float32:
+                    rel = err / top
+                    worst["rel_f32out"] = max(worst["rel_f32out"], rel)
+                    ok = err <= INT8_REL_TOL * top
+                    rec["rel_err"] = rel
+                else:
+                    ulps, excess = bf16_errors(got, want)
+                    worst["ulp_bf16out"] = max(worst["ulp_bf16out"],
+                                               ulps)
+                    worst["excess_bf16out"] = max(
+                        worst["excess_bf16out"], excess)
+                    ok = excess <= INT8_REL_TOL
+                    rec.update(bf16_ulps=ulps, rel_err_beyond_1ulp=excess)
+                log("kernel_check", **rec)
+                if not (ok and rec["bitwise_repeat"]):
+                    raise AssertionError(f"int8_matmul disagrees: {rec}")
     timings = {}
     for name, m in INT8_TIMED:
         k, n = PROJ_8B[name]
@@ -1036,8 +1226,8 @@ def reference_check(backend, layers: int) -> dict:
 
 
 def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
-                   repeat_last_n: int = 64, masks: list | None = None
-                   ) -> dict:
+                   repeat_last_n: int = 64, masks: list | None = None,
+                   cache_dtype=None) -> dict:
     """How far each served greedy token ``ids`` falls below the argmax of
     the plain dense forward (``_attend``) over prompt + ids: the worst
     logit deficit against a tolerance of a quarter of the logits' std
@@ -1049,14 +1239,16 @@ def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
     it), positive logits divided by it, negative ones multiplied. With
     ``masks`` (the [V] bool sampling mask of each generated token, as
     the engine built it), the argmax is over each step's admitted
-    tokens; the tolerance stays that of the unmasked logits."""
+    tokens; the tolerance stays that of the unmasked logits. The
+    forward's cache is bf16 unless ``cache_dtype`` says otherwise."""
     import torch
 
     from localai_tfp_tpu_torch.models.transformer import KVCache, forward
 
     seq = prompt + ids[:-1]
     dev = eng.device
-    cache = KVCache.create(eng.spec, 1, len(seq), torch.bfloat16, device=dev)
+    cache = KVCache.create(eng.spec, 1, len(seq),
+                           cache_dtype or torch.bfloat16, device=dev)
     with torch.inference_mode():
         logits, _ = forward(eng.spec, eng.params,
                             torch.tensor([seq], device=dev),
@@ -2815,6 +3007,9 @@ REJECT_TIE = 0.2
 # sampled acceptance below which the rule or the draft arena is broken
 # (a model drafting for itself has p close to q)
 SAMPLED_ACCEPT_MIN = 0.5
+# (b)'s depth: the 8B checkpoint's first 8 of 32 layers, target and
+# draft (its tensors shared by a symlink; config.json says 8 layers)
+SPEC_B_LAYERS = 8
 # faults planted on (b)'s engine to show that its checks fail them: the
 # prompt mirror written elsewhere (a stale draft arena; the greedy
 # rejection check must fail it), or the rejection rule reading the
@@ -3251,7 +3446,8 @@ def _shut(srv, th) -> None:
 def phase_spec(ckpt_name: str, seed: int) -> dict:
     """Speculative decoding through the HTTP route: (a) the 8B target
     with a Llama-3.2-1B-geometry draft against the plain server, greedy;
-    (b) the 8B checkpoint as its own draft, greedy and sampled; (c) the
+    (b) the 8B checkpoint's first SPEC_B_LAYERS layers as their own
+    draft, greedy and sampled; (c) the
     int8 target with the bf16 1B draft; (d) a penalised request beside a
     clean one on (a)'s server."""
     models = ROOT / "build" / "chip_smoke" / "models"
@@ -3261,14 +3457,25 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
                                         DRAFT_SEED, DRAFT_GEOMETRY)
     log("spec_checkpoint", dir=draft_name, written=written,
         write_s=write_s, layers=layers)
+    cut = f"{ckpt_name}-first{SPEC_B_LAYERS}"
+    (models / cut).mkdir(exist_ok=True)
+    for f in (models / cut).iterdir():
+        f.unlink()
+    (models / cut / "model.safetensors").symlink_to(
+        models / ckpt_name / "model.safetensors")
+    config = json.loads((models / ckpt_name / "config.json").read_text())
+    (models / cut / "config.json").write_text(json.dumps(
+        {**config, "num_hidden_layers": SPEC_B_LAYERS}, indent=1))
     configs = {"llama-3.1-8b-spec": {"draft_model": draft_name},
-               "llama-3.1-8b-self": {"draft_model": ckpt_name},
+               "llama-3.1-8b-self": {"model": cut, "draft_model": cut},
+               "llama-3.1-8b-cut": {"model": cut},
                "llama-3.1-8b-int8-spec": {"draft_model": draft_name,
                                           "quantization": "int8"}}
     for name, extra in configs.items():
+        model = extra.pop("model", ckpt_name)
         (models / f"{name}.yaml").write_text(json.dumps({
             "name": name, "backend": "torch-llm",
-            "parameters": {"model": ckpt_name, "temperature": 0.0,
+            "parameters": {"model": model, "temperature": 0.0,
                            "max_tokens": 32},
             "context_size": CONTEXT, "max_batch_slots": SLOTS,
             "dtype": "bfloat16", "n_draft": N_DRAFT, **extra,
@@ -3336,12 +3543,15 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
     finally:
         _shut(srv, th)
 
-    # (b) the 8B checkpoint drafting for itself, the four prompts at once
-    # (decode rows run through the later prompts' mixed steps, which
-    # write their draft K/V too); its greedy ids held to (a)'s plain run
+    # (b) the 8B checkpoint's first SPEC_B_LAYERS layers drafting for
+    # themselves, the four prompts at once (decode rows run through the
+    # later prompts' mixed steps, which write their draft K/V too); its
+    # greedy ids held to the plain model of that depth
     srv, th = _serve(models)
     try:
         port = srv.server_address[1]
+        cut_b = _loaded(port, srv.app, "llama-3.1-8b-cut")
+        plain_cut = spec_wave(port, "llama-3.1-8b-cut", cut_b, greedy)
         self_b = _loaded(port, srv.app, "llama-3.1-8b-self")
         sampled = [{**b, "temperature": 1.0, "seed": 11 + i}
                    for i, b in enumerate(greedy)]
@@ -3351,10 +3561,12 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
                          [greedy, sampled], gaps=True)
         g, s_ = pair["graph"]
         gaps = pair["body"][0]["_rejection_gaps"]
-        cmp_b = compare_waves(g, plain, self_b.engine,
+        cmp_b = compare_waves(g, plain_cut, self_b.engine,
                               "self-draft vs plain")
-        out["b"] = {**_pair_public(pair), "greedy": _public(g),
-                    "sampled": _public(s_),
+        out["b"] = {**_pair_public(pair), "layers": SPEC_B_LAYERS,
+                    "reduced": f"layers {SPEC_B_LAYERS} of "
+                               f"{config['num_hidden_layers']}",
+                    "greedy": _public(g), "sampled": _public(s_),
                     "compare": cmp_b, "greedy_rejections": len(gaps),
                     "greedy_rejection_gap_max": max(gaps, default=0.0),
                     "limit": REJECT_TIE, "sampled_min": SAMPLED_ACCEPT_MIN}
@@ -4378,11 +4590,607 @@ def phase_lifecycle(ckpt_name: str, layers: int, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 12
+
+# the text tower of Google's gemma-3-4b-it config.json (text_config)
+GEMMA3_4B = {
+    "model_type": "gemma3_text", "hidden_size": 2560,
+    "intermediate_size": 10240, "num_attention_heads": 8,
+    "num_key_value_heads": 4, "head_dim": 256, "num_hidden_layers": 34,
+    "vocab_size": 262208, "sliding_window": 1024,
+    "sliding_window_pattern": 6, "rope_theta": 1000000.0,
+    "rope_local_base_freq": 10000.0,
+    "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+    "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-6,
+    "hidden_activation": "gelu_pytorch_tanh",
+    "max_position_embeddings": 131072,
+}
+# Google's gemma-2-2b-it config.json
+GEMMA2_2B = {
+    "model_type": "gemma2", "hidden_size": 2304, "intermediate_size": 9216,
+    "num_attention_heads": 8, "num_key_value_heads": 4, "head_dim": 256,
+    "num_hidden_layers": 26, "vocab_size": 256000, "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "query_pre_attn_scalar": 256, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000.0, "hidden_activation": "gelu_pytorch_tanh",
+    "max_position_embeddings": 8192,
+}
+# Microsoft's Phi-3-mini-4k-instruct config.json
+PHI3_MINI = {
+    "model_type": "phi3", "hidden_size": 3072, "intermediate_size": 8192,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "num_hidden_layers": 32, "vocab_size": 32064, "sliding_window": 2047,
+    "rope_theta": 10000.0, "rms_norm_eps": 1e-5, "hidden_act": "silu",
+    "max_position_embeddings": 4096, "tie_word_embeddings": False,
+}
+PHI3_LAYERS = 8  # a depth cut: Phi-3-mini has 32
+FAMILY_CONTEXT = 4096
+# LocalAI's gallery template for Gemma, as Go templates
+GEMMA_TEMPLATE = {
+    "chat_message": '<start_of_turn>{{if eq .RoleName "assistant" }}model'
+                    '{{else}}{{ .RoleName }}{{end}}\n{{ if .Content -}}'
+                    '{{.Content -}}{{ end -}}<end_of_turn>',
+    "chat": "{{.Input }}\n<start_of_turn>model\n",
+}
+# a prompt over 1100 tokens (the byte tokenizer: one token a byte), so
+# Gemma 3's sliding layers (window 1024) and global layers see different
+# keys from the first decode step on, past position 1024 + 64
+LONG_PROMPT = ("The sliding layers see the last 1024 tokens; the global "
+               "layers see them all. ") * 15
+
+
+def family_layout(g: dict, layers: int, prefix: str) -> list:
+    """(name, HF [out, in] shape) of every tensor of a checkpoint of
+    geometry ``g``: Gemma 2/3 with their sandwich norms (Gemma 3 with
+    q/k norms), Phi-3 with fused qkv_proj and gate_up_proj."""
+    D, F, V = g["hidden_size"], g["intermediate_size"], g["vocab_size"]
+    dh = g.get("head_dim") or D // g["num_attention_heads"]
+    q, kv = g["num_attention_heads"] * dh, g["num_key_value_heads"] * dh
+    mt = g["model_type"]
+    out = [(f"{prefix}embed_tokens.weight", (V, D)),
+           (f"{prefix}norm.weight", (D,))]
+    if mt == "phi3":
+        out.append(("lm_head.weight", (V, D)))
+    for i in range(layers):
+        lp = f"{prefix}layers.{i}."
+        if mt == "phi3":
+            out += [(lp + "self_attn.qkv_proj.weight", (q + 2 * kv, D)),
+                    (lp + "mlp.gate_up_proj.weight", (2 * F, D))]
+        else:
+            out += [(lp + "self_attn.q_proj.weight", (q, D)),
+                    (lp + "self_attn.k_proj.weight", (kv, D)),
+                    (lp + "self_attn.v_proj.weight", (kv, D)),
+                    (lp + "mlp.gate_proj.weight", (F, D)),
+                    (lp + "mlp.up_proj.weight", (F, D))]
+        out += [(lp + "self_attn.o_proj.weight", (D, q)),
+                (lp + "mlp.down_proj.weight", (D, F)),
+                (lp + "input_layernorm.weight", (D,)),
+                (lp + "post_attention_layernorm.weight", (D,))]
+        if mt != "phi3":
+            out += [(lp + "pre_feedforward_layernorm.weight", (D,)),
+                    (lp + "post_feedforward_layernorm.weight", (D,))]
+        if mt == "gemma3_text":
+            out += [(lp + "self_attn.q_norm.weight", (dh,)),
+                    (lp + "self_attn.k_norm.weight", (dh,))]
+    return out
+
+
+def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
+                            saturate: str = "last",
+                            q_cap_scale: float = 4.0) -> tuple[int, float]:
+    """A checkpoint of geometry ``g`` with random bf16 weights made on the
+    card from ``seed`` (matrices at 1/sqrt(fan-in); Gemma's norm weights
+    0, which its ``1 + w`` norms read as 1; Phi-3's 1). Gemma ties its
+    head to the embedding: at full scale each position's own embedding
+    would outweigh what attention adds and the greedy ids would echo the
+    input whatever attention computed, so its embedding is drawn at 1/20
+    of that scale (the layers see it normalized). A model with an
+    attention softcap has its last layer's q_proj scaled by 4x the cap
+    and that layer's post-attention norm weight at 9 (a x10 scale): its
+    logits (std ~1 otherwise) pass the cap, so the capped softmax is
+    near uniform over the top positions where the uncapped one is one
+    position, and that attention output dominates what the head reads.
+    A kernel that drops the cap then serves other ids, while the bf16
+    rounding of one saturated layer moves them little. ``saturate=
+    "every"`` scales every layer's q_proj by ``q_cap_scale`` x the cap
+    instead and no norm (phase ``softcap_witness``). Gemma 3 is
+    written as the published multimodal checkpoint lays out its text
+    tower: ``model_type: gemma3`` with a ``text_config``, tensors under
+    ``language_model.model.`` (no vision tensors: the port serves the
+    text tower). Returns (bytes, seconds)."""
+    import math
+
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_iter
+
+    t0 = time.perf_counter()
+    ckpt.mkdir(parents=True, exist_ok=True)
+    mt = g["model_type"]
+    prefix = "language_model.model." if mt == "gemma3_text" else "model."
+    layout = family_layout(g, layers, prefix)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    norm = 1.0 if mt == "phi3" else 0.0
+    cap = g.get("attn_logit_softcapping")
+    last = f"layers.{layers - 1}."
+
+    def saturated(name: str, part: str) -> bool:
+        return bool(cap) and part in name and (
+            saturate == "every" or last + part in name)
+
+    def tensors():
+        for name, shape in layout:
+            if len(shape) == 1:
+                w = norm
+                if saturate == "last" and saturated(
+                        name, "post_attention_layernorm"):
+                    w = 9.0
+                yield name, torch.full(shape, w, dtype=torch.bfloat16,
+                                       device=dev)
+            else:
+                w = torch.randn(shape, generator=gen, device=dev)
+                scale = shape[1] ** -0.5
+                if saturated(name, "self_attn.q_proj"):
+                    scale *= q_cap_scale * cap
+                if name.endswith("embed_tokens.weight") and mt != "phi3":
+                    scale /= 20
+                yield name, (w * scale).to(torch.bfloat16)
+
+    shapes = [(n, torch.empty(s, dtype=torch.bfloat16, device="meta"))
+              for n, s in layout]
+    save_iter(tensors(), str(ckpt / "model.safetensors"), shapes=shapes)
+    text = {**g, "num_hidden_layers": layers, "torch_dtype": "bfloat16"}
+    config = ({"architectures": ["Gemma3ForConditionalGeneration"],
+               "model_type": "gemma3", "text_config": text,
+               "torch_dtype": "bfloat16"} if mt == "gemma3_text" else text)
+    (ckpt / "config.json").write_text(json.dumps(config, indent=1))
+    nbytes = sum(2 * math.prod(s) for _, s in layout)
+    return nbytes, time.perf_counter() - t0
+
+
+def family_yaml(models: Path, name: str, ckpt: str, **extra) -> None:
+    (models / f"{name}.yaml").write_text(json.dumps({
+        "name": name, "backend": "torch-llm",
+        "parameters": {"model": ckpt, "temperature": 0.0, "max_tokens": 32},
+        "context_size": FAMILY_CONTEXT, "max_batch_slots": SLOTS,
+        "dtype": "bfloat16", "stopwords": ["<end_of_turn>"],
+        "template": GEMMA_TEMPLATE, **extra}, indent=1))
+
+
+def family_burst(port: int, model: str, eng, bodies: list) -> dict:
+    """``bodies`` streamed at once; each stream's frames, usage and host
+    ms to its first token; the kernels' counts set to 0 just before and
+    read just after; the engine's forwards, replays and host ms per
+    decode forward (the step ends in the host read of its tokens)."""
+    import threading
+
+    import torch
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    results, errors = {}, []
+
+    def send(i, body):
+        body = {"model": model, "stream": True, **body}
+        try:
+            r = stream_post(port, "/v1/chat/completions", body,
+                            {"Extra-Usage": "1"})  # the timings in usage
+            last = r["frames"][-1]
+            usage, finish = last["usage"], last["choices"][0]["finish_reason"]
+            n = usage["completion_tokens"]
+            if not (n > 0 and ((finish == "length" and n == body["max_tokens"])
+                               or (finish == "stop"
+                                   and n <= body["max_tokens"]))):
+                raise AssertionError(f"finish {finish!r} usage {usage}")
+            # the engine's submit-to-first-token ms: a random model's
+            # tokens are mostly ids past the byte tokenizer's 256, which
+            # decode to no text, so the first text frame can come late
+            results[i] = {"prompt_tokens": usage["prompt_tokens"],
+                          "completion_tokens": n, "finish_reason": finish,
+                          "first_token_ms": usage["timing_first_token"],
+                          "first_text_ms": r["ttft_ms"]}
+        except Exception as e:  # re-raised below
+            errors.append(f"{i}: {e!r}")
+
+    spent = [0.0]
+    step = eng._decode_step
+
+    def clocked(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return step(*a, **kw)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    eng._decode_step = clocked
+    m = eng.metrics
+    before = (m.forward_steps, m.decode_steps, m.mixed_steps,
+              m.graph_replays, m.mixed_replays)
+    torch.cuda.synchronize()
+    ragged_paged_attention.launches = 0
+    int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i, b))
+               for i, b in enumerate(bodies)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = {"ragged_paged_attention": ragged_paged_attention.launches,
+                "int8_matmul": int8_matmul.launches}
+    del eng._decode_step
+    if errors or len(results) != len(bodies):
+        raise AssertionError(f"{model}: requests failed: {errors}")
+    steps, decode, mixed, replays, mreplays = (
+        a - b for a, b in zip((m.forward_steps, m.decode_steps,
+                               m.mixed_steps, m.graph_replays,
+                               m.mixed_replays), before))
+    return {"requests": [results[i] for i in range(len(bodies))],
+            "wall_s": round(wall, 3), "forward_steps": steps,
+            "decode_forwards": decode, "mixed_forwards": mixed,
+            "decode_replays": replays, "mixed_replays": mreplays,
+            "ms_per_decode_forward": round(spent[0] * 1e3 / max(1, decode),
+                                           3),
+            "launches": launches}
+
+
+def served_greedy(backend, text: str, max_tokens: int) -> tuple:
+    """(prompt ids, generated ids) of one greedy request of ``text``, with
+    the template's turns, straight to the engine."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    eng = backend.engine
+    prompt = backend.tokenizer.encode(
+        f"<start_of_turn>user\n{text}<end_of_turn>\n<start_of_turn>model\n",
+        add_bos=True)
+    got = {}
+    orig = eng._finish
+
+    def spy(slot, reason):
+        got["ids"] = list(slot.generated)
+        return orig(slot, reason)
+
+    eng._finish = spy
+    try:
+        ev = eng.generate(GenRequest(prompt_ids=prompt, max_tokens=max_tokens,
+                                     ignore_eos=True))
+    finally:
+        del eng._finish
+    if ev.error:
+        raise AssertionError(f"reference request failed: {ev.error}")
+    return prompt, got["ids"]
+
+
+def reference_engine(eng, dtype=None, **spec_changes):
+    """What ``dense_deficits`` reads of ``eng``, with its int8 projections
+    dequantized (the reference forward then runs no B2, so a B2 fault
+    cannot sit on both sides of the check), the weights cast to
+    ``dtype`` when given, and ``spec_changes`` made to the spec."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from localai_tfp_tpu_torch.models.quant import QTensor, dequantize
+
+    params = {}
+    for k, v in eng.params.items():
+        w = (dequantize(v).to(torch.bfloat16) if isinstance(v, QTensor)
+             else v)
+        params[k] = w.to(dtype) if dtype is not None else w
+    return types.SimpleNamespace(
+        spec=dataclasses.replace(eng.spec, **spec_changes), params=params,
+        device=eng.device, sampling=eng.sampling)
+
+
+def family_reference(backend, text: str, max_tokens: int) -> dict:
+    """One greedy request of ``text``; its ids held to the argmax of the
+    plain dense forward (``_attend``, with each layer's window and the
+    softcap; int8 projections dequantized) over the same tokens, as
+    ``reference_check`` holds the main path's. With a softcap, the same
+    ids must fail the dense forward without it: the check sees a kernel
+    that drops the cap."""
+    eng = backend.engine
+    prompt, ids = served_greedy(backend, text, max_tokens)
+    ref = dense_deficits(reference_engine(eng), prompt, ids)
+    ref["prompt_tokens"] = len(prompt)
+    if not ref["worst_logit_deficit"] <= ref["tol"]:
+        raise AssertionError(f"greedy ids are not the dense reference's "
+                             f"argmax: {ref}")
+    if eng.spec.attn_logit_softcap:
+        uncapped = reference_engine(eng, attn_logit_softcap=0.0)
+        ref["uncapped"] = dense_deficits(uncapped, prompt, ids)
+        if not ref["uncapped"]["worst_logit_deficit"] > \
+                ref["uncapped"]["tol"]:
+            raise AssertionError(f"the served ids also pass the dense "
+                                 f"forward without the softcap: {ref}")
+    return ref
+
+
+def serve_family(models: Path, model: str, smi: str, bodies: list,
+                 ref_text: str, layers: int, graphs_every_decode: bool,
+                 int8: bool = False, profile: bool = False) -> dict:
+    """Load ``model`` through the port's server, stream ``bodies`` at once
+    (B1 once per layer of every forward; B2 on an int8 config), hold a
+    greedy request to the dense reference, (``profile``) profile 8
+    decoding requests as phase main does, and unload."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.transformer import layer_windows
+
+    srv, th = _serve(models)
+    try:
+        port = srv.server_address[1]
+        t0 = time.perf_counter()
+        backend = _loaded(port, srv.app, model)
+        eng = backend.engine
+        load = {"load_s": round(backend.load_s, 3), "mode": backend.load_mode,
+                "load_and_first_request_s": round(time.perf_counter() - t0, 3),
+                "warmup_s": round(eng.metrics.warmup_s, 3),
+                "variants": eng.variant_count(),
+                "param_bytes": param_bytes(eng.params),
+                "kv_arena_bytes": eng.cache.nbytes(),
+                "windows": sorted(set(layer_windows(eng.spec))),
+                "softcap": eng.spec.attn_logit_softcap}
+        log("families_load", model=model, card=smi, **load)
+        by_m = undo = None
+        if int8:
+            by_m, undo = _b2_by_m(eng)
+        try:
+            burst = family_burst(port, model, eng, bodies)
+        finally:
+            if undo is not None:
+                undo()
+        got = burst["launches"]
+        if got["ragged_paged_attention"] != layers * burst["forward_steps"]:
+            raise AssertionError(
+                f"{model}: B1 launched {got['ragged_paged_attention']} times "
+                f"for {burst['forward_steps']} forwards of {layers} layers")
+        if graphs_every_decode and (
+                burst["decode_replays"] != burst["decode_forwards"]
+                or burst["mixed_replays"] != burst["mixed_forwards"]):
+            raise AssertionError(f"{model}: forwards not all replays: "
+                                 f"{burst}")
+        if int8:
+            burst["int8_matmul_calls_by_m"] = dict(sorted(by_m.items()))
+            if not got["int8_matmul"] or not by_m:
+                raise AssertionError(f"{model}: int8_matmul never launched")
+        log("families_burst", model=model, card=smi, **burst)
+        ref = family_reference(backend, ref_text, 16)
+        log("families_reference", model=model, card=smi, **ref)
+        prof = None
+        if profile:
+            prof = profile_decode(eng)
+            log("families_profile", model=model, card=smi, **prof)
+        eng.leak_check()
+        return {"load": load, "burst": burst, "reference": ref,
+                "profile": prof}
+    finally:
+        _shut(srv, th)
+        torch.cuda.empty_cache()
+
+
+def family_chats() -> list:
+    """Phase families' four chats: the long one (past the 1024 window),
+    two short greedy ones and a sampled one."""
+    return [
+        {"max_tokens": 48, "messages": [{"role": "user",
+                                         "content": LONG_PROMPT}]},
+        {"max_tokens": 32, "messages": [{"role": "user",
+                                         "content": "Say hello."}]},
+        {"max_tokens": 24, "messages": [
+            {"role": "user", "content": "Name three colours."},
+            {"role": "assistant", "content": "Red, green, blue."},
+            {"role": "user", "content": "And three more?"}]},
+        {"max_tokens": 16, "temperature": 0.8, "seed": 7, "top_k": 40,
+         "messages": [{"role": "user", "content": "Pick a word."}]},
+    ]
+
+
+def phase_families(smi: str, seed: int) -> dict:
+    """(a) Gemma-3-4B-it at full width and depth, bf16 then int8;
+    (b) Gemma-2-2B-it at full width and depth; (c) Phi-3-mini-4k at
+    full width, 8 layers."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "family_models"
+    models.mkdir(parents=True, exist_ok=True)
+    out = {}
+    chats = family_chats()
+    saved = os.environ.get("LOCALAI_QUANT_ARTIFACTS")
+    for key, g, layers, cut in (
+            ("gemma3_4b", GEMMA3_4B, GEMMA3_4B["num_hidden_layers"], None),
+            ("gemma2_2b", GEMMA2_2B, GEMMA2_2B["num_hidden_layers"], None),
+            ("phi3_mini", PHI3_MINI, PHI3_LAYERS,
+             f"layers {PHI3_LAYERS} of {PHI3_MINI['num_hidden_layers']}")):
+        ckpt = f"{key}-L{layers}-s{seed}"
+        nbytes, write_s = write_family_checkpoint(models / ckpt, g, layers,
+                                                  seed)
+        log("families_checkpoint", model=key, bytes=nbytes,
+            write_s=round(write_s, 3), layers=layers, reduced=cut, card=smi)
+        family_yaml(models, key, ckpt)
+        if key == "gemma3_4b":
+            res = serve_family(models, key, smi, chats,
+                               LONG_PROMPT, layers, True, profile=True)
+            ctx = max(r["prompt_tokens"] + r["completion_tokens"]
+                      for r in res["burst"]["requests"])
+            if ctx <= g["sliding_window"] + 64:
+                raise AssertionError(f"the long chat ends at {ctx}")
+            # the same checkpoint quantized at load (no artifact: this
+            # phase measures the serving, not the cache)
+            family_yaml(models, f"{key}-int8", ckpt, quantization="int8")
+            os.environ["LOCALAI_QUANT_ARTIFACTS"] = "off"
+            try:
+                res["int8"] = serve_family(
+                    models, f"{key}-int8", smi, chats[1:2], "Say hello.",
+                    layers, True, int8=True)
+            finally:
+                if saved is None:
+                    os.environ.pop("LOCALAI_QUANT_ARTIFACTS", None)
+                else:
+                    os.environ["LOCALAI_QUANT_ARTIFACTS"] = saved
+        else:
+            res = serve_family(models, key, smi, chats[1:3],
+                               "Name three colours.", layers, True)
+        res.update(layers=layers, reduced=cut, checkpoint_bytes=nbytes)
+        out[key] = res
+        shutil.rmtree(models / ckpt, ignore_errors=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("families", card=smi, phase_s=out["phase_s"],
+        **{k: {"load_s": v["load"]["load_s"],
+               "warmup_s": v["load"]["warmup_s"],
+               "variants": v["load"]["variants"],
+               "first_token_ms": [r["first_token_ms"]
+                                  for r in v["burst"]["requests"]],
+               "ms_per_decode_forward":
+                   v["burst"]["ms_per_decode_forward"],
+               "b1_launches_per_forward":
+                   v["burst"]["launches"]["ragged_paged_attention"]
+                   / max(1, v["burst"]["forward_steps"])}
+           for k, v in out.items() if isinstance(v, dict)})
+    return out
+
+
+def paged_logits(eng, seq: list):
+    """Logits [len(seq), V] f32 of ``seq`` in one paged prefill forward
+    over a scratch arena in the engine's page size, as ``LLMEngine.embed``
+    runs its forward: each layer's attention is whatever
+    ``transformer.ragged_paged_attention`` names (B1 on a card)."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.transformer import KVCache, forward
+
+    n, pg, dev = len(seq), eng.page, eng.device
+    n_pages = -(-n // pg)
+    toks = torch.zeros((1, n_pages * pg), dtype=torch.int32)
+    toks[0, :n] = torch.tensor(seq, dtype=torch.int32)
+    # scratch page 0 is the trash page the pad positions write
+    table = torch.arange(1, 1 + n_pages, dtype=torch.int32, device=dev)[None]
+    with eng._device_lock, torch.inference_mode():
+        scratch = KVCache.create(eng.spec, 1 + n_pages, pg,
+                                 eng.cache.k.dtype, device=dev)
+        logits, _ = forward(
+            eng.spec, eng.params, toks.to(dev),
+            torch.zeros(1, dtype=torch.int32, device=dev), scratch,
+            page_table=table, kv_page=pg,
+            q_lens=torch.tensor([n], dtype=torch.int32, device=dev),
+            write_table=table)
+    return logits[0, :n].float()
+
+
+def phase_softcap_witness(smi: str, seed: int) -> dict:
+    """Gemma-2-2B at full width and depth with every layer's q_proj at
+    4x and at 1x the attention softcap (``saturate="every"``), the
+    weights phase families gave up, each served as phase families
+    serves Gemma 2 (its two greedy chats at once, then one greedy
+    request): that request's ids held to the dense forward in bf16 (as
+    phase families holds them) and in f32, and one paged forward of the
+    same tokens through B1 against the same forward with the plain
+    attention, and layer by layer B1's output against the plain
+    attention's on B1's own inputs. It records and fails only on a
+    non-finite logit; not in the default list."""
+    import shutil
+
+    import torch
+
+    from localai_tfp_tpu_torch.models import transformer as tt
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_attention_plain, ragged_paged_attention,
+    )
+
+    models = ROOT / "build" / "chip_smoke" / "family_models"
+    models.mkdir(parents=True, exist_ok=True)
+    layers = GEMMA2_2B["num_hidden_layers"]
+    res = {}
+    for q_cap_scale in (4.0, 1.0):
+        t0 = time.perf_counter()
+        name = f"gemma2_every_x{q_cap_scale:g}"
+        ckpt = f"{name}-L{layers}-s{seed}"
+        write_family_checkpoint(models / ckpt, GEMMA2_2B, layers, seed,
+                                saturate="every", q_cap_scale=q_cap_scale)
+        family_yaml(models, name, ckpt)
+        srv, th = _serve(models)
+        try:
+            port = srv.server_address[1]
+            backend = _loaded(port, srv.app, name)
+            eng = backend.engine
+            burst = family_burst(port, name, eng, family_chats()[1:3])
+            prompt, ids = served_greedy(backend, "Name three colours.", 16)
+            out = {"model": name, "layers": layers,
+                   "q_cap_scale": q_cap_scale,
+                   "burst_forwards": burst["forward_steps"],
+                   "prompt_tokens": len(prompt), "ids": ids,
+                   "dense_bf16": dense_deficits(eng, prompt, ids),
+                   "dense_f32": dense_deficits(
+                       reference_engine(eng, torch.float32), prompt, ids,
+                       cache_dtype=torch.float32)}
+            seq = prompt + ids[:-1]
+            rows = slice(len(prompt) - 1, None)  # one per generated token
+            per_layer = []
+
+            def both(*a, **kw):  # B1, and the plain attention beside it
+                got = ragged_paged_attention(*a, **kw)
+                want = ragged_attention_plain(*a, **kw).float()
+                per_layer.append(
+                    (float((got.float() - want).abs().max()),
+                     float(want.abs().max())))
+                return got
+
+            n0 = ragged_paged_attention.launches
+            tt.ragged_paged_attention = both
+            try:
+                b1 = paged_logits(eng, seq)[rows]
+            finally:
+                tt.ragged_paged_attention = ragged_paged_attention
+            launched = ragged_paged_attention.launches - n0
+            tt.ragged_paged_attention = ragged_attention_plain
+            try:
+                plain = paged_logits(eng, seq)[rows]
+            finally:
+                tt.ragged_paged_attention = ragged_paged_attention
+            if not bool(torch.isfinite(b1).all()
+                        & torch.isfinite(plain).all()):
+                raise AssertionError("softcap witness: a logit is not "
+                                     "finite")
+            tok = torch.tensor(ids, device=b1.device)
+
+            def held(lg):
+                d = lg.max(-1).values - lg.gather(-1, tok[:, None])[:, 0]
+                return {"exact_argmax": int((lg.argmax(-1) == tok).sum()),
+                        "worst_logit_deficit": float(d.max()),
+                        "tol": 0.25 * float(lg.std())}
+
+            out["paged"] = {
+                "b1_launches": launched,
+                "max_abs_diff_b1_plain": float((b1 - plain).abs().max()),
+                "logit_std": float(plain.std()),
+                "argmax_equal": int((b1.argmax(-1)
+                                     == plain.argmax(-1)).sum()),
+                "served_vs_b1": held(b1), "served_vs_plain": held(plain),
+                # each layer's B1 output against the plain attention on
+                # the same inputs (B1's own forward): max |diff|, max |out|
+                "per_layer_b1_vs_plain": per_layer}
+            out["s"] = round(time.perf_counter() - t0, 3)
+            log("softcap_witness", card=smi, **out)
+            res[name] = out
+        finally:
+            _shut(srv, th)
+            shutil.rmtree(models / ckpt, ignore_errors=True)
+            torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,main,graphs,engine,"
-                            "dispatch,spec,text,lifecycle")
+                            "dispatch,spec,text,lifecycle,families")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -4398,13 +5206,14 @@ def main() -> int:
     if "kernels" in phases:
         worst, timings, aliased, spec_err = phase_kernels(
             n_slots=SLOTS, max_pages=CONTEXT // PAGE)
+        fam_worst, fam_keys = family_kernel_keys()
         t = timings["decode"]
         entries.append({
             "name": "ragged_paged_attention", "route": "cuda",
             "source": "localai_tfp_tpu_torch/csrc/ragged_paged_attention.cu",
             "replaces": "localai_tfp_tpu/ops/ragged_paged_attention.py:68",
             "launches": None,
-            "max_abs_err": max(worst.values()),
+            "max_abs_err": max(max(worst.values()), fam_worst),
             "max_abs_err_bf16": worst["bf16"],
             "max_abs_err_int8": worst["int8"], "tol": TOL,
             "aliased_tables_max_abs_err": aliased,
@@ -4419,6 +5228,8 @@ def main() -> int:
                 "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
                for mix in ("mixed", "chunk512", "verify", "draft_decode")},
+            # the dense families' keys (FAMILY_KEYS)
+            "family_keys": fam_keys,
         })
         if build is not None:
             rows = build["ragged_paged_attention"]
@@ -4551,6 +5362,23 @@ def main() -> int:
             # the whole phase (a load's warmup restores the counts, so
             # these are the requests' launches, the embeddings' included)
             e["launches_lifecycle"] = launched[e["name"]]
+    if "families" in phases:
+        from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+        from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+            ragged_paged_attention,
+        )
+
+        fam = phase_families(smi, args.seed)
+        for e in entries:
+            # each model's streamed burst, its counts set to 0 just before
+            # it and read just after (B2: the int8 Gemma 3's)
+            e["launches_families"] = {
+                k: v["burst"]["launches"][e["name"]]
+                for k, v in fam.items() if isinstance(v, dict)}
+            e["launches_families"]["gemma3_4b_int8"] = \
+                fam["gemma3_4b"]["int8"]["burst"]["launches"][e["name"]]
+    if "softcap_witness" in phases:
+        phase_softcap_witness(smi, args.seed)
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

@@ -1,12 +1,16 @@
 """Load a HuggingFace checkpoint directory into the port's parameter tree.
 
 Counterpart of localai_tfp_tpu/models/hf_loader.py::load_params for the
-families this slice serves (Llama, Mistral, Qwen2, Qwen3): ``config.json``
-plus ``*.safetensors`` shards, bf16/f32/f16 on disk. Each weight is read
-from the memory-mapped file, moved to the device and written into its
-slot of a preallocated stacked ``[L, ...]`` tensor, transposed to the
-``[in, out]`` layout the forward consumes, so the host never holds more
-than one layer's tensor and the device never holds a transient stack.
+dense families the JAX package serves: Llama, Mistral, Qwen2, Qwen3,
+Gemma 1/2/3 (Gemma 3's multimodal checkpoints as their text tower, under
+``language_model.model.`` or ``model.language_model.``), Phi (``dense``,
+``fc1``/``fc2``, LayerNorm with biases, a biased head) and Phi-3 (fused
+``qkv_proj`` and ``gate_up_proj``, split at load). ``config.json`` plus
+``*.safetensors`` shards, bf16/f32/f16 on disk. Each weight is read from
+the memory-mapped file, moved to the device and written into its slot of
+a preallocated stacked ``[L, ...]`` tensor, transposed to the ``[in,
+out]`` layout the forward consumes, so the host never holds more than
+one layer's tensor and the device never holds a transient stack.
 
 ``quantize="int8"`` (or ``"int8_full"``) quantizes on the device as it
 loads, layer by layer, into preallocated int8 ``[L, in, out]`` and f32
@@ -14,8 +18,10 @@ loads, layer by layer, into preallocated int8 ``[L, in, out]`` and f32
 never exists whole (the counterpart of the JAX package's
 ``staging.commit_deferred``). Each raw tensor is rounded to the serving
 dtype before it is quantized, so an f32 checkpoint served at bf16 yields
-the JAX package's int8 codes. ``int8_full`` also quantizes the embedding
-(per-row) and an untied LM head.
+the JAX package's int8 codes. Biases and norms stay in the serving
+dtype. ``int8_full`` also quantizes the embedding (per-row) and an
+untied LM head; a tied head (Gemma) stays the product over the
+embedding.
 """
 
 from __future__ import annotations
@@ -31,8 +37,11 @@ from .quant import QUANTIZABLE, QTensor, quantize_embed, quantize_raw_tensor
 from .safetensors_io import SafeTensorsFile
 from .transformer import Params, check_supported
 
-# the families whose HF key layout this loader maps (Llama-style names)
-FAMILIES = ("llama", "mistral", "qwen2", "qwen3")
+# the families whose HF key layout this loader maps
+FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi", "phi3", "gemma",
+            "gemma2", "gemma3", "gemma3_text")
+# families the JAX package serves with a mixture of experts
+MOE_FAMILIES = ("mixtral", "qwen2_moe", "qwen3_moe")
 
 
 def load_hf_state(model_dir: str) -> tuple[dict, Callable[[str], torch.Tensor],
@@ -58,8 +67,10 @@ def load_hf_state(model_dir: str) -> tuple[dict, Callable[[str], torch.Tensor],
 
 def spec_from_config(config: dict) -> LLMSpec:
     """The spec of a served family's ``config.json``; raises for the
-    rest."""
+    rest, naming the feature (mixture of experts) or the served list."""
     mt = (config.get("model_type") or "").lower()
+    if mt in MOE_FAMILIES:
+        check_supported(spec_from_hf_config(config))
     if mt not in FAMILIES:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported yet (served: {FAMILIES})")
@@ -87,57 +98,121 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
     def dev(name: str) -> torch.Tensor:
         return get(name).to(device=device).to(dtype)
 
-    def stacked(suffix: str, transpose: bool) -> torch.Tensor:
-        first = get(lp.format(i=0) + suffix)
+    def per_layer(suffix: str) -> Callable[[int], torch.Tensor]:
+        return lambda i: dev(lp.format(i=i) + suffix)
+
+    def stacked(layer: Callable[[int], torch.Tensor],
+                transpose: bool) -> torch.Tensor:
+        first = layer(0)
         shape = first.shape[::-1] if transpose else first.shape
         out = torch.empty((L, *shape), dtype=dtype, device=device)
         for i in range(L):
-            w = dev(lp.format(i=i) + suffix)
+            w = first if i == 0 else layer(i)
             out[i].copy_(w.T if transpose else w)
         return out
 
-    def stacked_int8(suffix: str) -> QTensor:
-        n_out, n_in = get(lp.format(i=0) + suffix).shape
-        q = torch.empty((L, n_in, n_out), dtype=torch.int8, device=device)
-        scale = torch.empty((L, n_out), dtype=torch.float32, device=device)
+    def stacked_int8(layer: Callable[[int], torch.Tensor]) -> QTensor:
+        qt = quantize_raw_tensor(layer(0))
+        q = torch.empty((L, *qt.q.shape), dtype=torch.int8, device=device)
+        scale = torch.empty((L, *qt.scale.shape), dtype=torch.float32,
+                            device=device)
         for i in range(L):
-            qt = quantize_raw_tensor(dev(lp.format(i=i) + suffix))
+            if i:
+                qt = quantize_raw_tensor(layer(i))
             q[i].copy_(qt.q)
             scale[i].copy_(qt.scale)
         return QTensor(q, scale)
 
-    def projection(key: str, suffix: str):
+    def projection(key: str, layer: Callable[[int], torch.Tensor]):
         if quantize and key in QUANTIZABLE:
-            return stacked_int8(suffix)
-        return stacked(suffix, transpose=True)
+            return stacked_int8(layer)
+        return stacked(layer, transpose=True)
+
+    def fused(suffix: str, parts: dict[str, int]) -> None:
+        """A fused ``[out, in]`` weight (phi3), read once per layer and
+        split into ``parts`` (key: width, in row order) along the
+        serving layout's columns. Its int8 scales are per output row, so
+        quantizing the fused rows gives each part's own."""
+        w = projection(next(iter(parts)), per_layer(suffix))
+        lo = 0
+        for key, width in parts.items():
+            cols = slice(lo, lo + width)
+            p[key] = (QTensor(w.q[..., cols].contiguous(),
+                              w.scale[..., cols].contiguous())
+                      if isinstance(w, QTensor)
+                      else w[..., cols].contiguous())
+            lo += width
+
+    def vector(suffix: str) -> torch.Tensor:  # biases and norm weights
+        return stacked(per_layer(suffix), transpose=False)
+
+    def head(name: str):
+        return (quantize_raw_tensor(dev(name)) if full
+                else dev(name).T.contiguous())
 
     embed = dev(f"{prefix}embed_tokens.weight")
     p: Params = {"embed": quantize_embed(embed) if full else embed}
     del embed
-    for key, suffix in (("wq", "self_attn.q_proj.weight"),
-                        ("wk", "self_attn.k_proj.weight"),
-                        ("wv", "self_attn.v_proj.weight"),
-                        ("wo", "self_attn.o_proj.weight"),
-                        ("w_up", "mlp.up_proj.weight"),
-                        ("w_down", "mlp.down_proj.weight")):
-        p[key] = projection(key, suffix)
-    if spec.gated_mlp:
-        p["w_gate"] = projection("w_gate", "mlp.gate_proj.weight")
-    if spec.qkv_bias:
-        for key, proj in (("bq", "q_proj"), ("bk", "k_proj"),
-                          ("bv", "v_proj")):
-            p[key] = stacked(f"self_attn.{proj}.bias", transpose=False)
-    if spec.qk_norm:  # qwen3 per-head q/k norms
-        p["q_norm_w"] = stacked("self_attn.q_norm.weight", transpose=False)
-        p["k_norm_w"] = stacked("self_attn.k_norm.weight", transpose=False)
-    p["ln1_w"] = stacked("input_layernorm.weight", transpose=False)
-    p["ln2_w"] = stacked("post_attention_layernorm.weight", transpose=False)
+    mt = spec.extra.get("model_type", "")
+    if mt == "phi":
+        for key, suffix in (("wq", "self_attn.q_proj"),
+                            ("wk", "self_attn.k_proj"),
+                            ("wv", "self_attn.v_proj"),
+                            ("wo", "self_attn.dense"),
+                            ("w_up", "mlp.fc1"), ("w_down", "mlp.fc2")):
+            p[key] = projection(key, per_layer(suffix + ".weight"))
+        for key, suffix in (("bq", "self_attn.q_proj"),
+                            ("bk", "self_attn.k_proj"),
+                            ("bv", "self_attn.v_proj"),
+                            ("bo", "self_attn.dense"),
+                            ("b_up", "mlp.fc1"), ("b_down", "mlp.fc2")):
+            p[key] = vector(suffix + ".bias")
+        p["ln1_w"] = vector("input_layernorm.weight")
+        p["ln1_b"] = vector("input_layernorm.bias")
+        p["final_norm_w"] = dev(f"{prefix}final_layernorm.weight")
+        p["final_norm_b"] = dev(f"{prefix}final_layernorm.bias")
+        p["lm_head"] = head("lm_head.weight")
+        p["lm_head_b"] = dev("lm_head.bias")
+        return spec, p
+
+    if lp.format(i=0) + "self_attn.qkv_proj.weight" in names:  # phi3
+        fused("self_attn.qkv_proj.weight",
+              {"wq": spec.q_dim, "wk": spec.kv_dim, "wv": spec.kv_dim})
+    else:
+        for key, proj in (("wq", "q_proj"), ("wk", "k_proj"),
+                          ("wv", "v_proj")):
+            p[key] = projection(key, per_layer(f"self_attn.{proj}.weight"))
+        if spec.qkv_bias:
+            for key, proj in (("bq", "q_proj"), ("bk", "k_proj"),
+                              ("bv", "v_proj")):
+                p[key] = vector(f"self_attn.{proj}.bias")
+    p["wo"] = projection("wo", per_layer("self_attn.o_proj.weight"))
+    if lp.format(i=0) + "mlp.gate_up_proj.weight" in names:  # phi3
+        fused("mlp.gate_up_proj.weight",
+              {"w_gate": spec.d_ff, "w_up": spec.d_ff})
+    else:
+        if spec.gated_mlp:
+            p["w_gate"] = projection("w_gate",
+                                     per_layer("mlp.gate_proj.weight"))
+        p["w_up"] = projection("w_up", per_layer("mlp.up_proj.weight"))
+    p["w_down"] = projection("w_down", per_layer("mlp.down_proj.weight"))
+    if spec.qk_norm:  # qwen3 / gemma3 per-head q/k norms
+        p["q_norm_w"] = vector("self_attn.q_norm.weight")
+        p["k_norm_w"] = vector("self_attn.k_norm.weight")
+    p["ln1_w"] = vector("input_layernorm.weight")
+    if spec.sandwich_norms:
+        # gemma 2/3: post_attention_layernorm is the post-attention
+        # sandwich norm; the pre-MLP norm has its own name
+        p["ln_post_attn_w"] = vector("post_attention_layernorm.weight")
+        p["ln2_w"] = vector("pre_feedforward_layernorm.weight")
+        p["ln_post_ffw_w"] = vector("post_feedforward_layernorm.weight")
+    else:
+        p["ln2_w"] = vector("post_attention_layernorm.weight")
     p["final_norm_w"] = dev(f"{prefix}norm.weight")
     if not spec.tie_word_embeddings:
-        for head in ("lm_head.weight", "language_model.lm_head.weight"):
-            if head in names:
-                p["lm_head"] = (quantize_raw_tensor(dev(head)) if full
-                                else dev(head).T.contiguous())
+        for name in ("lm_head.weight", "language_model.lm_head.weight"):
+            if name in names:
+                p["lm_head"] = head(name)
                 break
         else:  # checkpoint ties despite config
             object.__setattr__(spec, "tie_word_embeddings", True)

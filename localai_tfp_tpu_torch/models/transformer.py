@@ -1,4 +1,5 @@
-"""Decoder-only transformer in PyTorch (Llama / Mistral / Qwen2 / Qwen3).
+"""Decoder-only transformer in PyTorch (Llama / Mistral / Qwen2 / Qwen3 /
+Gemma 1-3 / Phi / Phi-3: the dense families the JAX package serves).
 
 Counterpart of localai_tfp_tpu/models/transformer.py. Parameters keep the
 JAX package's tree: a dict of tensors with every per-layer weight stacked
@@ -14,7 +15,9 @@ Two attention paths:
 - the paged ragged path (``page_table``/``write_table``/``q_lens``): the
   chunk's K/V rows scatter into the ``[L, n_pages, page, F]`` arena, then
   one ``ops.ragged_paged_attention`` call per layer — the hand-written
-  CUDA kernel on the card, its plain version on the CPU;
+  CUDA kernel on the card, its plain version on the CPU — with that
+  layer's window (Gemma 2/3 alternate sliding and global layers), the
+  attention softcap and the attention scale;
 - the dense path (``page_table=None``): a ``[L, n_slots, max_seq, F]``
   cache and the masked dense ``_attend``, used as the reference in tests.
 """
@@ -86,11 +89,25 @@ def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _norm(spec: LLMSpec, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in f32, cast back to x's dtype."""
+def _norm(spec: LLMSpec, x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSNorm or LayerNorm (phi, with a bias) in f32, cast back to x's
+    dtype; Gemma scales by ``1 + w``."""
     xf = x.float()
-    out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + spec.norm_eps)
-    return (out * w.float()).to(x.dtype)
+    if spec.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + spec.norm_eps)
+    else:
+        out = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True)
+                               + spec.norm_eps)
+    wf = w.float()
+    if spec.norm_weight_plus_one:
+        wf = wf + 1.0
+    out = out * wf
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
 
 
 def rope_inv_freq(spec: LLMSpec, device: Any = "cpu") -> torch.Tensor:
@@ -166,26 +183,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def _attn_scale(spec: LLMSpec) -> float:
+    if spec.query_pre_attn_scalar:  # gemma 2/3
+        return 1.0 / math.sqrt(spec.query_pre_attn_scalar)
     return 1.0 / math.sqrt(spec.d_head)
 
 
 def _attend(spec: LLMSpec, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+            v: torch.Tensor, q_pos: torch.Tensor,
+            window: int = 0) -> torch.Tensor:
     """Dense masked attention (the reference path). q [B, T, H, Dh];
-    k/v [B, S, Hkv, Dh]; q_pos [B, T] absolute query positions. f32
-    accumulation, probabilities rounded to v's dtype as in the JAX
-    package."""
+    k/v [B, S, Hkv, Dh]; q_pos [B, T] absolute query positions; the
+    layer's window (0 = full). f32 accumulation, Gemma 2's softcap on the
+    scaled logits before the mask, probabilities rounded to v's dtype as
+    in the JAX package."""
     B, T, H, Dh = q.shape
     S = k.shape[1]
     group = H // spec.n_kv_heads
     qg = q.reshape(B, T, spec.n_kv_heads, group, Dh).float()
     logits = torch.einsum("btkgd,bskd->bktgs", qg, k.float()) \
         * _attn_scale(spec)
+    if spec.attn_logit_softcap:
+        cap = spec.attn_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
     kv_pos = torch.arange(S, device=q.device)
     qp = q_pos.long()[:, None, :, None, None]
     mask = kv_pos <= qp
-    if spec.sliding_window:
-        mask = mask & (kv_pos > qp - spec.sliding_window)
+    if window:
+        mask = mask & (kv_pos > qp - window)
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bktgs,bskd->btkgd", probs.to(v.dtype).float(),
@@ -194,40 +218,66 @@ def _attend(spec: LLMSpec, q: torch.Tensor, k: torch.Tensor,
 
 
 def _act(spec: LLMSpec, x: torch.Tensor) -> torch.Tensor:
-    """The gated MLP's activation: silu, the one the served families use
-    (``check_supported`` admits no other)."""
-    return F.silu(x)
+    if spec.hidden_act == "silu":
+        return F.silu(x)
+    if spec.hidden_act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.gelu(x)
+
+
+def _layer_is_sliding(spec: LLMSpec) -> Optional[list[bool]]:
+    """Per-layer sliding flags; HF layer_types wins over the pattern."""
+    if spec.layer_types is not None:
+        return [t == "sliding_attention" for t in spec.layer_types]
+    if spec.sliding_window_pattern and spec.sliding_window:
+        return [(i + 1) % spec.sliding_window_pattern != 0
+                for i in range(spec.n_layers)]
+    return None
+
+
+def layer_windows(spec: LLMSpec) -> list[int]:
+    """Each layer's sliding window, 0 for full attention: Gemma 2/3
+    alternate sliding and global layers, Mistral and Phi-3 slide on every
+    layer."""
+    sliding = _layer_is_sliding(spec)
+    if sliding is not None and spec.sliding_window:
+        return [spec.sliding_window if s else 0 for s in sliding]
+    return [spec.sliding_window or 0] * spec.n_layers
+
+
+def _layer_inv_freqs(spec: LLMSpec, device: Any) -> list[torch.Tensor]:
+    """Each layer's rotary inverse frequencies. Gemma 3's sliding layers
+    rope on ``rope_local_base_freq`` unscaled, its global layers on
+    ``rope_theta`` with the rope scaling; the others use one table."""
+    global_ = rope_inv_freq(spec, device)
+    sliding = _layer_is_sliding(spec)
+    if sliding is None or not spec.rope_local_base_freq:
+        return [global_] * spec.n_layers
+    rd = spec.rotary_dim
+    local = 1.0 / (spec.rope_local_base_freq ** (
+        torch.arange(0, rd, 2, dtype=torch.float32, device=device) / rd))
+    return [local if s else global_ for s in sliding]
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
-_NON_LAYER_KEYS = ("embed", "final_norm_w", "lm_head")
+_NON_LAYER_KEYS = ("embed", "final_norm_w", "final_norm_b", "lm_head",
+                   "lm_head_b")
 
 
 def check_supported(spec: LLMSpec) -> None:
-    """The families this port serves (Llama, Mistral, Qwen2, Qwen3):
-    RMSNorm, gated silu MLP, no biases but q/k/v's, uniform window, no
-    softcaps, no MoE. Anything else raises instead of computing another
-    model's function (the attention kernel has no softcap, for one)."""
+    """The dense families the JAX package serves. Anything else raises
+    instead of computing another model's function: mixture of experts
+    (its expert MLP is not ported) and norms or activations the JAX
+    package has no branch for."""
     unported = {
         "mixture of experts": bool(spec.n_experts),
-        "per-layer windows or rope bases": bool(
-            spec.layer_types is not None or spec.sliding_window_pattern
-            or spec.rope_local_base_freq),
-        "layernorm": spec.norm_type != "rmsnorm",
-        "norm_weight_plus_one": spec.norm_weight_plus_one,
-        "ungated or non-silu MLP": (not spec.gated_mlp
-                                    or spec.hidden_act != "silu"),
-        "o/mlp/lm_head biases": (spec.o_bias or spec.mlp_bias
-                                 or spec.lm_head_bias),
-        "parallel_residual": spec.parallel_residual,
-        "sandwich_norms": spec.sandwich_norms,
-        "no final norm": not spec.final_norm,
-        "embedding_multiplier": spec.embedding_multiplier != 1.0,
-        "softcaps": bool(spec.logit_softcap or spec.attn_logit_softcap),
-        "query_pre_attn_scalar": spec.query_pre_attn_scalar is not None,
+        f"norm_type {spec.norm_type!r}": spec.norm_type not in (
+            "rmsnorm", "layernorm"),
+        f"hidden_act {spec.hidden_act!r}": spec.hidden_act not in (
+            "silu", "gelu", "gelu_tanh"),
     }
     found = [k for k, v in unported.items() if v]
     if found:
@@ -237,10 +287,14 @@ def check_supported(spec: LLMSpec) -> None:
 
 def _layer_body(spec: LLMSpec, x, lp: dict, positions, inv_freq,
                 rope_scale, attn_fn):
-    """One transformer layer; ``attn_fn(q, k, v) -> attn [B, T, H*Dh]``
-    owns where K/V live and the attention contraction."""
+    """One transformer layer, as the JAX package's ``_layer_body``:
+    pre-norm (RMSNorm or LayerNorm + bias), q/k/v (+ biases, + per-head
+    q/k norms), rope on the layer's table, ``attn_fn(q, k, v) -> attn
+    [B, T, H*Dh]`` (which owns where K/V live and the contraction), the
+    output projection (+ bias), Gemma's sandwich norms, and a gated or
+    ungated MLP (+ biases) in sequence or parallel (phi) with attention."""
     B, T = x.shape[0], x.shape[1]
-    h = _norm(spec, x, lp["ln1_w"])
+    h = _norm(spec, x, lp["ln1_w"], lp.get("ln1_b"))
     q = mm(h, lp["wq"])
     k = mm(h, lp["wk"])
     v = mm(h, lp["wv"])
@@ -249,15 +303,34 @@ def _layer_body(spec: LLMSpec, x, lp: dict, positions, inv_freq,
     q = q.reshape(B, T, spec.n_heads, spec.d_head)
     k = k.reshape(B, T, spec.n_kv_heads, spec.d_head)
     v = v.reshape(B, T, spec.n_kv_heads, spec.d_head)
-    if "q_norm_w" in lp:  # qwen3: per-head RMSNorm before rope
+    if "q_norm_w" in lp:  # qwen3 / gemma3: per-head norm before rope
         q = _norm(spec, q, lp["q_norm_w"])
         k = _norm(spec, k, lp["k_norm_w"])
     q = apply_rope(q, positions, inv_freq, spec.rotary_dim, rope_scale)
     k = apply_rope(k, positions, inv_freq, spec.rotary_dim, rope_scale)
-    x = x + mm(attn_fn(q, k, v), lp["wo"])
-    h = _norm(spec, x, lp["ln2_w"])
-    return x + mm(_act(spec, mm(h, lp["w_gate"])) * mm(h, lp["w_up"]),
-                  lp["w_down"])
+    attn = mm(attn_fn(q, k, v), lp["wo"])
+    if "bo" in lp:
+        attn = attn + lp["bo"]
+    if "ln_post_attn_w" in lp:  # gemma 2/3 sandwich: norm the branch
+        attn = _norm(spec, attn, lp["ln_post_attn_w"])
+    if spec.parallel_residual:
+        mlp_in = h
+    else:
+        x = x + attn
+        mlp_in = _norm(spec, x, lp["ln2_w"], lp.get("ln2_b"))
+    up = mm(mlp_in, lp["w_up"])
+    if "b_up" in lp:
+        up = up + lp["b_up"]
+    if spec.gated_mlp:
+        up = _act(spec, mm(mlp_in, lp["w_gate"])) * up
+    else:
+        up = _act(spec, up)
+    mlp = mm(up, lp["w_down"])
+    if "b_down" in lp:
+        mlp = mlp + lp["b_down"]
+    if "ln_post_ffw_w" in lp:
+        mlp = _norm(spec, mlp, lp["ln_post_ffw_w"])
+    return (x + attn + mlp) if spec.parallel_residual else (x + mlp)
 
 
 def _embed_in(spec: LLMSpec, params: Params, tokens: torch.Tensor):
@@ -265,8 +338,12 @@ def _embed_in(spec: LLMSpec, params: Params, tokens: torch.Tensor):
     tok = tokens.long()
     if isinstance(emb, QTensor):  # int8 table, per-row scales
         dt = params["ln1_w"].dtype  # the model's compute dtype
-        return emb.q[tok].to(dt) * emb.scale[tok][..., None].to(dt)
-    return emb[tok]
+        x = emb.q[tok].to(dt) * emb.scale[tok][..., None].to(dt)
+    else:
+        x = emb[tok]
+    if spec.embedding_multiplier != 1.0:  # gemma: sqrt(d_model), in f32
+        x = (x.float() * spec.embedding_multiplier).to(x.dtype)
+    return x
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -293,8 +370,14 @@ def _lm_head(spec: LLMSpec, params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params["embed"] if tied else params["lm_head"]
     if isinstance(head, QTensor):
         w = head.q.to(x.dtype)
-        return _matmul_f32(x, w.T if tied else w) * head.scale.float()
-    return _matmul_f32(x, head.T if tied else head)
+        logits = _matmul_f32(x, w.T if tied else w) * head.scale.float()
+    else:
+        logits = _matmul_f32(x, head.T if tied else head)
+    if "lm_head_b" in params:  # phi
+        logits = logits + params["lm_head_b"].float()
+    if spec.logit_softcap:  # gemma2
+        logits = torch.tanh(logits / spec.logit_softcap) * spec.logit_softcap
+    return logits
 
 
 def forward_hidden(
@@ -323,7 +406,8 @@ def forward_hidden(
     dev = tokens.device
     x = _embed_in(spec, params, tokens)
     tpos = pos0.long()[:, None] + torch.arange(T, device=dev)[None, :]
-    inv_freq = rope_inv_freq(spec, dev)
+    inv_freqs = _layer_inv_freqs(spec, dev)
+    windows = layer_windows(spec)
     rope_scale = rope_attn_scale(spec)
     quant = cache.quantized
     ragged = page_table is not None
@@ -339,6 +423,7 @@ def forward_hidden(
         woff = tpos % kv_page
     stacked = {k: v for k, v in params.items() if k not in _NON_LAYER_KEYS}
     scale = _attn_scale(spec)
+    softcap = spec.attn_logit_softcap or 0.0
 
     for layer in range(spec.n_layers):
         lp = {k: v.layer(layer) if isinstance(v, QTensor) else v[layer]
@@ -366,7 +451,7 @@ def forward_hidden(
             out = ragged_paged_attention(
                 q, cache.k, cache.v, layer, page_table, pos0, q_lens,
                 spec.n_kv_heads, scale=scale, page=kv_page,
-                sliding_window=spec.sliding_window,
+                sliding_window=windows[layer], softcap=softcap,
                 cache_k_scale=cache.k_scale, cache_v_scale=cache.v_scale,
                 seed_kv=seed)
             return out.to(x.dtype)
@@ -399,11 +484,13 @@ def forward_hidden(
                           if quant else None)
             v_eff = split(cache.v[layer], cache.v_scale[layer]
                           if quant else None)
-            return _attend(spec, q, k_eff, v_eff, tpos)
+            return _attend(spec, q, k_eff, v_eff, tpos, windows[layer])
 
-        x = _layer_body(spec, x, lp, tpos, inv_freq, rope_scale,
+        x = _layer_body(spec, x, lp, tpos, inv_freqs[layer], rope_scale,
                         ragged_attn if ragged else dense_attn)
-    return _norm(spec, x, params["final_norm_w"]), cache
+    if spec.final_norm:
+        x = _norm(spec, x, params["final_norm_w"], params.get("final_norm_b"))
+    return x, cache
 
 
 def forward(spec: LLMSpec, params: Params, tokens: torch.Tensor,

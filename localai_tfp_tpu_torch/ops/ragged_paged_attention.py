@@ -12,7 +12,9 @@ chunks, spec-verify rows — for one layer of the paged arena:
   beyond a row's allocation point at the trash page, causally masked);
 - ``q [B, T, H, Dh]`` with per-row ``pos0`` and ``q_lens``: query t of
   row b sits at position pos0[b] + t and attends
-  [max(0, pos + 1 - window), pos];
+  [max(0, pos + 1 - window), pos] (window 0 or None: [0, pos]);
+- ``softcap`` (Gemma 2): the scaled logits become ``cap * tanh(s / cap)``
+  before the mask; 0 is none, and it is a runtime argument of the kernel;
 - ``seed_kv`` (T == 1 only): the current rows' exact K/V replace their
   arena copies (an int8 cache attends the exact current row).
 
@@ -44,7 +46,7 @@ from . import _build
 NEG_INF = -1e30
 KERNEL = "ragged_paged_attention"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 96, 128, 256)
 KV_TILE = 64  # the kernel's kv tokens per tile: split_len is a multiple
 SPLIT_BLOCKS_PER_SM = 4  # split the kv range until the grid has this many
 MERGE_ROWS = 4096  # the merge's (split, row) weights fit the kernel's staging
@@ -129,8 +131,8 @@ def _merge_counters(device: torch.device, n: int) -> torch.Tensor:
 def ragged_attention_plain(
     q, cache_k, cache_v, layer: int, page_table, pos0, q_lens,
     n_kv_heads: int, *, scale: float, page: int,
-    sliding_window: Optional[int] = None, cache_k_scale=None,
-    cache_v_scale=None, seed_kv=None,
+    sliding_window: Optional[int] = None, softcap: float = 0.0,
+    cache_k_scale=None, cache_v_scale=None, seed_kv=None,
 ) -> torch.Tensor:
     """Plain PyTorch version (port of ``ragged_attention_reference``):
     gather each row's pages into a contiguous window, dequantize, and run
@@ -155,12 +157,14 @@ def ragged_attention_plain(
     kh = k.reshape(B, W, n_kv_heads, Dh)[:, :, heads, :]
     vh = v.reshape(B, W, n_kv_heads, Dh)[:, :, heads, :]
     logits = torch.einsum("bthd,bshd->bhts", q.float(), kh) * scale
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
     kv_pos = torch.arange(W, device=q.device)[None, None, None, :]
     tq = torch.arange(T, device=q.device)
     qpos = (pos0.long()[:, None] + tq[None, :])[:, None, :, None]
     mask = (kv_pos <= qpos) & (
         tq[None, None, :, None] < q_lens.long()[:, None, None, None])
-    if sliding_window is not None:
+    if sliding_window:
         mask &= kv_pos > qpos - sliding_window
     logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
@@ -174,9 +178,9 @@ def ragged_attention_plain(
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     # 14 pointers, 3 query strides, 14 ints (B .. split_len), the f32
-    # scale, 2 dtype codes, the stream
+    # scale and softcap, 2 dtype codes, the stream
     lib.rpa_forward.argtypes = [p] * 14 + [ctypes.c_longlong] * 3 + [
-        i] * 14 + [ctypes.c_float, i, i, p]
+        i] * 14 + [ctypes.c_float] * 2 + [i, i, p]
     lib.rpa_forward.restype = i
     lib.rpa_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.rpa_occupancy.restype = i
@@ -274,7 +278,8 @@ def ragged_paged_attention(
     *,
     scale: float,
     page: int,
-    sliding_window: Optional[int] = None,
+    sliding_window: Optional[int] = None,  # 0 / None: full causal
+    softcap: float = 0.0,  # gemma2's attn_logit_softcapping; 0: none
     cache_k_scale: Optional[torch.Tensor] = None,  # [L, n_pages, page] f32
     cache_v_scale: Optional[torch.Tensor] = None,
     seed_kv: Optional[tuple] = None,  # (new_k [B, F], new_v [B, F]), T == 1
@@ -285,8 +290,9 @@ def ragged_paged_attention(
         return ragged_attention_plain(
             q, cache_k, cache_v, layer, page_table, pos0, q_lens,
             n_kv_heads, scale=scale, page=page,
-            sliding_window=sliding_window, cache_k_scale=cache_k_scale,
-            cache_v_scale=cache_v_scale, seed_kv=seed_kv)
+            sliding_window=sliding_window, softcap=softcap,
+            cache_k_scale=cache_k_scale, cache_v_scale=cache_v_scale,
+            seed_kv=seed_kv)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_paged_attention: unsupported device {q.device}")
@@ -328,7 +334,8 @@ def ragged_paged_attention(
         out.data_ptr(), part_acc, part_ml, counters, *q.stride()[:3],
         B, T, n_kv_heads, group, Dh, NP, page, page_table.shape[1], layer,
         int(sliding_window or 0), bm, qtiles, splits, split_len,
-        float(scale), _DTYPE_CODE[q.dtype], _DTYPE_CODE[cache_k.dtype],
+        float(scale), float(softcap or 0.0), _DTYPE_CODE[q.dtype],
+        _DTYPE_CODE[cache_k.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

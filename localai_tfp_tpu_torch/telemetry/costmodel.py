@@ -129,11 +129,12 @@ class ModelCost:
     n_layers: int
     matmul_params: int  # projection weights of one layer (multiplies)
     attn_width: int  # n_heads * d_head
-    window: int  # sliding window (0: none)
+    windows: tuple[int, ...]  # each layer's sliding window (0: none)
     vocab: int
     d_model: int
     layer_bytes: int  # every per-layer leaf of every layer, as stored
-    head_bytes: int  # the LM head (the embedding when tied) + final norm
+    head_bytes: int  # the LM head (the embedding when tied) and its bias
+    # + the final norm
     embed_row_bytes: int  # one embedding row, as stored
     kv_token_bytes: int  # K and V (and int8 scales) of a token, one layer
     page: int
@@ -142,6 +143,7 @@ class ModelCost:
     def of(cls, spec: Any, params: dict, cache: Any,
            page: int) -> "ModelCost":
         from ..models.quant import leaves
+        from ..models.transformer import _NON_LAYER_KEYS, layer_windows
 
         def nbytes(v) -> int:
             return sum(t.numel() * t.element_size() for t in leaves(v))
@@ -153,15 +155,17 @@ class ModelCost:
         if cache.k_scale is not None:
             per_token += 2 * cache.k_scale.element_size()
         d, qd, kvd = spec.d_model, spec.q_dim, spec.kv_dim
+        mlp = (3 if spec.gated_mlp else 2) * d * spec.d_ff
         return cls(
             n_layers=spec.n_layers,
-            matmul_params=d * qd + 2 * d * kvd + qd * d + 3 * d * spec.d_ff,
-            attn_width=qd, window=int(spec.sliding_window or 0),
+            matmul_params=d * qd + 2 * d * kvd + qd * d + mlp,
+            attn_width=qd, windows=tuple(layer_windows(spec)),
             vocab=spec.vocab_size, d_model=d,
             layer_bytes=sum(nbytes(v) for k, v in params.items()
-                            if k not in ("embed", "lm_head",
-                                         "final_norm_w")),
-            head_bytes=nbytes(head) + nbytes(params["final_norm_w"]),
+                            if k not in _NON_LAYER_KEYS),
+            head_bytes=nbytes(head) + sum(
+                nbytes(params[k]) for k in ("final_norm_w", "final_norm_b",
+                                            "lm_head_b") if k in params),
             embed_row_bytes=sum(t[0].numel() * t.element_size()
                                 for t in emb),
             kv_token_bytes=per_token, page=page)
@@ -174,20 +178,22 @@ class ModelCost:
         the rows' own) is the token count the projections run over, a
         padded variant's rows x token bucket. Bytes: the weights once,
         the embedding rows gathered, the KV pages each row reads (each
-        layer), the new K/V written, the logits written."""
+        layer, within that layer's window), the new K/V written, the
+        logits written."""
         L, P = self.n_layers, self.page
         n = sum(q for _, q in rows) if tokens is None else tokens
-        keys = sum(_attended(c, q, self.window) for c, q in rows)
+        keys = pages = 0
+        for w in set(self.windows):  # layers that share a window
+            layers = self.windows.count(w)
+            keys += layers * sum(_attended(c, q, w) for c, q in rows)
+            for c, q in rows:  # the first query sees from c + 1 - w
+                start = max(0, c + 1 - w) if w else 0
+                pages += layers * (-(-(c + q) // P) - start // P)
         flops = (2.0 * n * self.matmul_params * L
-                 + 4.0 * self.attn_width * keys * L
+                 + 4.0 * self.attn_width * keys
                  + 2.0 * head_rows * self.d_model * self.vocab)
-        pages = 0
-        for c, q in rows:
-            end = c + q
-            start = max(0, end - self.window) if self.window else 0
-            pages += -(-end // P) - start // P
         by = (self.layer_bytes + n * self.embed_row_bytes
-              + L * self.kv_token_bytes * (pages * P + n)
+              + self.kv_token_bytes * (pages * P + L * n)
               + (self.head_bytes + 4 * head_rows * self.vocab
                  if head_rows else 0))
         return flops, float(by)

@@ -121,7 +121,7 @@ def test_kernel_matches_plain_on_card(cuda_device, mix, quant, seeded,
 
 def make_wide_case(q_lens, pos0, *, max_pages, page, dh=128, hkv=2, h=8,
                    quant=False, seeded=False, window=None, q_dtype=None,
-                   seed=0, device="cpu") -> dict:
+                   seed=0, device="cpu", softcap=0.0) -> dict:
     """Torch inputs at a kernel head dim with given rows (q_lens, pos0):
     bf16 queries with bf16 or int8 pages by default, shuffled page
     tables, a 2-layer arena; the call's keyword arguments included."""
@@ -154,7 +154,7 @@ def make_wide_case(q_lens, pos0, *, max_pages, page, dh=128, hkv=2, h=8,
     c = {k: (tuple(s.to(device) for s in v) if isinstance(v, tuple)
              else v.to(device)) for k, v in c.items()}
     c.update(layer=1, n_kv_heads=hkv, scale=dh ** -0.5, page=page,
-             sliding_window=window)
+             sliding_window=window, softcap=softcap)
     return c
 
 
@@ -163,6 +163,7 @@ def call_case(fn, c):
               c["page_table"], c["pos0"], c["q_lens"], c["n_kv_heads"],
               scale=c["scale"], page=c["page"],
               sliding_window=c["sliding_window"],
+              softcap=c.get("softcap", 0.0),
               cache_k_scale=c.get("cache_k_scale"),
               cache_v_scale=c.get("cache_v_scale"),
               seed_kv=c.get("seed_kv"))
@@ -197,6 +198,56 @@ def test_bf16_kernel_matches_plain_on_card(cuda_device, mix, quant, dh):
                        seeded=mix == "seeded", seed=dh + quant,
                        device=cuda_device)
     _check_wide(c)
+
+
+# rows (q_lens, pos0), window and softcap of each row mix at the family
+# head dims: split decode rows in and out of a window, seeded decode rows
+# with a softcap, a 64-row-tile prefill, decode rows beside a chunk
+FAMILY_MIXES = {
+    "decode": ([1, 1, 1], [1830, 700, 144], 1024, 50.0),
+    "seeded": ([1, 1], [1000, 300], 0, 50.0),
+    "prefill": ([70, 33], [0, 150], 48, 0.0),
+    "mixed": ([1, 1, 90], [900, 60, 400], 100, 30.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16q", "f32q"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fpkv", "int8kv"])
+@pytest.mark.parametrize("mix", list(FAMILY_MIXES))
+@pytest.mark.parametrize("dh", [80, 96, 256])
+def test_family_head_dims_match_plain_on_card(cuda_device, dh, mix, quant,
+                                              q_dtype):
+    """B1 at Phi-2's, Phi-3's and Gemma's head dims (group 1 at 80 and 96,
+    group 2 at 256), with windows and Gemma 2's softcap, on fp and int8
+    pages, against the plain version within 1e-4, and bitwise on
+    repeat."""
+    q_lens, pos0, window, cap = FAMILY_MIXES[mix]
+    hkv, h = (4, 8) if dh == 256 else (4, 4)
+    c = make_wide_case(q_lens, pos0, max_pages=8, page=256, dh=dh, hkv=hkv,
+                       h=h, quant=quant, seeded=mix == "seeded",
+                       window=window, q_dtype=q_dtype, seed=dh,
+                       device=cuda_device, softcap=cap)
+    got = _check_wide(c)
+    again = call_case(ragged_paged_attention, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_softcap_changes_the_kernel_output(cuda_device):
+    """A kernel that dropped the cap would still match a plain version
+    without one: the capped and uncapped outputs differ, and each
+    matches its own plain version."""
+    outs = []
+    for cap in (0.0, 5.0):
+        c = make_wide_case([1, 40], [500, 20], max_pages=8, page=256,
+                           dh=256, hkv=4, h=8, seed=4, device=cuda_device,
+                           softcap=cap)
+        c["q"] = c["q"] * 4  # logits well past the cap
+        outs.append(_check_wide(c))
+    assert float((outs[0] - outs[1]).abs().max()) > 1e-2
 
 
 @pytest.mark.cuda
@@ -1251,3 +1302,87 @@ def test_engine_serves_while_another_engine_captures(cuda_device):
         assert got == alone
     finally:
         a.close()
+
+
+# ------------------------------------------------ the dense families
+
+
+def _family_model(device, family: str):
+    """A tiny bf16 Gemma 3 (7 layers: five sliding, one global, one
+    sliding; Dh 256, q/k and sandwich norms, two rope bases, a tied head)
+    or Phi-3 (Dh 96, group 1, a uniform window), random from a seed, in
+    the port's parameter tree."""
+    if family == "gemma3":
+        spec = tiny_spec(
+            vocab_size=258, d_model=512, n_layers=7, n_heads=2,
+            n_kv_heads=1, d_head=256, d_ff=1024, max_position=256,
+            norm_weight_plus_one=True, hidden_act="gelu_tanh",
+            embedding_multiplier=512 ** 0.5, tie_word_embeddings=True,
+            sandwich_norms=True, qk_norm=True, query_pre_attn_scalar=256.0,
+            rope_theta=1e6, rope_scaling={"rope_type": "linear",
+                                          "factor": 8.0},
+            rope_local_base_freq=1e4, sliding_window=48,
+            sliding_window_pattern=6, norm_eps=1e-6)
+    else:
+        spec = tiny_spec(vocab_size=258, d_model=384, n_layers=3,
+                         n_heads=4, n_kv_heads=4, d_head=96, d_ff=1024,
+                         max_position=256, sliding_window=40)
+    g = torch.Generator().manual_seed(5)
+    D, Q, F, FF, V, NL = (spec.d_model, spec.q_dim, spec.kv_dim, spec.d_ff,
+                          spec.vocab_size, spec.n_layers)
+    shapes = {"embed": (V, D), "wq": (NL, D, Q), "wk": (NL, D, F),
+              "wv": (NL, D, F), "wo": (NL, Q, D), "w_gate": (NL, D, FF),
+              "w_up": (NL, D, FF), "w_down": (NL, FF, D)}
+    if not spec.tie_word_embeddings:
+        shapes["lm_head"] = (D, V)
+    params = {k: torch.randn(s, generator=g) * s[-2] ** -0.5
+              for k, s in shapes.items()}
+    if spec.tie_word_embeddings:  # else the ids echo the input (chip_smoke)
+        params["embed"] /= 20
+    one = 0.0 if spec.norm_weight_plus_one else 1.0
+    norms = {"ln1_w": (NL, D), "ln2_w": (NL, D), "final_norm_w": (D,)}
+    if spec.sandwich_norms:
+        norms.update(ln_post_attn_w=(NL, D), ln_post_ffw_w=(NL, D))
+    if spec.qk_norm:
+        norms.update(q_norm_w=(NL, spec.d_head), k_norm_w=(NL, spec.d_head))
+    for k, s in norms.items():
+        params[k] = one + 0.1 * torch.randn(s, generator=g)
+    return spec, {k: v.to(device, torch.bfloat16) for k, v in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gemma3", "phi3"])
+def test_family_graphs_equal_eager_bodies(cuda_device, family):
+    """A tiny Gemma 3 and Phi-3 served by graph replay against the same
+    variant bodies run eagerly (decode, masked and mixed steps, a prompt
+    longer than the windows): greedy and seeded sampled ids and every
+    K/V page but the trash page bitwise, B1 once per layer of every
+    forward, every forward a replay."""
+    spec, params = _family_model(cuda_device, family)
+    engines = []
+    for eager in (False, True):
+        eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=4,
+                        max_seq=256, cache_dtype=torch.bfloat16,
+                        autostart=False, device=cuda_device)
+        if eager:
+            eng._mixed_launch = eng._mixed_body
+            eng._decode_launch = eng._decode_body
+        engines.append(eng)
+    graph, eager = engines
+    try:
+        got, want, launches = [], [], []
+        for eng, out in ((graph, got), (eager, want)):
+            b1 = ragged_paged_attention.launches
+            out.append(_drive(eng, _mixed_wave()))
+            launches.append(ragged_paged_attention.launches - b1)
+        torch.cuda.synchronize()
+        assert got == want
+        assert torch.equal(graph.cache.k[:, 1:], eager.cache.k[:, 1:])
+        assert torch.equal(graph.cache.v[:, 1:], eager.cache.v[:, 1:])
+        m = graph.metrics
+        assert m.mixed_replays == m.mixed_steps >= 2
+        assert m.graph_replays == m.decode_steps > 0
+        assert launches[0] == launches[1] == spec.n_layers * m.forward_steps
+    finally:
+        graph.close()
+        eager.close()

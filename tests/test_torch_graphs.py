@@ -342,6 +342,17 @@ def _get(port: int, path: str, body=None):
         return r.status, r.headers.get("Content-Type", ""), r.read().decode()
 
 
+def _await_idle(backend, completed: int, timeout_s: float = 10.0) -> None:
+    """Wait until the engine has counted ``completed`` requests and every
+    slot is free again."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if (backend.engine_stats()["requests_completed"] >= completed
+                and not any(s.active for s in backend.engine.slots)):
+            return
+        time.sleep(0.01)
+
+
 def test_metrics_route_shows_the_reference_families(server, tmp_path):
     port = server.server_address[1]
     for text in ("hello", "count to three"):
@@ -349,6 +360,10 @@ def test_metrics_route_shows_the_reference_families(server, tmp_path):
             "model": "tiny-metrics", "max_tokens": 6,
             "messages": [{"role": "user", "content": text}]})
         assert status == 200
+    # the engine puts a request's done event on its reply queue before it
+    # counts the request and frees the slot (the JAX engine's order), so
+    # the reply can come first: wait for both before the scrape
+    _await_idle(server.app.loaded()["tiny-metrics"], completed=2)
     status, ctype, text = _get(port, "/metrics")
     assert status == 200 and ctype == CONTENT_TYPE
     assert "# EOF" not in text

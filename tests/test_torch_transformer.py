@@ -3,11 +3,20 @@ transformer.py) against the JAX package's ``forward``, in f32 on the CPU
 on the same weights (carried across by models/convert.py).
 
 Families: Llama (with a llama3 rope_scaling block), Mistral (uniform
-sliding window), Qwen2 (qkv bias), Qwen3 (per-head q/k norm). Paths: the
-dense cache and the paged ragged arena (scatter through the write table,
-one ragged attention call per layer), each for a prefill (T > 1, ragged
-row lengths) followed by a decode step (T == 1, the seeded contract).
-Logits must agree within 1e-4 (f32; summation order differs).
+sliding window), Qwen2 (qkv bias), Qwen3 (per-head q/k norm), Gemma
+(``1 + w`` norms, gelu-tanh, embedding multiplier, tied head), Gemma 2
+(sandwich norms, attention and final softcaps, ``query_pre_attn_scalar``,
+alternating windows), Gemma 3 (per-layer windows and rope bases, 7
+layers: five sliding, one global, one sliding), Phi (LayerNorm with
+biases, parallel residual, ungated MLP, partial rotary, biased head) and
+Phi-3 (Llama topology with a uniform window). Paths: the dense cache and
+the paged ragged arena (scatter through the write table, one ragged
+attention call per layer), each for a prefill (T > 1, ragged row lengths)
+followed by a decode step (T == 1, the seeded contract). Where the JAX
+engine does not take its ragged kernel (per-layer windows, an attention
+softcap: it gathers a dense window instead), the JAX reference for the
+paged path is its dense path. Logits must agree within 1e-4 (f32;
+summation order differs).
 """
 
 import jax
@@ -29,7 +38,30 @@ FAMILIES = {
     "mistral": dict(sliding_window=5),
     "qwen2": dict(qkv_bias=True),
     "qwen3": dict(qk_norm=True),
+    "gemma": dict(norm_weight_plus_one=True, hidden_act="gelu_tanh",
+                  embedding_multiplier=8.0, tie_word_embeddings=True),
+    "gemma2": dict(norm_weight_plus_one=True, hidden_act="gelu_tanh",
+                   embedding_multiplier=8.0, tie_word_embeddings=True,
+                   sandwich_norms=True, attn_logit_softcap=5.0,
+                   logit_softcap=3.0, query_pre_attn_scalar=12.0,
+                   sliding_window=4, sliding_window_pattern=2),
+    "gemma3": dict(norm_weight_plus_one=True, hidden_act="gelu_tanh",
+                   embedding_multiplier=8.0, tie_word_embeddings=True,
+                   sandwich_norms=True, qk_norm=True,
+                   query_pre_attn_scalar=16.0, rope_theta=1e6,
+                   rope_scaling={"rope_type": "linear", "factor": 8.0},
+                   rope_local_base_freq=1e4, sliding_window=4,
+                   sliding_window_pattern=6, n_layers=7, norm_eps=1e-6),
+    "phi": dict(norm_type="layernorm", gated_mlp=False,
+                hidden_act="gelu_tanh", qkv_bias=True, o_bias=True,
+                mlp_bias=True, lm_head_bias=True, parallel_residual=True,
+                rotary_pct=0.5),
+    "phi3": dict(sliding_window=5),
 }
+# zero/one at init: perturbed so each family's extra weights matter
+PERTURBED = ("bq", "bk", "bv", "bo", "b_up", "b_down", "lm_head_b",
+             "q_norm_w", "k_norm_w", "ln1_b", "ln2_b", "ln_post_attn_w",
+             "ln_post_ffw_w", "final_norm_b")
 B, T, PAGE, MAX_PAGES = 2, 6, 8, 4
 LENS = np.asarray([6, 4], np.int32)  # ragged prefill rows
 TOL = 1e-4
@@ -43,8 +75,8 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def _model(family: str):
-    kw = FAMILIES[family]
+def _model(family: str = "", **kw):
+    kw = {**FAMILIES.get(family, {}), **kw}
     spec_j = jspec.tiny_spec(vocab_size=64, **kw)
     spec_t = tspec.tiny_spec(vocab_size=64, **kw)
     params = jt.init_params(jax.random.PRNGKey(3), spec_j, dtype=jnp.float32)
@@ -52,11 +84,17 @@ def _model(family: str):
     tree = {}
     for k, v in params.items():
         a = np.asarray(v)
-        if k in ("bq", "bk", "bv", "q_norm_w", "k_norm_w"):
-            # zero/one at init: perturb so the family's extra weights matter
+        if k in PERTURBED:
             a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
         tree[k] = a
     return spec_j, spec_t, tree
+
+
+def _jax_takes_kernel(spec) -> bool:
+    """Whether the JAX engine serves ``spec`` through its ragged kernel
+    (uniform windows, no attention softcap) rather than a gathered dense
+    window."""
+    return jt._layer_windows(spec) is None and not spec.attn_logit_softcap
 
 
 def _tokens(seed: int, shape) -> np.ndarray:
@@ -74,7 +112,7 @@ def _run_jax(spec, tree, paged: bool):
     toks = jnp.asarray(_tokens(0, (B, T)))
     nxt = jnp.asarray(_tokens(1, (B, 1)))
     lens = jnp.asarray(LENS)
-    if not paged:
+    if not paged or not _jax_takes_kernel(spec):
         cache = jt.KVCache.create(spec, B, 32, jnp.float32)
         lg1, cache = jt.forward(spec, params, toks, jnp.zeros(B, jnp.int32),
                                 cache, None)
@@ -136,17 +174,34 @@ def test_rope_inv_freq_llama3_matches_jax():
 
 @pytest.mark.parametrize("over", [
     dict(n_experts=4),  # mixtral / qwen-moe
-    dict(sliding_window=4, sliding_window_pattern=2),  # gemma2/3 layers
-    dict(attn_logit_softcap=50.0, logit_softcap=30.0),  # gemma2
-    dict(norm_weight_plus_one=True, embedding_multiplier=8.0),  # gemma
-    dict(parallel_residual=True, gated_mlp=False, hidden_act="gelu"),  # phi
-    dict(o_bias=True, mlp_bias=True),  # phi biases
-], ids=["moe", "window-pattern", "softcap", "gemma-norms", "phi", "biases"])
+], ids=["moe"])
 def test_unported_families_raise(over):
-    """Features outside Llama/Mistral/Qwen2/Qwen3 raise rather than being
-    silently computed as a Llama (the kernel has no softcap, say)."""
+    """Mixture of experts raises rather than being silently computed as a
+    dense model; every served family is admitted."""
     spec = tspec.tiny_spec(vocab_size=64, **over)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet: mixture of experts"):
         tt.check_supported(spec)
     for family in FAMILIES:
         tt.check_supported(tspec.tiny_spec(vocab_size=64, **FAMILIES[family]))
+
+
+@pytest.mark.parametrize("over", [
+    dict(sliding_window=4, sliding_window_pattern=2),  # gemma2/3 layers
+    dict(attn_logit_softcap=5.0, logit_softcap=3.0),  # gemma2
+    dict(norm_weight_plus_one=True, embedding_multiplier=8.0),  # gemma
+    dict(parallel_residual=True, gated_mlp=False, hidden_act="gelu"),  # phi
+    dict(o_bias=True, mlp_bias=True),  # phi biases
+], ids=["window-pattern", "softcap", "gemma-norms", "phi", "biases"])
+def test_formerly_unported_features_match_jax(over):
+    """Each feature the port once refused, alone on a Llama-style tiny
+    model, is admitted, and its paged forward (prefill, then decode)
+    matches the JAX package's within 1e-4."""
+    spec_j, spec_t, tree = _model(**over)
+    tt.check_supported(spec_t)
+    want1, want2 = _run_jax(spec_j, tree, paged=True)
+    got1, got2 = _run_torch(spec_t, tree, paged=True)
+    for b, n in enumerate(LENS):
+        np.testing.assert_allclose(got1[b, :n], want1[b, :n], rtol=0,
+                                   atol=TOL)
+    np.testing.assert_allclose(got2, want2, rtol=0, atol=TOL)
