@@ -32,7 +32,9 @@ Phases, one result line each; any failure raises and exits non-zero:
    Gemma-3-4B's attention (H 8, Hkv 4, Dh 256) at decode and mixed rows,
    each on a global layer and a window-1024 one, Gemma-2-2B's with its
    window 4096 and softcap 50 (no single PyTorch call computes it),
-   Phi-3-mini's (H 32, Hkv 32, Dh 96, window 2047) and Phi-2's (Dh 80).
+   Phi-3-mini's (H 32, Hkv 32, Dh 96, window 2047) and Phi-2's (Dh 80),
+   Qwen1.5-MoE's (H 16, Hkv 16, Dh 128) and Qwen3-MoE's (H 32, Hkv 4: a
+   GQA group of 8).
 4. int8    — int8_matmul against its plain version at every 8B
    projection shape (K x N 4096 x 4096, 4096 x 1024, 4096 x 14336,
    14336 x 4096), M in INT8_M (decode rows, the speculative verify's
@@ -111,12 +113,13 @@ Phases, one result line each; any failure raises and exits non-zero:
    decode ks; (d) a request whose timeout is below its predicted
    prefill refused before any prefill (504, the reference's text), and
    a shed request's Retry-After equal to the predicted drain.
-9. spec    — after phase 5 (its checkpoint and int8 artifact):
+9. spec    — after phase 5 (its checkpoint):
    speculative decoding through the HTTP route with a random-weight
    Llama-3.2-1B-geometry draft (16 layers, Dh 64, tied head, seed 1)
    written beside the 8B checkpoint, n_draft 4. (a) the main burst's
-   four prompts, greedy, on the 8B target with the draft and on the
-   plain model: ids equal, or apart only at near ties or within the
+   four prompts, greedy, on the 8B checkpoint's first ``SPEC_B_LAYERS``
+   layers (a depth cut) with the draft and on the plain model of that
+   depth: ids equal, or apart only at near ties or within the
    dense reference (``compare_waves``); (b) the 8B checkpoint's first
    ``SPEC_B_LAYERS`` (8) layers drafting for themselves (a depth cut that
    keeps the default run under its time budget), the same four at once:
@@ -125,9 +128,12 @@ Phases, one result line each; any failure raises and exits non-zero:
    verify argmax's logit, sampled (temperature 1) acceptance at least
    0.5, and two faults planted on that engine instance (a stale draft
    arena, the target's p read one position late) must each fail its
-   check; (c) the int8 target with the bf16 draft, one request and then
-   eight at once, so its verify forwards reach int8_matmul at M = 4 and
-   M = 32, the greedy ids held to the plain int8 model's; (d) a repeat_penalty request beside a clean one: the
+   check; (c) the int8 target (the same first ``SPEC_B_LAYERS`` layers,
+   quantized at load: a depth cut that keeps the default run in its
+   time budget) with the bf16 draft, one
+   request and then eight at once, so its verify forwards reach
+   int8_matmul at M = 4 and M = 32, the greedy ids held to the plain
+   int8 model's of that depth; (d) a repeat_penalty request beside a clean one: the
    penalised row never in a speculative dispatch, both as served alone.
    In every run attention launches once per layer of every target and
    draft forward, and int8_matmul's launches equal its calls by M.
@@ -196,6 +202,39 @@ Phases, one result line each; any failure raises and exits non-zero:
    softcap; (c) Phi-3-mini-4k at 8 of its 32 layers (fused
    projections). Every line beside nvidia-smi's name and power limit.
 
+13. moe    — (runs after phase 4, before phase 5: each checkpoint is
+   removed before the next is written, so the disk never holds one
+   beside the 8B phases' files) the mixtures of experts, each from its
+   published
+   ``config.json`` with random bf16 weights, through the HTTP server
+   (context 4096, 8 slots, byte tokenizer): (a) Qwen1.5-MoE-A2.7B-Chat at
+   full width and depth (24 layers, 60 experts, top-4 raw weights, a
+   sigmoid-gated shared expert, 28.6 GB) and (b) Qwen3-30B-A3B at full
+   width, 8 of its 48 layers (128 experts, top-8 renormalized, q/k norms):
+   four streamed chats at once, one past 1024 prompt tokens, B1 once per
+   layer of every forward, every forward a replay, a greedy request held
+   to the dense forward; one layer's expert block against a per-token loop
+   over each token's routed experts (and the shared expert) within 3% of
+   the largest output, the same expert sets but at router near ties; the
+   decode profile of (a). Each checkpoint is dropped after it is served.
+14. gguf   — (after phase 13, its files removed in turn too) GGUF files
+   written here (random blocks with sane scales, no
+   quantizer) and served with their own tokenizer and chat template: (a)
+   a Llama-3.1-8B-geometry file at full width and depth in llama.cpp's
+   Q4_K_M mix with a 128256-token byte-level BPE vocabulary (the card's
+   dequantization of one tensor per type bitwise equal to the CPU's, the
+   Q/K rows un-permuted as convert_hf_to_gguf permutes them, the prompt
+   ids equal to encode(apply_chat_template(...))), (b) the same file with
+   a rank-16 PEFT adapter at scale 0.5 (one merged leaf within one bf16
+   unit of W + delta in f64 on the host; after remove_lora and apply_lora
+   on the running engine the same greedy ids), (c) the same file with
+   ``quantization: int8`` (B2 by M), (d) a Mixtral-8x7B-Instruct-geometry
+   file, 4 of its 32 layers, Q4_K experts, a 32000-piece sentencepiece
+   vocabulary with byte fallback (its expert block checked as in phase
+   moe). Each leg as in phase moe: four streamed chats (one past 1024
+   prompt tokens), B1 once per layer of every forward, every forward a
+   replay, a greedy request held to the dense forward.
+
 Not in the default list: ``softcap_witness`` — Gemma-2-2B at full depth
 with every layer's q_proj at 4x and at 1x the softcap: the served greedy ids
 against the dense forward in bf16 and in f32, and one paged forward
@@ -217,6 +256,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+CARD = "cuda"  # where phases families, moe and gguf make and serve models
 
 # the 8B model's attention geometry (Llama-3.1-8B config.json)
 H, HKV, DH, PAGE = 32, 8, 128, 256
@@ -627,8 +667,8 @@ def phase_kernels(n_slots: int, max_pages: int):
     return worst, timings, aliased, spec_err
 
 
-# B1 at the dense families' attention geometries (the published
-# config.json values): (key, H, Hkv, Dh, window, softcap, rows, max pages)
+# B1 at the families' attention geometries (the published config.json
+# values): (key, H, Hkv, Dh, window, softcap, rows, max pages)
 FAMILY_KEYS = (
     ("g3_decode", 8, 4, 256, 0, 0.0, "decode", 8),  # Gemma-3-4B global
     ("g3_decode_local", 8, 4, 256, 1024, 0.0, "decode", 8),  # its sliding
@@ -637,6 +677,8 @@ FAMILY_KEYS = (
     ("g2_softcap", 8, 4, 256, 4096, 50.0, "decode", 8),  # Gemma-2-2B
     ("phi3_decode", 32, 32, 96, 2047, 0.0, "decode", 16),  # Phi-3-mini-4k
     ("phi2_decode", 32, 32, 80, 0, 0.0, "decode", 8),  # Phi-2
+    ("qwen2moe_decode", 16, 16, 128, 0, 0.0, "decode", 8),  # Qwen1.5-MoE
+    ("qwen3moe_decode", 32, 4, 128, 0, 0.0, "decode", 8),  # a GQA group 8
 )
 
 
@@ -1227,7 +1269,7 @@ def reference_check(backend, layers: int) -> dict:
 
 def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
                    repeat_last_n: int = 64, masks: list | None = None,
-                   cache_dtype=None) -> dict:
+                   cache_dtype=None, per_step: bool = False) -> dict:
     """How far each served greedy token ``ids`` falls below the argmax of
     the plain dense forward (``_attend``) over prompt + ids: the worst
     logit deficit against a tolerance of a quarter of the logits' std
@@ -1240,7 +1282,8 @@ def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
     ``masks`` (the [V] bool sampling mask of each generated token, as
     the engine built it), the argmax is over each step's admitted
     tokens; the tolerance stays that of the unmasked logits. The
-    forward's cache is bf16 unless ``cache_dtype`` says otherwise."""
+    forward's cache is bf16 unless ``cache_dtype`` says otherwise;
+    ``per_step`` adds each step's deficit (``deficits``)."""
     import torch
 
     from localai_tfp_tpu_torch.models.transformer import KVCache, forward
@@ -1278,7 +1321,66 @@ def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
                 (rows.argmax(-1) == tok).sum()),
             "worst_logit_deficit": float(deficit.max()) if finite
             else float("inf"),
-            "tol": tol}
+            "tol": tol,
+            **({"deficits": deficit.tolist() if finite
+                else [float("inf")] * len(ids)} if per_step else {})}
+
+
+# a mixture of experts routes each token to its top-k experts, a step
+# function of the router logits: where the k-th and (k+1)-th logits of a
+# position are closer than bf16 noise between two forwards (the served
+# one in chunks through B1, the dense reference whole) can move them,
+# the two forwards may route that position to other experts. Where the
+# k-th expert carries a real share of the gate, that moves the position's
+# logits by whole units, so such a step is not held to the dense argmax.
+MOE_FLIP_GAP = 0.02  # router logits, of std ~1 for these weights
+MOE_FLIP_WEIGHT = 0.1  # the k-th expert's gate weight
+
+
+def moe_deficits(eng, prompt: list, ids: list) -> dict:
+    """``dense_deficits`` for a mixture of experts, with the dense
+    forward's routing recorded per position and layer: a step whose
+    position some layer routes within ``MOE_FLIP_GAP`` of a tie, on an
+    expert of gate weight at least ``MOE_FLIP_WEIGHT``, is excused from
+    the tolerance; every other step is held to it. Reports the excused
+    steps and the worst deficit over all."""
+    import torch
+
+    from localai_tfp_tpu_torch.models import transformer as tt
+
+    spec = eng.spec
+    K, E = spec.experts_per_token, spec.n_experts
+    flips: list = []
+    orig = tt._moe_mlp
+
+    def recording(spec_, lp, x, dense_only=False):
+        if not dense_only and K < E:
+            logits = tt._router_logits(x.reshape(-1, x.shape[-1]),
+                                       lp["router"])
+            vals, _ = torch.topk(logits, K + 1, dim=-1)
+            gap = vals[:, K - 1] - vals[:, K]
+            weight = (torch.softmax(vals[:, :K], -1)[:, K - 1]
+                      if spec_.moe_norm_topk
+                      else torch.softmax(logits, -1).topk(K).values[:, -1])
+            flips.append((gap < MOE_FLIP_GAP) & (weight >= MOE_FLIP_WEIGHT))
+        return orig(spec_, lp, x, dense_only)
+
+    tt._moe_mlp = recording
+    try:
+        ref = dense_deficits(eng, prompt, ids, per_step=True)
+    finally:
+        tt._moe_mlp = orig
+    flippable = (torch.stack(flips).any(0).tolist() if flips
+                 else [False] * (len(prompt) + len(ids)))
+    first = len(prompt) - 1  # the position whose logits give ids[0]
+    excused = [j for j, d in enumerate(ref["deficits"])
+               if d > ref["tol"] and flippable[first + j]]
+    kept = [d for j, d in enumerate(ref.pop("deficits")) if j not in excused]
+    ref.update(worst_logit_deficit_all=ref["worst_logit_deficit"],
+               worst_logit_deficit=max(kept) if kept else 0.0,
+               excused_route_flips=excused,
+               flippable_steps=sum(flippable[first:first + len(ids)]))
+    return ref
 
 
 def param_bytes(params: dict) -> int:
@@ -2862,7 +2964,7 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
 
     from localai_tfp_tpu_torch.server.app import build_server
 
-    srv = build_server(str(models), port=0, device="cuda")
+    srv = build_server(str(models), port=0, device=CARD)
     port = srv.server_address[1]
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -3007,8 +3109,9 @@ REJECT_TIE = 0.2
 # sampled acceptance below which the rule or the draft arena is broken
 # (a model drafting for itself has p close to q)
 SAMPLED_ACCEPT_MIN = 0.5
-# (b)'s depth: the 8B checkpoint's first 8 of 32 layers, target and
-# draft (its tensors shared by a symlink; config.json says 8 layers)
+# the depth of spec's targets: the 8B checkpoint's first 8 of 32 layers
+# (its tensors shared by a symlink; config.json says 8 layers), (b)'s
+# draft too
 SPEC_B_LAYERS = 8
 # faults planted on (b)'s engine to show that its checks fail them: the
 # prompt mirror written elsewhere (a stale draft arena; the greedy
@@ -3426,7 +3529,7 @@ def _serve(models: Path):
 
     from localai_tfp_tpu_torch.server.app import build_server
 
-    srv = build_server(str(models), port=0, device="cuda")
+    srv = build_server(str(models), port=0, device=CARD)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     return srv, th
@@ -3444,12 +3547,13 @@ def _shut(srv, th) -> None:
 
 
 def phase_spec(ckpt_name: str, seed: int) -> dict:
-    """Speculative decoding through the HTTP route: (a) the 8B target
-    with a Llama-3.2-1B-geometry draft against the plain server, greedy;
+    """Speculative decoding through the HTTP route: (a) the 8B
+    checkpoint's first SPEC_B_LAYERS layers with a Llama-3.2-1B-geometry
+    draft against the plain model of that depth, greedy;
     (b) the 8B checkpoint's first SPEC_B_LAYERS layers as their own
-    draft, greedy and sampled; (c) the
-    int8 target with the bf16 1B draft; (d) a penalised request beside a
-    clean one on (a)'s server."""
+    draft, greedy and sampled; (c) the int8 target at that depth with
+    the bf16 1B draft; (d) a penalised request beside a clean one on
+    (a)'s server."""
     models = ROOT / "build" / "chip_smoke" / "models"
     layers = DRAFT_GEOMETRY["num_hidden_layers"]
     draft_name = f"llama32-1b-geometry-L{layers}-s{DRAFT_SEED}"
@@ -3466,11 +3570,15 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
     config = json.loads((models / ckpt_name / "config.json").read_text())
     (models / cut / "config.json").write_text(json.dumps(
         {**config, "num_hidden_layers": SPEC_B_LAYERS}, indent=1))
-    configs = {"llama-3.1-8b-spec": {"draft_model": draft_name},
+    configs = {"llama-3.1-8b-spec": {"model": cut,
+                                     "draft_model": draft_name},
                "llama-3.1-8b-self": {"model": cut, "draft_model": cut},
                "llama-3.1-8b-cut": {"model": cut},
-               "llama-3.1-8b-int8-spec": {"draft_model": draft_name,
-                                          "quantization": "int8"}}
+               "llama-3.1-8b-int8-spec": {"model": cut,
+                                          "draft_model": draft_name,
+                                          "quantization": "int8"},
+               "llama-3.1-8b-cut-int8": {"model": cut,
+                                         "quantization": "int8"}}
     for name, extra in configs.items():
         model = extra.pop("model", ckpt_name)
         (models / f"{name}.yaml").write_text(json.dumps({
@@ -3486,22 +3594,26 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
     greedy = [{**b, "temperature": 0.0} for _, b in first + later]
     out = {}
 
-    # (a) the 1B draft against the plain server; (d) on the same server
+    # (a) the 1B draft for the 8B checkpoint's first SPEC_B_LAYERS layers
+    # (a depth cut that keeps the default run in its time budget) against
+    # the plain model of that depth; (d) on the same server
     srv, th = _serve(models)
     try:
         port = srv.server_address[1]
-        plain_b = _loaded(port, srv.app, "llama-3.1-8b")
+        plain_b = _loaded(port, srv.app, "llama-3.1-8b-cut")
         spec_b = _loaded(port, srv.app, "llama-3.1-8b-spec")
         if spec_b.engine.draft is None or spec_b.engine.n_draft != N_DRAFT:
             raise AssertionError("llama-3.1-8b-spec served without its draft")
-        plain = spec_wave(port, "llama-3.1-8b", plain_b, greedy)
+        plain = spec_wave(port, "llama-3.1-8b-cut", plain_b, greedy)
         spec = spec_wave(port, "llama-3.1-8b-spec", spec_b, greedy)
         cmp = compare_waves(spec, plain, plain_b.engine, "spec vs plain")
         if cmp["faults"] or not spec["spec_dispatches"]:
             raise AssertionError(f"(a) spec against plain: {cmp['faults']}, "
                                  f"{spec['spec_dispatches']} dispatches")
         out["a"] = {"plain": _public(plain), "spec": _public(spec),
-                    "compare": cmp}
+                    "compare": cmp, "layers": SPEC_B_LAYERS,
+                    "reduced": f"target layers {SPEC_B_LAYERS} of "
+                               f"{GEOMETRY['num_hidden_layers']}"}
         log("spec_a", **out["a"])
         # the same burst by replay and by the variant bodies eagerly
         pair = spec_pair(srv.app, "llama-3.1-8b-spec", spec_b, [greedy])
@@ -3618,26 +3730,33 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
     finally:
         _shut(srv, th)
 
-    # (c) the int8 target (its artifact from phase main) and the bf16
-    # draft: one greedy request (verify M = 4, B2's decode instance),
-    # then 8 at once, greedy and sampled (M = 32, its mixed-step one);
-    # the greedy ids held to the plain int8 model's on the same bodies
+    # (c) the int8 target, the 8B checkpoint's first SPEC_B_LAYERS layers
+    # quantized at load (a depth cut that keeps the default run in its
+    # time budget; no artifact is written), and
+    # the bf16 draft: one greedy request (verify M = 4, B2's decode
+    # instance), then 8 at once, greedy and sampled (M = 32, its
+    # mixed-step one); the greedy ids held to the plain int8 model's of
+    # that depth on the same bodies
+    saved = os.environ.get("LOCALAI_QUANT_ARTIFACTS")
+    os.environ["LOCALAI_QUANT_ARTIFACTS"] = "off"
     srv, th = _serve(models)
     try:
         port = srv.server_address[1]
         q_b = _loaded(port, srv.app, "llama-3.1-8b-int8-spec")
-        qp_b = _loaded(port, srv.app, "llama-3.1-8b-int8")
-        if (q_b.load_mode, qp_b.load_mode) != ("artifact", "artifact"):
+        qp_b = _loaded(port, srv.app, "llama-3.1-8b-cut-int8")
+        if (q_b.load_mode, qp_b.load_mode) != ("quantized", "quantized"):
             raise AssertionError(f"(c) load modes {q_b.load_mode}, "
                                  f"{qp_b.load_mode}")
         one = spec_wave(port, "llama-3.1-8b-int8-spec", q_b, greedy[:1])
-        one_plain = spec_wave(port, "llama-3.1-8b-int8", qp_b, greedy[:1])
+        one_plain = spec_wave(port, "llama-3.1-8b-cut-int8", qp_b,
+                              greedy[:1])
         burst = [{"max_tokens": 32, "messages": [
             {"role": "user", "content": f"Request {i}: name a colour."}],
             **({"temperature": 0.8, "seed": i} if i % 2 else
                {"temperature": 0.0})} for i in range(SLOTS)]
         eight = spec_wave(port, "llama-3.1-8b-int8-spec", q_b, burst)
-        eight_plain = spec_wave(port, "llama-3.1-8b-int8", qp_b, burst)
+        eight_plain = spec_wave(port, "llama-3.1-8b-cut-int8", qp_b,
+                                burst)
         cmp_c = {"one": compare_waves(one, one_plain, qp_b.engine,
                                       "int8 spec vs plain, one"),
                  "eight_greedy": compare_waves(
@@ -3652,7 +3771,9 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
                     "plain_one": _public(one_plain),
                     "plain_eight": _public(eight_plain), "compare": cmp_c,
                     "verify_m4_calls": m4, "verify_m32_calls": m32,
-                    "graphs": _pair_public(pair)}
+                    "graphs": _pair_public(pair), "layers": SPEC_B_LAYERS,
+                    "reduced": f"layers {SPEC_B_LAYERS} of "
+                               f"{GEOMETRY['num_hidden_layers']}"}
         log("spec_c", **out["c"])
         faults = [c["faults"] for c in cmp_c.values() if c["faults"]]
         if faults or cmp_c["eight_greedy"]["requests"] != SLOTS // 2:
@@ -3663,6 +3784,10 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
                                  f"M=32 {m32}")
     finally:
         _shut(srv, th)
+        if saved is None:
+            os.environ.pop("LOCALAI_QUANT_ARTIFACTS", None)
+        else:
+            os.environ["LOCALAI_QUANT_ARTIFACTS"] = saved
     return out
 
 
@@ -3758,19 +3883,11 @@ def _byte_alphabet() -> list[str]:
     return [out[b] for b in range(256)]
 
 
-def write_text_tokenizer(dirpath: Path, vocab_size: int = 128256) -> dict:
-    """A byte-level BPE ``tokenizer.json`` with Llama-3's layout, written
-    without the ``tokenizers`` package: the 256 byte symbols, merges of
-    printable ASCII, space and newline symbols generated up to id
-    ``vocab_size - 256`` (so a sampled id decodes to visible text), and
-    Llama-3's 256 special tokens above them (128000-128255 at the 8B's
-    vocabulary); the Llama-3 ``Split`` pattern, ``ignore_merges`` and the
-    ``ByteLevel`` decoder. Also ``tokenizer_config.json``
-    (``clean_up_tokenization_spaces`` and the chat template above) and
-    ``generation_config.json`` (eos ``<|end_of_text|>`` and
-    ``<|eot_id|>``)."""
-    alphabet = _byte_alphabet()
-    vocab = {c: i for i, c in enumerate(alphabet)}
+def text_vocab(vocab_size: int = 128256) -> tuple[dict, list]:
+    """(vocab, merges) of the generated byte-level BPE: the 256 byte
+    symbols, then merges of printable ASCII, space and newline symbols up
+    to id ``vocab_size - 256`` (Llama-3's special tokens take the rest)."""
+    vocab = {c: i for i, c in enumerate(_byte_alphabet())}
     base = [chr(b) for b in range(0x21, 0x7F)] + ["Ġ", "Ċ"]
     n_merged = vocab_size - len(LLAMA3_SPECIALS)
     merges: list[list[str]] = []
@@ -3787,6 +3904,22 @@ def write_text_tokenizer(dirpath: Path, vocab_size: int = 128256) -> dict:
                 merges.append([a, b])
                 nxt.append(a + b)
         level = nxt
+    return vocab, merges
+
+
+def write_text_tokenizer(dirpath: Path, vocab_size: int = 128256) -> dict:
+    """A byte-level BPE ``tokenizer.json`` with Llama-3's layout, written
+    without the ``tokenizers`` package: the 256 byte symbols, merges of
+    printable ASCII, space and newline symbols generated up to id
+    ``vocab_size - 256`` (so a sampled id decodes to visible text), and
+    Llama-3's 256 special tokens above them (128000-128255 at the 8B's
+    vocabulary); the Llama-3 ``Split`` pattern, ``ignore_merges`` and the
+    ``ByteLevel`` decoder. Also ``tokenizer_config.json``
+    (``clean_up_tokenization_spaces`` and the chat template above) and
+    ``generation_config.json`` (eos ``<|end_of_text|>`` and
+    ``<|eot_id|>``)."""
+    vocab, merges = text_vocab(vocab_size)
+    n_merged = len(vocab)
     added = [{"id": n_merged + k, "content": c, "single_word": False,
               "lstrip": False, "rstrip": False, "normalized": False,
               "special": True} for k, c in enumerate(LLAMA3_SPECIALS)]
@@ -4642,15 +4775,47 @@ LONG_PROMPT = ("The sliding layers see the last 1024 tokens; the global "
 def family_layout(g: dict, layers: int, prefix: str) -> list:
     """(name, HF [out, in] shape) of every tensor of a checkpoint of
     geometry ``g``: Gemma 2/3 with their sandwich norms (Gemma 3 with
-    q/k norms), Phi-3 with fused qkv_proj and gate_up_proj."""
+    q/k norms), Phi-3 with fused qkv_proj and gate_up_proj, and the
+    Qwen mixtures of experts (a router and per-expert projections;
+    Qwen2-MoE's q/k/v biases and sigmoid-gated shared expert, Qwen3-MoE's
+    q/k norms)."""
     D, F, V = g["hidden_size"], g["intermediate_size"], g["vocab_size"]
     dh = g.get("head_dim") or D // g["num_attention_heads"]
     q, kv = g["num_attention_heads"] * dh, g["num_key_value_heads"] * dh
     mt = g["model_type"]
     out = [(f"{prefix}embed_tokens.weight", (V, D)),
            (f"{prefix}norm.weight", (D,))]
-    if mt == "phi3":
+    if mt in ("phi3", "qwen2_moe", "qwen3_moe"):
         out.append(("lm_head.weight", (V, D)))
+    if mt in ("qwen2_moe", "qwen3_moe"):
+        E, Fm = g["num_experts"], g["moe_intermediate_size"]
+        for i in range(layers):
+            lp = f"{prefix}layers.{i}."
+            out += [(lp + "self_attn.q_proj.weight", (q, D)),
+                    (lp + "self_attn.k_proj.weight", (kv, D)),
+                    (lp + "self_attn.v_proj.weight", (kv, D)),
+                    (lp + "self_attn.o_proj.weight", (D, q)),
+                    (lp + "input_layernorm.weight", (D,)),
+                    (lp + "post_attention_layernorm.weight", (D,)),
+                    (lp + "mlp.gate.weight", (E, D))]
+            if mt == "qwen2_moe":
+                Fs = g["shared_expert_intermediate_size"]
+                out += [(lp + "self_attn.q_proj.bias", (q,)),
+                        (lp + "self_attn.k_proj.bias", (kv,)),
+                        (lp + "self_attn.v_proj.bias", (kv,)),
+                        (lp + "mlp.shared_expert.gate_proj.weight", (Fs, D)),
+                        (lp + "mlp.shared_expert.up_proj.weight", (Fs, D)),
+                        (lp + "mlp.shared_expert.down_proj.weight", (D, Fs)),
+                        (lp + "mlp.shared_expert_gate.weight", (1, D))]
+            else:
+                out += [(lp + "self_attn.q_norm.weight", (dh,)),
+                        (lp + "self_attn.k_norm.weight", (dh,))]
+            for e in range(E):
+                ep = lp + f"mlp.experts.{e}."
+                out += [(ep + "gate_proj.weight", (Fm, D)),
+                        (ep + "up_proj.weight", (Fm, D)),
+                        (ep + "down_proj.weight", (D, Fm))]
+        return out
     for i in range(layers):
         lp = f"{prefix}layers.{i}."
         if mt == "phi3":
@@ -4709,9 +4874,10 @@ def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
     mt = g["model_type"]
     prefix = "language_model.model." if mt == "gemma3_text" else "model."
     layout = family_layout(g, layers, prefix)
-    dev = torch.device("cuda")
+    dev = torch.device(CARD)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    norm = 1.0 if mt == "phi3" else 0.0
+    gemma = mt.startswith("gemma")
+    norm = 0.0 if gemma else 1.0
     cap = g.get("attn_logit_softcapping")
     last = f"layers.{layers - 1}."
 
@@ -4722,7 +4888,7 @@ def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
     def tensors():
         for name, shape in layout:
             if len(shape) == 1:
-                w = norm
+                w = 0.0 if name.endswith(".bias") else norm
                 if saturate == "last" and saturated(
                         name, "post_attention_layernorm"):
                     w = 9.0
@@ -4733,7 +4899,7 @@ def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
                 scale = shape[1] ** -0.5
                 if saturated(name, "self_attn.q_proj"):
                     scale *= q_cap_scale * cap
-                if name.endswith("embed_tokens.weight") and mt != "phi3":
+                if name.endswith("embed_tokens.weight") and gemma:
                     scale /= 20
                 yield name, (w * scale).to(torch.bfloat16)
 
@@ -4758,11 +4924,13 @@ def family_yaml(models: Path, name: str, ckpt: str, **extra) -> None:
         "template": GEMMA_TEMPLATE, **extra}, indent=1))
 
 
-def family_burst(port: int, model: str, eng, bodies: list) -> dict:
+def family_burst(port: int, model: str, eng, bodies: list,
+                 by_m: dict | None = None) -> dict:
     """``bodies`` streamed at once; each stream's frames, usage and host
-    ms to its first token; the kernels' counts set to 0 just before and
-    read just after; the engine's forwards, replays and host ms per
-    decode forward (the step ends in the host read of its tokens)."""
+    ms to its first token; the kernels' counts (and ``by_m``, B2's calls
+    by M) set to 0 just before and read just after; the engine's
+    forwards, replays and host ms per decode forward (the step ends in
+    the host read of its tokens)."""
     import threading
 
     import torch
@@ -4813,6 +4981,8 @@ def family_burst(port: int, model: str, eng, bodies: list) -> dict:
     torch.cuda.synchronize()
     ragged_paged_attention.launches = 0
     int8_matmul.launches = 0
+    if by_m is not None:
+        by_m.clear()
     t0 = time.perf_counter()
     threads = [threading.Thread(target=send, args=(i, b))
                for i, b in enumerate(bodies)]
@@ -4823,6 +4993,7 @@ def family_burst(port: int, model: str, eng, bodies: list) -> dict:
     wall = time.perf_counter() - t0
     launches = {"ragged_paged_attention": ragged_paged_attention.launches,
                 "int8_matmul": int8_matmul.launches}
+    calls_by_m = dict(sorted(by_m.items())) if by_m is not None else None
     del eng._decode_step
     if errors or len(results) != len(bodies):
         raise AssertionError(f"{model}: requests failed: {errors}")
@@ -4836,7 +5007,9 @@ def family_burst(port: int, model: str, eng, bodies: list) -> dict:
             "decode_replays": replays, "mixed_replays": mreplays,
             "ms_per_decode_forward": round(spent[0] * 1e3 / max(1, decode),
                                            3),
-            "launches": launches}
+            "launches": launches,
+            **({"int8_matmul_calls_by_m": calls_by_m} if by_m is not None
+               else {})}
 
 
 def served_greedy(backend, text: str, max_tokens: int) -> tuple:
@@ -4897,7 +5070,10 @@ def family_reference(backend, text: str, max_tokens: int) -> dict:
     that drops the cap."""
     eng = backend.engine
     prompt, ids = served_greedy(backend, text, max_tokens)
-    ref = dense_deficits(reference_engine(eng), prompt, ids)
+    if eng.spec.n_experts:
+        ref = moe_deficits(reference_engine(eng), prompt, ids)
+    else:
+        ref = dense_deficits(reference_engine(eng), prompt, ids)
     ref["prompt_tokens"] = len(prompt)
     if not ref["worst_logit_deficit"] <= ref["tol"]:
         raise AssertionError(f"greedy ids are not the dense reference's "
@@ -4914,11 +5090,16 @@ def family_reference(backend, text: str, max_tokens: int) -> dict:
 
 def serve_family(models: Path, model: str, smi: str, bodies: list,
                  ref_text: str, layers: int, graphs_every_decode: bool,
-                 int8: bool = False, profile: bool = False) -> dict:
-    """Load ``model`` through the port's server, stream ``bodies`` at once
+                 int8: bool = False, profile: bool = False,
+                 tag: str = "families", on_load=None, after=None) -> dict:
+    """Load ``model`` through the port's server, stream ``bodies`` (or
+    ``bodies(backend)``) at once
     (B1 once per layer of every forward; B2 on an int8 config), hold a
     greedy request to the dense reference, (``profile``) profile 8
-    decoding requests as phase main does, and unload."""
+    decoding requests as phase main does, and unload. Lines are logged
+    as ``<tag>_*``; ``on_load(backend)`` runs before the burst and
+    ``after(backend, result)`` after the reference, while the model is
+    loaded (their dicts land in the result as ``on_load`` / ``after``)."""
     import torch
 
     from localai_tfp_tpu_torch.models.transformer import layer_windows
@@ -4936,13 +5117,17 @@ def serve_family(models: Path, model: str, smi: str, bodies: list,
                 "param_bytes": param_bytes(eng.params),
                 "kv_arena_bytes": eng.cache.nbytes(),
                 "windows": sorted(set(layer_windows(eng.spec))),
-                "softcap": eng.spec.attn_logit_softcap}
-        log("families_load", model=model, card=smi, **load)
+                "softcap": eng.spec.attn_logit_softcap,
+                "graph_pool_bytes": eng._graph_pool_bytes}
+        log(f"{tag}_load", model=model, card=smi, **load)
+        hooked = on_load(backend) if on_load is not None else None
+        if callable(bodies):  # made from the loaded model (its tokenizer)
+            bodies = bodies(backend)
         by_m = undo = None
         if int8:
             by_m, undo = _b2_by_m(eng)
         try:
-            burst = family_burst(port, model, eng, bodies)
+            burst = family_burst(port, model, eng, bodies, by_m)
         finally:
             if undo is not None:
                 undo()
@@ -4957,19 +5142,26 @@ def serve_family(models: Path, model: str, smi: str, bodies: list,
             raise AssertionError(f"{model}: forwards not all replays: "
                                  f"{burst}")
         if int8:
-            burst["int8_matmul_calls_by_m"] = dict(sorted(by_m.items()))
+            by_m = burst["int8_matmul_calls_by_m"]  # read with the counts
             if not got["int8_matmul"] or not by_m:
                 raise AssertionError(f"{model}: int8_matmul never launched")
-        log("families_burst", model=model, card=smi, **burst)
+            if got["int8_matmul"] != sum(by_m.values()):
+                raise AssertionError(
+                    f"{model}: int8_matmul launched {got['int8_matmul']} "
+                    f"times for {sum(by_m.values())} calls by M {by_m}")
+        log(f"{tag}_burst", model=model, card=smi, **burst)
         ref = family_reference(backend, ref_text, 16)
-        log("families_reference", model=model, card=smi, **ref)
+        log(f"{tag}_reference", model=model, card=smi, **ref)
         prof = None
         if profile:
             prof = profile_decode(eng)
-            log("families_profile", model=model, card=smi, **prof)
+            log(f"{tag}_profile", model=model, card=smi, **prof)
         eng.leak_check()
-        return {"load": load, "burst": burst, "reference": ref,
-                "profile": prof}
+        res = {"load": load, "burst": burst, "reference": ref,
+               "profile": prof, "on_load": hooked}
+        if after is not None:
+            res["after"] = after(backend, res)
+        return res
     finally:
         _shut(srv, th)
         torch.cuda.empty_cache()
@@ -5186,11 +5378,735 @@ def phase_softcap_witness(smi: str, seed: int) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase moe
+
+
+# Qwen/Qwen1.5-MoE-A2.7B-Chat's published config.json
+QWEN15_MOE = {
+    "model_type": "qwen2_moe", "hidden_size": 2048,
+    "intermediate_size": 5632, "num_attention_heads": 16,
+    "num_key_value_heads": 16, "num_hidden_layers": 24,
+    "vocab_size": 151936, "max_position_embeddings": 8192,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "hidden_act": "silu",
+    "sliding_window": 32768, "use_sliding_window": False,
+    "max_window_layers": 21, "tie_word_embeddings": False,
+    "decoder_sparse_step": 1, "moe_intermediate_size": 1408,
+    "shared_expert_intermediate_size": 5632, "num_experts_per_tok": 4,
+    "num_experts": 60, "norm_topk_prob": False, "bos_token_id": 151643,
+    "eos_token_id": 151645,
+}
+# Qwen/Qwen3-30B-A3B's published config.json
+QWEN3_MOE = {
+    "model_type": "qwen3_moe", "hidden_size": 2048, "head_dim": 128,
+    "intermediate_size": 6144, "num_attention_heads": 32,
+    "num_key_value_heads": 4, "num_hidden_layers": 48,
+    "vocab_size": 151936, "max_position_embeddings": 40960,
+    "rope_theta": 1000000.0, "rms_norm_eps": 1e-6, "hidden_act": "silu",
+    "attention_bias": False, "decoder_sparse_step": 1,
+    "mlp_only_layers": [], "moe_intermediate_size": 768,
+    "norm_topk_prob": True, "num_experts": 128, "num_experts_per_tok": 8,
+    "sliding_window": None, "use_sliding_window": False,
+    "tie_word_embeddings": False, "bos_token_id": 151643,
+    "eos_token_id": 151645,
+}
+QWEN3_MOE_LAYERS = 8  # a depth cut: 61 GB in bf16 at all 48
+# the MoE block against a per-token loop over each token's routed experts
+# (and the shared expert) in f32/f64: bf16 products and sums move the
+# output by a few bf16 units of its largest value; one wrong expert or
+# gate moves a token's output by the whole value
+MOE_BLOCK_TOL = 0.03  # of max|reference|
+ROUTE_TIE = 1e-6  # expert sets may differ only where the k-th and
+# (k+1)-th router logits are this close
+MOE_BLOCK_TOKENS = 64
+
+
+def moe_block_check(eng, layer: int, seed: int) -> dict:
+    """Layer ``layer``'s mixture-of-experts block (``transformer._moe_mlp``
+    on the card) against an independent formulation on the same bf16
+    inputs: f64 router logits, ``torch.topk``, and for each token a loop
+    over its routed experts' gate/up/down products in f32, weighted in
+    f64, plus the shared expert scaled by its sigmoid gate. Fails above
+    ``MOE_BLOCK_TOL`` x max|reference| or where a token's expert set
+    differs without a router near tie."""
+    import torch
+
+    from localai_tfp_tpu_torch.models import transformer as tt
+
+    spec, dev = eng.spec, eng.device
+    lp = {k: v[layer] for k, v in eng.params.items()
+          if k not in tt._NON_LAYER_KEYS}
+    E, K, D = spec.n_experts, spec.experts_per_token, spec.d_model
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((1, MOE_BLOCK_TOKENS, D), generator=g,
+                    device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = tt._moe_mlp(spec, lp, x)[0].float()
+        port_logits = tt._router_logits(x[0], lp["router"])
+        scores = (port_logits if spec.moe_norm_topk
+                  else torch.softmax(port_logits, -1))
+        _, port_idx = tt._top_k(scores, K)
+        xs = x[0].double()
+        logits = xs @ lp["router"].double()
+        probs = torch.softmax(logits, -1)
+        vals, idx = torch.topk(logits, min(K + 1, E), dim=-1)
+        ref = torch.zeros((MOE_BLOCK_TOKENS, D), dtype=torch.float64,
+                          device=dev)
+        act = torch.nn.functional.silu
+        f32: dict = {}  # each routed expert's weights, widened once
+
+        def expert(e):
+            if e not in f32:
+                f32[e] = tuple(lp[k][e].float()
+                               for k in ("moe_gate", "moe_up", "moe_down"))
+            return f32[e]
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False  # f32 products
+        try:
+            for t in range(MOE_BLOCK_TOKENS):
+                sel = idx[t, :K]
+                w = (torch.softmax(logits[t, sel], -1)
+                     if spec.moe_norm_topk else probs[t, sel])
+                xt = x[0, t].float()
+                for j, e in enumerate(sel.tolist()):
+                    wg, wu, wd = expert(e)
+                    h = act(xt @ wg) * (xt @ wu)
+                    ref[t] += w[j] * (h @ wd).double()
+                if "shared_gate" in lp:
+                    s = (act(xt @ lp["shared_gate"].float())
+                         * (xt @ lp["shared_up"].float())) @ \
+                        lp["shared_down"].float()
+                    ref[t] += torch.sigmoid(
+                        xs[t] @ lp["shared_router"].double()) * s.double()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        del f32
+    err = float((got.double() - ref).abs().max())
+    bound = MOE_BLOCK_TOL * float(ref.abs().max())
+    differ, near_ties = 0, 0
+    for t in range(MOE_BLOCK_TOKENS):
+        if set(port_idx[t].tolist()) != set(idx[t, :K].tolist()):
+            differ += 1
+            if K < E and float(vals[t, K - 1] - vals[t, K]) < ROUTE_TIE:
+                near_ties += 1
+    out = {"layer": layer, "tokens": MOE_BLOCK_TOKENS, "experts": E,
+           "top_k": K, "max_abs_err": err, "tol": bound,
+           "max_abs_ref": float(ref.abs().max()),
+           "expert_sets_differ": differ, "of_which_near_ties": near_ties,
+           "shared_expert": "shared_gate" in lp,
+           "renormalized_top_k": spec.moe_norm_topk}
+    if not err <= bound or differ != near_ties:
+        raise AssertionError(f"MoE block against the per-token loop: {out}")
+    return out
+
+
+def phase_moe(smi: str, seed: int) -> dict:
+    """(a) Qwen1.5-MoE-A2.7B-Chat at full width and depth, (b) Qwen3-30B-
+    A3B at full width and 8 of its 48 layers: each written from its
+    published config.json with random bf16 weights, served through the
+    HTTP server (four streamed chats at once, one past 1024 prompt
+    tokens; B1 once per layer of every forward, every forward a replay;
+    a greedy request held to the dense forward on the plain attention),
+    one layer's expert block checked against the per-token loop, and its
+    files removed before the next is written (see main: the disk a call
+    may write is bounded)."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "moe_models"
+    models.mkdir(parents=True, exist_ok=True)
+    out = {}
+    chats = family_chats()
+    for key, g, layers, cut in (
+            ("qwen15_moe", QWEN15_MOE, QWEN15_MOE["num_hidden_layers"], None),
+            ("qwen3_moe", QWEN3_MOE, QWEN3_MOE_LAYERS,
+             f"layers {QWEN3_MOE_LAYERS} of "
+             f"{QWEN3_MOE['num_hidden_layers']}")):
+        ckpt = f"{key}-L{layers}-s{seed}"
+        free = shutil.disk_usage(models).free
+        nbytes, write_s = write_family_checkpoint(models / ckpt, g, layers,
+                                                  seed)
+        log("moe_checkpoint", model=key, bytes=nbytes,
+            write_s=round(write_s, 3), layers=layers, reduced=cut,
+            disk_free_before=free, card=smi)
+        family_yaml(models, key, ckpt)
+
+        def block(backend, res, layers=layers):
+            chk = moe_block_check(backend.engine, layers // 2, seed + 7)
+            log("moe_block", model=key, card=smi, **chk)
+            return chk
+
+        res = serve_family(models, key, smi, chats, LONG_PROMPT, layers,
+                           True, profile=key == "qwen15_moe", tag="moe",
+                           after=block)
+        long = res["burst"]["requests"][0]["prompt_tokens"]
+        if long < 1024:
+            raise AssertionError(f"{key}: the long chat has {long} tokens")
+        res.update(layers=layers, reduced=cut, checkpoint_bytes=nbytes)
+        out[key] = res
+        shutil.rmtree(models / ckpt, ignore_errors=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("moe", card=smi, phase_s=out["phase_s"], **_leg_summary(out))
+    return out
+
+
+def _leg_summary(out: dict) -> dict:
+    return {k: {"load_s": v["load"]["load_s"],
+                "warmup_s": v["load"]["warmup_s"],
+                "graph_pool_bytes": v["load"]["graph_pool_bytes"],
+                "first_token_ms": [r["first_token_ms"]
+                                   for r in v["burst"]["requests"]],
+                "ms_per_decode_forward": v["burst"]["ms_per_decode_forward"],
+                "b1_launches_per_forward":
+                    v["burst"]["launches"]["ragged_paged_attention"]
+                    / max(1, v["burst"]["forward_steps"])}
+            for k, v in out.items() if isinstance(v, dict)}
+
+
+# ---------------------------------------------------------- phase gguf
+
+GGUF_ALIGN = 32
+# ggml types of the files written here: F32 norms, llama.cpp's Q4_K_M mix
+GGML_F32, GGML_Q4_K, GGML_Q6_K = 0, 12, 14
+GGML_BLOCK = {GGML_F32: (1, 4), GGML_Q4_K: (256, 144),
+              GGML_Q6_K: (256, 210)}
+# Mistral-AI/Mixtral-8x7B-Instruct-v0.1's published config.json
+MIXTRAL = {"hidden_size": 4096, "intermediate_size": 14336,
+           "num_attention_heads": 32, "num_key_value_heads": 8,
+           "num_hidden_layers": 32, "vocab_size": 32000,
+           "rope_theta": 1000000.0, "rms_norm_eps": 1e-5,
+           "max_position_embeddings": 32768, "num_local_experts": 8,
+           "num_experts_per_tok": 2}
+MIXTRAL_LAYERS = 4  # a depth cut: ~93 GB in bf16 at all 32
+# the published Mixtral-8x7B-Instruct-v0.1 chat template
+MIXTRAL_TEMPLATE = (
+    "{{ bos_token }}{% for message in messages %}{% if (message['role'] == "
+    "'user') != (loop.index0 % 2 == 0) %}{{ raise_exception('Conversation "
+    "roles must alternate user/assistant/user/assistant/...') }}{% endif %}"
+    "{% if message['role'] == 'user' %}{{ '[INST] ' + message['content'] + "
+    "' [/INST]' }}{% elif message['role'] == 'assistant' %}{{ "
+    "message['content'] + eos_token}}{% else %}{{ raise_exception('Only "
+    "user and assistant roles are supported!') }}{% endif %}{% endfor %}")
+GGUF_LORA_RANK = 16
+GGUF_LORA_SCALE = 0.5
+GGUF_LORA_PROJ = (("self_attn", "q_proj", "wq"), ("self_attn", "k_proj", "wk"),
+                  ("self_attn", "v_proj", "wv"), ("self_attn", "o_proj", "wo"),
+                  ("mlp", "gate_proj", "w_gate"), ("mlp", "up_proj", "w_up"),
+                  ("mlp", "down_proj", "w_down"))
+
+
+def _gguf_kv(key: str, kind: str, value) -> bytes:
+    import struct
+
+    codes = {"u32": (4, "<I"), "i32": (5, "<i"), "f32": (6, "<f"),
+             "str": (8, None)}
+
+    def pack(k, v):
+        if k == "str":
+            b = v.encode("utf-8")
+            return struct.pack("<Q", len(b)) + b
+        return struct.pack(codes[k][1], v)
+
+    out = struct.pack("<Q", len(key)) + key.encode()
+    if kind.startswith("arr:"):
+        et = kind[4:]
+        if et == "str":
+            body = b"".join(pack("str", v) for v in value)
+        else:
+            import numpy as np
+
+            body = np.asarray(value, {"u32": "<u4", "i32": "<i4",
+                                      "f32": "<f4"}[et]).tobytes()
+        return (out + struct.pack("<IIQ", 9, codes[et][0], len(value))
+                + body)
+    return out + struct.pack("<I", codes[kind][0]) + pack(kind, value)
+
+
+def gguf_blocks(gt: int, shape: tuple, std: float, gen):
+    """Random blocks of ggml type ``gt`` for a tensor of ``shape`` (numpy
+    order), made on the card with sane scales and no quantizer: Q4_K
+    (d, dmin f16 around ``std / 224`` and 7.5x that, random 6-bit scales
+    and mins and 4-bit values: zero mean, std ~``std``), Q6_K (d around
+    ``std / 1365``, random int8 scales and 6-bit values), F32 normal at
+    ``std`` (ones for ``std=None``: norm weights). Returns uint8 bytes on
+    the card."""
+    import math
+
+    import torch
+
+    n = math.prod(shape)
+    dev = torch.device(CARD)
+    if gt == GGML_F32:
+        w = (torch.ones(n, device=dev) if std is None
+             else torch.randn(n, generator=gen, device=dev) * std)
+        return w.view(torch.uint8)
+    block, nbytes = GGML_BLOCK[gt]
+    nb = n // block
+    b = torch.randint(0, 256, (nb, nbytes), generator=gen, device=dev,
+                      dtype=torch.uint8)
+    jitter = torch.rand((nb, 1), generator=gen, device=dev) + 0.5
+    if gt == GGML_Q4_K:
+        d = jitter * (std / 224)
+        b[:, 0:2] = d.half().view(torch.uint8)
+        b[:, 2:4] = (7.5 * d).half().view(torch.uint8)
+    else:
+        b[:, 208:210] = (jitter * (std / 1365)).half().view(torch.uint8)
+    return b.reshape(-1)
+
+
+def write_gguf(path: Path, meta: list, tensors: list, seed: int) -> int:
+    """A GGUF v3 file: ``meta`` [(key, kind, value)], ``tensors`` [(name,
+    ggml type, numpy-order shape, std)], each tensor's blocks made on
+    the card by ``gguf_blocks`` and written in turn. Returns bytes."""
+    import math
+    import struct
+
+    import torch
+
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    head = bytearray(struct.pack("<IIQQ", 0x46554747, 3, len(tensors),
+                                 len(meta)))
+    for key, kind, value in meta:
+        head += _gguf_kv(key, kind, value)
+    off = 0
+    sizes = []
+    for name, gt, shape, _ in tensors:
+        block, nbytes = GGML_BLOCK[gt]
+        size = math.prod(shape) // block * nbytes
+        sizes.append(size)
+        head += struct.pack("<Q", len(name)) + name.encode()
+        head += struct.pack("<I", len(shape))
+        head += struct.pack(f"<{len(shape)}Q", *reversed(shape))
+        head += struct.pack("<IQ", gt, off)
+        off += -(-size // GGUF_ALIGN) * GGUF_ALIGN
+    head += b"\0" * (-len(head) % GGUF_ALIGN)
+    with open(path, "wb") as f:
+        f.write(head)
+        for (name, gt, shape, std), size in zip(tensors, sizes):
+            raw = gguf_blocks(gt, shape, std, gen).cpu().numpy()
+            assert raw.nbytes == size, name
+            raw.tofile(f)
+            f.write(b"\0" * (-size % GGUF_ALIGN))
+    return path.stat().st_size
+
+
+def gguf_llama_tensors(g: dict, layers: int, experts: int = 0) -> list:
+    """(name, type, shape, std) of a llama-family GGUF in llama.cpp's
+    Q4_K_M mix: Q4_K for most tensors, Q6_K for ``output`` and for the
+    ``attn_v`` and ``ffn_down`` of every other layer, F32 norms; with
+    ``experts``, Mixtral's fused ``ffn_*_exps`` stacks (Q4_K) and an F32
+    router. Each matrix's std is 1/sqrt(its fan-in), norms are ones; the
+    rows of ``attn_q``/``attn_k`` stand in the interleaved order
+    convert_hf_to_gguf writes, which the loader un-permutes."""
+    D, F, V = g["hidden_size"], g["intermediate_size"], g["vocab_size"]
+    dh = D // g["num_attention_heads"]
+    q, kv = g["num_attention_heads"] * dh, g["num_key_value_heads"] * dh
+    out = [("token_embd.weight", GGML_Q4_K, (V, D), D ** -0.5),
+           ("output_norm.weight", GGML_F32, (D,), None),
+           ("output.weight", GGML_Q6_K, (V, D), D ** -0.5)]
+    for i in range(layers):
+        b = f"blk.{i}."
+        more = GGML_Q6_K if i % 2 == 0 else GGML_Q4_K
+        out += [(b + "attn_norm.weight", GGML_F32, (D,), None),
+                (b + "ffn_norm.weight", GGML_F32, (D,), None),
+                (b + "attn_q.weight", GGML_Q4_K, (q, D), D ** -0.5),
+                (b + "attn_k.weight", GGML_Q4_K, (kv, D), D ** -0.5),
+                (b + "attn_v.weight", more, (kv, D), D ** -0.5),
+                (b + "attn_output.weight", GGML_Q4_K, (D, q), q ** -0.5)]
+        if experts:
+            out += [(b + "ffn_gate_inp.weight", GGML_F32, (experts, D),
+                     D ** -0.5),
+                    (b + "ffn_gate_exps.weight", GGML_Q4_K, (experts, F, D),
+                     D ** -0.5),
+                    (b + "ffn_up_exps.weight", GGML_Q4_K, (experts, F, D),
+                     D ** -0.5),
+                    (b + "ffn_down_exps.weight", GGML_Q4_K, (experts, D, F),
+                     F ** -0.5)]
+        else:
+            out += [(b + "ffn_gate.weight", GGML_Q4_K, (F, D), D ** -0.5),
+                    (b + "ffn_up.weight", GGML_Q4_K, (F, D), D ** -0.5),
+                    (b + "ffn_down.weight", more, (D, F), F ** -0.5)]
+    return out
+
+
+def gguf_llama_meta(g: dict, layers: int, experts: int = 0) -> list:
+    D = g["hidden_size"]
+    meta = [("general.architecture", "str", "llama"),
+            ("general.alignment", "u32", GGUF_ALIGN),
+            ("llama.vocab_size", "u32", g["vocab_size"]),
+            ("llama.context_length", "u32", g["max_position_embeddings"]),
+            ("llama.embedding_length", "u32", D),
+            ("llama.block_count", "u32", layers),
+            ("llama.feed_forward_length", "u32", g["intermediate_size"]),
+            ("llama.rope.dimension_count", "u32",
+             D // g["num_attention_heads"]),
+            ("llama.attention.head_count", "u32", g["num_attention_heads"]),
+            ("llama.attention.head_count_kv", "u32",
+             g["num_key_value_heads"]),
+            ("llama.rope.freq_base", "f32", g["rope_theta"]),
+            ("llama.attention.layer_norm_rms_epsilon", "f32",
+             g["rms_norm_eps"])]
+    if experts:
+        meta += [("llama.expert_count", "u32", experts),
+                 ("llama.expert_used_count", "u32",
+                  g["num_experts_per_tok"])]
+    return meta
+
+
+def gguf_bpe_vocab(vocab_size: int = 128256) -> list:
+    """A ``gpt2``-kind vocabulary: the generated byte-level BPE
+    (``text_vocab``) with Llama-3's special tokens as control tokens,
+    bos ``<|begin_of_text|>``, eos ``<|eot_id|>``, and the Llama-3-style
+    chat template."""
+    vocab, merges = text_vocab(vocab_size)
+    n = len(vocab)
+    tokens = sorted(vocab, key=vocab.get) + list(LLAMA3_SPECIALS)
+    return [("tokenizer.ggml.model", "str", "gpt2"),
+            ("tokenizer.ggml.tokens", "arr:str", tokens),
+            ("tokenizer.ggml.token_type", "arr:i32",
+             [1] * n + [3] * len(LLAMA3_SPECIALS)),
+            ("tokenizer.ggml.merges", "arr:str",
+             [f"{a} {b}" for a, b in merges]),
+            ("tokenizer.ggml.bos_token_id", "u32", n),
+            ("tokenizer.ggml.eos_token_id", "u32",
+             n + LLAMA3_SPECIALS.index("<|eot_id|>")),
+            ("tokenizer.chat_template", "str", TEXT_CHAT_TEMPLATE)]
+
+
+def gguf_sp_vocab(vocab_size: int = 32000) -> list:
+    """A ``llama``-kind (sentencepiece) vocabulary of ``vocab_size``:
+    <unk>, <s>, </s>, the 256 ``<0xNN>`` byte pieces, single characters,
+    then ``▁``-words and pieces of two to five letters with falling
+    scores, and the Mixtral chat template."""
+    import itertools
+
+    toks = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    types = [2, 3, 3] + [6] * 256
+    letters = "etaoinshrdlcumwfgypbvkjxqz"
+    singles = list(letters + letters.upper() + "0123456789.,!?;:'\"-()")
+    toks += ["▁"] + singles
+    seen = set(toks)
+    for n in range(1, 6):
+        for combo in itertools.product(letters, repeat=n):
+            w = "".join(combo)
+            for t in ("▁" + w, w):
+                if len(toks) < vocab_size and t not in seen:
+                    toks.append(t)
+                    seen.add(t)
+            if len(toks) >= vocab_size:
+                break
+        if len(toks) >= vocab_size:
+            break
+    types += [1] * (len(toks) - len(types))
+    k = len(toks) - 259
+    scores = [0.0] * 259 + [-1.0 - 12.0 * i / k for i in range(k)]
+    return [("tokenizer.ggml.model", "str", "llama"),
+            ("tokenizer.ggml.tokens", "arr:str", toks),
+            ("tokenizer.ggml.scores", "arr:f32", scores),
+            ("tokenizer.ggml.token_type", "arr:i32", types),
+            ("tokenizer.ggml.unknown_token_id", "u32", 0),
+            ("tokenizer.ggml.bos_token_id", "u32", 1),
+            ("tokenizer.ggml.eos_token_id", "u32", 2),
+            ("tokenizer.chat_template", "str", MIXTRAL_TEMPLATE)]
+
+
+def write_lora_adapter(adir: Path, g: dict, layers: int, seed: int) -> dict:
+    """A rank-16 PEFT adapter (f32 safetensors, ``lora_alpha`` 32) on
+    q/k/v/o/gate/up/down of every layer of geometry ``g``: A at
+    1/sqrt(fan-in), B at 0.05, so each delta is about a fifth of its
+    weight."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_iter
+
+    D, F = g["hidden_size"], g["intermediate_size"]
+    dh = D // g["num_attention_heads"]
+    q, kv = g["num_attention_heads"] * dh, g["num_key_value_heads"] * dh
+    dims = {"q_proj": (D, q), "k_proj": (D, kv), "v_proj": (D, kv),
+            "o_proj": (q, D), "gate_proj": (D, F), "up_proj": (D, F),
+            "down_proj": (F, D)}
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    r = GGUF_LORA_RANK
+    layout = []
+    for i in range(layers):
+        for part, proj, _ in GGUF_LORA_PROJ:
+            base = f"base_model.model.model.layers.{i}.{part}.{proj}"
+            fan_in, fan_out = dims[proj]
+            layout += [(f"{base}.lora_A.weight", (r, fan_in), fan_in ** -0.5),
+                       (f"{base}.lora_B.weight", (fan_out, r), 0.05)]
+    adir.mkdir(parents=True, exist_ok=True)
+
+    def tensors():
+        for name, shape, std in layout:
+            yield name, torch.randn(shape, generator=gen,
+                                    device=CARD) * std
+
+    shapes = [(n, torch.empty(s, device="meta")) for n, s, _ in layout]
+    save_iter(tensors(), str(adir / "adapter_model.safetensors"),
+              shapes=shapes)
+    (adir / "adapter_config.json").write_text(json.dumps(
+        {"r": r, "lora_alpha": 2 * r, "peft_type": "LORA",
+         "target_modules": [p for _, p, _ in GGUF_LORA_PROJ]}))
+    return {"rank": r, "tensors": len(layout),
+            "bytes": sum(4 * s[0] * s[1] for _, s, _ in layout)}
+
+
+def long_chat(tk, text: str = LONG_PROMPT, tokens: int = 1100) -> str:
+    """``text`` repeated until it encodes to at least ``tokens`` ids."""
+    out = text
+    while len(tk.encode(out)) < tokens:
+        out += text
+    return out
+
+
+def gguf_card_dequant(path: Path) -> dict:
+    """For one tensor of each ggml type in the file (the smallest), the
+    card's dequantization against the same torch function on the CPU:
+    bitwise."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.gguf import GGML_TYPE_NAMES, GGUFFile
+
+    gf = GGUFFile(str(path))
+    pick = {}
+    for ti in gf.tensors.values():
+        n = 1
+        for d in ti.shape:
+            n *= d
+        if ti.ggml_type not in pick or n < pick[ti.ggml_type][1]:
+            pick[ti.ggml_type] = (ti.name, n)
+    out = {}
+    for gt, (name, n) in sorted(pick.items()):
+        card = gf.tensor(name, CARD).cpu()
+        host = gf.tensor(name, "cpu")
+        same = bool(torch.equal(card.view(torch.int32),
+                                host.view(torch.int32)))
+        out[GGML_TYPE_NAMES[gt]] = {"tensor": name, "elements": n,
+                                    "bitwise": same}
+        if not same:
+            raise AssertionError(f"{name}: card dequantization differs from "
+                                 f"the CPU's: {out}")
+    return out
+
+
+def qk_permutation_check(eng, path: Path, g: dict) -> dict:
+    """Layer 0's served ``wq``/``wk``, put back in the order
+    convert_hf_to_gguf writes (its ``permute``), equal the file's rows
+    dequantized: the loader inverted exactly that permutation."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.gguf import GGUFFile
+
+    gf = GGUFFile(str(path))
+    out = {}
+    for leaf, tname, heads in (("wq", "blk.0.attn_q.weight",
+                                g["num_attention_heads"]),
+                               ("wk", "blk.0.attn_k.weight",
+                                g["num_key_value_heads"])):
+        hf = eng.params[leaf][0].T  # [out, in], rotate-half order
+        o, i = hf.shape
+        permuted = (hf.reshape(heads, 2, o // heads // 2, i)
+                    .transpose(1, 2).reshape(o, i))
+        rows = gf.tensor(tname, eng.device).to(hf.dtype)
+        out[leaf] = bool(torch.equal(permuted, rows))
+        if not out[leaf]:
+            raise AssertionError(f"{leaf}: served rows are not the file's "
+                                 "un-permuted")
+    return out
+
+
+def lora_leaf_check(eng, path: Path, adir: Path, scale: float) -> dict:
+    """Layer 0's merged ``wv`` on the card against W + scale x (alpha/r)
+    x (B A)^T computed in f64 on the host from the file's dequantized
+    weight and the adapter: within one bf16 unit of each value, plus the
+    f32 rounding of the larger operand (the merge adds in f32, as the
+    JAX package's does: where W and the delta nearly cancel, that
+    rounding is more than a unit of the small sum)."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.gguf import GGUFFile
+    from localai_tfp_tpu_torch.models.safetensors_io import SafeTensorsFile
+
+    w = GGUFFile(str(path)).tensor("blk.0.attn_v.weight", "cpu").T \
+        .to(torch.bfloat16).double()
+    st = SafeTensorsFile(str(adir / "adapter_model.safetensors"))
+    base = "base_model.model.model.layers.0.self_attn.v_proj"
+    a = st.get(base + ".lora_A.weight").double()
+    b = st.get(base + ".lora_B.weight").double()
+    cfg = json.loads((adir / "adapter_config.json").read_text())
+    delta = (b @ a).T * (cfg["lora_alpha"] / cfg["r"]) * scale
+    want = w + delta
+    got = eng.params["wv"][0].double().cpu()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(
+        2.0 ** -126))) - 7)
+    f32 = 2.0 ** -23 * torch.maximum(w.abs(), delta.abs())
+    err = (got - want).abs()
+    units = float((err / (ulp + f32)).max())
+    moved = float((got - w).abs().max())
+    out = {"leaf": "wv[0]", "max_err_in_units": units,
+           "max_bf16_units_alone": float((err / ulp).max()),
+           "max_abs_delta": moved}
+    if not units <= 1.0 or not moved > 0:
+        raise AssertionError(f"merged LoRA leaf: {out}")
+    return out
+
+
+def phase_gguf(smi: str, seed: int) -> dict:
+    """(a) a Llama-3.1-8B-geometry GGUF in the Q4_K_M mix at full width and
+    depth with a byte-level BPE vocabulary of 128256 and a Llama-3 chat
+    template, (b) the same file with a rank-16 LoRA adapter at scale 0.5
+    (then removed and applied again on the running engine), (c) the same
+    file with ``quantization: int8`` (B2 by M), (d) a Mixtral-8x7B-
+    geometry GGUF (4 of its 32 layers, Q4_K experts) with a sentencepiece
+    vocabulary of 32000: each through the HTTP server with the file's
+    own tokenizer and chat template, four streamed chats at once (one
+    past 1024 prompt tokens), B1 once per layer of every forward, every
+    forward a replay, a greedy request held to the dense forward. Each
+    file is removed after its last leg."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "gguf_models"
+    shutil.rmtree(models, ignore_errors=True)
+    models.mkdir(parents=True)
+    out: dict = {}
+    t0 = time.perf_counter()
+    f8 = models / "llama31-8b-Q4_K_M.gguf"
+    L8 = GEOMETRY["num_hidden_layers"]
+    nbytes = write_gguf(f8, gguf_llama_meta(GEOMETRY, L8)
+                        + gguf_bpe_vocab(GEOMETRY["vocab_size"]),
+                        gguf_llama_tensors(GEOMETRY, L8), seed)
+    log("gguf_file", model="llama31_8b", bytes=nbytes,
+        write_s=round(time.perf_counter() - t0, 3), card=smi)
+    lora = write_lora_adapter(models / "lora-8b", GEOMETRY, L8, seed + 1)
+    log("gguf_lora_adapter", card=smi, **lora)
+
+    def chats(backend) -> list:
+        """Phase families' chats, the long one sized by the file's own
+        tokenizer (past 1024 prompt tokens)."""
+        bodies = family_chats()
+        bodies[0] = {**bodies[0], "messages": [{
+            "role": "user", "content": long_chat(backend.tokenizer)}]}
+        return bodies
+
+    legs = (
+        ("llama31_8b", f8.name, {}, L8, None),
+        ("llama31_8b_lora", f8.name,
+         {"lora_adapters": ["lora-8b"], "lora_scales": [GGUF_LORA_SCALE]},
+         L8, None),
+        ("llama31_8b_int8", f8.name, {"quantization": "int8"}, L8, None),
+    )
+    for key, fname, extra, layers, cut in legs:
+        family_yaml(models, key, fname,
+                    template={"use_tokenizer_template": True}, **extra)
+        out[key] = gguf_leg(models, key, smi, layers, f8, chats,
+                            int8="quantization" in extra,
+                            lora=models / "lora-8b" if "lora_adapters"
+                            in extra else None)
+        out[key].update(layers=layers, reduced=cut, file_bytes=nbytes)
+    f8.unlink()
+    shutil.rmtree(models / "lora-8b", ignore_errors=True)
+    # (d) Mixtral's geometry, 4 of 32 layers, its own vocabulary
+    t0 = time.perf_counter()
+    fm = models / "mixtral-8x7b-L4-Q4_K_M.gguf"
+    E = MIXTRAL["num_local_experts"]
+    gm = {**MIXTRAL, "model_type": "mixtral"}
+    mbytes = write_gguf(fm, gguf_llama_meta(gm, MIXTRAL_LAYERS, E)
+                        + gguf_sp_vocab(MIXTRAL["vocab_size"]),
+                        gguf_llama_tensors(gm, MIXTRAL_LAYERS, E), seed + 2)
+    log("gguf_file", model="mixtral", bytes=mbytes,
+        write_s=round(time.perf_counter() - t0, 3), card=smi)
+    family_yaml(models, "mixtral", fm.name,
+                template={"use_tokenizer_template": True})
+    cut = f"layers {MIXTRAL_LAYERS} of {MIXTRAL['num_hidden_layers']}"
+    out["mixtral"] = gguf_leg(models, "mixtral", smi, MIXTRAL_LAYERS, fm,
+                              chats, mixtral=True)
+    out["mixtral"].update(layers=MIXTRAL_LAYERS, reduced=cut,
+                          file_bytes=mbytes)
+    shutil.rmtree(models, ignore_errors=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("gguf", card=smi, phase_s=out["phase_s"], **_leg_summary(out))
+    return out
+
+
+def gguf_leg(models: Path, key: str, smi: str, layers: int, path: Path,
+             chats, int8: bool = False, lora: Path | None = None,
+             mixtral: bool = False) -> dict:
+    """One leg of phase gguf through ``serve_family``: every chat's prompt
+    ids against encode(apply_chat_template(...), add_bos=True) with the
+    file's tokenizer; on the plain leg the card's dequantization per
+    type and the Q/K permutation, on the LoRA leg the merged leaf and a
+    remove + apply on the running engine, on the Mixtral leg its MoE
+    block."""
+    bodies: list = []
+    seen: list = []
+
+    def on_load(backend):
+        tk = type(backend.tokenizer).__name__
+        if tk != "GGUFTokenizer":
+            raise AssertionError(f"{key}: served by {tk}")
+        bodies.extend(chats(backend))
+        orig = backend._to_request
+
+        def spy(opts):
+            req = orig(opts)
+            seen.append(list(req.prompt_ids))
+            return req
+        backend._to_request = spy
+        return {"tokenizer": tk, "vocab": backend.tokenizer.vocab_size}
+
+    def after(backend, res):
+        del backend._to_request  # the class's method again
+        eng, tk = backend.engine, backend.tokenizer
+        for body in bodies:
+            want = tk.encode(tk.apply_chat_template(
+                body["messages"], add_generation_prompt=True), add_bos=True)
+            if want not in seen:
+                raise AssertionError(f"{key}: a chat's prompt ids are not "
+                                     "encode(apply_chat_template(...))")
+        done: dict = {"prompt_ids_equal": len(bodies)}
+        if key == "llama31_8b":
+            done["dequant_card_vs_cpu"] = gguf_card_dequant(path)
+            done["qk_permutation"] = qk_permutation_check(eng, path,
+                                                          GEOMETRY)
+        if lora is not None:
+            done["merged_leaf"] = lora_leaf_check(eng, path, lora,
+                                                  GGUF_LORA_SCALE)
+            text = LONG_PROMPT[:200]
+            before = served_greedy(backend, text, 16)[1]
+            t0 = time.perf_counter()
+            n_rm = backend.remove_lora(str(lora), GGUF_LORA_SCALE)
+            rm_s = time.perf_counter() - t0
+            removed = served_greedy(backend, text, 16)[1]
+            t0 = time.perf_counter()
+            n_ap = backend.apply_lora(str(lora), GGUF_LORA_SCALE)
+            ap_s = time.perf_counter() - t0
+            again = served_greedy(backend, text, 16)[1]
+            done["hot"] = {"sites": [n_rm, n_ap], "remove_s": round(rm_s, 3),
+                           "apply_s": round(ap_s, 3),
+                           "ids_equal_after_reapply": again == before,
+                           "ids_differ_without_adapter": removed != before}
+            if again != before:
+                raise AssertionError(f"{key}: ids after remove + apply "
+                                     f"differ: {before} {again}")
+        if mixtral:
+            done["moe_block"] = moe_block_check(eng, layers // 2, seed=11)
+        log("gguf_checks", model=key, card=smi, **done)
+        return done
+
+    res = serve_family(models, key, smi, lambda backend: bodies,
+                       LONG_PROMPT, layers, True, int8=int8, tag="gguf",
+                       on_load=on_load, after=after)
+    long = res["burst"]["requests"][0]["prompt_tokens"]
+    if long < 1024:
+        raise AssertionError(f"{key}: the long chat has {long} tokens")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="device,build,kernels,int8,main,graphs,engine,"
-                            "dispatch,spec,text,lifecycle,families")
+                    default="device,build,kernels,int8,moe,gguf,main,graphs,"
+                            "engine,dispatch,spec,text,lifecycle,families")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -5270,6 +6186,25 @@ def main() -> int:
                 blocks_per_sm={o["instance"]: o["blocks_per_sm"]
                                for o in occ8},
                 smem_bytes={o["instance"]: o["smem_bytes"] for o in occ8})
+    # phases moe and gguf run before main: a call may write 45 GiB to its
+    # machine's disk, and the file system reuses the blocks of a removed
+    # file, so the disk holds at most the largest set of files alive at
+    # once. Written first and each removed after it is served, their
+    # checkpoints (28.6 GB for Qwen1.5-MoE) never sit beside the 8B
+    # phases' ~35 GB (checkpoint, int8 artifact, draft, a family model)
+    for name, run in (("moe", phase_moe), ("gguf", phase_gguf)):
+        if name not in phases:
+            continue
+        legs = run(smi, args.seed)
+        for e in entries:
+            # each leg's streamed burst, its counts set to 0 just before
+            # it and read just after
+            e[f"launches_{name}"] = {
+                k: v["burst"]["launches"][e["name"]]
+                for k, v in legs.items() if isinstance(v, dict)}
+            if e["name"] == "int8_matmul" and name == "gguf":
+                e["launches_gguf_int8_by_m"] = legs["llama31_8b_int8"][
+                    "burst"]["int8_matmul_calls_by_m"]
     for ph in ("graphs", "engine", "dispatch", "spec", "text"):
         if ph in phases and "main" not in phases:
             raise SystemExit(f"phase {ph} runs after phase main (its "

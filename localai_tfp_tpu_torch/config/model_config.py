@@ -138,6 +138,13 @@ class ModelConfig:
     quantization: str = ""  # weight-only int8: "int8" / "int8_full"
     draft_model: str = ""  # speculative decoding: the draft checkpoint
     n_draft: int = 0  # draft tokens per round (0: the worker's 4)
+    # LoRA adapters merged at load (PEFT directories under the models
+    # path): ``lora_adapters`` with ``lora_scales``, or one
+    # ``lora_adapter`` with ``lora_scale``; a scale of 0 skips its adapter
+    lora_adapter: str = ""
+    lora_adapters: list[str] = field(default_factory=list)
+    lora_scales: list[float] = field(default_factory=list)
+    lora_scale: float = 0.0
     embeddings: bool = False  # an LLM config that also serves embeddings
     known_usecases: Optional[list[str]] = None  # overrides the guess
     isolation: str = ""  # "subprocess": not served by this port yet

@@ -18,6 +18,10 @@ families the port serves:
   with ``normalized``), leftmost and longest first, with ``lstrip``,
   ``rstrip`` and ``single_word``; ``<|eot_id|>`` in a rendered template is
   one id.
+- A Unigram model (``engine/unigram.py``), for the sentencepiece
+  vocabularies of GGUF files: ``BPETokenizer(spec=...)`` takes a parsed
+  tokenizer spec, which ``models/gguf.py`` builds from the file's
+  metadata.
 
 Any other component raises ``NotImplementedError`` at load, naming it.
 Python's ``re`` has no ``\\p{L}``/``\\p{N}`` and its ``\\s`` also matches
@@ -588,18 +592,33 @@ def _split_added(text: str, first: bool, matcher: _Matcher) -> list:
 # --------------------------------------------------------------- tokenizer
 
 
-class BPETokenizer:
-    """``tokenizer.json`` encode/decode (``add_special_tokens=False``)."""
+def _model(spec: dict):
+    """The ``model`` section: BPE, or (GGUF's sentencepiece vocabularies)
+    Unigram, ``engine/unigram.py``."""
+    if spec.get("type") == "Unigram":
+        from .unigram import UnigramModel
 
-    def __init__(self, path: str) -> None:
-        with open(path, encoding="utf-8") as f:
-            spec = json.load(f)
+        return UnigramModel([tuple(v) for v in spec["vocab"]],
+                            spec.get("unk_id"),
+                            bool(spec.get("byte_fallback")))
+    return _BPEModel(spec)
+
+
+class BPETokenizer:
+    """``tokenizer.json`` encode/decode (``add_special_tokens=False``),
+    from the file at ``path`` or from its parsed ``spec``."""
+
+    def __init__(self, path: str = "<spec>",
+                 spec: Optional[dict] = None) -> None:
+        if spec is None:
+            with open(path, encoding="utf-8") as f:
+                spec = json.load(f)
         for key in ("truncation", "padding"):
             if spec.get(key) is not None:
                 raise NotImplementedError(f"{path}: tokenizer.json "
                                           f"{key} is not supported")
         try:
-            self.model = _BPEModel(spec["model"])
+            self.model = _model(spec["model"])
             self.normalize = _normalizer(spec.get("normalizer"))
             self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
             self.decoder = _decoder(spec.get("decoder"))

@@ -264,6 +264,9 @@ class _Slot:
     # the token ids whose KV this slot's pages hold, [0, n_past): kept
     # after the request finishes, as the slot's resident prefix
     cache_tokens: list[int] = field(default_factory=list)
+    # the weights changed under this slot's request (a LoRA hot apply):
+    # its KV is not the new model's, so it leaves no resident prefix
+    stale_kv: bool = False
     n_reused: int = 0  # prompt tokens served from a resident prefix
     # (prompt cache path, rows) this request's prefix was restored from
     cache_loaded: Optional[tuple] = None
@@ -648,6 +651,9 @@ class LLMEngine:
         # held by ``embed`` and ``release``: an embedding in flight keeps
         # the weights until it ends, and none starts after a release
         self._device_lock = threading.Lock()
+        # held by the scheduler around each step and by ``update_params``:
+        # a weight update lands between dispatches
+        self._step_lock = threading.Lock()
         self._pending: list[tuple[GenRequest, queue.SimpleQueue]] = []
         # cancel ids not matched yet -> when cancel() was called
         self._cancelled: dict[str, float] = {}
@@ -702,6 +708,30 @@ class LLMEngine:
             self._mask_dev = self._mask_stage = self._mask_copied = None
             self._graph_pool = self._merge_counters = None
             self._ledger = self._costmodel = None
+
+    def update_params(self, fn: Any) -> Any:
+        """Run ``fn(params)`` between two dispatches and return its
+        result. ``fn`` must write in place (``copy_`` into the existing
+        tensors): every captured graph reads the tensors it was captured
+        over, so a new tensor would leave the graphs on the old weights.
+        On a card the writes are complete when this returns."""
+        with self._step_lock, self._device_lock:
+            if self.params is None:
+                raise RuntimeError("engine released")
+            out = fn(self.params)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            # every resident prefix holds the old model's K/V: free slots
+            # drop theirs now, active ones when their request ends
+            for s in self.slots:
+                self._prefix_index.remove(s.idx)
+                if s.active:
+                    s.stale_kv = True
+                else:
+                    self._pool.drop(s.idx)
+                    s.cache_tokens = []
+                    s.n_past = 0
+            return out
 
     def leak_check(self) -> None:
         """Pool invariants (kv_pool.leak_check) plus: a free slot holds
@@ -985,10 +1015,11 @@ class LLMEngine:
                 if self._stop:
                     return
             try:
-                self._apply_cancellations()
-                self._apply_deadlines()
-                self._admit()
-                self.step()
+                with self._step_lock:
+                    self._apply_cancellations()
+                    self._apply_deadlines()
+                    self._admit()
+                    self.step()
             except Exception as e:  # the loop must keep serving
                 log.exception("engine step failed")
                 if hbm_ledger.looks_like_oom(e):
@@ -1131,7 +1162,8 @@ class LLMEngine:
             # lazy re-register: decode appends since the last wave are
             # diffed in (extension is the common case)
             self._prefix_index.sync(
-                (s.idx, s.cache_tokens) for s in self.slots)
+                (s.idx, [] if s.stale_kv else s.cache_tokens)
+                for s in self.slots)
         # prompts admitted but not yet prefilled: their KV is not
         # committed, so the index cannot serve them yet; same-wave
         # sharers defer one iteration behind them instead
@@ -2670,7 +2702,12 @@ class LLMEngine:
 
     def _release(self, slot: _Slot) -> None:
         # the pages of cache_tokens stay as the slot's resident prefix;
-        # pages past them (a decode step's overshoot) go back
+        # pages past them (a decode step's overshoot) go back; K/V of
+        # weights since replaced (``update_params``) all go back
+        if slot.stale_kv:
+            self._prefix_index.remove(slot.idx)
+            slot.cache_tokens = []
+            slot.stale_kv = False
         self._pool.truncate(slot.idx, len(slot.cache_tokens))
         slot.state = SlotState.FREE
         slot.request = None

@@ -279,6 +279,11 @@ class ModelLoader:
             kv_cache_dtype=cfg.kv_cache_dtype,
             quantization=cfg.quantization,
             draft_model=cfg.draft_model, n_draft=cfg.n_draft or 0,
+            lora_adapters=(list(cfg.lora_adapters)
+                           or ([cfg.lora_adapter] if cfg.lora_adapter
+                               else [])),
+            lora_scales=(list(cfg.lora_scales)
+                         or ([cfg.lora_scale] if cfg.lora_scale else [])),
             options=list(cfg.options))
 
     # ------------------------------------------------------------ lifecycle

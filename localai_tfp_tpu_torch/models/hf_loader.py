@@ -1,11 +1,16 @@
 """Load a HuggingFace checkpoint directory into the port's parameter tree.
 
 Counterpart of localai_tfp_tpu/models/hf_loader.py::load_params for the
-dense families the JAX package serves: Llama, Mistral, Qwen2, Qwen3,
+families the JAX package serves: Llama, Mistral, Qwen2, Qwen3,
 Gemma 1/2/3 (Gemma 3's multimodal checkpoints as their text tower, under
 ``language_model.model.`` or ``model.language_model.``), Phi (``dense``,
-``fc1``/``fc2``, LayerNorm with biases, a biased head) and Phi-3 (fused
-``qkv_proj`` and ``gate_up_proj``, split at load). ``config.json`` plus
+``fc1``/``fc2``, LayerNorm with biases, a biased head), Phi-3 (fused
+``qkv_proj`` and ``gate_up_proj``, split at load), and the mixtures of
+experts: Mixtral (``block_sparse_moe``: router ``gate``, experts
+``w1``/``w3``/``w2``), Qwen2-MoE (``mlp.gate``, ``mlp.experts.{e}``, a
+sigmoid-gated ``mlp.shared_expert``; its dense layers' plain MLP lands in
+the shared slots with zeroed experts and router) and Qwen3-MoE. Expert
+stacks are ``[L, E, in, out]``. ``config.json`` plus
 ``*.safetensors`` shards, bf16/f32/f16 on disk. Each weight is read from
 the memory-mapped file, moved to the device and written into its slot of
 a preallocated stacked ``[L, ...]`` tensor, transposed to the ``[in,
@@ -21,7 +26,8 @@ dtype before it is quantized, so an f32 checkpoint served at bf16 yields
 the JAX package's int8 codes. Biases and norms stay in the serving
 dtype. ``int8_full`` also quantizes the embedding (per-row) and an
 untied LM head; a tied head (Gemma) stays the product over the
-embedding.
+embedding. Expert and shared-expert stacks stay in the serving dtype
+under int8, as in the JAX package (``quant.QUANTIZABLE``).
 """
 
 from __future__ import annotations
@@ -37,11 +43,11 @@ from .quant import QUANTIZABLE, QTensor, quantize_embed, quantize_raw_tensor
 from .safetensors_io import SafeTensorsFile
 from .transformer import Params, check_supported
 
+# the mixture-of-experts families
+MOE_FAMILIES = ("mixtral", "qwen2_moe", "qwen3_moe")
 # the families whose HF key layout this loader maps
 FAMILIES = ("llama", "mistral", "qwen2", "qwen3", "phi", "phi3", "gemma",
-            "gemma2", "gemma3", "gemma3_text")
-# families the JAX package serves with a mixture of experts
-MOE_FAMILIES = ("mixtral", "qwen2_moe", "qwen3_moe")
+            "gemma2", "gemma3", "gemma3_text") + MOE_FAMILIES
 
 
 def load_hf_state(model_dir: str) -> tuple[dict, Callable[[str], torch.Tensor],
@@ -67,10 +73,8 @@ def load_hf_state(model_dir: str) -> tuple[dict, Callable[[str], torch.Tensor],
 
 def spec_from_config(config: dict) -> LLMSpec:
     """The spec of a served family's ``config.json``; raises for the
-    rest, naming the feature (mixture of experts) or the served list."""
+    rest, naming the served list."""
     mt = (config.get("model_type") or "").lower()
-    if mt in MOE_FAMILIES:
-        check_supported(spec_from_hf_config(config))
     if mt not in FAMILIES:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported yet (served: {FAMILIES})")
@@ -187,7 +191,9 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
                               ("bv", "v_proj")):
                 p[key] = vector(f"self_attn.{proj}.bias")
     p["wo"] = projection("wo", per_layer("self_attn.o_proj.weight"))
-    if lp.format(i=0) + "mlp.gate_up_proj.weight" in names:  # phi3
+    if spec.n_experts:
+        _load_experts(spec, p, dev, lp, dtype, device)
+    elif lp.format(i=0) + "mlp.gate_up_proj.weight" in names:  # phi3
         fused("mlp.gate_up_proj.weight",
               {"w_gate": spec.d_ff, "w_up": spec.d_ff})
     else:
@@ -195,7 +201,9 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
             p["w_gate"] = projection("w_gate",
                                      per_layer("mlp.gate_proj.weight"))
         p["w_up"] = projection("w_up", per_layer("mlp.up_proj.weight"))
-    p["w_down"] = projection("w_down", per_layer("mlp.down_proj.weight"))
+    if not spec.n_experts:
+        p["w_down"] = projection("w_down",
+                                 per_layer("mlp.down_proj.weight"))
     if spec.qk_norm:  # qwen3 / gemma3 per-head q/k norms
         p["q_norm_w"] = vector("self_attn.q_norm.weight")
         p["k_norm_w"] = vector("self_attn.k_norm.weight")
@@ -217,3 +225,59 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
         else:  # checkpoint ties despite config
             object.__setattr__(spec, "tie_word_embeddings", True)
     return spec, p
+
+
+def _load_experts(spec: LLMSpec, p: Params, dev: Callable[[str], Any],
+                  lp: str, dtype: torch.dtype, device: Any) -> None:
+    """The router and expert stacks of a mixture of experts into ``p``:
+    ``router [L, D, E]``, ``moe_gate``/``moe_up [L, E, D, Fm]``,
+    ``moe_down [L, E, Fm, D]`` and, for Qwen2-MoE, ``shared_gate``/
+    ``shared_up [L, D, Fs]``, ``shared_down [L, Fs, D]`` and
+    ``shared_router [L, D]``. Each weight is read, moved to the device
+    and written transposed into its slot; a Qwen2-MoE dense layer's
+    experts and router stay zero and its plain MLP fills the shared
+    slots."""
+    L, E, D = spec.n_layers, spec.n_experts, spec.d_model
+    Fm = spec.moe_d_ff or spec.d_ff
+    mixtral = spec.extra.get("model_type") == "mixtral"
+    dense = set(spec.moe_dense_layers)
+    Fs = spec.moe_shared_d_ff or spec.d_ff
+    if dense and Fs != spec.d_ff:
+        raise NotImplementedError(
+            "qwen2_moe with dense layers requires "
+            "shared_expert_intermediate_size == intermediate_size")
+
+    def zeros(*shape):
+        return torch.zeros((L, *shape), dtype=dtype, device=device)
+
+    base = "block_sparse_moe." if mixtral else "mlp."
+    names = ({"moe_gate": "w1", "moe_up": "w3", "moe_down": "w2"}
+             if mixtral else {"moe_gate": "gate_proj", "moe_up": "up_proj",
+                              "moe_down": "down_proj"})
+    p["router"] = zeros(D, E)
+    for key in ("moe_gate", "moe_up"):
+        p[key] = zeros(E, D, Fm)
+    p["moe_down"] = zeros(E, Fm, D)
+    for i in range(L):
+        if i in dense:
+            continue
+        pre = lp.format(i=i) + base
+        p["router"][i].copy_(dev(pre + "gate.weight").T)
+        for key, proj in names.items():
+            for e in range(E):
+                p[key][i, e].copy_(
+                    dev(pre + f"experts.{e}.{proj}.weight").T)
+    if not spec.moe_shared_expert:
+        return
+    p["shared_gate"], p["shared_up"] = zeros(D, Fs), zeros(D, Fs)
+    p["shared_down"], p["shared_router"] = zeros(Fs, D), zeros(D)
+    for i in range(L):
+        pre = lp.format(i=i) + ("mlp." if i in dense
+                                else "mlp.shared_expert.")
+        for key, proj in (("shared_gate", "gate_proj"),
+                          ("shared_up", "up_proj"),
+                          ("shared_down", "down_proj")):
+            p[key][i].copy_(dev(pre + f"{proj}.weight").T)
+        if i not in dense:
+            p["shared_router"][i].copy_(
+                dev(lp.format(i=i) + "mlp.shared_expert_gate.weight")[0])

@@ -36,13 +36,24 @@ class QTensor(NamedTuple):
         return QTensor(self.q[i], self.scale[i])
 
 
-# stacked projection leaves worth quantizing (the decode bandwidth hogs)
+# stacked projection leaves worth quantizing (the decode bandwidth hogs);
+# the router, expert and shared-expert stacks of a mixture of experts
+# stay in the serving dtype, as in the JAX package
 QUANTIZABLE = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
 def quantize_tensor(w: torch.Tensor) -> QTensor:
     """Symmetric per-output-channel int8: the scale reduces over the INPUT
-    dim (axis -2), so dequantization is one multiply on the product."""
+    dim (axis -2), so dequantization is one multiply on the product. A
+    stacked ``[L, in, out]`` leaf is quantized layer by layer (the same
+    values), so its f32 transient is one layer's."""
+    if w.dim() == 3:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        scale = torch.empty((w.shape[0], w.shape[2]), dtype=torch.float32,
+                            device=w.device)
+        for i in range(w.shape[0]):
+            q[i], scale[i] = quantize_tensor(w[i])
+        return QTensor(q, scale)
     wf = w.float()
     scale = wf.abs().amax(dim=-2) / 127.0 + 1e-12  # [..., out]
     q = torch.clamp(torch.round(wf / scale[..., None, :]), -127, 127)

@@ -1,5 +1,6 @@
 """Decoder-only transformer in PyTorch (Llama / Mistral / Qwen2 / Qwen3 /
-Gemma 1-3 / Phi / Phi-3: the dense families the JAX package serves).
+Gemma 1-3 / Phi / Phi-3, and the mixtures of experts Mixtral / Qwen2-MoE
+/ Qwen3-MoE: the families the JAX package serves).
 
 Counterpart of localai_tfp_tpu/models/transformer.py. Parameters keep the
 JAX package's tree: a dict of tensors with every per-layer weight stacked
@@ -268,12 +269,10 @@ _NON_LAYER_KEYS = ("embed", "final_norm_w", "final_norm_b", "lm_head",
 
 
 def check_supported(spec: LLMSpec) -> None:
-    """The dense families the JAX package serves. Anything else raises
-    instead of computing another model's function: mixture of experts
-    (its expert MLP is not ported) and norms or activations the JAX
+    """The families the JAX package serves. Anything else raises instead
+    of computing another model's function: norms or activations the JAX
     package has no branch for."""
     unported = {
-        "mixture of experts": bool(spec.n_experts),
         f"norm_type {spec.norm_type!r}": spec.norm_type not in (
             "rmsnorm", "layernorm"),
         f"hidden_act {spec.hidden_act!r}": spec.hidden_act not in (
@@ -286,13 +285,15 @@ def check_supported(spec: LLMSpec) -> None:
 
 
 def _layer_body(spec: LLMSpec, x, lp: dict, positions, inv_freq,
-                rope_scale, attn_fn):
+                rope_scale, attn_fn, dense_only: bool = False):
     """One transformer layer, as the JAX package's ``_layer_body``:
     pre-norm (RMSNorm or LayerNorm + bias), q/k/v (+ biases, + per-head
     q/k norms), rope on the layer's table, ``attn_fn(q, k, v) -> attn
     [B, T, H*Dh]`` (which owns where K/V live and the contraction), the
     output projection (+ bias), Gemma's sandwich norms, and a gated or
-    ungated MLP (+ biases) in sequence or parallel (phi) with attention."""
+    ungated MLP (+ biases) in sequence or parallel (phi) with attention,
+    or the mixture of experts (``dense_only``: a Qwen2-MoE layer whose
+    plain MLP sits in the shared-expert slots)."""
     B, T = x.shape[0], x.shape[1]
     h = _norm(spec, x, lp["ln1_w"], lp.get("ln1_b"))
     q = mm(h, lp["wq"])
@@ -318,19 +319,86 @@ def _layer_body(spec: LLMSpec, x, lp: dict, positions, inv_freq,
     else:
         x = x + attn
         mlp_in = _norm(spec, x, lp["ln2_w"], lp.get("ln2_b"))
-    up = mm(mlp_in, lp["w_up"])
-    if "b_up" in lp:
-        up = up + lp["b_up"]
-    if spec.gated_mlp:
-        up = _act(spec, mm(mlp_in, lp["w_gate"])) * up
+    if "router" in lp:  # mixture of experts
+        mlp = _moe_mlp(spec, lp, mlp_in, dense_only)
     else:
-        up = _act(spec, up)
-    mlp = mm(up, lp["w_down"])
-    if "b_down" in lp:
-        mlp = mlp + lp["b_down"]
+        up = mm(mlp_in, lp["w_up"])
+        if "b_up" in lp:
+            up = up + lp["b_up"]
+        if spec.gated_mlp:
+            up = _act(spec, mm(mlp_in, lp["w_gate"])) * up
+        else:
+            up = _act(spec, up)
+        mlp = mm(up, lp["w_down"])
+        if "b_down" in lp:
+            mlp = mlp + lp["b_down"]
     if "ln_post_ffw_w" in lp:
         mlp = _norm(spec, mlp, lp["ln_post_ffw_w"])
     return (x + attn + mlp) if spec.parallel_residual else (x + mlp)
+
+
+def _router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f64, returned as f32. The JAX package takes the
+    router product in f32 at HIGHEST precision; in f64 it is at least as
+    exact and owes nothing to a process-wide TF32 switch, so near-tie
+    routing is not decided by a flag a user may set."""
+    return (x.double() @ w.double()).float()
+
+
+def _top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, ties to
+    the lower index, as ``lax.top_k`` picks them (a stable descending
+    sort): which experts a tie admits decides the gate."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_mlp(spec: LLMSpec, lp: dict, x: torch.Tensor,
+             dense_only: bool = False) -> torch.Tensor:
+    """Top-k mixture of experts in the JAX package's dense formulation:
+    every expert runs over every token, and the outputs are combined with
+    the top-k router weights (a one-hot sum, so order within the k does
+    not matter, membership does). Static shapes, so it captures into the
+    engine's CUDA graphs as the dense MLP does; it costs E/k times the
+    routed work (a routed dispatch is later work).
+
+    ``moe_norm_topk`` renormalizes the k router weights (softmax over the
+    selected logits); otherwise they are the raw softmax over all E.
+    Qwen2-MoE adds a shared expert scaled by ``sigmoid(x . g)``; its
+    dense-only layers hold a plain MLP in the shared slots with zeroed
+    experts, where the JAX package forces the gate to 1 and multiplies
+    the (zero) mixture by 0: here those layers skip the experts, which
+    gives the same values."""
+    B, T, D = x.shape
+    out = None
+    if not dense_only:
+        E, K = spec.n_experts, spec.experts_per_token
+        xt = x.reshape(B * T, D)
+        logits = _router_logits(xt, lp["router"])  # [N, E] f32
+        if spec.moe_norm_topk:
+            vals, idx = _top_k(logits, K)
+            w = torch.softmax(vals, dim=-1)
+        else:
+            w, idx = _top_k(torch.softmax(logits, dim=-1), K)
+        gate = torch.zeros_like(logits).scatter_(-1, idx, w)  # [N, E]
+        xe = xt.expand(E, B * T, D)
+        g = torch.bmm(xe, lp["moe_gate"])  # [E, N, Fm]
+        u = torch.bmm(xe, lp["moe_up"])
+        y = torch.bmm(_act(spec, g) * u, lp["moe_down"])  # [E, N, D]
+        # sum_e gate[n, e] y[e, n]: one product per token over y's
+        # [N, E, D] view (strided, no copy)
+        out = torch.bmm(gate.to(y.dtype)[:, None, :], y.transpose(0, 1))
+        out = out.reshape(B, T, D)
+    if "shared_gate" not in lp:
+        return out
+    s = (_act(spec, x @ lp["shared_gate"]) * (x @ lp["shared_up"])) \
+        @ lp["shared_down"]
+    s = s.float()
+    if dense_only:
+        return s.to(x.dtype)
+    sg = torch.sigmoid(_router_logits(x, lp["shared_router"][:, None]))
+    return (out.float() + s * sg).to(x.dtype)
 
 
 def _embed_in(spec: LLMSpec, params: Params, tokens: torch.Tensor):
@@ -424,6 +492,8 @@ def forward_hidden(
     stacked = {k: v for k, v in params.items() if k not in _NON_LAYER_KEYS}
     scale = _attn_scale(spec)
     softcap = spec.attn_logit_softcap or 0.0
+    # Qwen2-MoE's layers with a plain MLP in the shared-expert slots
+    dense_layers = frozenset(spec.moe_dense_layers)
 
     for layer in range(spec.n_layers):
         lp = {k: v.layer(layer) if isinstance(v, QTensor) else v[layer]
@@ -487,7 +557,8 @@ def forward_hidden(
             return _attend(spec, q, k_eff, v_eff, tpos, windows[layer])
 
         x = _layer_body(spec, x, lp, tpos, inv_freqs[layer], rope_scale,
-                        ragged_attn if ragged else dense_attn)
+                        ragged_attn if ragged else dense_attn,
+                        layer in dense_layers)
     if spec.final_norm:
         x = _norm(spec, x, params["final_norm_w"], params.get("final_norm_b"))
     return x, cache

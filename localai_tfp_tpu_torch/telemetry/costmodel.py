@@ -156,6 +156,13 @@ class ModelCost:
             per_token += 2 * cache.k_scale.element_size()
         d, qd, kvd = spec.d_model, spec.q_dim, spec.kv_dim
         mlp = (3 if spec.gated_mlp else 2) * d * spec.d_ff
+        if spec.n_experts:  # the dense formulation: every expert runs
+            E, L = spec.n_experts, spec.n_layers
+            shared = (3 * d * (spec.moe_shared_d_ff or spec.d_ff) + d
+                      if spec.moe_shared_expert else 0)
+            sparse = d * E + 3 * d * (spec.moe_d_ff or spec.d_ff) * E
+            dense = len(set(spec.moe_dense_layers))
+            mlp = ((L - dense) * sparse + L * shared) // L
         return cls(
             n_layers=spec.n_layers,
             matmul_params=d * qd + 2 * d * kvd + qd * d + mlp,

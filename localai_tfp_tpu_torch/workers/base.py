@@ -98,6 +98,8 @@ class ModelLoadOptions:
     # projections; "int8_full": also embed / lm_head; "" or none/bf16: off
     draft_model: str = ""  # speculative decoding (proto DraftModel)
     n_draft: int = 0
+    lora_adapters: list[str] = field(default_factory=list)  # merged at load
+    lora_scales: list[float] = field(default_factory=list)  # missing: 1.0
     options: list[str] = field(default_factory=list)  # backend "k=v" pairs
 
 

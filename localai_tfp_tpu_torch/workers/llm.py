@@ -1,5 +1,12 @@
 """LLM worker: one ``LLMEngine`` over one loaded checkpoint (counterpart
-of localai_tfp_tpu/workers/llm.py::JaxLLMBackend, LLM path only)."""
+of localai_tfp_tpu/workers/llm.py::JaxLLMBackend, LLM path only).
+
+A checkpoint is an HF directory (dense or mixture of experts) or a
+``.gguf`` file, which brings its own tokenizer and chat template and no
+vision tower. LoRA adapters merge at load, before ``quantization: int8``
+quantizes the projections (the int8 artifact is then neither read nor
+written, nor for a GGUF), and ``apply_lora`` / ``remove_lora`` merge or
+unmerge one on the running engine, in place, between dispatches."""
 
 from __future__ import annotations
 
@@ -20,9 +27,11 @@ from ..engine.jinja_lite import TemplateError
 from ..engine.tokenizer import Tokenizer, load_tokenizer
 from ..grammars.native import make_constraint
 from ..models import artifact_cache
+from ..models.gguf import GGUFFile, load_gguf_params, tokenizer_from_gguf
 from ..models.hf_loader import load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
-from ..models.quant import leaves
+from ..models.lora import merge_lora
+from ..models.quant import leaves, quantize_params
 from .base import (Backend, EmbeddingResult, ModelLoadOptions,
                    PredictOptions, Reply, Result, StatusResponse,
                    TokenizationResponse)
@@ -43,7 +52,8 @@ _NO_QUANT = ("none", "f16", "fp16", "bf16", "bfloat16")
 
 
 class TorchLLMBackend(Backend):
-    """Serves chat completions for a HF checkpoint directory."""
+    """Serves chat completions for an HF checkpoint directory or a GGUF
+    file."""
 
     def __init__(self, device: Any = None) -> None:
         self.device = resolve(device)
@@ -64,6 +74,7 @@ class TorchLLMBackend(Backend):
         # share only a collection frees), and the allocator's and the
         # device-wide view (mem_get_info) after empty_cache
         self.unload_stats: Optional[dict] = None
+        self._quantized = False  # int8 projections: no LoRA hot apply
         # built grammar constraints by (grammar, triggers): building one
         # walks the whole vocabulary
         self._grammar_cache: dict[tuple, Any] = {}
@@ -80,7 +91,9 @@ class TorchLLMBackend(Backend):
             model_dir = opts.model
             if not os.path.isabs(model_dir):
                 model_dir = os.path.join(opts.model_path or "", model_dir)
-            if not os.path.isdir(model_dir):
+            is_gguf = model_dir.endswith(".gguf")
+            if not (os.path.isfile(model_dir) if is_gguf
+                    else os.path.isdir(model_dir)):
                 self._state = "ERROR"
                 return Result(False, f"load failed: model not found: "
                                      f"{model_dir}")
@@ -94,12 +107,20 @@ class TorchLLMBackend(Backend):
                 self._state = "BUSY"
                 self._drop_engine()
                 t0 = time.perf_counter()
-                # the tokenizer first: a file it cannot read fails the
-                # load before any weight is read
-                self.tokenizer = load_tokenizer(model_dir)
-                self.spec, params = self._load_weights(
-                    model_dir, _DTYPES[name],
-                    quant if quant in _INT8 else "")
+                quant = quant if quant in _INT8 else ""
+                # the tokenizer first: a file it cannot read (or a GGUF
+                # with no vocabulary) fails the load before any weight
+                # is read
+                if is_gguf:
+                    gf = GGUFFile(model_dir)
+                    self.tokenizer = tokenizer_from_gguf(gf)
+                    self.spec, params = self._load_gguf(
+                        gf, _DTYPES[name], quant, opts)
+                else:
+                    self.tokenizer = load_tokenizer(model_dir)
+                    self.spec, params = self._load_weights(
+                        model_dir, _DTYPES[name], quant, opts)
+                self._quantized = bool(quant)
                 self.read_s = time.perf_counter() - t0
                 self._grammar_cache = {}
                 draft = (self._load_draft(opts, _DTYPES[name])
@@ -125,14 +146,49 @@ class TorchLLMBackend(Backend):
             self._state = "READY"
             return Result(True, "model loaded")
 
+    def _adapt(self, spec: LLMSpec, params: dict, quant: str,
+               opts: ModelLoadOptions) -> dict:
+        """Freshly loaded full-precision ``params`` with the config's LoRA
+        adapters merged (a relative path is under ``model_path``; a scale
+        of 0 skips its adapter, a missing one is 1.0), then, for
+        ``quant``, the projections quantized."""
+        for i, adir in enumerate(opts.lora_adapters):
+            if not os.path.isabs(adir):
+                adir = os.path.join(opts.model_path or "", adir)
+            scale = (float(opts.lora_scales[i])
+                     if i < len(opts.lora_scales) else 1.0)
+            if scale == 0.0:
+                continue
+            params, _ = merge_lora(spec, params, adir, scale=scale,
+                                   inplace=True)
+        self.load_mode = "full"
+        if quant:
+            params = quantize_params(params, embeddings=(
+                artifact_cache.canonical_quant(quant) == "int8_full"))
+            self.load_mode = "quantized"
+        return params
+
+    def _load_gguf(self, gf: GGUFFile, dtype: torch.dtype, quant: str,
+                   opts: ModelLoadOptions) -> tuple[LLMSpec, dict]:
+        """(spec, params) of a GGUF file, dequantized on the device,
+        adapters merged, then (int8) the projections quantized; no
+        artifact, as in the JAX package."""
+        spec, params = load_gguf_params(gf.path, dtype=dtype,
+                                        device=self.device, gf=gf)
+        return spec, self._adapt(spec, params, quant, opts)
+
     def _load_weights(self, model_dir: str, dtype: torch.dtype,
-                      quant: str) -> tuple[LLMSpec, dict]:
+                      quant: str, opts: ModelLoadOptions
+                      ) -> tuple[LLMSpec, dict]:
         """(spec, params): full precision, or int8 from the on-disk
         artifact when there is one, else quantized while loading and then
-        written as the artifact for the next load."""
-        if not quant:
-            self.load_mode = "full"
-            return load_params(model_dir, dtype=dtype, device=self.device)
+        written as the artifact for the next load. With LoRA adapters the
+        weights load full precision, the adapters merge, then the
+        projections quantize, and no artifact is read or written."""
+        if not quant or opts.lora_adapters:
+            spec, params = load_params(model_dir, dtype=dtype,
+                                       device=self.device)
+            return spec, self._adapt(spec, params, quant, opts)
         mode = artifact_cache.canonical_quant(quant)
         path = artifact_cache.artifact_path(
             model_dir, mode, str(dtype).removeprefix("torch."))
@@ -152,21 +208,45 @@ class TorchLLMBackend(Backend):
 
     def _load_draft(self, opts: ModelLoadOptions,
                     dtype: torch.dtype) -> tuple[LLMSpec, dict]:
-        """The speculative-decoding draft: an HF checkpoint directory (a
-        relative path is under ``model_path``) at the target's dtype,
-        never quantized, as the JAX worker loads it. A draft that cannot
-        be loaded fails the model's load: a config that names a draft is
-        never served without it."""
+        """The speculative-decoding draft: an HF checkpoint directory or
+        a GGUF file (a relative path is under ``model_path``) at the
+        target's dtype, never quantized, as the JAX worker loads it. A
+        draft that cannot be loaded fails the model's load: a config that
+        names a draft is never served without it."""
         ddir = opts.draft_model
         if not os.path.isabs(ddir):
             ddir = os.path.join(opts.model_path or "", ddir)
         if ddir.endswith(".gguf"):
-            raise ValueError(f"draft model {ddir}: GGUF drafts are not "
-                             "supported by this port yet (an HF checkpoint "
-                             "directory is)")
+            if not os.path.isfile(ddir):
+                raise ValueError(f"draft model not found: {ddir}")
+            return load_gguf_params(ddir, dtype=dtype, device=self.device)
         if not os.path.isdir(ddir):
             raise ValueError(f"draft model not found: {ddir}")
         return load_params(ddir, dtype=dtype, device=self.device)
+
+    def apply_lora(self, adapter_dir: str, scale: float = 1.0) -> int:
+        """Merge a LoRA adapter into the running engine's weights, in
+        place between two dispatches: the captured graphs read the new
+        weights from the next dispatch on. Returns the projection sites
+        touched. Refused on int8 weights."""
+        return self._hot_lora(adapter_dir, scale, 1.0)
+
+    def remove_lora(self, adapter_dir: str, scale: float = 1.0) -> int:
+        """Unmerge an adapter applied with the same scale."""
+        return self._hot_lora(adapter_dir, scale, -1.0)
+
+    def _hot_lora(self, adapter_dir: str, scale: float, sign: float) -> int:
+        eng, spec = self.engine, self.spec
+        if eng is None or spec is None:
+            raise RuntimeError("model not loaded")
+        if self._quantized:
+            raise RuntimeError(
+                "LoRA hot-apply needs full-precision weights; load the "
+                "model without quantization (or restart with the adapter "
+                "in lora_adapters, which merges before quantizing)")
+        return eng.update_params(lambda params: merge_lora(
+            spec, params, adapter_dir, scale=scale, sign=sign,
+            inplace=True)[1])
 
     @property
     def load_breakdown(self) -> dict:

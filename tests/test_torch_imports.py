@@ -88,7 +88,8 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
               "engine.jinja_lite", "engine.templating",
               "config.app_config", "config.watcher", "engine.loader",
               "server.state", "server.localai_routes", "utils.sysinfo",
-              "utils.http", "workers.remote", "version"):
+              "utils.http", "workers.remote", "models.gguf",
+              "models.lora", "engine.unigram", "version"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)
