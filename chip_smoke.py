@@ -65,6 +65,9 @@ Phases, one result line each; any failure raises and exits non-zero:
    the worker captured at load (one per variant: row bucket, and token
    bucket for a mixed step); each replay adds the kernel launches its
    capture recorded to the counts.
+   Phases 6-8 serve the bf16 model at full depth and the int8 model at
+   its first ``INT8_CUT_LAYERS`` (8) layers, quantized at load with no
+   artifact (a depth cut that keeps the default run in its time budget).
 6. graphs  — on each model's server after phase 5: the burst's four
    requests in one admission wave on a fresh engine (graphs captured
    as at load) three times: by graph replay as served, with the same
@@ -234,6 +237,31 @@ Phases, one result line each; any failure raises and exits non-zero:
    moe). Each leg as in phase moe: four streamed chats (one past 1024
    prompt tokens), B1 once per layer of every forward, every forward a
    replay, a greedy request held to the dense forward.
+
+15. retrieval — (last) the encoder workers and the vector stores through
+   the HTTP server, from BERT checkpoints written here with random f32
+   weights from the seed at published geometries, each with a
+   30522-entry WordPiece ``tokenizer.json`` generated here: (a)
+   sentence-transformers/all-MiniLM-L6-v2 (6 layers, d 384, 12 heads)
+   behind ``backend: sentencetransformers``, /v1/embeddings of 32 texts
+   of 3-700 tokens (every bucket, three cut at 512): unit norms, each
+   vector within 1e-4 of the port's CPU forward; load s, the request's
+   wall, tokens/s, device ms per encode at each bucket (CUDA events,
+   eager and by graph replay); (b) BAAI/bge-large-en-v1.5's geometry (24
+   layers, d 1024, 16 heads, 1.34 GB f32), the same checks on 12 texts,
+   one 512-token encode against its f32 FLOP bound, and after
+   /backend/shutdown the allocated bytes back at the pre-load baseline;
+   (c) /v1/rerank of a query and 20 documents (top_n 5) on
+   cross-encoder/ms-marco-MiniLM-L-6-v2's geometry (a pooler, one label)
+   and on (a)'s checkpoint as a bi-encoder: scores within 1e-4 of the CPU
+   forward, the order equal where neighbouring scores differ by more,
+   usage equal to the tokenizer's count; (d) 100 000 unit-norm keys of
+   width 384 in the native store and in the Python store (its matvec on
+   the card above 50 000 rows), a few through /stores/set: finds of top
+   10 through the route equal in keys, values and order, similarities
+   within 1e-5 of a numpy f64 scan; each find's ms, the Python store's
+   key copy and matvec. Neither kernel runs here: the JAX encoder and
+   store have no Pallas kernel.
 
 Not in the default list: ``softcap_witness`` — Gemma-2-2B at full depth
 with every layer's q_proj at 4x and at 1x the softcap: the served greedy ids
@@ -1057,6 +1085,9 @@ DRAFT_GEOMETRY = {
     "tie_word_embeddings": True,
 }
 CONTEXT = 2048  # the model config's context_size
+# the int8 model's phases graphs, engine and dispatch serve the 8B's first
+# layers (a depth cut that keeps the default run in its time budget)
+INT8_CUT_LAYERS = 8
 SLOTS = 8  # the model config's max_batch_slots
 
 
@@ -2455,7 +2486,8 @@ def phase_graphs(port: int, app, model: str, backend) -> dict:
 
 DISPATCH_STREAMS = 4  # decoding streams the burst and the flood land beside
 FLOOD = 4  # prompts of the flood, each as long as the burst's longest
-HELD = 4  # queued requests of 2000 tokens whose drain a shed request hears
+HELD = 4  # queued requests of 2000 tokens (at 32 layers) whose drain a
+# shed request hears
 DISPATCH_MODES = ("graph", "variant", "eager")
 PREDICTED = ("predicted completion exceeds deadline (prefill alone "
              "overruns it)")
@@ -2759,8 +2791,12 @@ def deadline_and_shed(port: int, app, model: str, backend) -> dict:
     eng = fresh_engine(backend, True)  # its loop starts at a submit
     eng._autostart = False
     eng.max_queue = HELD
+    # the held work grows as the depth is cut, so that its predicted
+    # drain stays clear of the 1 s fallback on a depth-cut model too
+    held_tokens = 2000 * max(
+        1, GEOMETRY["num_hidden_layers"] // backend.spec.n_layers)
     eng.submit_many([GenRequest(prompt_ids=list(range(1 + i, 29 + i)),
-                                max_tokens=2000, ignore_eos=True)
+                                max_tokens=held_tokens, ignore_eos=True)
                      for i in range(HELD)])
     with eng._lock:
         want = eng._predicted_drain_s()
@@ -2951,13 +2987,42 @@ def phase_dispatch(port: int, app, model: str, backend) -> dict:
     }
 
 
+def first_layers(models: Path, ckpt_name: str, layers: int) -> str:
+    """A model directory beside ``ckpt_name`` that serves its first
+    ``layers`` layers: a symlink to its safetensors under a config.json of
+    that depth (a depth cut that writes no weights). Its name."""
+    cut = f"{ckpt_name}-first{layers}"
+    (models / cut).mkdir(exist_ok=True)
+    for f in (models / cut).iterdir():
+        f.unlink()
+    (models / cut / "model.safetensors").symlink_to(
+        models / ckpt_name / "model.safetensors")
+    config = json.loads((models / ckpt_name / "config.json").read_text())
+    (models / cut / "config.json").write_text(json.dumps(
+        {**config, "num_hidden_layers": layers}, indent=1))
+    return cut
+
+
+def model_yaml(models: Path, name: str, model: str, **extra) -> None:
+    """The 8B phases' model config: greedy, context 2048, 8 slots, bf16."""
+    (models / f"{name}.yaml").write_text(json.dumps({
+        "name": name, "backend": "torch-llm",
+        "parameters": {"model": model, "temperature": 0.0,
+                       "max_tokens": 32},
+        "context_size": CONTEXT, "max_batch_slots": SLOTS,
+        "dtype": "bfloat16", **extra,
+        "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
+                     "chat": "{{.Input}}\nassistant:"},
+    }, indent=1))
+
+
 def serve_model(models: Path, model: str, layers: int, quantized: bool,
                 engine: bool, graphs: bool, seed: int,
-                dispatch: bool = False) -> dict:
+                dispatch: bool = False, reload: bool = True) -> dict:
     """Serve one model config through the port's HTTP server: load, the
-    burst, its checks, (int8) a reload from the artifact, the dense
-    reference check, and (``graphs``) phase 6 and (``engine``) phase 7
-    on the same server."""
+    burst, its checks, (int8, ``reload``) a reload from the artifact, the
+    dense reference check, and (``graphs``) phase 6, (``engine``) phase 7
+    and (``dispatch``) phase 8 on the same server."""
     import threading
 
     import torch
@@ -3011,19 +3076,19 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
                 f"on the main path; it needs at least {need}")
         eng.leak_check()
         del eng  # later phases swap engines in: hold none of them here
-        reload = None
-        if quantized:  # the second load reads the on-disk int8 tree
+        reloaded = None
+        if quantized and reload:  # the second load reads the int8 tree
             res = backend.load_model(srv.app.model_loader.load_options(
                 srv.app.config_loader.get(model)))
             if not res.success or backend.load_mode != "artifact":
                 raise AssertionError(f"{model}: reload {res.message!r} in "
                                      f"mode {backend.load_mode}")
-            reload = {"mode": backend.load_mode,
-                      "load_s": round(backend.load_s, 3),
-                      "param_bytes": param_bytes(backend.engine.params)}
-            if reload["param_bytes"] != load["param_bytes"]:
+            reloaded = {"mode": backend.load_mode,
+                        "load_s": round(backend.load_s, 3),
+                        "param_bytes": param_bytes(backend.engine.params)}
+            if reloaded["param_bytes"] != load["param_bytes"]:
                 raise AssertionError(f"{model}: reloaded tree differs")
-            log("main_reload", model=model, **reload)
+            log("main_reload", model=model, **reloaded)
         ref = reference_check(backend, layers)
         log("main_reference", model=model, **ref)
         prof = profile_decode(backend.engine)
@@ -3042,7 +3107,7 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
             log("dispatch", model=model, **{k: v for k, v in disp.items()
                                             if k not in ("flood",
                                                          "deadline")})
-        return {"load": load, "burst": burst, "reload": reload,
+        return {"load": load, "burst": burst, "reload": reloaded,
                 "reference": ref, "profile": prof, "graphs": gr,
                 "engine": eng_res, "dispatch": disp, "byte_ttft": byte_ttft}
     finally:
@@ -3064,17 +3129,8 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
     layers = choose_depth(layers_wanted, models)
     ckpt_name = f"llama31-8b-geometry-L{layers}-s{seed}"
     written, write_s = write_checkpoint(models / ckpt_name, layers, seed)
-    for name, extra in (("llama-3.1-8b", {}),
-                        ("llama-3.1-8b-int8", {"quantization": "int8"})):
-        (models / f"{name}.yaml").write_text(json.dumps({
-            "name": name, "backend": "torch-llm",
-            "parameters": {"model": ckpt_name, "temperature": 0.0,
-                           "max_tokens": 32},
-            "context_size": CONTEXT, "max_batch_slots": SLOTS,
-            "dtype": "bfloat16", **extra,
-            "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
-                         "chat": "{{.Input}}\nassistant:"},
-        }, indent=1))
+    model_yaml(models, "llama-3.1-8b", ckpt_name)
+    model_yaml(models, "llama-3.1-8b-int8", ckpt_name, quantization="int8")
     log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
         written=written, write_s=round(write_s, 3), dir=ckpt_name)
     bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False,
@@ -3087,8 +3143,29 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
     os.environ["LOCALAI_QUANT_CACHE_DIR"] = str(quant_cache)
     os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
     int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True,
-                       engine=engine, graphs=graphs, seed=seed,
-                       dispatch=dispatch)
+                       engine=False, graphs=False, seed=seed)
+    if engine or graphs or dispatch:
+        # the int8 model's phases 6-8 on the 8B's first INT8_CUT_LAYERS
+        # layers, quantized at load (a depth cut that keeps the default
+        # run in its time budget; no artifact is written)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = first_layers(models, ckpt_name, INT8_CUT_LAYERS)
+        model_yaml(models, "llama-3.1-8b-int8-cut", cut, quantization="int8")
+        os.environ["LOCALAI_QUANT_ARTIFACTS"] = "off"
+        try:
+            int8_cut = serve_model(
+                models, "llama-3.1-8b-int8-cut", INT8_CUT_LAYERS,
+                quantized=True, engine=engine, graphs=graphs, seed=seed,
+                dispatch=dispatch, reload=False)
+        finally:
+            os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
+        for k in ("graphs", "engine", "dispatch"):
+            int8[k] = int8_cut[k]
+        int8["cut"] = {"layers": INT8_CUT_LAYERS,
+                       "reduced": f"phases graphs, engine, dispatch: layers "
+                                  f"{INT8_CUT_LAYERS} of {layers}",
+                       "burst_launches": int8_cut["burst"]["launches"]}
     log("main_models", layers=layers,
         param_gb={"bf16": bf16["load"]["param_bytes"] / 1e9,
                   "int8": int8["load"]["param_bytes"] / 1e9},
@@ -3561,15 +3638,8 @@ def phase_spec(ckpt_name: str, seed: int) -> dict:
                                         DRAFT_SEED, DRAFT_GEOMETRY)
     log("spec_checkpoint", dir=draft_name, written=written,
         write_s=write_s, layers=layers)
-    cut = f"{ckpt_name}-first{SPEC_B_LAYERS}"
-    (models / cut).mkdir(exist_ok=True)
-    for f in (models / cut).iterdir():
-        f.unlink()
-    (models / cut / "model.safetensors").symlink_to(
-        models / ckpt_name / "model.safetensors")
+    cut = first_layers(models, ckpt_name, SPEC_B_LAYERS)
     config = json.loads((models / ckpt_name / "config.json").read_text())
-    (models / cut / "config.json").write_text(json.dumps(
-        {**config, "num_hidden_layers": SPEC_B_LAYERS}, indent=1))
     configs = {"llama-3.1-8b-spec": {"model": cut,
                                      "draft_model": draft_name},
                "llama-3.1-8b-self": {"model": cut, "draft_model": cut},
@@ -6102,11 +6172,538 @@ def gguf_leg(models: Path, key: str, smi: str, layers: int, path: Path,
     return res
 
 
+# ------------------------------------------------------------ phase 15
+
+# published geometries (each checkpoint's config.json); random f32 weights
+MINILM_L6 = {  # sentence-transformers/all-MiniLM-L6-v2
+    "hidden_size": 384, "num_hidden_layers": 6, "num_attention_heads": 12,
+    "intermediate_size": 1536, "vocab_size": 30522,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "layer_norm_eps": 1e-12}
+BGE_LARGE = {  # BAAI/bge-large-en-v1.5
+    "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
+    "intermediate_size": 4096, "vocab_size": 30522,
+    "max_position_embeddings": 512, "type_vocab_size": 2,
+    "layer_norm_eps": 1e-12}
+# cross-encoder/ms-marco-MiniLM-L-6-v2: MiniLM-L6 with a pooler and one
+# label
+CROSS_LABELS = 1
+RETRIEVAL_TOL = 1e-4  # card against the port's CPU forward, f32 both
+STORE_TOL = 1e-5  # similarities against a numpy f64 scan
+STORE_ROWS, STORE_DIM, STORE_TOPK = 100_000, 384, 10
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+WORDPIECE_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102,
+                      "[MASK]": 103}
+# tokens (with [CLS] and [SEP]) of the 32 embedding inputs: every bucket
+# (16, 64, 128, 256, 512), their edges, and three past 512 (cut there)
+EMB_LENGTHS = (3, 5, 8, 12, 16, 17, 24, 30, 40, 48, 64, 65, 80, 100, 128,
+               129, 150, 180, 200, 220, 256, 257, 300, 350, 400, 450, 480,
+               511, 512, 513, 600, 700)
+BGE_LENGTHS = (5, 16, 17, 64, 65, 128, 129, 256, 257, 400, 512, 600)
+
+
+def wordpiece_vocab(vocab_size: int = 30522) -> list[str]:
+    """A BERT-layout vocabulary: [PAD] 0, [unused*], [UNK] 100 - [MASK]
+    103, more [unused*] to 998, single characters (printable ASCII, CJK)
+    whole and as ``##`` pieces, then syllable words whole and as pieces."""
+    vocab = [""] * 999
+    for tok, i in WORDPIECE_SPECIALS.items():
+        vocab[i] = tok
+    n = 0
+    for i in range(999):
+        if not vocab[i]:
+            vocab[i] = f"[unused{n}]"
+            n += 1
+    chars = ([chr(c) for c in range(33, 127) if not chr(c).isupper()]
+             + [chr(c) for c in range(0x4E00, 0x4E00 + 400)])
+    vocab += chars + ["##" + c for c in chars]
+    cons, vows = "bcdfghjklmnprstvwz", "aeiou"
+    syl = [c + v for c in cons for v in vows]
+    seen = set(vocab)
+    for words in (syl, [a + b for a in syl for b in syl],
+                  [a + b + c for a in syl for b in syl[:40] for c in syl[:20]]):
+        for w in words:
+            for tok in (w, "##" + w):
+                if tok not in seen and len(vocab) < vocab_size:
+                    seen.add(tok)
+                    vocab.append(tok)
+    if len(vocab) != vocab_size:
+        raise AssertionError(f"vocabulary of {len(vocab)}")
+    return vocab
+
+
+def vocab_words(vocab: list[str]) -> list[str]:
+    """The vocabulary's whole words of two or more letters: each encodes
+    to one id."""
+    return [t for t in vocab[999:] if not t.startswith("##") and len(t) > 1]
+
+
+def write_wordpiece_tokenizer(dirpath: Path, vocab_size: int = 30522
+                              ) -> None:
+    """BERT's ``tokenizer.json`` layout (BertNormalizer lowercasing,
+    BertPreTokenizer, WordPiece, ``[CLS] $A [SEP]`` / ``[CLS] $A [SEP]
+    $B:1 [SEP]:1``, WordPiece decoder) and its ``tokenizer_config.json``,
+    written without ``tokenizers``."""
+    vocab = wordpiece_vocab(vocab_size)
+    specials = [{"id": i, "content": t, "single_word": False,
+                 "lstrip": False, "rstrip": False, "normalized": False,
+                 "special": True}
+                for t, i in sorted(WORDPIECE_SPECIALS.items(),
+                                   key=lambda kv: kv[1])]
+
+    def special(tok, type_id):
+        return {"SpecialToken": {"id": tok, "type_id": type_id}}
+
+    def seq(name, type_id):
+        return {"Sequence": {"id": name, "type_id": type_id}}
+
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": specials,
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [special("[CLS]", 0), seq("A", 0), special("[SEP]", 0)],
+            "pair": [special("[CLS]", 0), seq("A", 0), special("[SEP]", 0),
+                     seq("B", 1), special("[SEP]", 1)],
+            "special_tokens": {t: {"id": t, "ids": [WORDPIECE_SPECIALS[t]],
+                                   "tokens": [t]}
+                               for t in ("[CLS]", "[SEP]")}},
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                  "continuing_subword_prefix": "##",
+                  "max_input_chars_per_word": 100,
+                  "vocab": {t: i for i, t in enumerate(vocab)}},
+    }
+    dirpath.mkdir(parents=True, exist_ok=True)
+    (dirpath / "tokenizer.json").write_text(json.dumps(spec))
+    (dirpath / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "BertTokenizer", "do_lower_case": True,
+        "model_max_length": 512, "clean_up_tokenization_spaces": True,
+        "unk_token": "[UNK]", "sep_token": "[SEP]", "pad_token": "[PAD]",
+        "cls_token": "[CLS]", "mask_token": "[MASK]"}))
+
+
+def bert_layout(g: dict, cross: bool) -> list[tuple[str, tuple]]:
+    """(name, HF shape) of every tensor of a ``BertModel`` checkpoint (bare
+    names, as sentence-transformers saves it) or of a
+    ``BertForSequenceClassification`` one (``bert.`` prefix, a pooler and
+    a classifier)."""
+    D, F, V = g["hidden_size"], g["intermediate_size"], g["vocab_size"]
+    p = "bert." if cross else ""
+    out = [(p + "embeddings.word_embeddings.weight", (V, D)),
+           (p + "embeddings.position_embeddings.weight",
+            (g["max_position_embeddings"], D)),
+           (p + "embeddings.token_type_embeddings.weight",
+            (g["type_vocab_size"], D)),
+           (p + "embeddings.LayerNorm.weight", (D,)),
+           (p + "embeddings.LayerNorm.bias", (D,))]
+    for i in range(g["num_hidden_layers"]):
+        lp = f"{p}encoder.layer.{i}."
+        for name, shape in (("attention.self.query", (D, D)),
+                            ("attention.self.key", (D, D)),
+                            ("attention.self.value", (D, D)),
+                            ("attention.output.dense", (D, D)),
+                            ("intermediate.dense", (F, D)),
+                            ("output.dense", (D, F))):
+            out += [(lp + name + ".weight", shape),
+                    (lp + name + ".bias", (shape[0],))]
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            out += [(lp + ln + ".weight", (D,)), (lp + ln + ".bias", (D,))]
+    out += [(p + "pooler.dense.weight", (D, D)),
+            (p + "pooler.dense.bias", (D,))]
+    if cross:
+        out += [("classifier.weight", (CROSS_LABELS, D)),
+                ("classifier.bias", (CROSS_LABELS,))]
+    return out
+
+
+def write_bert_checkpoint(ckpt: Path, g: dict, seed: int, cross: bool,
+                          vocab_size: int = 30522) -> tuple[int, float]:
+    """A BERT checkpoint of geometry ``g`` with random f32 weights made on
+    the card from ``seed`` (BERT's init: normal, std 0.02; LayerNorm
+    weights near 1), its config.json and a WordPiece tokenizer. Returns
+    (bytes, seconds)."""
+    import math
+
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_iter
+
+    t0 = time.perf_counter()
+    ckpt.mkdir(parents=True, exist_ok=True)
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layout = bert_layout(g, cross)
+    shapes = [(n, torch.empty(s, dtype=torch.float32, device="meta"))
+              for n, s in layout]
+
+    def tensors():
+        for name, shape in layout:
+            w = torch.randn(shape, generator=gen, device=dev) * 0.02
+            if name.endswith("LayerNorm.weight"):
+                w = w + 1.0
+            yield name, w
+
+    save_iter(tensors(), str(ckpt / "model.safetensors"), shapes=shapes)
+    config = {"architectures": ["BertForSequenceClassification" if cross
+                                else "BertModel"],
+              "model_type": "bert", "hidden_act": "gelu",
+              "torch_dtype": "float32", **g,
+              **({"num_labels": CROSS_LABELS} if cross else {})}
+    (ckpt / "config.json").write_text(json.dumps(config, indent=1))
+    write_wordpiece_tokenizer(ckpt, vocab_size)
+    nbytes = sum(4 * math.prod(s) for _, s in layout)
+    return nbytes, time.perf_counter() - t0
+
+
+def words_text(words: list, n_tokens: int, rng) -> str:
+    """A text of whole vocabulary words that encodes to ``n_tokens`` ids
+    with [CLS] and [SEP]."""
+    return " ".join(rng.choice(words, max(0, n_tokens - 2)).tolist())
+
+
+def _cpu_worker(cls, model_dir: Path):
+    """The port's worker on the CPU over the same directory: the
+    reference forward."""
+    from localai_tfp_tpu_torch.workers.base import ModelLoadOptions
+
+    w = cls("cpu")
+    res = w.load_model(ModelLoadOptions(model=str(model_dir)))
+    if not res.success:
+        raise AssertionError(f"CPU reference load: {res.message}")
+    return w
+
+
+def encode_bench(backend, buckets, smi: str) -> dict:
+    """Device ms of one encode (batch 1, every position real) at each
+    bucket: CUDA events over eager calls (what a request pays) and CUDA
+    graph replay (device time alone)."""
+    import torch
+
+    out = {}
+    for T in buckets:
+        toks = torch.randint(1000, backend.spec.vocab_size, (1, T),
+                             device=backend.device)
+        mask = torch.ones(1, T, dtype=torch.int32, device=backend.device)
+        iters = 10 if T >= 256 else 30
+        out[T] = {"ms": _time_ms(lambda: backend.embed_ids(toks, mask),
+                                 iters),
+                  "graph_ms": _time_graph(
+                      lambda: backend.embed_ids(toks, mask), iters)}
+    return out
+
+
+def encoder_flops(g: dict, T: int) -> int:
+    """Multiply-adds x 2 of one T-token encode: the projections, the MLP
+    and the two attention products per layer."""
+    D, F, L = g["hidden_size"], g["intermediate_size"], g["num_hidden_layers"]
+    return L * (2 * T * D * (4 * D + 2 * F) + 4 * T * T * D)
+
+
+def embeddings_leg(port: int, app, name: str, ckpt: Path, texts: list,
+                   g: dict, smi: str) -> dict:
+    """``/v1/embeddings`` of ``texts`` on model ``name``: load s, wall,
+    tokens/s, unit norms, the card against the port's CPU forward."""
+    import numpy as np
+
+    from localai_tfp_tpu_torch.workers.embeddings import \
+        TorchEmbeddingsBackend
+
+    t0 = time.perf_counter()
+    status, _, raw = _req(port, "POST", "/v1/embeddings",
+                          {"model": name, "input": texts[:1]})
+    first_s = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"{name}: HTTP {status} {raw[:300]!r}")
+    backend = app.loaded()[name]
+    lm = app.model_loader.get(name)
+    tk = backend.tokenizer
+    n_tok = [min(len(tk.encode_special(t)), g["max_position_embeddings"])
+             for t in texts]
+    t0 = time.perf_counter()
+    status, _, raw = _req(port, "POST", "/v1/embeddings",
+                          {"model": name, "input": texts})
+    wall = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"{name}: HTTP {status} {raw[:300]!r}")
+    got = np.asarray([d["embedding"] for d in json.loads(raw)["data"]],
+                     np.float32)
+    if got.shape != (len(texts), g["hidden_size"]):
+        raise AssertionError(f"{name}: embeddings of shape {got.shape}")
+    norms = np.linalg.norm(got.astype(np.float64), axis=1)
+    cpu = _cpu_worker(TorchEmbeddingsBackend, ckpt)
+    want = np.concatenate([cpu.embed_batch([t]) for t in texts])
+    err = float(np.abs(got - want).max())
+    res = {"load_s": round(lm.load_s, 3),
+           "load_and_first_request_s": round(first_s, 3),
+           "texts": len(texts), "tokens": sum(n_tok),
+           "tokens_min_max": [min(n_tok), max(n_tok)],
+           "request_s": round(wall, 4),
+           "tokens_per_s": round(sum(n_tok) / wall, 1),
+           "max_abs_err_vs_cpu": err, "tol": RETRIEVAL_TOL,
+           "norm_err": float(np.abs(norms - 1).max()), "card": smi}
+    if not np.isfinite(got).all() or err > RETRIEVAL_TOL \
+            or res["norm_err"] > 1e-5:
+        raise AssertionError(f"{name}: {res}")
+    return res
+
+
+def rerank_leg(port: int, name: str, ckpt: Path, query: str, docs: list,
+               cross: bool, smi: str) -> dict:
+    """``/v1/rerank`` of ``docs`` on model ``name`` (top_n 5): scores
+    within RETRIEVAL_TOL of the port's CPU forward, the order equal where
+    neighbouring scores differ by more, usage equal to the tokenizer's
+    count."""
+    import numpy as np
+
+    from localai_tfp_tpu_torch.workers.rerank import TorchRerankBackend
+
+    body = {"model": name, "query": query, "documents": docs, "top_n": 5}
+    _req(port, "POST", "/v1/rerank", {**body, "documents": docs[:1]})
+    t0 = time.perf_counter()
+    status, _, raw = _req(port, "POST", "/v1/rerank", body)
+    wall = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"{name}: HTTP {status} {raw[:300]!r}")
+    out = json.loads(raw)
+    cpu = _cpu_worker(TorchRerankBackend, ckpt)
+    ref = cpu.rerank(query, docs, len(docs))
+    want = {d.index: d.relevance_score for d in ref.results}
+    order = [d.index for d in ref.results]
+    got = [(r["index"], r["relevance_score"]) for r in out["results"]]
+    err = max(abs(s - want[i]) for i, s in got)
+    swaps = [(r, i, order[r]) for r, (i, _) in enumerate(got)
+             if i != order[r] and abs(want[i] - want[order[r]])
+             > RETRIEVAL_TOL]
+    tk = cpu.tokenizer
+    n_tok = (sum(len(tk.encode_pair(query, d)[0]) for d in docs) if cross
+             else sum(len(tk.encode_special(t)) for t in [query] + docs))
+    res = {"mode": "cross-encoder" if cross else "bi-encoder cosine",
+           "documents": len(docs), "top_n": len(got),
+           "indices": [i for i, _ in got], "max_abs_err_vs_cpu": err,
+           "tol": RETRIEVAL_TOL, "order_swaps_beyond_tol": swaps,
+           "usage": out["usage"], "tokenizer_tokens": n_tok,
+           "request_s": round(wall, 4), "card": smi}
+    if (len(got) != 5 or err > RETRIEVAL_TOL or swaps
+            or out["usage"]["total_tokens"] != n_tok):
+        raise AssertionError(f"{name}: {res}")
+    return res
+
+
+def store_leg(port: int, app, smi: str, seed: int) -> dict:
+    """100 000 unit-norm keys of width 384 (and a handful through
+    ``/stores/set``) in the native store and in the Python store (its
+    matvec on the card above 50 000 rows); finds of top 10 through the
+    route against a numpy f64 scan; each find's ms, the Python store's
+    split into the key copy and the matvec."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.store import backend as sb
+
+    rng = np.random.default_rng(seed + 15)
+    keys = rng.standard_normal((STORE_ROWS, STORE_DIM)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    few = rng.standard_normal((4, STORE_DIM)).astype(np.float32)
+    few /= np.linalg.norm(few, axis=1, keepdims=True)
+    values = [f"doc-{i}" for i in range(STORE_ROWS)]
+    all_keys = np.concatenate([few, keys]).astype(np.float64)
+    all_values = [f"few-{i}" for i in range(4)] + values
+    saved = os.environ.get("LOCALAI_NATIVE_STORE")
+    stores = {}
+    try:
+        for name, flag in (("store-native", "1"), ("store-python", "0")):
+            os.environ["LOCALAI_NATIVE_STORE"] = flag
+            st, _, raw = _req(port, "POST", "/stores/set", {
+                "store": name, "keys": few.tolist(),
+                "values": all_values[:4]})
+            if st != 200:
+                raise AssertionError(f"{name}: /stores/set {st} {raw!r}")
+            backend = app.loaded()[name]
+            t0 = time.perf_counter()
+            backend.stores_set(keys, values)
+            stores[name] = {"backend": backend,
+                            "set_s": round(time.perf_counter() - t0, 3)}
+    finally:
+        if saved is None:
+            os.environ.pop("LOCALAI_NATIVE_STORE", None)
+        else:
+            os.environ["LOCALAI_NATIVE_STORE"] = saved
+    py = stores["store-python"]["backend"].store
+    if not (isinstance(py, sb.VectorStore) and py.device.type == CARD
+            and len(py) >= sb._DEVICE_THRESHOLD):
+        raise AssertionError("the Python store does not scan on the card")
+    if isinstance(stores["store-native"]["backend"].store, sb.VectorStore):
+        raise AssertionError("the default store is not the native one")
+    queries = [all_keys[7 + 1000 * i].astype(np.float32)
+               + rng.standard_normal(STORE_DIM).astype(np.float32) * 0.05
+               for i in range(5)]
+    out = {"rows": len(all_values), "dim": STORE_DIM, "topk": STORE_TOPK}
+    found = {}
+    for name, s in stores.items():
+        route_ms, direct_ms, errs = [], [], []
+        for q in queries:
+            dots = all_keys @ q.astype(np.float64)
+            order = np.argsort(-dots)[:STORE_TOPK]
+            t0 = time.perf_counter()
+            st, _, raw = _req(port, "POST", "/stores/find", {
+                "store": name, "key": q.tolist(), "topk": STORE_TOPK})
+            route_ms.append((time.perf_counter() - t0) * 1e3)
+            if st != 200:
+                raise AssertionError(f"{name}: /stores/find {st} {raw!r}")
+            res = json.loads(raw)
+            if res["values"] != [all_values[i] for i in order]:
+                raise AssertionError(f"{name}: find order {res['values']} "
+                                     f"against {order.tolist()}")
+            if np.asarray(res["keys"], np.float64).tolist() != \
+                    all_keys[order].tolist():
+                raise AssertionError(f"{name}: find keys differ")
+            errs.append(float(np.abs(np.asarray(res["similarities"])
+                                     - dots[order]).max()))
+            found.setdefault(name, []).append(res)
+            t0 = time.perf_counter()
+            s["backend"].store.find(q, STORE_TOPK)
+            direct_ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"set_s": s["set_s"],
+                     "find_route_ms": sorted(route_ms)[len(route_ms) // 2],
+                     "find_ms": sorted(direct_ms)[len(direct_ms) // 2],
+                     "max_abs_err_vs_f64": max(errs), "tol": STORE_TOL}
+        if max(errs) > STORE_TOL:
+            raise AssertionError(f"{name}: {out[name]}")
+    for a, b in zip(found["store-native"], found["store-python"]):
+        if a["keys"] != b["keys"] or a["values"] != b["values"]:
+            raise AssertionError("native and Python stores disagree")
+    # the Python store's find split: the whole key matrix to the card,
+    # then the matvec (the host's top-k is the rest)
+    dev = py.device
+    host_keys, q = py._keys, queries[0]
+    copy_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k = torch.from_numpy(host_keys).to(dev)
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    qd = torch.from_numpy(q).to(dev)
+    from localai_tfp_tpu_torch.device import f32_products
+
+    with f32_products():
+        matvec_ms = _time_ms(lambda: k @ qd, 20)
+    key_bytes = host_keys.nbytes
+    out["store-python"].update(
+        key_copy_ms=sorted(copy_ms)[2], key_bytes=key_bytes,
+        key_copy_gb_per_s=round(key_bytes / sorted(copy_ms)[2] / 1e6, 2),
+        matvec_ms=matvec_ms,
+        matvec_bound_ms=key_bytes / HBM_BYTES_PER_S * 1e3)
+    out["card"] = smi
+    return out
+
+
+def phase_retrieval(smi: str, seed: int) -> dict:
+    """The retrieval surface on the card through the HTTP server: (a)
+    all-MiniLM-L6-v2 embeddings, (b) bge-large-en-v1.5's geometry, its
+    FLOP bound and the memory after its unload, (c) a cross-encoder and
+    a bi-encoder through /v1/rerank, (d) the vector stores."""
+    import shutil
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "retrieval"
+    shutil.rmtree(models, ignore_errors=True)
+    models.mkdir(parents=True)
+    out = {}
+    written = {}
+    for key, g, cross in (("all-minilm-l6-v2", MINILM_L6, False),
+                          ("ms-marco-minilm-l6", MINILM_L6, True),
+                          ("bge-large-en-v1.5", BGE_LARGE, False)):
+        nbytes, write_s = write_bert_checkpoint(models / key, g, seed, cross)
+        written[key] = {"bytes": nbytes, "write_s": round(write_s, 3)}
+    words = vocab_words(wordpiece_vocab())
+    for name, backend, ckpt in (
+            ("minilm", "sentencetransformers", "all-minilm-l6-v2"),
+            ("bge-large", "sentencetransformers", "bge-large-en-v1.5"),
+            ("ms-marco", "rerankers", "ms-marco-minilm-l6"),
+            ("minilm-rerank", "rerankers", "all-minilm-l6-v2")):
+        (models / f"{name}.yaml").write_text(
+            f"name: {name}\nbackend: {backend}\n"
+            f"parameters:\n  model: {ckpt}\n")
+    log("retrieval_checkpoints", **written, card=smi)
+    rng = np.random.default_rng(seed)
+    texts = [words_text(words, n, rng) for n in EMB_LENGTHS]
+    texts[1] = "北京 is the capital, 東京 too! " + texts[1]  # CJK, punctuation
+    srv, th = _serve(models)
+    try:
+        port = srv.server_address[1]
+        app = srv.app
+        # (a) all-MiniLM-L6-v2 at full width and depth
+        a = embeddings_leg(port, app, "minilm", models / "all-minilm-l6-v2",
+                           texts, MINILM_L6, smi)
+        a["device_ms_by_bucket"] = encode_bench(
+            app.loaded()["minilm"], (16, 64, 128, 256, 512), smi)
+        log("retrieval_a", model="sentence-transformers/all-MiniLM-L6-v2",
+            **a)
+        out["a"] = a
+        # (b) bge-large-en-v1.5's geometry at full width and depth
+        base = _mem()
+        bge_texts = [words_text(words, n, rng) for n in BGE_LENGTHS]
+        b = embeddings_leg(port, app, "bge-large",
+                           models / "bge-large-en-v1.5", bge_texts,
+                           BGE_LARGE, smi)
+        loaded = _mem()
+        bench = encode_bench(app.loaded()["bge-large"], (512,), smi)[512]
+        flops = encoder_flops(BGE_LARGE, 512)
+        b.update(encode_512_ms=bench["ms"], encode_512_graph_ms=
+                 bench["graph_ms"], encode_512_flops=flops,
+                 encode_512_bound_ms=flops / F32_FLOPS * 1e3,
+                 bound_by="operations (f32, 67 TFLOP/s)",
+                 allocated_loaded=loaded["allocated"] - base["allocated"])
+        st, _, raw = _req(port, "POST", "/backend/shutdown",
+                          {"model": "bge-large"})
+        if st != 200:
+            raise AssertionError(f"bge-large shutdown: {st} {raw!r}")
+        after = _mem()
+        b.update(allocated_base=base["allocated"],
+                 allocated_after_unload=after["allocated"],
+                 residue=_back("bge-large unload", after["allocated"], base))
+        log("retrieval_b", model="BAAI/bge-large-en-v1.5 geometry", **b)
+        out["b"] = b
+        # (c) rerank: the cross-encoder, then MiniLM as a bi-encoder
+        query = words_text(words, 12, rng)
+        docs = [words_text(words, n, rng) for n in
+                rng.integers(8, 200, 20).tolist()]
+        docs[3] = query[:40] + " " + docs[3]  # one shares the query's words
+        c = {"cross": rerank_leg(port, "ms-marco",
+                                 models / "ms-marco-minilm-l6", query, docs,
+                                 True, smi),
+             "bi": rerank_leg(port, "minilm-rerank",
+                              models / "all-minilm-l6-v2", query, docs,
+                              False, smi)}
+        log("retrieval_c", model="cross-encoder/ms-marco-MiniLM-L-6-v2 "
+                                 "geometry; all-MiniLM-L6-v2", **c)
+        out["c"] = c
+        # (d) the vector stores
+        d = store_leg(port, app, smi, seed)
+        log("retrieval_d", **d)
+        out["d"] = d
+    finally:
+        _shut(srv, th)
+        shutil.rmtree(models, ignore_errors=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("retrieval", phase_s=out["phase_s"], card=smi)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,moe,gguf,main,graphs,"
-                            "engine,dispatch,spec,text,lifecycle,families")
+                            "engine,dispatch,spec,text,lifecycle,families,"
+                            "retrieval")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -6312,6 +6909,21 @@ def main() -> int:
                 for k, v in fam.items() if isinstance(v, dict)}
             e["launches_families"]["gemma3_4b_int8"] = \
                 fam["gemma3_4b"]["int8"]["burst"]["launches"][e["name"]]
+    if "retrieval" in phases:
+        from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+        from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+            ragged_paged_attention,
+        )
+
+        for f in (ragged_paged_attention, int8_matmul):
+            f.launches = 0
+        phase_retrieval(smi, args.seed)
+        launched = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+        for e in entries:
+            # the encoders and the stores run neither kernel: the JAX
+            # encoder and store have no Pallas kernel either
+            e["launches_retrieval"] = launched[e["name"]]
     if "softcap_witness" in phases:
         phase_softcap_witness(smi, args.seed)
     print(json.dumps({"kernels": entries}), flush=True)

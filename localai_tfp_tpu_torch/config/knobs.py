@@ -50,6 +50,9 @@ _DEFAULTS = {
     # per-device peak memory bandwidth in GB/s for roofline
     # classification (0 = the built-in per-device table)
     "LOCALAI_PEAK_HBM_GBS": "0",
+    # the vector store's keys and cosine scan in C++ (store/native.py;
+    # off: the Python store, its large finds on the device)
+    "LOCALAI_NATIVE_STORE": "on",
 }
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("", "0", "false", "no", "off")

@@ -6,10 +6,10 @@ configs (ref: backend_config_loader.go
 LoadMultipleBackendConfigsSingleFile). Every document of a file is read
 and validated before any is registered, so a bad document never leaves a
 file half loaded. ``load_configs_from_path`` scans the top level of the
-models directory for ``*.yaml``/``*.yml``, skipping dotfiles, as the JAX
-loader does; where the JAX loader logs and skips a file it cannot read,
-this one raises with the file and the reason, so a broken config is never
-served as if it were absent.
+models directory for ``*.yaml``/``*.yml``, skipping dotfiles, and logs
+and skips a file it cannot read (with the file and the reason), as the
+JAX loader does: one bad file never stops the server from serving the
+others. ``load_config_file`` raises with the file and the reason.
 
 ``ConfigLoader`` is the registry the server resolves a request's model
 name through, under one lock: a config by name whatever its usecase,
@@ -20,12 +20,15 @@ serving the usecase.
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 from typing import Optional
 
 from . import yaml_lite
 from .model_config import ModelConfig, Usecase
+
+log = logging.getLogger(__name__)
 
 
 def validated(data) -> ModelConfig:
@@ -55,7 +58,8 @@ def load_config_file(path: str) -> list[ModelConfig]:
 def load_configs_from_path(models_path: str) -> dict[str, ModelConfig]:
     """Every config of the models directory's ``*.yaml``/``*.yml`` files
     (not recursive, dotfiles skipped), by name; a later file's config of
-    the same name wins, as the JAX registry's does."""
+    the same name wins, as the JAX registry's does. A file that cannot be
+    read is logged and skipped."""
     out: dict[str, ModelConfig] = {}
     if not os.path.isdir(models_path):
         return out
@@ -63,7 +67,13 @@ def load_configs_from_path(models_path: str) -> dict[str, ModelConfig]:
         if fname.startswith(".") or os.path.splitext(fname)[1] not in (
                 ".yaml", ".yml"):
             continue
-        for cfg in load_config_file(os.path.join(models_path, fname)):
+        path = os.path.join(models_path, fname)
+        try:
+            cfgs = load_config_file(path)
+        except Exception as e:  # a bad file must not stop the others
+            log.warning("skipping config %s: %s", path, e)
+            continue
+        for cfg in cfgs:
             out[cfg.name] = cfg
     return out
 

@@ -210,9 +210,9 @@ class ModelConfig:
         b = (self.backend or "").lower()
         if self.embeddings or b in ("sentencetransformers", "embeddings",
                                     "huggingface-embeddings",
-                                    "jax-embeddings"):
+                                    "jax-embeddings", "torch-embeddings"):
             flags |= Usecase.EMBEDDINGS
-        if b in ("rerankers", "rerank", "jax-rerank"):
+        if b in ("rerankers", "rerank", "jax-rerank", "torch-rerank"):
             flags |= Usecase.RERANK
         if b in ("diffusers", "stablediffusion", "flux", "jax-diffusion"):
             flags |= Usecase.IMAGE | Usecase.VIDEO

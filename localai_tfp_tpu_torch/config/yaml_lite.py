@@ -15,9 +15,13 @@ constructs LocalAI model YAMLs are written in:
 Plain scalars resolve by PyYAML's YAML 1.1 rules: ``yes``/``no``/``on``/
 ``off`` are bools, ``1e-5`` (no dot) is a string, ``0x1F`` and ``017``
 (octal) are ints, ``~`` and an empty value are ``None``, and a date is a
-``datetime.date``. Anything else (tags, complex ``?`` keys, directives,
-an anchor before a key, ...) raises ``ValueError`` with the file and
-line: a construct this reader does not read never gives a value.
+``datetime.date``. The YAML 1.1 standard scalar tags that ``safe_load``
+resolves, ``!!str``, ``!!int``, ``!!float``, ``!!bool`` and ``!!null``,
+construct their scalar as PyYAML's ``SafeConstructor`` does (``!!str 5``
+is ``"5"``). Anything else (other tags, a tag on a collection, complex
+``?`` keys, directives, an anchor before a key, ...) raises
+``ValueError`` with the file and line: a construct this reader does not
+read never gives a value.
 """
 
 from __future__ import annotations
@@ -66,6 +70,10 @@ _FLOW_IND = ",[]{}"
 # non-space)
 _NO_PLAIN_START = "-?:,[]{}#&*!|>'\"%@`"
 _MERGE = object()  # the key ``<<``
+# the standard scalar tags read (``!!name``), and ``!!bool``'s values
+_TAGS = ("str", "int", "float", "bool", "null")
+_BOOL_VALUES = {"yes": True, "no": False, "true": True, "false": False,
+                "on": True, "off": False}
 # what PyYAML's reader refuses, plus the line breaks it knows beyond \n
 _NON_PRINTABLE = re.compile(
     "[^\x09\x0A\x0D\x20-\x7E\xA0-\u2027\u202A-\uD7FF\uE000-\uFFFD"
@@ -426,7 +434,7 @@ class _Reader:
             self.i = i + 1
             return self.anchors[name]
         if ch == "!":
-            self.err("tags are not supported", i)
+            return self.tagged(i, c, parent, map_value)
         if ch in "|>":
             return self.block_scalar(i, c, parent)
         if ch in "[{":
@@ -439,8 +447,14 @@ class _Reader:
             self.rest_is_empty(j, e)
             self.i = j + 1
             return value
+        return self.resolve(self.plain_text(i, c, parent), i)
+
+    def plain_text(self, i: int, c: int, parent: int) -> str:
+        """The unresolved text of the block plain scalar at column ``c``
+        of line ``i``; leaves ``self.i`` on the first line after it."""
+        ch, nxt = self.lines[i][c], self.lines[i][c + 1:c + 2]
         if ch in _NO_PLAIN_START and not (
-                ch in "-?:" and rest[1:2] not in ("", " ", "\t")):
+                ch in "-?:" and nxt not in ("", " ", "\t")):
             if ch == "-":
                 self.err("a sequence entry is not allowed here", i)
             self.err(f"a plain scalar cannot start with {ch!r}", i)
@@ -452,7 +466,64 @@ class _Reader:
         else:
             self.rest_is_empty(j, e)
             self.i = j + 1
-        return self.resolve(text, i)
+        return text
+
+    # ---- tags
+
+    def tag_at(self, i: int, c: int) -> tuple[str, int]:
+        """The standard tag at column ``c`` of line ``i``: (its name,
+        the column after it). Any other tag raises."""
+        line = self.lines[i]
+        e = c
+        while e < len(line) and line[e] not in " \t":
+            e += 1
+        tag = line[c:e]
+        if not tag.startswith("!!") or tag[2:] not in _TAGS:
+            self.err(f"tags other than {', '.join('!!' + t for t in _TAGS)}"
+                     f" are not supported ({tag!r})", i)
+        return tag[2:], e
+
+    def construct(self, tag: str, text: str, i: int) -> Any:
+        """A tagged scalar's value, as ``SafeConstructor`` builds it."""
+        try:
+            if tag == "str":
+                return text
+            if tag == "null":
+                return None
+            if tag == "bool":
+                return _BOOL_VALUES[text.lower()]
+            if tag == "int":
+                return _int(text)
+            return _float(text)
+        except (KeyError, ValueError, IndexError):
+            self.err(f"!!{tag} cannot construct {text!r}", i)
+
+    def tagged(self, i: int, c: int, parent: int, map_value: bool) -> Any:
+        """A tagged block node: the tag, then a scalar on its line (or
+        nothing: the empty scalar)."""
+        tag, e = self.tag_at(i, c)
+        line = self.lines[i]
+        while e < len(line) and line[e] == " ":
+            e += 1
+        rest = line[e:]
+        if rest == "" or rest.startswith("#"):
+            self.i = i + 1
+            if self.node(parent, seq_at_parent=map_value) is not None:
+                self.err("a tag on a node of later lines is not supported",
+                         i)
+            text = ""
+        elif rest[0] in "\"'":
+            text, j, e = self.quoted(i, e)
+            self.rest_is_empty(j, e)
+            self.i = j + 1
+        elif rest[0] in "|>":
+            text = self.block_scalar(i, e, parent)
+        elif rest[0] in "[{&*!":
+            self.err("a tag on a collection, an anchor or an alias is not "
+                     "supported", i)
+        else:
+            text = self.plain_text(i, e, parent)
+        return self.construct(tag, text, i)
 
     def anchor_name(self, i: int, c: int) -> tuple[str, int]:
         """An anchor's or alias's name (PyYAML's: letters, digits, '-'
@@ -794,7 +865,20 @@ class _Reader:
                 self.err(f"undefined alias *{name}", i)
             return self.anchors[name], i, e
         if ch == "!":
-            self.err("tags are not supported", i)
+            tag, e = self.tag_at(i, c)
+            i, c = self.skip_flow_space(i, e)
+            nxt = self.peek(i, c)
+            if nxt in "\"'":
+                text, i, c = self.quoted(i, c)
+            elif nxt in ",]}":
+                text = ""
+            elif nxt in _NO_PLAIN_START and not (
+                    nxt in "-?:" and self.peek(i, c + 1) not in " \t\n\0"):
+                self.err("a tag on a collection, an anchor or an alias is "
+                         "not supported", i)
+            else:
+                text, i, c, _ = self.plain(i, c, 0, True)
+            return self.construct(tag, text, i), i, c
         if ch in _NO_PLAIN_START and not (
                 ch == "-" and self.peek(i, c + 1) not in " \t\n\0"):
             self.err(f"unexpected {ch!r} in a flow collection", i)

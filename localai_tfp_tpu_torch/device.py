@@ -8,6 +8,8 @@ carries on silently on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -35,3 +37,30 @@ def describe() -> dict:
         raise RuntimeError("no CUDA device is available")
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
+
+
+_tf32_lock = threading.Lock()
+_tf32_users = 0
+_tf32_saved = False
+
+
+@contextlib.contextmanager
+def f32_products():
+    """TF32 off for f32 matrix products inside the block, whatever the
+    process's setting (the encoder and the vector store compute in f32, as
+    the JAX package does with ``Precision.HIGHEST``). The flag is
+    process-wide: the first block to enter saves it, the last to leave
+    puts it back."""
+    global _tf32_users, _tf32_saved
+    with _tf32_lock:
+        if _tf32_users == 0:
+            _tf32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_users += 1
+    try:
+        yield
+    finally:
+        with _tf32_lock:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _tf32_saved

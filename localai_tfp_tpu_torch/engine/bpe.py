@@ -22,8 +22,16 @@ families the port serves:
   vocabularies of GGUF files: ``BPETokenizer(spec=...)`` takes a parsed
   tokenizer spec, which ``models/gguf.py`` builds from the file's
   metadata.
+- BERT (``engine/wordpiece.py``): ``BertNormalizer``,
+  ``BertPreTokenizer``, a ``WordPiece`` model and decoder.
+- ``encode_special`` and ``encode_pair`` add the ``post_processor``'s
+  special tokens (``TemplateProcessing``, ``BertProcessing``) and give a
+  pair's type ids, as transformers' ``encode(..., add_special_tokens=
+  True)`` does. A ``truncation`` or ``padding`` section is ignored, as
+  transformers ignores it when a caller asks for neither.
 
-Any other component raises ``NotImplementedError`` at load, naming it.
+Any other component raises ``NotImplementedError`` at load, naming it
+(a post-processor: when special tokens are asked for).
 Python's ``re`` has no ``\\p{L}``/``\\p{N}`` and its ``\\s`` also matches
 ``\\x1c-\\x1f``, which Oniguruma's does not: a pattern's classes are
 written out from ``unicodedata`` (built once, at first use) and its
@@ -40,6 +48,9 @@ import sys
 import unicodedata
 from functools import lru_cache
 from typing import Optional
+
+from .wordpiece import (WordPieceModel, bert_normalizer, bert_pre_tokenize,
+                        post_processor, wordpiece_decoder)
 
 # Unicode's White_Space property: what Oniguruma's \s matches
 _WHITE_SPACE = ("\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003"
@@ -200,6 +211,8 @@ def _normalizer(spec: Optional[dict]):
     if kind == "Replace":
         a, b = _string_pattern(spec, "normalizer Replace"), spec["content"]
         return lambda s: s.replace(a, b)
+    if kind == "BertNormalizer":
+        return bert_normalizer(spec)
     raise NotImplementedError(f"tokenizer.json normalizer {kind!r} is not "
                               "supported")
 
@@ -281,6 +294,11 @@ def _pre_tokenizer(spec: Optional[dict]):
                     out.append(_Piece(t[start:], p.first and start == 0))
             return out
         return metaspace
+    if kind == "BertPreTokenizer":
+        return lambda pieces: [_Piece(w, p.first and k == 0)
+                               for p in pieces
+                               for k, w in enumerate(
+                                   bert_pre_tokenize(p.text))]
     raise NotImplementedError(f"tokenizer.json pre_tokenizer {kind!r} is not "
                               "supported")
 
@@ -340,6 +358,8 @@ def _decoder(spec: Optional[dict]):
                             if c == rep else c for c in t)
                     for i, t in enumerate(tokens)]
         return metaspace
+    if kind == "WordPiece":
+        return wordpiece_decoder(spec)
     raise NotImplementedError(f"tokenizer.json decoder {kind!r} is not "
                               "supported")
 
@@ -593,8 +613,10 @@ def _split_added(text: str, first: bool, matcher: _Matcher) -> list:
 
 
 def _model(spec: dict):
-    """The ``model`` section: BPE, or (GGUF's sentencepiece vocabularies)
-    Unigram, ``engine/unigram.py``."""
+    """The ``model`` section: BPE, WordPiece (``engine/wordpiece.py``), or
+    (GGUF's sentencepiece vocabularies) Unigram, ``engine/unigram.py``."""
+    if spec.get("type") == "WordPiece":
+        return WordPieceModel(spec)
     if spec.get("type") == "Unigram":
         from .unigram import UnigramModel
 
@@ -605,23 +627,21 @@ def _model(spec: dict):
 
 
 class BPETokenizer:
-    """``tokenizer.json`` encode/decode (``add_special_tokens=False``),
-    from the file at ``path`` or from its parsed ``spec``."""
+    """``tokenizer.json`` encode/decode (``add_special_tokens=False``;
+    ``encode_special``/``encode_pair`` with them), from the file at
+    ``path`` or from its parsed ``spec``."""
 
     def __init__(self, path: str = "<spec>",
                  spec: Optional[dict] = None) -> None:
         if spec is None:
             with open(path, encoding="utf-8") as f:
                 spec = json.load(f)
-        for key in ("truncation", "padding"):
-            if spec.get(key) is not None:
-                raise NotImplementedError(f"{path}: tokenizer.json "
-                                          f"{key} is not supported")
         try:
             self.model = _model(spec["model"])
             self.normalize = _normalizer(spec.get("normalizer"))
             self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"))
             self.decoder = _decoder(spec.get("decoder"))
+            self.post_process = post_processor(spec.get("post_processor"))
         except NotImplementedError as e:
             raise NotImplementedError(f"{path}: {e}") from None
         self.added = [_AddedToken(d) for d in spec.get("added_tokens") or []]
@@ -668,6 +688,14 @@ class BPETokenizer:
                 for piece in self.pre_tokenize([_Piece(part, first2)]):
                     ids.extend(self.model.tokenize(piece.text))
         return ids
+
+    def encode_special(self, text: str) -> list[int]:
+        """``encode`` with the post-processor's special tokens."""
+        return self.post_process(self.encode(text))[0]
+
+    def encode_pair(self, a: str, b: str) -> tuple[list[int], list[int]]:
+        """A pair with its special tokens: (ids, type ids)."""
+        return self.post_process(self.encode(a), self.encode(b))
 
     def decode(self, ids: list[int], skip_special_tokens: bool = False
                ) -> str:

@@ -28,13 +28,16 @@ from ..workers.base import Backend, ModelLoadOptions
 log = logging.getLogger(__name__)
 
 LLM_BACKEND = "torch-llm"
+EMBEDDINGS_BACKEND = "torch-embeddings"
+RERANK_BACKEND = "torch-rerank"
 
 BackendFactory = Callable[[], Backend]
 
 # backend-name aliasing (ref: initializers.go:24-42), the JAX package's
-# table with its LLM worker's name ("jax-llm") mapped to this port's, so
-# one YAML loads in both packages; the media aliases keep the JAX names,
-# which name the backend a load of this port refuses
+# table with its workers' names ("jax-llm", "jax-embeddings",
+# "jax-rerank") mapped to this port's, so one YAML loads in both
+# packages; the media aliases keep the JAX names, which name the backend
+# a load of this port refuses
 ALIASES = {
     "": LLM_BACKEND,
     "jax-llm": LLM_BACKEND,
@@ -45,11 +48,13 @@ ALIASES = {
     "transformers": LLM_BACKEND,
     "exllama2": LLM_BACKEND,
     "langchain-huggingface": LLM_BACKEND,
-    "sentencetransformers": "jax-embeddings",
-    "huggingface-embeddings": "jax-embeddings",
-    "embeddings": "jax-embeddings",
-    "rerankers": "jax-rerank",
-    "rerank": "jax-rerank",
+    "sentencetransformers": EMBEDDINGS_BACKEND,
+    "huggingface-embeddings": EMBEDDINGS_BACKEND,
+    "embeddings": EMBEDDINGS_BACKEND,
+    "jax-embeddings": EMBEDDINGS_BACKEND,
+    "rerankers": RERANK_BACKEND,
+    "rerank": RERANK_BACKEND,
+    "jax-rerank": RERANK_BACKEND,
     "whisper": "jax-whisper",
     "faster-whisper": "jax-whisper",
     "diffusers": "jax-diffusion",
@@ -101,11 +106,18 @@ registry = _Registry()
 
 
 def register_default_backends(device=None) -> None:
-    """Register the port's workers; ``device`` is where the LLM worker
-    loads its models (the card unless the caller asks for the CPU)."""
+    """Register the port's workers; ``device`` is where each loads its
+    model (the card unless the caller asks for the CPU)."""
+    from ..store.backend import LocalStoreBackend
+    from ..workers.embeddings import TorchEmbeddingsBackend
     from ..workers.llm import TorchLLMBackend
+    from ..workers.rerank import TorchRerankBackend
 
     registry.register(LLM_BACKEND, lambda: TorchLLMBackend(device))
+    registry.register(EMBEDDINGS_BACKEND,
+                      lambda: TorchEmbeddingsBackend(device))
+    registry.register(RERANK_BACKEND, lambda: TorchRerankBackend(device))
+    registry.register("local-store", lambda: LocalStoreBackend(device))
 
 
 class LoadedModel:

@@ -5,7 +5,8 @@ and ``load_tokenizer`` as there).
 - ``ByteTokenizer``: dependency-free bytes <-> ids codec, used by tests
   and whenever a checkpoint ships no tokenizer files.
 - ``HFTokenizer``: a checkpoint's ``tokenizer.json`` read by the port's
-  own BPE (``engine/bpe.py``, no ``tokenizers`` package), with the
+  own reader (``engine/bpe.py``: BPE, WordPiece or Unigram by its
+  ``model.type``; no ``tokenizers`` package), with the
   ``tokenizer_config.json`` chat template rendered by the port's Jinja
   subset (``engine/jinja_lite.py``, no ``jinja2``). A file it cannot read
   fails the load with the reason: a checkpoint with a ``tokenizer.json``
@@ -55,6 +56,46 @@ class ByteTokenizer:
     def decode(self, ids: list[int]) -> str:
         return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
 
+    def encode_special(self, text: str) -> list[int]:
+        """The encoders' input: BOS, the bytes, EOS."""
+        return [self.bos_id] + self.encode(text) + [next(iter(self.eos_ids))]
+
+    def encode_pair(self, a: str, b: str) -> tuple[list[int], list[int]]:
+        """(ids, type ids) of ``BOS a EOS b EOS``; type 1 covers ``b``
+        and the last EOS."""
+        sep = next(iter(self.eos_ids))
+        ea, eb = self.encode(a), self.encode(b)
+        ids = [self.bos_id] + ea + [sep] + eb + [sep]
+        types = [0] * (len(ea) + 2) + [1] * (len(eb) + 1)
+        return ids, types
+
+
+# the transformers classes that rebuild a BertNormalizer from their
+# tokenizer_config.json arguments (BertTokenizerFast.__init__); a
+# config.json of model_type "bert" maps to them when none is named
+_BERT_CLASSES = ("BertTokenizer", "BertTokenizerFast")
+
+
+def _bert_normalizer_args(model_dir: str, cfg: dict, spec: dict) -> None:
+    """Set ``spec``'s ``BertNormalizer`` as transformers' Bert tokenizer
+    classes do: from ``do_lower_case`` (default true), ``strip_accents``
+    (default null) and ``tokenize_chinese_chars`` (default true) of
+    ``tokenizer_config.json``, whatever ``tokenizer.json`` says."""
+    norm = spec.get("normalizer")
+    if not isinstance(norm, dict) or norm.get("type") != "BertNormalizer":
+        return
+    cls = cfg.get("tokenizer_class")
+    if cls is None:
+        mt = _read_json(os.path.join(model_dir, "config.json"),
+                        strict=False).get("model_type")
+        if mt != "bert":
+            return
+    elif cls not in _BERT_CLASSES:
+        return
+    norm["lowercase"] = cfg.get("do_lower_case", True)
+    norm["strip_accents"] = cfg.get("strip_accents")
+    norm["handle_chinese_chars"] = cfg.get("tokenize_chinese_chars", True)
+
 
 def _special_token(entry) -> Optional[str]:
     """A tokenizer_config special-token entry (string or AddedToken
@@ -83,8 +124,11 @@ class HFTokenizer:
     environment)."""
 
     def __init__(self, model_dir: str) -> None:
-        self._tk = BPETokenizer(os.path.join(model_dir, "tokenizer.json"))
+        path = os.path.join(model_dir, "tokenizer.json")
+        spec = _read_json(path)
         cfg = _read_json(os.path.join(model_dir, "tokenizer_config.json"))
+        _bert_normalizer_args(model_dir, cfg, spec)
+        self._tk = BPETokenizer(path, spec)
         self.special_tokens: dict[str, Any] = {}
         for key in ("bos_token", "eos_token", "unk_token", "sep_token",
                     "pad_token", "cls_token", "mask_token"):
@@ -133,6 +177,19 @@ class HFTokenizer:
     def decode(self, ids: list[int]) -> str:
         text = self._tk.decode(ids)
         return clean_up_tokenization(text) if self.clean_up_spaces else text
+
+    def encode_special(self, text: str) -> list[int]:
+        """Encode WITH special tokens (``[CLS] ... [SEP]`` for BERT), as
+        encoder models pool or classify them."""
+        return self._tk.encode_special(text)
+
+    def encode_pair(self, a: str, b: str) -> tuple[list[int], list[int]]:
+        """``[CLS] a [SEP] b [SEP]`` and its type ids (1 on the ``b``
+        half): the cross-encoder's input. An empty ``b`` is no pair, as
+        transformers reads it: ``a`` alone, with its special tokens."""
+        if not b:
+            return self._tk.post_process(self._tk.encode(a))
+        return self._tk.encode_pair(a, b)
 
     def apply_chat_template(self, messages: list[dict], *,
                             add_generation_prompt: bool = True,

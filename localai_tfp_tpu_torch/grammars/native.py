@@ -6,8 +6,8 @@ accepts either). States are plain ints interned inside the C++ engine, so
 the per-token host cost is one FFI call for advance and one for the mask
 fill.
 
-The library is built from the port's own source with ``g++ -O3
--std=c++17 -fPIC -shared`` at first use into
+The library is built from the port's own source by ``utils/cxx.py``
+(``g++ -O3 -std=c++17 -fPIC -shared``) at first use into
 ``build/torch_kernels/libgbnf_mask-<hash>.so`` (the hash covers the source
 and the flags, so an edited source rebuilds), beside the CUDA kernels of
 ops/_build.py. A failed build or load raises; a grammar the native
@@ -17,10 +17,6 @@ parser rejects falls back to the Python engine (grammars/constrain.py).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
@@ -28,9 +24,9 @@ from typing import Optional
 import numpy as np
 
 from ..ops._build import BUILD_DIR, CSRC
+from ..utils import cxx
 
 SRC = CSRC / "gbnf_mask.cpp"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 
 _lock = threading.Lock()
 _libs: dict[Path, ctypes.CDLL] = {}
@@ -38,34 +34,13 @@ _libs: dict[Path, ctypes.CDLL] = {}
 
 def library_path(src: Optional[Path] = None) -> Path:
     """Where the library built from ``src`` lives."""
-    src = Path(src or SRC)
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libgbnf_mask-{h.hexdigest()[:16]}.so"
+    return cxx.library_path(Path(src or SRC), BUILD_DIR)
 
 
 def build(src: Optional[Path] = None) -> Path:
     """Compile ``src`` (default: the port's gbnf_mask.cpp) unless a current
     build exists; raise RuntimeError when the compiler fails."""
-    src = Path(src or SRC)
-    if not src.is_file():
-        raise RuntimeError(f"native grammar source missing: {src}")
-    so = library_path(src)
-    if so.exists():
-        return so
-    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"native grammar build: {cxx}: {e}") from None
-    if proc.returncode != 0:
-        raise RuntimeError(f"native grammar build failed "
-                           f"(rc {proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    return cxx.build(Path(src or SRC), "native grammar", BUILD_DIR)
 
 
 def load_library() -> ctypes.CDLL:

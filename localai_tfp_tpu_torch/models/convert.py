@@ -4,7 +4,8 @@ The JAX package's ``init_params`` (and its loader) yields a dict of arrays
 with every per-layer weight stacked on a leading ``[L, ...]`` axis and
 projections in ``[in, out]`` layout. The port keeps exactly that tree, so
 conversion is a per-leaf copy: both packages then compute the same thing
-on the same weights. Leaves arrive as numpy arrays (``np.asarray`` of a
+on the same weights; the encoder's tree (``encoder_params_from_jax``)
+likewise. Leaves arrive as numpy arrays (``np.asarray`` of a
 JAX array); bfloat16 leaves (numpy's ``ml_dtypes`` extension type) are
 reinterpreted bit for bit.
 """
@@ -48,3 +49,11 @@ def params_from_numpy(tree: Mapping[str, Any], device: Any = "cpu",
         else:
             out[k] = to_tensor(v, device, dtype)
     return out
+
+
+def encoder_params_from_jax(tree: Mapping[str, Any], device: Any = "cpu",
+                            dtype: Optional[torch.dtype] = None) -> Params:
+    """The JAX package's encoder tree (``models/encoder.py``'s
+    ``EncParams``, numpy leaves) -> the port's ``EncParams``: the same
+    keys and layouts, leaf by leaf."""
+    return {k: to_tensor(v, device, dtype) for k, v in tree.items()}

@@ -80,7 +80,10 @@ def _routes() -> dict:
         ("GET", "/system"): lr.system,
         ("GET", "/backend/monitor"): lr.backend_monitor,
         ("POST", "/backend/shutdown"): lr.backend_shutdown,
+        ("POST", "/v1/rerank"): lr.rerank,
     }
+    for op in ("set", "delete", "get", "find"):
+        routes[("POST", f"/stores/{op}")] = lr.stores
     for prefix in ("/v1", ""):
         routes[("POST", f"{prefix}/chat/completions")] = r.chat_completions
         routes[("POST", f"{prefix}/completions")] = r.completions

@@ -1,7 +1,9 @@
 """LocalAI-native routes of the port (the subset of
-localai_tfp_tpu/server/localai_routes.py this slice serves): health,
-``/version``, ``/metrics``, ``/system`` and the backend monitor and
-shutdown (ref: core/http/routes/localai.go, routes/health.go).
+localai_tfp_tpu/server/localai_routes.py the port serves): health,
+``/version``, ``/metrics``, ``/system``, the backend monitor and
+shutdown, Jina's ``/v1/rerank`` and the vector stores
+(``/stores/{set,delete,get,find}``) (ref: core/http/routes/localai.go,
+routes/health.go, routes/jina.go).
 """
 
 from __future__ import annotations
@@ -9,13 +11,16 @@ from __future__ import annotations
 import os
 import resource
 import time
+from urllib.parse import urlsplit
 
 import torch
 
+from ..config.model_config import ModelConfig, Usecase
 from ..engine.loader import registry
 from ..telemetry.registry import CONTENT_TYPE, REGISTRY
 from ..utils.sysinfo import device_memory
 from ..version import __version__
+from . import schema
 from .app import Handler, HTTPError
 from .state import Application
 
@@ -120,3 +125,53 @@ def backend_shutdown(h: Handler, app: Application) -> None:
     if not app.model_loader.shutdown_model(name):
         raise HTTPError(404, f"model '{name}' not loaded")
     h.send_json(200, {"success": True})
+
+
+def rerank(h: Handler, app: Application) -> None:
+    """Jina-compatible ``POST /v1/rerank`` (ref: jina/rerank.go): the
+    documents by relevance to the query, cut to ``top_n``; 404 when no
+    rerank model resolves."""
+    body = h.read_body()
+    req = schema.RerankRequest.validate(body)
+    cfg = app.config_loader.resolve(body.get("model"), Usecase.RERANK)
+    if cfg is None:
+        raise HTTPError(404, "no rerank model available")
+    backend = app.model_loader.load(cfg)
+    with app.busy(cfg.name):
+        res = backend.rerank(req.query, req.documents,
+                             req.top_n or len(req.documents))
+    h.send_json(200, {
+        "model": cfg.name,
+        "usage": res.usage,
+        "results": [{"index": d.index, "relevance_score": d.relevance_score,
+                     "document": {"text": d.text}} for d in res.results],
+    })
+
+
+def stores(h: Handler, app: Application) -> None:
+    """``POST /stores/{set,delete,get,find}`` through the local-store
+    worker of the body's ``store`` (default ``default-store``, whose
+    config is registered at its first use; ref: endpoints/localai/
+    stores.go)."""
+    body = h.read_body()
+    name = body.get("store") or "default-store"
+    cfg = app.config_loader.resolve(name, Usecase.ANY)
+    if cfg is None:
+        cfg = ModelConfig.from_dict({"name": name, "backend": "local-store"})
+        app.config_loader.register(cfg)
+    backend = app.model_loader.load(cfg)
+    op = urlsplit(h.path).path.rstrip("/").rsplit("/", 1)[-1]
+    if op == "set":
+        backend.stores_set(body.get("keys") or [], body.get("values") or [])
+        h.send_json(200, {})
+    elif op == "delete":
+        backend.stores_delete(body.get("keys") or [])
+        h.send_json(200, {})
+    elif op == "get":
+        keys, values = backend.stores_get(body.get("keys") or [])
+        h.send_json(200, {"keys": keys, "values": values})
+    else:
+        keys, values, sims = backend.stores_find(body.get("key") or [],
+                                                 int(body.get("topk") or 10))
+        h.send_json(200, {"keys": keys, "values": values,
+                          "similarities": sims})

@@ -45,6 +45,7 @@ from ..grammars.parse import (FinetuneStream, apply_finetune,
                               parse_function_call, parse_text_content)
 from ..workers.base import PredictOptions, Reply
 from ..workers.llm import final_reply
+from . import schema
 from .app import Handler, HTTPError
 from .state import Application
 
@@ -81,49 +82,47 @@ def _predict_options(cfg: ModelConfig, body: dict, prompt: str,
     if isinstance(stop, str):
         stop = [stop]
     stop = list(stop or []) + list(cfg.stopwords or [])
-    bias = body.get("logit_bias") or {}
-    if not isinstance(bias, dict):
-        raise ValueError("logit_bias must be an object of token id: bias")
     logit_bias = {}
-    for k, v in bias.items():
+    for k, v in (body.get("logit_bias") or {}).items():
         try:
             logit_bias[int(k)] = float(v)
         except (ValueError, TypeError):
             pass
+    # the body's fields are typed by the route's schema (server/schema.py)
     return PredictOptions(
         prompt=prompt,
-        tokens=int(pick("max_tokens", p.max_tokens or 2048,
-                        "max_completion_tokens")),
-        temperature=float(pick("temperature", p.temperature or 0.0)),
-        top_p=float(pick("top_p", p.top_p if p.top_p is not None else 1.0)),
-        top_k=int(pick("top_k", p.top_k or 0)),
-        min_p=float(pick("min_p", p.min_p or 0.0)),
+        tokens=pick("max_tokens", p.max_tokens or 2048,
+                    "max_completion_tokens"),
+        temperature=pick("temperature", p.temperature or 0.0),
+        top_p=pick("top_p", p.top_p if p.top_p is not None else 1.0),
+        top_k=pick("top_k", p.top_k or 0),
+        min_p=pick("min_p", p.min_p or 0.0),
         seed=body.get("seed", p.seed),
-        repeat_penalty=float(pick("repeat_penalty", p.repeat_penalty)),
-        repeat_last_n=int(pick("repeat_last_n", p.repeat_last_n)),
-        frequency_penalty=float(pick("frequency_penalty",
-                                     p.frequency_penalty)),
-        presence_penalty=float(pick("presence_penalty", p.presence_penalty)),
-        typical_p=float(pick("typical_p", p.typical_p
-                             if p.typical_p is not None else 1.0)),
-        mirostat=int(pick("mirostat", p.mirostat or 0)),
-        mirostat_tau=float(pick("mirostat_tau", p.mirostat_tau
-                                if p.mirostat_tau is not None else 5.0)),
-        mirostat_eta=float(pick("mirostat_eta", p.mirostat_eta
-                                if p.mirostat_eta is not None else 0.1)),
+        repeat_penalty=pick("repeat_penalty", p.repeat_penalty),
+        repeat_last_n=pick("repeat_last_n", p.repeat_last_n),
+        frequency_penalty=pick("frequency_penalty", p.frequency_penalty),
+        presence_penalty=pick("presence_penalty", p.presence_penalty),
+        typical_p=pick("typical_p", p.typical_p
+                       if p.typical_p is not None else 1.0),
+        mirostat=pick("mirostat", p.mirostat or 0),
+        mirostat_tau=pick("mirostat_tau", p.mirostat_tau
+                          if p.mirostat_tau is not None else 5.0),
+        mirostat_eta=pick("mirostat_eta", p.mirostat_eta
+                          if p.mirostat_eta is not None else 0.1),
         stop_prompts=stop,
-        ignore_eos=bool(pick("ignore_eos", p.ignore_eos)),
+        ignore_eos=pick("ignore_eos", p.ignore_eos),
         grammar=body.get("grammar", "") or cfg.grammar or "",
         logit_bias=logit_bias,
         correlation_id=correlation_id,
-        timeout_s=max(0.0, float(pick("timeout", 0.0) or 0.0)),
+        timeout_s=max(0.0, pick("timeout", 0.0) or 0.0),
     )
 
 
-def _timeout(h: Handler, body: dict) -> None:
-    """The deadline budget: the body's ``timeout``, else the
-    ``X-Request-Timeout`` header (seconds); negative or non-numeric is a
-    400."""
+def _body(h: Handler) -> dict:
+    """The JSON body, with the ``X-Request-Timeout`` header (seconds)
+    as its ``timeout`` when the body sets none; a header that is not a
+    number is a 400."""
+    body = h.read_body()
     hdr = h.headers.get("X-Request-Timeout")
     if hdr and body.get("timeout") is None:
         try:
@@ -131,12 +130,7 @@ def _timeout(h: Handler, body: dict) -> None:
         except ValueError:
             raise HTTPError(400, "X-Request-Timeout must be a number of "
                                  "seconds") from None
-    t = body.get("timeout")
-    if t is None:
-        return
-    if isinstance(t, bool) or not isinstance(t, (int, float)) or t < 0:
-        raise HTTPError(400, "field 'timeout' must be a non-negative "
-                             "number of seconds")
+    return body
 
 
 def _grammar_for_request(cfg: ModelConfig, body: dict,
@@ -147,8 +141,7 @@ def _grammar_for_request(cfg: ModelConfig, body: dict,
     if isinstance(rf, str):
         rf = {"type": rf}
     if rf.get("type") == "json_schema":
-        schema = (rf.get("json_schema") or {}).get("schema")
-        return schema_to_gbnf(schema)
+        return schema_to_gbnf((rf.get("json_schema") or {}).get("schema"))
     if rf.get("type") == "json_object":
         return schema_to_gbnf(None)
     if tools:
@@ -228,10 +221,7 @@ def _raise_if_refused(reply: Reply) -> None:
 
 
 def _n_choices(body: dict, streaming: bool) -> int:
-    try:
-        n = int(body.get("n") or 1)
-    except (TypeError, ValueError):
-        raise HTTPError(400, "'n' must be an integer") from None
+    n = body.get("n") or 1
     if n < 1 or n > 16:
         raise HTTPError(400, "'n' must be between 1 and 16")
     if streaming and n > 1:
@@ -258,14 +248,6 @@ def _model_name(h: Handler, body: dict) -> Optional[str]:
             or h.headers.get("X-Model"))
 
 
-def _options(cfg: ModelConfig, body: dict, prompt: str,
-             corr: str) -> PredictOptions:
-    try:
-        return _predict_options(cfg, body, prompt, corr)
-    except (TypeError, ValueError) as e:
-        raise HTTPError(400, f"invalid sampling parameter: {e}") from None
-
-
 def _predict_all(backend, opts_list: list) -> list:
     """Every request at once (the engine batches them); their replies."""
     replies: list[Optional[Reply]] = [None] * len(opts_list)
@@ -283,21 +265,16 @@ def _predict_all(backend, opts_list: list) -> list:
 
 
 def chat_completions(h: Handler, app: Application) -> None:
-    body = h.read_body()
+    body = _body(h)
+    schema.ChatCompletionRequest.validate(body)
     cfg = _resolve(h, app, body, Usecase.CHAT)
-    messages = body.get("messages") or []
-    if not isinstance(messages, list) or not messages:
-        raise HTTPError(400, "messages required")
-    _timeout(h, body)
+    messages = body["messages"]
     tools, tools_requested = _extract_tools(body)
     grammar = _grammar_for_request(cfg, body, tools)
     streaming = bool(body.get("stream"))
     n = _n_choices(body, streaming)
     corr = h.headers.get("X-Correlation-ID", "")
-    try:
-        opts = _predict_options(cfg, body, "", corr)
-    except (TypeError, ValueError) as e:
-        raise HTTPError(400, f"invalid sampling parameter: {e}") from None
+    opts = _predict_options(cfg, body, "", corr)
     backend = app.model_loader.load(cfg)
     opts.prompt = app.evaluator.template_messages(
         cfg, messages, tokenizer=getattr(backend, "tokenizer", None),
@@ -450,15 +427,11 @@ def completions(h: Handler, app: Application) -> None:
     """``/v1/completions``: each prompt through ``template.completion``;
     ``n`` choices per prompt, all decoded at once; one prompt may
     stream."""
-    body = h.read_body()
+    body = _body(h)
+    schema.CompletionRequest.validate(body)
     prompts = body.get("prompt", "")
     if isinstance(prompts, str):
         prompts = [prompts]
-    if prompts is not None and (not isinstance(prompts, list) or not all(
-            isinstance(p, str) for p in prompts)):
-        raise HTTPError(400, "field 'prompt' must be a string or list of "
-                             "strings")
-    _timeout(h, body)
     cfg = _resolve(h, app, body, Usecase.COMPLETION)
     if not prompts:
         raise HTTPError(400, "prompt required")
@@ -475,7 +448,7 @@ def completions(h: Handler, app: Application) -> None:
     corr = h.headers.get("X-Correlation-ID", "")
     backend = app.model_loader.load(cfg)
     if streaming:
-        opts = _options(cfg, body, app.evaluator.evaluate_completion(
+        opts = _predict_options(cfg, body, app.evaluator.evaluate_completion(
             cfg, prompts[0]), corr)
         with app.busy(cfg.name):
             _stream_completion(h, backend, opts, cfg, cid, created,
@@ -483,7 +456,7 @@ def completions(h: Handler, app: Application) -> None:
         return
     jobs = []
     for prompt in prompts:
-        opts = _options(cfg, body, app.evaluator.evaluate_completion(
+        opts = _predict_options(cfg, body, app.evaluator.evaluate_completion(
             cfg, prompt), corr)
         jobs.extend((prompt, opts) for _ in range(n))
     with app.busy(cfg.name):
@@ -577,11 +550,8 @@ def _stream_completion(h: Handler, backend, opts: PredictOptions,
 def edits(h: Handler, app: Application) -> None:
     """``/v1/edits``: each input with the instruction through
     ``template.edit``, one after another."""
-    body = h.read_body()
-    for key in ("instruction", "input"):
-        if body.get(key) is not None and not isinstance(body[key], str):
-            raise HTTPError(400, f"field '{key}' must be a string")
-    _timeout(h, body)
+    body = _body(h)
+    schema.EditRequest.validate(body)
     cfg = _resolve(h, app, body, Usecase.EDIT)
     backend = app.model_loader.load(cfg)
     instruction = body.get("instruction", "")
@@ -592,7 +562,7 @@ def edits(h: Handler, app: Application) -> None:
     choices = []
     total = Reply()
     for i, inp in enumerate(inputs):
-        opts = _options(cfg, body, app.evaluator.evaluate_edit(
+        opts = _predict_options(cfg, body, app.evaluator.evaluate_edit(
             cfg, inp, instruction), corr)
         with app.busy(cfg.name):
             reply = backend.predict(opts)
@@ -629,19 +599,8 @@ def embeddings(h: Handler, app: Application) -> None:
     """``/v1/embeddings``: one vector per input (``input``, else
     ``prompt``; a string or a list of strings or ints), each the
     backend's ``embedding`` of its text, one after another."""
-    body = h.read_body()
-    inputs = None
-    for key in ("input", "prompt"):
-        v = body.get(key)
-        if v is None:
-            continue
-        if not isinstance(v, (str, list)) or (isinstance(v, list) and not all(
-                isinstance(x, (str, int)) for x in v)):
-            raise HTTPError(400, f"field '{key}' must be a string or list "
-                                 "of strings")
-        if inputs is None:
-            inputs = v
-    inputs = inputs or ""
+    body = _body(h)
+    inputs = schema.EmbeddingsRequest.validate(body).input
     cfg = _resolve(h, app, body, Usecase.EMBEDDINGS)
     backend = app.model_loader.load(cfg)
     if isinstance(inputs, str):

@@ -20,3 +20,11 @@ def json_request(url: str, payload: dict, *, api_key: str = "",
         },
     )
     return urllib.request.urlopen(req, timeout=timeout)
+
+
+def json_post(url: str, payload: dict, *, api_key: str = "",
+              timeout: float = 600.0) -> dict:
+    """POST JSON and parse the JSON reply."""
+    with json_request(url, payload, api_key=api_key, timeout=timeout) as r:
+        body = r.read()
+    return json.loads(body) if body else {}

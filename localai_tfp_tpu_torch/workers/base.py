@@ -1,5 +1,5 @@
 """Backend worker contract (the port's own copy of the parts of
-localai_tfp_tpu/workers/base.py the LLM path uses).
+localai_tfp_tpu/workers/base.py the LLM, encoder and store workers use).
 
 Mirrors the reference's shared backend contract (ref:
 backend/backend.proto; Go interface pkg/grpc/backend.go:34-59): workers
@@ -115,13 +115,27 @@ class EmbeddingResult:
 
 
 @dataclass
+class DocumentResult:
+    index: int = 0
+    text: str = ""
+    relevance_score: float = 0.0
+
+
+@dataclass
+class RerankResult:
+    results: list[DocumentResult] = field(default_factory=list)
+    usage: dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
 class StatusResponse:
     state: str = "UNINITIALIZED"  # UNINITIALIZED|BUSY|READY|ERROR
     memory: dict[str, int] = field(default_factory=dict)
 
 
 class Backend(abc.ABC):
-    """One loaded model serving the LLM calls of the contract."""
+    """One loaded model serving the calls of the contract it implements;
+    the others raise ``NotImplementedError`` (a 501 at the HTTP layer)."""
 
     def health(self) -> bool:
         return True
@@ -132,11 +146,11 @@ class Backend(abc.ABC):
     @abc.abstractmethod
     def load_model(self, opts: ModelLoadOptions) -> Result: ...
 
-    @abc.abstractmethod
-    def predict(self, opts: PredictOptions) -> Reply: ...
+    def predict(self, opts: PredictOptions) -> Reply:
+        raise NotImplementedError
 
-    @abc.abstractmethod
-    def predict_stream(self, opts: PredictOptions) -> Iterator[Reply]: ...
+    def predict_stream(self, opts: PredictOptions) -> Iterator[Reply]:
+        raise NotImplementedError
 
     def tokenize_string(self, opts: PredictOptions) -> TokenizationResponse:
         raise NotImplementedError
@@ -148,6 +162,22 @@ class Backend(abc.ABC):
         """The engine's event queue for a streamed request (the HTTP
         routes stream from it)."""
         raise NotImplementedError("streaming through this backend")
+
+    def rerank(self, query: str, documents: list[str],
+               top_n: int = 0) -> RerankResult:
+        raise NotImplementedError
+
+    def stores_set(self, keys, values) -> Result:
+        raise NotImplementedError
+
+    def stores_delete(self, keys) -> Result:
+        raise NotImplementedError
+
+    def stores_get(self, keys):
+        raise NotImplementedError
+
+    def stores_find(self, key, top_k: int):
+        raise NotImplementedError
 
     def status(self) -> StatusResponse:
         return StatusResponse(state="READY")

@@ -295,8 +295,10 @@ def test_chip_smoke_tokenizer_matches_tokenizers(tmp_path):
                        "behavior": "Removed", "invert": False}),
     ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\w+"},
                        "behavior": "Isolated", "invert": False}),
-    ("decoder", {"type": "WordPiece", "prefix": "##", "cleanup": True}),
-    ("model", {"type": "WordPiece", "vocab": {"a": 0}, "unk_token": "a"}),
+    # WordPiece is read since the encoders came (engine/wordpiece.py)
+    ("decoder", {"type": "CTC", "pad_token": "<pad>",
+                 "word_delimiter_token": "|", "cleanup": True}),
+    ("model", {"type": "WordLevel", "vocab": {"a": 0}, "unk_token": "a"}),
 ])
 def test_unsupported_component_raises_naming_it(family_files, tmp_path,
                                                 component):

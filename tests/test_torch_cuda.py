@@ -1386,3 +1386,89 @@ def test_family_graphs_equal_eager_bodies(cuda_device, family):
     finally:
         graph.close()
         eager.close()
+
+
+def _encoder(n_classes: int, seed: int):
+    """A tiny encoder with seeded random f32 weights on the CPU."""
+    from localai_tfp_tpu_torch.models.encoder import tiny_encoder_spec
+
+    spec = tiny_encoder_spec(n_classes=n_classes, max_position=64)
+    g = torch.Generator().manual_seed(seed)
+    D, F, L, C = spec.d_model, spec.d_ff, spec.n_layers, n_classes
+    shapes = {"word_emb": (spec.vocab_size, D), "pos_emb": (64, D),
+              "type_emb": (2, D), "emb_ln_w": (D,), "emb_ln_b": (D,),
+              "wq": (L, D, D), "bq": (L, D), "wk": (L, D, D), "bk": (L, D),
+              "wv": (L, D, D), "bv": (L, D), "wo": (L, D, D), "bo": (L, D),
+              "attn_ln_w": (L, D), "attn_ln_b": (L, D), "w_up": (L, D, F),
+              "b_up": (L, F), "w_down": (L, F, D), "b_down": (L, D),
+              "out_ln_w": (L, D), "out_ln_b": (L, D)}
+    if C:
+        shapes.update(pool_w=(D, D), pool_b=(D,), cls_w=(D, C), cls_b=(C,))
+    params = {k: torch.randn(s, generator=g) * 0.1 for k, s in shapes.items()}
+    for k in params:
+        if k.endswith("ln_w"):
+            params[k] += 1.0
+    return spec, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_classes", [0, 3])
+def test_encoder_on_the_card_matches_the_cpu(cuda_device, n_classes):
+    """encode, mean_pool and classify on the card within 1e-5 of the CPU
+    (f32 products, whatever the process's TF32 setting)."""
+    from localai_tfp_tpu_torch.models.encoder import (classify, encode,
+                                                      mean_pool)
+
+    spec, params = _encoder(n_classes, seed=3)
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, spec.vocab_size, (4, 40), generator=g)
+    mask = (torch.arange(40)[None] < torch.tensor([40, 3, 17, 29])[:, None]
+            ).int()
+    types = (torch.arange(40)[None] >= 10).int() * mask
+    want = encode(spec, params, toks, mask, types)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        dev = {k: v.to(cuda_device) for k, v in params.items()}
+        got = encode(spec, dev, toks.to(cuda_device), mask.to(cuda_device),
+                     types.to(cuda_device))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.isfinite(got).all()
+        assert (got.cpu() - want).abs().max().item() <= 1e-5
+        pooled = mean_pool(got, mask.to(cuda_device)).cpu()
+        assert (pooled - mean_pool(want, mask)).abs().max().item() <= 1e-5
+        if n_classes:
+            d = (classify(spec, dev, got).cpu()
+                 - classify(spec, params, want)).abs().max().item()
+            assert d <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_python_store_find_on_the_card_matches_numpy(cuda_device,
+                                                     monkeypatch):
+    """Above its threshold the Python store's matvec runs on the card:
+    the same top 10 as a numpy f64 scan, similarities within 1e-5."""
+    import numpy as np
+
+    from localai_tfp_tpu_torch.store import backend as sb
+
+    monkeypatch.setattr(sb, "_DEVICE_THRESHOLD", 1000)
+    rng = np.random.default_rng(9)
+    keys = rng.standard_normal((5000, 384)).astype(np.float32)
+    keys /= np.linalg.norm(keys, axis=1, keepdims=True)
+    store = sb.VectorStore(cuda_device)
+    store.set(keys, list(range(5000)))
+    calls = []
+    real = sb.device_dots
+    monkeypatch.setattr(sb, "device_dots",
+                        lambda k, q, d: calls.append(d) or real(k, q, d))
+    for i in range(3):
+        q = keys[i * 7] + rng.standard_normal(384).astype(np.float32) * 0.05
+        dots = keys.astype(np.float64) @ q.astype(np.float64)
+        order = np.argsort(-dots)[:10]
+        k, v, sims = store.find(q, 10)
+        assert v == [int(j) for j in order]
+        assert np.abs(sims - dots[order]).max() <= 1e-5
+    assert calls == [cuda_device] * 3

@@ -89,7 +89,11 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
               "config.app_config", "config.watcher", "engine.loader",
               "server.state", "server.localai_routes", "utils.sysinfo",
               "utils.http", "workers.remote", "models.gguf",
-              "models.lora", "engine.unigram", "version"):
+              "models.lora", "engine.unigram", "version",
+              "server.schema", "engine.wordpiece", "models.encoder",
+              "workers.encoder_base", "workers.embeddings",
+              "workers.rerank", "store.backend", "store.native",
+              "clients.store", "utils.cxx"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)

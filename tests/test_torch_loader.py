@@ -361,7 +361,16 @@ def test_port_aliases_cover_the_jax_llm_names():
                  "transformers", "exllama2", "langchain-huggingface"):
         assert tl.resolve_backend(name) == "torch-llm"
         assert jl.resolve_backend(name) == "jax-llm"
-    assert set(tl.ALIASES) == set(jl.ALIASES) | {"jax-llm"}
+    assert set(tl.ALIASES) == set(jl.ALIASES) | {"jax-llm", "jax-embeddings",
+                                                 "jax-rerank"}
+    # the encoder aliases, and the JAX workers' names, reach the port's
+    for name in ("sentencetransformers", "huggingface-embeddings",
+                 "embeddings", "jax-embeddings"):
+        assert tl.resolve_backend(name) == "torch-embeddings"
+        assert jl.resolve_backend(name) == "jax-embeddings"
+    for name in ("rerankers", "rerank", "jax-rerank"):
+        assert tl.resolve_backend(name) == "torch-rerank"
+        assert jl.resolve_backend(name) == "jax-rerank"
 
 
 def test_busy_window_counts_overlapping_calls(registries):

@@ -186,6 +186,6 @@ def test_non_json_config_is_a_clear_error(tmp_path):
     p.write_text("name: tiny\nbackend: jax-llm\n")
     (cfg,) = load_config_file(str(p))
     assert cfg.backend == "jax-llm"
-    p.write_text("name: tiny\nbackend: !!str jax-llm\n")
+    p.write_text("name: tiny\nbackend: !custom jax-llm\n")
     with pytest.raises(ValueError, match=r"yamlish\.yaml:2: tags"):
         load_config_file(str(p))

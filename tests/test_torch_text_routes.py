@@ -24,6 +24,7 @@ tokenizer's template and through a Go template, ``/v1/completions``,
 
 import asyncio
 import json
+import re
 import threading
 import urllib.error
 import urllib.request
@@ -603,14 +604,21 @@ def test_yaml_configs_read_as_pyyaml(workdir):
         assert cfg.parameters.echo == bool(want["parameters"].get("echo"))
 
 
-def test_unreadable_yaml_or_template_fails_with_the_reason(tmp_path):
+def test_unreadable_yaml_or_template_fails_with_the_reason(tmp_path, caplog):
     from localai_tfp_tpu_torch.server.app import build_server
 
     models = tmp_path / "models"
     models.mkdir()
-    (models / "bad.yaml").write_text("name: bad\nbackend: !!str llama\n")
-    with pytest.raises(ValueError, match=r"bad\.yaml:2: tags"):
-        build_server(str(models), device="cpu")
+    # a YAML the reader refuses is logged with the reason and skipped: the
+    # server starts and serves the other configs, as the JAX server does
+    (models / "bad.yaml").write_text("name: bad\nbackend: !custom llama\n")
+    (models / "good.yaml").write_text("name: good\nbackend: jax-llm\n")
+    with caplog.at_level("WARNING"):
+        srv = build_server(str(models), device="cpu")
+    srv.server_close()
+    assert srv.app.config_loader.names() == ["good"]
+    assert re.search(r"bad\.yaml:2: tags", caplog.text)
+    (models / "good.yaml").unlink()
     (models / "bad.yaml").write_text(
         "name: bad\nbackend: jax-llm\ntemplate:\n  chat: '{% if x %}'\n"
         "  chat_message: m\n")

@@ -282,7 +282,7 @@ RESOLVER_CASES = {
 }
 
 REFUSED = {
-    "tag": ("a: 1\nb: !!str 5\n", 2, "tags"),
+    "tag": ("a: 1\nb: !!binary aGk=\n", 2, "tags"),
     "local tag": ("a: !custom x\n", 1, "tags"),
     "complex key": ("? a\n: b\n", 1, "complex"),
     "directive": ("%YAML 1.1\n---\na: 1\n", 1, "directives"),
@@ -348,6 +348,55 @@ def test_yaml_11_resolver(name):
         assert doc["a"] is True and doc["d"] is False and doc["g"] == "y"
     if name == "dates":
         assert doc["a"] == datetime.date(2001, 12, 14)
+
+
+TAGGED = {
+    "str": "a: !!str 5\nb: !!str yes\nc: !!str\nd: !!str 'q'\n",
+    "int": "a: !!int '0x1F'\nb: !!int \"12\"\nc: !!int 1_000\n",
+    "float": "a: !!float 1\nb: !!float 1e5\nc: !!float .inf\n",
+    "bool": "a: !!bool Yes\nb: !!bool off\nc: !!bool 'TRUE'\n",
+    "null": "a: !!null x\nb: !!null\nc: !!null ''\n",
+    "block": "a: !!str |\n  two\n  lines\nb: !!str >-\n  folded\n  text\n",
+    "flow": "a: [!!str 1, !!int \"2\", !!float 3]\nb: {k: !!str on}\n",
+    "sequence": "- !!str on\n- !!bool off\n- !!null ~\n",
+    "model": "name: tagged\nparameters: {model: !!str tagged}\n",
+}
+
+
+@pytest.mark.parametrize("name", sorted(TAGGED))
+def test_standard_scalar_tags_read_as_pyyaml(name):
+    _check(TAGGED[name])
+
+
+@pytest.mark.parametrize("text", ["a: !!int abc\n", "a: !!bool maybe\n",
+                                  "a: !!str [1]\n", "a: !!str\n  b: 1\n"])
+def test_tags_pyyaml_refuses_are_refused(text):
+    with pytest.raises(Exception):
+        list(yaml.safe_load_all(text))
+    with pytest.raises(ValueError, match="t.yaml:1: "):
+        yaml_lite.load_all(text, "t.yaml")
+
+
+def test_both_servers_start_on_a_directory_with_a_refused_file(tmp_path):
+    """C11: ``good.yaml``, ``tagged.yaml`` (``!!str``) and a file both
+    readers refuse (a local tag): both servers start, skip the refused
+    file and list the same models."""
+    from tests.test_torch_retrieval import Pair
+
+    models = tmp_path / "models"
+    models.mkdir()
+    (models / "good.yaml").write_text("name: good\nparameters: {model: good}\n")
+    (models / "tagged.yaml").write_text(
+        "name: tagged\nparameters: {model: !!str tagged}\n")
+    (models / "refused.yaml").write_text(
+        "name: refused\nparameters: {model: !custom refused}\n")
+    p = Pair(tmp_path / "srv", models)
+    try:
+        assert p.jstate.config_loader.names() == \
+            p.app.config_loader.names() == ["good", "tagged"]
+        assert p.app.config_loader.get("tagged").model == "tagged"
+    finally:
+        p.close()
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -425,8 +474,13 @@ def test_loader_validates_every_document_before_any(tmp_path):
         "name: ok\n---\nparameters: {model: ../escape}\n")
     with pytest.raises(ValueError, match=r"m\.yaml: invalid model config"):
         load_config_file(str(tmp_path / "m.yaml"))
-    with pytest.raises(ValueError, match=r"m\.yaml"):
-        load_configs_from_path(str(tmp_path))
+    # the server's scan logs the file and skips it whole, as the JAX
+    # loader does
+    from localai_tfp_tpu.config.loader import ConfigLoader
+
+    jax = ConfigLoader(tmp_path)
+    assert jax.load_configs_from_path() == 0
+    assert load_configs_from_path(str(tmp_path)) == {}
     (tmp_path / "m.yaml").write_text("backend: llama\n")
     with pytest.raises(ValueError, match="neither 'name' nor 'model'"):
         load_config_file(str(tmp_path / "m.yaml"))
