@@ -116,6 +116,34 @@ Phases, one result line each; any failure raises and exits non-zero:
    decode ks; (d) a request whose timeout is below its predicted
    prefill refused before any prefill (504, the reference's text), and
    a shed request's Retry-After equal to the predicted drain.
+8b. tiers — on each model's server after phase 8 (the bf16 model at full
+   depth, the int8 model at its first ``INT8_CUT_LAYERS`` layers), the
+   warm KV tier on a fresh engine with ``LOCALAI_KV_TIER_HOST_MB=4096``
+   (pinned) and a pool of ``TIER_KV_PAGES`` (twice the default, so 8
+   returning sessions stage beside 8 residents); the tier's other knobs
+   at their defaults. bf16: 8 sessions of 1800 random tokens, spilled at
+   once on the idle engine (bytes, ms enqueue to landed, GB/s against the
+   PCIe link's bound from nvidia-smi; every plane of every session's
+   host pages bitwise equal to a gather of the same pages taken before
+   the spill), promoted (H2D ms and GB/s), evicted by 8 other sessions
+   and served again by prefetch hit (at most 1 prompt token computed
+   each), with their prefixes resident (the same ids, by replay and by
+   the variant bodies: B1 launches per forward = layers both ways), and
+   cold after the tier's entries are dropped (TTFT and prompt tokens of
+   each way); 4 decoding streams' ITL p50/p99 with 8 returning sessions
+   spilling and prefetching beside them and alone; the share of kv:*
+   timeline spans overlapping step:* spans, none blocking; the cold tier
+   (one session saved to a temporary ``LOCALAI_KV_TIER_DIR``, loaded
+   back: file bytes, TTFT of the cold hit against a re-prefill); the
+   debug routes (a traced stream's phases and echoed traceparent, a 1 s
+   /debug/profile under load naming B1's kernel, /debug/timeline,
+   OpenMetrics with an exemplar); the allocator's reserved bytes by
+   allocation frame beside the HBM ledger. int8 (int8 pages): 2
+   sessions, bytes bitwise (k, v and their scales), their hits, the
+   profile naming B2's kernels too. The other phases run with the tier
+   at its default (on); phases whose checks count prompt tokens or
+   pages serve fresh engines whose pools stay under the tier's
+   watermark, so no background spill moves their counts.
 9. spec    — after phase 5 (its checkpoint):
    speculative decoding through the HTTP route with a random-weight
    Llama-3.2-1B-geometry draft (16 layers, Dh 64, tied head, seed 1)
@@ -1823,10 +1851,11 @@ def shared_kv(eng, prompts: list, n: int) -> dict:
             "bitwise_equal": sum(equal)}
 
 
-def fresh_engine(backend, prefix_cache: bool):
+def fresh_engine(backend, prefix_cache: bool, cache_dtype=None):
     """Swap a new engine (same model, draft, settings and weights; empty
-    arenas and slots) into the worker, with prefix sharing on or off, its
-    graphs captured as the worker captures them at load."""
+    arenas and slots) into the worker, with prefix sharing on or off (and
+    the KV pages in ``cache_dtype`` when given), its graphs captured as
+    the worker captures them at load."""
     import gc
 
     import torch
@@ -1835,7 +1864,8 @@ def fresh_engine(backend, prefix_cache: bool):
 
     old = backend.engine
     kw = dict(n_slots=old.n_slots, max_seq=old.max_seq,
-              cache_dtype=old.cache.k.dtype, device=old.device,
+              cache_dtype=(old.cache.k.dtype if cache_dtype is None
+                           else cache_dtype), device=old.device,
               draft=old.draft, n_draft=old.n_draft)
     spec, params, tok = old.spec, old.params, old.tokenizer
     old_label = old._mlabel
@@ -2463,7 +2493,8 @@ def phase_graphs(port: int, app, model: str, backend) -> dict:
             + (("graph_pool",) if on_card else ())):
         raise AssertionError(f"{model}: /metrics {scrape}")
     return {
-        "warmup_s": eng.metrics.warmup_s, "load_warmup_s": backend.warmup_s,
+        "warmup_s": eng.metrics.warmup_s,
+        "load_warmup_s": backend.load_breakdown["warmup_s"],
         "variants": eng.variant_count(),
         "graph_pool_bytes": eng._graph_pool_bytes,
         "host_ms_per_decode_forward": {
@@ -2533,8 +2564,8 @@ class DispatchClock:
                     self.delivered.setdefault(rid, []).append(t1)
             return run
 
-        def harvest_(kind, key, pred):
-            span = harvest(kind, key, pred)
+        def harvest_(kind, key, pred, *timeline):
+            span = harvest(kind, key, pred, *timeline)
             self.span.setdefault(kind, []).append(span)
             if kind == "mixed":
                 self.span_by_shape.setdefault(key[1], []).append(span)
@@ -2987,6 +3018,640 @@ def phase_dispatch(port: int, app, model: str, backend) -> dict:
     }
 
 
+# ------------------------------------------------------------ phase tiers
+
+TIER_SESSIONS = 8  # returning sessions, one per slot
+TIER_TOKENS = 1800  # prompt tokens of each: 8 pages of 256 at 2048
+TIER_HOST_MB = 4096  # host pages: 8 sessions of ~1800 tokens twice over
+TIER_STREAMS_TOKENS = 96  # tokens each live stream decodes
+# the phase engine's pool: twice the default (8 slots x 8 pages + 1), so
+# the 8 returning sessions stage beside 8 resident ones; the default pool
+# is full once every slot holds a 2048-context resident, and a stage
+# needs free pages (as in the JAX tier)
+TIER_KV_PAGES = 2 * SLOTS * (CONTEXT // PAGE) + 1
+# per-lane transfer rate (GT/s) and encoding of each PCIe generation
+PCIE_GTS = {1: (2.5, 0.8), 2: (5.0, 0.8), 3: (8.0, 128 / 130),
+            4: (16.0, 128 / 130), 5: (32.0, 128 / 130)}
+
+
+def _card_smi() -> str:
+    """nvidia-smi's name and power limit ("cpu" without a card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def host_link() -> dict:
+    """The card's PCIe link as nvidia-smi reads it (current and maximum
+    generation and width) and the bound of one direction at the
+    maximum: lanes x GT/s x the encoding's payload share / 8 (GB/s).
+    Where nvidia-smi reads no link ([N/A]), the bound is the H100 SXM
+    host interface's, PCIe Gen5 x16, and ``bound_source`` says so."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return {"gen": None, "width": None, "bound_gbs": None}
+    q = ("pcie.link.gen.current,pcie.link.width.current,"
+         "pcie.link.gen.max,pcie.link.width.max")
+    vals = [v.strip() for v in subprocess.run(
+        ["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0].split(",")]
+    out = dict(zip(("gen_current", "width_current", "gen", "width"), vals))
+    if all(v.isdigit() for v in vals):
+        gen, width, src = int(vals[2]), int(vals[3]), "nvidia-smi"
+    else:
+        gen, width, src = 5, 16, "H100 SXM host interface (nvidia-smi: N/A)"
+    gts, enc = PCIE_GTS[gen]
+    return {**out, "bound_gbs": width * gts * enc / 8,
+            "bound_source": f"PCIe Gen{gen} x{width}, {src}"}
+
+
+def _sync(eng) -> None:
+    import torch
+
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def tier_prompts(n: int, tokens: int, seed: int) -> list:
+    """n distinct prompts of ``tokens`` random ids (BOS first)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[1] + rng.integers(1000, 120000, tokens - 1).tolist()
+            for _ in range(n)]
+
+
+def tier_wave(eng, prompts: list, max_tokens: int = 8) -> dict:
+    """One admission wave of greedy requests through ``submit_many``:
+    each request's generated ids and TTFT (the engine's host clock,
+    submit to first token), the prompt tokens the wave computed, the
+    tier's hits, and B1's launches and forwards in it."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    got = {}
+    fin = eng._finish
+
+    def finish(slot, reason):
+        if slot.request is not None:
+            got[slot.request.id] = list(slot.generated)
+        return fin(slot, reason)
+
+    eng._finish = finish
+    tier = eng._tier
+    hits0 = tier.counters["prefetch_hit"] if tier is not None else 0
+    filled0, steps0 = eng.metrics.prefill_tokens, eng.metrics.forward_steps
+    ragged_paged_attention.launches = int8_matmul.launches = 0
+    reqs = [GenRequest(prompt_ids=list(p), max_tokens=max_tokens,
+                       ignore_eos=True) for p in prompts]
+    try:
+        finals = []
+        for q in eng.submit_many(reqs):
+            ev = q.get(timeout=600)
+            while not ev.done:
+                ev = q.get(timeout=600)
+            finals.append(ev)
+    finally:
+        del eng._finish  # the class's method again
+    bad = [f.finish_reason for f in finals if f.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"tier wave: {bad}")
+    ttft = [f.timing_first_token_ms for f in finals]
+    return {"ids": [got[r.id] for r in reqs],
+            "ttft_ms": {"each": ttft, "p50": _pct(ttft, 0.5),
+                        "max": max(ttft)},
+            "prompt_tokens_computed": eng.metrics.prefill_tokens - filled0,
+            "hits": (tier.counters["prefetch_hit"] - hits0
+                     if tier is not None else 0),
+            "forwards": eng.metrics.forward_steps - steps0,
+            "b1_launches": ragged_paged_attention.launches,
+            "b2_launches": int8_matmul.launches}
+
+
+def tier_idle(eng, limit: float = 60.0) -> None:
+    """Wait for the scheduler to go quiet, then land every transfer."""
+    deadline = time.perf_counter() + limit
+    while (eng._pending or any(s.active for s in eng.slots)) \
+            and time.perf_counter() < deadline:
+        time.sleep(0.005)
+    eng._tier.settle()
+
+
+def spill_and_check(eng, slots: list) -> dict:
+    """Spill each slot's resident (urgent, as a reclaim does) at once on
+    an idle engine and wait for the copies: enqueue-to-landed wall and
+    GB/s; then each session's host pages against a gather of the same
+    pages taken before the spill, bitwise, plane by plane."""
+    import torch
+
+    tier = eng._tier
+    planes = tier._planes()
+    pre = []
+    for s in slots:
+        npg = eng._pool.pages_for(len(s.cache_tokens))
+        tbl = torch.tensor(eng._pool.table(s.idx)[:npg], dtype=torch.long,
+                           device=eng.device)
+        pre.append((list(s.cache_tokens),
+                    {nm: a[:, tbl].clone() for nm, a in planes.items()}))
+    _sync(eng)
+    t0 = time.perf_counter()
+    for s in slots:
+        if not tier._spill(s, urgent=True, now=time.perf_counter()):
+            raise AssertionError(f"slot {s.idx}: spill refused")
+    nbytes = sum(sp.nbytes for sp in tier._swin.tags())
+    _sync(eng)
+    wall = time.perf_counter() - t0
+    tier.settle()
+    equal = {nm: 0 for nm in planes}
+    for tokens, ref in pre:
+        ent = next(e for e in tier.entries() if e.tokens == tokens)
+        rows = tier.host_rows(ent)
+        for nm, r in ref.items():
+            want = r.reshape(r.shape[0], -1, *r.shape[3:])
+            if not _bitwise(rows[nm].to(eng.device), want):
+                raise AssertionError(f"spilled {nm} of a {len(tokens)}-token "
+                                     "session differs from its pre-spill "
+                                     "gather")
+            equal[nm] += 1
+    return {"sessions": len(slots), "bytes": nbytes, "ms": wall * 1e3,
+            "gbs": nbytes / wall / 1e9, "bitwise_equal_sessions": equal,
+            "dtype": str(planes["k"].dtype)}
+
+
+def stage_timing(eng, entries: list) -> dict:
+    """Promote warm entries into stage pages (side-stream H2D, then the
+    scatter into the arena) a stage's worth at a time on an idle engine,
+    each batch to completion; the stages are then abandoned (counted as
+    ``prefetch_expired``)."""
+    import uuid as _uuid
+    from types import SimpleNamespace
+
+    tier = eng._tier
+    nbytes, wall = 0, 0.0
+    for i in range(0, len(entries), tier.N_STAGE):
+        batch = entries[i:i + tier.N_STAGE]
+        reqs = [SimpleNamespace(id=_uuid.uuid4().hex,
+                                prompt_ids=list(e.tokens)) for e in batch]
+        _sync(eng)
+        t0 = time.perf_counter()
+        for r, e in zip(reqs, batch):
+            if not tier._stage(r, e, e.n, time.perf_counter()):
+                raise AssertionError("stage refused (pool or stage ids)")
+        nbytes += sum(b for _, b, _ in tier._fwin.tags())
+        _sync(eng)
+        wall += time.perf_counter() - t0
+        tier.settle()
+        for r in reqs:
+            tier._abandon_fetch(r.id, tier._fetches.pop(r.id))
+    return {"sessions": len(entries), "bytes": nbytes, "ms": wall * 1e3,
+            "gbs": nbytes / wall / 1e9}
+
+
+def memory_by_frame(eng) -> dict:
+    """The allocator's reserved bytes by owner: active blocks grouped by
+    the innermost frame in the repository (recorded since the history
+    was switched on; earlier blocks have none), and the reserved bytes
+    no block holds (the allocator's cache), beside the HBM ledger's
+    components and its unattributed remainder."""
+    import torch
+
+    if eng.device.type != "cuda":
+        return {}
+    def owner(blk) -> str:
+        for fr in blk.get("frames") or []:
+            fn = str(fr.get("filename", ""))
+            if "localai_tfp_tpu_torch" in fn or fn.endswith("chip_smoke.py"):
+                return (f"{fn.split('localai_tfp_tpu_torch/')[-1]}:"
+                        f"{fr.get('line')} {fr.get('name')}")
+        return ("(no repository frame)" if blk.get("frames")
+                else "(allocated before the history)")
+
+    snap = torch.cuda.memory._snapshot()
+    pool = tuple(eng._graph_pool)
+    active: dict = {}
+    cached: dict = {}  # free blocks kept by the allocator, by last owner
+    graph_free = 0
+    segs = []  # segments holding such blocks: (size, free, live, owners)
+    for seg in snap["segments"]:
+        in_graphs = tuple(seg.get("segment_pool_id", ())) == pool
+        free = live = 0
+        owners_here: set = set()
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                where = owner(blk)
+                active[where] = active.get(where, 0) + blk["size"]
+                live += blk["size"]
+                owners_here.add(where)
+            elif in_graphs:
+                graph_free += blk["size"]
+            else:
+                where = owner(blk)
+                cached[where] = cached.get(where, 0) + blk["size"]
+                free += blk["size"]
+        if free:
+            segs.append((seg["total_size"], free, live, sorted(owners_here)))
+
+    def top(d: dict, n: int) -> dict:
+        return dict(sorted(d.items(), key=lambda kv: -kv[1])[:n])
+
+    led = eng._ledger.reconcile() if eng._ledger is not None else {}
+    return {"reserved": sum(s["total_size"] for s in snap["segments"]),
+            "graph_pool_free": graph_free,
+            "allocator_cache": sum(cached.values()),
+            "allocator_cache_by_frame": top(cached, 8),
+            "allocator_cache_segments": [
+                {"size": s, "free": f, "live": lv, "live_owners": o[:3]}
+                for s, f, lv, o in sorted(segs, key=lambda x: -x[1])[:6]],
+            "active_by_frame": top(active, 12),
+            "ledger_components": led.get("components"),
+            "ledger_unattributed": led.get("unattributed")}
+
+
+def itl_streams(eng, backend, extra: list) -> dict:
+    """DISPATCH_STREAMS greedy streams decoding TIER_STREAMS_TOKENS each;
+    once they decode, ``extra`` requests (returning sessions) arrive
+    beside them. Per stream, each dispatch's delivery gap over the
+    tokens it delivered: p50 and p99 over the streams."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    streams = stream_requests(backend, TIER_STREAMS_TOKENS)
+    times: dict = {r.id: [] for r in streams}
+    emit = eng._emit_token
+
+    def emit_(slot, tok, defer=False):
+        # the dispatch a token came from: the forward count it ran to
+        if slot.request is not None and slot.request.id in times:
+            times[slot.request.id].append((eng.metrics.forward_steps,
+                                           time.perf_counter()))
+        return emit(slot, tok, defer)
+
+    eng._emit_token = emit_
+    try:
+        qs = eng.submit_many(streams)
+        while not all(times[r.id] for r in streams):
+            time.sleep(0.001)
+        qs += eng.submit_many([GenRequest(prompt_ids=list(p), max_tokens=8,
+                                          ignore_eos=True) for p in extra])
+        for q in qs:
+            ev = q.get(timeout=600)
+            while not ev.done:
+                ev = q.get(timeout=600)
+    finally:
+        del eng._emit_token
+    gaps = []
+    for ts in times.values():
+        groups: dict = {}  # dispatch -> (its host time, tokens)
+        for step, t in ts[1:]:  # from the first token on
+            groups[step] = (groups.get(step, (t, 0))[0],
+                            groups.get(step, (t, 0))[1] + 1)
+        prev = ts[0][1]
+        for t, k in sorted(groups.values()):
+            gaps.append((t - prev) * 1e3 / k)
+            prev = t
+    return {"itl_p50_ms": _pct(gaps, 0.5), "itl_p99_ms": _pct(gaps, 0.99),
+            "samples": len(gaps)}
+
+
+def timeline_overlap(trace: dict) -> dict:
+    """From a Chrome trace of the flight recorder: the kv:* spans, the
+    share of them that overlap a step:* span in time, whether any is
+    blocking, and the step spans' measured against predicted ms."""
+    tracks = {ev["tid"]: ev["args"]["name"] for ev in trace["traceEvents"]
+              if ev.get("ph") == "M" and ev["name"] == "thread_name"}
+    spans = [ev for ev in trace["traceEvents"] if ev.get("ph") == "X"]
+    kv = [ev for ev in spans if tracks.get(ev["tid"]) == "kv_tier"
+          and ev["name"].startswith("kv:")]
+    steps = [ev for ev in spans if tracks.get(ev["tid"]) == "device"
+             and ev["name"].startswith("step:")]
+    over = sum(1 for k in kv if any(
+        s["ts"] < k["ts"] + k["dur"] and k["ts"] < s["ts"] + s["dur"]
+        for s in steps))
+    ratios = [s["args"]["measured_ms"] / s["args"]["predicted_ms"]
+              for s in steps if s.get("args", {}).get("predicted_ms")]
+    return {"kv_spans": len(kv), "kv_by_name": {
+                n: sum(1 for k in kv if k["name"] == n)
+                for n in sorted({k["name"] for k in kv})},
+            "kv_overlapping_steps": over,
+            "overlap_share": over / len(kv) if kv else None,
+            "blocking": sum(1 for k in kv if k["args"]["blocking"]),
+            "step_spans": len(steps), "priced_steps": len(ratios),
+            "measured_over_predicted_p50": _pct(ratios, 0.5)}
+
+
+def telemetry_routes(port: int, model: str, eng, b2: bool) -> dict:
+    """The debug routes on the served engine: a streamed chat carrying a
+    traceparent (echoed, and its phases in /debug/traces), a 1 s
+    /debug/profile capture while a wave runs (its bytes, B1's kernel
+    name in it, and B2's on the int8 model), /debug/timeline's events
+    and /metrics in OpenMetrics with an exemplar."""
+    import shutil
+    import threading
+
+    from localai_tfp_tpu_torch.telemetry.tracing import (
+        make_traceparent,
+        mint_trace_id,
+        parse_traceparent,
+    )
+
+    out: dict = {}
+    tid = mint_trace_id()
+    status, headers, body = _req(
+        port, "POST", "/v1/chat/completions",
+        {"model": model, "stream": True, "max_tokens": 8,
+         "messages": [{"role": "user", "content": "trace this request"}]},
+        headers={"traceparent": make_traceparent(tid)})
+    echoed = parse_traceparent(headers.get("traceparent", ""))
+    if status != 200 or echoed is None or echoed[0] != tid:
+        raise AssertionError(f"traced chat: HTTP {status}, traceparent "
+                             f"{headers.get('traceparent')!r}")
+    deadline = time.time() + 10
+    while True:
+        status, _, body = _req(port, "GET", f"/debug/traces?id={tid}")
+        traces = [t for t in json.loads(body)["traces"]
+                  if t["model"] == model]
+        if traces and traces[0]["events"][-1]["phase"] == "stream_done":
+            break
+        if time.time() > deadline:
+            raise AssertionError(f"/debug/traces: {body[:400]!r}")
+        time.sleep(0.05)
+    out["trace"] = {"phases": [e["phase"] for e in traces[0]["events"]],
+                    "spans_ms": {s["name"]: s["dur_ms"]
+                                 for s in traces[0]["spans"]},
+                    "traceparent_echoed": True}
+    want = ["receive", "auth", "queue", "admit", "prefill_dispatch",
+            "first_token", "done", "stream_done"]
+    if out["trace"]["phases"] != want:
+        raise AssertionError(f"trace phases {out['trace']['phases']}")
+    # a wave under the profiler
+    os.environ["LOCALAI_PROFILER"] = "on"
+    load = threading.Thread(target=tier_wave, args=(
+        eng, tier_prompts(8, 100, 7), 96))
+    try:
+        load.start()
+        time.sleep(0.2)
+        status, _, body = _req(port, "GET", "/debug/profile?duration=1")
+    finally:
+        load.join(timeout=600)
+        os.environ.pop("LOCALAI_PROFILER", None)
+    if status != 200:
+        raise AssertionError(f"/debug/profile: HTTP {status} {body[:300]!r}")
+    prof = json.loads(body)
+    text = (Path(prof["path"]) / "trace.json").read_text()
+    shutil.rmtree(prof["path"], ignore_errors=True)
+    names = {"b1_rpa_kernel": "rpa_kernel" in text}
+    if b2:
+        names["b2_i8mm"] = "i8mm" in text
+    on_card = eng.device.type == "cuda"
+    if on_card and not all(names.values()):
+        raise AssertionError(f"profile lacks kernels: {names}")
+    out["profile"] = {"bytes": prof["bytes"], "duration_s":
+                      prof["duration_s"], "kernel_names": names}
+    status, _, body = _req(port, "GET", "/debug/timeline")
+    tl = json.loads(body)
+    out["timeline"] = {"events": len(tl["traceEvents"]),
+                       **{k: v for k, v in timeline_overlap(tl).items()
+                          if k in ("step_spans", "priced_steps",
+                                   "measured_over_predicted_p50")}}
+    status, headers, body = _req(
+        port, "GET", "/metrics",
+        headers={"Accept": "application/openmetrics-text"})
+    text = body.decode()
+    ex = [ln for ln in text.splitlines() if '# {trace_id="' in ln]
+    if (status != 200 or not text.endswith("# EOF\n") or not ex
+            or not headers.get("Content-Type", "").startswith(
+                "application/openmetrics-text")):
+        raise AssertionError(f"/metrics OpenMetrics: HTTP {status}, "
+                             f"{len(ex)} exemplars")
+    out["openmetrics"] = {"exemplars": len(ex)}
+    return out
+
+
+def phase_tiers(port: int, app, model: str, backend, layers: int,
+                seed: int, full: bool = True) -> dict:
+    """The warm KV tier on the served model (a fresh engine: host pages
+    of TIER_HOST_MB, a pool of TIER_KV_PAGES; the tier at its other
+    defaults). Full (the bf16 8B at full depth): 8 sessions of 1800
+    tokens: spilled on an idle engine (bytes bitwise against the
+    pre-spill gather, GB/s against the host link's bound), promoted (H2D
+    GB/s), evicted by 8 other sessions and served again three ways (by
+    prefetch hit, resident, cold after the tier's entries are dropped:
+    TTFT and prompt tokens computed; hit ids equal to resident ids; B1
+    launches per forward by replay and per call), 4 decoding streams' ITL
+    with and without 8 returning sessions spilling and prefetching beside
+    them, the timeline's kv:* spans against step:* spans, the cold tier
+    (save, load, TTFT of a cold hit against a re-prefill), the debug
+    routes and the allocator's bytes by owner. Not full (the int8 model
+    at INT8_CUT_LAYERS, int8 pages): 2 sessions spilled, bytes bitwise
+    (k, v and their scales), one hit, the profile's kernel names."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from localai_tfp_tpu_torch.config.knobs import float_ as knobs_float
+    from localai_tfp_tpu_torch.telemetry.flightrec import FLIGHT
+
+    t_phase = time.perf_counter()
+    smi = _card_smi()
+    on_card = torch.cuda.is_available() and CARD == "cuda"
+    if on_card:
+        torch.cuda.memory._record_memory_history(max_entries=200000,
+                                                 stacks="python")
+    os.environ["LOCALAI_KV_TIER_HOST_MB"] = str(TIER_HOST_MB)
+    os.environ["LOCALAI_KV_PAGES"] = str(TIER_KV_PAGES)
+    try:
+        eng = fresh_engine(backend, True, cache_dtype=(
+            None if full else torch.int8))
+    finally:
+        os.environ.pop("LOCALAI_KV_TIER_HOST_MB", None)
+        os.environ.pop("LOCALAI_KV_PAGES", None)
+    tier = eng._tier
+    if tier is None:
+        raise AssertionError("the served engine has no KV tier")
+    setting = {"kv_tier": "on", "host_mb": TIER_HOST_MB,
+               "pinned": bool(tier.slab.buf.is_pinned()) if on_card
+               else None, "kv_pages": eng.kv_pages, "page": eng.page,
+               "idle_s": tier.idle_s, "watermark": tier.watermark}
+    if on_card and not setting["pinned"]:
+        raise AssertionError("the tier's host pages are not pinned")
+    n = TIER_SESSIONS if full else 2
+    A = tier_prompts(n, TIER_TOKENS, seed + 11)
+    out: dict = {"setting": setting, "card": smi}
+    first = tier_wave(eng, A)
+    out["first_ttft_ms"] = first["ttft_ms"]
+    if on_card:
+        out["memory"] = memory_by_frame(eng)
+        torch.cuda.memory._record_memory_history(enabled=None)
+        log("tiers_memory", model=model, **out["memory"], card=smi)
+    resident = [s for s in eng.slots if s.cache_tokens]
+    out["spill"] = spill_and_check(eng, resident)
+    link = host_link()
+    out["spill"]["link"] = link
+    if link["bound_gbs"]:
+        out["spill"]["share_of_link"] = out["spill"]["gbs"] / link["bound_gbs"]
+    log("tiers_spill", model=model, **out["spill"], card=smi)
+    if not full:
+        # the returning sessions after other sessions took the slots
+        tier_wave(eng, tier_prompts(SLOTS, TIER_TOKENS, seed + 12))
+        hit = tier_wave(eng, A)
+        if hit["hits"] != n or hit["prompt_tokens_computed"] > n:
+            raise AssertionError(f"int8 pages: {hit['hits']} hits, "
+                                 f"{hit['prompt_tokens_computed']} tokens")
+        out["hit"] = {k: hit[k] for k in (
+            "hits", "prompt_tokens_computed", "ttft_ms", "forwards",
+            "b1_launches", "b2_launches")}
+        out["routes"] = telemetry_routes(port, model, eng, b2=True)
+        log("tiers_int8", model=model, hit=out["hit"],
+            profile=out["routes"]["profile"], card=smi)
+        tier_idle(eng)
+        tier.leak_check()
+        eng.leak_check()
+        out["phase_s"] = time.perf_counter() - t_phase
+        return out
+    # 8 other sessions take the slots: their captures find A covered
+    B = tier_prompts(n, TIER_TOKENS, seed + 12)
+    tier_wave(eng, B)
+    tier_idle(eng)
+    out["prefetch"] = stage_timing(eng, [e for e in tier.entries()
+                                         if e.tokens[:TIER_TOKENS] in A])
+    out["prefetch"]["link"] = link
+    log("tiers_prefetch", model=model, **out["prefetch"], card=smi)
+    FLIGHT.clear()
+    hit = tier_wave(eng, A)
+    res = tier_wave(eng, A)
+    # the same wave per call: the variant bodies eagerly
+    eng._mixed_launch, eng._decode_launch = eng._mixed_body, eng._decode_body
+    try:
+        res_call = tier_wave(eng, A)
+    finally:
+        del eng._mixed_launch, eng._decode_launch
+    if hit["hits"] != n or hit["prompt_tokens_computed"] > n:
+        raise AssertionError(f"returning sessions: {hit['hits']} hits, "
+                             f"{hit['prompt_tokens_computed']} prompt "
+                             "tokens computed")
+    if hit["ids"] != res["ids"] or res_call["ids"] != res["ids"]:
+        raise AssertionError("prefetch-hit ids differ from resident ids")
+    for w in (hit, res, res_call):
+        if on_card and w["b1_launches"] != layers * w["forwards"]:
+            raise AssertionError(f"B1 {w['b1_launches']} launches for "
+                                 f"{w['forwards']} forwards")
+    # ITL of four streams: 8 returning sessions (B) beside them, whose
+    # admissions spill the A residents (their entries dropped first) and
+    # prefetch B; then the streams alone
+    for e in tier.entries():
+        if e.tokens[:TIER_TOKENS] in A:
+            tier._drop_entry(e)
+    moves0 = dict(tier.counters)
+    itl_tier = itl_streams(eng, backend, B)
+    tier_idle(eng)
+    moved = {k: tier.counters[k] - moves0[k]
+             for k in ("spills", "prefetch_hit")}
+    itl_alone = itl_streams(eng, backend, [])
+    tier_idle(eng)
+    out["itl"] = {"with_tier_traffic": {**itl_tier, **moved},
+                  "streams_alone": itl_alone}
+    out["timeline"] = timeline_overlap(FLIGHT.export_chrome_trace())
+    if out["timeline"]["blocking"] or not out["timeline"]["kv_spans"]:
+        raise AssertionError(f"kv spans: {out['timeline']}")
+    # cold: the tier's entries dropped, the sessions not resident
+    tier_wave(eng, tier_prompts(n, TIER_TOKENS, seed + 13))
+    tier_idle(eng)
+    for e in tier.entries():
+        tier._drop_entry(e)
+    cold = tier_wave(eng, A)
+    # (a resident may still share the BOS token with a prompt)
+    if cold["hits"] or cold["prompt_tokens_computed"] < n * (
+            TIER_TOKENS - 1):
+        raise AssertionError(f"cold wave: {cold['hits']} hits, "
+                             f"{cold['prompt_tokens_computed']} tokens")
+    out["returning"] = {
+        way: {"ttft_ms": w["ttft_ms"],
+              "prompt_tokens_computed": w["prompt_tokens_computed"],
+              "hits": w["hits"], "forwards": w["forwards"],
+              "b1_launches": w["b1_launches"],
+              "b2_launches": w["b2_launches"]}
+        for way, w in (("prefetch_hit", hit), ("resident", res),
+                       ("resident_per_call", res_call), ("cold", cold))}
+    out["returning"]["hit_ids_equal_resident"] = True
+    out["returning"]["cold_ids_equal_hit"] = sum(
+        a == b for a, b in zip(cold["ids"], hit["ids"]))
+    log("tiers_returning", model=model, **out["returning"],
+        itl=out["itl"], timeline=out["timeline"], card=smi)
+    # the cold tier: one session saved and loaded back
+    cold_dir = Path(tempfile.mkdtemp(prefix="kv_tier_cold_",
+                                     dir=ROOT / "build" / "chip_smoke"))
+    try:
+        tier_wave(eng, tier_prompts(n, TIER_TOKENS, seed + 14))
+        tier_idle(eng)
+        ent = next(e for e in tier.entries() if e.tokens[:TIER_TOKENS] == A[0])
+        tier.cold_s = 0.0  # no policy saves of other entries meanwhile
+        tier.cold_dir = str(cold_dir)
+        t0 = time.perf_counter()
+        tier._start_save(ent)
+        tier_idle(eng)
+        save_s = time.perf_counter() - t0
+        if ent.state != "cold":
+            raise AssertionError(f"cold save: entry {ent.state}")
+        # the file read alone on this thread (warm: just written)
+        t0 = time.perf_counter()
+        from localai_tfp_tpu_torch.engine.kv_tier import read_cache_file
+        with read_cache_file(ent.path) as data:
+            _ = {nm: data[nm].shape for nm in data.files}
+        read_s = time.perf_counter() - t0
+        # the request waits for its session's load however long it takes
+        # (the default deadline, 2 s, would re-prefill past it)
+        tier.fetch_deadline_s = 60.0
+        c0 = dict(tier.counters)
+        hit1 = tier_wave(eng, A[:1])
+        rep = tier_wave(eng, tier_prompts(1, TIER_TOKENS, seed + 15))
+        moved = {k: tier.counters[k] - c0[k] for k in (
+            "loads", "prefetch_hit", "prefetch_late", "prefetch_miss",
+            "fetch_faults")}
+        if moved["loads"] != 1 or hit1["hits"] != 1:
+            raise AssertionError(
+                f"cold tier: no load-and-hit: {moved}, entry {ent.state}, "
+                f"file read alone {read_s:.3f} s, TTFT {hit1['ttft_ms']}")
+        out["cold_tier"] = {
+            "file_bytes": Path(ent.path).stat().st_size, "save_s": save_s,
+            "file_read_alone_s": read_s,
+            "fetch_deadline_s": tier.fetch_deadline_s,
+            "ttft_cold_hit_ms": hit1["ttft_ms"]["max"],
+            "ttft_reprefill_ms": rep["ttft_ms"]["max"],
+            "prompt_tokens_computed_hit": hit1["prompt_tokens_computed"]}
+    finally:
+        tier.cold_dir = ""
+        tier.fetch_deadline_s = max(0.05, knobs_float(
+            "LOCALAI_KV_TIER_FETCH_DEADLINE_S"))
+        tier.cold_s = max(0.0, knobs_float("LOCALAI_KV_TIER_COLD_S"))
+        shutil.rmtree(cold_dir, ignore_errors=True)
+    log("tiers_cold", model=model, **out["cold_tier"], card=smi)
+    out["routes"] = telemetry_routes(port, model, eng, b2=False)
+    log("tiers_routes", model=model, **out["routes"], card=smi)
+    tier_idle(eng)
+    tier.leak_check()
+    eng.leak_check()
+    out["tier_stats"] = tier.stats()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def first_layers(models: Path, ckpt_name: str, layers: int) -> str:
     """A model directory beside ``ckpt_name`` that serves its first
     ``layers`` layers: a symlink to its safetensors under a config.json of
@@ -3018,11 +3683,13 @@ def model_yaml(models: Path, name: str, model: str, **extra) -> None:
 
 def serve_model(models: Path, model: str, layers: int, quantized: bool,
                 engine: bool, graphs: bool, seed: int,
-                dispatch: bool = False, reload: bool = True) -> dict:
+                dispatch: bool = False, reload: bool = True,
+                tiers: bool = False) -> dict:
     """Serve one model config through the port's HTTP server: load, the
     burst, its checks, (int8, ``reload``) a reload from the artifact, the
-    dense reference check, and (``graphs``) phase 6, (``engine``) phase 7
-    and (``dispatch``) phase 8 on the same server."""
+    dense reference check, and (``graphs``) phase 6, (``engine``) phase
+    7, (``dispatch``) phase 8 and (``tiers``) phase tiers on the same
+    server."""
     import threading
 
     import torch
@@ -3046,7 +3713,8 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
                 "load_and_first_request_s": round(time.perf_counter() - t0, 3),
                 "param_bytes": param_bytes(eng.params),
                 "load_peak_mem_gib": round(
-                    torch.cuda.max_memory_allocated() / 2**30, 3)}
+                    torch.cuda.max_memory_allocated() / 2**30, 3),
+                "breakdown": backend.load_breakdown}
         log("main_load", model=model, **load, n_slots=eng.n_slots,
             page=eng.page, kv_pages=eng.kv_pages)
         if load["mode"] != ("quantized" if quantized else "full"):
@@ -3085,7 +3753,8 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
                                      f"mode {backend.load_mode}")
             reloaded = {"mode": backend.load_mode,
                         "load_s": round(backend.load_s, 3),
-                        "param_bytes": param_bytes(backend.engine.params)}
+                        "param_bytes": param_bytes(backend.engine.params),
+                        "breakdown": backend.load_breakdown}
             if reloaded["param_bytes"] != load["param_bytes"]:
                 raise AssertionError(f"{model}: reloaded tree differs")
             log("main_reload", model=model, **reloaded)
@@ -3107,16 +3776,24 @@ def serve_model(models: Path, model: str, layers: int, quantized: bool,
             log("dispatch", model=model, **{k: v for k, v in disp.items()
                                             if k not in ("flood",
                                                          "deadline")})
+        tr = None
+        if tiers:
+            tr = phase_tiers(port, srv.app, model, backend, layers, seed,
+                             full=not quantized)
+            log("tiers", model=model, phase_s=tr["phase_s"],
+                setting=tr["setting"], tier_stats=tr.get("tier_stats"))
         return {"load": load, "burst": burst, "reload": reloaded,
                 "reference": ref, "profile": prof, "graphs": gr,
-                "engine": eng_res, "dispatch": disp, "byte_ttft": byte_ttft}
+                "engine": eng_res, "dispatch": disp, "tiers": tr,
+                "byte_ttft": byte_ttft}
     finally:
         srv.close()
         th.join(timeout=30)
 
 
 def phase_main(layers_wanted: int, seed: int, engine: bool,
-               graphs: bool, dispatch: bool = False) -> dict:
+               graphs: bool, dispatch: bool = False,
+               tiers: bool = False) -> dict:
     """Serve the 8B-geometry model on the card through the port's HTTP
     server: bf16, then the same checkpoint with int8 weights."""
     import gc
@@ -3135,7 +3812,7 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
         written=written, write_s=round(write_s, 3), dir=ckpt_name)
     bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False,
                        engine=engine, graphs=graphs, seed=seed,
-                       dispatch=dispatch)
+                       dispatch=dispatch, tiers=tiers)
     gc.collect()
     torch.cuda.empty_cache()
     # a cold int8 load: quantize on the card, then write the artifact
@@ -3144,8 +3821,9 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
     os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
     int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True,
                        engine=False, graphs=False, seed=seed)
-    if engine or graphs or dispatch:
-        # the int8 model's phases 6-8 on the 8B's first INT8_CUT_LAYERS
+    if engine or graphs or dispatch or tiers:
+        # the int8 model's phases 6-8 and tiers on the 8B's first
+        # INT8_CUT_LAYERS
         # layers, quantized at load (a depth cut that keeps the default
         # run in its time budget; no artifact is written)
         gc.collect()
@@ -3157,21 +3835,24 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
             int8_cut = serve_model(
                 models, "llama-3.1-8b-int8-cut", INT8_CUT_LAYERS,
                 quantized=True, engine=engine, graphs=graphs, seed=seed,
-                dispatch=dispatch, reload=False)
+                dispatch=dispatch, reload=False, tiers=tiers)
         finally:
             os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
-        for k in ("graphs", "engine", "dispatch"):
+        for k in ("graphs", "engine", "dispatch", "tiers"):
             int8[k] = int8_cut[k]
         int8["cut"] = {"layers": INT8_CUT_LAYERS,
-                       "reduced": f"phases graphs, engine, dispatch: layers "
-                                  f"{INT8_CUT_LAYERS} of {layers}",
+                       "reduced": f"phases graphs, engine, dispatch, tiers: "
+                                  f"layers {INT8_CUT_LAYERS} of {layers}",
                        "burst_launches": int8_cut["burst"]["launches"]}
     log("main_models", layers=layers,
         param_gb={"bf16": bf16["load"]["param_bytes"] / 1e9,
                   "int8": int8["load"]["param_bytes"] / 1e9},
         load_s={"bf16": bf16["load"]["load_s"],
                 "int8_cold": int8["load"]["load_s"],
-                "int8_warm": int8["reload"]["load_s"]})
+                "int8_warm": int8["reload"]["load_s"]},
+        load_breakdown={"bf16": bf16["load"]["breakdown"],
+                        "int8_cold": int8["load"]["breakdown"],
+                        "int8_warm": int8["reload"]["breakdown"]})
     return {"layers": layers, "checkpoint": ckpt_name, "bf16": bf16,
             "int8": int8}
 
@@ -4613,7 +5294,7 @@ def phase_lifecycle(ckpt_name: str, layers: int, smi: str) -> dict:
         out["coalesce"] = {"loads": loads, "wall_s": round(wall, 3),
                            "load_s": round(bf16.load_s, 3),
                            "load_mode": bf16.load_mode,
-                           "warmup_s": round(bf16.warmup_s, 3),
+                           "warmup_s": bf16.load_breakdown["warmup_s"],
                            "memory": loaded_bf16}
         log("lifecycle_coalesce", **out["coalesce"], card=smi)
 
@@ -6702,8 +7383,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,moe,gguf,main,graphs,"
-                            "engine,dispatch,spec,text,lifecycle,families,"
-                            "retrieval")
+                            "engine,dispatch,tiers,spec,text,lifecycle,"
+                            "families,retrieval")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -6802,14 +7483,15 @@ def main() -> int:
             if e["name"] == "int8_matmul" and name == "gguf":
                 e["launches_gguf_int8_by_m"] = legs["llama31_8b_int8"][
                     "burst"]["int8_matmul_calls_by_m"]
-    for ph in ("graphs", "engine", "dispatch", "spec", "text"):
+    for ph in ("graphs", "engine", "dispatch", "tiers", "spec", "text"):
         if ph in phases and "main" not in phases:
             raise SystemExit(f"phase {ph} runs after phase main (its "
                              "checkpoint and int8 artifact): --phases must "
                              "include main")
     if "main" in phases:
         res = phase_main(args.layers, args.seed, "engine" in phases,
-                         "graphs" in phases, "dispatch" in phases)
+                         "graphs" in phases, "dispatch" in phases,
+                         "tiers" in phases)
         # each kernel's count on its own path, read just after that path
         # ran: attention on the bf16 model, the int8 product on the int8
         # model (which also runs attention)
@@ -6832,6 +7514,20 @@ def main() -> int:
                     m: {w: res[m]["dispatch"]["mixed"][w]["launches"][
                         e["name"]] for w in DISPATCH_MODES}
                     for m in ("bf16", "int8")}
+            if "tiers" in phases:
+                # phase tiers' returning waves, each's counts set to 0
+                # just before it and read just after: B1 per replay (the
+                # prefetch-hit and resident waves) against per call (the
+                # resident wave through the variant bodies), on the bf16
+                # model; the int8 model's (int8 pages) hit wave
+                key = ("b1_launches" if e["name"] == "ragged_paged_attention"
+                       else "b2_launches")
+                ret = res["bf16"]["tiers"]["returning"]
+                e["launches_tiers"] = {
+                    **{way: ret[way][key] for way in (
+                        "prefetch_hit", "resident", "resident_per_call",
+                        "cold")},
+                    "int8_model_hit": res["int8"]["tiers"]["hit"][key]}
             if "engine" in phases:
                 # the prefix wave with sharing on: attention over aliased
                 # page tables (bf16 model), the int8 product's mixed

@@ -53,6 +53,33 @@ _DEFAULTS = {
     # the vector store's keys and cosine scan in C++ (store/native.py;
     # off: the Python store, its large finds on the device)
     "LOCALAI_NATIVE_STORE": "on",
+    # tiered KV memory: spill idle resident sessions to pinned host
+    # pages, prefetch them back on return (engine/kv_tier.py)
+    "LOCALAI_KV_TIER": "on",
+    # host pages for spilled KV, in MiB (one pinned allocation)
+    "LOCALAI_KV_TIER_HOST_MB": "256",
+    # pool fill fraction above which idle residents spill in the
+    # background (clamped to [0.05, 1.0])
+    "LOCALAI_KV_TIER_WATERMARK": "0.85",
+    # idle seconds before a resident becomes a background-spill candidate
+    "LOCALAI_KV_TIER_IDLE_S": "1",
+    # host-tier seconds before an entry is saved to the cold dir
+    "LOCALAI_KV_TIER_COLD_S": "30",
+    # how long a request whose session is cold waits for its disk load
+    "LOCALAI_KV_TIER_FETCH_DEADLINE_S": "2",
+    # cold-tier directory ('' disables the disk tier)
+    "LOCALAI_KV_TIER_DIR": "",
+    # in-flight background spill window, in MiB
+    "LOCALAI_KV_TIER_INFLIGHT_MB": "64",
+    # flight-recorder timeline capture and its ring size (min 64)
+    "LOCALAI_TIMELINE": "on",
+    "LOCALAI_TIMELINE_EVENTS": "8192",
+    # GET /debug/profile (torch.profiler capture) and its longest capture
+    "LOCALAI_PROFILER": "off",
+    "LOCALAI_PROFILER_MAX_S": "30",
+    # deterministic fault-injection spec, e.g. "engine.device_step:fail@3"
+    # (utils/faultinject.py)
+    "LOCALAI_FAULTS": "",
 }
 _TRUE = ("1", "true", "yes", "on")
 _FALSE = ("", "0", "false", "no", "off")
@@ -85,3 +112,7 @@ def flag(name: str) -> bool:
     if v in _FALSE:
         return False
     return _DEFAULTS[name] in _TRUE
+
+
+def str_(name: str) -> str:
+    return raw(name)

@@ -116,6 +116,19 @@ recorded on the engine thread and the gauges refreshed at scrape time
 - **Cancellation**: a cancel id that matches no queued or running
   request yet is kept for ``_CANCEL_TTL_S`` (a cancel can race ahead of
   its submit) and then purged, also while the engine is idle.
+- **KV tier** (``LOCALAI_KV_TIER``, ``kv_tier=``; off with a draft):
+  ``engine/kv_tier.py`` spills a slot's resident prefix to pinned host
+  pages when its slot is reassigned (``capture``) or a reclaim takes its
+  pages (``demote_urgent``), and a returning prompt's pages are staged
+  back and adopted by reference (``plan``, ``adopt``), so it re-prefills
+  only the relogit token; ``tick`` rides each admission pass.
+- **Traces and the timeline**: each request's milestones (queue, admit,
+  prefill_dispatch, first_token, done) and terminal outcome go to
+  ``TRACER`` (telemetry/tracing.py); each dispatch whose tokens are read
+  back is a ``step:<kind>`` span in ``FLIGHT`` (telemetry/flightrec.py),
+  and every iteration samples the scheduler's counters there. Fault
+  injection points: ``engine.hbm_alloc`` (KV growth) and
+  ``engine.device_step`` (every dispatch).
 
 Out of scope (and refused at submit rather than ignored): multimodal
 soft tokens, disaggregation, meshes.
@@ -151,8 +164,11 @@ from ..ops import ragged_paged_attention as rpa
 from ..ops.ragged_paged_attention import ragged_paged_attention
 from ..telemetry import costmodel, hbm_ledger
 from ..telemetry import metrics as tm
+from ..telemetry.flightrec import FLIGHT
+from ..telemetry.tracing import TRACER, fault_scope
+from ..utils import faultinject
 from .kv_pool import TRASH_PAGE, PagePool, PagePoolExhausted
-from .kv_tier import read_cache_file, write_cache_file
+from .kv_tier import KVTierManager, read_cache_file, write_cache_file
 from .prefix_index import PrefixIndex, common_prefix_len
 from .tokenizer import StreamDecoder, Tokenizer
 
@@ -505,6 +521,8 @@ class LLMEngine:
         autostart: bool = True,
         device: Any = None,
         model: str = "default",  # the metrics' model label
+        kv_tier: Optional[bool] = None,  # the KV tier: None follows
+        # LOCALAI_KV_TIER
     ) -> None:
         self.device = resolve(device)
         self._mlabel = model or "default"
@@ -647,6 +665,20 @@ class LLMEngine:
         self._deadlines_armed = self._default_deadline_s > 0
         self.max_queue = max(0, knobs.int_("LOCALAI_MAX_QUEUE"))
         self.metrics = EngineMetrics()
+        # tiered KV memory (engine/kv_tier.py): pinned host pages under
+        # the arena, spilled on reclaim and on slot reuse, prefetched
+        # when a session returns; cold sessions on disk. Off with a draft
+        # loaded: spilled pages would strand the draft's arena
+        self._tier: Optional[KVTierManager] = None
+        if draft is None and (knobs.flag("LOCALAI_KV_TIER")
+                              if kv_tier is None else kv_tier):
+            self._tier = KVTierManager(self)
+            if self._ledger is not None:
+                # device buffers of in-flight spills and fetches
+                tier = self._tier
+                self._ledger.register(
+                    "staging",
+                    lambda: tier._swin.flying + tier._fwin.flying)
         self._lock = threading.Condition()
         # held by ``embed`` and ``release``: an embedding in flight keeps
         # the weights until it ends, and none starts after a release
@@ -682,6 +714,13 @@ class LLMEngine:
                 raise RuntimeError("engine scheduler did not stop in 60 s")
             self._thread = None
         self._fail_all("engine closed")
+        if self._tier is not None:
+            # land every in-flight tier transfer (pins released, staged
+            # fetches abandoned) so pool and tier leak checks stay clean
+            self._tier.close()
+            for tname in ("hbm", "host", "disk"):
+                tm.ENGINE_KV_TIER_PAGES.labels(model=self._mlabel,
+                                               tier=tname).set(0)
         for d in (self._variants, self._masked_variants,
                   self._mixed_variants, self._spec_variants):
             d.clear()  # the graphs and their pool go with them
@@ -708,6 +747,7 @@ class LLMEngine:
             self._mask_dev = self._mask_stage = self._mask_copied = None
             self._graph_pool = self._merge_counters = None
             self._ledger = self._costmodel = None
+            self._tier = None  # its host pages go with it
 
     def update_params(self, fn: Any) -> Any:
         """Run ``fn(params)`` between two dispatches and return its
@@ -722,7 +762,10 @@ class LLMEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             # every resident prefix holds the old model's K/V: free slots
-            # drop theirs now, active ones when their request ends
+            # drop theirs now, active ones when their request ends; the
+            # tier drops its entries
+            if self._tier is not None:
+                self._tier.invalidate()
             for s in self.slots:
                 self._prefix_index.remove(s.idx)
                 if s.active:
@@ -804,6 +847,12 @@ class LLMEngine:
             if why:
                 out.put(StreamEvent(done=True, finish_reason="error",
                                     error=why))
+                # a request refused at submit still gets a complete
+                # trace: the HTTP layer may have opened one at receive
+                TRACER.event(req.id, "done", model=self._mlabel)
+                TRACER.annotate(req.id, "terminal", outcome="error",
+                                detail=why)
+                TRACER.finish(req.id, status="error")
             else:
                 req.t_submit = now
                 budget = req.timeout_s or self._default_deadline_s
@@ -816,14 +865,26 @@ class LLMEngine:
             if self.max_queue > 0:
                 room = max(0, self.max_queue - len(self._pending))
                 ok, shed = ok[:room], ok[room:]
+            for req, _ in ok:
+                # stamped before the scheduler can see the request, so
+                # "queue" always precedes "admit"
+                TRACER.event(req.id, "queue", t=now, model=self._mlabel)
+                # the trace's distributed id (minted at the HTTP edge,
+                # or just now by the auto-opened trace) rides the request
+                if not req.trace_id:
+                    req.trace_id = TRACER.trace_id_of(req.id)
             self._pending.extend(ok)
             self._lock.notify_all()
             retry = self._retry_after_s() if shed else 0.0
-        for _, out in shed:
+        for req, out in shed:
             tm.ENGINE_REQUESTS.labels(model=self._mlabel,
                                       reason="shed").inc()
             tm.ENGINE_REQUESTS_SHED.labels(model=self._mlabel,
                                            reason="queue_full").inc()
+            TRACER.event(req.id, "shed", t=now, model=self._mlabel)
+            TRACER.annotate(req.id, "terminal", t=now, outcome="shed",
+                            retry_after_s=round(retry, 3))
+            TRACER.finish(req.id, status="shed")
             out.put(StreamEvent(
                 done=True, finish_reason="shed",
                 error=f"admission queue full ({self.max_queue} queued); "
@@ -1020,6 +1081,13 @@ class LLMEngine:
                     self._apply_deadlines()
                     self._admit()
                     self.step()
+                    self._sample_timeline()
+                    if self._pending and not any(s.active
+                                                 for s in self.slots):
+                        # queued work waits on something off this thread
+                        # (a cold session's disk load): yield the
+                        # interpreter to it instead of spinning
+                        time.sleep(1e-3)
             except Exception as e:  # the loop must keep serving
                 log.exception("engine step failed")
                 if hbm_ledger.looks_like_oom(e):
@@ -1028,8 +1096,25 @@ class LLMEngine:
                     hbm_ledger.dump_post_mortem(
                         self.state_dir, self._mlabel, e, self._ledger,
                         self._pool.stats(),
-                        hbm_ledger.device_memory_stats(self.device))
+                        hbm_ledger.device_memory_stats(self.device),
+                        tier_stats=(self._tier.stats()
+                                    if self._tier is not None else None))
                 self._fail_all(f"engine error: {e!r}")
+
+    def _sample_timeline(self) -> None:
+        """The scheduler's counters into the flight recorder, once per
+        iteration (host-held values; one ring slot each)."""
+        with self._lock:
+            depth = len(self._pending)
+        FLIGHT.sample("queue_depth", "scheduler", depth)
+        FLIGHT.sample("slots_busy", "scheduler",
+                      sum(1 for s in self.slots if s.active))
+        in_use = self._pool.stats().in_use
+        FLIGHT.sample("kv_pages_in_use", "scheduler", in_use)
+        if self._tier is not None:
+            FLIGHT.sample("kv_host_pages", "scheduler",
+                          self._tier.tier_pages(in_use)["host"])
+        FLIGHT.update_gauge()
 
     def step(self) -> None:
         """Run one device step for the current slot states: a mixed step
@@ -1054,6 +1139,10 @@ class LLMEngine:
 
     def _fail_all(self, msg: str) -> None:
         for s in self.slots:
+            if s.active and s.request is not None:
+                # the trace commits before the terminal stream event, so
+                # a consumer woken by it sees the final status
+                self._trace_terminal(s.request.id, "error", detail=msg)
             if s.active and s.out is not None:
                 s.out.put(StreamEvent(done=True, finish_reason="error",
                                       error=msg))
@@ -1061,8 +1150,16 @@ class LLMEngine:
                 self._release(s)
         with self._lock:
             pending, self._pending = self._pending, []
-        for _, out in pending:
+        for req, out in pending:
+            self._trace_terminal(req.id, "error", detail=msg)
             out.put(StreamEvent(done=True, finish_reason="error", error=msg))
+
+    def _trace_terminal(self, rid: str, outcome: str, **attrs) -> None:
+        """Close a request's trace: the "done" milestone, a "terminal"
+        span event with the outcome, the entry into the ring."""
+        TRACER.event(rid, "done", model=self._mlabel)
+        TRACER.annotate(rid, "terminal", outcome=outcome, **attrs)
+        TRACER.finish(rid, status=outcome)
 
     def _apply_cancellations(self) -> None:
         """Cancel the queued and running requests whose ids were
@@ -1078,6 +1175,8 @@ class LLMEngine:
                 if req.id in ids:
                     del ids[req.id]
                     self._deferred.pop(req.id, None)
+                    self._trace_terminal(req.id, "cancelled",
+                                         stage="queued")
                     out.put(StreamEvent(done=True, finish_reason="cancelled"))
                     dropped += 1
                 else:
@@ -1127,6 +1226,8 @@ class LLMEngine:
                     still.append((req, out))
                     continue
                 self._deferred.pop(req.id, None)
+                self._trace_terminal(req.id, "deadline_exceeded",
+                                     stage=stage)
                 tm.ENGINE_REQUESTS.labels(
                     model=self._mlabel, reason="deadline_exceeded").inc()
                 tm.ENGINE_DEADLINE_EXCEEDED.labels(
@@ -1145,6 +1246,11 @@ class LLMEngine:
                 self._finish(s, "deadline_exceeded")
 
     def _admit(self) -> None:
+        if self._tier is not None:
+            # the tier's policy step rides the admission pass: landed
+            # spills and fetches harvested (event polls), background IO
+            # results applied, stale stages expired, the watermark scan
+            self._tier.tick()
         with self._lock:
             pending, self._pending = self._pending, []
             # a cancel that arrived since this iteration's sweep
@@ -1153,7 +1259,8 @@ class LLMEngine:
             for r, _ in hit:
                 del self._cancelled[r.id]
                 self._deferred.pop(r.id, None)
-        for _, out in hit:
+        for req, out in hit:
+            self._trace_terminal(req.id, "cancelled", stage="admit")
             out.put(StreamEvent(done=True, finish_reason="cancelled"))
         self._count_dropped(len(hit))
         if not pending:
@@ -1185,12 +1292,25 @@ class LLMEngine:
             if self._defer_for_prefix(req, forming, now):
                 requeue.append((req, out))
                 continue
+            if self._tier is not None and self._tier.plan(req, now):
+                # the session is in the cold tier and its disk load is
+                # inside the deadline: hold admission, not re-prefill
+                requeue.append((req, out))
+                continue
             slot = self._pick_slot(req)
             if slot is None or budget < need:
                 requeue.append((req, out))  # wait for a slot / pages
                 continue
             budget -= need
             self._deferred.pop(req.id, None)
+            if self._tier is not None:
+                # demote-on-reuse: spill the resident prefix this
+                # assignment is about to discard (its gather precedes any
+                # overwrite on the stream), then adopt a staged fetch: the
+                # slot's resident prefix becomes the returning session,
+                # so _assign re-prefills none of it
+                self._tier.capture(slot, req)
+                self._tier.adopt(slot, req)
             self._assign(slot, req, out, now)
             forming.append(req.prompt_ids)
         with self._lock:  # requeue keeps arrival order ahead of new ones
@@ -1303,6 +1423,7 @@ class LLMEngine:
 
     def _assign(self, slot: _Slot, req: GenRequest, out: queue.SimpleQueue,
                 now: float) -> None:
+        TRACER.event(req.id, "admit", t=now, model=self._mlabel)
         wait = max(0.0, now - req.t_submit)
         self._queue_waits.append(wait)
         tm.ENGINE_QUEUE_WAIT.labels(model=self._mlabel).observe(wait)
@@ -1499,7 +1620,13 @@ class LLMEngine:
     def _pool_ensure(self, slot: _Slot, n_tokens: int) -> bool:
         """Grow the slot's pages to cover ``n_tokens`` positions,
         reclaiming free slots' resident prefixes (least valuable first)
-        under pool pressure. False: the pool is full of active state."""
+        under pool pressure (demoted to the KV tier first, when there is
+        one). False: the pool is full of active state."""
+        if faultinject.ACTIVE:
+            # the stand-in for a device out-of-memory during KV growth:
+            # the scheduler's catch writes the post-mortem and fails the
+            # active slots
+            faultinject.fire("engine.hbm_alloc")
         try:
             self._pool.ensure(slot.idx, n_tokens)
             return True
@@ -1511,6 +1638,11 @@ class LLMEngine:
              if not s.active and s is not slot and self._pool.held(s.idx)),
             key=lambda s: self._prefix_index.value(s.idx, now))
         for v in victims:
+            if self._tier is not None:
+                # the gather is enqueued before the drop below: the
+                # reclaim demotes the resident to host memory instead of
+                # discarding it (a spill fault leaves a plain drop)
+                self._tier.demote_urgent(v)
             self._pool.drop(v.idx)
             v.cache_tokens = []
             v.n_past = 0
@@ -1684,8 +1816,12 @@ class LLMEngine:
         if self._costmodel is not None:
             pred = self._cost_row("mixed", key, *self._mixed_cost(
                 [(s.n_past, n) for s, n in zip(rows, q_lens)], R, T))
+        self._device_fault()
         self._span.start()
         tok = self._mixed_graph(rows, chunks, finals, samplers, T)
+        t_disp = time.perf_counter()
+        for s in finals:
+            TRACER.event(s.request.id, "prefill_dispatch", t=t_disp)
         self.metrics.forward_steps += 1
         self.metrics.mixed_steps += 1
         if self.draft is not None:
@@ -1694,7 +1830,10 @@ class LLMEngine:
         if samplers:
             self._span.stop()
             tok_host = tok.tolist()
-            self._harvest("mixed", key, pred)
+            self._harvest("mixed", key, pred, t0, {
+                "decode": len(decoding),
+                "prefill": len(prefilling) - len(finals),
+                "finals": len(finals), "chunk_tokens": sum(q_lens)})
         elif self._costmodel is not None:  # no host read: no span
             self._costmodel.on_dispatch("mixed", key)
         now = time.perf_counter()
@@ -1971,17 +2110,19 @@ class LLMEngine:
                                            B)
                 fl, by = fl + f, by + b
             pred = self._cost_row("decodek", key, fl, by)
+        self._device_fault()
         self._span.start()
         toks = self._decode_graph(rows, k)
         self._span.stop()
         host = toks.tolist()
-        span_s = self._harvest("decodek", key, pred)
+        span_s = self._harvest("decodek", key, pred, t0,
+                               {"rows": B, "k": k})
         self._note_step_ms(span_s * 1e3 / k)
         self.metrics.forward_steps += k
         self.metrics.decode_steps += k
         dt = (time.perf_counter() - t0) * 1e3
         tm.ENGINE_INTER_TOKEN.labels(model=self._mlabel).observe(
-            dt / 1e3 / k)
+            dt / 1e3 / k, exemplar=self._active_exemplar())
         tm.ENGINE_DECODE_STEP.labels(model=self._mlabel).observe(span_s / k)
         for s, seq in zip(rows, host):
             s.t_decode_ms += dt
@@ -2243,16 +2384,43 @@ class LLMEngine:
         self._costmodel.capture(key, flops, bytes_)
         return self._costmodel.predict_ms(kind, key)
 
-    def _harvest(self, kind: str, key: tuple,
-                 pred: Optional[float]) -> float:
+    def _harvest(self, kind: str, key: tuple, pred: Optional[float],
+                 t0: float, rec: dict) -> float:
         """After a dispatch's host read: its device span into the device
-        step histogram and the cost model; returns the span (s)."""
+        step histogram and the cost model, and a ``step:<kind>`` span on
+        the timeline from ``t0`` (the step's start on the host clock) to
+        now, its args ``rec`` plus ``predicted_ms``/``measured_ms`` (the
+        device span) where the cost model priced the dispatch; returns
+        the device span (s)."""
         span_s = self._span.seconds()
         tm.ENGINE_DEVICE_STEP.labels(model=self._mlabel,
                                      kind=kind).observe(span_s)
+        if pred is not None:
+            rec = dict(rec, predicted_ms=round(pred, 3),
+                       measured_ms=round(span_s * 1e3, 3))
+        FLIGHT.span("step:" + kind, "device", t0,
+                    time.perf_counter() - t0, rec)
         if self._costmodel is not None:
             self._costmodel.on_harvest(kind, key, span_s, pred)
         return span_s
+
+    def _device_fault(self) -> None:
+        """The ``engine.device_step`` injection point, ahead of every
+        dispatch: a fault there takes the path of a failed dispatch (the
+        scheduler's catch fails the active slots), and lands as a span
+        event on the traces of the requests in the step."""
+        if faultinject.ACTIVE:
+            with fault_scope(s.request.id for s in self.slots
+                             if s.request is not None):
+                faultinject.fire("engine.device_step")
+
+    def _active_exemplar(self) -> Optional[dict]:
+        """Exemplar labels for a batch-level latency sample: the first
+        active slot's trace id."""
+        for s in self.slots:
+            if s.active and s.request is not None and s.request.trace_id:
+                return {"trace_id": s.request.trace_id}
+        return None
 
     def update_gauges(self) -> None:
         """Refresh the scheduler and memory gauges from host-held values
@@ -2265,8 +2433,12 @@ class LLMEngine:
         tm.ENGINE_SLOTS_BUSY.labels(model=m).set(len(active))
         tm.ENGINE_KV_UTIL.labels(model=m).set(
             sum(s.n_past for s in active) / float(self.n_slots * self.max_seq))
-        tm.ENGINE_KV_PAGES_IN_USE.labels(model=m).set(
-            self._pool.stats().in_use)
+        in_use = self._pool.stats().in_use
+        tm.ENGINE_KV_PAGES_IN_USE.labels(model=m).set(in_use)
+        tier = self._tier
+        if tier is not None:
+            for tname, v in tier.tier_pages(in_use).items():
+                tm.ENGINE_KV_TIER_PAGES.labels(model=m, tier=tname).set(v)
         if self._ledger is not None:
             snap = self._ledger.reconcile()
             if snap["bytes_in_use"] is not None:
@@ -2278,6 +2450,10 @@ class LLMEngine:
         LOCALAI_COSTMODEL=off."""
         return (self._costmodel.stats()
                 if self._costmodel is not None else None)
+
+    def tier_stats(self) -> Optional[dict]:
+        """The KV tier's counters and residency; None without a tier."""
+        return self._tier.stats() if self._tier is not None else None
 
     def hbm_stats(self) -> Optional[dict]:
         """The HBM ledger's last snapshot; None when
@@ -2585,12 +2761,14 @@ class LLMEngine:
         if self._costmodel is not None:
             pred = self._cost_row(kind, key, *self._spec_cost(
                 [s.n_past for s in rows], self._bucket(len(rows)), rounds))
+        self._device_fault()
         self._span.start()
         # the one host read: [rounds, B, (kd - 1) + kd + 1]
         out = self._spec_graph(rows, kind, rounds)
         self._span.stop()
         host = out.tolist()
-        self._harvest(kind, key, pred)
+        self._harvest(kind, key, pred, t0,
+                      {"rows": len(rows), "rounds": rounds})
         self.metrics.forward_steps += rounds
         self.metrics.draft_forwards += rounds * kd
         dt = (time.perf_counter() - t0) * 1e3
@@ -2629,9 +2807,13 @@ class LLMEngine:
                 slot.constraint_state, token_id)
         if not slot.generated:
             slot.t_first = time.perf_counter()
+            TRACER.event(req.id, "first_token", t=slot.t_first)
             if req.t_submit:
+                # the exemplar links this bucket to /debug/traces?id=
                 tm.ENGINE_TTFT.labels(model=self._mlabel).observe(
-                    slot.t_first - req.t_submit)
+                    slot.t_first - req.t_submit,
+                    exemplar=({"trace_id": req.trace_id}
+                              if req.trace_id else None))
         slot.generated.append(token_id)
         self.metrics.tokens_generated += 1
         self._tm_generated.inc()
@@ -2686,6 +2868,10 @@ class LLMEngine:
             queue_ms = max(0.0, (slot.t_start - req.t_submit) * 1e3)
             if slot.t_first:
                 ttft_ms = (slot.t_first - req.t_submit) * 1e3
+        if req is not None:
+            # before the terminal event: a consumer woken by it (the SSE
+            # writer's stream_done) finds the trace finished
+            self._trace_terminal(req.id, reason)
         if slot.out is not None:
             slot.out.put(StreamEvent(
                 done=True, finish_reason=reason, full_text=full,

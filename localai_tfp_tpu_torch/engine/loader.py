@@ -23,7 +23,12 @@ from typing import Callable, Optional
 
 from ..config.model_config import ModelConfig
 from ..telemetry import metrics as tm
+from ..utils import faultinject
 from ..workers.base import Backend, ModelLoadOptions
+
+# the load_breakdown keys folded into model_load_phase_seconds_total
+_LOAD_PHASES = ("read_s", "dequant_s", "transfer_s", "compile_s",
+                "warmup_s", "other_s")
 
 log = logging.getLogger(__name__)
 
@@ -226,6 +231,10 @@ class ModelLoader:
     def _load_as_leader(self, cfg: ModelConfig) -> Backend:
         """The load itself, without the registry lock (only brief map
         mutations take it)."""
+        if faultinject.ACTIVE:
+            # an injected load failure takes the path of a backend that
+            # failed to build: every coalesced waiter gets the error
+            faultinject.fire("loader.load")
         if self.single_active:
             self._single_gate.acquire()
         try:
@@ -264,11 +273,11 @@ class ModelLoader:
                 self._models[cfg.name] = lm
             tm.MODEL_LOADS.labels(model=cfg.name, result="success").inc()
             # the worker's load phases into the cumulative counters
-            for phase, v in (getattr(backend, "load_breakdown", None)
-                             or {}).items():
-                if v:
+            bd = getattr(backend, "load_breakdown", None) or {}
+            for phase in _LOAD_PHASES:
+                if bd.get(phase):
                     tm.MODEL_LOAD_PHASE.labels(
-                        phase=phase.removesuffix("_s")).inc(float(v))
+                        phase=phase.removesuffix("_s")).inc(float(bd[phase]))
             self._update_gauges()
             return backend
         finally:

@@ -29,6 +29,7 @@ from typing import Any, Optional
 import torch
 
 from ..config import knobs
+from .load_timing import phase
 from .quant import QTensor
 from .safetensors_io import SafeTensorsFile, save_iter
 
@@ -91,7 +92,10 @@ def try_load(path: str, device: Any) -> Optional[dict[str, Any]]:
         params: dict[str, Any] = {}
         parts: dict[str, dict[str, torch.Tensor]] = {}
         for name in f.keys():
-            t = f.get(name).to(device=device, copy=True)
+            with phase("read_s"):
+                host = f.get(name)
+            with phase("transfer_s", device):
+                t = host.to(device=device, copy=True)
             if name.endswith(".q"):
                 parts.setdefault(name[:-2], {})["q"] = t
             elif name.endswith(".scale"):

@@ -44,6 +44,7 @@ import torch
 from ..engine import jinja_lite
 from ..engine.bpe import BPETokenizer
 from .llm_spec import LLMSpec
+from .load_timing import phase
 from .transformer import Params, check_supported
 
 GGUF_MAGIC = 0x46554747  # "GGUF" little-endian
@@ -136,8 +137,12 @@ class GGUFFile:
         """The dequantized f32 tensor, numpy (outermost-first) order, on
         ``device``."""
         ti = self.tensors[name]
-        raw = torch.from_numpy(self.raw(name)).to(device)
-        return dequantize(ti.ggml_type, raw).reshape(ti.shape)
+        with phase("read_s"):
+            host = torch.from_numpy(self.raw(name))
+        with phase("transfer_s", device):
+            raw = host.to(device)
+        with phase("dequant_s", device):
+            return dequantize(ti.ggml_type, raw).reshape(ti.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ from typing import Any, Callable
 import torch
 
 from .llm_spec import LLMSpec, spec_from_hf_config
+from .load_timing import phase
 from .quant import QUANTIZABLE, QTensor, quantize_embed, quantize_raw_tensor
 from .safetensors_io import SafeTensorsFile
 from .transformer import Params, check_supported
@@ -100,7 +101,14 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
     lp = f"{prefix}layers." + "{i}."
 
     def dev(name: str) -> torch.Tensor:
-        return get(name).to(device=device).to(dtype)
+        with phase("read_s"):
+            host = get(name)
+        with phase("transfer_s", device):
+            return host.to(device=device).to(dtype)
+
+    def quantized(w: torch.Tensor) -> QTensor:
+        with phase("dequant_s", device):
+            return quantize_raw_tensor(w)
 
     def per_layer(suffix: str) -> Callable[[int], torch.Tensor]:
         return lambda i: dev(lp.format(i=i) + suffix)
@@ -116,13 +124,13 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
         return out
 
     def stacked_int8(layer: Callable[[int], torch.Tensor]) -> QTensor:
-        qt = quantize_raw_tensor(layer(0))
+        qt = quantized(layer(0))
         q = torch.empty((L, *qt.q.shape), dtype=torch.int8, device=device)
         scale = torch.empty((L, *qt.scale.shape), dtype=torch.float32,
                             device=device)
         for i in range(L):
             if i:
-                qt = quantize_raw_tensor(layer(i))
+                qt = quantized(layer(i))
             q[i].copy_(qt.q)
             scale[i].copy_(qt.scale)
         return QTensor(q, scale)
@@ -151,11 +159,14 @@ def load_params(model_dir: str, dtype: torch.dtype = torch.bfloat16,
         return stacked(per_layer(suffix), transpose=False)
 
     def head(name: str):
-        return (quantize_raw_tensor(dev(name)) if full
+        return (quantized(dev(name)) if full
                 else dev(name).T.contiguous())
 
     embed = dev(f"{prefix}embed_tokens.weight")
-    p: Params = {"embed": quantize_embed(embed) if full else embed}
+    if full:
+        with phase("dequant_s", device):
+            embed = quantize_embed(embed)
+    p: Params = {"embed": embed}
     del embed
     mt = spec.extra.get("model_type", "")
     if mt == "phi":

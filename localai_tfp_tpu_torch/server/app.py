@@ -15,8 +15,13 @@ in place of the JAX package's aiohttp app.
   ``NotImplementedError`` is a 501 and any other exception a 500, both
   as ``{"error": {"code": N}}`` alone under ``opaque_errors``;
 - every response, errors and streams included, carries ``Machine-Tag``
-  (when set), ``X-Correlation-ID`` (the caller's, else a fresh one) and,
-  with CORS on, the allow headers for a permitted origin;
+  (when set), ``X-Correlation-ID`` (the caller's, else a fresh one),
+  ``traceparent`` (the request's trace id, see below) and, with CORS on,
+  the allow headers for a permitted origin;
+- W3C trace context: a caller's ``traceparent`` is adopted (its trace id
+  joins this node's entries in ``/debug/traces?id=``, and an edge entry
+  records the hop), else a trace id is minted here; the receive and
+  auth milestones seed the request's trace (telemetry/tracing.py);
 - each request's latency lands on ``api_call_seconds`` keyed by the
   matched route template ("other" for no route), unless metrics are off.
 
@@ -41,6 +46,8 @@ from urllib.parse import parse_qs, urlsplit
 
 from ..config.app_config import ApplicationConfig
 from ..telemetry.metrics import API_CALL
+from ..telemetry.tracing import (TRACER, make_traceparent, mint_trace_id,
+                                 new_span_id, parse_traceparent)
 from ..utils import sysinfo
 from .state import Application
 
@@ -81,6 +88,9 @@ def _routes() -> dict:
         ("GET", "/backend/monitor"): lr.backend_monitor,
         ("POST", "/backend/shutdown"): lr.backend_shutdown,
         ("POST", "/v1/rerank"): lr.rerank,
+        ("GET", "/debug/traces"): lr.debug_traces,
+        ("GET", "/debug/timeline"): lr.debug_timeline,
+        ("GET", "/debug/profile"): lr.debug_profile,
     }
     for op in ("set", "delete", "get", "find"):
         routes[("POST", f"/stores/{op}")] = lr.stores
@@ -110,6 +120,11 @@ class Handler(BaseHTTPRequestHandler):
         corr = getattr(self, "correlation_id", "")
         if corr:
             self.send_header("X-Correlation-ID", corr)
+        tid = getattr(self, "trace_id", "")
+        if tid:
+            # the resolved trace id, so a caller can join its request to
+            # /debug/traces?id=... (the span id is this hop's)
+            self.send_header("traceparent", make_traceparent(tid))
         if cfg.cors:
             allowed = [o.strip() for o in
                        (cfg.cors_allow_origins or "*").split(",")]
@@ -158,6 +173,19 @@ class Handler(BaseHTTPRequestHandler):
         vals = parse_qs(urlsplit(self.path).query).get(key)
         return vals[0] if vals else None
 
+    def trace_seed(self) -> list:
+        """The receive and auth milestones, for ``TRACER.start``: a
+        request's trace begins at receive, not at engine submit."""
+        return [(p, t) for p, t in (("receive", self.t_receive),
+                                    ("auth", self.t_auth)) if t]
+
+    def start_trace(self, request_id: str, model: str) -> None:
+        """Open the request's trace under this request's trace id."""
+        TRACER.start(request_id, model=model,
+                     correlation_id=self.correlation_id,
+                     events=self.trace_seed(), trace_id=self.trace_id,
+                     parent_span=self.parent_span)
+
     # ---- dispatch
 
     def _authorized(self, keys: list) -> bool:
@@ -177,6 +205,22 @@ class Handler(BaseHTTPRequestHandler):
             return
         self.correlation_id = (self.headers.get("X-Correlation-ID")
                                or uuid.uuid4().hex)
+        self.t_receive, self.t_auth = t0, 0.0
+        parsed = parse_traceparent(self.headers.get("traceparent", ""))
+        edge = ""
+        if parsed:
+            self.trace_id, self.parent_span = parsed
+            # a distributed caller: an edge entry under the shared trace
+            # id makes this hop joinable even when the route opens no
+            # trace of its own
+            edge = "edge:" + new_span_id()
+            TRACER.start(edge, model="edge",
+                         correlation_id=self.correlation_id,
+                         events=[("receive", t0)], trace_id=parsed[0],
+                         parent_span=parsed[1])
+            TRACER.annotate(edge, "http", method=method, path=self.path)
+        else:
+            self.trace_id, self.parent_span = mint_trace_id(), ""
         path = urlsplit(self.path).path.rstrip("/") or "/"
         fn = self.server.routes.get((method, path))
         route = path
@@ -190,6 +234,7 @@ class Handler(BaseHTTPRequestHandler):
             if cfg.api_keys and path not in AUTH_EXEMPT \
                     and not self._authorized(cfg.api_keys):
                 raise HTTPError(401, "unauthorized")
+            self.t_auth = time.perf_counter()
             if fn is None:
                 raise HTTPError(404, f"no route {method} {path}")
             limit = cfg.upload_limit_mb * 1024 * 1024
@@ -212,6 +257,9 @@ class Handler(BaseHTTPRequestHandler):
             log.exception("request failed")
             self.send_error_json(HTTPError(500, str(e)), cfg.opaque_errors)
         finally:
+            if edge:
+                TRACER.event(edge, "done")
+                TRACER.finish(edge)
             if not cfg.disable_metrics:
                 API_CALL.labels(method=method,
                                 path=route if fn is not None else "other"

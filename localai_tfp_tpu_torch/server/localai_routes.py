@@ -1,23 +1,31 @@
 """LocalAI-native routes of the port (the subset of
 localai_tfp_tpu/server/localai_routes.py the port serves): health,
 ``/version``, ``/metrics``, ``/system``, the backend monitor and
-shutdown, Jina's ``/v1/rerank`` and the vector stores
-(``/stores/{set,delete,get,find}``) (ref: core/http/routes/localai.go,
-routes/health.go, routes/jina.go).
+shutdown, Jina's ``/v1/rerank``, the vector stores
+(``/stores/{set,delete,get,find}``) and the debug routes
+(``/debug/traces``, ``/debug/timeline``, ``/debug/profile``) (ref:
+core/http/routes/localai.go, routes/health.go, routes/jina.go).
 """
 
 from __future__ import annotations
 
+import io
 import os
 import resource
+import threading
 import time
+import zipfile
 from urllib.parse import urlsplit
 
 import torch
 
+from ..config import knobs
 from ..config.model_config import ModelConfig, Usecase
 from ..engine.loader import registry
-from ..telemetry.registry import CONTENT_TYPE, REGISTRY
+from ..telemetry.flightrec import FLIGHT
+from ..telemetry.registry import (CONTENT_TYPE, OPENMETRICS_CONTENT_TYPE,
+                                  REGISTRY)
+from ..telemetry.tracing import TRACER
 from ..utils.sysinfo import device_memory
 from ..version import __version__
 from . import schema
@@ -34,18 +42,21 @@ def version(h: Handler, app: Application) -> None:
 
 
 def metrics(h: Handler, app: Application) -> None:
-    """Prometheus exposition 0.0.4 of the process's registry, the
-    engines' gauges refreshed first from host-held values; 404 when
-    metrics are disabled."""
+    """Prometheus exposition 0.0.4 of the process's registry, or, when
+    the scraper's ``Accept`` names ``application/openmetrics-text``,
+    OpenMetrics with exemplars; the engines' gauges refreshed first from
+    host-held values. 404 when metrics are disabled."""
     if app.config.disable_metrics:
         raise HTTPError(404, "metrics are disabled")
     for b in app.loaded().values():
         eng = getattr(b, "engine", None)
         if eng is not None:
             eng.update_gauges()
-    body = REGISTRY.render().encode()
+    om = "application/openmetrics-text" in h.headers.get("Accept", "")
+    body = REGISTRY.render(openmetrics=om).encode()
     h.send_response(200)
-    h.send_header("Content-Type", CONTENT_TYPE)
+    h.send_header("Content-Type",
+                  OPENMETRICS_CONTENT_TYPE if om else CONTENT_TYPE)
     h.send_header("Content-Length", str(len(body)))
     h.end_headers()
     h.wfile.write(body)
@@ -175,3 +186,99 @@ def stores(h: Handler, app: Application) -> None:
                                                  int(body.get("topk") or 10))
         h.send_json(200, {"keys": keys, "values": values,
                           "similarities": sims})
+
+
+# ------------------------------------------------------------------ debug
+
+_NO_STORE = {"Cache-Control": "no-store"}
+
+
+def _int_query(h: Handler, key: str, default: int) -> int:
+    try:
+        return int(h.query(key) or default)
+    except ValueError:
+        raise HTTPError(400, f"'{key}' must be an integer") from None
+
+
+def debug_traces(h: Handler, app: Application) -> None:
+    """Request-lifecycle traces (telemetry/tracing.py), newest first:
+    ``?model=`` filter, ``?limit=`` cap (default 50), ``?id=`` lookup by
+    trace id, request id, correlation id or a whole traceparent."""
+    limit = _int_query(h, "limit", 50)
+    ident = h.query("id")
+    traces = (TRACER.lookup(ident, limit=limit) if ident
+              else TRACER.traces(model=h.query("model") or None,
+                                 limit=limit))
+    h.send_json(200, {"traces": traces}, _NO_STORE)
+
+
+def debug_timeline(h: Handler, app: Application) -> None:
+    """The flight recorder as Chrome-trace JSON (telemetry/flightrec.py),
+    loadable in Perfetto or chrome://tracing; ``?limit=`` keeps the
+    newest events."""
+    trace = FLIGHT.export_chrome_trace()
+    if h.query("limit"):
+        limit = max(0, _int_query(h, "limit", 0))
+        ev = trace["traceEvents"]
+        if len(ev) > limit:
+            trace = {**trace, "traceEvents": ev[-limit:] if limit else []}
+    h.send_json(200, trace, _NO_STORE)
+
+
+# one profile capture at a time: a second concurrent request gets 409
+_PROFILE_LOCK = threading.Lock()
+
+
+def debug_profile(h: Handler, app: Application) -> None:
+    """An on-demand ``torch.profiler`` capture (CPU and, on a card, CUDA
+    activities) of ``?duration=`` seconds (default 2, clamped to
+    ``LOCALAI_PROFILER_MAX_S``), written as a Chrome trace under
+    ``state_dir/profiles/<time>/``. Gated by ``LOCALAI_PROFILER`` (off:
+    403). ``?download=1`` returns the capture directory as a zip; else
+    the JSON names its path."""
+    import torch.profiler as tp
+
+    if not knobs.flag("LOCALAI_PROFILER"):
+        raise HTTPError(403, "profiler disabled (set LOCALAI_PROFILER=on)")
+    try:
+        duration = float(h.query("duration") or 2.0)
+    except ValueError:
+        raise HTTPError(400, "'duration' must be a number") from None
+    max_s = max(0.1, knobs.float_("LOCALAI_PROFILER_MAX_S"))
+    duration = min(max(0.1, duration), max_s)
+    if not _PROFILE_LOCK.acquire(blocking=False):
+        raise HTTPError(409, "a profile capture is already running")
+    logdir = os.path.join(app.config.state_dir, "profiles",
+                          time.strftime("%Y%m%d-%H%M%S"))
+    try:
+        os.makedirs(logdir, exist_ok=True)
+        acts = [tp.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(tp.ProfilerActivity.CUDA)
+        with tp.profile(activities=acts) as prof:
+            time.sleep(duration)
+        path = os.path.join(logdir, "trace.json")
+        prof.export_chrome_trace(path)
+    except Exception as e:
+        raise HTTPError(500, f"profiler capture failed: {e!r}") from e
+    finally:
+        _PROFILE_LOCK.release()
+    if h.query("download"):
+        buf = io.BytesIO()
+        with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED) as zf:
+            for root, _dirs, files in os.walk(logdir):
+                for fname in files:
+                    full = os.path.join(root, fname)
+                    zf.write(full, os.path.relpath(full, logdir))
+        body = buf.getvalue()
+        h.send_response(200)
+        h.send_header("Content-Type", "application/zip")
+        h.send_header("Content-Disposition", 'attachment; filename="%s.zip"'
+                      % os.path.basename(logdir))
+        h.send_header("Cache-Control", "no-store")
+        h.send_header("Content-Length", str(len(body)))
+        h.end_headers()
+        h.wfile.write(body)
+        return
+    h.send_json(200, {"path": logdir, "duration_s": duration,
+                      "bytes": os.path.getsize(path)}, _NO_STORE)

@@ -43,6 +43,7 @@ from ..engine.engine import StreamEvent
 from ..grammars.json_schema import functions_grammar, schema_to_gbnf
 from ..grammars.parse import (FinetuneStream, apply_finetune,
                               parse_function_call, parse_text_content)
+from ..telemetry.tracing import TRACER
 from ..workers.base import PredictOptions, Reply
 from ..workers.llm import final_reply
 from . import schema
@@ -346,6 +347,9 @@ def _stream_chat(h: Handler, backend, opts: PredictOptions,
     (finish_reason "tool_calls") when it holds calls, else one content
     delta."""
     opts.request_id = uuid.uuid4().hex
+    # the request's trace opens before the engine can stamp it: the
+    # HTTP milestones first, the engine's (queue ... done) after
+    h.start_trace(opts.request_id, cfg.name)
     q = backend.stream_queue(opts)
     # a bounded-queue shed lands synchronously inside submit: refuse it
     # with a real 429 before the headers go out
@@ -414,6 +418,7 @@ def _stream_chat(h: Handler, backend, opts: PredictOptions,
                             usage=_usage(final, extra_usage)))
         h.wfile.write(b"data: [DONE]\n\n")
         h.wfile.flush()
+        TRACER.event(opts.request_id, "stream_done")
     except (BrokenPipeError, ConnectionResetError):
         # client went away: free the slot instead of decoding on
         backend.cancel(opts.request_id)
@@ -493,6 +498,7 @@ def _stream_completion(h: Handler, backend, opts: PredictOptions,
     (post-processed as the config says), the finish chunk with usage,
     then ``data: [DONE]``."""
     opts.request_id = uuid.uuid4().hex
+    h.start_trace(opts.request_id, cfg.name)
     q = backend.stream_queue(opts)
     first: Optional[StreamEvent] = None
     try:
@@ -539,6 +545,7 @@ def _stream_completion(h: Handler, backend, opts: PredictOptions,
                             usage=_usage(final, extra_usage)))
         h.wfile.write(b"data: [DONE]\n\n")
         h.wfile.flush()
+        TRACER.event(opts.request_id, "stream_done")
     except (BrokenPipeError, ConnectionResetError):
         backend.cancel(opts.request_id)
         raise

@@ -62,10 +62,13 @@ def nbytes_of(tree: Any) -> int:
 
 
 def looks_like_oom(e: BaseException) -> bool:
-    """Is this exception a device allocation failure?"""
+    """Is this exception a device allocation failure? A CUDA
+    out-of-memory error, or the ``engine.hbm_alloc`` fault-injection
+    point that stands in for one in tests."""
     import torch
 
-    return isinstance(e, torch.cuda.OutOfMemoryError)
+    return (isinstance(e, torch.cuda.OutOfMemoryError)
+            or "engine.hbm_alloc" in repr(e))
 
 
 def default_state_dir() -> str:
@@ -183,10 +186,15 @@ class HBMLedger:
 def dump_post_mortem(state_dir: str, model: str, error: BaseException,
                      ledger: Optional[HBMLedger] = None,
                      pool_stats: Any = None,
-                     memory_stats: Optional[dict] = None) -> Optional[str]:
+                     memory_stats: Optional[dict] = None,
+                     tier_stats: Optional[dict] = None) -> Optional[str]:
     """Write an OOM forensics JSON under ``state_dir``/post_mortem and
     return its path, or None when it could not be written: forensics
-    must not mask the original failure."""
+    must not mask the original failure. The report holds the ledger,
+    the pool's and the KV tier's stats, the allocator's counters and
+    the flight recorder's last 256 events."""
+    from .flightrec import FLIGHT
+
     report = {
         "kind": "hbm_post_mortem",
         "time": time.time(),
@@ -195,7 +203,9 @@ def dump_post_mortem(state_dir: str, model: str, error: BaseException,
         "ledger": ledger.snapshot() if ledger is not None else None,
         "kv_pool": (dataclasses.asdict(pool_stats)
                     if pool_stats is not None else None),
+        "kv_tier": tier_stats,
         "memory_stats": memory_stats,
+        "flightrec_tail": FLIGHT.export_chrome_trace()["traceEvents"][-256:],
     }
     pm_dir = os.path.join(state_dir or default_state_dir(), "post_mortem")
     path = os.path.join(pm_dir, f"hbm-{int(time.time() * 1e3)}.json")

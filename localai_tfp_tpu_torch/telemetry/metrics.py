@@ -17,9 +17,13 @@ Layer map (where each family is recorded):
           the server's gauge loop)
 - loader  engine/loader.py (loads, load phases, evictions, the
           loaded and busy counts, watchdog kills)
+- kv tier engine/kv_tier.py (moves, prefetch outcomes, bytes, pages
+          per tier)
+- debug   utils/faultinject.py (faults delivered), telemetry/tracing.py
+          (trace entries dropped), telemetry/flightrec.py (timeline ring)
 
-Not ported yet: the families of KV tiers, weight paging,
-disaggregation, federation and tracing.
+Not ported yet: the families of weight paging, disaggregation and
+federation.
 """
 
 from __future__ import annotations
@@ -259,6 +263,62 @@ WATCHDOG_KILLS = REGISTRY.counter(
     "watchdog_kills_total",
     "Models killed by the busy/idle watchdog",
     labels=("kind",),
+)
+
+# ---------------------------------------------------------------- KV tiers
+# engine/kv_tier.py: hot device pages, warm pinned-host pages, cold
+# on-disk sessions
+ENGINE_KV_TIER_PAGES = REGISTRY.gauge(
+    "engine_kv_tier_pages_count",
+    "KV pages resident per tier (hbm = pool pages allocated, host = "
+    "spilled pages held in host RAM, disk = pages of cold sessions in "
+    "the on-disk prompt-cache format)",
+    labels=("model", "tier"),
+)
+ENGINE_KV_TIER_MOVES = REGISTRY.counter(
+    "engine_kv_tier_moves_total",
+    "Tier transitions by direction (spill = HBM->host, fetch = "
+    "host->HBM, save = host->disk, load = disk->host) and outcome "
+    "(ok, dedup = shared page already spilled once, fault = injected/"
+    "real DMA failure, aborted = session state changed mid-transfer)",
+    labels=("model", "direction", "outcome"),
+)
+ENGINE_KV_TIER_PREFETCH = REGISTRY.counter(
+    "engine_kv_tier_prefetch_total",
+    "Returning-session promotion attempts at admission (hit = pages "
+    "back in HBM before the prefill slot opened — zero re-prefill, "
+    "late = the transfer missed its admission deadline and the request "
+    "re-prefilled, miss = no tier entry covered the prompt, expired = "
+    "a staged fetch was abandoned before adoption)",
+    labels=("model", "result"),
+)
+ENGINE_KV_TIER_BYTES = REGISTRY.counter(
+    "engine_kv_tier_bytes_moved_total",
+    "Bytes moved between KV tiers by direction (spill/fetch/save/load; "
+    "scale planes included for int8 caches)",
+    labels=("model", "direction"),
+)
+
+# ------------------------------------------------------------ debugging
+FAULTS_INJECTED = REGISTRY.counter(
+    "faults_injected_total",
+    "Faults actually delivered by armed LOCALAI_FAULTS injection points "
+    "(utils/faultinject.py) — zero outside chaos runs",
+    labels=("point",),
+)
+TRACE_SPANS_DROPPED = REGISTRY.counter(
+    "trace_spans_dropped_total",
+    "Trace entries or span events dropped by the bounded recorder "
+    "(active_overflow = still-active trace evicted at active_cap, "
+    "ring_evict = finished trace pushed out of the ring, note_cap = "
+    "span event past the per-trace annotation cap)",
+    labels=("reason",),
+)
+TIMELINE_RING_EVENTS = REGISTRY.gauge(
+    "timeline_ring_events_count",
+    "Events currently held by the flight-recorder timeline ring "
+    "(telemetry/flightrec.py; exported as Chrome-trace JSON via "
+    "GET /debug/timeline)",
 )
 
 # families whose help text is the port's own (see the module docstring)

@@ -14,21 +14,31 @@ an overflow label set (``overflow`` names which labels get replaced by
 ``"other"``; with no overflow spec every label collapses) — a
 path-scanning client cannot grow the registry without bound.
 
-Not ported: the OpenMetrics rendering and its exemplars (they carry
-trace ids, and the port has no request tracing yet), the fleet path's
-wholesale histogram ``load``, gauge ``inc``/``dec`` and the bench's
-``snapshot``/``delta`` (nothing of the port uses them).
+``render(openmetrics=True)`` is the OpenMetrics exposition a scraper
+negotiates with ``Accept: application/openmetrics-text``: counters'
+HELP/TYPE lines drop ``_total``, histogram buckets carry the newest
+exemplar observed in them (``# {trace_id="..."} value timestamp``, the
+trace id that joins ``/debug/traces?id=``), and the text ends with
+``# EOF``.
+
+Not ported: the fleet path's wholesale histogram ``load``, gauge
+``inc``/``dec`` and the bench's ``snapshot``/``delta`` (nothing of the
+port uses them).
 """
 
 from __future__ import annotations
 
 import re
 import threading
+import time
 from bisect import bisect_left
 from typing import Optional, Sequence
 
 # the exposition content type scrapers negotiate on
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+# the OpenMetrics exposition (the one that carries exemplars)
+OPENMETRICS_CONTENT_TYPE = (
+    "application/openmetrics-text; version=1.0.0; charset=utf-8")
 
 _NAME_RE = re.compile(r"^[a-z][a-z0-9_]*$")
 _LABEL_RE = re.compile(r"^[a-z_][a-z0-9_]*$")
@@ -120,13 +130,24 @@ class _Family:
             return [(k, c.snapshot()) for k, c in  # type: ignore[attr-defined]
                     sorted(self._children.items())]
 
-    def render_into(self, lines: list[str]) -> None:
-        lines.append(f"# HELP {self.name} {_escape_help(self.help)}")
-        lines.append(f"# TYPE {self.name} {self.kind}")
-        for key, snap in self.collect():
-            self._render_child(lines, self._label_str(key), snap)
+    def _om_name(self) -> str:
+        """OpenMetrics family name: counters drop the ``_total`` suffix
+        on HELP/TYPE lines (samples keep it)."""
+        if self.kind == "counter" and self.name.endswith("_total"):
+            return self.name[: -len("_total")]
+        return self.name
 
-    def _render_child(self, lines, label_str, snap) -> None:
+    def render_into(self, lines: list[str],
+                    openmetrics: bool = False) -> None:
+        fam = self._om_name() if openmetrics else self.name
+        lines.append(f"# HELP {fam} {_escape_help(self.help)}")
+        lines.append(f"# TYPE {fam} {self.kind}")
+        for key, snap in self.collect():
+            self._render_child(lines, self._label_str(key), snap,
+                               openmetrics)
+
+    def _render_child(self, lines, label_str, snap,
+                      openmetrics: bool = False) -> None:
         lines.append(f"{self.name}{label_str} {_fmt(snap['value'])}")
 
 
@@ -183,7 +204,7 @@ class Gauge(_Family):
 
 
 class _HistogramChild:
-    __slots__ = ("_lock", "buckets", "counts", "sum")
+    __slots__ = ("_lock", "buckets", "counts", "sum", "exemplars")
 
     def __init__(self, lock: threading.Lock,
                  buckets: tuple[float, ...]) -> None:
@@ -192,16 +213,22 @@ class _HistogramChild:
         # raw per-bucket + overflow
         self.counts = [0] * (len(buckets) + 1)  # guarded by self._lock
         self.sum = 0.0  # guarded by self._lock
+        # newest exemplar per raw bucket: idx -> (labels, value, ts)
+        self.exemplars: dict[int, tuple] = {}  # guarded by self._lock
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float, exemplar: Optional[dict] = None) -> None:
         v = float(v)
         with self._lock:
-            self.counts[bisect_left(self.buckets, v)] += 1
+            i = bisect_left(self.buckets, v)
+            self.counts[i] += 1
             self.sum += v
+            if exemplar:
+                self.exemplars[i] = (dict(exemplar), v, time.time())
 
     def snapshot(self) -> dict:
         return {"counts": list(self.counts), "sum": self.sum,
-                "buckets": self.buckets}
+                "buckets": self.buckets,
+                "exemplars": dict(self.exemplars)}
 
 
 class Histogram(_Family):
@@ -218,22 +245,39 @@ class Histogram(_Family):
     def _new_child(self):
         return _HistogramChild(self._lock, self.buckets)
 
-    def observe(self, v: float) -> None:
-        self._solo().observe(v)
+    def observe(self, v: float, exemplar: Optional[dict] = None) -> None:
+        self._solo().observe(v, exemplar)
 
-    def _render_child(self, lines, label_str, snap) -> None:
+    @staticmethod
+    def _exemplar_str(ex: tuple) -> str:
+        labels, value, ts = ex
+        inner = ",".join(
+            f'{k}="{escape_label_value(v)}"' for k, v in labels.items())
+        return f" # {{{inner}}} {_fmt(value)} {ts:.3f}"
+
+    def _render_child(self, lines, label_str, snap,
+                      openmetrics: bool = False) -> None:
         inner = label_str[1:-1]  # "" or 'a="b",c="d"'
+        exemplars = snap.get("exemplars") or {} if openmetrics else {}
 
         def with_le(le: str) -> str:
             parts = ([inner] if inner else []) + [f'le="{le}"']
             return "{" + ",".join(parts) + "}"
 
         cum = 0
-        for bound, c in zip(snap["buckets"], snap["counts"]):
+        for i, (bound, c) in enumerate(zip(snap["buckets"],
+                                           snap["counts"])):
             cum += c
-            lines.append(f"{self.name}_bucket{with_le(_fmt(bound))} {cum}")
+            line = f"{self.name}_bucket{with_le(_fmt(bound))} {cum}"
+            if i in exemplars:
+                line += self._exemplar_str(exemplars[i])
+            lines.append(line)
         cum += snap["counts"][-1]
-        lines.append(f"{self.name}_bucket{with_le('+Inf')} {cum}")
+        line = f"{self.name}_bucket{with_le('+Inf')} {cum}"
+        i = len(snap["buckets"])
+        if i in exemplars:
+            line += self._exemplar_str(exemplars[i])
+        lines.append(line)
         lines.append(f"{self.name}_sum{label_str} {_fmt(snap['sum'])}")
         lines.append(f"{self.name}_count{label_str} {cum}")
 
@@ -269,10 +313,12 @@ class Registry:
         with self._lock:
             return [self._families[n] for n in sorted(self._families)]
 
-    def render(self) -> str:
+    def render(self, openmetrics: bool = False) -> str:
         lines: list[str] = []
         for fam in self.families():
-            fam.render_into(lines)
+            fam.render_into(lines, openmetrics)
+        if openmetrics:
+            lines.append("# EOF")
         return "\n".join(lines) + "\n"
 
 

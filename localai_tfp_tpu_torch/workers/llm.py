@@ -30,8 +30,12 @@ from ..models import artifact_cache
 from ..models.gguf import GGUFFile, load_gguf_params, tokenizer_from_gguf
 from ..models.hf_loader import load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
+from ..models import load_timing
+from ..models.load_timing import LoadPhases
 from ..models.lora import merge_lora
 from ..models.quant import leaves, quantize_params
+from ..ops import _build, int8_matmul
+from ..ops import ragged_paged_attention as rpa
 from .base import (Backend, EmbeddingResult, ModelLoadOptions,
                    PredictOptions, Reply, Result, StatusResponse,
                    TokenizationResponse)
@@ -67,8 +71,8 @@ class TorchLLMBackend(Backend):
         # of those the engine's warmup (every decode graph captured)
         self.load_mode = ""
         self.load_s = 0.0
-        self.read_s = 0.0  # tokenizer and weights onto the device
-        self.warmup_s = 0.0
+        # the last load's wall seconds by phase (models/load_timing.py)
+        self.phases = LoadPhases()
         # the last shutdown's device memory (card only): allocated bytes
         # when the engine's buffers were dropped, after gc.collect (the
         # share only a collection frees), and the allocator's and the
@@ -103,48 +107,59 @@ class TorchLLMBackend(Backend):
                 self._state = "ERROR"
                 return Result(False, f"load failed: unsupported dtype "
                                      f"{name!r} / kv_cache_dtype {kv_name!r}")
+            self.phases = LoadPhases()
             try:
-                self._state = "BUSY"
-                self._drop_engine()
-                t0 = time.perf_counter()
-                quant = quant if quant in _INT8 else ""
-                # the tokenizer first: a file it cannot read (or a GGUF
-                # with no vocabulary) fails the load before any weight
-                # is read
-                if is_gguf:
-                    gf = GGUFFile(model_dir)
-                    self.tokenizer = tokenizer_from_gguf(gf)
-                    self.spec, params = self._load_gguf(
-                        gf, _DTYPES[name], quant, opts)
-                else:
-                    self.tokenizer = load_tokenizer(model_dir)
-                    self.spec, params = self._load_weights(
-                        model_dir, _DTYPES[name], quant, opts)
-                self._quantized = bool(quant)
-                self.read_s = time.perf_counter() - t0
-                self._grammar_cache = {}
-                draft = (self._load_draft(opts, _DTYPES[name])
-                         if opts.draft_model else None)
-                self.engine = LLMEngine(
-                    self.spec, params, self.tokenizer,
-                    n_slots=max(1, opts.batch_slots),
-                    max_seq=opts.context_size,
-                    cache_dtype=_KV_DTYPES[kv_name],
-                    draft=draft, n_draft=opts.n_draft or 4,
-                    device=self.device, model=opts.model)
-                self.warmup_s = 0.0
-                if knobs.flag("LOCALAI_WARMUP"):
-                    # capture the decode graphs now: a capture landing
-                    # mid-request would stall every decoding slot
-                    self.engine.warmup()
-                    self.warmup_s = self.engine.metrics.warmup_s
+                with load_timing.bind(self.phases):
+                    return self._load(opts, model_dir, is_gguf, quant,
+                                      name, kv_name)
             except (OSError, ValueError, NotImplementedError, KeyError,
                     RuntimeError, TemplateError) as e:
                 self._state = "ERROR"
                 return Result(False, f"load failed: {e}")
-            self.load_s = time.perf_counter() - t0
-            self._state = "READY"
-            return Result(True, "model loaded")
+
+    def _load(self, opts: ModelLoadOptions, model_dir: str, is_gguf: bool,
+              quant: str, name: str, kv_name: str) -> Result:
+        """The load proper, its phases billed to ``self.phases``."""
+        self._state = "BUSY"
+        self._drop_engine()
+        t0 = time.perf_counter()
+        quant = quant if quant in _INT8 else ""
+        # the tokenizer first: a file it cannot read (or a GGUF with no
+        # vocabulary) fails the load before any weight is read
+        if is_gguf:
+            gf = GGUFFile(model_dir)
+            self.tokenizer = tokenizer_from_gguf(gf)
+            self.spec, params = self._load_gguf(gf, _DTYPES[name], quant,
+                                                opts)
+        else:
+            self.tokenizer = load_tokenizer(model_dir)
+            self.spec, params = self._load_weights(
+                model_dir, _DTYPES[name], quant, opts)
+        self._quantized = bool(quant)
+        self._grammar_cache = {}
+        draft = (self._load_draft(opts, _DTYPES[name])
+                 if opts.draft_model else None)
+        with load_timing.phase("compile_s"):
+            if self.device.type == "cuda":
+                # the kernels' first-use nvcc build, here rather than
+                # inside the first capture
+                _build.build_all([rpa.KERNEL] + (
+                    [int8_matmul.KERNEL] if quant else []))
+            self.engine = LLMEngine(
+                self.spec, params, self.tokenizer,
+                n_slots=max(1, opts.batch_slots),
+                max_seq=opts.context_size,
+                cache_dtype=_KV_DTYPES[kv_name],
+                draft=draft, n_draft=opts.n_draft or 4,
+                device=self.device, model=opts.model)
+        if knobs.flag("LOCALAI_WARMUP"):
+            # capture the decode graphs now: a capture landing
+            # mid-request would stall every decoding slot
+            with load_timing.phase("warmup_s"):
+                self.engine.warmup()
+        self.load_s = time.perf_counter() - t0
+        self._state = "READY"
+        return Result(True, "model loaded")
 
     def _adapt(self, spec: LLMSpec, params: dict, quant: str,
                opts: ModelLoadOptions) -> dict:
@@ -163,8 +178,9 @@ class TorchLLMBackend(Backend):
                                    inplace=True)
         self.load_mode = "full"
         if quant:
-            params = quantize_params(params, embeddings=(
-                artifact_cache.canonical_quant(quant) == "int8_full"))
+            with load_timing.phase("dequant_s", self.device):
+                params = quantize_params(params, embeddings=(
+                    artifact_cache.canonical_quant(quant) == "int8_full"))
             self.load_mode = "quantized"
         return params
 
@@ -250,11 +266,12 @@ class TorchLLMBackend(Backend):
 
     @property
     def load_breakdown(self) -> dict:
-        """The last load's wall seconds by phase (the loader folds them
-        into ``model_load_phase_seconds_total``)."""
-        return {"read_s": self.read_s, "warmup_s": self.warmup_s,
-                "other_s": max(0.0, self.load_s - self.read_s
-                               - self.warmup_s)}
+        """The last load's wall seconds by phase, the JAX worker's keys
+        (the loader folds the phases into
+        ``model_load_phase_seconds_total``). The port keeps no persistent
+        compile cache, so ``warmup_reused`` is always False."""
+        return {**self.phases.as_dict(total_s=self.load_s),
+                "load_mode": self.load_mode, "warmup_reused": False}
 
     def _drop_engine(self) -> None:
         """Stop the engine's scheduler (its slots end with an error
@@ -396,6 +413,7 @@ class TorchLLMBackend(Backend):
             "warmup_s": m.warmup_s,
             "costmodel": eng.cost_stats(),
             "hbm": eng.hbm_stats(),
+            "kv_tier": eng.tier_stats(),
         }
 
     def predict(self, opts: PredictOptions) -> Reply:

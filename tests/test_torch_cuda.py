@@ -1472,3 +1472,61 @@ def test_python_store_find_on_the_card_matches_numpy(cuda_device,
         assert v == [int(j) for j in order]
         assert np.abs(sims - dots[order]).max() <= 1e-5
     assert calls == [cuda_device] * 3
+
+
+# ------------------------------------------------------------- the KV tier
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_urgent_spill_races_the_overwrite_of_its_pages(cuda_device,
+                                                       monkeypatch, kv):
+    """A reclaim spills a resident urgently and hands its pages straight
+    to another request, whose prefill (a graph replay) overwrites them in
+    the same admission. The tier's gather runs on the engine's stream
+    before that replay and its side stream copies the gathered tensor,
+    never the arena: the host pages must equal a gather of the same pages
+    taken before the overwrite, bitwise, and the arena pages must have
+    changed (the overwrite happened), the pinned host pages in use."""
+    monkeypatch.setenv("LOCALAI_KV_PAGE", "16")
+    spec, params = _tiny_model(cuda_device)
+    params = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+              for k, v in params.items()}
+    # 7 pages for the resident, 10 for the newcomer: 11 usable pages
+    eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=2, max_seq=256,
+                    kv_pages=12, cache_dtype=(torch.int8 if kv == "int8"
+                                              else torch.bfloat16),
+                    device=cuda_device)
+    try:
+        assert eng._tier is not None and eng._tier.slab.buf.is_pinned()
+        first = list(range(1, 101))
+        ev = eng.generate(GenRequest(prompt_ids=first, max_tokens=4,
+                                     ignore_eos=True))
+        assert ev.finish_reason == "length"
+        slot = next(s for s in eng.slots if s.cache_tokens)
+        tokens = list(slot.cache_tokens)
+        pages = eng._pool.table(slot.idx)
+        tbl = torch.tensor(pages, dtype=torch.long, device=cuda_device)
+        planes = eng._tier._planes()
+        before = {nm: a[:, tbl].clone() for nm, a in planes.items()}
+        spills0 = eng._tier.counters["spills"]
+        ev = eng.generate(GenRequest(prompt_ids=list(range(3, 153)),
+                                     max_tokens=4, ignore_eos=True))
+        assert ev.finish_reason == "length"
+        eng._tier.settle()
+        assert eng._tier.counters["spills"] == spills0 + 1
+        ent = next(e for e in eng._tier.entries() if e.tokens == tokens)
+        rows = eng._tier.host_rows(ent)
+        changed = False
+        for nm, ref in before.items():
+            want = ref.reshape(ref.shape[0], -1, *ref.shape[3:])
+            got = rows[nm]
+            assert got.shape == want.shape
+            assert torch.equal(got.contiguous().view(torch.uint8),
+                               want.cpu().contiguous().view(torch.uint8))
+            changed |= not torch.equal(planes[nm][:, tbl], ref)
+        assert changed, "the newcomer did not overwrite the spilled pages"
+        eng._tier.leak_check()
+        eng.leak_check()
+    finally:
+        eng.close()

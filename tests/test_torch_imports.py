@@ -93,7 +93,9 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
               "server.schema", "engine.wordpiece", "models.encoder",
               "workers.encoder_base", "workers.embeddings",
               "workers.rerank", "store.backend", "store.native",
-              "clients.store", "utils.cxx"):
+              "clients.store", "utils.cxx", "engine.kv_tier",
+              "models.staging", "models.load_timing", "utils.faultinject",
+              "telemetry.flightrec", "telemetry.tracing"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)

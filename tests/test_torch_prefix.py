@@ -67,14 +67,16 @@ def weights():
 def _port(weights):
     return te.LLMEngine(tiny_spec(vocab_size=VOCAB, max_position=512),
                         params_from_numpy(weights), ByteTokenizer(),
-                        cache_dtype=torch.float32, device="cpu", **ENGINE_KW)
+                        cache_dtype=torch.float32, device="cpu",
+                        kv_tier=False, **ENGINE_KW)
 
 
 def _engines(weights, int8=False, **kw):
-    """(JAX engine, port engine) on the same weights and settings. The
-    JAX engine's KV tier is off: the port has none, and the tier demotes
-    a resident idle past ``LOCALAI_KV_TIER_IDLE_S``, so on a loaded host
-    its reclaims would depend on the clock."""
+    """(JAX engine, port engine) on the same weights and settings, both
+    with the KV tier off: the tier demotes a resident idle past
+    ``LOCALAI_KV_TIER_IDLE_S``, so on a loaded host its reclaims would
+    depend on the clock, and its prefetches move the page copy and share
+    counts compared here (tests/test_torch_kv_tier.py holds the tier)."""
     kw = {**ENGINE_KW, **kw}
     jeng = je.LLMEngine(
         jax_tiny(vocab_size=VOCAB, max_position=512),
@@ -84,7 +86,7 @@ def _engines(weights, int8=False, **kw):
         tiny_spec(vocab_size=VOCAB, max_position=512),
         params_from_numpy(weights), ByteTokenizer(),
         cache_dtype=torch.int8 if int8 else torch.float32, device="cpu",
-        **kw)
+        kv_tier=False, **kw)
     return jeng, teng
 
 

@@ -70,12 +70,13 @@ def _port(weights, kv="f32", **kw):
     spec = tiny_spec(vocab_size=258)
     return te.LLMEngine(spec, params_from_numpy(weights), ByteTokenizer(),
                         cache_dtype=torch.int8 if kv == "int8"
-                        else torch.float32, device="cpu", **{**KW, **kw})
+                        else torch.float32, device="cpu", kv_tier=False,
+                        **{**KW, **kw})
 
 
 def _jax(weights, kv="f32", **kw):
-    # no warm KV tier: the port has none, and its background spills
-    # would make the JAX engine's reuse depend on timing
+    # no warm KV tier in either engine: its background spills would make
+    # the reuse counted here depend on timing
     return je.LLMEngine(jax_tiny(vocab_size=258),
                         {k: jnp.asarray(v) for k, v in weights.items()},
                         JaxBytes(), cache_dtype="int8" if kv == "int8"

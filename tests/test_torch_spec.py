@@ -78,6 +78,7 @@ def _port(weights, draft=True, self_draft=False, **kw):
         d = (tiny_spec(vocab_size=VOCAB, **DRAFT), params_from_numpy(dw))
     return te.LLMEngine(spec, params, ByteTokenizer(),
                         cache_dtype=torch.float32, device="cpu", draft=d,
+                        kv_tier=False,
                         **{**ENGINE_KW, "decode_steps": 16, **kw})
 
 

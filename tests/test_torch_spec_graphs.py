@@ -74,6 +74,7 @@ def _port(weights, draft="tiny", eager=False, **kw):
                   params_from_numpy(dw)),
          "self": (spec, params), None: None}[draft]
     eng = te.LLMEngine(spec, params, ByteTokenizer(), device="cpu", draft=d,
+                       kv_tier=False,
                        **{**KW, "cache_dtype": torch.float32, **kw})
     eng._prefix_enabled = False
     if eager:  # the eager rounds over exactly the rows, on this instance
