@@ -144,6 +144,31 @@ Phases, one result line each; any failure raises and exits non-zero:
    at its default (on); phases whose checks count prompt tokens or
    pages serve fresh engines whose pools stay under the tier's
    watermark, so no background spill moves their counts.
+8c. weights — after phase 8b (phase 5's checkpoint; written when phase 5
+   did not run): the 8B bf16 at full width and depth through the HTTP
+   server with weight paging on (the default: the tree in a
+   fixed-address slab, csrc/weight_vmm.cu): a greedy chat, a demotion to
+   the pinned host mirror (its copy and the mirror's pinning timed),
+   the same chat again after the promotion (byte-identical text, the
+   same graph objects, no new variant, B1 launched on the promoted
+   weights), a seed demotion (no copy) whose unmap frees at least the
+   tree less one granule (mem_get_info), the TTFT hot / warm (the
+   promotion included) / cold (the load); no blocking w:* span; the
+   int8 8B cut at 8 layers served from its artifact (a first load
+   writes it, the second reads it and seeds the pager's mirror): a seed
+   demotion (no device bytes; the mirror pinned on the demotion's
+   thread), the promotion from it timed, q and scale planes bitwise, B2
+   launched, the text equal to the quantized load's; two models under
+   LOCALAI_WEIGHT_HBM_MB sized
+   for one (the idle one demoted); LOCALAI_WATCHDOG_DEMOTE=on demoting
+   the idle model instead of unloading it.
+8d. disagg — after 8c: the 8B bf16 at full width with LOCALAI_DISAGG off
+   and on, each on its own server: eight 1800-token chats through
+   /v1/chat/completions at once (greedy text equal on and off, every
+   one migrated, no prompt token prefilled by the decode engine, both
+   pools and the interchange leak-clean), then the same count of fresh
+   prompts as a flood beside four decoding streams: TTFT, the streams'
+   ITL p50/p99, the migration's device-timed D2H and H2D GB/s.
 9. spec    — after phase 5 (its checkpoint):
    speculative decoding through the HTTP route with a random-weight
    Llama-3.2-1B-geometry draft (16 layers, Dh 64, tied head, seed 1)
@@ -152,7 +177,7 @@ Phases, one result line each; any failure raises and exits non-zero:
    layers (a depth cut) with the draft and on the plain model of that
    depth: ids equal, or apart only at near ties or within the
    dense reference (``compare_waves``); (b) the 8B checkpoint's first
-   ``SPEC_B_LAYERS`` (8) layers drafting for themselves (a depth cut that
+   ``SPEC_B_LAYERS`` (4) layers drafting for themselves (a depth cut that
    keeps the default run under its time budget), the same four at once:
    greedy ids held to the plain model of that depth as (a) holds its
    own, every greedy rejection within 0.2 of the
@@ -369,11 +394,15 @@ def phase_device():
 
 
 def phase_build():
+    from localai_tfp_tpu_torch.models import weight_slab
     from localai_tfp_tpu_torch.ops import _build, int8_matmul
     from localai_tfp_tpu_torch.ops import ragged_paged_attention as rpa
 
     t0 = time.perf_counter()
-    built = _build.build_all([rpa.KERNEL, int8_matmul.KERNEL])
+    # the two kernels and the weight slab's cuMem* calls, one nvcc each,
+    # all started together
+    built = _build.build_all([rpa.KERNEL, int8_matmul.KERNEL,
+                              weight_slab.KERNEL])
     report = {}
     for name, b in built.items():
         report[name] = ptxas_summary(b.ptxas)
@@ -2486,10 +2515,12 @@ def phase_graphs(port: int, app, model: str, backend) -> dict:
     scrape = scrape_metrics(port, eng._mlabel)
     hbm = eng.hbm_stats()
     mfu = scrape["engine_mfu_ratio"]
+    # a paging engine attributes its weights by tier (weights_hot)
+    weights = "weights_hot" if eng._pager is not None else "weights"
     if scrape["content_type"] != CONTENT_TYPE or not (
             mfu is not None and 0 < mfu <= 1) or not all(
             scrape["engine_hbm_bytes"].get(c, 0) > 0 for c in (
-                "weights", "kv_arena", "sampler")
+                weights, "kv_arena", "sampler")
             + (("graph_pool",) if on_card else ())):
         raise AssertionError(f"{model}: /metrics {scrape}")
     return {
@@ -3867,10 +3898,11 @@ REJECT_TIE = 0.2
 # sampled acceptance below which the rule or the draft arena is broken
 # (a model drafting for itself has p close to q)
 SAMPLED_ACCEPT_MIN = 0.5
-# the depth of spec's targets: the 8B checkpoint's first 8 of 32 layers
-# (its tensors shared by a symlink; config.json says 8 layers), (b)'s
-# draft too
-SPEC_B_LAYERS = 8
+# the depth of spec's targets: the 8B checkpoint's first 4 of 32 layers
+# (its tensors shared by a symlink; config.json says 4 layers), (b)'s
+# draft too (a depth cut that keeps the default run in its budget
+# beside phases weights and disagg)
+SPEC_B_LAYERS = 4
 # faults planted on (b)'s engine to show that its checks fail them: the
 # prompt mirror written elsewhere (a stale draft arena; the greedy
 # rejection check must fail it), or the rejection rule reading the
@@ -7379,12 +7411,563 @@ def phase_retrieval(smi: str, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------- phases weights, disagg
+#
+# Phase weights: the 8B (bf16, every layer) through the port's HTTP server
+# with weight paging on (the default): a greedy chat hot, a demotion to the
+# pinned host mirror (the slab's HBM unmapped and freed), the same chat
+# again after the promotion (the same graphs replayed, no capture), the
+# TTFT of a warm model against a hot one and a cold load; the int8 model
+# (8 layers) from its artifact, bitwise across a seed demotion and its
+# promotion; two models under a budget for
+# one (the LRU demotes the idle one); the watchdog's demote mode.
+# Phase disagg: the 8B at full width with LOCALAI_DISAGG=on against off:
+# eight 1800-token prompts through /v1/chat/completions (greedy text equal,
+# no prompt token re-prefilled by the decode engine, both pools clean),
+# then the same eight as a flood beside four decoding streams (migrate
+# GB/s, TTFT, the streams' ITL p50/p99).
+
+WEIGHTS_CHAT = {"model": "llama-3.1-8b", "max_tokens": 24, "messages": [
+    {"role": "user", "content": "Page the weights out and back in, then "
+                                "tell me what you remember."}]}
+DISAGG_PROMPTS = 8  # the flood's prompts, each DISAGG_TOKENS long
+DISAGG_TOKENS = 1800
+DISAGG_STREAMS_TOKENS = 96  # tokens each decoding stream emits
+
+
+def _chat_text(port: int, body: dict) -> str:
+    status, ctype, text = _http(port, body)
+    check_reply(body["model"], body, status, ctype, text)
+    return json.loads(text)["choices"][0]["message"]["content"]
+
+
+def _graph_ids(eng) -> set:
+    return {id(v.graph) for d in (eng._variants, eng._masked_variants,
+                                  eng._mixed_variants, eng._spec_variants)
+            for v in d.values()}
+
+
+def _counts() -> dict:
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    return {"ragged_paged_attention": ragged_paged_attention.launches,
+            "int8_matmul": int8_matmul.launches}
+
+
+def _zero_counts() -> None:
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    ragged_paged_attention.launches = int8_matmul.launches = 0
+
+
+def _demote(backend, limit: float = 120.0) -> dict:
+    """Demote the worker's weights and wait for the warm state: the wall
+    seconds and the free device memory (mem_get_info) before and
+    after."""
+    import torch
+
+    pager = backend.engine._pager
+    torch.cuda.synchronize()
+    free0, _ = torch.cuda.mem_get_info()
+    t0 = time.perf_counter()
+    deadline = t0 + limit
+    while backend.demote_weights() != "demoted":
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"demotion never started ({pager.state})")
+        time.sleep(0.01)
+    if not pager.settle(limit) or pager.state != "warm":
+        raise AssertionError(f"demotion did not land: {pager.stats()}")
+    wall = time.perf_counter() - t0
+    free1, _ = torch.cuda.mem_get_info()
+    return {"wall_s": wall, "freed_bytes": free1 - free0,
+            "outcome": pager.timings.get("demote_outcome"),
+            "copy_s": pager.timings.get("demote_copy_s")}
+
+
+def _first_token_ms(eng, text: str) -> float:
+    """One greedy request's TTFT on the engine's clock (submit to first
+    token), its completion drained."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    ev = eng.generate(GenRequest(
+        prompt_ids=eng.tokenizer.encode(text, add_bos=True), max_tokens=4,
+        ignore_eos=True))
+    if ev.finish_reason != "length":
+        raise AssertionError(f"ttft request: {ev.finish_reason} {ev.error}")
+    return ev.timing_first_token_ms
+
+
+def _tree_copy(params: dict) -> dict:
+    from localai_tfp_tpu_torch.models.quant import QTensor
+
+    return {k: (tuple(t.clone() for t in v) if isinstance(v, QTensor)
+                else v.clone()) for k, v in params.items()}
+
+
+def _tree_bitwise(params: dict, ref: dict) -> dict:
+    """Leaves (both planes of an int8 leaf) bitwise equal to ``ref``."""
+    from localai_tfp_tpu_torch.models.quant import QTensor
+
+    same = bad = 0
+    for k, want in ref.items():
+        got = params[k]
+        got = tuple(got) if isinstance(got, QTensor) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if _bitwise(g, w):
+                same += 1
+            else:
+                bad += 1
+    return {"planes_bitwise": same, "planes_differ": bad}
+
+
+def _mirror_pinned(pager) -> bool:
+    return all(t.is_pinned() for v in pager._host.values()
+               for t in (tuple(v) if isinstance(v, tuple) else (v,)))
+
+
+def weights_int8_leg(port: int, app, smi: str) -> dict:
+    """The int8 8B cut at INT8_CUT_LAYERS layers, served from its
+    artifact as a user's int8 model is: a first load quantizes on the
+    card and writes the artifact, the model is unloaded, and the second
+    load reads the artifact and seeds the pager's mirror with its planes.
+    The first demotion is then a seed drop (no device bytes; the file
+    mapping's planes pinned on the demotion's thread), the promotion
+    streams from that mirror, and q and scale come back bitwise. Pinning
+    maps about 0.2% of the mirror's bytes on the card (the bf16 leg's
+    ``mirror_mapping_bytes``), so the seed drop frees at least 99% of the
+    tree."""
+    import gc
+    import shutil
+
+    import torch
+
+    name = "llama-3.1-8b-int8-cut"
+    body = {**WEIGHTS_CHAT, "model": name}
+    cache = ROOT / "build" / "chip_smoke" / "weights_quant"
+    shutil.rmtree(cache, ignore_errors=True)
+    saved = os.environ.get("LOCALAI_QUANT_CACHE_DIR")
+    os.environ["LOCALAI_QUANT_CACHE_DIR"] = str(cache)
+    os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
+    try:
+        first = _loaded(port, app, name)
+        first_mode = first.load_mode
+        text_quantized = _chat_text(port, body)
+        del first
+        app.model_loader.shutdown_model(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        backend = _loaded(port, app, name)
+        artifact_load_s = time.perf_counter() - t0
+    finally:
+        os.environ["LOCALAI_QUANT_ARTIFACTS"] = "off"
+        if saved is None:
+            os.environ.pop("LOCALAI_QUANT_CACHE_DIR", None)
+        else:
+            os.environ["LOCALAI_QUANT_CACHE_DIR"] = saved
+    eng = backend.engine
+    pager = eng._pager
+    seeded = pager.stats()["seeded"]
+    pinned0 = _mirror_pinned(pager) if seeded else None
+    tree = pager.tree_bytes()
+    ref = _tree_copy(eng.params)
+    text0 = _chat_text(port, body)
+    dem = _demote(backend)
+    dem["unmapped"] = not pager.slab.mapped
+    pinned = _mirror_pinned(pager)
+    _zero_counts()
+    text1 = _chat_text(port, body)  # promotes from the mirror, then serves
+    launched = _counts()
+    promote = dict(pager.timings)
+    bits = _tree_bitwise(eng.params, ref)
+    del ref
+    shutil.rmtree(cache, ignore_errors=True)
+    out = {"first_load_mode": first_mode, "load_mode": backend.load_mode,
+           "artifact_load_s": artifact_load_s, "seeded": seeded,
+           "mirror_pinned_at_load": pinned0, "demote": dem,
+           "mirror_pin_s": promote.get("mirror_pin_s"),
+           "mirror_pinned": pinned,
+           "promote": {"s": promote.get("promote_s"),
+                       "map_s": promote.get("map_s"),
+                       "stream_s": promote.get("stream_s"),
+                       "gbs": tree / promote["stream_s"] / 1e9},
+           "bits": bits, "text_equal": text1 == text0,
+           "artifact_text_equal": text0 == text_quantized,
+           "launches": launched, "tree_bytes": tree, "card": smi}
+    log("weights_int8", **out)
+    if (first_mode, backend.load_mode) != ("quantized", "artifact") \
+            or not seeded or dem["outcome"] != "seed" or not pinned \
+            or not dem["unmapped"] or dem["freed_bytes"] < 0.99 * tree \
+            or bits["planes_differ"] or text1 != text0 \
+            or text0 != text_quantized or not launched["int8_matmul"]:
+        raise AssertionError(f"int8 round trip from the artifact: {out}")
+    return out
+
+
+def weights_lru_leg(port: int, app, smi: str) -> dict:
+    """Two models under LOCALAI_WEIGHT_HBM_MB sized for one: promoting the
+    int8 model (just demoted) demotes the idle bf16 one (the least
+    recently used)."""
+    from localai_tfp_tpu_torch.engine.weight_pager import COORD
+
+    a = app.loaded()["llama-3.1-8b"]
+    b = app.loaded()["llama-3.1-8b-int8-cut"]
+    pa, pb = a.engine._pager, b.engine._pager
+    if not pa.ensure_hot(120):
+        raise AssertionError("bf16 model did not come back hot")
+    budget = max(pa.tree_bytes(), pb.tree_bytes()) * 1.2
+    os.environ["LOCALAI_WEIGHT_HBM_MB"] = f"{budget / (1 << 20):.3f}"
+    try:
+        if pb.state != "warm":
+            _demote(b)
+        before = COORD.counters["pressure_demotes"]
+        pa.last_used = time.monotonic() - 60  # a idle, b the one wanted
+        _first_token_ms(b.engine, "Wake the smaller model.")
+        deadline = time.perf_counter() + 120
+        while pa.state != "warm" and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        out = {"budget_bytes": int(budget), "a_state": pa.state,
+               "b_state": pb.state,
+               "pressure_demotes": COORD.counters["pressure_demotes"]
+               - before, "residency": COORD.residency(), "card": smi}
+    finally:
+        os.environ["LOCALAI_WEIGHT_HBM_MB"] = "0"
+    if (out["a_state"], out["b_state"]) != ("warm", "hot") \
+            or out["pressure_demotes"] < 1:
+        raise AssertionError(f"LRU under pressure: {out}")
+    a.engine.leak_check()
+    b.engine.leak_check()
+    log("weights_lru", **out)
+    return out
+
+
+def weights_watchdog_leg(app, smi: str) -> dict:
+    """LOCALAI_WATCHDOG_DEMOTE=on and a short idle timeout: the idle hot
+    int8 model is demoted, not unloaded."""
+    from localai_tfp_tpu_torch.engine.loader import WatchDog
+
+    name = "llama-3.1-8b-int8-cut"
+    b = app.loaded()[name]
+    pb = b.engine._pager
+    if not pb.ensure_hot(120):
+        raise AssertionError("int8 model did not come back hot")
+    os.environ["LOCALAI_WATCHDOG_DEMOTE"] = "on"
+    try:
+        ml = app.model_loader
+        ml.mark_idle(name)
+        wd = WatchDog(ml, idle_timeout=1.0, enable_idle=True)
+        killed = wd.check(time.monotonic() + 2.0)
+        pb.settle(120)
+    finally:
+        os.environ["LOCALAI_WATCHDOG_DEMOTE"] = "off"
+    # (the bf16 model, warm since the LRU leg and idle too, is unloaded:
+    # a model idle while warm takes the kill path)
+    out = {"killed": killed, "still_loaded": name in ml.loaded_names(),
+           "state": pb.state, "card": smi}
+    if name in killed or not out["still_loaded"] or pb.state != "warm":
+        raise AssertionError(f"watchdog demote: {out}")
+    log("weights_watchdog", **out)
+    return out
+
+
+def phase_weights(ckpt_name: str, smi: str) -> dict:
+    """Weight paging on the card (see the block comment above)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "models"
+    model_yaml(models, "llama-3.1-8b", ckpt_name)
+    cut = first_layers(models, ckpt_name, INT8_CUT_LAYERS)
+    model_yaml(models, "llama-3.1-8b-int8-cut", cut, quantization="int8")
+    os.environ["LOCALAI_QUANT_ARTIFACTS"] = "off"
+    srv, th = _serve(models)
+    port = srv.server_address[1]
+    try:
+        t0 = time.perf_counter()
+        backend = _loaded(port, srv.app, "llama-3.1-8b")
+        cold_s = time.perf_counter() - t0
+        eng = backend.engine
+        pager = eng._pager
+        if pager is None:
+            raise AssertionError("the served engine has no weight pager")
+        tree = pager.tree_bytes()
+        _zero_counts()
+        text0 = _chat_text(port, WEIGHTS_CHAT)
+        ttft_hot = _first_token_ms(eng, "A hot model answers at once.")
+        variants, graphs = eng.variant_count(), _graph_ids(eng)
+        from localai_tfp_tpu_torch.telemetry.flightrec import FLIGHT
+
+        FLIGHT.clear()
+        # the first demotion also pins the host mirror, whose mapping
+        # takes device memory of its own (the card's page tables for the
+        # pinned pages); the seed demotion below only unmaps the slab
+        dem = _demote(backend)
+        demote_alloc_s = pager.timings.get("mirror_alloc_s")
+        mirror = pager.host_bytes()
+        pinned = _mirror_pinned(pager)
+        text1 = _chat_text(port, WEIGHTS_CHAT)  # promotes, then serves
+        promote = dict(pager.timings)
+        seed = _demote(backend)  # the mirror still matches: no copy
+        if seed["freed_bytes"] < tree - pager.slab.granularity:
+            raise AssertionError(f"an unmap freed {seed['freed_bytes']} B "
+                                 f"of a {tree} B tree")
+        ttft_warm = _first_token_ms(eng, "A hot model answers at once.")
+        launched = _counts()
+        trace = FLIGHT.export_chrome_trace()
+        tracks = {ev["tid"]: ev["args"]["name"] for ev in trace["traceEvents"]
+                  if ev.get("ph") == "M" and ev["name"] == "thread_name"}
+        spans = [ev for ev in trace["traceEvents"] if ev.get("ph") == "X"]
+        w = [ev for ev in spans if tracks.get(ev["tid"]) == "weights"]
+        steps = [ev for ev in spans if ev["name"].startswith("step:")]
+        overlap = sum(1 for b in w if b["args"]["blocking"] for st in steps
+                      if st["ts"] < b["ts"] + b["dur"]
+                      and b["ts"] < st["ts"] + st["dur"])
+        mem_total = next(int(x.split()[1]) * 1024 for x in
+                         open("/proc/meminfo") if x.startswith("MemTotal"))
+        out = {
+            "tree_bytes": tree, "slab_bytes": pager.slab.nbytes,
+            "granularity": pager.slab.granularity,
+            "demote": {**dem, "gbs": (tree / dem["copy_s"] / 1e9
+                                      if dem["copy_s"] else None),
+                       "mirror_alloc_s": demote_alloc_s},
+            "promote": {"s": promote.get("promote_s"),
+                        "map_s": promote.get("map_s"),
+                        "stream_s": promote.get("stream_s"),
+                        "gbs": tree / promote["stream_s"] / 1e9},
+            "seed_demote": seed,
+            # device memory the pinned mirror's mapping keeps
+            "mirror_mapping_bytes": seed["freed_bytes"] - dem["freed_bytes"],
+            "ttft_ms": {"hot": ttft_hot, "warm": ttft_warm,
+                        "cold_load_and_first_request": cold_s * 1e3},
+            "text_equal": text1 == text0,
+            "variants": [variants, eng.variant_count()],
+            "same_graphs": _graph_ids(eng) == graphs,
+            "launches": launched,
+            "w_spans": {n: sum(1 for e in w if e["name"] == n)
+                        for n in sorted({e["name"] for e in w})},
+            "blocking_w_spans": sum(1 for e in w if e["args"]["blocking"]),
+            "steps_overlapping_blocking_w": overlap,
+            "mirror_host_bytes": mirror, "mirror_pinned": pinned,
+            "mem_total_bytes": mem_total,
+            "pager": {k: v for k, v in pager.stats().items()
+                      if k != "timings"}, "card": smi}
+        log("weights_8b", **out)
+        if not (out["text_equal"] and out["same_graphs"]
+                and variants == eng.variant_count()
+                and launched["ragged_paged_attention"] > 0
+                and seed["outcome"] == "seed" and overlap == 0
+                and out["blocking_w_spans"] == 0):
+            raise AssertionError(f"weights round trip: {out}")
+        eng.leak_check()
+        del eng
+        int8 = weights_int8_leg(port, srv.app, smi)
+        lru = weights_lru_leg(port, srv.app, smi)
+        wd = weights_watchdog_leg(srv.app, smi)
+    finally:
+        _shut(srv, th)
+        os.environ["LOCALAI_QUANT_ARTIFACTS"] = "on"
+    res = {"bf16": out, "int8": int8, "lru": lru, "watchdog": wd,
+           "launches": {k: out["launches"][k] + int8["launches"][k]
+                        for k in out["launches"]},
+           "phase_s": time.perf_counter() - t_phase}
+    log("weights", launches=res["launches"], phase_s=res["phase_s"],
+        card=smi)
+    torch.cuda.empty_cache()
+    return res
+
+
+def disagg_prompt(i: int) -> str:
+    """A chat message of about DISAGG_TOKENS byte tokens, distinct per i."""
+    import numpy as np
+
+    rng = np.random.default_rng(100 + i)
+    words = ["page", "migrate", "prefill", "decode", "stream", "token",
+             "card", "slot", "host", "arena", "copy", "event"]
+    text = f"Request {i}: " + " ".join(
+        words[j] for j in rng.integers(0, len(words), DISAGG_TOKENS))
+    return text[:DISAGG_TOKENS]
+
+
+def flood_itl(target, decode, backend, prompts: list) -> dict:
+    """DISPATCH_STREAMS greedy streams on ``decode`` (short prompts, the
+    local path); once they decode, ``prompts`` arrive through ``target``
+    (the router, or the plain engine itself). The streams' ITL (each
+    dispatch's delivery gap over its tokens) p50/p99, the flood's TTFT."""
+    from localai_tfp_tpu_torch.engine.engine import GenRequest
+
+    streams = stream_requests(backend, DISAGG_STREAMS_TOKENS)
+    times: dict = {r.id: [] for r in streams}
+    emit = decode._emit_token
+
+    def emit_(slot, tok, defer=False):
+        if slot.request is not None and slot.request.id in times:
+            times[slot.request.id].append((decode.metrics.forward_steps,
+                                           time.perf_counter()))
+        return emit(slot, tok, defer)
+
+    decode._emit_token = emit_
+    try:
+        qs = target.submit_many(streams)
+        while not all(times[r.id] for r in streams):
+            time.sleep(0.001)
+        flood = [GenRequest(prompt_ids=list(p), max_tokens=8,
+                            ignore_eos=True) for p in prompts]
+        fq = target.submit_many(flood)
+        finals = []
+        for q in fq + qs:
+            ev = q.get(timeout=600)
+            while not ev.done:
+                ev = q.get(timeout=600)
+            finals.append(ev)
+    finally:
+        del decode._emit_token
+    bad = [f.finish_reason for f in finals if f.finish_reason != "length"]
+    if bad:
+        raise AssertionError(f"flood: {bad}")
+    gaps = []
+    for ts in times.values():
+        groups: dict = {}
+        for step, t in ts[1:]:
+            groups[step] = (groups.get(step, (t, 0))[0],
+                            groups.get(step, (t, 0))[1] + 1)
+        prev = ts[0][1]
+        for t, k in sorted(groups.values()):
+            gaps.append((t - prev) * 1e3 / k)
+            prev = t
+    ttft = [f.timing_first_token_ms for f in finals[:len(flood)]]
+    return {"itl_p50_ms": _pct(gaps, 0.5), "itl_p99_ms": _pct(gaps, 0.99),
+            "itl_samples": len(gaps), "ttft_p50_ms": _pct(ttft, 0.5),
+            "ttft_max_ms": max(ttft)}
+
+
+def disagg_arm(models: Path, on: bool, smi: str) -> dict:
+    """One arm of phase disagg on its own server: the eight chats through
+    HTTP at once, then the flood beside the streams."""
+    import threading
+
+    os.environ["LOCALAI_DISAGG"] = "on" if on else "off"
+    srv, th = _serve(models)
+    port = srv.server_address[1]
+    try:
+        backend = _loaded(port, srv.app, "llama-3.1-8b")
+        eng = backend.engine
+        decode = eng.decode if on else eng
+        bodies = [{"model": "llama-3.1-8b", "max_tokens": 16, "messages": [
+            {"role": "user", "content": disagg_prompt(i)}]}
+            for i in range(DISAGG_PROMPTS)]
+        texts: list = [None] * len(bodies)
+        prefill0 = decode.metrics.prefill_tokens
+        adopt0 = (decode._migrator.counters["adoptions"] if on else 0)
+
+        def post(i):
+            texts[i] = _chat_text(port, bodies[i])
+
+        ths = [threading.Thread(target=post, args=(i,))
+               for i in range(len(bodies))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        chat = {"texts": texts,
+                "decode_prefill_tokens": decode.metrics.prefill_tokens
+                - prefill0}
+        if on:
+            chat["adoptions"] = decode._migrator.counters["adoptions"] \
+                - adopt0
+        from localai_tfp_tpu_torch.telemetry.flightrec import FLIGHT
+
+        FLIGHT.clear()
+        prompts = [backend.tokenizer.encode(disagg_prompt(100 + i),
+                                            add_bos=True)
+                   for i in range(DISAGG_PROMPTS)]
+        _zero_counts()
+        adopt0 = decode._migrator.counters["adoptions"] if on else 0
+        prefill0 = decode.metrics.prefill_tokens
+        flood = flood_itl(eng, decode, backend, prompts)
+        flood["launches"] = _counts()
+        # (the decode engine's pool holds 8 slots' pages: a flood beside
+        # four streams may leave a handoff no pages, and it re-prefills)
+        flood["decode_prefill_tokens"] = (decode.metrics.prefill_tokens
+                                          - prefill0)
+        if on:
+            flood["adoptions"] = (decode._migrator.counters["adoptions"]
+                                  - adopt0)
+        if on:
+            trace = FLIGHT.export_chrome_trace()
+            tracks = {ev["tid"]: ev["args"]["name"]
+                      for ev in trace["traceEvents"]
+                      if ev.get("ph") == "M" and ev["name"] == "thread_name"}
+            mig = [ev for ev in trace["traceEvents"] if ev.get("ph") == "X"
+                   and tracks.get(ev["tid"]) == "migrate"]
+            for name in ("kv:migrate_out", "kv:migrate_in"):
+                sp = [ev for ev in mig if ev["name"] == name]
+                b = sum(ev["args"]["bytes"] for ev in sp)
+                us = sum(ev["dur"] for ev in sp)
+                flood[name] = {"spans": len(sp), "bytes": b,
+                               "gbs": b / us / 1e3 if us else None,
+                               "blocking": sum(ev["args"]["blocking"]
+                                               for ev in sp)}
+            time.sleep(0.2)
+            eng.leak_check()  # both pools, and the interchange
+            bus, mig = eng.bus.counters, decode._migrator.counters
+            flood["bus"] = dict(bus)
+            flood["d2h_gbs"] = (bus["d2h_bytes"] / bus["d2h_ms"] / 1e6
+                                if bus["d2h_ms"] else None)
+            flood["h2d_gbs"] = (mig["h2d_bytes"] / mig["h2d_ms"] / 1e6
+                                if mig["h2d_ms"] else None)
+        else:
+            eng.leak_check()
+        out = {"chat": chat, "flood": flood, "card": smi}
+        log("disagg_" + ("on" if on else "off"),
+            **{k: v for k, v in out.items() if k != "chat"},
+            chat={k: v for k, v in chat.items() if k != "texts"})
+        return out
+    finally:
+        _shut(srv, th)
+        os.environ["LOCALAI_DISAGG"] = "off"
+
+
+def phase_disagg(ckpt_name: str, smi: str) -> dict:
+    """Disaggregated serving on the card, on against off."""
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "models"
+    model_yaml(models, "llama-3.1-8b", ckpt_name)
+    off = disagg_arm(models, False, smi)
+    on = disagg_arm(models, True, smi)
+    same = [a == b for a, b in zip(on["chat"]["texts"], off["chat"]["texts"])]
+    res = {"text_equal": same, "off": off, "on": on,
+           "launches": on["flood"]["launches"],
+           "phase_s": time.perf_counter() - t_phase}
+    log("disagg", text_equal=same,
+        itl_ms={"on": [on["flood"]["itl_p50_ms"], on["flood"]["itl_p99_ms"]],
+                "off": [off["flood"]["itl_p50_ms"],
+                        off["flood"]["itl_p99_ms"]]},
+        ttft_p50_ms={"on": on["flood"]["ttft_p50_ms"],
+                     "off": off["flood"]["ttft_p50_ms"]},
+        launches=res["launches"], phase_s=res["phase_s"], card=smi)
+    log("disagg_migration", d2h_gbs=on["flood"]["d2h_gbs"],
+        h2d_gbs=on["flood"]["h2d_gbs"], bus=on["flood"]["bus"], card=smi)
+    if not all(same) or on["chat"]["decode_prefill_tokens"] != 0 \
+            or on["chat"]["adoptions"] != DISAGG_PROMPTS:
+        raise AssertionError(f"disagg: text equal {same}, decode prefill "
+                             f"{on['chat']['decode_prefill_tokens']}, "
+                             f"adoptions {on['chat'].get('adoptions')}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,moe,gguf,main,graphs,"
-                            "engine,dispatch,tiers,spec,text,lifecycle,"
-                            "families,retrieval")
+                            "engine,dispatch,tiers,weights,disagg,spec,text,"
+                            "lifecycle,families,retrieval")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
@@ -7535,6 +8118,22 @@ def main() -> int:
                 e["launches_engine_prefix_wave"] = {
                     m: res[m]["engine"]["on"]["launches"][e["name"]]
                     for m in ("bf16", "int8")}
+    if "main" in phases:
+        ckpt = res["checkpoint"]
+    elif {"weights", "disagg"} & phases:
+        # phase main's checkpoint, written here when it is missing
+        models = ROOT / "build" / "chip_smoke" / "models"
+        layers = choose_depth(args.layers, models)
+        ckpt = f"llama31-8b-geometry-L{layers}-s{args.seed}"
+        write_checkpoint(models / ckpt, layers, args.seed)
+    for name, run in (("weights", phase_weights), ("disagg", phase_disagg)):
+        if name not in phases:
+            continue
+        out = run(ckpt, smi)
+        for e in entries:
+            # the phase's requests, their counts set to 0 just before
+            # them and read just after
+            e[f"launches_{name}"] = out["launches"][e["name"]]
     if "spec" in phases:
         sp = phase_spec(res["checkpoint"], args.seed)
         # each run's counts, set to 0 just before it and read just after

@@ -71,6 +71,33 @@ _DEFAULTS = {
     "LOCALAI_KV_TIER_DIR": "",
     # in-flight background spill window, in MiB
     "LOCALAI_KV_TIER_INFLIGHT_MB": "64",
+    # layer-granular weight paging: an idle model's weights demote to a
+    # host mirror and promote back on demand (engine/weight_pager.py;
+    # draft and disagg engines force it off)
+    "LOCALAI_WEIGHT_PAGING": "on",
+    # cross-engine budget for hot weights, in MiB: the process-wide LRU
+    # demotes the least recently used model past it (0 = unlimited)
+    "LOCALAI_WEIGHT_HBM_MB": "0",
+    # layer pages in flight ahead of the promotion's commit cursor
+    "LOCALAI_WEIGHT_PREFETCH_AHEAD": "2",
+    # in-flight device-to-host window of a demotion, in MiB
+    "LOCALAI_WEIGHT_INFLIGHT_MB": "256",
+    # the idle watchdog demotes a model's weights instead of unloading it
+    "LOCALAI_WATCHDOG_DEMOTE": "off",
+    # disaggregated prefill/decode serving: a prefill engine runs long
+    # prompts and migrates their KV pages to the decode engine
+    # (engine/kv_migrate.py)
+    "LOCALAI_DISAGG": "off",
+    # prompt tokens from which a request takes the disaggregated path
+    "LOCALAI_DISAGG_MIN_PROMPT": "256",
+    # predicted prefill ms from which a request is disaggregated (0 =
+    # prompt length alone)
+    "LOCALAI_DISAGG_MIN_MS": "0",
+    # budget of the migrate stage before the request re-prefills on the
+    # decode engine, in seconds
+    "LOCALAI_DISAGG_MIGRATE_DEADLINE_S": "5",
+    # slots of the prefill engine
+    "LOCALAI_DISAGG_PREFILL_SLOTS": "2",
     # flight-recorder timeline capture and its ring size (min 64)
     "LOCALAI_TIMELINE": "on",
     "LOCALAI_TIMELINE_EVENTS": "8192",

@@ -130,8 +130,26 @@ recorded on the engine thread and the gauges refreshed at scrape time
   injection points: ``engine.hbm_alloc`` (KV growth) and
   ``engine.device_step`` (every dispatch).
 
+- **Weight paging** (``LOCALAI_WEIGHT_PAGING``, ``weight_paging=``; off
+  with a draft): ``engine/weight_pager.py`` moves the tree into a
+  fixed-address slab at construction, demotes it to a host mirror while
+  the engine is idle (``request_demote``, the cross-engine LRU, the
+  watchdog) and streams it back at the same addresses, so the captured
+  graphs replay unchanged. ``_admit`` polls the pager and, while the
+  weights are not on the device, requeues the wave and waits on the
+  engine's condition, which the promotion notifies; a granted poll holds
+  off every demotion until ``step`` ends; ``embed``,
+  ``update_params`` and ``warmup`` hold the tree hot through
+  ``WeightPager.use``.
+- **Disaggregated serving** (``engine/kv_migrate.py``): a router in
+  front of this engine and a prefill-tuned sibling attaches a
+  ``Migrator`` to each. The prefill side captures a finishing probe's
+  pages in ``_finish``; the decode side adopts a migrated request's
+  pages at admission, and the slot wakes in DECODE with the whole prompt
+  resident. A plain engine has no migrator.
+
 Out of scope (and refused at submit rather than ignored): multimodal
-soft tokens, disaggregation, meshes.
+soft tokens, meshes.
 
 Batch rows are the participating slots only (padded to a variant's row
 bucket), so no other slot's pages or sampler row are touched.
@@ -139,6 +157,7 @@ bucket), so no other slot's pages or sampler row are touched.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import queue
@@ -171,6 +190,7 @@ from .kv_pool import TRASH_PAGE, PagePool, PagePoolExhausted
 from .kv_tier import KVTierManager, read_cache_file, write_cache_file
 from .prefix_index import PrefixIndex, common_prefix_len
 from .tokenizer import StreamDecoder, Tokenizer
+from .weight_pager import WeightPager
 
 log = logging.getLogger(__name__)
 
@@ -190,7 +210,11 @@ COUNTED = (ragged_paged_attention, int8_matmul)
 # exits, so a stream per engine would leave one behind at each unload.
 # The lock keeps two engines' captures (and their warm-up runs) apart;
 # each engine's own B1 merge counters keep its capture-stream work apart
-# from another engine's replays on the current stream.
+# from another engine's replays on the current stream. Two engines that
+# serve at once (a disaggregated pair) replay from two scheduler threads
+# on the same default stream, which orders their kernels: B1's shared
+# merge counters (eager launches only) are then used by one kernel at a
+# time, and B2 takes its split-K workspace per call from the allocator.
 _capture_streams: dict = {}
 _capture_lock = threading.Lock()
 
@@ -239,7 +263,8 @@ class GenRequest:
     timeout_s: float = 0.0  # deadline budget (0: the engine default)
     deadline: float = 0.0  # perf_counter clock, set at submit
     prefix_chain: tuple = ()
-    disagg: Optional[Any] = None  # disaggregated serving: not served yet
+    disagg: Optional[Any] = None  # kv_migrate.KVHandoff of a migrated
+    # resubmit (set by the router only)
 
 
 @dataclass
@@ -493,9 +518,8 @@ def _refusal(req: GenRequest, max_seq: int) -> str:
                 f"size {max_seq}")
     if not req.prompt_ids:
         return "empty prompt"
-    for name in ("soft_embeds", "disagg"):
-        if getattr(req, name) is not None:
-            return f"{name} is not supported by this port yet"
+    if req.soft_embeds is not None:
+        return "soft_embeds is not supported by this port yet"
     return ""
 
 
@@ -523,6 +547,8 @@ class LLMEngine:
         model: str = "default",  # the metrics' model label
         kv_tier: Optional[bool] = None,  # the KV tier: None follows
         # LOCALAI_KV_TIER
+        weight_paging: Optional[bool] = None,  # the weight pager: None
+        # follows LOCALAI_WEIGHT_PAGING
     ) -> None:
         self.device = resolve(device)
         self._mlabel = model or "default"
@@ -542,6 +568,23 @@ class LLMEngine:
         self.spec = spec
         self.params = params
         self.tokenizer = tokenizer
+        # layer-granular weight paging (engine/weight_pager.py): the tree
+        # moves into the pager's fixed-address slab before anything is
+        # captured over it. A paging engine owns the dict it is given:
+        # its leaves become the slab's views in place, so the originals
+        # free as they move. Not with a draft (its second tree would be
+        # stranded) nor for a disaggregated pair, which shares one tree
+        # by reference
+        self._pager: Optional[WeightPager] = None
+        if draft is None and (knobs.flag("LOCALAI_WEIGHT_PAGING")
+                              if weight_paging is None else weight_paging):
+            self._pager = WeightPager(self)
+        # disaggregated serving's hooks (engine/kv_migrate.Migrator),
+        # attached by the router; an engine's active slots past their
+        # deadline are attributed to this stage (prefill rows to
+        # "prefill")
+        self._migrator: Any = None
+        self._deadline_stage = "decode"
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.decode_steps = max(1, decode_steps)
@@ -639,7 +682,16 @@ class LLMEngine:
             dev = self.device
             led = hbm_ledger.HBMLedger(
                 self._mlabel, lambda: hbm_ledger.device_memory_stats(dev))
-            led.register("weights", params)
+            pager = self._pager
+            if pager is not None:
+                # paged weights by tier: hot follows the bytes on the
+                # device (mapped with cuMemMap, outside the caching
+                # allocator), warm is the host mirror
+                led.register("weights_hot", pager.device_bytes,
+                             outside=cuda)
+                led.register("weights_warm", pager.host_bytes, host=True)
+            else:
+                led.register("weights", params)
             led.register("kv_arena", (self.cache.k, self.cache.v))
             if self.cache.k_scale is not None:
                 led.register("kv_scales",
@@ -721,6 +773,13 @@ class LLMEngine:
             for tname in ("hbm", "host", "disk"):
                 tm.ENGINE_KV_TIER_PAGES.labels(model=self._mlabel,
                                                tier=tname).set(0)
+        if self._pager is not None:
+            # abort any page move in flight, drop the host mirror, leave
+            # the cross-engine LRU
+            self._pager.close()
+            for tname in ("hot", "warm"):
+                tm.ENGINE_WEIGHT_PAGES.labels(model=self._mlabel,
+                                              tier=tname).set(0)
         for d in (self._variants, self._masked_variants,
                   self._mixed_variants, self._spec_variants):
             d.clear()  # the graphs and their pool go with them
@@ -742,6 +801,9 @@ class LLMEngine:
         again."""
         with self._device_lock:  # an embedding in flight finishes first
             self.params = self.draft = None
+            if self._pager is not None:
+                # the slab's memory and range released
+                self._pager.release()
             self.cache = self.draft_cache = None
             self.sampling = None
             self._mask_dev = self._mask_stage = self._mask_copied = None
@@ -754,11 +816,16 @@ class LLMEngine:
         result. ``fn`` must write in place (``copy_`` into the existing
         tensors): every captured graph reads the tensors it was captured
         over, so a new tensor would leave the graphs on the old weights.
-        On a card the writes are complete when this returns."""
-        with self._step_lock, self._device_lock:
+        On a card the writes are complete when this returns. With weight
+        paging the tree is promoted first and held hot while ``fn`` runs,
+        and the pager's host mirror is dropped after (it no longer
+        matches the tree)."""
+        with self._weights(), self._step_lock, self._device_lock:
             if self.params is None:
                 raise RuntimeError("engine released")
             out = fn(self.params)
+            if self._pager is not None:
+                self._pager.invalidate_host()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             # every resident prefix holds the old model's K/V: free slots
@@ -776,10 +843,27 @@ class LLMEngine:
                     s.n_past = 0
             return out
 
+    def _weights(self) -> Any:
+        """The weight gate of a caller off the scheduler thread: with a
+        pager, ``WeightPager.use`` (the tree promoted and held on the
+        device while the block runs); else (or once the engine is closed:
+        a warm closed engine has no tree to read) nothing to wait for."""
+        if self._pager is None or self._pager.closed:
+            return contextlib.nullcontext()
+        return self._pager.use()
+
+    def _has_work(self) -> bool:
+        """Queued or running requests (the weight pager demotes only an
+        engine without any)."""
+        return bool(self._pending) or any(s.active for s in self.slots)
+
     def leak_check(self) -> None:
         """Pool invariants (kv_pool.leak_check) plus: a free slot holds
-        exactly the pages of its resident prefix."""
+        exactly the pages of its resident prefix; and the weight pager's
+        state machine (``WeightPager.leak_check``)."""
         self._pool.leak_check()
+        if self._pager is not None:
+            self._pager.leak_check()
         for s in self.slots:
             want = self._pool.pages_for(len(s.cache_tokens))
             if not s.active and self._pool.held(s.idx) != want:
@@ -803,7 +887,8 @@ class LLMEngine:
         pages or the graphs' static buffers is read or written. It runs
         on the calling thread, on the current stream, which orders its
         kernels with the scheduler's (B1's shared merge counters are
-        used by that stream only)."""
+        used by that stream only). A warm engine's weights are promoted
+        first (``_weights``)."""
         ids = self.tokenizer.encode(text, add_bos=True) or [0]
         ids = ids[: self.max_seq]
         n = len(ids)
@@ -812,7 +897,7 @@ class LLMEngine:
                  -(-n // pg) * pg)
         n_pages = -(-T // pg)
         dev = self.device
-        with self._device_lock:
+        with self._weights(), self._device_lock:
             if self.params is None:
                 raise RuntimeError("engine released")
             scratch = KVCache.create(self.spec, 1 + n_pages, pg,
@@ -835,11 +920,14 @@ class LLMEngine:
         """Queue a request; returns its event stream queue."""
         return self.submit_many([req])[0]
 
-    def submit_many(self, reqs: list[GenRequest]) -> list[queue.SimpleQueue]:
+    def submit_many(self, reqs: list[GenRequest],
+                    outs: Optional[list] = None) -> list[queue.SimpleQueue]:
         """Queue a burst under one lock acquisition (one admission wave).
         With ``LOCALAI_MAX_QUEUE`` set, arrivals beyond the cap are shed
-        at once with a terminal "shed" event (newest first)."""
-        outs = [queue.SimpleQueue() for _ in reqs]
+        at once with a terminal "shed" event (newest first). ``outs``
+        (the disaggregated router's resubmit) are the streams to use
+        instead of new ones."""
+        outs = outs or [queue.SimpleQueue() for _ in reqs]
         ok = []
         now = time.perf_counter()
         for req, out in zip(reqs, outs):
@@ -853,6 +941,13 @@ class LLMEngine:
                 TRACER.annotate(req.id, "terminal", outcome="error",
                                 detail=why)
                 TRACER.finish(req.id, status="error")
+            elif req.disagg is not None and req.t_submit:
+                # a migrated resubmit keeps the t_submit and deadline the
+                # router stamped at its arrival: TTFT and the deadline
+                # stay end to end across prefill, migrate and decode
+                if req.deadline:
+                    self._deadlines_armed = True
+                ok.append((req, out))
             else:
                 req.t_submit = now
                 budget = req.timeout_s or self._default_deadline_s
@@ -877,6 +972,7 @@ class LLMEngine:
             self._lock.notify_all()
             retry = self._retry_after_s() if shed else 0.0
         for req, out in shed:
+            _release_handoff(req)
             tm.ENGINE_REQUESTS.labels(model=self._mlabel,
                                       reason="shed").inc()
             tm.ENGINE_REQUESTS_SHED.labels(model=self._mlabel,
@@ -1090,6 +1186,10 @@ class LLMEngine:
                         time.sleep(1e-3)
             except Exception as e:  # the loop must keep serving
                 log.exception("engine step failed")
+                if self._pager is not None:
+                    # a wave that failed before its step lets go of the
+                    # weight gate too
+                    self._pager.end_admission()
                 if hbm_ledger.looks_like_oom(e):
                     # the forensics first, while the state that ran out
                     # of memory is still there
@@ -1098,7 +1198,9 @@ class LLMEngine:
                         self._pool.stats(),
                         hbm_ledger.device_memory_stats(self.device),
                         tier_stats=(self._tier.stats()
-                                    if self._tier is not None else None))
+                                    if self._tier is not None else None),
+                        weight_stats=(self._pager.stats()
+                                      if self._pager is not None else None))
                 self._fail_all(f"engine error: {e!r}")
 
     def _sample_timeline(self) -> None:
@@ -1114,28 +1216,42 @@ class LLMEngine:
         if self._tier is not None:
             FLIGHT.sample("kv_host_pages", "scheduler",
                           self._tier.tier_pages(in_use)["host"])
+        if self._pager is not None:
+            # the weight tiers' pages (a promotion's hot count climbs
+            # with its commit cursor)
+            for tname, v in self._pager.tier_pages().items():
+                FLIGHT.sample("weights_" + tname, "scheduler", v)
         FLIGHT.update_gauge()
 
     def step(self) -> None:
         """Run one device step for the current slot states: a mixed step
         while any slot prefills; else a speculative dispatch for the
         eligible slots (when every decoding slot has ``n_draft``
-        positions of context left) and a decode step for the rest."""
-        prefilling = [s for s in self.slots if s.state is SlotState.PREFILL]
-        decoding = [s for s in self.slots if s.state is SlotState.DECODE]
-        if prefilling:
-            self._mixed_step(prefilling, decoding)
-            return
-        mode, elig = self._spec_mode(decoding)
-        # near the context's end a verify forward's n_draft writes would
-        # run past it: then every slot takes the normal step
-        if mode and min(self.max_seq - 1 - s.n_past
-                        for s in decoding) >= self.n_draft:
-            self._spec_decode_step(elig, mode)
-            decoding = [s for s in decoding if s.state is SlotState.DECODE
-                        and s not in elig]
-        if decoding:
-            self._decode_step(decoding)
+        positions of context left) and a decode step for the rest. It
+        ends the weight gate's hold that ``_admit`` took: the wave's
+        requests are in their slots (or finished) by now."""
+        try:
+            prefilling = [s for s in self.slots
+                          if s.state is SlotState.PREFILL]
+            decoding = [s for s in self.slots
+                        if s.state is SlotState.DECODE]
+            if prefilling:
+                self._mixed_step(prefilling, decoding)
+                return
+            mode, elig = self._spec_mode(decoding)
+            # near the context's end a verify forward's n_draft writes
+            # would run past it: then every slot takes the normal step
+            if mode and min(self.max_seq - 1 - s.n_past
+                            for s in decoding) >= self.n_draft:
+                self._spec_decode_step(elig, mode)
+                decoding = [s for s in decoding
+                            if s.state is SlotState.DECODE
+                            and s not in elig]
+            if decoding:
+                self._decode_step(decoding)
+        finally:
+            if self._pager is not None:
+                self._pager.end_admission()
 
     def _fail_all(self, msg: str) -> None:
         for s in self.slots:
@@ -1151,6 +1267,7 @@ class LLMEngine:
         with self._lock:
             pending, self._pending = self._pending, []
         for req, out in pending:
+            _release_handoff(req)
             self._trace_terminal(req.id, "error", detail=msg)
             out.put(StreamEvent(done=True, finish_reason="error", error=msg))
 
@@ -1175,6 +1292,7 @@ class LLMEngine:
                 if req.id in ids:
                     del ids[req.id]
                     self._deferred.pop(req.id, None)
+                    _release_handoff(req)
                     self._trace_terminal(req.id, "cancelled",
                                          stage="queued")
                     out.put(StreamEvent(done=True, finish_reason="cancelled"))
@@ -1217,8 +1335,11 @@ class LLMEngine:
                 if req.deadline and now >= req.deadline:
                     stage, why = "queued", "deadline exceeded while queued"
                 elif (req.deadline and tok_ms is not None
+                      and req.disagg is None
                       and now + tok_ms * len(req.prompt_ids) / 1e3
                       >= req.deadline):
+                    # (a migrated resubmit is exempt: its prompt is in
+                    # pages already, it needs no prefill)
                     stage, why = ("queued_predicted",
                                   "predicted completion exceeds deadline "
                                   "(prefill alone overruns it)")
@@ -1226,6 +1347,7 @@ class LLMEngine:
                     still.append((req, out))
                     continue
                 self._deferred.pop(req.id, None)
+                _release_handoff(req)
                 self._trace_terminal(req.id, "deadline_exceeded",
                                      stage=stage)
                 tm.ENGINE_REQUESTS.labels(
@@ -1242,10 +1364,17 @@ class LLMEngine:
                 tm.ENGINE_DEADLINE_EXCEEDED.labels(
                     model=self._mlabel, stage=(
                         "prefill" if s.state is SlotState.PREFILL
-                        else "decode")).inc()
+                        else self._deadline_stage)).inc()
                 self._finish(s, "deadline_exceeded")
 
     def _admit(self) -> None:
+        if self._pager is not None:
+            # work arriving while a demotion's copies fly flips its abort
+            # flag (never blocks)
+            self._pager.tick()
+        if self._migrator is not None:
+            # landed migration copies release their host pages
+            self._migrator.tick()
         if self._tier is not None:
             # the tier's policy step rides the admission pass: landed
             # spills and fetches harvested (event polls), background IO
@@ -1260,10 +1389,24 @@ class LLMEngine:
                 del self._cancelled[r.id]
                 self._deferred.pop(r.id, None)
         for req, out in hit:
+            _release_handoff(req)
             self._trace_terminal(req.id, "cancelled", stage="admit")
             out.put(StreamEvent(done=True, finish_reason="cancelled"))
         self._count_dropped(len(hit))
         if not pending:
+            return
+        # a granted poll holds the weight gate until the wave's step ends:
+        # between this pop and _assign the engine has no visible work, and
+        # a demotion landing then would unmap what the step replays over
+        if self._pager is not None and not self._pager.poll_admission():
+            # the weights are not on the device: the poll started their
+            # promotion (on the pager's thread). Requeue the wave as it
+            # is and wait on the engine's condition, which the promotion
+            # notifies: no spinning while the pages stream in
+            with self._lock:
+                self._pending[:0] = pending
+                if self._pager.state != "hot" and not self._stop:
+                    self._lock.wait(timeout=0.1)
             return
         if self._prefix_enabled:
             # lazy re-register: decode appends since the last wave are
@@ -1289,10 +1432,12 @@ class LLMEngine:
                     error=f"prompt needs {need} KV pages; the pool holds "
                           f"{self.kv_pages - 1}"))
                 continue
-            if self._defer_for_prefix(req, forming, now):
+            if req.disagg is None and self._defer_for_prefix(req, forming,
+                                                             now):
                 requeue.append((req, out))
                 continue
-            if self._tier is not None and self._tier.plan(req, now):
+            if (self._tier is not None and req.disagg is None
+                    and self._tier.plan(req, now)):
                 # the session is in the cold tier and its disk load is
                 # inside the deadline: hold admission, not re-prefill
                 requeue.append((req, out))
@@ -1303,6 +1448,21 @@ class LLMEngine:
                 continue
             budget -= need
             self._deferred.pop(req.id, None)
+            if req.disagg is not None and self._migrator is not None:
+                # a migrated resubmit: the prefill engine's pages are
+                # staged into this pool and adopted by reference, so the
+                # slot wakes in DECODE and re-prefills nothing. The
+                # slot's resident prefix is spilled first (its gather
+                # precedes any overwrite on the stream). When staging
+                # fails the handoff is dropped and the request is
+                # admitted below as a plain re-prefill
+                if self._tier is not None:
+                    self._tier.capture(slot, req)
+                if self._migrator.assign_migrated(slot, req, out):
+                    continue
+            if req.disagg is not None:
+                _release_handoff(req)  # idempotent
+                req.disagg = None
             if self._tier is not None:
                 # demote-on-reuse: spill the resident prefix this
                 # assignment is about to discard (its gather precedes any
@@ -1627,15 +1787,23 @@ class LLMEngine:
             # the scheduler's catch writes the post-mortem and fails the
             # active slots
             faultinject.fire("engine.hbm_alloc")
+        return self._ensure_pages(slot.idx, n_tokens, slot)
+
+    def _ensure_pages(self, pid: int, n_tokens: int,
+                      keep: Optional[_Slot] = None) -> bool:
+        """Grow pool table ``pid`` (a slot's, or a staging pseudo-slot's)
+        to cover ``n_tokens`` positions, reclaiming free slots' resident
+        prefixes other than ``keep``'s, least valuable first. False: the
+        pool is full of active state."""
         try:
-            self._pool.ensure(slot.idx, n_tokens)
+            self._pool.ensure(pid, n_tokens)
             return True
         except PagePoolExhausted:
             pass
         now = time.monotonic()
         victims = sorted(
             (s for s in self.slots
-             if not s.active and s is not slot and self._pool.held(s.idx)),
+             if not s.active and s is not keep and self._pool.held(s.idx)),
             key=lambda s: self._prefix_index.value(s.idx, now))
         for v in victims:
             if self._tier is not None:
@@ -1648,7 +1816,7 @@ class LLMEngine:
             v.n_past = 0
             self._prefix_index.remove(v.idx)
             try:
-                self._pool.ensure(slot.idx, n_tokens)
+                self._pool.ensure(pid, n_tokens)
                 return True
             except PagePoolExhausted:
                 continue
@@ -2335,7 +2503,12 @@ class LLMEngine:
         (every slot from position 0) per kind and rounds, so the
         predictor can cost a step before its first dispatch. Sets
         ``engine_dispatch_compile_variants_count`` and
-        ``engine_warmup_seconds``."""
+        ``engine_warmup_seconds``. A warm engine's weights are promoted
+        first and held on the device while it runs."""
+        with self._weights():
+            self._warmup()
+
+    def _warmup(self) -> None:
         t0 = time.perf_counter()
         shapes = sorted(((R, T) for R in self._buckets
                          for T in self._mixed_buckets),
@@ -2439,6 +2612,10 @@ class LLMEngine:
         if tier is not None:
             for tname, v in tier.tier_pages(in_use).items():
                 tm.ENGINE_KV_TIER_PAGES.labels(model=m, tier=tname).set(v)
+        pager = self._pager
+        if pager is not None:
+            for tname, v in pager.tier_pages().items():
+                tm.ENGINE_WEIGHT_PAGES.labels(model=m, tier=tname).set(v)
         if self._ledger is not None:
             snap = self._ledger.reconcile()
             if snap["bytes_in_use"] is not None:
@@ -2855,6 +3032,12 @@ class LLMEngine:
         req = slot.request
         self._flush_emit(slot)  # buffered text precedes the done event
         self._maybe_save_prompt_cache(slot)
+        if self._migrator is not None and req is not None:
+            # the prefill side of a disaggregated pair: a finishing
+            # probe's pages are gathered here, before the release below
+            # can recycle them (the gather precedes any overwrite on the
+            # stream); a no-op for any other request
+            self._migrator.on_finish(slot, reason)
         full = slot.decoder.text if slot.decoder else ""
         if req is not None:
             for st in req.stop:
@@ -2868,6 +3051,16 @@ class LLMEngine:
             queue_ms = max(0.0, (slot.t_start - req.t_submit) * 1e3)
             if slot.t_first:
                 ttft_ms = (slot.t_first - req.t_submit) * 1e3
+        if req is not None and req.disagg is not None:
+            # a migrated request: its queue time is what it spent queued
+            # on either engine, not the relay (the prefill engine's time
+            # and the migration are its prompt processing)
+            h = req.disagg
+            queue_ms = h.queued_ms + max(
+                0.0, (slot.t_start - h.t_resubmit) * 1e3)
+            tm.ENGINE_DISAGG_STAGE.labels(
+                model=self._mlabel, stage="decode").observe(
+                max(0.0, time.perf_counter() - h.t_resubmit))
         if req is not None:
             # before the terminal event: a consumer woken by it (the SSE
             # writer's stream_done) finds the trace finished
@@ -2904,6 +3097,13 @@ class LLMEngine:
         slot.emit_tok = None
         slot.constraint_state = None
         slot.n_past = len(slot.cache_tokens)
+
+
+def _release_handoff(req: GenRequest) -> None:
+    """Free a migrated request's interchange pages when it dies queued
+    (shed, cancelled, past its deadline, failed); idempotent."""
+    if req.disagg is not None:
+        req.disagg.release()
 
 
 def _scan_stops(pending: str, stops: list[str]) -> tuple[str, bool]:

@@ -21,6 +21,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..config import knobs
 from ..config.model_config import ModelConfig
 from ..telemetry import metrics as tm
 from ..utils import faultinject
@@ -368,8 +369,11 @@ class ModelLoader:
 class WatchDog:
     """Unloads models busy or idle beyond their timeouts, checked on
     periodic ticks (ref: pkg/model/watchdog.go:19-156; 30 s ticks).
-    Without a weight pager an idle model is unloaded, as the JAX
-    watchdog does when its demotion is off."""
+    With ``LOCALAI_WATCHDOG_DEMOTE`` an idle model's weights are first
+    demoted to host RAM (its engine, tokenizer and KV state stay), and
+    only a model idle through another full timeout while warm is
+    unloaded; without it, or without a weight pager, an idle model is
+    unloaded."""
 
     def __init__(self, loader: ModelLoader, *,
                  busy_timeout: float = 5 * 60, idle_timeout: float = 15 * 60,
@@ -417,9 +421,39 @@ class WatchDog:
                 killed.append(name)
             elif (self.enable_idle and lm.busy_since is None
                   and now - lm.last_used > self.idle_timeout):
+                if knobs.flag("LOCALAI_WATCHDOG_DEMOTE"):
+                    outcome = self._try_demote(lm)
+                    if outcome == "demoted":
+                        # demote instead of unload; the idle clock
+                        # restarts, so a model idle through another full
+                        # timeout (now warm) is unloaded below
+                        log.warning("watchdog: %s idle > %.0fs, demoting "
+                                    "weights to host RAM", name,
+                                    self.idle_timeout)
+                        tm.MODEL_EVICTIONS.labels(
+                            reason="watchdog_demote").inc()
+                        lm.last_used = now
+                        continue
+                    if outcome == "busy":
+                        continue  # a transfer in flight: next tick
                 log.warning("watchdog: %s idle > %.0fs, killing",
                             name, self.idle_timeout)
                 tm.WATCHDOG_KILLS.labels(kind="idle").inc()
                 self.loader.shutdown_model(name, reason="watchdog_idle")
                 killed.append(name)
         return killed
+
+    @staticmethod
+    def _try_demote(lm) -> Optional[str]:
+        """Ask the backend to page its weights out: "demoted" (started),
+        "busy" (one is in flight), "warm" (nothing hot: the kill timer
+        runs on), or None (no pager: the kill path)."""
+        fn = getattr(lm.backend, "demote_weights", None)
+        if fn is None:
+            return None
+        try:
+            return fn()
+        except Exception as e:
+            log.warning("watchdog: demote of %s raised %r; falling back "
+                        "to kill", lm.name, e)
+            return None

@@ -80,17 +80,28 @@ def artifact_path(model_dir: str, quant: str, dtype_name: str) -> str:
         cache_dir(), f"{fingerprint(model_dir, quant, dtype_name)}.safetensors")
 
 
-def try_load(path: str, device: Any) -> Optional[dict[str, Any]]:
+def try_load(path: str, device: Any,
+             keep_host: Optional[dict[str, Any]] = None
+             ) -> Optional[dict[str, Any]]:
     """Read an artifact onto ``device``; None on a miss, a disabled cache,
-    another format or an unreadable file (logged)."""
+    another format or an unreadable file (logged).
+
+    ``keep_host`` (a dict the caller owns) is filled with the host side
+    of every leaf as it streams past (``QTensor`` leaves as host
+    ``QTensor``s): views of the file's mapping, so the weight pager
+    (engine/weight_pager.py) gets a host mirror of the tree for free and
+    the model's first demotion copies nothing off the device. It is
+    emptied on a miss."""
     if not enabled() or not os.path.exists(path):
         return None
+    host_leaves: dict[str, Any] = {}
     try:
         f = SafeTensorsFile(path)
         if f.metadata.get("format") != FORMAT_VERSION:
             return None
         params: dict[str, Any] = {}
         parts: dict[str, dict[str, torch.Tensor]] = {}
+        host_parts: dict[str, dict[str, torch.Tensor]] = {}
         for name in f.keys():
             with phase("read_s"):
                 host = f.get(name)
@@ -98,17 +109,28 @@ def try_load(path: str, device: Any) -> Optional[dict[str, Any]]:
                 t = host.to(device=device, copy=True)
             if name.endswith(".q"):
                 parts.setdefault(name[:-2], {})["q"] = t
+                host_parts.setdefault(name[:-2], {})["q"] = host
             elif name.endswith(".scale"):
                 parts.setdefault(name[:-6], {})["scale"] = t
+                host_parts.setdefault(name[:-6], {})["scale"] = host
             else:
                 params[name] = t
+                host_leaves[name] = host
         for name, pq in parts.items():
             if set(pq) != {"q", "scale"}:
+                if keep_host is not None:
+                    keep_host.clear()
                 return None
             params[name] = QTensor(pq["q"], pq["scale"])
+            host_leaves[name] = QTensor(host_parts[name]["q"],
+                                        host_parts[name]["scale"])
     except (OSError, ValueError, KeyError) as e:
         log.warning("quant artifact %s unreadable (%r); full load", path, e)
+        if keep_host is not None:
+            keep_host.clear()
         return None
+    if keep_host is not None:
+        keep_host.update(host_leaves)
     try:
         os.utime(path, None)  # a hit marks the artifact as live
     except OSError:

@@ -42,7 +42,7 @@ from .llm_spec import LLMSpec, spec_from_hf_config
 from .load_timing import phase
 from .quant import QUANTIZABLE, QTensor, quantize_embed, quantize_raw_tensor
 from .safetensors_io import SafeTensorsFile
-from .transformer import Params, check_supported
+from .transformer import _NON_LAYER_KEYS, Params, check_supported
 
 # the mixture-of-experts families
 MOE_FAMILIES = ("mixtral", "qwen2_moe", "qwen3_moe")
@@ -292,3 +292,31 @@ def _load_experts(spec: LLMSpec, p: Params, dev: Callable[[str], Any],
         if i not in dense:
             p["shared_router"][i].copy_(
                 dev(lp.format(i=i) + "mlp.shared_expert_gate.weight")[0])
+
+
+def layer_pages(tree: dict, n_layers: int):
+    """Partition a parameter tree into the weight pager's transfer units
+    (the JAX package's ``layer_pages``). Every per-layer leaf is one
+    stacked ``[L, ...]`` tensor (an expert stack ``[L, E, in, out]``
+    too), so page ``li`` is row ``li`` of each stacked leaf: a contiguous
+    byte range of a contiguous stack, moved by one ``copy_`` each way.
+    Returns ``(layered, globals_, page)``:
+
+    - ``layered``: the stacked leaves (keys outside ``_NON_LAYER_KEYS``);
+    - ``globals_``: the embedding, final norm and LM head, which travel
+      as one extra page;
+    - ``page(li)``: layer ``li``'s rows by key, a ``QTensor`` leaf's
+      ``q`` and ``scale`` rows together (so an int8 round trip is
+      bit-exact).
+
+    Works on host and device trees alike."""
+    layered = {k: v for k, v in tree.items() if k not in _NON_LAYER_KEYS}
+    globals_ = {k: v for k, v in tree.items() if k in _NON_LAYER_KEYS}
+
+    def page(li: int) -> dict:
+        if not 0 <= li < n_layers:
+            raise IndexError(f"layer page {li} outside [0, {n_layers})")
+        return {k: v.layer(li) if isinstance(v, QTensor) else v[li]
+                for k, v in layered.items()}
+
+    return layered, globals_, page

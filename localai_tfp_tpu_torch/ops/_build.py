@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so``
 (the hash covers the source and the flags, so an edited source rebuilds)
-and loaded with ``ctypes``. Nothing includes PyTorch's headers: a build
+and loaded with ``ctypes``; ``EXTRA_FLAGS`` adds a source's own flags,
+such as ``-lcuda`` for the one that calls libcuda's cuMem* API. Nothing includes PyTorch's headers: a build
 takes seconds. The ``-Xptxas -v`` report (registers, shared memory,
 spills) is kept beside the library and returned with it.
 """
@@ -28,6 +29,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     "--split-compile=0",  # a source's kernel instances on every core
 )
+# flags of one source only: the weight slab calls libcuda (cuMem*)
+EXTRA_FLAGS = {"weight_vmm": ("-lcuda",)}
 
 
 @dataclass
@@ -62,7 +65,7 @@ def _target(name: str) -> tuple[Path, Path, Path]:
     if not src.is_file():
         raise FileNotFoundError(f"kernel source missing: {src}")
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode())
     tag = h.hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}-{tag}.so"
     return src, so, so.with_suffix(".ptxas.txt")
@@ -82,7 +85,8 @@ def build_all(names: list[str]) -> dict[str, Built]:
                 _built[name] = Built(name, so, 0.0, log.read_text())
                 continue
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src),
+                   *EXTRA_FLAGS.get(name, ())]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True)
             jobs[name] = (proc, so, log, tmp, time.perf_counter())

@@ -39,6 +39,15 @@ _T0 = time.perf_counter()
 # against the "device" track's step spans in Perfetto
 KV_TIER_TRACK = "kv_tier"
 
+# the timeline thread of disaggregated serving's KV page migration
+# (engine/kv_migrate.py): its capture and stage spans interleave against
+# both engines' "device" tracks
+MIGRATE_TRACK = "migrate"
+
+# the timeline thread of weight paging (engine/weight_pager.py): its
+# demote and fetch spans interleave against the "device" track
+WEIGHTS_TRACK = "weights"
+
 
 def _env_capacity() -> int:
     return max(64, knobs.int_("LOCALAI_TIMELINE_EVENTS"))
@@ -91,13 +100,15 @@ class FlightRecorder:
                     {"value": value})
 
     def transfer(self, direction: str, t0: float, dur_s: float,
-                 pages: int, nbytes: int, blocking: bool = False) -> None:
-        """A tier transfer span (KV spill/fetch/save/load,
-        engine/kv_tier.py): enqueue to observed completion, stamped when
-        the tier saw it complete, so recording one never forces a sync.
-        ``blocking`` marks a transfer the scheduler waited on; the
-        tier never records one."""
-        self.record("X", "kv:" + direction, KV_TIER_TRACK, t0, dur_s,
+                 pages: int, nbytes: int, blocking: bool = False,
+                 track: str = KV_TIER_TRACK, prefix: str = "kv") -> None:
+        """A transfer span (KV spill/fetch/save/load, engine/kv_tier.py;
+        KV migration on ``MIGRATE_TRACK``; weight demote/fetch/promote
+        with ``prefix="w"`` on ``WEIGHTS_TRACK``): enqueue to observed
+        completion, stamped when its owner saw it complete, so recording
+        one never forces a sync. ``blocking`` marks a transfer the
+        scheduler waited on; none of them records one."""
+        self.record("X", prefix + ":" + direction, track, t0, dur_s,
                     {"pages": pages, "bytes": nbytes,
                      "blocking": blocking})
 

@@ -15,7 +15,9 @@ or an untracked buffer — a signal, not something to hide.
 
 ``bytes_in_use`` here is the allocator's *reserved* bytes: what the
 process holds on the card (live tensors, the graph pool, the cache),
-the number that runs out first. ``bytes_allocated`` (live tensors) and
+the number that runs out first, plus the components registered
+``outside`` the allocator (the weight pager's slab, mapped with
+``cuMemMap``). ``bytes_allocated`` (live tensors) and
 ``device_used`` (the card's total minus ``mem_get_info``'s free bytes,
 other processes and the CUDA context included) sit beside it.
 
@@ -113,15 +115,29 @@ class HBMLedger:
         self._memory_stats = memory_stats or (lambda: None)
         self._lock = threading.Lock()
         self._sources: dict[str, Source] = {}  # guarded by self._lock
+        self._host: set[str] = set()  # guarded by self._lock
+        self._outside: set[str] = set()  # guarded by self._lock
         self._last_reconcile: Optional[dict] = None  # guarded by self._lock
 
-    def register(self, component: str, source: Source) -> None:
+    def register(self, component: str, source: Source, host: bool = False,
+                 outside: bool = False) -> None:
         """Attach/replace a component's byte source. Trees are measured
-        once, now (re-register after reallocating)."""
+        once, now (re-register after reallocating). ``host=True`` marks a
+        host-RAM component (the weight pager's warm mirror): it lands on
+        its gauge but outside the device sum, since host bytes can never
+        explain device bytes. ``outside=True`` marks device memory the
+        caching allocator does not hold (the weight pager's slab, mapped
+        with ``cuMemMap``): its bytes join the allocator's reserved
+        bytes in ``bytes_in_use``."""
         if not (isinstance(source, (int, float)) or callable(source)):
             source = nbytes_of(source)
         with self._lock:
             self._sources[component] = source
+            for kind, on in ((self._host, host), (self._outside, outside)):
+                if on:
+                    kind.add(component)
+                else:
+                    kind.discard(component)
 
     def attributed(self) -> dict[str, int]:
         """Current bytes per component (callables evaluated outside the
@@ -146,11 +162,14 @@ class HBMLedger:
         for name, b in attr.items():
             tm.ENGINE_HBM_BYTES.labels(
                 model=self.model, component=name).set(b)
-        total = sum(attr.values())
+        total = self._device_sum(attr)
         snap: dict[str, Any] = {"components": attr, "attributed": total,
                                 "bytes_in_use": None}
         if st is not None:
-            in_use = int(st.get("reserved_bytes.all.current", 0))
+            with self._lock:
+                outside = sum(b for n, b in attr.items()
+                              if n in self._outside)
+            in_use = int(st.get("reserved_bytes.all.current", 0)) + outside
             drift = in_use - total
             tm.ENGINE_HBM_BYTES.labels(
                 model=self.model, component="unattributed").set(drift)
@@ -171,8 +190,14 @@ class HBMLedger:
         if last is not None:
             return last
         attr = self.attributed()
-        return {"components": attr, "attributed": sum(attr.values()),
+        return {"components": attr, "attributed": self._device_sum(attr),
                 "bytes_in_use": None}
+
+    def _device_sum(self, attr: dict[str, int]) -> int:
+        """The device components' bytes (host components left out)."""
+        with self._lock:
+            host = set(self._host)
+        return sum(b for n, b in attr.items() if n not in host)
 
     def reset_gauges(self) -> None:
         """Zero this model's component gauges (engine close)."""
@@ -187,11 +212,12 @@ def dump_post_mortem(state_dir: str, model: str, error: BaseException,
                      ledger: Optional[HBMLedger] = None,
                      pool_stats: Any = None,
                      memory_stats: Optional[dict] = None,
-                     tier_stats: Optional[dict] = None) -> Optional[str]:
+                     tier_stats: Optional[dict] = None,
+                     weight_stats: Optional[dict] = None) -> Optional[str]:
     """Write an OOM forensics JSON under ``state_dir``/post_mortem and
     return its path, or None when it could not be written: forensics
     must not mask the original failure. The report holds the ledger,
-    the pool's and the KV tier's stats, the allocator's counters and
+    the pool's, the KV tier's and the weight pager's stats, the allocator's counters and
     the flight recorder's last 256 events."""
     from .flightrec import FLIGHT
 
@@ -204,6 +230,7 @@ def dump_post_mortem(state_dir: str, model: str, error: BaseException,
         "kv_pool": (dataclasses.asdict(pool_stats)
                     if pool_stats is not None else None),
         "kv_tier": tier_stats,
+        "weight_pager": weight_stats,
         "memory_stats": memory_stats,
         "flightrec_tail": FLIGHT.export_chrome_trace()["traceEvents"][-256:],
     }

@@ -19,11 +19,14 @@ Layer map (where each family is recorded):
           loaded and busy counts, watchdog kills)
 - kv tier engine/kv_tier.py (moves, prefetch outcomes, bytes, pages
           per tier)
+- weights engine/weight_pager.py (pages per tier, page moves, promotion
+          outcomes, models per residency state)
+- disagg  engine/kv_migrate.py (requests by path, migrated pages, the
+          migrate stage, stage times)
 - debug   utils/faultinject.py (faults delivered), telemetry/tracing.py
           (trace entries dropped), telemetry/flightrec.py (timeline ring)
 
-Not ported yet: the families of weight paging, disaggregation and
-federation.
+Not ported yet: the families of federation.
 """
 
 from __future__ import annotations
@@ -297,6 +300,71 @@ ENGINE_KV_TIER_BYTES = REGISTRY.counter(
     "Bytes moved between KV tiers by direction (spill/fetch/save/load; "
     "scale planes included for int8 caches)",
     labels=("model", "direction"),
+)
+
+# --------------------------------------------------------- weight paging
+ENGINE_WEIGHT_PAGES = REGISTRY.gauge(
+    "engine_weight_pages_count",
+    "Weight pages resident per tier (hot = on-device layer pages, "
+    "warm = host-RAM layer pages; a page counts in both tiers while "
+    "the retained host copy backs a promoted device tree)",
+    labels=("model", "tier"),
+)
+ENGINE_WEIGHT_PAGE_MOVES = REGISTRY.counter(
+    "engine_weight_page_moves_total",
+    "Weight page tier transitions by direction (demote = HBM->host, "
+    "promote = host->HBM) and outcome (ok, seed = demote served from "
+    "the retained/artifact host copy with zero DMA, fault = injected/"
+    "real transfer failure, aborted = new work arrived mid-demotion "
+    "and the device tree was kept)",
+    labels=("model", "direction", "outcome"),
+)
+ENGINE_WEIGHT_PREFETCH = REGISTRY.counter(
+    "engine_weight_prefetch_total",
+    "Warm-model promotion attempts at admission (warm = layer-streamed "
+    "prefetch-ahead assembly served the wake-up, cold = the stream "
+    "faulted and the blocking full-tree fallback load served it, "
+    "fault = a streamed page transfer failed)",
+    labels=("model", "result"),
+)
+ENGINE_MODEL_RESIDENCY = REGISTRY.gauge(
+    "engine_model_residency_count",
+    "Live engines per weight-residency state across the process (hot "
+    "= weights on device, warm = weights paged to host RAM, "
+    "transitioning = a demotion or promotion is in flight)",
+    labels=("state",),
+)
+
+# ------------------------------------------------- disaggregated serving
+ENGINE_DISAGG_REQUESTS = REGISTRY.counter(
+    "engine_disagg_requests_total",
+    "Requests by disaggregation path (disagg = prefilled on the "
+    "prefill engine and migrated, local = stayed on the decode engine, "
+    "fallback = migration failed and the request re-prefilled on the "
+    "decode engine)",
+    labels=("model", "path"),
+)
+ENGINE_KV_MIGRATED_PAGES = REGISTRY.counter(
+    "engine_kv_migrated_pages_total",
+    "KV pages moved through the prefill->decode migration interchange "
+    "by outcome (migrated = adopted by reference on the decode engine, "
+    "fault = an injected/real capture or adopt failure, dropped = "
+    "captured but abandoned before adoption)",
+    labels=("model", "outcome"),
+)
+ENGINE_KV_MIGRATION = REGISTRY.histogram(
+    "engine_kv_migration_seconds",
+    "Wall time of the migrate stage per disaggregated request: prefill "
+    "terminal to handoff collected on the router thread (D2H gather "
+    "landing + content-addressed host publish)",
+    labels=("model",),
+)
+ENGINE_DISAGG_STAGE = REGISTRY.histogram(
+    "engine_disagg_stage_seconds",
+    "Per-stage wall time of disaggregated requests (queued/prefill on "
+    "the prefill engine, migrate on the router, decode from resubmit "
+    "to terminal on the decode engine)",
+    labels=("model", "stage"),
 )
 
 # ------------------------------------------------------------ debugging

@@ -6,7 +6,15 @@ A checkpoint is an HF directory (dense or mixture of experts) or a
 vision tower. LoRA adapters merge at load, before ``quantization: int8``
 quantizes the projections (the int8 artifact is then neither read nor
 written, nor for a GGUF), and ``apply_lora`` / ``remove_lora`` merge or
-unmerge one on the running engine, in place, between dispatches."""
+unmerge one on the running engine, in place, between dispatches.
+
+With ``LOCALAI_WEIGHT_PAGING`` (the default) the engine pages its weights
+(engine/weight_pager.py): ``demote_weights`` moves them to host RAM (the
+watchdog's demote mode), the next request promotes them, and an int8
+artifact's host planes seed the pager's mirror so the first demotion
+copies nothing off the device. With ``LOCALAI_DISAGG`` the engine is a
+disaggregated pair behind a ``DisaggRouter`` (engine/kv_migrate.py): no
+paging, one tree shared by both engines."""
 
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from ..engine.engine import GenRequest, LLMEngine, StreamEvent
 from ..engine.jinja_lite import TemplateError
 from ..engine.tokenizer import Tokenizer, load_tokenizer
 from ..grammars.native import make_constraint
-from ..models import artifact_cache
+from ..models import artifact_cache, weight_slab
 from ..models.gguf import GGUFFile, load_gguf_params, tokenizer_from_gguf
 from ..models.hf_loader import load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
@@ -79,6 +87,9 @@ class TorchLLMBackend(Backend):
         # device-wide view (mem_get_info) after empty_cache
         self.unload_stats: Optional[dict] = None
         self._quantized = False  # int8 projections: no LoRA hot apply
+        # an int8 artifact's host planes (models/artifact_cache.py
+        # keep_host), handed to the weight pager as its mirror
+        self._artifact_host: dict = {}
         # built grammar constraints by (grammar, triggers): building one
         # walks the whole vocabulary
         self._grammar_cache: dict[tuple, Any] = {}
@@ -137,21 +148,45 @@ class TorchLLMBackend(Backend):
                 model_dir, _DTYPES[name], quant, opts)
         self._quantized = bool(quant)
         self._grammar_cache = {}
+        artifact_host, self._artifact_host = self._artifact_host, {}
         draft = (self._load_draft(opts, _DTYPES[name])
                  if opts.draft_model else None)
+        disagg = knobs.flag("LOCALAI_DISAGG") and draft is None
         with load_timing.phase("compile_s"):
             if self.device.type == "cuda":
-                # the kernels' first-use nvcc build, here rather than
-                # inside the first capture
+                # the kernels' first-use nvcc build (and the weight
+                # slab's), here rather than inside the first capture
                 _build.build_all([rpa.KERNEL] + (
-                    [int8_matmul.KERNEL] if quant else []))
+                    [int8_matmul.KERNEL] if quant else []) + (
+                    [weight_slab.KERNEL] if knobs.flag(
+                        "LOCALAI_WEIGHT_PAGING") else []))
             self.engine = LLMEngine(
                 self.spec, params, self.tokenizer,
                 n_slots=max(1, opts.batch_slots),
                 max_seq=opts.context_size,
                 cache_dtype=_KV_DTYPES[kv_name],
                 draft=draft, n_draft=opts.n_draft or 4,
-                device=self.device, model=opts.model)
+                device=self.device, model=opts.model,
+                # a disaggregated pair shares one tree by reference:
+                # paging it would strand the other engine's dispatches
+                weight_paging=False if disagg else None)
+        pager = self.engine._pager
+        if pager is not None and artifact_host:
+            # the artifact's host planes mirror the tree exactly (an
+            # artifact load merges no adapter)
+            pager.seed_host(artifact_host, self.engine.params)
+        del artifact_host
+        if disagg:
+            # a prefill-tuned sibling shares the weights, and the router
+            # relays long prompts through KV page migration
+            from ..engine.kv_migrate import DisaggRouter, build_prefill_engine
+
+            with load_timing.phase("disagg_s"):
+                prefill = build_prefill_engine(
+                    self.spec, params, self.tokenizer, decode=self.engine,
+                    cache_dtype=_KV_DTYPES[kv_name], device=self.device)
+                self.engine = DisaggRouter(prefill, self.engine)
+                prefill.start()
         if knobs.flag("LOCALAI_WARMUP"):
             # capture the decode graphs now: a capture landing
             # mid-request would stall every decoding slot
@@ -208,8 +243,10 @@ class TorchLLMBackend(Backend):
         mode = artifact_cache.canonical_quant(quant)
         path = artifact_cache.artifact_path(
             model_dir, mode, str(dtype).removeprefix("torch."))
-        params = artifact_cache.try_load(path, self.device)
+        keep: dict = {}
+        params = artifact_cache.try_load(path, self.device, keep_host=keep)
         if params is not None:
+            self._artifact_host = keep
             with open(os.path.join(model_dir, "config.json")) as f:
                 spec = spec_from_config(json.load(f))
             if "lm_head" not in params:  # the checkpoint tied its head
@@ -260,6 +297,8 @@ class TorchLLMBackend(Backend):
                 "LoRA hot-apply needs full-precision weights; load the "
                 "model without quantization (or restart with the adapter "
                 "in lora_adapters, which merges before quantizing)")
+        # update_params is the swap hook: a warm tree is promoted and held
+        # on the device first, the pager's stale mirror dropped after
         return eng.update_params(lambda params: merge_lora(
             spec, params, adapter_dir, scale=scale, sign=sign,
             inplace=True)[1])
@@ -309,15 +348,46 @@ class TorchLLMBackend(Backend):
         return self._state in ("READY", "BUSY")
 
     def status(self) -> StatusResponse:
-        """State and the engine's device bytes (``/backend/monitor``)."""
+        """State and the engine's device bytes (``/backend/monitor``).
+        With a weight pager the tree's bytes come from its counts (no
+        weight is read: a warm tree is not on the device), split into
+        ``weights_hot_bytes`` and ``weights_warm_bytes``."""
         mem: dict[str, int] = {}
         eng = self.engine
         if eng is not None:
             mem["kv_cache_bytes"] = eng.cache.nbytes()
-            mem["params_bytes"] = sum(
-                t.numel() * t.element_size()
-                for v in eng.params.values() for t in leaves(v))
+            pager = eng._pager
+            if pager is not None:
+                mem["params_bytes"] = pager.device_bytes()
+                mem["weights_hot_bytes"] = pager.device_bytes()
+                mem["weights_warm_bytes"] = pager.host_bytes()
+            else:
+                mem["params_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for v in eng.params.values() for t in leaves(v))
         return StatusResponse(state=self._state, memory=mem)
+
+    def demote_weights(self) -> Optional[str]:
+        """Page this model's weights out to host RAM (the watchdog's
+        demote mode). Returns "demoted" (a demotion started), "busy" (a
+        transition is in flight, or the engine has work), "warm" (already
+        paged out), or None (no pager: paging off, a draft, a
+        disaggregated pair)."""
+        pager = getattr(self.engine, "_pager", None)
+        if pager is None:
+            return None
+        st = pager.state
+        if st == "hot":
+            return ("demoted" if pager.request_demote(reason="watchdog")
+                    else "busy")
+        if st in ("demoting", "promoting"):
+            return "busy"
+        return "warm"
+
+    def weight_residency(self) -> Optional[dict]:
+        """The pager's snapshot (None when this engine does not page)."""
+        pager = getattr(self.engine, "_pager", None)
+        return None if pager is None else pager.stats()
 
     def embedding(self, opts: PredictOptions) -> EmbeddingResult:
         """The mean-pooled final hidden state of ``opts.embeddings`` (or
@@ -414,6 +484,7 @@ class TorchLLMBackend(Backend):
             "costmodel": eng.cost_stats(),
             "hbm": eng.hbm_stats(),
             "kv_tier": eng.tier_stats(),
+            "weights": self.weight_residency(),
         }
 
     def predict(self, opts: PredictOptions) -> Reply:

@@ -1175,9 +1175,11 @@ def _small_checkpoint(path, seed=0):
 def test_unload_returns_allocated_memory(cuda_device, tmp_path, monkeypatch):
     """A worker loaded on the card with its graphs captured, one request
     served, then shut down: allocated memory is back within 1 MiB of
-    what it was before the load. A first load and unload comes before
-    the baseline, for what the process keeps once for all engines (the
-    capture stream's cuBLAS workspace, B1's merge counters)."""
+    what it was before the load, and the weight pager's slab (device
+    memory the caching allocator does not see, counted beside it) is
+    given back. A first load and unload comes before the baseline, for
+    what the process keeps once for all engines (the capture stream's
+    cuBLAS workspace, B1's merge counters)."""
     from localai_tfp_tpu_torch.workers.base import (ModelLoadOptions,
                                                     PredictOptions)
     from localai_tfp_tpu_torch.workers.llm import TorchLLMBackend
@@ -1194,8 +1196,11 @@ def test_unload_returns_allocated_memory(cuda_device, tmp_path, monkeypatch):
         out = b.predict(PredictOptions(prompt="hello", tokens=6,
                                        ignore_eos=True))
         assert out.tokens == 6
-        loaded = torch.cuda.memory_allocated(cuda_device)
+        slab = b.engine._pager.slab
+        loaded = torch.cuda.memory_allocated(cuda_device) \
+            + slab.mapped_bytes()
         b.shutdown()
+        assert slab.released and slab.mapped_bytes() == 0
         return loaded, b.unload_stats
 
     cycle()
@@ -1530,3 +1535,260 @@ def test_urgent_spill_races_the_overwrite_of_its_pages(cuda_device,
         eng.leak_check()
     finally:
         eng.close()
+
+
+# ------------------------------------------------- weight paging, disagg
+
+
+def _big_tree(device, mib: int = 256) -> dict:
+    """A parameter-shaped tree of about ``mib`` MiB (stacked leaves, a
+    norm, an int8 QTensor), random from a seed, on ``device``."""
+    g = torch.Generator().manual_seed(5)
+    n = mib * (1 << 20) // 2 // 4 // 1024
+    return {"wq": torch.randn((4, n, 1024), generator=g).to(
+                device, torch.bfloat16),
+            "ln1_w": torch.randn((4, 1024), generator=g).to(device),
+            "w_up": tq.QTensor(torch.randint(-127, 128, (4, 256, 1024),
+                                             dtype=torch.int8,
+                                             generator=g).to(device),
+                               torch.rand((4, 1024), generator=g).to(device))}
+
+
+@pytest.mark.cuda
+def test_weight_slab_frees_hbm_on_unmap(cuda_device):
+    """The slab's memory is released on unmap (free device
+    memory rises by at least the tree's bytes less one granule), comes
+    back at the same addresses on map, and the views read what is copied
+    into them; release returns the range."""
+    from localai_tfp_tpu_torch.models.weight_slab import WeightSlab
+
+    tree = _big_tree(cuda_device)
+    want = {k: (tuple(t.cpu() for t in v) if isinstance(v, tq.QTensor)
+                else v.cpu()) for k, v in tree.items()}
+    own = tree
+    slab = WeightSlab(own, cuda_device)  # the leaves move in place
+    ptrs = {k: tuple(t.data_ptr() for t in tq.leaves(v))
+            for k, v in own.items()}
+    assert all(slab._ptr <= p < slab._ptr + slab.nbytes
+               for v in ptrs.values() for p in v)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, _ = torch.cuda.mem_get_info()
+    slab.unmap()
+    free1, _ = torch.cuda.mem_get_info()
+    assert free1 - free0 >= slab.tree_bytes - slab.granularity, (
+        free0, free1, slab.tree_bytes)
+    slab.map()
+    for k, v in own.items():
+        src = want[k] if isinstance(want[k], tuple) else (want[k],)
+        for t, s in zip(tq.leaves(v), src):
+            t.copy_(s)
+    assert {k: tuple(t.data_ptr() for t in tq.leaves(v))
+            for k, v in own.items()} == ptrs
+    for k, v in own.items():
+        src = want[k] if isinstance(want[k], tuple) else (want[k],)
+        for t, s in zip(tq.leaves(v), src):
+            assert torch.equal(t.cpu(), s)
+    del own, tree, v, t
+    slab.release()
+    assert slab.released and not slab.mapped
+
+
+def _paged_engine(device, **kw):
+    spec, params = _tiny_model(device)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    return LLMEngine(spec, params, ByteTokenizer(), n_slots=2, max_seq=256,
+                     cache_dtype=torch.bfloat16, device=device,
+                     weight_paging=True, **kw)
+
+
+def _demote(pager):
+    import time
+
+    deadline = time.monotonic() + 60
+    while not pager.request_demote():
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    assert pager.settle(60) and pager.state == "warm"
+
+
+@pytest.mark.cuda
+def test_graph_captured_before_unmap_replays_bitwise_after_map(cuda_device):
+    """Every variant is captured while hot; the weights are demoted (the
+    slab unmapped) and promoted (fresh memory at the same addresses); the
+    same graph objects replay and give bitwise the logits they gave
+    before, and a greedy request's ids are the same."""
+    eng = _paged_engine(cuda_device)
+    try:
+        eng.warmup()
+        graphs = {id(v.graph) for d in (eng._variants,
+                                        eng._masked_variants,
+                                        eng._mixed_variants)
+                  for v in d.values()}
+        n = eng.variant_count()
+        v = eng._variant(2)
+        # an all-pad replay (the trash page, the sentinel row) from the
+        # same inputs each time: the graph chains its next input itself
+        with torch.inference_mode():
+            eng._fill(v, [], 1)
+            v.graph.replay()
+            before = v.logits.clone()
+        req = dict(prompt_ids=list(range(1, 60)), max_tokens=12,
+                   ignore_eos=True)
+        ids0 = eng.generate(GenRequest(**req)).full_text
+        _demote(eng._pager)
+        assert not eng._pager.slab.mapped and eng.params is None
+        assert eng._pager.ensure_hot(60)
+        with torch.inference_mode():
+            eng._fill(v, [], 1)
+            v.graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(v.logits, before)
+        b1 = ragged_paged_attention.launches
+        assert eng.generate(GenRequest(**req)).full_text == ids0
+        assert ragged_paged_attention.launches > b1
+        assert eng.variant_count() == n
+        assert {id(v.graph) for d in (eng._variants, eng._masked_variants,
+                                      eng._mixed_variants)
+                for v in d.values()} == graphs
+        eng.leak_check()
+    finally:
+        eng.close()
+        eng.release()
+
+
+@pytest.mark.cuda
+def test_seeded_mirror_is_pinned_by_its_demotion(cuda_device):
+    """A mirror seeded from pageable host planes (an int8 artifact's
+    file mapping) is pinned by the seed demotion, which copies nothing
+    off the device; the promotion from it restores the tree bitwise."""
+    eng = _paged_engine(cuda_device)
+    try:
+        pager = eng._pager
+        host = {k: (tq.QTensor(*(t.cpu() for t in v))
+                    if isinstance(v, tq.QTensor) else v.cpu())
+                for k, v in eng.params.items()}
+        assert not any(t.is_pinned() for v in host.values()
+                       for t in tq.leaves(v))
+        want = {k: [t.clone() for t in tq.leaves(v)]
+                for k, v in host.items()}
+        pager.seed_host(host, eng.params)
+        _demote(pager)
+        assert pager.timings["demote_outcome"] == "seed"
+        assert "demote_copy_s" not in pager.timings
+        assert pager.timings["mirror_pin_s"] > 0
+        assert all(t.is_pinned() for v in pager._host.values()
+                   for t in tq.leaves(v))
+        assert pager.ensure_hot(60)
+        for k, v in eng.params.items():
+            for t, w in zip(tq.leaves(v), want[k]):
+                assert torch.equal(t.cpu(), w)
+        eng.leak_check()
+    finally:
+        eng.close()
+        eng.release()
+
+
+@pytest.mark.cuda
+def test_warm_engine_refuses_embed_until_hot(cuda_device):
+    """An embedding on a warm engine never reads the unmapped slab: it
+    waits behind the promotion and then gives the hot engine's vector,
+    bitwise."""
+    eng = _paged_engine(cuda_device)
+    try:
+        want = eng.embed("an embedding across a round trip")
+        _demote(eng._pager)
+        got = eng.embed("an embedding across a round trip")
+        assert eng._pager.state == "hot"
+        assert eng._pager.counters["promotes"] == 1
+        assert torch.equal(got, want)
+        eng.leak_check()
+    finally:
+        eng.close()
+        eng.release()
+
+
+@pytest.mark.cuda
+def test_migration_gather_races_the_overwrite_of_its_pages(cuda_device,
+                                                          monkeypatch):
+    """A probe's pages are gathered for migration; before the router's
+    pump copies them to the host, the next probe (a graph replay on the
+    prefill engine) overwrites those pages. The gather ran on the
+    engine's stream first and the pump copies the gathered tensor, never
+    the arena: the migrated host pages equal the pages as captured,
+    bitwise, and the arena pages did change."""
+    import threading
+
+    from localai_tfp_tpu_torch.engine.kv_migrate import (
+        DisaggRouter, build_prefill_engine)
+
+    monkeypatch.setenv("LOCALAI_KV_PAGE", "16")
+    monkeypatch.setenv("LOCALAI_DISAGG_MIN_PROMPT", "16")
+    monkeypatch.setenv("LOCALAI_DISAGG_PREFILL_SLOTS", "1")
+    spec, params = _tiny_model(cuda_device)
+    params = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    decode = LLMEngine(spec, params, ByteTokenizer(), n_slots=2,
+                       max_seq=256, cache_dtype=torch.bfloat16,
+                       device=cuda_device, weight_paging=False)
+    # one slot and 8 usable pages: the second probe reuses the first's
+    prefill = build_prefill_engine(spec, params, ByteTokenizer(),
+                                   decode=decode)
+    prefill._pool.__init__(9, prefill.page)
+    router = DisaggRouter(prefill, decode)
+    captured, hosts, second_done = {}, {}, threading.Event()
+    on_finish = prefill._migrator.on_finish
+
+    def spy_finish(slot, reason):
+        if slot.request.id.endswith(":prefill") and "first" not in captured:
+            captured["rid"] = slot.request.id[:-len(":prefill")]
+            tbl = torch.tensor(prefill._pool.table(slot.idx)[:7],
+                               device=cuda_device)
+            captured["first"] = (tbl, {"k": prefill.cache.k[:, tbl].clone(),
+                                       "v": prefill.cache.v[:, tbl].clone()})
+        elif slot.request.id.endswith(":prefill"):
+            second_done.set()
+        return on_finish(slot, reason)
+
+    collect = router.bus.collect
+
+    def late_collect(rid, timeout):
+        # each request has its own pump: only the first probe's collect
+        # waits for the overwrite and keeps its host pages
+        first = rid == captured.get("rid")
+        if first:
+            assert second_done.wait(60), "the second probe never finished"
+            torch.cuda.synchronize()
+        h, why = collect(rid, timeout)
+        if h is not None and first:
+            blocks = router.bus.blocks(h.hpids)
+            hosts.update({nm: torch.stack([b.arrays[nm] for b in blocks],
+                                          1).clone() for nm in ("k", "v")})
+        return h, why
+
+    monkeypatch.setattr(prefill._migrator, "on_finish", spy_finish)
+    monkeypatch.setattr(router.bus, "collect", late_collect)
+    router.start()
+    try:
+        qs = router.submit_many([
+            GenRequest(prompt_ids=list(range(1, 101)), max_tokens=4,
+                       ignore_eos=True),
+            GenRequest(prompt_ids=list(range(3, 103)), max_tokens=4,
+                       ignore_eos=True)])
+        for q in qs:
+            ev = q.get(timeout=300)
+            while not ev.done:
+                ev = q.get(timeout=300)
+            assert ev.finish_reason == "length", ev.error
+        tbl, ref = captured["first"]
+        changed = False
+        for nm in ("k", "v"):
+            want = ref[nm][:, :hosts[nm].shape[1]]
+            assert torch.equal(hosts[nm].view(torch.uint8).cpu(),
+                               want.contiguous().view(torch.uint8).cpu())
+            arena = getattr(prefill.cache, nm)
+            changed |= not torch.equal(arena[:, tbl], ref[nm])
+        assert changed, "the second probe did not overwrite the pages"
+        assert decode._migrator.counters["adoptions"] >= 1
+        router.leak_check()
+    finally:
+        router.close()

@@ -195,8 +195,39 @@ def test_unserved_features_are_refused_not_ignored(torch_engine):
     ev = torch_engine.generate(te.GenRequest(prompt_ids=[1, 2],
                                              soft_embeds=np.zeros((1, 64))))
     assert ev.finish_reason == "error" and "soft_embeds" in ev.error
-    ev = torch_engine.generate(te.GenRequest(prompt_ids=[1, 2],
-                                             disagg=object()))
-    assert ev.finish_reason == "error" and "disagg" in ev.error
     ev = torch_engine.generate(te.GenRequest(prompt_ids=list(range(256))))
     assert ev.finish_reason == "error" and "context size" in ev.error
+
+
+def test_disaggregated_request_is_served(weights, monkeypatch):
+    """What the engine refused before disaggregated serving was ported: a
+    long prompt through a DisaggRouter is prefilled on one engine,
+    migrated, and decoded on the other, with the single engine's ids."""
+    from localai_tfp_tpu_torch.engine.kv_migrate import (DisaggRouter,
+                                                         build_prefill_engine)
+
+    monkeypatch.setenv("LOCALAI_DISAGG_MIN_PROMPT", "16")
+    spec = tiny_spec(vocab_size=258, max_position=512)
+    params = params_from_numpy(weights)
+    decode = te.LLMEngine(spec, params, ByteTokenizer(),
+                          cache_dtype=torch.float32, device="cpu",
+                          weight_paging=False, **ENGINE_KW)
+    router = DisaggRouter(build_prefill_engine(spec, params, ByteTokenizer(),
+                                               decode=decode), decode)
+    router.start()
+    single = te.LLMEngine(spec, params_from_numpy(weights), ByteTokenizer(),
+                          cache_dtype=torch.float32, device="cpu",
+                          **ENGINE_KW)
+    prompt = list(range(40, 100))
+    try:
+        got = router.generate(te.GenRequest(prompt_ids=prompt, max_tokens=6,
+                                            ignore_eos=True))
+        want = single.generate(te.GenRequest(prompt_ids=prompt, max_tokens=6,
+                                             ignore_eos=True))
+        assert got.finish_reason == "length", got.error
+        assert got.full_text == want.full_text
+        assert decode._migrator.counters["adoptions"] == 1
+        assert decode.metrics.prompt_tokens_processed == 0
+    finally:
+        router.close()
+        single.close()

@@ -382,7 +382,10 @@ def test_metrics_route_shows_the_reference_families(server, tmp_path):
     # variants per row bucket and token bucket (4, 16, 128)
     assert stats["graph_variants"] == 15 and stats["warmup_s"] > 0
     assert stats["costmodel"]["mfu_samples"] > 0
-    assert stats["hbm"]["components"]["weights"] > 0
+    # the weights by tier (the engine pages them, as the JAX engine does
+    # with LOCALAI_WEIGHT_PAGING on): hot on the device, none warm
+    assert stats["hbm"]["components"]["weights_hot"] > 0
+    assert stats["hbm"]["components"]["weights_warm"] == 0
 
     def value(name, **labels):
         return samples.get((name, frozenset(labels.items())), 0.0)
@@ -396,8 +399,9 @@ def test_metrics_route_shows_the_reference_families(server, tmp_path):
         stats["requests_completed"] == 2
     assert value("engine_dispatch_compile_variants_count", model=model) == 15
     assert 0 < value("engine_mfu_ratio", model=model) <= 1
-    assert value("engine_hbm_bytes", model=model, component="weights") == \
-        stats["hbm"]["components"]["weights"]
+    assert value("engine_hbm_bytes", model=model,
+                 component="weights_hot") == \
+        stats["hbm"]["components"]["weights_hot"]
     assert value("engine_slots_busy_count", model=model) == 0
     assert value("api_call_seconds_count", method="POST",
                  path="/v1/chat/completions") >= 2

@@ -161,3 +161,11 @@ def test_native_grammar_library_is_built_from_the_ports_own_source():
     text = (PORT / "grammars" / "native.py").read_text()
     assert "localai_tfp_tpu/native" not in text
     assert "localai_tfp_tpu.native" not in text
+
+
+def test_the_scans_cover_the_paging_and_migration_modules():
+    """The weight pager, its slab and the KV migration are among the
+    files the AST scans read (and the fresh interpreter imports)."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
+    assert {"engine/weight_pager.py", "engine/kv_migrate.py",
+            "models/weight_slab.py"} <= names

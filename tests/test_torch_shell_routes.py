@@ -378,10 +378,11 @@ def test_monitor_and_shutdown_lifecycle(plain):
     assert j[0] == t[0] == 200
     jm, tm_ = _json(j[2]), _json(t[2])
     assert set(tm_) == set(jm)
-    # the JAX worker adds its weight pager's split, which the port
-    # does not have yet
-    assert set(tm_["memory_info"]) == set(jm["memory_info"]) - {
-        "weights_hot_bytes", "weights_warm_bytes"}
+    # both workers add their weight pager's split (weights_hot_bytes,
+    # weights_warm_bytes)
+    assert set(tm_["memory_info"]) == set(jm["memory_info"])
+    assert tm_["memory_info"]["weights_hot_bytes"] == \
+        jm["memory_info"]["weights_hot_bytes"] > 0
     assert (tm_["status"], tm_["busy"]) == (jm["status"], jm["busy"]) == (
         "READY", False)
     assert (jm["backend"], tm_["backend"]) == ("jax-llm", "torch-llm")
