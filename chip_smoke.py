@@ -4,7 +4,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases, one result line each; any failure raises and exits non-zero:
+Phases, one result line each; any failure raises and exits non-zero,
+after one line naming the phase (``{"phase_failed": "<name>", ...}``):
 
 1. device  — the card's name and count, and nvidia-smi's name and power
    limit.
@@ -246,14 +247,22 @@ Phases, one result line each; any failure raises and exits non-zero:
 12. families — the dense families beside Llama, each from its published
    ``config.json`` with random bf16 weights, through the HTTP server
    (context 4096, 8 slots, byte tokenizer, LocalAI's Gemma Go
-   template): (a) Gemma-3-4B-it's text tower at full width and depth,
-   written as the multimodal checkpoint lays it out
-   (``language_model.model.``), four streamed chats at once, one past
-   the 1024 window: 34 B1 launches per forward, every forward a replay,
-   the first token's ms and host ms per decode forward, a greedy
-   request held to the dense forward; then the same checkpoint with
+   template): (a) Gemma-3-4B-it at full width and depth, written as the
+   multimodal checkpoint lays it out (the text tower under
+   ``language_model.model.``, the SigLIP tower (27 layers, 896 px) and
+   projector beside it), four streamed chats at once, one past the 1024
+   window: 34 B1 launches per forward, every forward a replay, the first
+   token's ms and host ms per decode forward, a greedy request held to
+   the dense forward; then the image chats (``image_leg``): two PNGs in
+   one streamed chat, the same text with another image, the text
+   alone: every image prefill step a replay of a soft variant captured
+   at load, 34 B1 launches per forward, each chat's greedy ids equal to
+   the dense forward's with the same soft rows, the two image chats'
+   ids different, the tower's device ms per image, first-token ms with
+   images against without; then the same checkpoint with
    ``quantization: int8`` (B2 by M; its dense reference dequantizes the
-   projections, so runs no B2); (b) Gemma-2-2B-it at full depth,
+   projections, so runs no B2) and its image chats; (b) Gemma-2-2B-it
+   at full depth,
    whose greedy ids must also fail the dense forward without its
    softcap; (c) Phi-3-mini-4k at 8 of its 32 layers (fused
    projections). Every line beside nvidia-smi's name and power limit.
@@ -290,6 +299,17 @@ Phases, one result line each; any failure raises and exits non-zero:
    moe). Each leg as in phase moe: four streamed chats (one past 1024
    prompt tokens), B1 once per layer of every forward, every forward a
    replay, a greedy request held to the dense forward.
+
+16. recurrent_vision — (after phase 12) (a) LLaVA-1.5-7B: the CLIP
+   ViT-L/14-336 tower at full depth (24 layers, 576 soft tokens an
+   image) and the Llama-2-7B decoder at full width, 4 of its 32 layers,
+   through the HTTP server: an image chat as phase 12's burst, then
+   ``image_leg``'s chats (4 B1 launches per forward); (b) Mamba-2.8B at
+   8 of 64 layers (bf16) and (c) RWKV-4-3B at 8 of 32 layers (f32): a
+   streamed chat each, its greedy ids equal to the step function run
+   eagerly on the same prompt (every step a replay of the step graph),
+   host ms per token by replay and eagerly, load s, peak memory. Every
+   depth cut is the line's ``reduced``.
 
 15. retrieval — (last) the encoder workers and the vector stores through
    the HTTP server, from BERT checkpoints written here with random f32
@@ -1357,7 +1377,8 @@ def reference_check(backend, layers: int) -> dict:
 
 def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
                    repeat_last_n: int = 64, masks: list | None = None,
-                   cache_dtype=None, per_step: bool = False) -> dict:
+                   cache_dtype=None, per_step: bool = False,
+                   soft=None) -> dict:
     """How far each served greedy token ``ids`` falls below the argmax of
     the plain dense forward (``_attend``) over prompt + ids: the worst
     logit deficit against a tolerance of a quarter of the logits' std
@@ -1371,7 +1392,9 @@ def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
     the engine built it), the argmax is over each step's admitted
     tokens; the tolerance stays that of the unmasked logits. The
     forward's cache is bf16 unless ``cache_dtype`` says otherwise;
-    ``per_step`` adds each step's deficit (``deficits``)."""
+    ``per_step`` adds each step's deficit (``deficits``); ``soft`` (rows,
+    batch rows, positions) overrides the embeddings at those positions,
+    as the engine does for an image prompt."""
     import torch
 
     from localai_tfp_tpu_torch.models.transformer import KVCache, forward
@@ -1384,7 +1407,7 @@ def dense_deficits(eng, prompt: list, ids: list, repeat_penalty: float = 0.0,
         logits, _ = forward(eng.spec, eng.params,
                             torch.tensor([seq], device=dev),
                             torch.zeros(1, dtype=torch.int32, device=dev),
-                            cache)
+                            cache, soft=soft)
     rows = logits[0, len(prompt) - 1:].float()  # one row per generated token
     if repeat_penalty not in (0.0, 1.0):
         n = min(repeat_last_n if repeat_last_n > 0 else 64,
@@ -3315,14 +3338,18 @@ def memory_by_frame(eng) -> dict:
             "ledger_unattributed": led.get("unattributed")}
 
 
-def itl_streams(eng, backend, extra: list) -> dict:
-    """DISPATCH_STREAMS greedy streams decoding TIER_STREAMS_TOKENS each;
-    once they decode, ``extra`` requests (returning sessions) arrive
-    beside them. Per stream, each dispatch's delivery gap over the
-    tokens it delivered: p50 and p99 over the streams."""
+def itl_streams(eng, backend, extra: list, arrive=None,
+                tokens: int = TIER_STREAMS_TOKENS) -> dict:
+    """DISPATCH_STREAMS greedy streams decoding ``tokens`` each; once
+    they decode, ``extra`` requests (returning sessions) arrive beside
+    them, or ``arrive()`` runs (an image chat through the HTTP route; it
+    returns named perf_counter stamps). Per stream, each dispatch's
+    delivery gap over the tokens it delivered: p50 and p99 over the
+    streams; with ``arrive``, its stamps and the streams' first and last
+    tokens in ms from their submission."""
     from localai_tfp_tpu_torch.engine.engine import GenRequest
 
-    streams = stream_requests(backend, TIER_STREAMS_TOKENS)
+    streams = stream_requests(backend, tokens)
     times: dict = {r.id: [] for r in streams}
     emit = eng._emit_token
 
@@ -3334,12 +3361,16 @@ def itl_streams(eng, backend, extra: list) -> dict:
         return emit(slot, tok, defer)
 
     eng._emit_token = emit_
+    stamps = None
     try:
+        t0 = time.perf_counter()
         qs = eng.submit_many(streams)
         while not all(times[r.id] for r in streams):
             time.sleep(0.001)
         qs += eng.submit_many([GenRequest(prompt_ids=list(p), max_tokens=8,
                                           ignore_eos=True) for p in extra])
+        if arrive is not None:
+            stamps = arrive()
         for q in qs:
             ev = q.get(timeout=600)
             while not ev.done:
@@ -3356,8 +3387,17 @@ def itl_streams(eng, backend, extra: list) -> dict:
         for t, k in sorted(groups.values()):
             gaps.append((t - prev) * 1e3 / k)
             prev = t
-    return {"itl_p50_ms": _pct(gaps, 0.5), "itl_p99_ms": _pct(gaps, 0.99),
-            "samples": len(gaps)}
+    out = {"itl_p50_ms": _pct(gaps, 0.5), "itl_p99_ms": _pct(gaps, 0.99),
+           "samples": len(gaps)}
+    if stamps is not None:
+        out["max_ms"] = max(gaps)
+        out["ms_from_submit"] = {
+            "streams_first_tokens": (max(ts[0][1] for ts in times.values())
+                                     - t0) * 1e3,
+            "streams_last_token": (max(ts[-1][1] for ts in times.values())
+                                   - t0) * 1e3,
+            **{k: (v - t0) * 1e3 for k, v in stamps.items()}}
+    return out
 
 
 def timeline_overlap(trace: dict) -> dict:
@@ -5625,7 +5665,8 @@ def family_layout(g: dict, layers: int, prefix: str) -> list:
 
 def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
                             saturate: str = "last",
-                            q_cap_scale: float = 4.0) -> tuple[int, float]:
+                            q_cap_scale: float = 4.0,
+                            vision: dict | None = None) -> tuple[int, float]:
     """A checkpoint of geometry ``g`` with random bf16 weights made on the
     card from ``seed`` (matrices at 1/sqrt(fan-in); Gemma's norm weights
     0, which its ``1 + w`` norms read as 1; Phi-3's 1). Gemma ties its
@@ -5644,8 +5685,11 @@ def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
     instead and no norm (phase ``softcap_witness``). Gemma 3 is
     written as the published multimodal checkpoint lays out its text
     tower: ``model_type: gemma3`` with a ``text_config``, tensors under
-    ``language_model.model.`` (no vision tensors: the port serves the
-    text tower). Returns (bytes, seconds)."""
+    ``language_model.model.``; with ``vision`` (a SigLIP
+    ``vision_config`` and the image-token ids) its tower and projector
+    too, drawn after the text tensors (so those are the same either
+    way): LayerNorms 1 and 0, matrices at 1/sqrt(fan-in), the projector's
+    ``(1 + w)`` norm 0. Returns (bytes, seconds)."""
     import math
 
     import torch
@@ -5657,6 +5701,8 @@ def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
     mt = g["model_type"]
     prefix = "language_model.model." if mt == "gemma3_text" else "model."
     layout = family_layout(g, layers, prefix)
+    if vision is not None:
+        layout += siglip_layout(vision["vision_config"], g["hidden_size"])
     dev = torch.device(CARD)
     gen = torch.Generator(device=dev).manual_seed(seed)
     gemma = mt.startswith("gemma")
@@ -5670,6 +5716,9 @@ def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
 
     def tensors():
         for name, shape in layout:
+            if name.startswith(("vision_tower.", "multi_modal_projector.")):
+                yield name, tower_tensor(name, shape, gen, dev)
+                continue
             if len(shape) == 1:
                 w = 0.0 if name.endswith(".bias") else norm
                 if saturate == "last" and saturated(
@@ -5692,7 +5741,8 @@ def write_family_checkpoint(ckpt: Path, g: dict, layers: int, seed: int,
     text = {**g, "num_hidden_layers": layers, "torch_dtype": "bfloat16"}
     config = ({"architectures": ["Gemma3ForConditionalGeneration"],
                "model_type": "gemma3", "text_config": text,
-               "torch_dtype": "bfloat16"} if mt == "gemma3_text" else text)
+               "torch_dtype": "bfloat16", **(vision or {})}
+              if mt == "gemma3_text" else text)
     (ckpt / "config.json").write_text(json.dumps(config, indent=1))
     nbytes = sum(2 * math.prod(s) for _, s in layout)
     return nbytes, time.perf_counter() - t0
@@ -5941,7 +5991,7 @@ def serve_family(models: Path, model: str, smi: str, bodies: list,
             log(f"{tag}_profile", model=model, card=smi, **prof)
         eng.leak_check()
         res = {"load": load, "burst": burst, "reference": ref,
-               "profile": prof, "on_load": hooked}
+               "profile": prof, "on_load": hooked, "port": port}
         if after is not None:
             res["after"] = after(backend, res)
         return res
@@ -5968,9 +6018,10 @@ def family_chats() -> list:
 
 
 def phase_families(smi: str, seed: int) -> dict:
-    """(a) Gemma-3-4B-it at full width and depth, bf16 then int8;
-    (b) Gemma-2-2B-it at full width and depth; (c) Phi-3-mini-4k at
-    full width, 8 layers."""
+    """(a) Gemma-3-4B-it at full width and depth with its SigLIP tower
+    (the multimodal checkpoint), bf16 then int8, each also serving the
+    image chats (``image_leg``); (b) Gemma-2-2B-it at full width and
+    depth; (c) Phi-3-mini-4k at full width, 8 layers."""
     import shutil
 
     t_phase = time.perf_counter()
@@ -5985,14 +6036,17 @@ def phase_families(smi: str, seed: int) -> dict:
             ("phi3_mini", PHI3_MINI, PHI3_LAYERS,
              f"layers {PHI3_LAYERS} of {PHI3_MINI['num_hidden_layers']}")):
         ckpt = f"{key}-L{layers}-s{seed}"
-        nbytes, write_s = write_family_checkpoint(models / ckpt, g, layers,
-                                                  seed)
+        nbytes, write_s = write_family_checkpoint(
+            models / ckpt, g, layers, seed,
+            vision=GEMMA3_VISION if key == "gemma3_4b" else None)
         log("families_checkpoint", model=key, bytes=nbytes,
             write_s=round(write_s, 3), layers=layers, reduced=cut, card=smi)
         family_yaml(models, key, ckpt)
         if key == "gemma3_4b":
-            res = serve_family(models, key, smi, chats,
-                               LONG_PROMPT, layers, True, profile=True)
+            res = serve_family(
+                models, key, smi, chats, LONG_PROMPT, layers, True,
+                profile=True, after=lambda b, r: image_leg(
+                    b, r, key, layers, smi, "families", itl=True))
             ctx = max(r["prompt_tokens"] + r["completion_tokens"]
                       for r in res["burst"]["requests"])
             if ctx <= g["sliding_window"] + 64:
@@ -6004,7 +6058,9 @@ def phase_families(smi: str, seed: int) -> dict:
             try:
                 res["int8"] = serve_family(
                     models, f"{key}-int8", smi, chats[1:2], "Say hello.",
-                    layers, True, int8=True)
+                    layers, True, int8=True, after=lambda b, r: image_leg(
+                        b, r, f"{key}-int8", layers, smi, "families_int8",
+                        by_m=True))
             finally:
                 if saved is None:
                     os.environ.pop("LOCALAI_QUANT_ARTIFACTS", None)
@@ -6029,6 +6085,666 @@ def phase_families(smi: str, seed: int) -> dict:
                    v["burst"]["launches"]["ragged_paged_attention"]
                    / max(1, v["burst"]["forward_steps"])}
            for k, v in out.items() if isinstance(v, dict)})
+    return out
+
+
+# ------------------------------------------------- images and recurrent
+
+
+# google/gemma-3-4b-it config.json: the SigLIP tower and image tokens
+SIGLIP_G3 = {
+    "model_type": "siglip_vision_model", "hidden_size": 1152,
+    "intermediate_size": 4304, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "image_size": 896, "patch_size": 14,
+    "num_channels": 3, "layer_norm_eps": 1e-6,
+}
+GEMMA3_VISION = {"vision_config": SIGLIP_G3, "mm_tokens_per_image": 256,
+                 "boi_token_index": 255999, "eoi_token_index": 256000,
+                 "image_token_index": 262144}
+# llava-hf/llava-1.5-7b-hf config.json: CLIP ViT-L/14-336 over Llama-2-7B
+CLIP_L336 = {
+    "model_type": "clip_vision_model", "hidden_size": 1024,
+    "intermediate_size": 4096, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "image_size": 336, "patch_size": 14,
+    "num_channels": 3, "layer_norm_eps": 1e-5, "projection_dim": 768,
+}
+LLAVA_TEXT = {
+    "model_type": "llama", "hidden_size": 4096, "intermediate_size": 11008,
+    "num_attention_heads": 32, "num_key_value_heads": 32,
+    "num_hidden_layers": 32, "vocab_size": 32064, "rms_norm_eps": 1e-5,
+    "rope_theta": 10000.0, "max_position_embeddings": 4096,
+    "tie_word_embeddings": False,
+}
+LLAVA_LAYERS = 4  # a depth cut of the decoder: the tower runs at full depth
+LLAVA_IMAGE_TOKEN = 32000
+# state-spaces/mamba-2.8b-hf config.json
+MAMBA_28B = {
+    "model_type": "mamba", "hidden_size": 2560, "intermediate_size": 5120,
+    "state_size": 16, "conv_kernel": 4, "time_step_rank": 160,
+    "vocab_size": 50280, "num_hidden_layers": 64,
+    "layer_norm_epsilon": 1e-5, "tie_word_embeddings": True,
+}
+MAMBA_LAYERS = 8  # a depth cut: 64 layers
+# RWKV/rwkv-4-3b-pile config.json
+RWKV4_3B = {
+    "model_type": "rwkv", "hidden_size": 2560, "intermediate_size": 10240,
+    "attention_hidden_size": 2560, "vocab_size": 50277,
+    "num_hidden_layers": 32, "layer_norm_epsilon": 1e-5,
+    "rescale_every": 6, "context_length": 1024,
+}
+RWKV_LAYERS = 8  # a depth cut: 32 layers
+IMAGE_TEXT = "Describe the two pictures in one sentence."
+IMAGE_TOKENS = 16  # greedy tokens of each image chat
+RECURRENT_TOKENS = 128  # decode tokens timed by replay and eagerly
+ITL_IMAGE_TOKENS = 256  # tokens of each text stream beside an image chat
+RECURRENT_REPEATS = 3  # timed runs of each way, interleaved (the median kept)
+
+
+def _encoder_layout(pref: str, c: dict) -> list:
+    """(name, HF shape) of a SigLIP or CLIP encoder's layers."""
+    D, F = c["hidden_size"], c["intermediate_size"]
+    out = []
+    for i in range(c["num_hidden_layers"]):
+        lp = f"{pref}encoder.layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out += [(lp + f"self_attn.{n}.weight", (D, D)),
+                    (lp + f"self_attn.{n}.bias", (D,))]
+        out += [(lp + "layer_norm1.weight", (D,)),
+                (lp + "layer_norm1.bias", (D,)),
+                (lp + "layer_norm2.weight", (D,)),
+                (lp + "layer_norm2.bias", (D,)),
+                (lp + "mlp.fc1.weight", (F, D)), (lp + "mlp.fc1.bias", (F,)),
+                (lp + "mlp.fc2.weight", (D, F)), (lp + "mlp.fc2.bias", (D,))]
+    return out
+
+
+def siglip_layout(c: dict, text_d: int) -> list:
+    """Gemma 3's SigLIP tower and projector, as HF saves them."""
+    pref = "vision_tower.vision_model."
+    D, P = c["hidden_size"], c["patch_size"]
+    n = (c["image_size"] // P) ** 2
+    return ([(pref + "embeddings.patch_embedding.weight",
+              (D, c["num_channels"], P, P)),
+             (pref + "embeddings.patch_embedding.bias", (D,)),
+             (pref + "embeddings.position_embedding.weight", (n, D))]
+            + _encoder_layout(pref, c)
+            + [(pref + "post_layernorm.weight", (D,)),
+               (pref + "post_layernorm.bias", (D,)),
+               ("multi_modal_projector.mm_input_projection_weight",
+                (D, text_d)),
+               ("multi_modal_projector.mm_soft_emb_norm.weight", (D,))])
+
+
+def clip_layout(c: dict, text_d: int) -> list:
+    """LLaVA's CLIP tower (``pre_layrnorm``, HF's spelling) and MLP
+    projector."""
+    pref = "vision_tower.vision_model."
+    D, P = c["hidden_size"], c["patch_size"]
+    n = (c["image_size"] // P) ** 2 + 1
+    return ([(pref + "embeddings.class_embedding", (D,)),
+             (pref + "embeddings.patch_embedding.weight",
+              (D, c["num_channels"], P, P)),
+             (pref + "embeddings.position_embedding.weight", (n, D)),
+             (pref + "pre_layrnorm.weight", (D,)),
+             (pref + "pre_layrnorm.bias", (D,))]
+            + _encoder_layout(pref, c)
+            + [(pref + "post_layernorm.weight", (D,)),
+               (pref + "post_layernorm.bias", (D,)),
+               ("multi_modal_projector.linear_1.weight", (text_d, D)),
+               ("multi_modal_projector.linear_1.bias", (text_d,)),
+               ("multi_modal_projector.linear_2.weight", (text_d, text_d)),
+               ("multi_modal_projector.linear_2.bias", (text_d,))])
+
+
+SOFT_SCALE = 1 / 20  # the projector's last matrix, as the text embedding
+
+
+def tower_tensor(name: str, shape: tuple, gen, dev):
+    """A tower or projector tensor: biases 0, LayerNorm weights 1 (the
+    Gemma projector's ``(1 + w)`` norm 0), the CLS embedding at unit
+    scale, matrices at 1/sqrt(fan-in); the projector's last matrix at
+    SOFT_SCALE of that, so soft rows are of the text rows' size (the
+    random text embeddings are drawn small: see
+    ``write_family_checkpoint``); bf16 on ``dev``."""
+    import math
+
+    import torch
+
+    if len(shape) == 1 and not name.endswith("class_embedding"):
+        w = 0.0 if name.endswith(".bias") or "mm_soft_emb_norm" in name \
+            else 1.0
+        return torch.full(shape, w, dtype=torch.bfloat16, device=dev)
+    fan_in = (shape[0] if name.endswith("mm_input_projection_weight")
+              else math.prod(shape[1:]) or 1)
+    if name.endswith(("mm_input_projection_weight", "linear_2.weight")):
+        fan_in /= SOFT_SCALE ** 2
+    w = torch.randn(shape, generator=gen, device=dev)
+    return (w * fan_in ** -0.5).to(torch.bfloat16)
+
+
+def write_tensors(ckpt: Path, layout: list, config: dict, make) -> tuple:
+    """``config.json`` and one ``model.safetensors`` of ``layout``'s
+    tensors, each made on the card by ``make(name, shape)`` as it is
+    written. Returns (bytes, seconds)."""
+    import math
+
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_iter
+
+    t0 = time.perf_counter()
+    ckpt.mkdir(parents=True, exist_ok=True)
+    shapes = [(n, torch.empty(s, dtype=torch.bfloat16, device="meta"))
+              for n, s in layout]
+    save_iter(((n, make(n, s)) for n, s in layout),
+              str(ckpt / "model.safetensors"), shapes=shapes)
+    (ckpt / "config.json").write_text(json.dumps(config, indent=1))
+    return (sum(2 * math.prod(s) for _, s in layout),
+            round(time.perf_counter() - t0, 3))
+
+
+def write_llava(ckpt: Path, seed: int) -> tuple:
+    """LLaVA-1.5-7B: the CLIP tower at full depth, the Llama-2-7B decoder
+    at full width and LLAVA_LAYERS layers (HF's older layout: the text
+    model under ``language_model.``)."""
+    import torch
+
+    g = {**LLAVA_TEXT, "num_hidden_layers": LLAVA_LAYERS}
+    D = g["hidden_size"]
+    text = [(n, s) for n, s in family_layout(
+        {**g, "model_type": "llama"}, LLAVA_LAYERS, "language_model.model.")
+        if "feedforward_layernorm" not in n]
+    layout = (text + [("language_model.lm_head.weight",
+                       (g["vocab_size"], D))] + clip_layout(CLIP_L336, D))
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(name, shape):
+        if name.startswith(("vision_tower.", "multi_modal_projector.")):
+            return tower_tensor(name, shape, gen, dev)
+        if len(shape) == 1:
+            return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+        w = torch.randn(shape, generator=gen, device=dev)
+        return (w * shape[1] ** -0.5).to(torch.bfloat16)
+
+    config = {"architectures": ["LlavaForConditionalGeneration"],
+              "model_type": "llava", "text_config": g,
+              "vision_config": CLIP_L336,
+              "image_token_index": LLAVA_IMAGE_TOKEN,
+              "vision_feature_layer": -2,
+              "vision_feature_select_strategy": "default",
+              "torch_dtype": "bfloat16"}
+    return write_tensors(ckpt, layout, config, make)
+
+
+def write_mamba(ckpt: Path, seed: int) -> tuple:
+    """Mamba-2.8B at MAMBA_LAYERS layers: A_log = log(1..N) and D = 1 as
+    HF initialises them, dt's bias the inverse softplus of 0.01,
+    matrices at 1/sqrt(fan-in), the tied embedding at 1/sqrt(D)."""
+    import math
+
+    import torch
+
+    c = {**MAMBA_28B, "num_hidden_layers": MAMBA_LAYERS}
+    D, Di, N = c["hidden_size"], c["intermediate_size"], c["state_size"]
+    R, K = c["time_step_rank"], c["conv_kernel"]
+    layout = [("backbone.embeddings.weight", (c["vocab_size"], D)),
+              ("backbone.norm_f.weight", (D,))]
+    for i in range(MAMBA_LAYERS):
+        p = f"backbone.layers.{i}."
+        layout += [(p + "norm.weight", (D,)),
+                   (p + "mixer.A_log", (Di, N)), (p + "mixer.D", (Di,)),
+                   (p + "mixer.conv1d.weight", (Di, 1, K)),
+                   (p + "mixer.conv1d.bias", (Di,)),
+                   (p + "mixer.in_proj.weight", (2 * Di, D)),
+                   (p + "mixer.x_proj.weight", (R + 2 * N, Di)),
+                   (p + "mixer.dt_proj.weight", (Di, R)),
+                   (p + "mixer.dt_proj.bias", (Di,)),
+                   (p + "mixer.out_proj.weight", (D, Di))]
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(name, shape):
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        if name.endswith("A_log"):
+            return torch.log(torch.arange(1, N + 1, device=dev).float()
+                             ).expand(shape).to(torch.bfloat16)
+        if name.endswith(("norm.weight", "norm_f.weight", "mixer.D")):
+            return torch.ones(shape, **bf)
+        if name.endswith("dt_proj.bias"):
+            return torch.full(shape, math.log(math.expm1(0.01)), **bf)
+        if name.endswith("conv1d.bias"):
+            return torch.zeros(shape, **bf)
+        w = torch.randn(shape, generator=gen, device=dev)
+        return (w * math.prod(shape[1:]) ** -0.5).to(torch.bfloat16)
+
+    return write_tensors(ckpt, layout, c, make)
+
+
+def write_rwkv(ckpt: Path, seed: int) -> tuple:
+    """RWKV-4-3B at RWKV_LAYERS layers: LayerNorms 1 and 0, the mixes
+    uniform in [0, 1], decays and bonuses at 0, matrices at
+    1/sqrt(fan-in)."""
+    import torch
+
+    c = {**RWKV4_3B, "num_hidden_layers": RWKV_LAYERS}
+    D, F, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    layout = [("rwkv.embeddings.weight", (V, D)),
+              ("rwkv.blocks.0.pre_ln.weight", (D,)),
+              ("rwkv.blocks.0.pre_ln.bias", (D,))]
+    for i in range(RWKV_LAYERS):
+        b = f"rwkv.blocks.{i}."
+        layout += [(b + f"{n}.{w}", (D,)) for n in ("ln1", "ln2")
+                   for w in ("weight", "bias")]
+        layout += [(b + "attention.time_decay", (D,)),
+                   (b + "attention.time_first", (D,))]
+        layout += [(b + f"attention.time_mix_{m}", (1, 1, D))
+                   for m in ("key", "value", "receptance")]
+        layout += [(b + f"attention.{m}.weight", (D, D))
+                   for m in ("key", "value", "receptance", "output")]
+        layout += [(b + "feed_forward.time_mix_key", (1, 1, D)),
+                   (b + "feed_forward.time_mix_receptance", (1, 1, D)),
+                   (b + "feed_forward.key.weight", (F, D)),
+                   (b + "feed_forward.receptance.weight", (D, D)),
+                   (b + "feed_forward.value.weight", (D, F))]
+    layout += [("rwkv.ln_out.weight", (D,)), ("rwkv.ln_out.bias", (D,)),
+               ("head.weight", (V, D))]
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(name, shape):
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        if "time_mix" in name:
+            return torch.rand(shape, generator=gen, device=dev).to(
+                torch.bfloat16)
+        if name.endswith(("time_decay", "time_first", ".bias")):
+            return torch.zeros(shape, **bf)
+        if len(shape) == 1:
+            return torch.ones(shape, **bf)
+        w = torch.randn(shape, generator=gen, device=dev)
+        return (w * shape[1] ** -0.5).to(torch.bfloat16)
+
+    return write_tensors(ckpt, layout, c, make)
+
+
+def smoke_pngs(seed: int) -> list:
+    """Three PNGs unlike each other in structure (two noise images of one
+    distribution give a random tower nearly the same pooled rows), each
+    a size other than the towers' (so every one is resized): a smooth
+    red-to-blue field 640 x 480 with noise from ``seed``, a gradient 300
+    x 500, a black-and-white checkerboard of 64-pixel squares 512 x
+    512."""
+    import numpy as np
+
+    from localai_tfp_tpu_torch.models.image_io import encode_png
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:480, 0:640]
+    field = np.stack([255 - x * 255 // 640, y * 64 // 480, x * 255 // 640],
+                     axis=-1) + rng.integers(0, 16, (480, 640, 3))
+    y, x = np.mgrid[0:500, 0:300]
+    grad = np.stack([x * 255 // 300, y * 255 // 500, (x + y) % 256],
+                    axis=-1)
+    y, x = np.mgrid[0:512, 0:512]
+    board = np.repeat((((x // 64) + (y // 64)) % 2 * 255)[..., None], 3,
+                      axis=-1)
+    return [encode_png(a.astype(np.uint8)) for a in (field, grad, board)]
+
+
+def image_body(model: str, images: list, text: str = IMAGE_TEXT) -> dict:
+    import base64
+
+    parts = [{"type": "image_url", "image_url": {
+        "url": "data:image/png;base64," + base64.b64encode(b).decode()}}
+        for b in images]
+    return {"model": model, "stream": True, "max_tokens": IMAGE_TOKENS,
+            "temperature": 0.0, "ignore_eos": True, "messages": [
+                {"role": "user",
+                 "content": [{"type": "text", "text": text}] + parts}]}
+
+
+def tower_ms(backend, images: list) -> dict:
+    """Device ms of the tower and projector (CUDA events): one image by
+    the served graph's replay, and eagerly (``encode_images``) one image
+    and ``images`` in one call, by image."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.models.image_io import preprocess_image
+    from localai_tfp_tpu_torch.models.vision import encode_images
+
+    vspec, vp, mm = backend.vision
+    t0 = time.perf_counter()
+    pix = torch.from_numpy(np.stack([preprocess_image(
+        b, mm["image_size"], mm["family"]) for b in images])).to(
+        CARD, vp["patch_w"].dtype)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(images)
+    one = _time_ms(lambda: encode_images(vspec, vp, pix[:1]), 3)
+    many = _time_ms(lambda: encode_images(vspec, vp, pix), 3)
+    replay = (_time_ms(backend.tower.graph.replay, 3)
+              if backend.tower.graph is not None else None)
+    return {"tower_ms_per_image_replay": replay,
+            "tower_graph_pool_bytes": backend.tower.pool_bytes,
+            "tower_ms_per_image": one,
+            "tower_ms_per_image_batched": many / len(images),
+            "images_batched": len(images),
+            "host_decode_resize_ms_per_image": decode_ms,
+            "tower_layers": vspec.n_layers, "patches": vspec.n_patches,
+            "soft_tokens": vspec.mm_tokens}
+
+
+def image_leg(backend, res: dict, model: str, layers: int, smi: str,
+              tag: str, by_m: bool = False, itl: bool = False) -> dict:
+    """Phase families' and recurrent_vision's image chats on a loaded
+    multimodal model: two PNGs in one streamed chat, the same text with
+    another image, and the text alone. Checks that the image prefill ran
+    as replays of mixed variants captured at load (each with its soft
+    buffers, and none captured mid-request), that B1 launched once
+    per layer of every forward (B2, ``by_m``, once per call counted by
+    M), that each chat's greedy ids are the dense forward's with the
+    same soft rows, and that the two image chats' ids differ; records
+    the tower's device ms per image and the engine's first-token ms of
+    the image chats against the text chat's. With ``itl``, the ITL of
+    live text streams while a two-image chat is admitted beside them
+    (its tower runs in the route's thread, on the engine's stream),
+    against the same streams alone."""
+    import torch
+
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+
+    port, eng = res["port"], backend.engine
+    at_load = sorted(k for k, v in eng._mixed_variants.items()
+                     if v.soft is not None and (v.graph is not None
+                                                or CARD == "cpu"))
+    if not at_load or len(at_load) != len(eng._mixed_variants):
+        raise AssertionError(f"{model}: mixed variants with soft buffers "
+                             f"captured at load: {at_load} of "
+                             f"{sorted(eng._mixed_variants)}")
+    pngs = smoke_pngs(7)
+    tower = tower_ms(backend, pngs[:2])
+    reqs, ids = [], []
+    to_request, finish = backend._to_request, eng._finish
+
+    def spy_request(opts):
+        r = to_request(opts)
+        reqs.append(r)
+        return r
+
+    def spy_finish(slot, reason):
+        ids.append(list(slot.generated))
+        return finish(slot, reason)
+
+    backend._to_request, eng._finish = spy_request, spy_finish
+    counts = undo = None
+    if by_m:
+        counts, undo = _b2_by_m(eng)
+    m = eng.metrics
+    before = (m.forward_steps, m.mixed_steps, m.mixed_replays,
+              m.decode_steps, m.graph_replays, m.soft_steps, m.soft_replays)
+    tower_replays = backend.tower.replays
+    torch.cuda.synchronize()
+    ragged_paged_attention.launches = int8_matmul.launches = 0
+    chats = {}
+    try:
+        for key, images in (("two_images", pngs[:2]),
+                            ("another_image", [pngs[2], pngs[1]])):
+            r = stream_post(port, "/v1/chat/completions",
+                            image_body(model, images), {"Extra-Usage": "1"})
+            chats[key] = r["frames"][-1]["usage"]
+        launched = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+        calls_by_m = dict(sorted(counts.items())) if by_m else None
+        fwd, mixed, mrep, dec, drep, soft, srep = (
+            a - b for a, b in zip((m.forward_steps, m.mixed_steps,
+                                   m.mixed_replays, m.decode_steps,
+                                   m.graph_replays, m.soft_steps,
+                                   m.soft_replays), before))
+        text = stream_post(port, "/v1/chat/completions",
+                           {**image_body(model, []),
+                            "messages": [{"role": "user",
+                                          "content": IMAGE_TEXT}]},
+                           {"Extra-Usage": "1"})
+        chats["text_only"] = text["frames"][-1]["usage"]
+        tower_replays = backend.tower.replays - tower_replays
+    finally:
+        for o in (backend, eng):
+            o.__dict__.pop("_to_request", None)
+            o.__dict__.pop("_finish", None)
+        if undo is not None:
+            undo()
+    if launched["ragged_paged_attention"] != layers * fwd:
+        raise AssertionError(f"{model}: B1 launched "
+                             f"{launched['ragged_paged_attention']} times for "
+                             f"{fwd} forwards of {layers} layers")
+    if CARD != "cpu" and (mrep != mixed or drep != dec or srep != soft
+                          or not soft):
+        raise AssertionError(f"{model}: image prefill not all replays: "
+                             f"mixed {mrep}/{mixed}, decode {drep}/{dec}, "
+                             f"soft {srep}/{soft}")
+    if CARD != "cpu" and tower_replays != 4:
+        raise AssertionError(f"{model}: {tower_replays} tower replays for "
+                             f"four images")
+    if sorted(eng._mixed_variants) != at_load:
+        raise AssertionError(f"{model}: mixed variants captured "
+                             f"mid-request: {sorted(eng._mixed_variants)} "
+                             f"against {at_load} at load")
+    if by_m and (not launched["int8_matmul"]
+                 or launched["int8_matmul"] != sum(calls_by_m.values())):
+        raise AssertionError(f"{model}: int8_matmul launched "
+                             f"{launched['int8_matmul']} times for "
+                             f"{calls_by_m}")
+    ref = reference_engine(eng)
+    dense = []
+    for r, got in zip(reqs[:2], ids[:2]):
+        n = len(r.soft_positions)
+        soft_arg = (r.soft_embeds, torch.zeros(n, dtype=torch.int32,
+                                               device=eng.device),
+                    torch.as_tensor(r.soft_positions, dtype=torch.int32,
+                                    device=eng.device))
+        d = dense_deficits(ref, list(r.prompt_ids), got, soft=soft_arg)
+        d.update(prompt_tokens=len(r.prompt_ids), soft_rows=n)
+        if not d["worst_logit_deficit"] <= d["tol"]:
+            raise AssertionError(f"{model}: image chat ids are not the "
+                                 f"dense forward's argmax: {d}")
+        dense.append(d)
+    if ids[0] == ids[1]:
+        raise AssertionError(f"{model}: two images gave the same ids "
+                             f"{ids}; dense {dense}")
+    itl_ms = None
+    if itl:
+        def image_chat():
+            # the route's request: posted, its rows made (the tower
+            # launched), its stream ended
+            stamps = {"image_chat_posted": time.perf_counter()}
+
+            def timed(opts):
+                r = to_request(opts)
+                stamps["image_request_made"] = time.perf_counter()
+                return r
+
+            backend._to_request = timed
+            try:
+                stream_post(port, "/v1/chat/completions",
+                            image_body(model, pngs[:2]))
+            finally:
+                del backend._to_request
+            stamps["image_chat_ended"] = time.perf_counter()
+            return stamps
+
+        alone = itl_streams(eng, backend, [], tokens=ITL_IMAGE_TOKENS)
+        beside = itl_streams(eng, backend, [], arrive=image_chat,
+                             tokens=ITL_IMAGE_TOKENS)
+        t = beside["ms_from_submit"]
+        if t["image_request_made"] >= t["streams_last_token"]:
+            raise AssertionError(f"{model}: the image chat's request was "
+                                 f"made after the streams ended: {t}")
+        itl_ms = {"text_streams_alone": alone,
+                  "beside_two_image_chat": beside,
+                  "streams": DISPATCH_STREAMS,
+                  "tokens_each": ITL_IMAGE_TOKENS}
+    out = {"model": model, "card": smi, **tower,
+           "mixed_variants_at_load": [list(k) for k in at_load],
+           "forwards": fwd, "mixed_steps": mixed, "mixed_replays": mrep,
+           "decode_forwards": dec, "decode_replays": drep,
+           "soft_steps": soft, "soft_replays": srep,
+           "tower_replays": tower_replays,
+           "launches": launched,
+           "b1_launches_per_forward": launched["ragged_paged_attention"]
+           / max(1, fwd),
+           **({"int8_matmul_calls_by_m": calls_by_m} if by_m else {}),
+           # the engine's, submit to token: the tower, launched before
+           # the submit, is still ahead of the prefill on the stream
+           "first_token_ms": {k: v["timing_first_token"]
+                              for k, v in chats.items()},
+           "prompt_tokens": {k: v["prompt_tokens"] for k, v in chats.items()},
+           "ids": {"two_images": ids[0], "another_image": ids[1],
+                   "text_only": ids[2]},
+           "dense": dense, "itl_ms": itl_ms,
+           "hbm_components": (eng._ledger.attributed()
+                              if eng._ledger is not None else None)}
+    log(f"{tag}_images", **out)
+    return out
+
+
+def recurrent_leg(models: Path, name: str, write, smi: str, seed: int,
+                  cut: str) -> dict:
+    """Write one recurrent checkpoint, serve it through the HTTP server
+    (its step graphs captured at load), stream a chat and hold the ids
+    the server generated to the step function run eagerly on the same
+    prompt (bitwise: the graphs replay the same kernels); then host ms
+    per decode token by replay against the eager step."""
+    import shutil
+
+    import torch
+
+    ckpt = f"{name}-s{seed}"
+    nbytes, write_s = write(models / ckpt, seed)
+    log("recurrent_vision_checkpoint", model=name, bytes=nbytes,
+        write_s=write_s, reduced=cut, card=smi)
+    (models / f"{name}.yaml").write_text(json.dumps({
+        "name": name, "backend": "torch-llm",
+        "parameters": {"model": ckpt, "temperature": 0.0, "max_tokens": 32},
+        "context_size": 2048, "dtype": "bfloat16",
+        "template": {"chat_message": "{{.RoleName}}: {{.Content}}",
+                     "chat": "{{.Input}}\nassistant:"}}))
+    torch.cuda.reset_peak_memory_stats()
+    srv, th = _serve(models)
+    try:
+        port = srv.server_address[1]
+        t0 = time.perf_counter()
+        backend = _loaded(port, srv.app, name)
+        load_and_first = time.perf_counter() - t0
+        mod, spec, params, run = backend.recurrent
+        got = []
+        generate = run.generate
+
+        def spy(prompt, *a, **kw):
+            out = generate(prompt, *a, **kw)
+            got.append((list(prompt), out.tolist()))
+            return out
+
+        run.generate = spy
+        try:
+            replays = run.replays
+            body = {"model": name, "stream": True, "max_tokens": 32,
+                    "ignore_eos": True, "temperature": 0.0,
+                    "messages": [{"role": "user", "content": IMAGE_TEXT}]}
+            r = stream_post(port, "/v1/chat/completions", body)
+            usage = r["frames"][-1].get("usage") or {}
+        finally:
+            del run.generate
+        prompt, ids = got[-1]
+        if CARD != "cpu" and run.replays - replays != len(prompt) + len(ids):
+            raise AssertionError(f"{name}: {run.replays - replays} replays "
+                                 f"for {len(prompt)} + {len(ids)} steps")
+        eager = mod.runner(spec, params, backend.device, eager=True)
+        want = eager.generate(prompt, len(ids)).tolist()
+        if want != ids:
+            raise AssertionError(f"{name}: served ids {ids} are not the "
+                                 f"eager step's {want}")
+        timed = {"replay": [], "eager": []}
+        for rr in (run, eager):
+            rr.generate(prompt[:4], 8)  # warm
+        for _ in range(RECURRENT_REPEATS):  # the two ways interleaved
+            for way, rr in (("replay", run), ("eager", eager)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rr.generate(prompt[:4], RECURRENT_TOKENS)
+                torch.cuda.synchronize()
+                timed[way].append((time.perf_counter() - t) * 1e3 / (
+                    RECURRENT_TOKENS + 4))
+        out = {"model": name, "card": smi, "reduced": cut,
+               "load_s": round(backend.load_s, 3),
+               "load_and_first_request_s": round(load_and_first, 3),
+               "checkpoint_bytes": nbytes, "prompt_tokens": len(prompt),
+               "ids": ids, "ids_equal_eager_step": True,
+               "completion_tokens": usage.get("completion_tokens"),
+               # the median of RECURRENT_REPEATS runs, and every run
+               "host_ms_per_token_replay": sorted(timed["replay"])[
+                   RECURRENT_REPEATS // 2],
+               "host_ms_per_token_eager": sorted(timed["eager"])[
+                   RECURRENT_REPEATS // 2],
+               "host_ms_per_token_runs": timed,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+        log("recurrent_vision_" + name.split("-")[0], **out)
+        return out
+    finally:
+        _shut(srv, th)
+        shutil.rmtree(models / ckpt, ignore_errors=True)
+
+
+def phase_recurrent_vision(smi: str, seed: int) -> dict:
+    """(a) LLaVA-1.5-7B: the CLIP ViT-L/14-336 tower at full depth and the
+    Llama-2-7B decoder at full width and LLAVA_LAYERS layers, an image
+    chat through the server (soft variants by replay, B1 per layer of
+    every forward, greedy ids against the dense forward with the soft
+    rows); (b) Mamba-2.8B at MAMBA_LAYERS and (c) RWKV-4-3B at
+    RWKV_LAYERS layers, a chat each through the server, ids against the
+    eager step, host ms per token by replay and eagerly."""
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "recurrent_vision"
+    models.mkdir(parents=True, exist_ok=True)
+    out = {}
+    cut = (f"decoder layers {LLAVA_LAYERS} of "
+           f"{LLAVA_TEXT['num_hidden_layers']}")
+    ckpt = f"llava15-7b-L{LLAVA_LAYERS}-s{seed}"
+    nbytes, write_s = write_llava(models / ckpt, seed)
+    log("recurrent_vision_checkpoint", model="llava15_7b", bytes=nbytes,
+        write_s=write_s, reduced=cut, card=smi)
+    family_yaml(models, "llava15_7b", ckpt)
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_family(
+        models, "llava15_7b", smi,
+        lambda b: [image_body("llava15_7b", smoke_pngs(3)[:1])],
+        "Say hello.", LLAVA_LAYERS, True, tag="recurrent_vision_llava",
+        after=lambda b, r: image_leg(b, r, "llava15_7b", LLAVA_LAYERS, smi,
+                                     "recurrent_vision_llava"))
+    res.update(reduced=cut, checkpoint_bytes=nbytes,
+               peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    res.pop("port", None)
+    out["llava15_7b"] = res
+    shutil.rmtree(models / ckpt, ignore_errors=True)
+    out["mamba_2_8b"] = recurrent_leg(
+        models, "mamba-2.8b", write_mamba, smi, seed,
+        f"layers {MAMBA_LAYERS} of {MAMBA_28B['num_hidden_layers']}")
+    out["rwkv4_3b"] = recurrent_leg(
+        models, "rwkv-4-3b", write_rwkv, smi, seed,
+        f"layers {RWKV_LAYERS} of {RWKV4_3B['num_hidden_layers']}")
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("recurrent_vision", card=smi, phase_s=out["phase_s"],
+        llava_load_s=res["load"]["load_s"],
+        llava_tower_ms_per_image=res["after"]["tower_ms_per_image"],
+        **{k: {"load_s": out[k]["load_s"],
+               "host_ms_per_token_replay": out[k]["host_ms_per_token_replay"],
+               "host_ms_per_token_eager": out[k]["host_ms_per_token_eager"]}
+           for k in ("mamba_2_8b", "rwkv4_3b")})
     return out
 
 
@@ -7963,24 +8679,42 @@ def phase_disagg(ckpt_name: str, smi: str) -> dict:
 
 
 def main() -> int:
+    """Run the phases; a phase that raises prints one line naming itself
+    (``{"phase_failed": ...}``) before the run exits non-zero."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,moe,gguf,main,graphs,"
                             "engine,dispatch,tiers,weights,disagg,spec,text,"
-                            "lifecycle,families,retrieval")
+                            "lifecycle,families,recurrent_vision,retrieval")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    at = {"phase": "start"}
+    try:
+        return run_phases(args, at)
+    except BaseException as e:
+        print(json.dumps({"phase_failed": at["phase"],
+                          "t_s": round(time.perf_counter() - T0, 3),
+                          "error": repr(e)[:4000]}), flush=True)
+        raise
+
+
+def run_phases(args, at: dict) -> int:
+    """The phases of ``args.phases`` in their order; ``at["phase"]``
+    names the one running."""
     phases = set(args.phases.split(","))
     require_package()
+    at["phase"] = "device"
     dev, smi = phase_device()
     build = occupancy = occ8 = None
     if "build" in phases:
+        at["phase"] = "build"
         build, occupancy, occ8 = phase_build()
     entries = []
     # each kernel: correctness first, then times at 8B shapes
     if "kernels" in phases:
+        at["phase"] = "kernels"
         worst, timings, aliased, spec_err = phase_kernels(
             n_slots=SLOTS, max_pages=CONTEXT // PAGE)
         fam_worst, fam_keys = family_kernel_keys()
@@ -8016,6 +8750,7 @@ def main() -> int:
                 blocks_per_sm={f"{o['q']}/{o['kv']}/dh{o['dh']}/bm{o['bm']}":
                                o["blocks_per_sm"] for o in occupancy})
     if "int8" in phases:
+        at["phase"] = "int8"
         worst8, t8 = phase_int8_kernels()
         t = t8["w_gate_m8"]
         cols = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -8056,6 +8791,7 @@ def main() -> int:
     for name, run in (("moe", phase_moe), ("gguf", phase_gguf)):
         if name not in phases:
             continue
+        at["phase"] = name
         legs = run(smi, args.seed)
         for e in entries:
             # each leg's streamed burst, its counts set to 0 just before
@@ -8072,6 +8808,7 @@ def main() -> int:
                              "checkpoint and int8 artifact): --phases must "
                              "include main")
     if "main" in phases:
+        at["phase"] = "main"
         res = phase_main(args.layers, args.seed, "engine" in phases,
                          "graphs" in phases, "dispatch" in phases,
                          "tiers" in phases)
@@ -8129,12 +8866,14 @@ def main() -> int:
     for name, run in (("weights", phase_weights), ("disagg", phase_disagg)):
         if name not in phases:
             continue
+        at["phase"] = name
         out = run(ckpt, smi)
         for e in entries:
             # the phase's requests, their counts set to 0 just before
             # them and read just after
             e[f"launches_{name}"] = out["launches"][e["name"]]
     if "spec" in phases:
+        at["phase"] = "spec"
         sp = phase_spec(res["checkpoint"], args.seed)
         # each run's counts, set to 0 just before it and read just after
         runs = {"a_spec": sp["a"]["spec"], "b_self_greedy": sp["b"]["greedy"],
@@ -8159,6 +8898,7 @@ def main() -> int:
         from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
 
         int8_matmul.launches = 0
+        at["phase"] = "text"
         tx = phase_text(res["checkpoint"], res["bf16"]["byte_ttft"], smi)
         log("text", **tx)
         for e in entries:
@@ -8181,6 +8921,7 @@ def main() -> int:
             write_checkpoint(models / ckpt, layers, args.seed)
         for f in (ragged_paged_attention, int8_matmul):
             f.launches = 0
+        at["phase"] = "lifecycle"
         lc = phase_lifecycle(ckpt, layers, smi)
         launched = {"ragged_paged_attention": ragged_paged_attention.launches,
                     "int8_matmul": int8_matmul.launches}
@@ -8195,6 +8936,7 @@ def main() -> int:
             ragged_paged_attention,
         )
 
+        at["phase"] = "families"
         fam = phase_families(smi, args.seed)
         for e in entries:
             # each model's streamed burst, its counts set to 0 just before
@@ -8204,6 +8946,24 @@ def main() -> int:
                 for k, v in fam.items() if isinstance(v, dict)}
             e["launches_families"]["gemma3_4b_int8"] = \
                 fam["gemma3_4b"]["int8"]["burst"]["launches"][e["name"]]
+            # the image chats (two images, another image), their counts
+            # set to 0 just before them and read just after
+            e["launches_families_images"] = {
+                "gemma3_4b": fam["gemma3_4b"]["after"]["launches"][e["name"]],
+                "gemma3_4b_int8": fam["gemma3_4b"]["int8"]["after"][
+                    "launches"][e["name"]]}
+    if "recurrent_vision" in phases:
+        at["phase"] = "recurrent_vision"
+        rv = phase_recurrent_vision(smi, args.seed)
+        for e in entries:
+            # LLaVA's burst and image chats, each's counts set to 0 just
+            # before it and read just after; Mamba and RWKV run neither
+            # kernel (no Pallas kernel in the JAX package either)
+            e["launches_recurrent_vision"] = {
+                "llava15_7b_burst": rv["llava15_7b"]["burst"]["launches"][
+                    e["name"]],
+                "llava15_7b_images": rv["llava15_7b"]["after"]["launches"][
+                    e["name"]]}
     if "retrieval" in phases:
         from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
         from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
@@ -8212,6 +8972,7 @@ def main() -> int:
 
         for f in (ragged_paged_attention, int8_matmul):
             f.launches = 0
+        at["phase"] = "retrieval"
         phase_retrieval(smi, args.seed)
         launched = {"ragged_paged_attention": ragged_paged_attention.launches,
                     "int8_matmul": int8_matmul.launches}
@@ -8220,7 +8981,9 @@ def main() -> int:
             # encoder and store have no Pallas kernel either
             e["launches_retrieval"] = launched[e["name"]]
     if "softcap_witness" in phases:
+        at["phase"] = "softcap_witness"
         phase_softcap_witness(smi, args.seed)
+    at["phase"] = "report"
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": dev}), flush=True)

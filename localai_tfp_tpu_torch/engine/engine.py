@@ -148,8 +148,21 @@ recorded on the engine thread and the gauges refreshed at scrape time
   pages at admission, and the slot wakes in DECODE with the whole prompt
   resident. A plain engine has no migrator.
 
-Out of scope (and refused at submit rather than ignored): multimodal
-soft tokens, meshes.
+- **Soft tokens** (``soft_embeds`` / ``soft_positions``: an image's
+  projected rows, spliced by the worker over its image-token ids): the
+  mixed step's variant carries the chunk's rows in static buffers
+  (rows ``[R * T, D]``, as many as the step has tokens, and batch row
+  and position ``[R * T]``; pad entries point at batch row ``R``, which
+  the scatter drops), and the forward replaces those positions'
+  embeddings after the embedding multiplier. On a multimodal engine
+  (``multimodal``) every mixed variant carries them, so an image
+  prefill replays a variant captured at warmup. An image request reuses
+  no prefix
+  (resident, shared, copied, on disk or in the KV tier), lends none,
+  takes no speculative round, and its slot's pages and tokens are
+  dropped when it ends: its image-token ids say nothing of its K/V.
+
+Out of scope (and refused at submit rather than ignored): meshes.
 
 Batch rows are the participating slots only (padded to a variant's row
 bucket), so no other slot's pages or sampler row are touched.
@@ -255,7 +268,9 @@ class GenRequest:
     prompt_cache_all: bool = False
     prompt_cache_ro: bool = False
     correlation_id: str = ""
-    soft_embeds: Optional[Any] = None  # multimodal: not served yet
+    # multimodal: [n, D] rows (a tensor, or a numpy array made one at
+    # submit) replacing the embeddings at prompt positions [n]
+    soft_embeds: Optional[Any] = None
     soft_positions: Optional[Any] = None
     id: str = field(default_factory=lambda: uuid.uuid4().hex)
     trace_id: str = ""
@@ -358,6 +373,9 @@ class EngineMetrics:
     masked_replays: int = 0
     mixed_replays: int = 0
     spec_replays: int = 0
+    # mixed steps that carried soft rows, and those run as a replay
+    soft_steps: int = 0
+    soft_replays: int = 0
     warmup_s: float = 0.0
     # mixed steps' real tokens and the pad tokens their variants add
     # (rows x token bucket - real)
@@ -396,11 +414,14 @@ class _DecodeVariant:
     copied: Any = None  # event after host's last copy (card only)
 
 
-def _mixed_fields(R: int, T: int, P: int, W: int) -> tuple:
+def _mixed_fields(R: int, T: int, P: int, W: int, soft: bool) -> tuple:
     """The int32 fields of a mixed variant of R rows and T tokens (P
-    pages a table, penalty window W), in their order in its one buffer:
-    (name, shape)."""
-    return (("pt", (R, P)),  # read tables
+    pages a table, penalty window W, R * T soft entries when ``soft``),
+    in their order in its one buffer: (name, shape)."""
+    Rp = R * T if soft else 0
+    return (("sbrow", (Rp,)),  # soft entries' batch rows (pads: R)
+            ("sbpos", (Rp,)),  # and their positions in the chunk
+            ("pt", (R, P)),  # read tables
             ("wt", (R, P)),  # write tables (the chunk's pages only)
             ("toks", (R, T)),  # chunk tokens, 0-padded
             ("pos0", (R,)),  # each row's first position
@@ -430,6 +451,11 @@ class _MixedVariant:
     noise: torch.Tensor  # [rows, K] Gumbel draws (zeros: greedy)
     at: torch.Tensor  # [rows] int64 arange: the fixed-size gather's rows
     out: torch.Tensor  # [rows] int32 sampled tokens
+    # [R * T, D] f32 soft rows (None: a text-only engine's variant),
+    # their batch rows and positions the ``sbrow`` / ``sbpos`` fields of
+    # ``ints``, and how many entries the last fill wrote
+    soft: Optional[torch.Tensor] = None
+    n_soft: int = 0
     logits: Optional[torch.Tensor] = None  # the last launch's [rows, V]
     graph: Any = None
     launches: dict = field(default_factory=dict)
@@ -519,7 +545,12 @@ def _refusal(req: GenRequest, max_seq: int) -> str:
     if not req.prompt_ids:
         return "empty prompt"
     if req.soft_embeds is not None:
-        return "soft_embeds is not supported by this port yet"
+        pos = req.soft_positions
+        if pos is None or len(pos) != len(req.soft_embeds):
+            return "soft_embeds and soft_positions differ in length"
+        if len(pos) and not (0 <= min(pos) and max(pos)
+                             < len(req.prompt_ids)):
+            return "soft_positions outside the prompt"
     return ""
 
 
@@ -549,6 +580,8 @@ class LLMEngine:
         # LOCALAI_KV_TIER
         weight_paging: Optional[bool] = None,  # the weight pager: None
         # follows LOCALAI_WEIGHT_PAGING
+        multimodal: bool = False,  # image requests (soft rows): every
+        # mixed variant carries static soft buffers
     ) -> None:
         self.device = resolve(device)
         self._mlabel = model or "default"
@@ -586,6 +619,7 @@ class LLMEngine:
         self._migrator: Any = None
         self._deadline_stage = "decode"
         self.n_slots = n_slots
+        self.multimodal = multimodal
         self.max_seq = max_seq
         self.decode_steps = max(1, decode_steps)
         self._autostart = autostart
@@ -640,6 +674,13 @@ class LLMEngine:
         self._variants: dict[int, _DecodeVariant] = {}
         self._masked_variants: dict[int, _DecodeVariant] = {}
         self._mixed_variants: dict[tuple[int, int], _MixedVariant] = {}
+        # a multimodal engine's soft rows, one [R * T, D] view of it per
+        # mixed variant (a step's fill is ordered after the last replay
+        # on the stream, so the variants share it)
+        self._soft_rows = (
+            torch.zeros((n_slots * self._mixed_buckets[-1], spec.d_model),
+                        dtype=torch.float32, device=self.device)
+            if multimodal else None)
         # speculative variants per (kind, row bucket, rounds)
         self._spec_variants: dict[tuple[str, int, int], _SpecVariant] = {}
         cuda = self.device.type == "cuda"
@@ -700,6 +741,8 @@ class LLMEngine:
                 led.register("draft_weights", draft[1])
                 led.register("draft_cache", self.draft_cache)
             led.register("sampler", self.sampling)
+            if self._soft_rows is not None:
+                led.register("soft_rows", self._soft_rows)
             led.register("graph_pool", lambda: self._graph_pool_bytes)
             self._ledger = led
         self._tm_generated = tm.ENGINE_GENERATED_TOKENS.labels(
@@ -932,6 +975,17 @@ class LLMEngine:
         now = time.perf_counter()
         for req, out in zip(reqs, outs):
             why = _refusal(req, self.max_seq)
+            if not why and req.soft_embeds is not None and \
+                    not self.multimodal:
+                why = "soft_embeds on an engine built without multimodal"
+            if not why and req.soft_embeds is not None:
+                req.soft_embeds = torch.as_tensor(
+                    req.soft_embeds, dtype=torch.float32).to(self.device)
+                req.soft_positions = np.asarray(req.soft_positions,
+                                                np.int64)
+                if req.soft_embeds.shape[-1] != self.spec.d_model:
+                    why = (f"soft_embeds of width {req.soft_embeds.shape[-1]}"
+                           f" for a model of width {self.spec.d_model}")
             if why:
                 out.put(StreamEvent(done=True, finish_reason="error",
                                     error=why))
@@ -1411,14 +1465,17 @@ class LLMEngine:
         if self._prefix_enabled:
             # lazy re-register: decode appends since the last wave are
             # diffed in (extension is the common case)
+            # (an image request's K/V is lent to no one)
             self._prefix_index.sync(
-                (s.idx, [] if s.stale_kv else s.cache_tokens)
+                (s.idx, [] if s.stale_kv or _soft(s.request)
+                 else s.cache_tokens)
                 for s in self.slots)
         # prompts admitted but not yet prefilled: their KV is not
         # committed, so the index cannot serve them yet; same-wave
         # sharers defer one iteration behind them instead
         forming = [s.request.prompt_ids for s in self.slots
-                   if s.state is SlotState.PREFILL and s.request is not None]
+                   if s.state is SlotState.PREFILL and s.request is not None
+                   and not _soft(s.request)]
         requeue = []
         now = time.perf_counter()
         # soft admission gate over free + reclaimable pages (the step's
@@ -1436,7 +1493,8 @@ class LLMEngine:
                                                              now):
                 requeue.append((req, out))
                 continue
-            if (self._tier is not None and req.disagg is None
+            soft = _soft(req)
+            if (self._tier is not None and req.disagg is None and not soft
                     and self._tier.plan(req, now)):
                 # the session is in the cold tier and its disk load is
                 # inside the deadline: hold admission, not re-prefill
@@ -1463,7 +1521,7 @@ class LLMEngine:
             if req.disagg is not None:
                 _release_handoff(req)  # idempotent
                 req.disagg = None
-            if self._tier is not None:
+            if self._tier is not None and not soft:
                 # demote-on-reuse: spill the resident prefix this
                 # assignment is about to discard (its gather precedes any
                 # overwrite on the stream), then adopt a staged fetch: the
@@ -1472,7 +1530,8 @@ class LLMEngine:
                 self._tier.capture(slot, req)
                 self._tier.adopt(slot, req)
             self._assign(slot, req, out, now)
-            forming.append(req.prompt_ids)
+            if not soft:
+                forming.append(req.prompt_ids)
         with self._lock:  # requeue keeps arrival order ahead of new ones
             self._pending[:0] = requeue
 
@@ -1490,7 +1549,7 @@ class LLMEngine:
         commits, then admit as share + tail prefill. Bounded by a
         deadline so a stalled or cancelled donor never strands its
         sharers (they then admit normally and prefill in full)."""
-        if not self._prefix_enabled:
+        if not self._prefix_enabled or _soft(req):
             return False
         cap = min(len(req.prompt_ids) - 1, self.max_seq - 1)
         state = self._deferred.get(req.id)
@@ -1588,17 +1647,24 @@ class LLMEngine:
         self._queue_waits.append(wait)
         tm.ENGINE_QUEUE_WAIT.labels(model=self._mlabel).observe(wait)
         slot.cache_loaded = None
-        common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
-        common, gained = self._maybe_prefix_copy(slot, req, common)
-        # the on-disk cache can still beat a resident or copied prefix:
-        # it is restored only when its prefix is longer (a restore that
-        # fails past its drop leaves the slot empty: common is re-read)
-        disk = common
-        self._try_load_prompt_cache(slot, req)
-        common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
-        disk = max(0, common - disk)
-        if common == len(req.prompt_ids):
-            common -= 1  # the last prompt token runs again for its logits
+        if _soft(req):
+            # image-conditioned K/V: no token-id prefix is reused (the
+            # image-token ids are the same for every image)
+            common = gained = disk = 0
+        else:
+            common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
+            common, gained = self._maybe_prefix_copy(slot, req, common)
+            # the on-disk cache can still beat a resident or copied
+            # prefix: it is restored only when its prefix is longer (a
+            # restore that fails past its drop leaves the slot empty:
+            # common is re-read)
+            disk = common
+            self._try_load_prompt_cache(slot, req)
+            common = common_prefix_len(slot.cache_tokens, req.prompt_ids)
+            disk = max(0, common - disk)
+            if common == len(req.prompt_ids):
+                # the last prompt token runs again for its logits
+                common -= 1
         # reuse by source, clamped so the three sum to common
         disk = min(disk, common)
         copied = min(gained, common - disk)
@@ -1726,7 +1792,8 @@ class LLMEngine:
         them on, then moved to the host and written by a background
         thread, whose copy waits on an event recorded after the gather."""
         req = slot.request
-        if req is None or not req.prompt_cache_path or req.prompt_cache_ro:
+        if (req is None or not req.prompt_cache_path or req.prompt_cache_ro
+                or _soft(req)):
             return
         n = slot.n_past if req.prompt_cache_all else min(slot.n_past,
                                                         slot.n_prompt)
@@ -2050,9 +2117,19 @@ class LLMEngine:
         ql = self._ints(q_lens)
         toks_d = torch.from_numpy(toks).to(self.device)
         pos_d = self._ints(pos0)
+        entries = self._soft_payload(rows, chunks)
+        soft = None
+        if entries:
+            self.metrics.soft_steps += 1
+            soft = (torch.cat([rows[r].request.soft_embeds[
+                        torch.from_numpy(idx).to(self.device)]
+                               for r, idx, _ in entries]),
+                    self._ints([r for r, idx, _ in entries for _ in idx]),
+                    self._ints(np.concatenate([p for _, _, p in entries])))
         hidden, _ = forward_hidden(
             self.spec, self.params, toks_d, pos_d, self.cache, None,
-            page_table=pt, kv_page=self.page, q_lens=ql, write_table=wt)
+            page_table=pt, kv_page=self.page, q_lens=ql, write_table=wt,
+            soft=soft)
         if self.draft is not None:
             forward_hidden(*self.draft, toks_d, pos_d, self.draft_cache,
                            None, page_table=pt, kv_page=self.page,
@@ -2116,6 +2193,20 @@ class LLMEngine:
                 h["tails"][r, :len(tail)] = tail
                 h["tail_lens"][r] = len(tail)
                 cols[:, r] = self._reset_cols(s.request)
+        if v.soft is not None:
+            # the chunk's soft rows, copied on the device; pad entries
+            # point at batch row R, which the scatter drops
+            h["sbrow"][:v.n_soft], h["sbpos"][:v.n_soft] = R, 0
+            off = 0
+            for r, idx, pos in self._soft_payload(rows, chunks):
+                k = len(idx)
+                h["sbrow"][off:off + k], h["sbpos"][off:off + k] = r, pos
+                v.soft[off:off + k].copy_(rows[r].request.soft_embeds[
+                    torch.from_numpy(idx).to(self.device)])
+                off += k
+            v.n_soft = off
+            if off:
+                self.metrics.soft_steps += 1
         v.ints.copy_(v.host, non_blocking=True)
         v.cols.copy_(v.fhost, non_blocking=True)
         v.copied = self._copy_event()
@@ -2138,12 +2229,15 @@ class LLMEngine:
         forward (and the draft's mirror under the same tables), the
         finals' sampler reset and penalty-window seed, each row's last
         real token (a fixed-size gather) through the LM head, and a
-        sample under the static mask."""
+        sample under the static mask. A multimodal variant's soft rows
+        replace their positions' embeddings (the scatter is in the
+        graph)."""
         f = v.f
         hidden, _ = forward_hidden(
             self.spec, self.params, f["toks"], f["pos0"], self.cache, None,
             page_table=f["pt"], kv_page=self.page, q_lens=f["q_lens"],
-            write_table=f["wt"])
+            write_table=f["wt"], soft=None if v.soft is None
+            else (v.soft, f["sbrow"], f["sbpos"]))
         if self.draft is not None:
             # the draft mirrors every row's K/V under the target's write
             # table: the prompt chunks, and a decode row's token, whose
@@ -2171,10 +2265,13 @@ class LLMEngine:
             return
         v.graph.replay()
         self.metrics.mixed_replays += 1
+        if v.n_soft:
+            self.metrics.soft_replays += 1
         for f in COUNTED:
             f.launches += v.launches[f.__name__]
 
     def _mixed_variant(self, R: int, T: int) -> _MixedVariant:
+        """The mixed variant [R, T], made and captured at its first use."""
         v = self._mixed_variants.get((R, T))
         if v is None:
             v = self._new_mixed(R, T)
@@ -2182,14 +2279,33 @@ class LLMEngine:
             self._mixed_variants[(R, T)] = v
         return v
 
+    def _soft_payload(self, rows: list[_Slot], chunks: list[list[int]]
+                      ) -> list[tuple[int, np.ndarray, np.ndarray]]:
+        """The soft rows of a mixed step: (batch row, the request's soft
+        row indices, their positions in the chunk) for each prefill row
+        whose chunk holds soft positions (the JAX ``_soft_payload``)."""
+        out = []
+        for r, (s, c) in enumerate(zip(rows, chunks)):
+            if s.state is not SlotState.PREFILL or not _soft(s.request):
+                continue
+            sp = s.request.soft_positions
+            sel = np.nonzero((sp >= s.n_past) & (sp < s.n_past + len(c)))[0]
+            if len(sel):
+                out.append((r, sel, sp[sel] - s.n_past))
+        return out
+
     def _new_mixed(self, R: int, T: int) -> _MixedVariant:
-        """Static buffers of a mixed variant [R, T], every row a pad row."""
+        """Static buffers of a mixed variant [R, T] (on a multimodal
+        engine with R * T soft entries), every row a pad row and every
+        soft entry dropped."""
         dev = self.device
         cuda = dev.type == "cuda"
-        fields = _mixed_fields(R, T, self._max_pages, self.sampling.window)
+        fields = _mixed_fields(R, T, self._max_pages, self.sampling.window,
+                               self.multimodal)
         n = sum(int(np.prod(shape)) for _, shape in fields)
         host = torch.zeros((n,), dtype=torch.int32, pin_memory=cuda)
         h = {k: t.numpy() for k, t in _carve(host, fields).items()}
+        h["sbrow"][:] = R
         h["pt"][:], h["wt"][:] = TRASH_PAGE, TRASH_PAGE
         h["q_lens"][:] = 1
         h["sids"][:] = h["rsids"][:] = self._pad_sid
@@ -2203,7 +2319,8 @@ class LLMEngine:
             noise=torch.zeros((R, min(smp.CAND, self.spec.vocab_size)),
                               device=dev),
             at=torch.arange(R, device=dev),
-            out=torch.zeros(R, dtype=torch.int32, device=dev))
+            out=torch.zeros(R, dtype=torch.int32, device=dev),
+            soft=(self._soft_rows[:R * T] if self.multimodal else None))
 
     def _fill_mask(self, rows: list[Optional[_Slot]]) -> None:
         """The step's sampling masks into the static device mask, row r
@@ -2949,7 +3066,9 @@ class LLMEngine:
         self.metrics.forward_steps += rounds
         self.metrics.draft_forwards += rounds * kd
         dt = (time.perf_counter() - t0) * 1e3
-        emitted = 0
+        # counted before any token is emitted: a request's final event
+        # (sent from _emit_token) must find the counters settled
+        self.metrics.spec_dispatches += 1
         for b, s in enumerate(rows):
             s.t_decode_ms += dt
             for r in range(rounds):
@@ -2964,12 +3083,10 @@ class LLMEngine:
                         break
                     s.cache_tokens.append(s.generated[-1])  # input token
                     s.n_past += 1
-                    emitted += 1
+                    self.metrics.spec_tokens += 1
                     self._emit_token(s, tok_out, defer=True)
             if s.state is SlotState.DECODE:
                 self._flush_emit(s)
-        self.metrics.spec_tokens += emitted
-        self.metrics.spec_dispatches += 1
 
     # ------------------------------------------------------------ emission
 
@@ -3083,7 +3200,9 @@ class LLMEngine:
         # the pages of cache_tokens stay as the slot's resident prefix;
         # pages past them (a decode step's overshoot) go back; K/V of
         # weights since replaced (``update_params``) all go back
-        if slot.stale_kv:
+        if slot.stale_kv or _soft(slot.request):
+            # (an image request's pages too: its image-token ids would
+            # match another image's prompt)
             self._prefix_index.remove(slot.idx)
             slot.cache_tokens = []
             slot.stale_kv = False
@@ -3097,6 +3216,11 @@ class LLMEngine:
         slot.emit_tok = None
         slot.constraint_state = None
         slot.n_past = len(slot.cache_tokens)
+
+
+def _soft(req: Optional[GenRequest]) -> bool:
+    """Whether ``req`` carries soft (image) rows."""
+    return req is not None and req.soft_embeds is not None
 
 
 def _release_handoff(req: GenRequest) -> None:

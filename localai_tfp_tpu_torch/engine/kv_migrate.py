@@ -438,7 +438,8 @@ class Migrator:
         eng = self.eng
         n = slot.n_past
         npg = eng._pool.pages_for(n)
-        if reason != "length" or not slot.generated or n <= 0 or npg <= 0:
+        if (reason != "length" or not slot.generated
+                or req.soft_embeds is not None or n <= 0 or npg <= 0):
             self.counters["capture_skips"] += 1
             self.bus.fail(base, reason if reason != "length"
                           else "not_migratable")

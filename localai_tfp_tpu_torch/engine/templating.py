@@ -104,7 +104,8 @@ class Evaluator:
     def template_messages(self, cfg: ModelConfig, messages: list[dict],
                           tokenizer: Any = None,
                           functions: Optional[list[dict]] = None,
-                          use_function_template: bool = False) -> str:
+                          use_function_template: bool = False,
+                          media: Optional[list] = None) -> str:
         """Assemble the full chat prompt. The tokenizer's chat template
         when the config asks for it or has no ``chat``/``chat_message``
         template (``system_prompt`` prepended as a system message when
@@ -112,9 +113,12 @@ class Evaluator:
         ``template.chat_message`` (else ``"<role>: <content>"``), joined,
         then wrapped by ``template.chat`` — or by ``template.function``
         when tools were requested and the config has one (``.Functions``
-        holds the tool definitions)."""
+        holds the tool definitions). ``media`` (an out-parameter): each
+        image part is appended to it and stands as an ``[img-N]`` marker
+        in the text; without it image parts are dropped."""
         messages = [m if isinstance(m.get("content"), str)
-                    else {**m, "content": content_to_text(m.get("content"))}
+                    else {**m, "content": content_to_text(m.get("content"),
+                                                          media)}
                     for m in messages]
         use_tok = cfg.template.use_tokenizer_template or not (
             cfg.template.chat or cfg.template.chat_message)
@@ -162,16 +166,27 @@ class Evaluator:
         return combined
 
 
-def content_to_text(content: Any) -> str:
-    """OpenAI message content: a string or a list of parts, of which the
-    text parts are kept."""
+def content_to_text(content: Any, media: Optional[list] = None) -> str:
+    """OpenAI message content: a string or a list of parts. Text parts
+    are kept; with ``media`` given, each ``image_url`` / ``image`` part is
+    collected into it and replaced by an ``[img-N]`` marker (N its index
+    in ``media``), which the LLM worker expands into soft tokens."""
     if content is None:
         return ""
     if isinstance(content, str):
         return content
     if isinstance(content, list):
-        return "".join(p.get("text", "") for p in content
-                       if isinstance(p, dict) and p.get("type") == "text")
+        parts = []
+        for p in content:
+            if not isinstance(p, dict):
+                continue
+            if p.get("type") == "text":
+                parts.append(p.get("text", ""))
+            elif p.get("type") in ("image_url", "image") and \
+                    media is not None:
+                media.append(p)
+                parts.append(f"[img-{len(media) - 1}]")
+        return "".join(parts)
     return str(content)
 
 

@@ -5,9 +5,9 @@ with every per-layer weight stacked on a leading ``[L, ...]`` axis and
 projections in ``[in, out]`` layout. The port keeps exactly that tree, so
 conversion is a per-leaf copy: both packages then compute the same thing
 on the same weights; the encoder's tree (``encoder_params_from_jax``)
-likewise. Leaves arrive as numpy arrays (``np.asarray`` of a
-JAX array); bfloat16 leaves (numpy's ``ml_dtypes`` extension type) are
-reinterpreted bit for bit.
+and the vision towers' (``vision_params_from_numpy``) likewise. Leaves
+arrive as numpy arrays (``np.asarray`` of a JAX array); bfloat16 leaves
+(numpy's ``ml_dtypes`` extension type) are reinterpreted bit for bit.
 """
 
 from __future__ import annotations
@@ -57,3 +57,13 @@ def encoder_params_from_jax(tree: Mapping[str, Any], device: Any = "cpu",
     ``EncParams``, numpy leaves) -> the port's ``EncParams``: the same
     keys and layouts, leaf by leaf."""
     return {k: to_tensor(v, device, dtype) for k, v in tree.items()}
+
+
+def vision_params_from_numpy(tree: Mapping[str, Any], device: Any = "cpu",
+                             dtype: Optional[torch.dtype] = None) -> dict:
+    """The JAX package's ``VisionParams`` (numpy leaves, the stacked
+    encoder layers under ``"layers"``) -> the port's: the same keys and
+    layouts, leaf by leaf."""
+    return {k: (vision_params_from_numpy(v, device, dtype)
+                if isinstance(v, Mapping) else to_tensor(v, device, dtype))
+            for k, v in tree.items()}

@@ -3,7 +3,8 @@
 Counterpart of localai_tfp_tpu/models/hf_loader.py::load_params for the
 families the JAX package serves: Llama, Mistral, Qwen2, Qwen3,
 Gemma 1/2/3 (Gemma 3's multimodal checkpoints as their text tower, under
-``language_model.model.`` or ``model.language_model.``), Phi (``dense``,
+``language_model.model.`` or ``model.language_model.``, as LLaVA's
+wrapped text model is), Phi (``dense``,
 ``fc1``/``fc2``, LayerNorm with biases, a biased head), Phi-3 (fused
 ``qkv_proj`` and ``gate_up_proj``, split at load), and the mixtures of
 experts: Mixtral (``block_sparse_moe``: router ``gate``, experts
@@ -32,9 +33,10 @@ under int8, as in the JAX package (``quant.QUANTIZABLE``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -43,6 +45,8 @@ from .load_timing import phase
 from .quant import QUANTIZABLE, QTensor, quantize_embed, quantize_raw_tensor
 from .safetensors_io import SafeTensorsFile
 from .transformer import _NON_LAYER_KEYS, Params, check_supported
+from .vision import (VisionParams, VisionSpec, load_clip_vision_params,
+                     load_vision_params, vision_spec_from_hf)
 
 # the mixture-of-experts families
 MOE_FAMILIES = ("mixtral", "qwen2_moe", "qwen3_moe")
@@ -72,10 +76,57 @@ def load_hf_state(model_dir: str) -> tuple[dict, Callable[[str], torch.Tensor],
     return config, get, list(index)
 
 
+def load_multimodal(model_dir: str, dtype: torch.dtype = torch.bfloat16,
+                    device: Any = "cpu", state: Optional[tuple] = None
+                    ) -> Optional[tuple[VisionSpec, VisionParams, dict]]:
+    """The vision tower and projector of a multimodal checkpoint (the JAX
+    package's ``load_multimodal``): (VisionSpec, VisionParams, mm_info),
+    or None for a text-only checkpoint. A CLIP tower (it has
+    ``embeddings.class_embedding``) is LLaVA's: one soft token per patch
+    replacing the ``<image>`` placeholder, no boi/eoi tokens; otherwise
+    SigLIP with Gemma 3's pooled ``mm_tokens_per_image``. ``mm_info``
+    holds ``boi_token``, ``eoi_token``, ``image_token``, ``mm_tokens``,
+    ``image_size`` and ``family``."""
+    config, get, names = state or load_hf_state(model_dir)
+    vcfg = config.get("vision_config")
+    if not isinstance(vcfg, dict):
+        return None
+    tcfg = config.get("text_config") or {}
+    text_d = int(tcfg.get("hidden_size") or config.get("hidden_size") or 0)
+    if any(n.endswith("embeddings.class_embedding") for n in names):
+        vspec = vision_spec_from_hf(vcfg, 0, text_d)
+        vspec = dataclasses.replace(
+            vspec, family="clip", mm_tokens=vspec.n_patches,
+            eps=float(vcfg.get("layer_norm_eps") or 1e-5))
+        vparams = load_clip_vision_params(get, names, dtype, vspec, device)
+        if vparams is None:
+            return None
+        return vspec, vparams, {
+            "boi_token": None, "eoi_token": None,
+            "image_token": int(config.get("image_token_index") or 32000),
+            "mm_tokens": vspec.mm_tokens, "image_size": vspec.image_size,
+            "family": "clip"}
+    mm_tokens = int(config.get("mm_tokens_per_image") or 256)
+    vspec = vision_spec_from_hf(vcfg, mm_tokens, text_d)
+    vparams = load_vision_params(get, names, dtype, vspec, device)
+    if vparams is None:
+        return None
+    return vspec, vparams, {
+        "boi_token": int(config.get("boi_token_index") or 255999),
+        "eoi_token": int(config.get("eoi_token_index") or 256000),
+        "image_token": int(config.get("image_token_index") or 262144),
+        "mm_tokens": mm_tokens, "image_size": vspec.image_size,
+        "family": "siglip"}
+
+
 def spec_from_config(config: dict) -> LLMSpec:
     """The spec of a served family's ``config.json``; raises for the
     rest, naming the served list."""
     mt = (config.get("model_type") or "").lower()
+    if mt == "llava" and isinstance(config.get("text_config"), dict):
+        # a LLaVA wrapper serves its nested text model (the CLIP tower
+        # loads through load_multimodal)
+        mt = (config["text_config"].get("model_type") or "llama").lower()
     if mt not in FAMILIES:
         raise NotImplementedError(
             f"model_type {mt!r} is not ported yet (served: {FAMILIES})")

@@ -414,6 +414,20 @@ def _embed_in(spec: LLMSpec, params: Params, tokens: torch.Tensor):
     return x
 
 
+def _soft_scatter(x: torch.Tensor, rows: torch.Tensor, brow: torch.Tensor,
+                  bpos: torch.Tensor) -> torch.Tensor:
+    """x [B, T, D] with ``rows`` [R, D] written at (brow, bpos): the JAX
+    ``_soft_expand`` + ``where``. Entries whose batch row is B or more
+    go to a scratch row that is cut off (no host value: the scatter can
+    be captured in a graph)."""
+    B, T, D = x.shape
+    flat = torch.cat([x.reshape(B * T, D), x.new_zeros((1, D))])
+    at = torch.where(brow.long() < B, brow.long() * T + bpos.long(),
+                     torch.full_like(brow, B * T, dtype=torch.long))
+    flat = flat.index_copy(0, at, rows.to(x.dtype))
+    return flat[:B * T].reshape(B, T, D)
+
+
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """[..., D] @ [D, V] -> f32, never rounded to x's dtype: on the CPU
     in f32 (bf16 values are exact there), on the card one cuBLAS product
@@ -463,16 +477,23 @@ def forward_hidden(
     q_lens: Optional[torch.Tensor] = None,  # [B] int32 valid tokens per row
     write_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32 WRITE
     # pages: entries the host did not grant point at trash page 0
+    soft: Optional[tuple] = None,  # multimodal: (rows [R, D], batch row
+    # [R], position [R]): each row REPLACES the embedding at (batch row,
+    # position); entries with batch row >= B are dropped
 ) -> tuple[torch.Tensor, KVCache]:
     """Run the stack through the final norm; returns (hidden [B, T, D],
     cache). The cache is written in place: the paged path scatters this
     dispatch's K/V rows through ``write_table`` (pad positions beyond
     ``q_lens`` go to trash page 0), the dense path writes rows ``slot_ids``
-    at columns ``pos0 + [0, T)``."""
+    at columns ``pos0 + [0, T)``. Soft rows land after the embedding
+    multiplier (Gemma's sqrt(D) never touches them), cast to the
+    activations' dtype, as HF's masked scatter of image features."""
     check_supported(spec)
     B, T = tokens.shape
     dev = tokens.device
     x = _embed_in(spec, params, tokens)
+    if soft is not None:
+        x = _soft_scatter(x, *soft)
     tpos = pos0.long()[:, None] + torch.arange(T, device=dev)[None, :]
     inv_freqs = _layer_inv_freqs(spec, dev)
     windows = layer_windows(spec)

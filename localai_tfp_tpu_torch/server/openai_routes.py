@@ -27,14 +27,26 @@ buffered and parsed at the end), ``response_format`` ``json_object`` /
 (``timeout`` in the body, else the ``X-Request-Timeout`` header) that
 expires before any output is a 504; one that expires mid-decode returns
 the partial text with ``finish_reason: "deadline_exceeded"``.
+
+Images: a chat to a model with a vision tower collects its ``image_url``
+parts (``engine/templating.py``: ``[img-N]`` markers in the prompt) and
+reads each one's bytes: a ``data:`` URL, bare base64, or an ``http(s)``
+URL fetched with ``urllib`` (at most 32 MiB, else 413). An image the
+decoder cannot read (``models/image_io.py``: not PNG, interlaced,
+16-bit) is a 400 that names its format. To a text-only model image parts
+are dropped, as in the JAX server.
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import json
 import queue
 import threading
 import time
+import urllib.error
+import urllib.request
 import uuid
 from typing import Any, Optional
 
@@ -43,6 +55,7 @@ from ..engine.engine import StreamEvent
 from ..grammars.json_schema import functions_grammar, schema_to_gbnf
 from ..grammars.parse import (FinetuneStream, apply_finetune,
                               parse_function_call, parse_text_content)
+from ..models import image_io
 from ..telemetry.tracing import TRACER
 from ..workers.base import PredictOptions, Reply
 from ..workers.llm import final_reply
@@ -117,6 +130,56 @@ def _predict_options(cfg: ModelConfig, body: dict, prompt: str,
         correlation_id=correlation_id,
         timeout_s=max(0.0, pick("timeout", 0.0) or 0.0),
     )
+
+
+MEDIA_MAX_BYTES = 32 << 20  # cap per fetched image
+MEDIA_FETCH_TIMEOUT_S = 30.0
+
+
+def _media_url(part: dict) -> str:
+    url = ""
+    if isinstance(part.get("image_url"), dict):
+        url = part["image_url"].get("url") or ""
+    elif isinstance(part.get("image_url"), str):
+        url = part["image_url"]
+    return url or part.get("url") or part.get("data") or ""
+
+
+def _media_bytes(part: dict) -> bytes:
+    """One image part -> its encoded bytes (the JAX ``_fetch_media``'s
+    sources and errors), checked to be an image the decoder reads."""
+    url = _media_url(part)
+    if not url:
+        raise HTTPError(400, "image part has no url")
+    if url.startswith("data:"):
+        try:
+            out = base64.b64decode(url.split(",", 1)[-1])
+        except (binascii.Error, ValueError):
+            raise HTTPError(400, "invalid data: URL base64") from None
+        if not out:
+            raise HTTPError(400, "empty data: URL")
+    elif url.startswith(("http://", "https://")):
+        try:
+            with urllib.request.urlopen(
+                    url, timeout=MEDIA_FETCH_TIMEOUT_S) as resp:
+                out = resp.read(MEDIA_MAX_BYTES + 1)
+        except (urllib.error.URLError, OSError, ValueError):
+            raise HTTPError(400, f"could not fetch image: {url}") from None
+        if len(out) > MEDIA_MAX_BYTES:
+            raise HTTPError(413, f"image of more than {MEDIA_MAX_BYTES} "
+                                 "bytes")
+    else:
+        try:
+            out = base64.b64decode(url, validate=True)
+        except (binascii.Error, ValueError):
+            raise HTTPError(400, "unsupported image reference") from None
+        if not out:
+            raise HTTPError(400, "unsupported image reference")
+    try:
+        image_io.png_header(out)
+    except image_io.UnsupportedImage as e:
+        raise HTTPError(400, str(e)) from None
+    return out
 
 
 def _body(h: Handler) -> dict:
@@ -277,9 +340,15 @@ def chat_completions(h: Handler, app: Application) -> None:
     corr = h.headers.get("X-Correlation-ID", "")
     opts = _predict_options(cfg, body, "", corr)
     backend = app.model_loader.load(cfg)
+    # image parts: collected for a model with a vision tower, else dropped
+    media: Optional[list] = ([] if getattr(backend, "vision", None)
+                             is not None else None)
     opts.prompt = app.evaluator.template_messages(
         cfg, messages, tokenizer=getattr(backend, "tokenizer", None),
-        functions=tools or None, use_function_template=tools_requested)
+        functions=tools or None, use_function_template=tools_requested,
+        media=media)
+    if media:
+        opts.images = [_media_bytes(p) for p in media]
     if grammar:
         opts.grammar = grammar
         # lazy-grammar triggers from the model config (function.grammar

@@ -38,6 +38,8 @@ class PredictOptions:
     # grammar constrains only from the first trigger occurrence on)
     grammar_triggers: list[str] = field(default_factory=list)
     logit_bias: dict[int, float] = field(default_factory=dict)
+    # encoded images of a chat's image parts, in [img-N] marker order
+    images: list[bytes] = field(default_factory=list)
     mirostat: int = 0
     mirostat_eta: float = 0.0
     mirostat_tau: float = 0.0

@@ -3,7 +3,15 @@ of localai_tfp_tpu/workers/llm.py::JaxLLMBackend, LLM path only).
 
 A checkpoint is an HF directory (dense or mixture of experts) or a
 ``.gguf`` file, which brings its own tokenizer and chat template and no
-vision tower. LoRA adapters merge at load, before ``quantization: int8``
+vision tower. A multimodal HF checkpoint (Gemma 3 with SigLIP, LLaVA with
+CLIP) also loads its tower and projector (``models/hf_loader.py::
+load_multimodal``): a request's images are decoded
+(``models/image_io.py``), encoded in one tower call, and their soft rows
+spliced over image-token runs where the prompt's ``[img-N]`` markers
+stand (``_splice_images``). A Mamba or RWKV checkpoint is served without
+an engine: its step function decodes token by token
+(``models/recurrent.py``), a CUDA-graph replay per token on a card, and
+a stream gets the whole text, then the final. LoRA adapters merge at load, before ``quantization: int8``
 quantizes the projections (the int8 artifact is then neither read nor
 written, nor for a GGUF), and ``apply_lora`` / ``remove_lora`` merge or
 unmerge one on the running engine, in place, between dispatches.
@@ -20,12 +28,15 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
 import queue
+import re
 import threading
 import time
 from typing import Any, Iterator, Optional
 
+import numpy as np
 import torch
 
 from ..config import knobs
@@ -34,14 +45,15 @@ from ..engine.engine import GenRequest, LLMEngine, StreamEvent
 from ..engine.jinja_lite import TemplateError
 from ..engine.tokenizer import Tokenizer, load_tokenizer
 from ..grammars.native import make_constraint
-from ..models import artifact_cache, weight_slab
+from ..models import artifact_cache, image_io, mamba, rwkv, weight_slab
 from ..models.gguf import GGUFFile, load_gguf_params, tokenizer_from_gguf
-from ..models.hf_loader import load_params, spec_from_config
+from ..models.hf_loader import load_multimodal, load_params, spec_from_config
 from ..models.llm_spec import LLMSpec
 from ..models import load_timing
 from ..models.load_timing import LoadPhases
 from ..models.lora import merge_lora
-from ..models.quant import leaves, quantize_params
+from ..models.quant import QTensor, leaves, quantize_params
+from ..models.vision import TowerRunner
 from ..ops import _build, int8_matmul
 from ..ops import ragged_paged_attention as rpa
 from .base import (Backend, EmbeddingResult, ModelLoadOptions,
@@ -61,6 +73,9 @@ _KV_DTYPES = {**_DTYPES, "int8": torch.int8, "i8": torch.int8,
 # the names that mean "none"
 _INT8 = ("int8", "q8", "q8_0", "w8", "int8_full")
 _NO_QUANT = ("none", "f16", "fp16", "bf16", "bfloat16")
+_IMG_MARKER = re.compile(r"\[img-(\d+)\]")
+
+log = logging.getLogger(__name__)
 
 
 class TorchLLMBackend(Backend):
@@ -72,6 +87,12 @@ class TorchLLMBackend(Backend):
         self.engine: Optional[LLMEngine] = None
         self.tokenizer: Optional[Tokenizer] = None
         self.spec: Optional[LLMSpec] = None
+        # a multimodal checkpoint's (VisionSpec, VisionParams, mm_info)
+        self.vision: Optional[tuple] = None
+        # its tower and projector (one graph replay an image on a card)
+        self.tower: Optional[TowerRunner] = None
+        # a Mamba or RWKV checkpoint: (module, spec, params, StepRunner)
+        self.recurrent: Optional[tuple] = None
         self._state = "UNINITIALIZED"
         self._lock = threading.Lock()
         # how the last load got its weights ("full", "quantized": int8 at
@@ -134,6 +155,12 @@ class TorchLLMBackend(Backend):
         self._state = "BUSY"
         self._drop_engine()
         t0 = time.perf_counter()
+        if not is_gguf:
+            with open(os.path.join(model_dir, "config.json")) as f:
+                config = json.load(f)
+            if rwkv.is_rwkv_config(config) or mamba.is_mamba_config(config):
+                return self._load_recurrent(model_dir, config,
+                                            _DTYPES[name], t0)
         quant = quant if quant in _INT8 else ""
         # the tokenizer first: a file it cannot read (or a GGUF with no
         # vocabulary) fails the load before any weight is read
@@ -148,6 +175,10 @@ class TorchLLMBackend(Backend):
                 model_dir, _DTYPES[name], quant, opts)
         self._quantized = bool(quant)
         self._grammar_cache = {}
+        if not is_gguf:
+            self.vision = self._load_vision(model_dir, params)
+            self.tower = (TowerRunner(*self.vision[:2], self.device)
+                          if self.vision is not None else None)
         artifact_host, self._artifact_host = self._artifact_host, {}
         draft = (self._load_draft(opts, _DTYPES[name])
                  if opts.draft_model else None)
@@ -167,9 +198,17 @@ class TorchLLMBackend(Backend):
                 cache_dtype=_KV_DTYPES[kv_name],
                 draft=draft, n_draft=opts.n_draft or 4,
                 device=self.device, model=opts.model,
+                multimodal=self.vision is not None,
                 # a disaggregated pair shares one tree by reference:
                 # paging it would strand the other engine's dispatches
                 weight_paging=False if disagg else None)
+        if self.tower is not None and self.engine._ledger is not None:
+            # the tower and projector live beside the engine's weights,
+            # their graph's activations in a pool of its own
+            tower = self.tower
+            self.engine._ledger.register("vision_tower", tower.vp)
+            self.engine._ledger.register("vision_graph",
+                                         lambda: tower.pool_bytes)
         pager = self.engine._pager
         if pager is not None and artifact_host:
             # the artifact's host planes mirror the tree exactly (an
@@ -192,9 +231,50 @@ class TorchLLMBackend(Backend):
             # mid-request would stall every decoding slot
             with load_timing.phase("warmup_s"):
                 self.engine.warmup()
+                if self.tower is not None:
+                    self.tower.capture()
         self.load_s = time.perf_counter() - t0
         self._state = "READY"
         return Result(True, "model loaded")
+
+    def _load_vision(self, model_dir: str, params: dict) -> Optional[tuple]:
+        """The checkpoint's vision tower and projector (None when it has
+        none), at the serving dtype, bf16 when the embedding is int8. A
+        multimodal checkpoint whose tower fails to load is served
+        text-only, with a warning: its image parts are then dropped."""
+        emb = params["embed"]
+        dtype = torch.bfloat16 if isinstance(emb, QTensor) else emb.dtype
+        try:
+            return load_multimodal(model_dir, dtype=dtype,
+                                   device=self.device)
+        except (OSError, ValueError, KeyError, RuntimeError) as e:
+            log.warning("vision tower load failed for %s: %r; serving "
+                        "text-only, image parts will be ignored",
+                        model_dir, e)
+            return None
+
+    def _load_recurrent(self, model_dir: str, config: dict,
+                        dtype: torch.dtype, t0: float) -> Result:
+        """A Mamba (at ``dtype``) or RWKV (f32) checkpoint: no engine, no
+        KV cache; its step graphs are captured now (``LOCALAI_WARMUP``)
+        or at the first request."""
+        self.tokenizer = load_tokenizer(model_dir)
+        if rwkv.is_rwkv_config(config):
+            mod, (spec, params) = rwkv, rwkv.load_rwkv(model_dir,
+                                                        self.device)
+        else:
+            mod, (spec, params) = mamba, mamba.load_mamba(
+                model_dir, dtype, self.device)
+        run = mod.runner(spec, params, self.device)
+        if knobs.flag("LOCALAI_WARMUP"):
+            with load_timing.phase("warmup_s"):
+                run.capture()
+        self.recurrent = (mod, spec, params, run)
+        self.load_mode = "full"
+        self.load_s = time.perf_counter() - t0
+        self._state = "READY"
+        return Result(True, f"{mod.__name__.rsplit('.', 1)[-1]} model "
+                            "loaded")
 
     def _adapt(self, spec: LLMSpec, params: dict, quant: str,
                opts: ModelLoadOptions) -> dict:
@@ -318,6 +398,7 @@ class TorchLLMBackend(Backend):
         worker holds to them."""
         eng, self.engine = self.engine, None
         self._grammar_cache = {}
+        self.vision = self.tower = self.recurrent = None
         if eng is not None:
             eng.close()
             eng.release()
@@ -398,8 +479,60 @@ class TorchLLMBackend(Backend):
         vec = eng.embed(opts.embeddings or opts.prompt)
         return EmbeddingResult(embeddings=vec.tolist())
 
+    @torch.inference_mode()
+    def _splice_images(self, prompt: str, images: list[bytes]
+                       ) -> tuple[list[int], Optional[torch.Tensor],
+                                  Optional[np.ndarray]]:
+        """Expand ``[img-N]`` markers into ``<boi>``, ``mm_tokens``
+        image-token ids and ``<eoi>`` (the ids the checkpoint has) and
+        encode the images through the tower runner (the JAX
+        ``_splice_images``).
+        A marker naming no image stays as literal text; with no marker
+        the images go before the prompt. Returns (prompt ids, soft rows
+        [n, D] f32 on the device, their positions [n]); no rows when
+        every marker was bogus."""
+        mm = self.vision[2]
+        pix = np.stack([image_io.preprocess_image(
+            b, mm["image_size"], mm.get("family", "siglip")) for b in images])
+        soft_all = self.tower.encode(pix).float()
+        parts = _IMG_MARKER.split(prompt)
+        if len(parts) == 1:  # the template placed no marker
+            parts = [""]
+            for i in range(len(images)):
+                parts += [str(i), prompt if i == len(images) - 1 else ""]
+        tk = self.tokenizer
+        ids = tk.encode(parts[0], add_bos=True)
+        positions: list[int] = []
+        rows: list[torch.Tensor] = []
+        for j in range(1, len(parts), 2):
+            img, text = int(parts[j]), parts[j + 1]
+            if img >= len(images):
+                # no such image: the marker and the text after it stay
+                ids.extend(tk.encode(f"[img-{parts[j]}]" + text,
+                                     add_bos=False))
+                continue
+            if mm.get("boi_token") is not None:
+                ids.append(mm["boi_token"])
+            start = len(ids)
+            ids.extend([mm["image_token"]] * mm["mm_tokens"])
+            positions.extend(range(start, start + mm["mm_tokens"]))
+            rows.append(soft_all[img])
+            if mm.get("eoi_token") is not None:
+                ids.append(mm["eoi_token"])
+            if text:
+                ids.extend(tk.encode(text, add_bos=False))
+        if not rows:
+            return ids, None, None
+        return ids, torch.cat(rows), np.asarray(positions, np.int64)
+
     def _to_request(self, opts: PredictOptions) -> GenRequest:
         assert self.tokenizer is not None
+        soft = positions = None
+        if opts.images and self.vision is not None:
+            prompt_ids, soft, positions = self._splice_images(opts.prompt,
+                                                              opts.images)
+        else:
+            prompt_ids = self.tokenizer.encode(opts.prompt, add_bos=True)
         constraint = None
         if opts.grammar:
             key = (opts.grammar, tuple(opts.grammar_triggers or ()))
@@ -410,7 +543,7 @@ class TorchLLMBackend(Backend):
                 if len(self._grammar_cache) < 32:
                     self._grammar_cache[key] = constraint
         return GenRequest(
-            prompt_ids=self.tokenizer.encode(opts.prompt, add_bos=True),
+            prompt_ids=prompt_ids,
             max_tokens=opts.tokens or 2048,
             temperature=opts.temperature,
             top_k=opts.top_k,
@@ -434,8 +567,37 @@ class TorchLLMBackend(Backend):
             prompt_cache_path=opts.prompt_cache_path,
             prompt_cache_all=opts.prompt_cache_all,
             prompt_cache_ro=opts.prompt_cache_ro,
+            soft_embeds=soft,
+            soft_positions=positions,
             **({"id": opts.request_id} if opts.request_id else {}),
         )
+
+    def _recurrent_reply(self, opts: PredictOptions) -> Reply:
+        """The whole reply of a Mamba or RWKV model (the JAX
+        ``_recurrent_reply``): up to ``tokens`` (default 256), cut at the
+        first EOS (dropped) and at the first stop string."""
+        _, _, _, run = self.recurrent
+        ids = self.tokenizer.encode(opts.prompt, add_bos=True)
+        t0 = time.perf_counter()
+        eos = next(iter(getattr(self.tokenizer, "eos_ids", []) or []), None)
+        budget = opts.tokens or 256
+        out = [int(t) for t in run.generate(
+            ids, budget, temperature=opts.temperature, seed=opts.seed or 0,
+            eos_id=None if opts.ignore_eos else eos)]
+        finish = "stop"
+        if eos is not None and out and out[-1] == eos:
+            out = out[:-1]
+        elif len(out) >= budget:
+            finish = "length"
+        text = self.tokenizer.decode(out)
+        for stop in opts.stop_prompts or []:
+            i = text.find(stop)
+            if i >= 0:
+                text = text[:i]
+                finish = "stop"
+        return Reply(message=text, tokens=len(out), prompt_tokens=len(ids),
+                     finish_reason=finish,
+                     timing_token_generation=(time.perf_counter() - t0) * 1e3)
 
     def cancel(self, request_id: str) -> None:
         if self.engine is not None:
@@ -488,18 +650,38 @@ class TorchLLMBackend(Backend):
         }
 
     def predict(self, opts: PredictOptions) -> Reply:
+        if self.recurrent is not None:
+            return self._recurrent_reply(opts)
         if self.engine is None:
             return Reply(error="model not loaded", finish_reason="error")
         return final_reply(self.engine.generate(self._to_request(opts)))
 
     def stream_queue(self, opts: PredictOptions) -> queue.SimpleQueue:
         """Submit and return the engine's raw event queue (the HTTP layer
-        peeks at it for an immediate shed before it sends headers)."""
+        peeks at it for an immediate shed before it sends headers). A
+        recurrent model's queue holds its whole text, then the final."""
+        if self.recurrent is not None:
+            r = self._recurrent_reply(opts)
+            q: queue.SimpleQueue = queue.SimpleQueue()
+            if r.message:
+                q.put(StreamEvent(text=r.message))
+            q.put(StreamEvent(
+                done=True, finish_reason=r.finish_reason, full_text=r.message,
+                prompt_tokens=r.prompt_tokens, completion_tokens=r.tokens,
+                timing_token_generation_ms=r.timing_token_generation))
+            return q
         if self.engine is None:
             raise RuntimeError("model not loaded")
         return self.engine.submit(self._to_request(opts))
 
     def predict_stream(self, opts: PredictOptions) -> Iterator[Reply]:
+        if self.recurrent is not None:
+            # the whole text, then the final (the JAX worker's granularity)
+            r = self._recurrent_reply(opts)
+            if r.message:
+                yield Reply(message=r.message)
+            yield r
+            return
         if self.engine is None:
             yield Reply(error="model not loaded", finish_reason="error")
             return

@@ -1792,3 +1792,197 @@ def test_migration_gather_races_the_overwrite_of_its_pages(cuda_device,
         router.leak_check()
     finally:
         router.close()
+
+
+def _soft_wave(spec, seed: int) -> list:
+    """Two image prompts (soft rows at positions 100..163, across the
+    first 128-token chunk's end, and 10..41) beside a text prompt: two
+    mixed steps carry soft rows."""
+    rng = np.random.default_rng(seed)
+
+    def soft(n_pos, start, length):
+        return GenRequest(
+            prompt_ids=[(7 * i) % 250 + 1 for i in range(length)],
+            max_tokens=6, ignore_eos=True,
+            soft_embeds=rng.normal(size=(n_pos, spec.d_model)).astype(
+                np.float32),
+            soft_positions=np.arange(start, start + n_pos))
+
+    return [soft(64, 100, 200), soft(32, 10, 60),
+            GenRequest(prompt_ids=list(range(3, 40)), max_tokens=6,
+                       ignore_eos=True)]
+
+
+@pytest.mark.cuda
+def test_image_prefill_replays_equal_the_eager_bodies(cuda_device):
+    """Image prompts (soft rows) through a multimodal engine's mixed
+    variants by graph replay, every one captured at warmup (none
+    mid-request), against the same bodies run eagerly: ids
+    and every K/V page but the trash page bitwise, every soft step a
+    replay, B1 once per layer of every forward."""
+    spec, params = _family_model(cuda_device, "gemma3")
+    engines = []
+    for eager in (False, True):
+        eng = LLMEngine(spec, params, ByteTokenizer(), n_slots=4,
+                        max_seq=256, cache_dtype=torch.bfloat16,
+                        autostart=False, device=cuda_device, multimodal=True)
+        if eager:
+            eng._mixed_launch = eng._mixed_body
+            eng._decode_launch = eng._decode_body
+        else:
+            eng.warmup()
+            captured = set(eng._mixed_variants)
+        engines.append(eng)
+    graph, eager = engines
+    try:
+        got, want, launches = [], [], []
+        for eng, out in ((graph, got), (eager, want)):
+            b1 = ragged_paged_attention.launches
+            out.append(_drive(eng, _soft_wave(spec, 4)))
+            launches.append(ragged_paged_attention.launches - b1)
+        torch.cuda.synchronize()
+        assert got == want
+        assert torch.equal(graph.cache.k[:, 1:], eager.cache.k[:, 1:])
+        assert torch.equal(graph.cache.v[:, 1:], eager.cache.v[:, 1:])
+        m = graph.metrics
+        assert m.soft_replays == m.soft_steps >= 2
+        assert m.mixed_replays == m.mixed_steps
+        assert set(graph._mixed_variants) == captured
+        assert launches[0] == launches[1] == spec.n_layers * m.forward_steps
+    finally:
+        graph.close()
+        eager.close()
+
+
+def _tower(cuda_device, family: str):
+    """A small SigLIP + Gemma 3 projector or CLIP + LLaVA projector in the
+    port's tree (bf16), random from a seed."""
+    from localai_tfp_tpu_torch.models.vision import VisionSpec
+
+    spec = VisionSpec(hidden=64, n_layers=2, n_heads=4, d_ff=128,
+                      image_size=56, patch_size=14, mm_tokens=4,
+                      text_d_model=96, family=family)
+    g = torch.Generator().manual_seed(5)
+    L, D, F, T = 2, 64, 128, 96
+
+    def rnd(*s):
+        return torch.randn(s, generator=g) * 0.1
+
+    lay = {"ln1_w": 1 + rnd(L, D), "ln1_b": rnd(L, D),
+           "ln2_w": 1 + rnd(L, D), "ln2_b": rnd(L, D),
+           "fc1_w": rnd(L, D, F), "fc1_b": rnd(L, F),
+           "fc2_w": rnd(L, F, D), "fc2_b": rnd(L, D)}
+    for w in ("q", "k", "v", "o"):
+        lay[f"w{w}"], lay[f"b{w}"] = rnd(L, D, D), rnd(L, D)
+    n = spec.n_patches + (family == "clip")
+    vp = {"patch_w": rnd(3 * 14 * 14, D), "pos_embed": rnd(n, D),
+          "layers": lay}
+    if family == "clip":
+        vp.update(cls_embed=rnd(D), pre_ln_w=1 + rnd(D), pre_ln_b=rnd(D),
+                  mm_l1_w=rnd(D, T), mm_l1_b=rnd(T), mm_l2_w=rnd(T, T),
+                  mm_l2_b=rnd(T))
+    else:
+        vp.update(patch_b=rnd(D), post_ln_w=1 + rnd(D), post_ln_b=rnd(D),
+                  mm_norm_w=rnd(D), mm_proj=rnd(D, T))
+
+    def cast(t):
+        return t.to(cuda_device, torch.bfloat16)
+
+    vp = {k: ({n: cast(t) for n, t in v.items()} if isinstance(v, dict)
+              else cast(v)) for k, v in vp.items()}
+    return spec, vp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["siglip", "clip"])
+def test_tower_replays_equal_the_eager_tower(cuda_device, family):
+    """The served tower (``TowerRunner``: one graph replay an image)
+    against ``encode_images`` run eagerly on each image: soft rows
+    bitwise, one replay an image, nothing captured after ``capture``."""
+    from localai_tfp_tpu_torch.models.vision import TowerRunner, encode_images
+
+    spec, vp = _tower(cuda_device, family)
+    run = TowerRunner(spec, vp, cuda_device)
+    run.capture()
+    graph = run.graph
+    pix = np.random.default_rng(3).normal(
+        size=(3, 3, spec.image_size, spec.image_size)).astype(np.float32)
+    for _ in range(2):  # the staging reused
+        got = run.encode(pix)
+        want = torch.cat([encode_images(spec, vp, torch.from_numpy(
+            pix[i:i + 1]).to(cuda_device, torch.bfloat16))
+            for i in range(len(pix))])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert run.replays == 6 and run.graph is graph and run.pool_bytes > 0
+
+
+def _recurrent(cuda_device, family: str):
+    """A small Mamba (bf16) or RWKV (f32) in the port's tree, random from
+    a seed."""
+    from localai_tfp_tpu_torch.models import mamba, rwkv
+
+    g = torch.Generator().manual_seed(11)
+
+    def rnd(*s, scale=None):
+        return torch.randn(s, generator=g) * (scale or s[-2] ** -0.5)
+
+    if family == "mamba":
+        spec = mamba.MambaSpec(vocab_size=300, d_model=128, n_layers=3,
+                               d_inner=256, d_state=16, d_conv=4, dt_rank=8)
+        L, D, Di, N, R = 3, 128, 256, 16, 8
+        p = {"embed": rnd(300, D, scale=0.1), "final_norm_w": torch.ones(D),
+             "layers": {
+                 "norm_w": torch.ones(L, D), "in_w": rnd(L, D, 2 * Di),
+                 "conv_w": rnd(L, Di, 4, scale=0.5), "conv_b": rnd(L, Di),
+                 "x_proj_w": rnd(L, Di, R + 2 * N),
+                 "dt_w": rnd(L, R, Di), "dt_b": rnd(L, Di, scale=0.1),
+                 "A_log": torch.log(torch.arange(1, N + 1).float()).expand(
+                     L, Di, N).clone(),
+                 "D": torch.ones(L, Di), "out_w": rnd(L, Di, D)}}
+        cast = {k: v.to(cuda_device, torch.bfloat16) for k, v in p.items()
+                if k != "layers"}
+        cast["layers"] = {k: v.to(cuda_device, torch.bfloat16)
+                          for k, v in p["layers"].items()}
+        return mamba, spec, cast
+    spec = rwkv.RwkvSpec(vocab_size=300, d_model=128, n_layers=3,
+                         rescale_every=2)
+    L, D, F = 3, 128, 256
+    lay = {k: torch.ones(L, D) for k in ("ln1_w", "ln2_w")}
+    lay.update({k: torch.zeros(L, D) for k in ("ln1_b", "ln2_b")})
+    lay.update({k: torch.rand(L, D, generator=g) for k in (
+        "time_mix_key", "time_mix_value", "time_mix_receptance",
+        "ffn_time_mix_key", "ffn_time_mix_receptance")})
+    lay.update(time_decay=rnd(L, D, scale=0.5),
+               time_first=rnd(L, D, scale=0.5),
+               key_w=rnd(L, D, D), value_w=rnd(L, D, D),
+               receptance_w=rnd(L, D, D), output_w=rnd(L, D, D),
+               ffn_key_w=rnd(L, D, F), ffn_value_w=rnd(L, F, D),
+               ffn_receptance_w=rnd(L, D, D))
+    p = {"embed": rnd(300, D, scale=1.0), "pre_ln_w": torch.ones(D),
+         "pre_ln_b": torch.zeros(D), "ln_out_w": torch.ones(D),
+         "ln_out_b": torch.zeros(D), "head": rnd(D, 300), "layers": lay}
+    cast = {k: v.to(cuda_device) for k, v in p.items() if k != "layers"}
+    cast["layers"] = {k: v.to(cuda_device) for k, v in lay.items()}
+    return rwkv, spec, cast
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mamba", "rwkv"])
+def test_recurrent_decode_graphs_equal_the_eager_step(cuda_device, family):
+    """The step graphs (one replay per prompt token and per decode token)
+    against the same step run eagerly: greedy ids bitwise, seeded
+    sampled ids too, and the replay count."""
+    mod, spec, params = _recurrent(cuda_device, family)
+    run = mod.runner(spec, params, cuda_device)
+    eager = mod.runner(spec, params, cuda_device, eager=True)
+    prompt = [5, 77, 3, 140, 9, 250, 31]
+    got = run.generate(prompt, 40)
+    assert run.replays == len(prompt) + 40 and run.graphs
+    assert got.tolist() == eager.generate(prompt, 40).tolist()
+    a = run.generate(prompt, 24, temperature=0.9, seed=4)
+    b = eager.generate(prompt, 24, temperature=0.9, seed=4)
+    assert a.tolist() == b.tolist()
+    eos = int(got[10])
+    trimmed = run.generate(prompt, 40, eos_id=eos).tolist()
+    assert trimmed == got[:got.tolist().index(eos) + 1].tolist()

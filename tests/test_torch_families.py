@@ -389,8 +389,10 @@ def test_layer_types_take_precedence_over_the_pattern():
 
 def test_moe_and_unknown_families_are_refused(tmp_path):
     """The mixtures of experts, once refused here, load now (their trees
-    and logits are held to JAX in tests/test_torch_moe.py); a family the
-    loader does not map still fails naming the served list."""
+    and logits are held to JAX in tests/test_torch_moe.py), and so does a
+    LLaVA wrapper, as its nested text model (its tower: tests/
+    test_torch_vision.py); a family the loader does not map still fails
+    naming the served list."""
     from transformers import MixtralConfig, MixtralForCausalLM
 
     MixtralForCausalLM(MixtralConfig(**COMMON, num_local_experts=4,
@@ -401,9 +403,14 @@ def test_moe_and_unknown_families_are_refused(tmp_path):
                                                                 128)
     for mt in ("qwen2_moe", "qwen3_moe"):
         assert thf.spec_from_config({**COMMON, "model_type": mt}).n_experts
+    llava = thf.spec_from_config({"model_type": "llava", "text_config": {
+        **COMMON, "model_type": "llama"}})
+    assert llava.d_model == COMMON["hidden_size"]
     with pytest.raises(NotImplementedError, match=r"not ported yet \(served"):
-        thf.spec_from_config({**COMMON, "model_type": "llava",
-                              "text_config": {"model_type": "llama"}})
+        thf.spec_from_config({**COMMON, "model_type": "gpt2"})
+    with pytest.raises(NotImplementedError, match=r"not ported yet \(served"):
+        thf.spec_from_config({"model_type": "llava", "text_config": {
+            **COMMON, "model_type": "gpt2"}})
 
 
 # ----------------------------------------------------- B1's plain version

@@ -3,7 +3,8 @@
 - A fresh interpreter imports every module of ``localai_tfp_tpu_torch``
   and every module ``chip_smoke.py`` imports, and then holds no ``jax``,
   nothing of the JAX package, and none of the packages the GPU machine
-  lacks (aiohttp, yaml, jinja2, tokenizers, safetensors, transformers).
+  lacks (aiohttp, yaml, jinja2, tokenizers, safetensors, transformers,
+  PIL).
 - An AST scan of the port and ``chip_smoke.py`` finds no import of
   ``jax`` or of ``localai_tfp_tpu`` (other than ``localai_tfp_tpu_torch``),
   at module level or inside a function, nor of ``yaml``, ``jinja2``,
@@ -27,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "localai_tfp_tpu_torch"
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "localai_tfp_tpu")
 ABSENT_ON_CARD = ("aiohttp", "yaml", "jinja2", "tokenizers", "safetensors",
-                  "transformers", "regex")
+                  "transformers", "regex", "PIL")
 
 
 def _sources() -> list[Path]:
@@ -95,7 +96,9 @@ print(json.dumps({{"mods": mods, "loaded": sorted(sys.modules)}}))
               "workers.rerank", "store.backend", "store.native",
               "clients.store", "utils.cxx", "engine.kv_tier",
               "models.staging", "models.load_timing", "utils.faultinject",
-              "telemetry.flightrec", "telemetry.tracing"):
+              "telemetry.flightrec", "telemetry.tracing",
+              "models.vision", "models.image_io", "models.mamba",
+              "models.rwkv", "models.recurrent"):
         assert f"localai_tfp_tpu_torch.{m}" in res["mods"]
     roots = {m.split(".")[0] for m in res["loaded"]}
     assert not roots & set(FORBIDDEN_ROOTS)
