@@ -336,6 +336,33 @@ after one line naming the phase (``{"phase_failed": "<name>", ...}``):
    key copy and matvec. Neither kernel runs here: the JAX encoder and
    store have no Pallas kernel.
 
+17. audio — (after phase 15) audio in through the HTTP server: a
+   checkpoint at openai/whisper-large-v2's geometry (d_model 1280, 32 + 32
+   layers, 20 heads, ffn 5120, 80 mel bins, vocab 51865; random f32
+   weights from the seed, 6.2 GB) with a byte-level BPE
+   ``tokenizer.json`` in Whisper's special-token layout, behind
+   ``backend: whisper``: a 12 s 16 kHz mono WAV through
+   /v1/audio/transcriptions in each response format (the same text in
+   every format) and a 45 s 44.1 kHz stereo one (two chunks, resampled;
+   ``language: de``, ``translate``) in verbose_json (one segment a
+   chunk, the text the segments' texts joined); the served decoder (one
+   encoder replay a chunk, one replay a token, 224 picks) against the
+   plain full-recompute decoder on the card (its first 64 ids equal, or
+   within 1e-3 as below) and every served pick within 1e-3 of the
+   argmax of the plain decoder's teacher-forced logits; the encoder by
+   replay against eagerly (within 1e-4); encoder
+   device ms a chunk, decoder host ms a token by replay and eagerly,
+   host log-mel ms a chunk, each request's wall ms and real-time factor,
+   the graph pool's bytes. Then a silero-v5-geometry VAD (random; its
+   head scaled and biased so the audio's voiced chunks' logits average
+   +3 and its quiet chunks' -3) behind ``backend: silero-vad``: /v1/vad
+   over 60 s (1875 chunks), the probabilities above 0.5 and below 0.35
+   somewhere, more than one segment, the route's segments those of the
+   served probabilities (one batched front end, one replay a block of 64
+   LSTM steps), which are within 1e-4 of the chunk-by-chunk loop; each
+   one's ms. Neither kernel runs here: the JAX audio networks have no
+   Pallas kernel.
+
 Not in the default list: ``softcap_witness`` — Gemma-2-2B at full depth
 with every layer's q_proj at 4x and at 1x the softcap: the served greedy ids
 against the dense forward in bf16 and in f32, and one paged forward
@@ -4706,13 +4733,15 @@ def _byte_alphabet() -> list[str]:
     return [out[b] for b in range(256)]
 
 
-def text_vocab(vocab_size: int = 128256) -> tuple[dict, list]:
+def text_vocab(vocab_size: int = 128256,
+               n_special: int = len(LLAMA3_SPECIALS)) -> tuple[dict, list]:
     """(vocab, merges) of the generated byte-level BPE: the 256 byte
     symbols, then merges of printable ASCII, space and newline symbols up
-    to id ``vocab_size - 256`` (Llama-3's special tokens take the rest)."""
+    to id ``vocab_size - n_special`` (the special tokens take the rest:
+    Llama-3's 256 by default)."""
     vocab = {c: i for i, c in enumerate(_byte_alphabet())}
     base = [chr(b) for b in range(0x21, 0x7F)] + ["Ġ", "Ċ"]
-    n_merged = vocab_size - len(LLAMA3_SPECIALS)
+    n_merged = vocab_size - n_special
     merges: list[list[str]] = []
     level = list(base)
     while len(vocab) < n_merged:
@@ -7449,7 +7478,7 @@ def lora_leaf_check(eng, path: Path, adir: Path, scale: float) -> dict:
     return out
 
 
-def phase_gguf(smi: str, seed: int) -> dict:
+def phase_gguf(smi: str, seed: int, layers: int | None = None) -> dict:
     """(a) a Llama-3.1-8B-geometry GGUF in the Q4_K_M mix at full width and
     depth with a byte-level BPE vocabulary of 128256 and a Llama-3 chat
     template, (b) the same file with a rank-16 LoRA adapter at scale 0.5
@@ -7460,7 +7489,8 @@ def phase_gguf(smi: str, seed: int) -> dict:
     own tokenizer and chat template, four streamed chats at once (one
     past 1024 prompt tokens), B1 once per layer of every forward, every
     forward a replay, a greedy request held to the dense forward. Each
-    file is removed after its last leg."""
+    file is removed after its last leg. ``layers`` cuts the 8B file's
+    depth (``--gguf-layers``; full depth by default)."""
     import shutil
 
     t_phase = time.perf_counter()
@@ -7470,7 +7500,9 @@ def phase_gguf(smi: str, seed: int) -> dict:
     out: dict = {}
     t0 = time.perf_counter()
     f8 = models / "llama31-8b-Q4_K_M.gguf"
-    L8 = GEOMETRY["num_hidden_layers"]
+    L8 = layers or GEOMETRY["num_hidden_layers"]
+    cut8 = (None if L8 == GEOMETRY["num_hidden_layers"] else
+            f"layers {L8} of {GEOMETRY['num_hidden_layers']}")
     nbytes = write_gguf(f8, gguf_llama_meta(GEOMETRY, L8)
                         + gguf_bpe_vocab(GEOMETRY["vocab_size"]),
                         gguf_llama_tensors(GEOMETRY, L8), seed)
@@ -7488,11 +7520,11 @@ def phase_gguf(smi: str, seed: int) -> dict:
         return bodies
 
     legs = (
-        ("llama31_8b", f8.name, {}, L8, None),
+        ("llama31_8b", f8.name, {}, L8, cut8),
         ("llama31_8b_lora", f8.name,
          {"lora_adapters": ["lora-8b"], "lora_scales": [GGUF_LORA_SCALE]},
-         L8, None),
-        ("llama31_8b_int8", f8.name, {"quantization": "int8"}, L8, None),
+         L8, cut8),
+        ("llama31_8b_int8", f8.name, {"quantization": "int8"}, L8, cut8),
     )
     for key, fname, extra, layers, cut in legs:
         family_yaml(models, key, fname,
@@ -7571,7 +7603,13 @@ def gguf_leg(models: Path, key: str, smi: str, layers: int, path: Path,
             done["merged_leaf"] = lora_leaf_check(eng, path, lora,
                                                   GGUF_LORA_SCALE)
             text = LONG_PROMPT[:200]
-            before = served_greedy(backend, text, 16)[1]
+            prompt, before = served_greedy(backend, text, 16)
+            # layer 0 of each merged leaf before the round trip: the
+            # unmerge subtracts the delta from the bf16 merged weight and
+            # rounds again (as the JAX package's does), so remove + apply
+            # need not give back the merged weights bitwise
+            snap = {leaf: eng.params[leaf][0].clone()
+                    for _, _, leaf in GGUF_LORA_PROJ}
             t0 = time.perf_counter()
             n_rm = backend.remove_lora(str(lora), GGUF_LORA_SCALE)
             rm_s = time.perf_counter() - t0
@@ -7580,11 +7618,32 @@ def gguf_leg(models: Path, key: str, smi: str, layers: int, path: Path,
             n_ap = backend.apply_lora(str(lora), GGUF_LORA_SCALE)
             ap_s = time.perf_counter() - t0
             again = served_greedy(backend, text, 16)[1]
+            drift = {}
+            for leaf, w0 in snap.items():
+                w1 = eng.params[leaf][0]
+                drift[leaf] = {"elements_changed": int((w1 != w0).sum()),
+                               "of": w0.numel(), "max_abs": float(
+                                   (w1.float() - w0.float()).abs().max())}
+            del snap
             done["hot"] = {"sites": [n_rm, n_ap], "remove_s": round(rm_s, 3),
                            "apply_s": round(ap_s, 3),
                            "ids_equal_after_reapply": again == before,
-                           "ids_differ_without_adapter": removed != before}
+                           "ids_differ_without_adapter": removed != before,
+                           "layer0_bitwise_after_reapply": not any(
+                               d["elements_changed"] for d in drift.values()),
+                           "layer0_drift": drift}
             if again != before:
+                # how close the pick was: the logit deficit of the id
+                # served before the round trip under the weights after it
+                # (the dense forward), at the first step that differs
+                d = next(i for i, (x, y) in enumerate(zip(before, again))
+                         if x != y)
+                ref = dense_deficits(eng, prompt, before, per_step=True)
+                done["hot"].update(first_divergence=d,
+                                   deficit_at_divergence=ref["deficits"][d],
+                                   logit_tol=ref["tol"])
+                log("gguf_lora_roundtrip", model=key, card=smi,
+                    before=before, again=again, **done["hot"])
                 raise AssertionError(f"{key}: ids after remove + apply "
                                      f"differ: {before} {again}")
         if mixtral:
@@ -8124,6 +8183,585 @@ def phase_retrieval(smi: str, seed: int) -> dict:
         shutil.rmtree(models, ignore_errors=True)
     out["phase_s"] = round(time.perf_counter() - t_phase, 3)
     log("retrieval", phase_s=out["phase_s"], card=smi)
+    return out
+
+
+# ------------------------------------------------------------ phase audio
+#
+# Whisper-large-v2 (openai/whisper-large-v2 config.json: d_model 1280, 32
+# encoder and 32 decoder layers, 20 heads, ffn 5120, 80 mel bins, vocab
+# 51865, 1500 source and 448 target positions; the widest Whisper the
+# JAX package loads: large-v3's 128 mel bins do not fit its 80) with
+# random f32 weights from the seed, and a silero-v5-geometry VAD, both
+# behind the HTTP server.
+
+WHISPER_LARGE_V2 = {"d_model": 1280, "encoder_layers": 32,
+                    "decoder_layers": 32, "encoder_attention_heads": 20,
+                    "decoder_attention_heads": 20, "encoder_ffn_dim": 5120,
+                    "decoder_ffn_dim": 5120, "num_mel_bins": 80,
+                    "vocab_size": 51865, "max_source_positions": 1500,
+                    "max_target_positions": 448}
+WHISPER_LANGS = (
+    "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el ms "
+    "cs ro da hu ta no th ur hr bg lt la mi ml cy sk te fa lv bn sr az sl kn "
+    "et mk br eu is hy ne mn bs kk sq sw gl mr pa si km sn yo so af oc ka be "
+    "tg sd gu am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as tt haw ln ha "
+    "ba jw su").split()
+# silero-vad v5 (16 kHz): a 256-sample STFT basis (129 bins), four k=3
+# convs 129-128-64-64-128, an LSTM cell of 128, a 1-channel head
+SILERO_V5 = {"win": 256, "enc": ((129, 128), (128, 64), (64, 64),
+                                 (64, 128)), "hidden": 128}
+WHISPER_TIE = 1e-3  # plain logits' top-two gap a served pick may lose by
+ENC_TOL = 1e-4  # encoder by replay against eagerly (the same kernels)
+VAD_TOL = 1e-4  # served VAD probabilities against the chunk loop
+VAD_SECONDS = 60  # 1875 chunks of 512 samples
+AUDIO_FORMATS = ("json", "verbose_json", "text")
+# steps of the plain full-recompute decoder held to the served ids (each
+# of the served decode's picks is also held to the plain decoder's
+# teacher-forced logits)
+PLAIN_STEPS = 64
+
+
+def whisper_specials() -> list[str]:
+    """Whisper's 1608 special tokens from id 50257: eot, sot, the 99
+    languages, the task and control tokens, 1501 timestamps."""
+    assert len(WHISPER_LANGS) == 99
+    return (["<|endoftext|>", "<|startoftranscript|>"]
+            + [f"<|{lang}|>" for lang in WHISPER_LANGS]
+            + ["<|translate|>", "<|transcribe|>", "<|startoflm|>",
+               "<|startofprev|>", "<|nocaptions|>", "<|notimestamps|>"]
+            + [f"<|{i * 0.02:.2f}|>" for i in range(1501)])
+
+
+def write_whisper_tokenizer(dirpath: Path) -> dict:
+    """A byte-level BPE ``tokenizer.json`` in Whisper's layout, written
+    like ``write_text_tokenizer``: 50257 byte and merged symbols, then
+    Whisper's special tokens (eot 50257, sot 50258, ``<|en|>`` 50259, ...,
+    ``<|notimestamps|>`` 50363, timestamps from 50364)."""
+    specials = whisper_specials()
+    vocab, merges = text_vocab(WHISPER_LARGE_V2["vocab_size"],
+                               len(specials))
+    n = len(vocab)
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": n + k, "content": c, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for k, c in enumerate(specials)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                          "trim_offsets": True, "use_regex": True},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    (dirpath / "tokenizer.json").write_text(json.dumps(spec,
+                                                       ensure_ascii=False))
+    (dirpath / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast",
+        "unk_token": "<|endoftext|>", "bos_token": "<|endoftext|>",
+        "eos_token": "<|endoftext|>", "clean_up_tokenization_spaces": True,
+    }, indent=1))
+    return {"vocab": n + len(specials), "merges": len(merges)}
+
+
+def whisper_layout(g: dict) -> list[tuple[str, tuple]]:
+    """HF ``WhisperForConditionalGeneration`` tensor names and shapes
+    (the head tied to ``embed_tokens``)."""
+    D, F, M = g["d_model"], g["encoder_ffn_dim"], g["num_mel_bins"]
+    out = [("model.encoder.conv1.weight", (D, M, 3)),
+           ("model.encoder.conv1.bias", (D,)),
+           ("model.encoder.conv2.weight", (D, D, 3)),
+           ("model.encoder.conv2.bias", (D,)),
+           ("model.encoder.embed_positions.weight",
+            (g["max_source_positions"], D))]
+
+    def attn(p: str, kind: str) -> list:
+        rows = []
+        for proj in ("q", "k", "v", "out"):
+            rows.append((f"{p}{kind}.{proj}_proj.weight", (D, D)))
+            if proj != "k":
+                rows.append((f"{p}{kind}.{proj}_proj.bias", (D,)))
+        return rows + [(f"{p}{kind}_layer_norm.weight", (D,)),
+                       (f"{p}{kind}_layer_norm.bias", (D,))]
+
+    def mlp(p: str) -> list:
+        return [(f"{p}fc1.weight", (F, D)), (f"{p}fc1.bias", (F,)),
+                (f"{p}fc2.weight", (D, F)), (f"{p}fc2.bias", (D,)),
+                (f"{p}final_layer_norm.weight", (D,)),
+                (f"{p}final_layer_norm.bias", (D,))]
+
+    for i in range(g["encoder_layers"]):
+        p = f"model.encoder.layers.{i}."
+        out += attn(p, "self_attn") + mlp(p)
+    out += [("model.encoder.layer_norm.weight", (D,)),
+            ("model.encoder.layer_norm.bias", (D,)),
+            ("model.decoder.embed_tokens.weight", (g["vocab_size"], D)),
+            ("model.decoder.embed_positions.weight",
+             (g["max_target_positions"], D))]
+    for i in range(g["decoder_layers"]):
+        p = f"model.decoder.layers.{i}."
+        out += attn(p, "self_attn") + attn(p, "encoder_attn") + mlp(p)
+    return out + [("model.decoder.layer_norm.weight", (D,)),
+                  ("model.decoder.layer_norm.bias", (D,))]
+
+
+def write_whisper_checkpoint(ckpt: Path, seed: int) -> tuple[int, float]:
+    """Whisper-large-v2's geometry with random f32 weights made on the
+    card from ``seed`` (matrices at 1/sqrt(fan-in), the token embedding
+    at 0.02, biases small, LayerNorm weights near 1), its config.json and
+    tokenizer. Returns (bytes, seconds)."""
+    import math
+
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_iter
+
+    t0 = time.perf_counter()
+    ckpt.mkdir(parents=True, exist_ok=True)
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layout = whisper_layout(WHISPER_LARGE_V2)
+    shapes = [(n, torch.empty(s, dtype=torch.float32, device="meta"))
+              for n, s in layout]
+
+    def tensors():
+        for name, shape in layout:
+            w = torch.randn(shape, generator=gen, device=dev)
+            if "layer_norm.weight" in name:
+                w = 1.0 + 0.05 * w
+            elif len(shape) == 1:
+                w = 0.02 * w
+            elif name.endswith(("embed_tokens.weight",
+                                "embed_positions.weight")):
+                w = 0.02 * w
+            else:
+                w = w * math.prod(shape[1:]) ** -0.5
+            yield name, w
+
+    save_iter(tensors(), str(ckpt / "model.safetensors"), shapes=shapes)
+    (ckpt / "config.json").write_text(json.dumps({
+        "architectures": ["WhisperForConditionalGeneration"],
+        "model_type": "whisper", "torch_dtype": "float32",
+        "decoder_start_token_id": 50258, "eos_token_id": 50257,
+        "pad_token_id": 50257, "bos_token_id": 50257,
+        **WHISPER_LARGE_V2}, indent=1))
+    write_whisper_tokenizer(ckpt)
+    nbytes = sum(4 * math.prod(s) for _, s in layout)
+    return nbytes, time.perf_counter() - t0
+
+
+def voiced(seconds: float, sr: int, seed: int) -> "np.ndarray":
+    """Speech-like audio at ``sr``: low noise with voiced bursts (five
+    harmonics of a pitch of 100-220 Hz) of 0.3-1.2 s, 0.3-0.9 s apart."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * sr)
+    x = rng.standard_normal(n) * 0.003
+    t = 0.2
+    while t < seconds - 0.4:
+        dur = float(rng.uniform(0.3, 1.2))
+        a, b = int(t * sr), min(n, int((t + dur) * sr))
+        tt = np.arange(b - a) / sr
+        f0 = float(rng.uniform(100, 220))
+        x[a:b] += sum(0.3 / k * np.sin(2 * np.pi * k * f0 * tt)
+                      for k in range(1, 6))
+        t += dur + float(rng.uniform(0.3, 0.9))
+    return x.astype(np.float32)
+
+
+def write_wav16(f, pcm, sr: int) -> None:
+    """[n] or [n, channels] float PCM -> a 16-bit WAV written to the file
+    object ``f``."""
+    import wave
+
+    import numpy as np
+
+    x = np.asarray(pcm, np.float64)
+    ch = 1 if x.ndim == 1 else x.shape[1]
+    raw = np.round(np.clip(x, -1, 1) * 32767).astype("<i2").tobytes()
+    with wave.open(f, "wb") as w:
+        w.setnchannels(ch)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(raw)
+
+
+def multipart_body(fields: dict, filename: str, data: bytes) -> tuple:
+    """(body, content type) of a form with ``fields`` and one ``file``."""
+    import uuid
+
+    b = uuid.uuid4().hex
+    out = b""
+    for k, v in fields.items():
+        out += (f"--{b}\r\nContent-Disposition: form-data; name=\"{k}\""
+                f"\r\n\r\n{v}\r\n").encode()
+    out += (f"--{b}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"{filename}\"\r\nContent-Type: audio/wav\r\n\r\n"
+            ).encode() + data + f"\r\n--{b}--\r\n".encode()
+    return out, f"multipart/form-data; boundary={b}"
+
+
+def _post_raw(port: int, path: str, body: bytes, ctype: str,
+              timeout: float = 600.0) -> tuple:
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        c.request("POST", path, body=body, headers={"Content-Type": ctype})
+        r = c.getresponse()
+        return r.status, r.getheader("Content-Type", ""), r.read()
+    finally:
+        c.close()
+
+
+def transcribe_leg(port: int, name: str, wav: bytes, seconds: float,
+                   chunks: int, fields: dict,
+                   formats: tuple = AUDIO_FORMATS) -> dict:
+    """``wav`` through ``/v1/audio/transcriptions`` in each of
+    ``formats`` (verbose_json among them): 200s, one segment a 30 s chunk
+    ending at the audio's end, tokens in every segment, the text the
+    segments' texts joined, the same text in every format (greedy);
+    each request's wall ms and real-time factor. Returns (the result
+    line, each segment's tokens)."""
+    out = {"audio_s": seconds, "formats": {}}
+    texts = set()
+    for fmt in formats:
+        body, ctype = multipart_body({"model": name, "response_format": fmt,
+                                      **fields}, "speech.wav", wav)
+        t0 = time.perf_counter()
+        status, ct, raw = _post_raw(port, "/v1/audio/transcriptions", body,
+                                    ctype)
+        wall = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise AssertionError(f"{name} {fmt}: HTTP {status} {raw[:300]!r}")
+        if fmt == "text":
+            if not ct.startswith("text/plain"):
+                raise AssertionError(f"{name} text: content type {ct}")
+            texts.add(raw.decode())
+        else:
+            res = json.loads(raw)
+            texts.add(res["text"])
+            if fmt == "verbose_json":
+                segs = res["segments"]
+                ends = [s["end"] for s in segs]
+                want_ends = [min(30.0 * (i + 1), seconds)
+                             for i in range(chunks)]
+                if (len(segs) != chunks or
+                        max(abs(a - b) for a, b in zip(ends, want_ends))
+                        > 1e-3 or abs(res["duration"] - seconds) > 1e-3
+                        or not all(s["tokens"] for s in segs)
+                        or res["text"] != " ".join(
+                            s["text"] for s in segs if s["text"]).strip()):
+                    raise AssertionError(f"{name}: segments {segs}")
+                out["segments"] = [{k: s[k] for k in ("id", "start", "end")}
+                                   | {"tokens": len(s["tokens"]),
+                                      "text_chars": len(s["text"])}
+                                   for s in segs]
+                tokens = [s["tokens"] for s in segs]
+        out["formats"][fmt] = {"wall_ms": round(wall, 3),
+                               "real_time_factor": round(
+                                   wall / 1e3 / seconds, 5)}
+    if len(texts) != 1:
+        raise AssertionError(f"{name}: formats gave other texts {texts}")
+    out["text_chars"] = len(texts.pop())
+    return out, tokens
+
+
+def whisper_decode_check(backend, mel, prompt: list, max_new: int) -> tuple:
+    """The served decoder (replays, ``max_new`` steps) against the plain
+    full-recompute decoder on the card (its first PLAIN_STEPS): ids
+    equal, or every served pick within WHISPER_TIE of the argmax of the
+    plain decoder's teacher-forced logits over prompt + the served ids
+    (the ``dense_deficits`` criterion at f32), which every one of the
+    ``max_new`` picks must meet; each decoder's wall ms. Returns (the
+    result, the served ids)."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.models import whisper as tw
+
+    spec, params, run = backend.spec, backend.params, backend.runner
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = run.transcribe(mel, max_new, prompt)
+    served_ms = (time.perf_counter() - t0) * 1e3
+    m = torch.from_numpy(mel)[None].to(backend.device)
+    steps = min(PLAIN_STEPS, max_new)
+    t0 = time.perf_counter()
+    plain = tw.greedy_transcribe(spec, params, m, steps,
+                                 torch.tensor(prompt)).cpu().numpy()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    enc = tw.encode_audio(spec, params, m)
+    n = (served.tolist() + [spec.eot]).index(spec.eot)  # picks before eot
+    seq = torch.tensor([prompt + served[:max(n - 1, 0)].tolist()],
+                       device=backend.device)
+    with torch.inference_mode():
+        rows = tw.decode_logits(spec, params, seq, enc)[0, len(prompt) - 1:]
+    tok = torch.from_numpy(served[:n]).to(backend.device)
+    deficit = (rows.max(-1).values - rows.gather(-1, tok[:, None])[:, 0])
+    same = int(np.argmax(np.append(plain != served[:steps], True)))
+    res = {"max_new": max_new, "picks": n, "plain_steps": steps,
+           "ids_equal_plain": bool((plain == served[:steps]).all()),
+           "first_difference": None if same == steps else same,
+           "worst_logit_deficit": float(deficit.max()) if n else 0.0,
+           "exact_argmax": int((deficit == 0).sum()),
+           "tie_tol": WHISPER_TIE, "logit_std": float(rows.std()),
+           "served_ms": round(served_ms, 3), "plain_ms": round(plain_ms, 3)}
+    if not res["ids_equal_plain"] and not (
+            res["worst_logit_deficit"] <= WHISPER_TIE
+            and bool(torch.isfinite(rows).all())):
+        raise AssertionError(f"whisper decode: {res}")
+    return res, served
+
+
+def whisper_timings(backend, mel, prompt: list) -> dict:
+    """Encoder device ms a chunk by replay and eagerly (CUDA events);
+    decoder host ms a token by replay (64 decode steps after the prompt)
+    and eagerly (32), the host clock around a synchronize; encoder
+    replay against the eager encoder."""
+    import torch
+
+    from localai_tfp_tpu_torch.models import whisper as tw
+
+    spec, params, run = backend.spec, backend.params, backend.runner
+    m = torch.from_numpy(mel)[None].to(backend.device)
+    enc_replay = run.encode(mel).clone()
+    enc_eager = tw.encode_audio(spec, params, m)
+    err = float((enc_replay - enc_eager).abs().max())
+    if not err <= ENC_TOL:
+        raise AssertionError(f"encoder replay vs eager: {err}")
+    run.set_mel(mel)
+    enc_ms = _time_ms(lambda: run._run("encode"), 10)
+    enc_eager_ms = _time_ms(lambda: tw.encode_audio(spec, params, m), 5)
+
+    def per_token(eager: bool) -> float:
+        run.eager = eager
+        try:
+            run._run("encode")
+            run._reset()
+            for t in prompt:
+                run.tok.fill_(t)
+                run._run("feed")
+            torch.cuda.synchronize()
+            blocks = 1 if eager else 2
+            t0 = time.perf_counter()
+            for _ in range(blocks):
+                run.at.zero_()
+                for _ in range(32):
+                    run._run("decode")
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / (32 * blocks)
+        finally:
+            run.eager = False
+
+    replay_ms = [per_token(False) for _ in range(2)][-1]
+    eager_ms = per_token(True)
+    return {"encoder_device_ms": enc_ms, "encoder_eager_device_ms":
+            enc_eager_ms, "encoder_replay_vs_eager_max_abs_err": err,
+            "encoder_replay_bitwise": bool(torch.equal(enc_replay,
+                                                        enc_eager)),
+            "encoder_tol": ENC_TOL, "decode_host_ms_per_token": replay_ms,
+            "decode_eager_host_ms_per_token": eager_ms}
+
+
+def silero_state_dict(seed: int, audio) -> dict:
+    """silero-v5-geometry weights in its key schema, random from
+    ``seed`` on the card; the head's weight scaled and its bias set so
+    that the logits of ``audio``'s voiced chunks average +3 and those of
+    its quiet chunks -3 (the probabilities then cross both of the
+    route's thresholds, and its segments follow the voiced bursts)."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.models import vad_net as tv
+
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    W, H = SILERO_V5["win"], SILERO_V5["hidden"]
+
+    def t(*shape, scale):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    sd = {"_model.stft.forward_basis_buffer": t(W + 2, 1, W,
+                                                 scale=W ** -0.5)}
+    for i, (cin, cout) in enumerate(SILERO_V5["enc"]):
+        sd[f"_model.encoder.{i}.reparam_conv.weight"] = t(
+            cout, cin, 3, scale=(3 * cin) ** -0.5)
+        sd[f"_model.encoder.{i}.reparam_conv.bias"] = t(cout, scale=0.02)
+    for k in ("weight_ih", "weight_hh"):
+        sd[f"_model.decoder.rnn.{k}"] = t(4 * H, H, scale=H ** -0.5)
+    for k in ("bias_ih", "bias_hh"):
+        sd[f"_model.decoder.rnn.{k}"] = t(4 * H, scale=0.02)
+    sd["_model.decoder.decoder.2.weight"] = t(1, H, 1, scale=1.0)
+    sd["_model.decoder.decoder.2.bias"] = torch.zeros(1, device=dev)
+    p = np.clip(tv.speech_probs(tv.load_state_dict(sd, dev), audio),
+                1e-6, 1 - 1e-6)
+    z = np.log(p / (1 - p))  # the head's logit with no bias: linear in it
+    rms = np.sqrt((audio[:len(z) * tv.CHUNK].reshape(len(z), -1)
+                   .astype(np.float64) ** 2).mean(1))
+    loud = rms > 10 * np.percentile(rms, 5)  # the noise floor: 0.003
+    zv, zq = float(z[loud].mean()), float(z[~loud].mean())
+    if not loud.any() or loud.all() or abs(zv - zq) < 1e-6:
+        raise AssertionError(f"vad weights: voiced {zv}, quiet {zq}, "
+                             f"{int(loud.sum())} loud chunks")
+    scale = 6.0 / (zv - zq)
+    sd["_model.decoder.decoder.2.weight"] *= scale
+    sd["_model.decoder.decoder.2.bias"] += -scale * (zv + zq) / 2
+    return {k: v.cpu() for k, v in sd.items()}
+
+
+def vad_leg(port: int, app, name: str, audio, smi: str) -> dict:
+    """``/v1/vad`` over ``audio`` (1875 chunks): the route's segments
+    equal to the segmentation of the served probabilities; the served
+    probabilities (the batched front end, one replay a block of LSTM
+    steps) within VAD_TOL of the chunk-by-chunk loop; each one's ms."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.models import vad_net as tv
+
+    # 4 decimals of a float64: ~8 bytes a sample, 7.7 MB of JSON under
+    # the 15 MiB upload limit
+    body = {"model": name,
+            "audio": np.round(audio.astype(np.float64), 4).tolist()}
+    pcm = np.asarray(body["audio"], np.float32)
+    t0 = time.perf_counter()
+    status, _, raw = _req(port, "POST", "/v1/vad", body)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"vad: HTTP {status} {raw[:300]!r}")
+    t0 = time.perf_counter()
+    status, _, raw = _req(port, "POST", "/v1/vad", body)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    segs = json.loads(raw)["segments"]
+    backend = app.loaded()[name]
+    run = backend.runner
+    replays = run.replays
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = run.probabilities(pcm)
+    served_ms = (time.perf_counter() - t0) * 1e3
+    replays = run.replays - replays
+    t0 = time.perf_counter()
+    loop = tv.speech_probs(run.params, pcm)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(served - loop).max())
+    want = [{"start": round(s, 3), "end": round(e, 3)}
+            for s, e in tv.probs_to_segments(
+                served, threshold=0.5, min_speech_s=backend.min_speech_s,
+                min_silence_s=backend.min_silence_s)]
+    res = {"chunks": int(len(served)), "segments": len(segs),
+           "replays": replays, "request_first_ms": round(first_ms, 3),
+           "request_ms": round(wall_ms, 3), "served_ms": round(served_ms, 3),
+           "chunk_loop_ms": round(loop_ms, 3), "max_abs_err_vs_loop": err,
+           "tol": VAD_TOL, "card": smi}
+    # the probabilities cross the entry (0.5) and exit (0.35) thresholds,
+    # so the hysteresis opens and closes segments
+    res["chunks_above_0_5"] = int((served >= 0.5).sum())
+    res["chunks_below_0_35"] = int((served < 0.35).sum())
+    blocks = 0 if run.eager else -(-len(served) // tv.BLOCK)
+    if (len(served) != VAD_SECONDS * 16000 // 512 or err > VAD_TOL
+            or segs != want or len(segs) < 2 or replays != blocks
+            or not res["chunks_above_0_5"] or not res["chunks_below_0_35"]):
+        raise AssertionError(f"vad: {res} {segs[:4]} {want[:4]}")
+    return res
+
+
+def phase_audio(smi: str, seed: int) -> dict:
+    """Audio in through the HTTP server: Whisper-large-v2's geometry
+    (random f32 weights, 6.2 GB) behind ``backend: whisper`` transcribing
+    a 12 s 16 kHz mono WAV and a 45 s 44.1 kHz stereo one (two chunks,
+    resampled) in every response format; the served decoder against the
+    plain one and the encoder by replay against eagerly; a
+    silero-v5-geometry VAD behind ``backend: silero-vad`` over 60 s."""
+    import io
+    import shutil
+
+    import numpy as np
+
+    from localai_tfp_tpu_torch.models import whisper as tw
+    from localai_tfp_tpu_torch.models.safetensors_io import save_file
+    from localai_tfp_tpu_torch.workers.whisper import load_pcm
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "audio"
+    shutil.rmtree(models, ignore_errors=True)
+    models.mkdir(parents=True)
+    nbytes, write_s = write_whisper_checkpoint(models / "whisper-large-v2",
+                                               seed)
+    vad_audio = voiced(VAD_SECONDS, 16000, seed + 2)
+    save_file(silero_state_dict(seed, vad_audio),
+              str(models / "silero_vad.safetensors"))
+    (models / "whisper.yaml").write_text(
+        "name: whisper\nbackend: whisper\nparameters:\n"
+        "  model: whisper-large-v2\n")
+    (models / "vad.yaml").write_text(
+        "name: vad\nbackend: silero-vad\nparameters:\n"
+        "  model: silero_vad.safetensors\n")
+    log("audio_checkpoint", model="openai/whisper-large-v2 geometry",
+        bytes=nbytes, write_s=round(write_s, 3), card=smi)
+    wavs = {}
+    short = voiced(12.0, 16000, seed)
+    buf = io.BytesIO()
+    write_wav16(buf, short, 16000)
+    wavs["short"] = buf.getvalue()
+    left = voiced(45.0, 44100, seed + 1)
+    buf = io.BytesIO()
+    write_wav16(buf, np.stack([left, 0.5 * left], -1), 44100)
+    wavs["long"] = buf.getvalue()
+    out = {"checkpoint_bytes": nbytes}
+    srv, th = _serve(models)
+    try:
+        port = srv.server_address[1]
+        app = srv.app
+        out["short"], short_tokens = transcribe_leg(
+            port, "whisper", wavs["short"], 12.0, 1, {})
+        # the formats render one result whatever its chunks: the two-chunk
+        # file goes once, where its segments are checked
+        lm = app.model_loader.get("whisper")
+        backend = lm.backend
+        out["load_s"] = round(lm.load_s, 3)
+        out["graph_pool_bytes"] = backend.runner.pool_bytes
+        out["long"], _ = transcribe_leg(
+            port, "whisper", wavs["long"], 45.0, 2,
+            {"language": "de", "translate": "true"}, ("verbose_json",))
+        log("audio_transcriptions", short=out["short"], long=out["long"],
+            load_s=out["load_s"], graph_pool_bytes=out["graph_pool_bytes"],
+            card=smi)
+        # the served decoder against the plain one on the short file
+        path = models / "short.wav"
+        path.write_bytes(wavs["short"])
+        pcm = load_pcm(str(path))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            mel = tw.log_mel_spectrogram(pcm)
+        mel_ms = (time.perf_counter() - t0) * 1e3 / 5
+        prompt = backend._prompt("", False)
+        max_new = min(backend.MAX_NEW, backend.spec.max_target
+                      - len(prompt) - 1)
+        dec, served = whisper_decode_check(backend, mel, prompt, max_new)
+        if short_tokens[0] != served[:dec["picks"]].tolist():
+            raise AssertionError("whisper: the route's tokens differ from "
+                                 "the runner's")
+        tm = whisper_timings(backend, mel, prompt)
+        out["decode"] = dec
+        out["timing"] = {**tm, "host_log_mel_ms_per_chunk": round(mel_ms, 3)}
+        log("audio_whisper", decode=dec, **out["timing"], card=smi)
+        out["vad"] = vad_leg(port, app, "vad", vad_audio, smi)
+        log("audio_vad", model="silero-vad v5 geometry (16 kHz)",
+            **out["vad"])
+    finally:
+        _shut(srv, th)
+        shutil.rmtree(models, ignore_errors=True)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("audio", phase_s=out["phase_s"], card=smi)
     return out
 
 
@@ -8685,9 +9323,12 @@ def main() -> int:
     ap.add_argument("--phases",
                     default="device,build,kernels,int8,moe,gguf,main,graphs,"
                             "engine,dispatch,tiers,weights,disagg,spec,text,"
-                            "lifecycle,families,recurrent_vision,retrieval")
+                            "lifecycle,families,recurrent_vision,retrieval,"
+                            "audio")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
+    ap.add_argument("--gguf-layers", type=int, default=None,
+                    help="depth of phase gguf's 8B file (default: all 32)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     at = {"phase": "start"}
@@ -8792,7 +9433,8 @@ def run_phases(args, at: dict) -> int:
         if name not in phases:
             continue
         at["phase"] = name
-        legs = run(smi, args.seed)
+        legs = (run(smi, args.seed, args.gguf_layers) if name == "gguf"
+                else run(smi, args.seed))
         for e in entries:
             # each leg's streamed burst, its counts set to 0 just before
             # it and read just after
@@ -8980,6 +9622,22 @@ def run_phases(args, at: dict) -> int:
             # the encoders and the stores run neither kernel: the JAX
             # encoder and store have no Pallas kernel either
             e["launches_retrieval"] = launched[e["name"]]
+    if "audio" in phases:
+        from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+        from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+            ragged_paged_attention,
+        )
+
+        for f in (ragged_paged_attention, int8_matmul):
+            f.launches = 0
+        at["phase"] = "audio"
+        phase_audio(smi, args.seed)
+        launched = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+        for e in entries:
+            # Whisper and the VAD run neither kernel: the JAX audio
+            # networks have no Pallas kernel either
+            e["launches_audio"] = launched[e["name"]]
     if "softcap_witness" in phases:
         at["phase"] = "softcap_witness"
         phase_softcap_witness(smi, args.seed)

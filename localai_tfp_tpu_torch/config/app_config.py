@@ -28,6 +28,8 @@ def _env(name: str, default=None, cast=str):
 @dataclass
 class ApplicationConfig:
     models_path: str = "models"
+    upload_dir: str = "uploads"  # transcription uploads, each removed
+    # when its request ends
     config_dir: str = "configuration"  # api_keys.json,
     # external_backends.json (hot-reloaded by config/watcher.py)
     state_dir: str = "run"  # runtime state (server.pid)
@@ -82,5 +84,6 @@ class ApplicationConfig:
         return cfg
 
     def ensure_dirs(self) -> None:
-        for d in (self.models_path, self.config_dir, self.state_dir):
+        for d in (self.models_path, self.upload_dir, self.config_dir,
+                  self.state_dir):
             Path(d).mkdir(parents=True, exist_ok=True)

@@ -36,14 +36,18 @@ log = logging.getLogger(__name__)
 LLM_BACKEND = "torch-llm"
 EMBEDDINGS_BACKEND = "torch-embeddings"
 RERANK_BACKEND = "torch-rerank"
+# the audio workers keep the JAX package's names, which its aliases use
+WHISPER_BACKEND = "jax-whisper"
+VAD_BACKEND = "jax-vad"
 
 BackendFactory = Callable[[], Backend]
 
 # backend-name aliasing (ref: initializers.go:24-42), the JAX package's
 # table with its workers' names ("jax-llm", "jax-embeddings",
 # "jax-rerank") mapped to this port's, so one YAML loads in both
-# packages; the media aliases keep the JAX names, which name the backend
-# a load of this port refuses
+# packages; the media aliases keep the JAX names: the audio workers are
+# registered under them, and a load of the image and speech names, which
+# this port does not serve yet, is refused
 ALIASES = {
     "": LLM_BACKEND,
     "jax-llm": LLM_BACKEND,
@@ -61,8 +65,8 @@ ALIASES = {
     "rerankers": RERANK_BACKEND,
     "rerank": RERANK_BACKEND,
     "jax-rerank": RERANK_BACKEND,
-    "whisper": "jax-whisper",
-    "faster-whisper": "jax-whisper",
+    "whisper": WHISPER_BACKEND,
+    "faster-whisper": WHISPER_BACKEND,
     "diffusers": "jax-diffusion",
     "stablediffusion": "jax-diffusion",
     "flux": "jax-diffusion",
@@ -72,8 +76,8 @@ ALIASES = {
     "bark": "jax-tts",
     "bark-cpp": "jax-tts",
     "tts": "jax-tts",
-    "silero-vad": "jax-vad",
-    "vad": "jax-vad",
+    "silero-vad": VAD_BACKEND,
+    "vad": VAD_BACKEND,
     "local-store": "local-store",
     "stores": "local-store",
 }
@@ -118,12 +122,16 @@ def register_default_backends(device=None) -> None:
     from ..workers.embeddings import TorchEmbeddingsBackend
     from ..workers.llm import TorchLLMBackend
     from ..workers.rerank import TorchRerankBackend
+    from ..workers.vad import TorchVADBackend
+    from ..workers.whisper import TorchWhisperBackend
 
     registry.register(LLM_BACKEND, lambda: TorchLLMBackend(device))
     registry.register(EMBEDDINGS_BACKEND,
                       lambda: TorchEmbeddingsBackend(device))
     registry.register(RERANK_BACKEND, lambda: TorchRerankBackend(device))
     registry.register("local-store", lambda: LocalStoreBackend(device))
+    registry.register(WHISPER_BACKEND, lambda: TorchWhisperBackend(device))
+    registry.register(VAD_BACKEND, lambda: TorchVADBackend(device))
 
 
 class LoadedModel:

@@ -174,9 +174,18 @@ class HFTokenizer:
             ids = [self.bos_id] + ids
         return ids
 
-    def decode(self, ids: list[int]) -> str:
-        text = self._tk.decode(ids)
+    def decode(self, ids: list[int], skip_special_tokens: bool = False
+               ) -> str:
+        text = self._tk.decode(ids, skip_special_tokens)
         return clean_up_tokenization(text) if self.clean_up_spaces else text
+
+    def token_to_id(self, token: str) -> Optional[int]:
+        """``convert_tokens_to_ids`` of one token: its id, else the unknown
+        token's (None without one)."""
+        tid = self._tk.token_to_id(token)
+        if tid is None and "unk_token" in self.special_tokens:
+            tid = self._tk.token_to_id(self.special_tokens["unk_token"])
+        return tid
 
     def encode_special(self, text: str) -> list[int]:
         """Encode WITH special tokens (``[CLS] ... [SEP]`` for BERT), as

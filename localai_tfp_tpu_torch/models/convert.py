@@ -5,7 +5,8 @@ with every per-layer weight stacked on a leading ``[L, ...]`` axis and
 projections in ``[in, out]`` layout. The port keeps exactly that tree, so
 conversion is a per-leaf copy: both packages then compute the same thing
 on the same weights; the encoder's tree (``encoder_params_from_jax``)
-and the vision towers' (``vision_params_from_numpy``) likewise. Leaves
+and the nested trees of the vision towers and Whisper
+(``params_from_numpy``) likewise. Leaves
 arrive as numpy arrays (``np.asarray`` of a JAX array); bfloat16 leaves
 (numpy's ``ml_dtypes`` extension type) are reinterpreted bit for bit.
 """
@@ -38,13 +39,19 @@ def to_tensor(a: Any, device: Any = "cpu",
 
 def params_from_numpy(tree: Mapping[str, Any], device: Any = "cpu",
                       dtype: Optional[torch.dtype] = None) -> Params:
-    """The JAX package's params tree (numpy leaves) -> the port's tree. A
-    quantized leaf (anything with ``.q`` and ``.scale`` planes, such as
-    the JAX package's ``QTensor``) becomes the port's ``QTensor`` with its
-    int8 and f32 planes as they are (``dtype`` casts neither)."""
+    """The JAX package's params tree (numpy leaves) -> the port's tree,
+    key for key. A nested tree (the vision towers' ``VisionParams``, its
+    stacked encoder layers under ``"layers"``; Whisper's, under
+    ``enc_attn``, ``enc_mlp``, ``dec_self``, ``dec_cross`` and
+    ``dec_mlp``) keeps its nesting. A quantized leaf (anything with
+    ``.q`` and ``.scale`` planes, such as the JAX package's ``QTensor``)
+    becomes the port's ``QTensor`` with its int8 and f32 planes as they
+    are (``dtype`` casts neither)."""
     out: Params = {}
     for k, v in tree.items():
-        if hasattr(v, "q") and hasattr(v, "scale"):
+        if isinstance(v, Mapping):
+            out[k] = params_from_numpy(v, device, dtype)
+        elif hasattr(v, "q") and hasattr(v, "scale"):
             out[k] = QTensor(to_tensor(v.q, device), to_tensor(v.scale, device))
         else:
             out[k] = to_tensor(v, device, dtype)
@@ -58,12 +65,3 @@ def encoder_params_from_jax(tree: Mapping[str, Any], device: Any = "cpu",
     keys and layouts, leaf by leaf."""
     return {k: to_tensor(v, device, dtype) for k, v in tree.items()}
 
-
-def vision_params_from_numpy(tree: Mapping[str, Any], device: Any = "cpu",
-                             dtype: Optional[torch.dtype] = None) -> dict:
-    """The JAX package's ``VisionParams`` (numpy leaves, the stacked
-    encoder layers under ``"layers"``) -> the port's: the same keys and
-    layouts, leaf by leaf."""
-    return {k: (vision_params_from_numpy(v, device, dtype)
-                if isinstance(v, Mapping) else to_tensor(v, device, dtype))
-            for k, v in tree.items()}

@@ -5,7 +5,7 @@ Counterpart of localai_tfp_tpu/models/vision.py. The parameter tree is
 the JAX package's (``VisionParams``: the patch conv as a ``[C*P*P, D]``
 matrix, per-layer weights stacked on a leading ``[L, ...]`` axis,
 projections ``[in, out]``), so both packages compute the same thing on
-the same weights (``models/convert.py::vision_params_from_numpy``).
+the same weights (``models/convert.py::params_from_numpy``).
 
 - ``vision_encode``: SigLIP (patchify + one product for the patch conv,
   learned positions, pre-LN layers with biased attention and a gelu-tanh

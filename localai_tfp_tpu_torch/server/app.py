@@ -27,8 +27,8 @@ in place of the JAX package's aiohttp app.
 
 Error bodies have the JAX server's shape: ``{"error": {"code": N,
 "message": "...", "type": ""}}``. The route handlers live in
-``openai_routes`` and ``localai_routes``; the state they read is
-``server/state.py``'s ``Application``.
+``openai_routes``, ``media_routes`` and ``localai_routes``; the state
+they read is ``server/state.py``'s ``Application``.
 """
 
 from __future__ import annotations
@@ -74,6 +74,7 @@ class HTTPError(Exception):
 
 def _routes() -> dict:
     from . import localai_routes as lr
+    from . import media_routes as mr
     from . import openai_routes as r
 
     routes = {
@@ -92,6 +93,8 @@ def _routes() -> dict:
         ("GET", "/debug/timeline"): lr.debug_timeline,
         ("GET", "/debug/profile"): lr.debug_profile,
     }
+    for p in ("/vad", "/v1/vad"):
+        routes[("POST", p)] = lr.vad
     for op in ("set", "delete", "get", "find"):
         routes[("POST", f"/stores/{op}")] = lr.stores
     for prefix in ("/v1", ""):
@@ -99,6 +102,8 @@ def _routes() -> dict:
         routes[("POST", f"{prefix}/completions")] = r.completions
         routes[("POST", f"{prefix}/edits")] = r.edits
         routes[("POST", f"{prefix}/embeddings")] = r.embeddings
+        routes[("POST", f"{prefix}/audio/transcriptions")] = \
+            mr.transcriptions
     return routes
 
 

@@ -1,7 +1,8 @@
 """LocalAI-native routes of the port (the subset of
 localai_tfp_tpu/server/localai_routes.py the port serves): health,
 ``/version``, ``/metrics``, ``/system``, the backend monitor and
-shutdown, Jina's ``/v1/rerank``, the vector stores
+shutdown, Jina's ``/v1/rerank``, voice-activity detection (``/vad``,
+``/v1/vad``), the vector stores
 (``/stores/{set,delete,get,find}``) and the debug routes
 (``/debug/traces``, ``/debug/timeline``, ``/debug/profile``) (ref:
 core/http/routes/localai.go, routes/health.go, routes/jina.go).
@@ -157,6 +158,21 @@ def rerank(h: Handler, app: Application) -> None:
         "results": [{"index": d.index, "relevance_score": d.relevance_score,
                      "document": {"text": d.text}} for d in res.results],
     })
+
+
+def vad(h: Handler, app: Application) -> None:
+    """``POST /vad`` and ``/v1/vad``: the speech segments of ``audio``
+    (f32 PCM at 16 kHz) by the body's VAD model; 404 when none resolves
+    (ref: routes/localai.go:46-52, endpoints/localai/vad.go)."""
+    body = h.read_body()
+    cfg = app.config_loader.resolve(body.get("model"), Usecase.VAD)
+    if cfg is None:
+        raise HTTPError(404, "no VAD model available")
+    backend = app.model_loader.load(cfg)
+    with app.busy(cfg.name):
+        res = backend.vad(body.get("audio") or [])
+    h.send_json(200, {"segments": [{"start": s.start, "end": s.end}
+                                   for s in res.segments]})
 
 
 def stores(h: Handler, app: Application) -> None:

@@ -1,5 +1,6 @@
 """Backend worker contract (the port's own copy of the parts of
-localai_tfp_tpu/workers/base.py the LLM, encoder and store workers use).
+localai_tfp_tpu/workers/base.py the LLM, encoder, store and audio
+workers use).
 
 Mirrors the reference's shared backend contract (ref:
 backend/backend.proto; Go interface pkg/grpc/backend.go:34-59): workers
@@ -117,6 +118,21 @@ class EmbeddingResult:
 
 
 @dataclass
+class TranscriptSegment:
+    id: int = 0
+    start: float = 0.0
+    end: float = 0.0
+    text: str = ""
+    tokens: list[int] = field(default_factory=list)
+
+
+@dataclass
+class TranscriptResult:
+    segments: list[TranscriptSegment] = field(default_factory=list)
+    text: str = ""
+
+
+@dataclass
 class DocumentResult:
     index: int = 0
     text: str = ""
@@ -127,6 +143,17 @@ class DocumentResult:
 class RerankResult:
     results: list[DocumentResult] = field(default_factory=list)
     usage: dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class VADSegment:
+    start: float = 0.0
+    end: float = 0.0
+
+
+@dataclass
+class VADResponse:
+    segments: list[VADSegment] = field(default_factory=list)
 
 
 @dataclass
@@ -179,6 +206,13 @@ class Backend(abc.ABC):
         raise NotImplementedError
 
     def stores_find(self, key, top_k: int):
+        raise NotImplementedError
+
+    def audio_transcription(self, audio_path: str, language: str = "",
+                            translate: bool = False) -> TranscriptResult:
+        raise NotImplementedError
+
+    def vad(self, audio: list[float]) -> VADResponse:
         raise NotImplementedError
 
     def status(self) -> StatusResponse:

@@ -1986,3 +1986,106 @@ def test_recurrent_decode_graphs_equal_the_eager_step(cuda_device, family):
     eos = int(got[10])
     trimmed = run.generate(prompt, 40, eos_id=eos).tolist()
     assert trimmed == got[:got.tolist().index(eos) + 1].tolist()
+
+
+def _whisper(cuda_device):
+    """A small Whisper in the port's tree (f32, random from a seed) and
+    a log-mel chunk."""
+    from localai_tfp_tpu_torch.models import whisper as tw
+
+    spec = tw.WhisperSpec(vocab_size=600, d_model=128, n_audio_layers=2,
+                          n_text_layers=2, n_heads=4, d_ff=256,
+                          max_target=96, sot=597, eot=598, no_timestamps=599,
+                          timestamp_begin=599, lang_base=596,
+                          task_transcribe=595, task_translate=594)
+    g = torch.Generator().manual_seed(21)
+    D, F, L = 128, 256, 2
+
+    def rnd(*s, scale=0.05):
+        return (torch.randn(s, generator=g) * scale).to(cuda_device)
+
+    def attn():
+        return {"wq": rnd(L, D, D), "bq": rnd(L, D), "wk": rnd(L, D, D),
+                "wv": rnd(L, D, D), "bv": rnd(L, D), "wo": rnd(L, D, D),
+                "bo": rnd(L, D), "ln_w": 1 + rnd(L, D), "ln_b": rnd(L, D)}
+
+    def mlp():
+        return {"w_up": rnd(L, D, F), "b_up": rnd(L, F),
+                "w_down": rnd(L, F, D), "b_down": rnd(L, D),
+                "ln_w": 1 + rnd(L, D), "ln_b": rnd(L, D)}
+
+    p = {"conv1_w": rnd(3, 80, D), "conv1_b": rnd(D),
+         "conv2_w": rnd(3, D, D), "conv2_b": rnd(D),
+         "enc_pos": rnd(1500, D, scale=0.5), "enc_attn": attn(),
+         "enc_mlp": mlp(), "enc_ln_w": 1 + rnd(D), "enc_ln_b": rnd(D),
+         "tok_emb": rnd(600, D, scale=0.5), "dec_pos": rnd(96, D),
+         "dec_self": attn(), "dec_cross": attn(), "dec_mlp": mlp(),
+         "dec_ln_w": 1 + rnd(D), "dec_ln_b": rnd(D)}
+    audio = np.random.default_rng(5).normal(size=16000 * 20) * 0.1
+    return tw, spec, p, tw.log_mel_spectrogram(audio.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_whisper_replays_equal_the_eager_decoder(cuda_device):
+    """The served Whisper (``WhisperRunner``: one encoder replay a chunk,
+    one replay a decode step) against the same bodies run eagerly: the
+    encoder states bitwise equal to the eager encoder's, greedy ids equal
+    (and each equal to the plain full-recompute decoder's unless the
+    plain logits' top two are within 1e-4 at the first difference), the
+    replay count, nothing captured after ``capture``."""
+    tw, spec, p, mel = _whisper(cuda_device)
+    run = tw.WhisperRunner(spec, p, cuda_device)
+    run.capture()
+    graphs = dict(run.graphs)
+    eager = tw.WhisperRunner(spec, p, cuda_device, eager=True)
+    m = torch.from_numpy(mel)[None].to(cuda_device)
+    enc = run.encode(mel).clone()
+    assert torch.equal(enc, tw.encode_audio(spec, p, m))
+    prompt = [597, 596, 595, 599]
+    for _ in range(2):
+        got = run.transcribe(mel, 80, prompt)
+        assert got.tolist() == eager.transcribe(mel, 80, prompt).tolist()
+    assert run.graphs == graphs and run.replays >= 2 * (1 + 4 + 32)
+    plain = tw.greedy_transcribe(spec, p, m, 80, torch.tensor(prompt))
+    plain = plain.cpu().numpy()
+    if plain.tolist() != got.tolist():
+        i = int(np.nonzero(plain != got)[0][0])
+        buf = torch.tensor([prompt + plain[:i].tolist()], device=cuda_device)
+        lg = tw.decode_logits(spec, p, buf, enc)[0, -1]
+        assert float(lg[plain[i]] - lg[got[i]]) < 1e-4
+
+
+@pytest.mark.cuda
+def test_vad_block_replays_equal_the_chunk_loop(cuda_device):
+    """The served VAD (the batched front end, then one graph replay a
+    block of LSTM steps) against the eager block bodies (bitwise) and the
+    chunk-by-chunk loop (within 1e-5), over 1875 chunks (60 s)."""
+    from localai_tfp_tpu_torch.models import vad_net as tv
+
+    g = torch.Generator().manual_seed(8)
+
+    def t(*shape, scale=0.1):
+        return torch.randn(*shape, generator=g) * scale
+
+    H = 128
+    sd = {"_model.stft.forward_basis_buffer": t(258, 1, 256)}
+    for i, (cin, cout) in enumerate(((129, 128), (128, 64), (64, 64),
+                                     (64, 128))):
+        sd[f"_model.encoder.{i}.reparam_conv.weight"] = t(cout, cin, 3)
+        sd[f"_model.encoder.{i}.reparam_conv.bias"] = t(cout)
+    for k in ("weight_ih", "weight_hh"):
+        sd[f"_model.decoder.rnn.{k}"] = t(4 * H, H)
+    for k in ("bias_ih", "bias_hh"):
+        sd[f"_model.decoder.rnn.{k}"] = t(4 * H)
+    sd["_model.decoder.decoder.2.weight"] = t(1, H, 1, scale=1.0)
+    sd["_model.decoder.decoder.2.bias"] = t(1)
+    params = tv.load_state_dict(sd, cuda_device)
+    audio = (np.random.default_rng(2).normal(size=16000 * 60) * 0.2
+             ).astype(np.float32)
+    run = tv.VADRunner(params, cuda_device)
+    got = run.probabilities(audio)
+    assert got.shape == (1875,) and run.replays == 30
+    eager = tv.VADRunner(params, cuda_device, eager=True)
+    assert np.array_equal(got, eager.probabilities(audio))
+    np.testing.assert_allclose(got, tv.speech_probs(params, audio), rtol=0,
+                               atol=1e-5)

@@ -140,6 +140,24 @@ def test_inplace_merge_keeps_storage_and_unmerge_restores(tmp_path):
                                atol=1e-4)
 
 
+def test_bf16_remove_and_apply_round_trip_matches_jax(tmp_path):
+    """bf16 leaves: merge, unmerge, merge again. The unmerge rounds
+    (W + d) - d to bf16 again, so the round trip need not give back the
+    first merge bitwise (ROADMAP §C 15); each stage is the JAX package's
+    bitwise, so the port drifts exactly as the reference does."""
+    spec, params = _weights(jnp.bfloat16, seed=3)
+    save_adapter(tmp_path, spec, layers=(0, 1), projs=[p for p, _ in PROJS])
+    tparams = params_from_numpy({k: np.asarray(v) for k, v in
+                                 params.items()})
+    want, got = params, tparams
+    for sign in (1.0, -1.0, 1.0):
+        want, _ = jl.merge_lora(spec, want, str(tmp_path), scale=0.5,
+                                sign=sign)
+        got, _ = tl.merge_lora(tiny_spec(), got, str(tmp_path), scale=0.5,
+                               sign=sign)
+        _equal(got, want)
+
+
 def test_merge_scale_and_errors(tmp_path):
     spec, params = _weights(jnp.float32, seed=2)
     save_adapter(tmp_path / "a", spec)

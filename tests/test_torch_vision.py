@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from localai_tfp_tpu.models import hf_loader as jax_loader
 from localai_tfp_tpu.models import vision as jax_vision
 from localai_tfp_tpu_torch.models import hf_loader, image_io, vision
-from localai_tfp_tpu_torch.models.convert import vision_params_from_numpy
+from localai_tfp_tpu_torch.models.convert import params_from_numpy
 
 TOWER_TOL = 1e-5  # f32 both sides
 
@@ -112,7 +112,7 @@ def test_towers_and_projectors_match_jax(mm_ckpt):
     kind, path = mm_ckpt
     jspec, jparams, _ = jax_loader.load_multimodal(path, dtype=jnp.float32)
     spec, params, _ = hf_loader.load_multimodal(path, dtype=torch.float32)
-    converted = vision_params_from_numpy(
+    converted = params_from_numpy(
         {k: np.asarray(v) for k, v in jparams.items() if k != "layers"}
         | {"layers": {
             k: np.asarray(v) for k, v in jparams["layers"].items()}})
