@@ -35,7 +35,8 @@ after one line naming the phase (``{"phase_failed": "<name>", ...}``):
    window 4096 and softcap 50 (no single PyTorch call computes it),
    Phi-3-mini's (H 32, Hkv 32, Dh 96, window 2047) and Phi-2's (Dh 80),
    Qwen1.5-MoE's (H 16, Hkv 16, Dh 128) and Qwen3-MoE's (H 32, Hkv 4: a
-   GQA group of 8).
+   GQA group of 8), and OuteTTS-0.2-500M's (H 14, Hkv 2, Dh 64: a group
+   of 7) at decode rows and at the 8B "mixed" rows.
 4. int8    — int8_matmul against its plain version at every 8B
    projection shape (K x N 4096 x 4096, 4096 x 1024, 4096 x 14336,
    14336 x 4096), M in INT8_M (decode rows, the speculative verify's
@@ -66,9 +67,11 @@ after one line naming the phase (``{"phase_failed": "<name>", ...}``):
    the worker captured at load (one per variant: row bucket, and token
    bucket for a mixed step); each replay adds the kernel launches its
    capture recorded to the counts.
-   Phases 6-8 serve the bf16 model at full depth and the int8 model at
-   its first ``INT8_CUT_LAYERS`` (8) layers, quantized at load with no
-   artifact (a depth cut that keeps the default run in its time budget).
+   Phases 6-8 and tiers serve the bf16 model at its first
+   ``CUT_LAYERS`` (8) layers and the int8 model at its first
+   ``INT8_CUT_LAYERS`` (8), quantized at load with no artifact (depth
+   cuts that keep the default run in its time budget; phase 5 serves both
+   at full depth).
 6. graphs  — on each model's server after phase 5: the burst's four
    requests in one admission wave on a fresh engine (graphs captured
    as at load) three times: by graph replay as served, with the same
@@ -117,8 +120,8 @@ after one line naming the phase (``{"phase_failed": "<name>", ...}``):
    decode ks; (d) a request whose timeout is below its predicted
    prefill refused before any prefill (504, the reference's text), and
    a shed request's Retry-After equal to the predicted drain.
-8b. tiers — on each model's server after phase 8 (the bf16 model at full
-   depth, the int8 model at its first ``INT8_CUT_LAYERS`` layers), the
+8b. tiers — on each model's server after phase 8 (the bf16 model at its
+   first ``CUT_LAYERS`` layers, the int8 model at ``INT8_CUT_LAYERS``), the
    warm KV tier on a fresh engine with ``LOCALAI_KV_TIER_HOST_MB=4096``
    (pinned) and a pool of ``TIER_KV_PAGES`` (twice the default, so 8
    returning sessions stage beside 8 residents); the tier's other knobs
@@ -273,8 +276,9 @@ after one line naming the phase (``{"phase_failed": "<name>", ...}``):
    published
    ``config.json`` with random bf16 weights, through the HTTP server
    (context 4096, 8 slots, byte tokenizer): (a) Qwen1.5-MoE-A2.7B-Chat at
-   full width and depth (24 layers, 60 experts, top-4 raw weights, a
-   sigmoid-gated shared expert, 28.6 GB) and (b) Qwen3-30B-A3B at full
+   full width and 8 of its 24 layers (60 experts, top-4 raw weights, a
+   sigmoid-gated shared expert; a depth cut of the run's time, 28.6 GB at
+   all 24) and (b) Qwen3-30B-A3B at full
    width, 8 of its 48 layers (128 experts, top-8 renormalized, q/k norms):
    four streamed chats at once, one past 1024 prompt tokens, B1 once per
    layer of every forward, every forward a replay, a greedy request held
@@ -362,6 +366,26 @@ after one line naming the phase (``{"phase_failed": "<name>", ...}``):
    LSTM steps), which are within 1e-4 of the chunk-by-chunk loop; each
    one's ms. Neither kernel runs here: the JAX audio networks have no
    Pallas kernel.
+18. tts — (after phase 17) speech out through the HTTP server at
+   published widths, random weights from the seed (``phase_tts``):
+   facebook/mms-tts-eng's VITS (16 kHz, its character tokenizer), a
+   piper voice at jaywalnut310/vits ljs_base's widths (22050 Hz, the
+   fallback phonemizer), Kokoro-82M with one voice pack (24 kHz) and
+   OuteTTS-0.2-500M's LM at Qwen2.5-0.5B's widths (24 layers, 14 query
+   heads over 2 KV heads of 64) over encodec_24khz's decoder, each behind
+   its YAML through /v1/audio/speech, /tts (the config's ``tts.voice``)
+   and /v1/text-to-speech/{voice}: 200, ``audio/x-wav``, the rate in the
+   header, request ms and real-time factor; each model against the same
+   model on the CPU with the same noise (VITS/piper: numpy draws,
+   durations equal; Kokoro: one injected source-noise sample, durations
+   equal) within 1e-3 of max|CPU| (TF32 off), its served samples within
+   one int16 unit of its own card waveform; OuteTTS's greedy picks held
+   to the dense forward and its codes decoded against the CPU's codec;
+   device ms by stage; after each unload the allocated bytes back within
+   256 MiB of the baseline. The formant voice and /v1/sound-generation's
+   noise bands give the host's bytes. B1 runs in OuteTTS's LM
+   (``launches_tts``); VITS, piper and Kokoro have no Pallas kernel in the
+   JAX package.
 
 Not in the default list: ``softcap_witness`` — Gemma-2-2B at full depth
 with every layer's q_proj at 4x and at 1x the softcap: the served greedy ids
@@ -811,6 +835,10 @@ FAMILY_KEYS = (
     ("phi2_decode", 32, 32, 80, 0, 0.0, "decode", 8),  # Phi-2
     ("qwen2moe_decode", 16, 16, 128, 0, 0.0, "decode", 8),  # Qwen1.5-MoE
     ("qwen3moe_decode", 32, 4, 128, 0, 0.0, "decode", 8),  # a GQA group 8
+    # OuteTTS-0.2-500M's LM (Qwen2.5-0.5B): a GQA group of 7, whose
+    # 64-row tiles hold 64 / 7 positions (one straddles two tiles)
+    ("oute_decode", 14, 2, 64, 0, 0.0, "decode", 8),
+    ("oute_mixed", 14, 2, 64, 0, 0.0, "mixed8b", 8),  # the 8B "mixed" rows
 )
 
 
@@ -819,8 +847,10 @@ def family_case(key: tuple, quant: bool, seed: int, L: int) -> dict:
     bf16 or int8 arena of page 256. ``decode``: seeded decode rows at
     contexts 144 .. 1831 (3900 where the arena holds 4096 tokens);
     ``mixed``: six of those decode rows beside a 512-token chunk at
-    1100 (across the 1024 window) and a 64-token chunk at 1700. The
-    softcap key's queries are scaled so the logits reach the cap."""
+    1100 (across the 1024 window) and a 64-token chunk at 1700;
+    ``mixed8b``: the 8B "mixed" q_lens (1, 1, 7, 256, 4, 64, 1, 1) ending
+    at those contexts. The softcap key's queries are scaled so the logits
+    reach the cap."""
     import numpy as np
     import torch
 
@@ -832,6 +862,9 @@ def family_case(key: tuple, quant: bool, seed: int, L: int) -> dict:
                       B).astype(np.int32)
     if rows == "decode":
         q_lens, pos0 = np.ones(B, np.int32), ctx - 1
+    elif rows == "mixed8b":  # make_case's "mixed" q_lens at these contexts
+        q_lens = np.resize(np.asarray([1, 1, 7, 256, 4, 64], np.int32), B)
+        pos0 = (ctx - q_lens).astype(np.int32)
     else:
         q_lens = np.asarray([1] * 6 + [512, 64], np.int32)
         pos0 = np.concatenate([ctx[:6] - 1, [1100, 1700]]).astype(np.int32)
@@ -1192,6 +1225,8 @@ CONTEXT = 2048  # the model config's context_size
 # the int8 model's phases graphs, engine and dispatch serve the 8B's first
 # layers (a depth cut that keeps the default run in its time budget)
 INT8_CUT_LAYERS = 8
+CUT_LAYERS = 8  # the bf16 8B's depth in phases graphs, engine, dispatch
+# and tiers (a depth cut: the run reached 1021.6-1030 s with them at 32)
 SLOTS = 8  # the model config's max_batch_slots
 
 
@@ -3909,8 +3944,25 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
     log("main_checkpoint", layers=layers, layers_wanted=layers_wanted,
         written=written, write_s=round(write_s, 3), dir=ckpt_name)
     bf16 = serve_model(models, "llama-3.1-8b", layers, quantized=False,
-                       engine=engine, graphs=graphs, seed=seed,
-                       dispatch=dispatch, tiers=tiers)
+                       engine=False, graphs=False, seed=seed)
+    if engine or graphs or dispatch or tiers:
+        # the bf16 model's phases 6-8 and tiers on the 8B's first
+        # CUT_LAYERS layers (a depth cut that keeps the default run in its
+        # time budget; phase main, text and lifecycle stay at full depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut = first_layers(models, ckpt_name, CUT_LAYERS)
+        model_yaml(models, f"llama-3.1-8b-first{CUT_LAYERS}", cut)
+        bf16_cut = serve_model(
+            models, f"llama-3.1-8b-first{CUT_LAYERS}", CUT_LAYERS,
+            quantized=False, engine=engine, graphs=graphs, seed=seed,
+            dispatch=dispatch, tiers=tiers)
+        for k in ("graphs", "engine", "dispatch", "tiers"):
+            bf16[k] = bf16_cut[k]
+        bf16["cut"] = {"layers": CUT_LAYERS,
+                       "reduced": f"phases graphs, engine, dispatch, tiers: "
+                                  f"layers {CUT_LAYERS} of {layers}",
+                       "burst_launches": bf16_cut["burst"]["launches"]}
     gc.collect()
     torch.cuda.empty_cache()
     # a cold int8 load: quantize on the card, then write the artifact
@@ -3920,10 +3972,8 @@ def phase_main(layers_wanted: int, seed: int, engine: bool,
     int8 = serve_model(models, "llama-3.1-8b-int8", layers, quantized=True,
                        engine=False, graphs=False, seed=seed)
     if engine or graphs or dispatch or tiers:
-        # the int8 model's phases 6-8 and tiers on the 8B's first
-        # INT8_CUT_LAYERS
-        # layers, quantized at load (a depth cut that keeps the default
-        # run in its time budget; no artifact is written)
+        # the int8 model's phases 6-8 and tiers on the same first
+        # layers, quantized at load (no artifact is written)
         gc.collect()
         torch.cuda.empty_cache()
         cut = first_layers(models, ckpt_name, INT8_CUT_LAYERS)
@@ -6938,6 +6988,7 @@ QWEN3_MOE = {
     "eos_token_id": 151645,
 }
 QWEN3_MOE_LAYERS = 8  # a depth cut: 61 GB in bf16 at all 48
+QWEN15_MOE_LAYERS = 8  # a depth cut of the run's time: 75-77 s at all 24
 # the MoE block against a per-token loop over each token's routed experts
 # (and the shared expert) in f32/f64: bf16 products and sums move the
 # output by a few bf16 units of its largest value; one wrong expert or
@@ -7028,7 +7079,8 @@ def moe_block_check(eng, layer: int, seed: int) -> dict:
 
 
 def phase_moe(smi: str, seed: int) -> dict:
-    """(a) Qwen1.5-MoE-A2.7B-Chat at full width and depth, (b) Qwen3-30B-
+    """(a) Qwen1.5-MoE-A2.7B-Chat at full width and 8 of its 24 layers,
+    (b) Qwen3-30B-
     A3B at full width and 8 of its 48 layers: each written from its
     published config.json with random bf16 weights, served through the
     HTTP server (four streamed chats at once, one past 1024 prompt
@@ -7045,7 +7097,9 @@ def phase_moe(smi: str, seed: int) -> dict:
     out = {}
     chats = family_chats()
     for key, g, layers, cut in (
-            ("qwen15_moe", QWEN15_MOE, QWEN15_MOE["num_hidden_layers"], None),
+            ("qwen15_moe", QWEN15_MOE, QWEN15_MOE_LAYERS,
+             f"layers {QWEN15_MOE_LAYERS} of "
+             f"{QWEN15_MOE['num_hidden_layers']}"),
             ("qwen3_moe", QWEN3_MOE, QWEN3_MOE_LAYERS,
              f"layers {QWEN3_MOE_LAYERS} of "
              f"{QWEN3_MOE['num_hidden_layers']}")):
@@ -8765,6 +8819,1037 @@ def phase_audio(smi: str, seed: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------- phase tts
+
+# facebook/mms-tts-eng's published config.json (models/vits.py's VitsSpec
+# defaults): the inference widths; its 38-symbol character vocabulary
+MMS_TTS_ENG = {
+    "model_type": "vits", "vocab_size": 38, "hidden_size": 192,
+    "num_hidden_layers": 6, "num_attention_heads": 2, "window_size": 4,
+    "ffn_dim": 768, "ffn_kernel_size": 3, "flow_size": 192,
+    "spectrogram_bins": 513, "upsample_initial_channel": 512,
+    "upsample_rates": [8, 8, 2, 2], "upsample_kernel_sizes": [16, 16, 4, 4],
+    "resblock_kernel_sizes": [3, 7, 11],
+    "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    "leaky_relu_slope": 0.1, "depth_separable_channels": 2,
+    "depth_separable_num_layers": 3, "duration_predictor_flow_bins": 10,
+    "duration_predictor_tail_bound": 5.0,
+    "duration_predictor_kernel_size": 3, "duration_predictor_num_flows": 4,
+    "prior_encoder_num_flows": 4, "prior_encoder_num_wavenet_layers": 4,
+    "wavenet_kernel_size": 5, "wavenet_dilation_rate": 1,
+    "noise_scale": 0.667, "noise_scale_duration": 0.8, "speaking_rate": 1.0,
+    "sampling_rate": 16000,
+}
+MMS_VOCAB = list("_ abcdefghijklmnopqrstuvwxyz'-0123456789")[:38]
+# jaywalnut310/vits configs/ljs_base.json's model (piper's medium voices):
+# MMS's widths, 178 symbols, 22050 Hz, one speaker
+LJS_BASE = {**MMS_TTS_ENG, "vocab_size": 178, "sampling_rate": 22050}
+# hexgrad/Kokoro-82M's config.json (models/kokoro.py's KokoroSpec defaults)
+KOKORO_82M = {
+    "istftnet": {"upsample_kernel_sizes": [20, 12], "upsample_rates": [10, 6],
+                 "gen_istft_hop_size": 5, "gen_istft_n_fft": 20,
+                 "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                 "resblock_kernel_sizes": [3, 7, 11],
+                 "upsample_initial_channel": 512},
+    "dim_in": 64, "dropout": 0.2, "hidden_dim": 512, "max_conv_dim": 512,
+    "max_dur": 50, "multispeaker": True, "n_layer": 3, "n_mels": 80,
+    "n_token": 178, "style_dim": 128, "text_encoder_kernel_size": 5,
+    "plbert": {"hidden_size": 768, "num_attention_heads": 12,
+               "intermediate_size": 2048, "max_position_embeddings": 512,
+               "num_hidden_layers": 12, "dropout": 0.1},
+}
+KOKORO_VOICE_ROWS = 510  # a voice pack's rows (one per token count)
+KOKORO_DUR_BIAS = -2.0  # duration_proj's bias: ~6 frames a token
+# OuteTTS-0.2-500M's LM: Qwen2.5-0.5B's config.json
+QWEN25_05B = {
+    "model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"],
+    "hidden_size": 896, "intermediate_size": 4864,
+    "num_attention_heads": 14, "num_key_value_heads": 2,
+    "num_hidden_layers": 24, "vocab_size": 151936,
+    "max_position_embeddings": 32768, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-6, "hidden_act": "silu", "tie_word_embeddings": True,
+    "use_sliding_window": False, "sliding_window": 32768,
+    "max_window_layers": 21, "bos_token_id": 151643,
+    "eos_token_id": 151643, "torch_dtype": "bfloat16",
+}
+# facebook/encodec_24khz's config.json (the decoder OuteTTS's codes go
+# through in the JAX package; OuteTTS-0.2 itself ships a WavTokenizer)
+ENCODEC_24KHZ = {
+    "model_type": "encodec", "sampling_rate": 24000, "audio_channels": 1,
+    "num_filters": 32, "upsampling_ratios": [8, 5, 4, 2],
+    "hidden_size": 128, "codebook_size": 1024, "codebook_dim": 128,
+    "num_lstm_layers": 2, "kernel_size": 7, "last_kernel_size": 7,
+    "residual_kernel_size": 3, "dilation_growth_rate": 2,
+    "num_residual_layers": 1, "compress": 2,
+    "target_bandwidths": [1.5, 3.0, 6.0, 12.0, 24.0],
+    "norm_type": "weight_norm", "use_causal_conv": True, "pad_mode": "reflect",
+}
+OUTE_SPECIALS = ["<|endoftext|>", "<|im_start|>", "<|im_end|>",
+                 "<|text_start|>", "<|text_end|>", "<|audio_start|>",
+                 "<|audio_end|>"]
+OUTE_CODE_SCALE = 16  # the tied head's code rows against the others: a
+# random LM then emits codes, as a trained one does after <|audio_start|>
+OUTE_GREEDY_TOKENS = 64
+TTS_TEXT = "The quick brown fox jumps over the lazy dog."
+TTS_TOL = 1e-3  # card against CPU, of max|CPU waveform|; f32, TF32 off
+TTS_LSB = 1  # served int16 samples against the card's own waveform
+
+
+def vits_layout(c: dict) -> list[tuple[str, tuple]]:
+    """(HF name, shape) of every tensor ``models/vits.py`` reads from an
+    HF VitsModel checkpoint of config ``c`` (the posterior encoder,
+    training only, is not written); the WaveNet convolutions weight-normed
+    (``original0`` [O, 1, 1], ``original1``)."""
+    H, F, V = c["hidden_size"], c["ffn_dim"], c["vocab_size"]
+    k, fl = c["ffn_kernel_size"], c["flow_size"]
+    dh = H // c["num_attention_heads"]
+    w, dk, bins = c["window_size"], c["duration_predictor_kernel_size"], \
+        c["duration_predictor_flow_bins"]
+    out = [("text_encoder.embed_tokens.weight", (V, H)),
+           ("text_encoder.project.weight", (2 * fl, H, 1)),
+           ("text_encoder.project.bias", (2 * fl,))]
+    for i in range(c["num_hidden_layers"]):
+        lp = f"text_encoder.encoder.layers.{i}."
+        for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out += [(lp + f"attention.{p}.weight", (H, H)),
+                    (lp + f"attention.{p}.bias", (H,))]
+        out += [(lp + "attention.emb_rel_k", (1, 2 * w + 1, dh)),
+                (lp + "attention.emb_rel_v", (1, 2 * w + 1, dh)),
+                (lp + "layer_norm.weight", (H,)), (lp + "layer_norm.bias", (H,)),
+                (lp + "feed_forward.conv_1.weight", (F, H, k)),
+                (lp + "feed_forward.conv_1.bias", (F,)),
+                (lp + "feed_forward.conv_2.weight", (H, F, k)),
+                (lp + "feed_forward.conv_2.bias", (H,)),
+                (lp + "final_layer_norm.weight", (H,)),
+                (lp + "final_layer_norm.bias", (H,))]
+
+    def dds(prefix):
+        rows = []
+        for i in range(c["depth_separable_num_layers"]):
+            rows += [(f"{prefix}.convs_dilated.{i}.weight", (H, 1, dk)),
+                     (f"{prefix}.convs_dilated.{i}.bias", (H,)),
+                     (f"{prefix}.convs_pointwise.{i}.weight", (H, H, 1)),
+                     (f"{prefix}.convs_pointwise.{i}.bias", (H,))]
+            for n in ("norms_1", "norms_2"):
+                rows += [(f"{prefix}.{n}.{i}.weight", (H,)),
+                         (f"{prefix}.{n}.{i}.bias", (H,))]
+        return rows
+
+    dp = "duration_predictor"
+    half = c["depth_separable_channels"] // 2
+    out += [(f"{dp}.conv_pre.weight", (H, H, 1)), (f"{dp}.conv_pre.bias", (H,)),
+            (f"{dp}.conv_proj.weight", (H, H, 1)),
+            (f"{dp}.conv_proj.bias", (H,))] + dds(f"{dp}.conv_dds")
+    out += [(f"{dp}.flows.0.translate", (2 * half, 1)),
+            (f"{dp}.flows.0.log_scale", (2 * half, 1))]
+    for i in range(1, c["duration_predictor_num_flows"] + 1):
+        fp = f"{dp}.flows.{i}"
+        out += [(f"{fp}.conv_pre.weight", (H, half, 1)),
+                (f"{fp}.conv_pre.bias", (H,)),
+                (f"{fp}.conv_proj.weight", (half * (3 * bins - 1), H, 1)),
+                (f"{fp}.conv_proj.bias", (half * (3 * bins - 1),))]
+        out += dds(f"{fp}.conv_dds")
+    wk, n_wn = c["wavenet_kernel_size"], c["prior_encoder_num_wavenet_layers"]
+    for i in range(c["prior_encoder_num_flows"]):
+        fp = f"flow.flows.{i}"
+        out += [(f"{fp}.conv_pre.weight", (H, fl // 2, 1)),
+                (f"{fp}.conv_pre.bias", (H,)),
+                (f"{fp}.conv_post.weight", (fl // 2, H, 1)),
+                (f"{fp}.conv_post.bias", (fl // 2,))]
+        for j in range(n_wn):
+            rs = 2 * H if j < n_wn - 1 else H
+            for name, o, ii, kk in (("in_layers", 2 * H, H, wk),
+                                    ("res_skip_layers", rs, H, 1)):
+                wp = f"{fp}.wavenet.{name}.{j}"
+                out += [(f"{wp}.parametrizations.weight.original0", (o, 1, 1)),
+                        (f"{wp}.parametrizations.weight.original1",
+                         (o, ii, kk)), (f"{wp}.bias", (o,))]
+    ch = c["upsample_initial_channel"]
+    out += [("decoder.conv_pre.weight", (ch, fl, 7)),
+            ("decoder.conv_pre.bias", (ch,))]
+    n_k = len(c["resblock_kernel_sizes"])
+    for i, kk in enumerate(c["upsample_kernel_sizes"]):
+        out += [(f"decoder.upsampler.{i}.weight", (ch, ch // 2, kk)),
+                (f"decoder.upsampler.{i}.bias", (ch // 2,))]
+        ch //= 2
+        for j, rk in enumerate(c["resblock_kernel_sizes"]):
+            rp = f"decoder.resblocks.{i * n_k + j}"
+            for m in range(len(c["resblock_dilation_sizes"][j])):
+                for conv in ("convs1", "convs2"):
+                    out += [(f"{rp}.{conv}.{m}.weight", (ch, ch, rk)),
+                            (f"{rp}.{conv}.{m}.bias", (ch,))]
+    out.append(("decoder.conv_post.weight", (1, ch, 7)))
+    return out
+
+
+def vits_tensor(name: str, shape: tuple, gen) -> "torch.Tensor":
+    """One random VITS tensor: norms 1, biases and the duration affine 0,
+    relative embeddings and the character embedding as HF draws them,
+    matrices at 0.5 / sqrt(fan-in), except the duration flows' spline
+    projections at 0.02 (near-identity splines: a few frames a symbol),
+    and each weight norm's magnitude the norm of its direction (the
+    folded weight is the direction)."""
+    import torch
+
+    if name.endswith(("translate", "log_scale", ".bias")):
+        return torch.zeros(shape)
+    if len(shape) == 1:
+        return torch.ones(shape)
+    w = torch.randn(shape, generator=gen)
+    if "emb_rel" in name:
+        return w * shape[-1] ** -0.5
+    if name.endswith("embed_tokens.weight"):
+        return w * shape[1] ** -0.5
+    if name.endswith("original0"):
+        return w  # replaced by the direction's norm in write_vits
+    fan_in = 1
+    for s in shape[1:]:
+        fan_in *= s
+    if name.startswith("decoder.upsampler"):
+        fan_in = shape[0] * shape[2] // 2
+    if "duration_predictor.flows" in name and "conv_proj" in name:
+        return w * 0.02
+    return w * 0.5 * fan_in ** -0.5
+
+
+def write_vits(layout: list, seed: int) -> dict:
+    """{name: f32 tensor} of ``layout``, on the host, from ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    sd = {n: vits_tensor(n, s, gen) for n, s in layout}
+    for n in sd:
+        if n.endswith("original0"):
+            v = sd[n[:-1] + "1"]
+            sd[n] = v.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+    return sd
+
+
+def write_mms_dir(d: Path, seed: int) -> int:
+    """facebook/mms-tts-eng's geometry as an HF VITS directory: config,
+    safetensors, ``vocab.json`` and the tokenizer config (pad = the blank,
+    no phonemizer). Returns the parameter bytes."""
+    from localai_tfp_tpu_torch.models.safetensors_io import save_file
+
+    d.mkdir(parents=True)
+    sd = write_vits(vits_layout(MMS_TTS_ENG), seed)
+    save_file(sd, str(d / "model.safetensors"))
+    (d / "config.json").write_text(json.dumps(MMS_TTS_ENG, indent=1))
+    (d / "vocab.json").write_text(json.dumps(
+        {c: i for i, c in enumerate(MMS_VOCAB)}))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "VitsTokenizer", "add_blank": True,
+        "normalize": True, "phonemize": False, "language": "eng",
+        "pad_token": MMS_VOCAB[0], "unk_token": "<unk>"}))
+    return sum(t.numel() * 4 for t in sd.values())
+
+
+def _onnx_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b, n = n & 0x7F, n >> 7
+        out.append(b | 0x80 if n else b)
+        if not n:
+            return bytes(out)
+
+
+def _onnx_ld(field: int, payload: bytes) -> bytes:
+    return _onnx_varint((field << 3) | 2) + _onnx_varint(len(payload)) \
+        + payload
+
+
+def write_piper_voice_files(d: Path, seed: int) -> int:
+    """A piper voice at ljs_base's widths: the HF-named VITS tensors
+    under their original-VITS names (``models/piper.py``'s shim), weight
+    norm fused and attention projections as 1x1 convolutions as
+    torch.onnx.export leaves them, in an ONNX ModelProto's initializers;
+    the sidecar json with a phoneme id map over the fallback
+    phonemizer's symbols (espeak-ng is not on the machine). Returns the
+    parameter bytes."""
+    import numpy as np
+
+    from localai_tfp_tpu_torch.models.piper import (_G2P_DIGRAPHS,
+                                                    _G2P_SINGLE, _piper_name)
+
+    d.mkdir(parents=True)
+    sd = write_vits(vits_layout(LJS_BASE), seed)
+    fused = {}
+    for n, t in sd.items():
+        if n.endswith("original1"):
+            fused[n[: -len(".parametrizations.weight.original1")]
+                  + ".weight"] = t
+        elif not n.endswith("original0"):
+            fused[n] = t
+    graph = bytearray()
+    for hf, t in fused.items():
+        pn = _piper_name(hf)
+        arr = t.numpy().astype(np.float32)
+        if hf.endswith(("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                        "out_proj.weight")):
+            arr = arr[..., None]
+        tp = b"".join(_onnx_varint(1 << 3) + _onnx_varint(s)
+                      for s in arr.shape)
+        tp += _onnx_varint(2 << 3) + _onnx_varint(1)  # FLOAT
+        tp += _onnx_ld(8, pn.encode()) + _onnx_ld(9, arr.tobytes())
+        graph += _onnx_ld(5, tp)
+    (d / "voice.onnx").write_bytes(_onnx_ld(7, bytes(graph)))
+    symbols = sorted({c for _, ph in _G2P_DIGRAPHS for c in ph}
+                     | {c for ph in _G2P_SINGLE.values() for c in ph})
+    id_map = {"_": [0], "^": [1], "$": [2]}
+    for i, s in enumerate(symbols):
+        id_map[s] = [3 + i]
+    (d / "voice.onnx.json").write_text(json.dumps({
+        "audio": {"sample_rate": LJS_BASE["sampling_rate"]},
+        "num_speakers": 1, "phoneme_type": "espeak",
+        "espeak": {"voice": "en-us"}, "phoneme_id_map": id_map,
+        "inference": {"noise_scale": 0.667, "length_scale": 1.0,
+                      "noise_w": 0.8}}))
+    return sum(t.numel() * 4 for t in fused.values())
+
+
+def kokoro_layout(c: dict) -> list[tuple[str, tuple, str]]:
+    """(module, state-dict name, shape) of a Kokoro checkpoint of config
+    ``c`` in the official layout: PLBERT (transformers' AlbertModel),
+    bert_encoder, text_encoder, predictor and decoder (weight-normed
+    convolutions as ``weight_g`` [O, 1, 1] and ``weight_v``)."""
+    ist, pl = c["istftnet"], c["plbert"]
+    H, S, T = c["hidden_dim"], c["style_dim"], c["n_token"]
+    B, I = pl["hidden_size"], pl["intermediate_size"]
+    E = pl.get("embedding_size", 128)
+    out = []
+
+    def add(mod, name, shape):
+        out.append((mod, name, tuple(shape)))
+
+    def wn(mod, name, o, i, k, bias=True):
+        add(mod, f"{name}.weight_g", (o, 1, 1))
+        add(mod, f"{name}.weight_v", (o, i, k))
+        if bias:
+            add(mod, f"{name}.bias", (o,))
+
+    def lstm(mod, name, i, h):
+        for s in ("_l0", "_l0_reverse"):
+            add(mod, f"{name}.weight_ih{s}", (4 * h, i))
+            add(mod, f"{name}.weight_hh{s}", (4 * h, h))
+            add(mod, f"{name}.bias_ih{s}", (4 * h,))
+            add(mod, f"{name}.bias_hh{s}", (4 * h,))
+
+    def lin(mod, name, o, i):
+        add(mod, f"{name}.weight", (o, i))
+        add(mod, f"{name}.bias", (o,))
+
+    def ln(mod, name, n):
+        add(mod, f"{name}.weight", (n,))
+        add(mod, f"{name}.bias", (n,))
+
+    def resblk(mod, name, din, dout, up=False):
+        wn(mod, f"{name}.conv1", dout, din, 3)
+        wn(mod, f"{name}.conv2", dout, dout, 3)
+        lin(mod, f"{name}.norm1.fc", 2 * din, S)
+        lin(mod, f"{name}.norm2.fc", 2 * dout, S)
+        if din != dout:
+            wn(mod, f"{name}.conv1x1", dout, din, 1, bias=False)
+        if up:
+            wn(mod, f"{name}.pool", din, 1, 3)
+
+    def adain_res1(mod, name, ch, k, dil):
+        for j in range(len(dil)):
+            wn(mod, f"{name}.convs1.{j}", ch, ch, k)
+            wn(mod, f"{name}.convs2.{j}", ch, ch, k)
+            lin(mod, f"{name}.adain1.{j}.fc", 2 * ch, S)
+            lin(mod, f"{name}.adain2.{j}.fc", 2 * ch, S)
+            add(mod, f"{name}.alpha1.{j}", (1, ch, 1))
+            add(mod, f"{name}.alpha2.{j}", (1, ch, 1))
+
+    m = "bert"
+    add(m, "embeddings.word_embeddings.weight", (T, E))
+    add(m, "embeddings.position_embeddings.weight",
+        (pl["max_position_embeddings"], E))
+    add(m, "embeddings.token_type_embeddings.weight", (2, E))
+    ln(m, "embeddings.LayerNorm", E)
+    lin(m, "encoder.embedding_hidden_mapping_in", B, E)
+    lp = "encoder.albert_layer_groups.0.albert_layers.0"
+    ln(m, f"{lp}.full_layer_layer_norm", B)
+    for p in ("query", "key", "value", "dense"):
+        lin(m, f"{lp}.attention.{p}", B, B)
+    ln(m, f"{lp}.attention.LayerNorm", B)
+    lin(m, f"{lp}.ffn", I, B)
+    lin(m, f"{lp}.ffn_output", B, I)
+    lin("bert_encoder", "", H, B)
+    m = "text_encoder"
+    add(m, "embedding.weight", (T, H))
+    for i in range(c["n_layer"]):
+        wn(m, f"cnn.{i}.0", H, H, c["text_encoder_kernel_size"])
+        add(m, f"cnn.{i}.1.gamma", (H,))
+        add(m, f"cnn.{i}.1.beta", (H,))
+    lstm(m, "lstm", H, H // 2)
+    m = "predictor"
+    for i in range(c["n_layer"]):
+        lstm(m, f"text_encoder.lstms.{2 * i}", H + S, H // 2)
+        lin(m, f"text_encoder.lstms.{2 * i + 1}.fc", 2 * H, S)
+    lstm(m, "lstm", H + S, H // 2)
+    lin(m, "duration_proj.linear_layer", c["max_dur"], H)
+    lstm(m, "shared", H + S, H // 2)
+    for br in ("F0", "N"):
+        resblk(m, f"{br}.0", H, H)
+        resblk(m, f"{br}.1", H, H // 2, up=True)
+        resblk(m, f"{br}.2", H // 2, H // 2)
+        add(m, f"{br}_proj.weight", (1, H // 2, 1))
+        add(m, f"{br}_proj.bias", (1,))
+    m = "decoder"
+    dh, ar = c.get("decoder_hidden", 1024), c.get("asr_res_dim", 64)
+    resblk(m, "encode", H + 2, dh)
+    for i in range(3):
+        resblk(m, f"decode.{i}", dh + 2 + ar, dh)
+    resblk(m, "decode.3", dh + 2 + ar, ist["upsample_initial_channel"],
+           up=True)
+    wn(m, "F0_conv", 1, 1, 3)
+    wn(m, "N_conv", 1, 1, 3)
+    wn(m, "asr_res.0", ar, H, 1)
+    g = "generator"
+    nf = ist["gen_istft_n_fft"] + 2
+    lin(m, f"{g}.m_source.l_linear", 1, 9)
+    ch = ist["upsample_initial_channel"]
+    rates = ist["upsample_rates"]
+    for i, (u, k) in enumerate(zip(rates, ist["upsample_kernel_sizes"])):
+        # a ConvTranspose1d: weight [in, out, k], its norm over dim 0
+        wn(m, f"{g}.ups.{i}", ch, ch // 2, k, bias=False)
+        add(m, f"{g}.ups.{i}.bias", (ch // 2,))
+        ch //= 2
+        if i + 1 < len(rates):
+            s = 1
+            for r in rates[i + 1:]:
+                s *= r
+            add(m, f"{g}.noise_convs.{i}.weight", (ch, nf, 2 * s))
+        else:
+            add(m, f"{g}.noise_convs.{i}.weight", (ch, nf, 1))
+        add(m, f"{g}.noise_convs.{i}.bias", (ch,))
+        adain_res1(m, f"{g}.noise_res.{i}", ch,
+                   7 if i + 1 < len(rates) else 11, (1, 3, 5))
+    for i in range(len(rates)):
+        ch_i = ist["upsample_initial_channel"] // 2 ** (i + 1)
+        for j, (k, dil) in enumerate(zip(ist["resblock_kernel_sizes"],
+                                         ist["resblock_dilation_sizes"])):
+            adain_res1(m, f"{g}.resblocks.{i * len(dil) + j}", ch_i, k, dil)
+    wn(m, f"{g}.conv_post", nf, ch, 7)
+    return [(mod, name.lstrip("."), shape) for mod, name, shape in out]
+
+
+def kokoro_tensor(name: str, shape: tuple, gen) -> "torch.Tensor":
+    """One random Kokoro tensor: norms and snake alphas 1, biases 0 (the
+    duration projection's ``KOKORO_DUR_BIAS``), embeddings N(0, 0.02) as
+    transformers draws ALBERT's (the text encoder's at 1), LSTM weights
+    U(+-1/sqrt(hidden)) as torch draws them, other matrices at
+    1/sqrt(fan-in) (the generator's last convolution at a tenth of that:
+    log-magnitudes near 0); a weight norm's magnitude is its direction's
+    norm."""
+    import torch
+
+    if "alpha" in name or name.endswith(("gamma", "LayerNorm.weight",
+                                         "layer_norm.weight")):
+        return torch.ones(shape)
+    if name.endswith(("beta", "bias")) or "bias_" in name:
+        if name.endswith("duration_proj.linear_layer.bias"):
+            return torch.full(shape, KOKORO_DUR_BIAS)
+        return torch.zeros(shape)
+    if "weight_ih" in name or "weight_hh" in name:
+        h = shape[0] // 4
+        return (torch.rand(shape, generator=gen) * 2 - 1) * h ** -0.5
+    w = torch.randn(shape, generator=gen)
+    if "embeddings" in name:
+        return w * 0.02
+    if name.endswith("embedding.weight"):
+        return w
+    fan_in = 1
+    for s in shape[1:]:
+        fan_in *= s
+    if "conv_post" in name:  # the iSTFT's log-magnitudes near 0
+        return w * 0.1 * fan_in ** -0.5
+    return w * fan_in ** -0.5
+
+
+def write_kokoro_dir(d: Path, seed: int) -> int:
+    """Kokoro-82M's geometry in the official layout: config.json, a
+    ``.pth`` of ``{"net": {module: state_dict}}`` and one voice pack.
+    Returns the parameter bytes."""
+    import torch
+
+    d.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(seed)
+    net: dict = {}
+    for mod, name, shape in kokoro_layout(KOKORO_82M):
+        net.setdefault(mod, {})[name] = kokoro_tensor(name, shape, gen)
+    for sd in net.values():
+        for n in list(sd):
+            if n.endswith("weight_g"):
+                v = sd[n[:-1] + "v"]
+                sd[n] = v.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+    torch.save({"net": net}, d / "kokoro-v0_19.pth")
+    (d / "config.json").write_text(json.dumps(KOKORO_82M, indent=1))
+    (d / "voices").mkdir()
+    torch.save(torch.randn(KOKORO_VOICE_ROWS, 1,
+                           2 * KOKORO_82M["style_dim"], generator=gen) * 0.1,
+               d / "voices" / "af.pt")
+    return sum(t.numel() * 4 for sd in net.values() for t in sd.values())
+
+
+def encodec_layout(c: dict) -> list[tuple[str, tuple]]:
+    """(name, shape) of an HF EncodecModel's quantizer codebooks and
+    decoder (weight-normed convolutions as ``parametrizations``)."""
+    import math
+
+    n_q = int(1000 * max(c["target_bandwidths"]) // (
+        c["sampling_rate"] // math.prod(c["upsampling_ratios"]) * 10))
+    out = [(f"quantizer.layers.{q}.codebook.embed",
+            (c["codebook_size"], c["codebook_dim"])) for q in range(n_q)]
+
+    def conv(idx, sub, o, i, k):
+        p = f"decoder.layers.{idx}.{sub}"
+        return [(f"{p}.parametrizations.weight.original0", (o, 1, 1)),
+                (f"{p}.parametrizations.weight.original1", (o, i, k)),
+                (f"{p}.bias", (o,))]
+
+    scale = 2 ** len(c["upsampling_ratios"])
+    ch = scale * c["num_filters"]
+    out += conv(0, "conv", ch, c["hidden_size"], c["kernel_size"])
+    for li in range(c["num_lstm_layers"]):
+        for n, shape in (("weight_ih", (4 * ch, ch)),
+                         ("weight_hh", (4 * ch, ch)),
+                         ("bias_ih", (4 * ch,)), ("bias_hh", (4 * ch,))):
+            out.append((f"decoder.layers.1.lstm.{n}_l{li}", shape))
+    idx = 2
+    for r in c["upsampling_ratios"]:
+        idx += 1  # the ELU before the upsampler
+        p = f"decoder.layers.{idx}.conv"
+        out += [(f"{p}.parametrizations.weight.original0", (ch, 1, 1)),
+                (f"{p}.parametrizations.weight.original1",
+                 (ch, ch // 2, 2 * r)), (f"{p}.bias", (ch // 2,))]
+        ch //= 2
+        idx += 1
+        hid = ch // c["compress"]
+        out += conv(idx, "block.1.conv", hid, ch, c["residual_kernel_size"])
+        out += conv(idx, "block.3.conv", ch, hid, 1)
+        out += conv(idx, "shortcut.conv", ch, ch, 1)
+        idx += 1
+    out += conv(idx + 1, "conv", c["audio_channels"], ch,
+                c["last_kernel_size"])
+    return out
+
+
+def write_oute_dir(d: Path, seed: int) -> int:
+    """OuteTTS-0.2-500M's LM at Qwen2.5-0.5B's widths (random bf16, made
+    on the card) with a byte-level BPE whose prompt markers are special
+    added tokens and whose 1024 ``<|c_N|>`` codes (the codec's codebook)
+    are added tokens at the top of the vocabulary, the tied head's code
+    rows at ``OUTE_CODE_SCALE``x the others; under ``codec/`` the
+    encodec_24khz decoder (f32, random); a speaker profile. Returns the
+    parameter bytes."""
+    import math
+
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import (save_file,
+                                                             save_iter)
+
+    g = QWEN25_05B
+    d.mkdir(parents=True)
+    n_codes = ENCODEC_24KHZ["codebook_size"]
+    # the byte-level BPE (ids below V - specials - codes), then the
+    # markers, then the codes
+    V = g["vocab_size"]
+    vocab, merges = text_vocab(V, len(OUTE_SPECIALS) + n_codes)
+    base = len(vocab)
+    added = [{"id": base + k, "content": t, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for k, t in enumerate(OUTE_SPECIALS)]
+    code0 = base + len(OUTE_SPECIALS)
+    added += [{"id": code0 + k, "content": f"<|c_{k}|>",
+               "single_word": False, "lstrip": False, "rstrip": False,
+               "normalized": False, "special": False}
+              for k in range(n_codes)]
+    (d / "tokenizer.json").write_text(json.dumps({
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges}}, ensure_ascii=False))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast",
+        "bos_token": None, "eos_token": "<|im_end|>"}))
+    D, F, L = g["hidden_size"], g["intermediate_size"], g["num_hidden_layers"]
+    dh = D // g["num_attention_heads"]
+    kv = g["num_key_value_heads"] * dh
+    layout = [("model.embed_tokens.weight", (V, D)), ("model.norm.weight", (D,))]
+    for i in range(L):
+        lp = f"model.layers.{i}."
+        layout += [(lp + "self_attn.q_proj.weight", (D, D)),
+                   (lp + "self_attn.q_proj.bias", (D,)),
+                   (lp + "self_attn.k_proj.weight", (kv, D)),
+                   (lp + "self_attn.k_proj.bias", (kv,)),
+                   (lp + "self_attn.v_proj.weight", (kv, D)),
+                   (lp + "self_attn.v_proj.bias", (kv,)),
+                   (lp + "self_attn.o_proj.weight", (D, D)),
+                   (lp + "mlp.gate_proj.weight", (F, D)),
+                   (lp + "mlp.up_proj.weight", (F, D)),
+                   (lp + "mlp.down_proj.weight", (D, F)),
+                   (lp + "input_layernorm.weight", (D,)),
+                   (lp + "post_attention_layernorm.weight", (D,))]
+    dev = torch.device(CARD)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def tensors():
+        for name, shape in layout:
+            if len(shape) == 1:
+                yield name, torch.full(shape, 0.0 if name.endswith(".bias")
+                                       else 1.0, dtype=torch.bfloat16,
+                                       device=dev)
+                continue
+            w = torch.randn(shape, generator=gen, device=dev) \
+                * shape[1] ** -0.5
+            if name.endswith("embed_tokens.weight"):
+                # a tied head: the rows at 1/20 (the greedy ids would
+                # echo the input at full scale), the code rows larger
+                w /= 20
+                w[code0:code0 + n_codes] *= OUTE_CODE_SCALE
+            yield name, w.to(torch.bfloat16)
+
+    shapes = [(n, torch.empty(s, dtype=torch.bfloat16, device="meta"))
+              for n, s in layout]
+    save_iter(tensors(), str(d / "model.safetensors"), shapes=shapes)
+    (d / "config.json").write_text(json.dumps(g, indent=1))
+    cg = torch.Generator().manual_seed(seed + 1)
+    sd = {}
+    layout = encodec_layout(ENCODEC_24KHZ)
+    head = layout[-1][0].rsplit(".", 2)[0]  # the last conv: the waveform
+    for name, shape in layout:
+        if name.endswith("bias") or "bias_" in name:
+            sd[name] = torch.zeros(shape)
+        elif "weight_ih" in name or "weight_hh" in name:
+            sd[name] = (torch.rand(shape, generator=cg) * 2 - 1) \
+                * (shape[0] // 4) ** -0.5
+        elif name.endswith("codebook.embed"):
+            sd[name] = torch.randn(shape, generator=cg)
+        else:
+            # the head at a twentieth of the scale: samples inside the
+            # decoder's clamp to [-1, 1]
+            sd[name] = torch.randn(shape, generator=cg) \
+                * math.prod(shape[1:]) ** -0.5 * (0.05 if head in name else 1)
+    for n in sd:
+        if n.endswith("original0"):
+            v = sd[n[:-1] + "1"]
+            sd[n] = v.flatten(1).norm(dim=1).reshape(-1, 1, 1)
+    (d / "codec").mkdir()
+    save_file(sd, str(d / "codec" / "model.safetensors"))
+    (d / "codec" / "config.json").write_text(json.dumps(ENCODEC_24KHZ))
+    (d / "speaker.json").write_text(json.dumps(
+        {"text": "hello there", "codes": list(range(0, 150, 3))}))
+    return sum(2 * math.prod(s) for _, s in layout) \
+        + sum(t.numel() * 4 for t in sd.values())
+
+
+def _wav_samples(body: bytes) -> tuple:
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as w:
+        return ((w.getnchannels(), w.getsampwidth(), w.getframerate()),
+                np.frombuffer(w.readframes(w.getnframes()), "<i2"))
+
+
+def _pcm16(audio) -> "np.ndarray":
+    """The worker's WAV samples of a waveform (``write_wav``'s cast)."""
+    import numpy as np
+
+    return np.clip(np.asarray(audio) * 32767.0, -32768, 32767).astype("<i2")
+
+
+def tts_requests(port: int, name: str, voice: str, rate: int) -> dict:
+    """The model behind its YAML through /v1/audio/speech, /tts and
+    /v1/text-to-speech/{voice}: 200, audio/x-wav, the rate in the WAV
+    header; request ms, the audio's seconds and the real-time factor;
+    the samples of each."""
+    from urllib.parse import quote
+
+    out = {}
+    for route, path, body in (
+            ("speech", "/v1/audio/speech",
+             {"model": name, "input": TTS_TEXT, "voice": voice}),
+            # the config's tts.voice (the same voice, or none)
+            ("tts", "/tts", {"model": name, "input": TTS_TEXT}),
+            ("elevenlabs", f"/v1/text-to-speech/{quote(voice or 'alloy')}",
+             {"model_id": name, "text": TTS_TEXT})):
+        t0 = time.perf_counter()
+        status, headers, data = _req(port, "POST", path, body)
+        ms = (time.perf_counter() - t0) * 1e3
+        ctype = headers.get("Content-Type", "")
+        if status != 200 or ctype != "audio/x-wav":
+            raise AssertionError(f"tts {name} {path}: {status} {ctype} "
+                                 f"{data[:300]!r}")
+        head, pcm = _wav_samples(data)
+        if head != (1, 2, rate) or not len(pcm):
+            raise AssertionError(f"tts {name} {path}: header {head}, "
+                                 f"{len(pcm)} samples")
+        seconds = len(pcm) / rate
+        out[route] = {"request_ms": round(ms, 3), "audio_s": round(seconds, 3),
+                      "rtf": round(ms / 1e3 / seconds, 4), "pcm": pcm}
+    return out
+
+
+def _held(what: str, card, cpu) -> dict:
+    """Card waveform against the CPU's: the same length, within
+    ``TTS_TOL`` of max|CPU|."""
+    import numpy as np
+
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    if card.shape != cpu.shape or not np.isfinite(card).all():
+        raise AssertionError(f"tts {what}: card {card.shape} against CPU "
+                             f"{cpu.shape}, finite {np.isfinite(card).all()}")
+    diff = np.abs(card - cpu)
+    err = float(diff.max())
+    bound = TTS_TOL * float(np.abs(cpu).max())
+    if not err <= bound:
+        raise AssertionError(
+            f"tts {what}: card against CPU {err} > {bound} at sample "
+            f"{int(diff.argmax())} of {len(cpu)}; "
+            f"{int((diff > bound).sum())} samples beyond")
+    return {"max_abs_err": err, "max_abs_cpu": float(np.abs(cpu).max()),
+            "tol": f"{TTS_TOL} x max|CPU|, TF32 off", "samples": len(cpu)}
+
+
+def _served(what: str, pcm, audio) -> int:
+    """Served int16 samples against the card's own waveform: equal up to
+    ``TTS_LSB`` (the cast's rounding of two runs of one program)."""
+    import numpy as np
+
+    ref = _pcm16(audio)
+    if pcm.shape != ref.shape:
+        raise AssertionError(f"tts {what}: served {pcm.shape} samples, the "
+                             f"model's {ref.shape}")
+    worst = int(np.abs(pcm.astype(np.int32) - ref).max())
+    if worst > TTS_LSB:
+        raise AssertionError(f"tts {what}: served samples {worst} apart")
+    return worst
+
+
+def _stage_ms(fn) -> float:
+    """Device ms of one call (CUDA events, after a warm-up call)."""
+    return round(_time_ms(fn, 3), 3)
+
+
+def vits_check(backend, model_path: Path, served, speed: float,
+               piper: bool, seed: int) -> dict:
+    """The card's VITS (or piper voice) against the same model loaded on
+    the CPU with the same numpy noise: the duration vector equal, the
+    waveform within ``TTS_TOL``; the served samples the card's; device ms
+    by stage."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.device import f32_products
+    from localai_tfp_tpu_torch.models import vits as tv
+    from localai_tfp_tpu_torch.models.piper import PiperVoice
+
+    if piper:
+        voice = backend._piper
+        spec, params = voice.spec, voice.params
+        ids = voice.phoneme_ids(TTS_TEXT)
+        cpu_spec, cpu_params = (lambda v: (v.spec, v.params))(
+            PiperVoice.load(str(model_path), "cpu"))
+        rate = None  # the voice's own (its length scale)
+    else:
+        spec, params, _ = backend._vits
+        ids = backend._vits_ids(TTS_TEXT)
+        cpu_spec, cpu_params = tv.load_vits(str(model_path), "cpu")
+        rate = spec.speaking_rate * speed
+    card, dur = tv.synthesize_with_durations(spec, params, ids,
+                                             speaking_rate=rate, seed=0)
+    cpu, cpu_dur = tv.synthesize_with_durations(cpu_spec, cpu_params, ids,
+                                                speaking_rate=rate, seed=0)
+    del cpu_params
+    if not np.array_equal(dur, cpu_dur):
+        raise AssertionError(f"tts vits: durations {dur.tolist()} on the "
+                             f"card, {cpu_dur.tolist()} on the CPU")
+    out = {"tokens": len(ids), "frames": int(dur.sum()),
+           "held": _held("vits", card, cpu),
+           "served_lsb": _served("vits", served["speech"]["pcm"], card)}
+    dev = params["text_encoder"]["embed"].device
+    T = len(ids)
+    ids_t = torch.as_tensor(np.asarray(ids)[None], device=dev)
+    mask = torch.ones((1, T), device=dev)
+    noise = torch.zeros((1, 2, T), device=dev)
+    z = torch.randn((1, spec.flow_size, int(dur.sum())), device=dev)
+    fmask = torch.ones((1, 1, z.shape[-1]), device=dev)
+    with torch.inference_mode(), f32_products():
+        hidden = tv.text_encoder(spec, params["text_encoder"], ids_t, mask)[0]
+        lat = tv.flow_reverse(spec, params["flow"], z, fmask)
+        out["device_ms"] = {
+            "text_encoder": _stage_ms(lambda: tv.text_encoder(
+                spec, params["text_encoder"], ids_t, mask)),
+            "duration": _stage_ms(lambda: tv.duration_reverse(
+                spec, params["duration"], hidden, mask[:, None], noise)),
+            "flow": _stage_ms(lambda: tv.flow_reverse(
+                spec, params["flow"], z, fmask)),
+            "hifigan": _stage_ms(lambda: tv.hifigan(
+                spec, params["decoder"], lat))}
+    return out
+
+
+def kokoro_check(backend, model_path: Path, served, voice: str,
+                 seed: int) -> dict:
+    """The card's Kokoro against the same model on the CPU with one
+    injected source-noise sample: durations equal, audio within
+    ``TTS_TOL``; the served samples the card's (its seeded generator
+    noise); device ms by stage."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.device import f32_products
+    from localai_tfp_tpu_torch.models import kokoro as tk
+
+    spec, params, voices = backend._kokoro
+    ids = tk.text_to_tokens(TTS_TEXT, spec.n_token)
+    ref = tk.pick_voice(voices, voice, len(ids), spec.style_dim)
+    tokens = [0, *ids, 0]
+    out = {"tokens": len(tokens),
+           "served_lsb": _served("kokoro", served["speech"]["pcm"],
+                                 tk.synthesize_kokoro(spec, params, tokens,
+                                                      ref))}
+    cspec, cparams, _ = tk.load_kokoro(str(model_path), "cpu")
+    dev = params["text_encoder.embedding.weight"].device
+    tok = torch.tensor([tokens], device=dev)
+    s_pros = torch.from_numpy(ref[:, spec.style_dim:]).to(dev)
+    with torch.inference_mode(), torch.no_grad():
+        dur, d = tk.durations(spec, params, tok, s_pros)
+        cdur, _ = tk.durations(cspec, cparams, tok.cpu(), s_pros.cpu())
+    if not torch.equal(dur.cpu(), cdur):
+        raise AssertionError(f"tts kokoro: durations {dur.tolist()} on the "
+                             f"card, {cdur.tolist()} on the CPU")
+    n = int(dur.sum())
+    noise = np.random.default_rng(seed).standard_normal(
+        (1, 2 * n * spec.total_upsample, spec.harmonic_num + 1)
+    ).astype(np.float32)
+    card = tk.synthesize_kokoro(spec, params, tokens, ref,
+                                source_noise=noise)
+    cpu = tk.synthesize_kokoro(cspec, cparams, tokens, ref,
+                               source_noise=noise)
+    out.update(frames=n, held=_held("kokoro", card, cpu))
+    with torch.inference_mode(), f32_products():
+        en = torch.repeat_interleave(d.transpose(1, 2), dur, dim=-1)
+        f0, nc = tk._prosody_f0n(spec, params, en, s_pros)
+        asr = torch.repeat_interleave(tk._text_encoder(spec, params, tok),
+                                      dur, dim=-1)
+        s_ref = torch.from_numpy(ref[:, :spec.style_dim]).to(dev)
+        out["device_ms"] = {
+            "durations": _stage_ms(lambda: tk.durations(spec, params, tok,
+                                                        s_pros)),
+            "prosody": _stage_ms(lambda: tk._prosody_f0n(spec, params, en,
+                                                         s_pros)),
+            "text_encoder": _stage_ms(lambda: tk._text_encoder(spec, params,
+                                                               tok)),
+            "decoder": _stage_ms(lambda: tk._decoder(spec, params, asr, f0,
+                                                     nc, s_ref, seed))}
+    return out
+
+
+def oute_check(backend, model_path: Path, served) -> dict:
+    """OuteTTS on the card: a greedy generation of OUTE_GREEDY_TOKENS
+    held to the plain dense forward (``dense_deficits``: every pick the
+    argmax up to a quarter of the logits' std), its codes decoded on the
+    card against the same codes on the CPU's codec within ``TTS_TOL``;
+    the codec's device ms for a served request's frames."""
+    import math
+
+    import numpy as np
+
+    from localai_tfp_tpu_torch.models import encodec as te
+    from localai_tfp_tpu_torch.models.safetensors_io import load_file
+
+    m = backend._outetts
+    text = m.generate(TTS_TEXT, temperature=0.0,
+                      max_tokens=OUTE_GREEDY_TOKENS)
+    ids = m.tokenizer.encode(text)
+    if len(ids) != OUTE_GREEDY_TOKENS or not all(i in m.code_ids
+                                                for i in ids):
+        raise AssertionError(f"tts outetts: the greedy run's {len(ids)} ids "
+                             "are not all codes")
+    prompt = m.tokenizer.encode(m._prompt(TTS_TEXT, None), add_bos=True)
+    dense = dense_deficits(m.engine, prompt, ids)
+    if not dense["worst_logit_deficit"] <= dense["tol"]:
+        raise AssertionError(f"tts outetts: greedy ids off the dense "
+                             f"argmax: {dense}")
+    codes = m.codes(text)
+    card = te.encodec_decode(m.codec, codes, m.ratios)
+    cpu_codec = te.load_encodec_decoder(
+        load_file(str(model_path / "codec" / "model.safetensors")),
+        prefix="", device="cpu")
+    out = {"greedy": dense,
+           "held": _held("outetts codec", card,
+                         te.encodec_decode(cpu_codec, codes, m.ratios))}
+    frames = len(served["speech"]["pcm"]) // math.prod(m.ratios)
+    many = np.resize(codes, (1, frames))
+    out["codec_device_ms"] = {"frames": frames, "ms": _stage_ms(
+        lambda: te.encodec_decode(m.codec, many, m.ratios))}
+    return out
+
+
+def phase_tts(smi: str, seed: int) -> dict:
+    """Speech out through the HTTP server at published widths, random
+    weights from ``seed``: facebook/mms-tts-eng's VITS (16 kHz, with its
+    character tokenizer), a piper voice at ljs_base's widths (22050 Hz),
+    Kokoro-82M with one voice pack (24 kHz) and OuteTTS-0.2-500M's LM
+    (Qwen2.5-0.5B's widths, 24 layers, 14 / 2 heads of 64) over
+    encodec_24khz's decoder, each behind its YAML through
+    /v1/audio/speech, /tts and /v1/text-to-speech/{voice}; the formant
+    voice and /v1/sound-generation's noise bands against the host's
+    bytes. Each model is held to the same model loaded on the CPU (same
+    noise, TF32 off), its served samples to its own card waveform, then
+    unloaded: allocated bytes back within LC_SLACK of the baseline. B1's
+    launches by OuteTTS's served requests are counted."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+
+    from localai_tfp_tpu_torch.config.app_config import ApplicationConfig
+    from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+    from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention,
+    )
+    from localai_tfp_tpu_torch.server.app import Server
+    from localai_tfp_tpu_torch.server.state import Application
+    from localai_tfp_tpu_torch.workers.tts import (_g2p, _render,
+                                                   noise_bands, write_wav)
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "tts"
+    shutil.rmtree(models, ignore_errors=True)
+    models.mkdir(parents=True)
+    t0 = time.perf_counter()
+    written = {
+        "mms": write_mms_dir(models / "mms-tts-eng", seed),
+        "piper": write_piper_voice_files(models / "piper", seed + 1),
+        "kokoro": write_kokoro_dir(models / "kokoro-82m", seed + 2),
+        "oute": write_oute_dir(models / "outetts-0.2-500m", seed + 3),
+    }
+    log("tts_checkpoints", bytes=written,
+        write_s=round(time.perf_counter() - t0, 3), card=smi)
+    yamls = {
+        "voice": {"backend": "tts"},
+        "mms": {"backend": "tts", "parameters": {"model": "mms-tts-eng"},
+                "tts": {"voice": "nova"}},
+        "piper": {"backend": "piper",
+                  "parameters": {"model": "piper/voice.onnx"}},
+        "kokoro": {"backend": "kokoro",
+                   "parameters": {"model": "kokoro-82m"},
+                   "tts": {"voice": "af"}},
+        "oute": {"backend": "tts", "type": "OuteTTS",
+                 "parameters": {"model": "outetts-0.2-500m"}},
+    }
+    for name, doc in yamls.items():
+        (models / f"{name}.yaml").write_text(json.dumps({"name": name,
+                                                         **doc}))
+    out = {"checkpoint_bytes": written}
+    base = _mem()
+    # the server's WAVs under the phase's directory (its own default is
+    # the working directory's generated_content/)
+    srv = Server(Application(ApplicationConfig(
+        models_path=str(models), address="127.0.0.1", port=0,
+        generated_content_dir=str(models / "generated")), CARD))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = srv.server_address[1]
+        app = srv.app
+        tmp = Path(tempfile.mkdtemp(dir=models))
+        # the formant voice and the noise bands: host numpy, the bytes of
+        # the worker's own functions
+        st, _, body = _req(port, "POST", "/tts", {"model": "voice",
+                                                 "input": TTS_TEXT,
+                                                 "voice": "nova"})
+        write_wav(str(tmp / "f.wav"), _render(_g2p(TTS_TEXT), 175.0, 1.1))
+        st2, _, body2 = _req(port, "POST", "/v1/sound-generation",
+                             {"model_id": "voice", "text": "rain",
+                              "duration_seconds": 2.0})
+        write_wav(str(tmp / "n.wav"), noise_bands("rain", 2.0))
+        if (st, st2) != (200, 200) or body != (tmp / "f.wav").read_bytes() \
+                or body2 != (tmp / "n.wav").read_bytes():
+            raise AssertionError(f"tts: formant {st} / sound generation "
+                                 f"{st2} differ from the host's bytes")
+        out["formant_and_sound_generation"] = "bytes equal"
+        for name, voice, rate, path in (
+                ("mms", "nova", MMS_TTS_ENG["sampling_rate"],
+                 models / "mms-tts-eng"),
+                ("piper", "", LJS_BASE["sampling_rate"],
+                 models / "piper" / "voice.onnx"),
+                ("kokoro", "af", 24000, models / "kokoro-82m"),
+                ("oute", "speaker.json", ENCODEC_24KHZ["sampling_rate"],
+                 models / "outetts-0.2-500m")):
+            t_leg = time.perf_counter()
+            if name == "oute":
+                for f in (ragged_paged_attention, int8_matmul):
+                    f.launches = 0
+            # the first request loads the model
+            served = tts_requests(port, name, voice, rate)
+            leg = {"requests": {k: {kk: vv for kk, vv in v.items()
+                                    if kk != "pcm"}
+                                for k, v in served.items()}}
+            if name == "oute":
+                leg["launches"] = {
+                    "ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+                layers = QWEN25_05B["num_hidden_layers"]
+                b1 = leg["launches"]["ragged_paged_attention"]
+                if b1 == 0 or b1 % layers:
+                    raise AssertionError(f"tts outetts: B1 launched {b1} "
+                                         f"times ({layers} layers)")
+            lm = app.model_loader.get(name)
+            backend = lm.backend
+            leg["load_s"] = round(lm.load_s, 3)
+            leg["family"] = backend.family()
+            if name in ("mms", "piper"):
+                leg.update(vits_check(backend, path, served, 1.1,
+                                      name == "piper", seed))
+            elif name == "kokoro":
+                leg.update(kokoro_check(backend, path, served, voice, seed))
+            else:
+                leg.update(oute_check(backend, path, served))
+            loaded = _mem()
+            del backend, lm, served
+            st, _, msg = _req(port, "POST", "/backend/shutdown",
+                              {"model": name})
+            if st != 200:
+                raise AssertionError(f"tts {name}: shutdown {st} {msg!r}")
+            gc_mem = _mem()
+            leg["memory"] = {"baseline": base["allocated"],
+                             "loaded": loaded["allocated"],
+                             "after_unload": gc_mem["allocated"],
+                             "residue": _back(f"tts {name}",
+                                              gc_mem["allocated"], base)}
+            leg["leg_s"] = round(time.perf_counter() - t_leg, 3)
+            log(f"tts_{name}", **leg, card=smi)
+            out[name] = leg
+    finally:
+        _shut(srv, th)
+        shutil.rmtree(models, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("tts", phase_s=out["phase_s"], card=smi)
+    return out
+
+
 # ------------------------------------------------- phases weights, disagg
 #
 # Phase weights: the 8B (bf16, every layer) through the port's HTTP server
@@ -9324,7 +10409,7 @@ def main() -> int:
                     default="device,build,kernels,int8,moe,gguf,main,graphs,"
                             "engine,dispatch,tiers,weights,disagg,spec,text,"
                             "lifecycle,families,recurrent_vision,retrieval,"
-                            "audio")
+                            "audio,tts")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--gguf-layers", type=int, default=None,
@@ -9638,6 +10723,15 @@ def run_phases(args, at: dict) -> int:
             # Whisper and the VAD run neither kernel: the JAX audio
             # networks have no Pallas kernel either
             e["launches_audio"] = launched[e["name"]]
+    if "tts" in phases:
+        at["phase"] = "tts"
+        tts = phase_tts(smi, args.seed)
+        for e in entries:
+            # OuteTTS's served requests (its LM through the paged engine),
+            # the counts set to 0 just before them and read just after;
+            # VITS, piper and Kokoro run neither kernel (no Pallas kernel
+            # in the JAX package either)
+            e["launches_tts"] = tts["oute"]["launches"][e["name"]]
     if "softcap_witness" in phases:
         at["phase"] = "softcap_witness"
         phase_softcap_witness(smi, args.seed)

@@ -28,6 +28,8 @@ def _env(name: str, default=None, cast=str):
 @dataclass
 class ApplicationConfig:
     models_path: str = "models"
+    generated_content_dir: str = "generated_content"  # the speech routes'
+    # WAV files, served at /generated-{images,audio,videos}/
     upload_dir: str = "uploads"  # transcription uploads, each removed
     # when its request ends
     config_dir: str = "configuration"  # api_keys.json,
@@ -84,6 +86,6 @@ class ApplicationConfig:
         return cfg
 
     def ensure_dirs(self) -> None:
-        for d in (self.models_path, self.upload_dir, self.config_dir,
-                  self.state_dir):
+        for d in (self.models_path, self.generated_content_dir,
+                  self.upload_dir, self.config_dir, self.state_dir):
             Path(d).mkdir(parents=True, exist_ok=True)

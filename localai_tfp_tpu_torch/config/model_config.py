@@ -114,6 +114,15 @@ class FunctionsConfig:
 
 
 @dataclass
+class TTSConfig:
+    """The ``tts:`` block (ref: core/config/backend_config.go TTSConfig):
+    the default voice of the TTS routes."""
+
+    voice: str = ""
+    audio_path: str = ""
+
+
+@dataclass
 class ModelConfig:
     name: str = ""
     backend: str = ""
@@ -149,6 +158,9 @@ class ModelConfig:
     known_usecases: Optional[list[str]] = None  # overrides the guess
     isolation: str = ""  # "subprocess": not served by this port yet
     options: list[str] = field(default_factory=list)  # backend "k=v" pairs
+    type: str = ""  # the model's kind where a backend serves several
+    # ("OuteTTS" for the TTS worker's LLM-driven family)
+    tts: TTSConfig = field(default_factory=TTSConfig)
 
     @classmethod
     def from_dict(cls, data: Any) -> "ModelConfig":
@@ -164,7 +176,7 @@ class ModelConfig:
         kw = _filter(cls, data, "config")
         kw.pop("parameters", None)
         cfg = cls(**{k: v for k, v in kw.items()
-                     if k not in ("template", "function")})
+                     if k not in ("template", "function", "tts")})
         cfg.parameters = SamplingParams(**_filter(SamplingParams, params,
                                                   "parameters"))
         cfg.template = TemplateConfig(**_filter(TemplateConfig,
@@ -173,6 +185,7 @@ class ModelConfig:
         cfg.function = FunctionsConfig(**_filter(FunctionsConfig,
                                                  data.get("function"),
                                                  "function"))
+        cfg.tts = TTSConfig(**_filter(TTSConfig, data.get("tts"), "tts"))
         cfg.model = cfg.model or model
         cfg.set_defaults()
         return cfg

@@ -41,21 +41,23 @@ def describe() -> dict:
 
 _tf32_lock = threading.Lock()
 _tf32_users = 0
-_tf32_saved = False
+_tf32_saved = (False, False)
 
 
 @contextlib.contextmanager
 def f32_products():
-    """TF32 off for f32 matrix products inside the block, whatever the
-    process's setting (the encoder and the vector store compute in f32, as
-    the JAX package does with ``Precision.HIGHEST``). The flag is
-    process-wide: the first block to enter saves it, the last to leave
-    puts it back."""
+    """TF32 off for f32 matrix products and convolutions inside the block,
+    whatever the process's setting (the encoder, the vector store and the
+    TTS models compute in f32, as the JAX package does). The flags are
+    process-wide: the first block to enter saves them, the last to leave
+    puts them back."""
     global _tf32_users, _tf32_saved
     with _tf32_lock:
         if _tf32_users == 0:
-            _tf32_saved = torch.backends.cuda.matmul.allow_tf32
+            _tf32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         _tf32_users += 1
     try:
         yield
@@ -63,4 +65,5 @@ def f32_products():
         with _tf32_lock:
             _tf32_users -= 1
             if _tf32_users == 0:
-                torch.backends.cuda.matmul.allow_tf32 = _tf32_saved
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _tf32_saved

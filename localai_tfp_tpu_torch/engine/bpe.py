@@ -663,6 +663,11 @@ class BPETokenizer:
         (``get_vocab_size(with_added_tokens=True)``)."""
         return len(set(self.model.vocab) | set(self.added_by_content))
 
+    def get_vocab(self) -> dict[str, int]:
+        """Every token's id, added ones included (``get_vocab()``)."""
+        return {**self.model.vocab,
+                **{t.content: t.id for t in self.added}}
+
     def token_to_id(self, token: str) -> Optional[int]:
         t = self.added_by_content.get(token)
         return t.id if t is not None else self.model.vocab.get(token)

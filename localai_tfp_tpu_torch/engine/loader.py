@@ -39,6 +39,7 @@ RERANK_BACKEND = "torch-rerank"
 # the audio workers keep the JAX package's names, which its aliases use
 WHISPER_BACKEND = "jax-whisper"
 VAD_BACKEND = "jax-vad"
+TTS_BACKEND = "jax-tts"
 
 BackendFactory = Callable[[], Backend]
 
@@ -46,8 +47,8 @@ BackendFactory = Callable[[], Backend]
 # table with its workers' names ("jax-llm", "jax-embeddings",
 # "jax-rerank") mapped to this port's, so one YAML loads in both
 # packages; the media aliases keep the JAX names: the audio workers are
-# registered under them, and a load of the image and speech names, which
-# this port does not serve yet, is refused
+# registered under them, and a load of the image names, which this port
+# does not serve yet, is refused
 ALIASES = {
     "": LLM_BACKEND,
     "jax-llm": LLM_BACKEND,
@@ -70,12 +71,12 @@ ALIASES = {
     "diffusers": "jax-diffusion",
     "stablediffusion": "jax-diffusion",
     "flux": "jax-diffusion",
-    "piper": "jax-tts",
-    "coqui": "jax-tts",
-    "kokoro": "jax-tts",
-    "bark": "jax-tts",
-    "bark-cpp": "jax-tts",
-    "tts": "jax-tts",
+    "piper": TTS_BACKEND,
+    "coqui": TTS_BACKEND,
+    "kokoro": TTS_BACKEND,
+    "bark": TTS_BACKEND,
+    "bark-cpp": TTS_BACKEND,
+    "tts": TTS_BACKEND,
     "silero-vad": VAD_BACKEND,
     "vad": VAD_BACKEND,
     "local-store": "local-store",
@@ -122,6 +123,7 @@ def register_default_backends(device=None) -> None:
     from ..workers.embeddings import TorchEmbeddingsBackend
     from ..workers.llm import TorchLLMBackend
     from ..workers.rerank import TorchRerankBackend
+    from ..workers.tts import TorchTTSBackend
     from ..workers.vad import TorchVADBackend
     from ..workers.whisper import TorchWhisperBackend
 
@@ -132,6 +134,7 @@ def register_default_backends(device=None) -> None:
     registry.register("local-store", lambda: LocalStoreBackend(device))
     registry.register(WHISPER_BACKEND, lambda: TorchWhisperBackend(device))
     registry.register(VAD_BACKEND, lambda: TorchVADBackend(device))
+    registry.register(TTS_BACKEND, lambda: TorchTTSBackend(device))
 
 
 class LoadedModel:
@@ -314,7 +317,7 @@ class ModelLoader:
                                else [])),
             lora_scales=(list(cfg.lora_scales)
                          or ([cfg.lora_scale] if cfg.lora_scale else [])),
-            options=list(cfg.options))
+            options=list(cfg.options), type=cfg.type)
 
     # ------------------------------------------------------------ lifecycle
 

@@ -179,6 +179,11 @@ class HFTokenizer:
         text = self._tk.decode(ids, skip_special_tokens)
         return clean_up_tokenization(text) if self.clean_up_spaces else text
 
+    def get_vocab(self) -> dict[str, int]:
+        """Every token's id, added tokens included (transformers'
+        ``get_vocab``)."""
+        return self._tk.get_vocab()
+
     def token_to_id(self, token: str) -> Optional[int]:
         """``convert_tokens_to_ids`` of one token: its id, else the unknown
         token's (None without one)."""

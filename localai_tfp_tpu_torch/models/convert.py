@@ -46,16 +46,22 @@ def params_from_numpy(tree: Mapping[str, Any], device: Any = "cpu",
     ``dec_mlp``) keeps its nesting. A quantized leaf (anything with
     ``.q`` and ``.scale`` planes, such as the JAX package's ``QTensor``)
     becomes the port's ``QTensor`` with its int8 and f32 planes as they
-    are (``dtype`` casts neither)."""
-    out: Params = {}
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
-            out[k] = params_from_numpy(v, device, dtype)
-        elif hasattr(v, "q") and hasattr(v, "scale"):
-            out[k] = QTensor(to_tensor(v.q, device), to_tensor(v.scale, device))
-        else:
-            out[k] = to_tensor(v, device, dtype)
-    return out
+    are (``dtype`` casts neither). Lists and tuples (the TTS models'
+    per-layer lists, EnCodec's ``(kind, params, pre_elu)`` entries) keep
+    their type; ``None``, strings and booleans stay as they are."""
+    return {k: _node(v, device, dtype) for k, v in tree.items()}
+
+
+def _node(v: Any, device: Any, dtype: Optional[torch.dtype]) -> Any:
+    if isinstance(v, Mapping):
+        return params_from_numpy(v, device, dtype)
+    if hasattr(v, "q") and hasattr(v, "scale"):
+        return QTensor(to_tensor(v.q, device), to_tensor(v.scale, device))
+    if isinstance(v, (list, tuple)):
+        return type(v)(_node(x, device, dtype) for x in v)
+    if v is None or isinstance(v, (str, bool)):
+        return v
+    return to_tensor(v, device, dtype)
 
 
 def encoder_params_from_jax(tree: Mapping[str, Any], device: Any = "cpu",

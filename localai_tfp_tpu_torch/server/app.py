@@ -26,7 +26,11 @@ in place of the JAX package's aiohttp app.
   matched route template ("other" for no route), unless metrics are off.
 
 Error bodies have the JAX server's shape: ``{"error": {"code": N,
-"message": "...", "type": ""}}``. The route handlers live in
+"message": "...", "type": ""}}``. Routes with a path parameter
+(``/v1/text-to-speech/{voice_id}``, the generated-content mounts
+``/generated-{images,audio,videos}/{file}``) are matched by pattern after
+the exact paths; the parameters, percent-decoded, are in
+``Handler.path_params``. The route handlers live in
 ``openai_routes``, ``media_routes`` and ``localai_routes``; the state
 they read is ``server/state.py``'s ``Application``.
 """
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import json
 import logging
+import mimetypes
 import os
 import re
 import threading
@@ -42,7 +47,7 @@ import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
-from urllib.parse import parse_qs, urlsplit
+from urllib.parse import parse_qs, unquote, urlsplit
 
 from ..config.app_config import ApplicationConfig
 from ..telemetry.metrics import API_CALL
@@ -58,6 +63,16 @@ AUTH_EXEMPT = {"/healthz", "/readyz", "/metrics", "/telemetry/digest",
                "/version", "/login"}
 # /v1/engines/{model}/completions|embeddings and /engines/{model}/...
 _ENGINE_ROUTE = re.compile(r"(/v1|)/engines/([^/]+)/(completions|embeddings)")
+# routes with path parameters: (method, pattern, the route's template)
+_PATTERN_ROUTES = (
+    ("POST", re.compile(r"/v1/text-to-speech/(?P<voice_id>[^/]+)"),
+     "/v1/text-to-speech/{voice_id}"),
+    ("GET", re.compile(r"/generated-(?P<kind>images|audio|videos)/"
+                       r"(?P<file>.+)"), "/generated-{kind}/{file}"),
+)
+# content types by extension, as aiohttp's FileResponse guesses them
+# (the standard table, not the system's mime.types)
+_CONTENT_TYPES = mimetypes.MimeTypes()
 MEMORY_GAUGE_S = 10.0  # period of the device-memory and RSS gauge sync
 
 
@@ -92,6 +107,10 @@ def _routes() -> dict:
         ("GET", "/debug/traces"): lr.debug_traces,
         ("GET", "/debug/timeline"): lr.debug_timeline,
         ("GET", "/debug/profile"): lr.debug_profile,
+        ("POST", "/tts"): lr.tts,
+        ("POST", "/v1/text-to-speech/{voice_id}"): lr.tts_elevenlabs,
+        ("POST", "/v1/sound-generation"): lr.sound_generation,
+        ("GET", "/generated-{kind}/{file}"): mr.generated_file,
     }
     for p in ("/vad", "/v1/vad"):
         routes[("POST", p)] = lr.vad
@@ -104,6 +123,7 @@ def _routes() -> dict:
         routes[("POST", f"{prefix}/embeddings")] = r.embeddings
         routes[("POST", f"{prefix}/audio/transcriptions")] = \
             mr.transcriptions
+        routes[("POST", f"{prefix}/audio/speech")] = mr.speech
     return routes
 
 
@@ -155,6 +175,18 @@ class Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         for k, v in (headers or {}).items():
             self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def send_file(self, path: str) -> None:
+        """A file's bytes with its type guessed from its extension, as
+        aiohttp's ``FileResponse`` answers."""
+        with open(path, "rb") as f:
+            body = f.read()
+        self.send_response(200)
+        self.send_header("Content-Type", _CONTENT_TYPES.guess_type(path)[0]
+                         or "application/octet-stream")
+        self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
 
@@ -235,6 +267,13 @@ class Handler(BaseHTTPRequestHandler):
             fn = self.server.routes[("POST", f"/v1/{m.group(3)}")]
             self.path_params = {"model": m.group(2)}
             route = f"{m.group(1)}/engines/{{model}}/{m.group(3)}"
+        for meth, rx, template in _PATTERN_ROUTES:
+            m = rx.fullmatch(path) if fn is None and method == meth else None
+            if m:
+                fn = self.server.routes[(meth, template)]
+                self.path_params = {k: unquote(v)
+                                    for k, v in m.groupdict().items()}
+                route = template
         try:
             if cfg.api_keys and path not in AUTH_EXEMPT \
                     and not self._authorized(cfg.api_keys):

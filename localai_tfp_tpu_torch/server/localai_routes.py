@@ -2,7 +2,9 @@
 localai_tfp_tpu/server/localai_routes.py the port serves): health,
 ``/version``, ``/metrics``, ``/system``, the backend monitor and
 shutdown, Jina's ``/v1/rerank``, voice-activity detection (``/vad``,
-``/v1/vad``), the vector stores
+``/v1/vad``), speech (``/tts``, ElevenLabs'
+``/v1/text-to-speech/{voice_id}`` and ``/v1/sound-generation``), the
+vector stores
 (``/stores/{set,delete,get,find}``) and the debug routes
 (``/debug/traces``, ``/debug/timeline``, ``/debug/profile``) (ref:
 core/http/routes/localai.go, routes/health.go, routes/jina.go).
@@ -15,6 +17,7 @@ import os
 import resource
 import threading
 import time
+import uuid
 import zipfile
 from urllib.parse import urlsplit
 
@@ -173,6 +176,69 @@ def vad(h: Handler, app: Application) -> None:
         res = backend.vad(body.get("audio") or [])
     h.send_json(200, {"segments": [{"start": s.start, "end": s.end}
                                    for s in res.segments]})
+
+
+def _tts(h: Handler, app: Application, text: str, model_name,
+         voice: str, language: str = "") -> None:
+    """The TTS worker's WAV for ``text`` (the voice, else the config's
+    ``tts.voice``), written under ``generated_content_dir``; 404 when no
+    TTS model resolves, 500 with the worker's message when it fails."""
+    cfg = app.config_loader.resolve(model_name, Usecase.TTS)
+    if cfg is None:
+        raise HTTPError(404, "no TTS model available")
+    backend = app.model_loader.load(cfg)
+    dst = os.path.join(app.config.generated_content_dir,
+                       f"tts-{uuid.uuid4().hex}.wav")
+    with app.busy(cfg.name):
+        res = backend.tts(text=text, voice=voice or cfg.tts.voice, dst=dst,
+                          language=language)
+    if not res.success:
+        raise HTTPError(500, res.message)
+    h.send_file(dst)
+
+
+def tts(h: Handler, app: Application) -> None:
+    """``POST /tts`` (ref: routes/localai.go:41): ``{model, input, voice,
+    language}``; a non-string ``input``/``text``/``voice`` is a 400."""
+    body = h.read_body()
+    schema.TTSRequest.validate(body)
+    _tts(h, app, body.get("input", ""), body.get("model"),
+         body.get("voice", ""), body.get("language", ""))
+
+
+def tts_elevenlabs(h: Handler, app: Application) -> None:
+    """ElevenLabs' ``POST /v1/text-to-speech/{voice_id}`` (ref:
+    elevenlabs/tts.go): the voice in the path, ``{text, model_id}`` in the
+    body, the same typed 400 as ``/tts``."""
+    body = h.read_body()
+    schema.TTSRequest.validate(body)
+    _tts(h, app, body.get("text", ""), body.get("model_id"),
+         h.path_params["voice_id"])
+
+
+def sound_generation(h: Handler, app: Application) -> None:
+    """ElevenLabs' ``POST /v1/sound-generation``: ``{text, model_id,
+    duration_seconds (or duration), temperature, do_sample}``; 404 when no
+    sound-generation model resolves."""
+    body = h.read_body()
+    req = schema.SoundGenerationRequest.validate(body)
+    cfg = app.config_loader.resolve(body.get("model_id"),
+                                    Usecase.SOUND_GENERATION)
+    if cfg is None:
+        raise HTTPError(404, "no sound-generation model available")
+    backend = app.model_loader.load(cfg)
+    dst = os.path.join(app.config.generated_content_dir,
+                       f"sound-{uuid.uuid4().hex}.wav")
+    with app.busy(cfg.name):
+        res = backend.sound_generation(
+            text=req.text, dst=dst, duration=req.duration,
+            temperature=1.0 if req.temperature is None else req.temperature,
+            # an explicit temperature 0 means deterministic, not "unset"
+            do_sample=body.get("do_sample", req.temperature is None
+                               or req.temperature > 0))
+    if not res.success:
+        raise HTTPError(500, res.message)
+    h.send_file(dst)
 
 
 def stores(h: Handler, app: Application) -> None:

@@ -1,7 +1,10 @@
-"""OpenAI audio routes of the port (the transcription route of
+"""OpenAI audio routes of the port (the audio routes of
 localai_tfp_tpu/server/media_routes.py): ``POST /v1/audio/transcriptions``
 and ``/audio/transcriptions`` (ref: core/http/routes/openai.go:104,
-endpoints/openai/transcription.go:79).
+endpoints/openai/transcription.go:79), ``POST /v1/audio/speech`` and
+``/audio/speech`` (openai.go:111), and the generated-content mounts
+``GET /generated-{images,audio,videos}/{file}`` over the config's
+``generated_content_dir`` (ref: core/http/app.go:158-171).
 
 The body is ``multipart/form-data``, parsed with the standard library's
 ``email`` package: the ``file`` part (written under the config's
@@ -10,6 +13,11 @@ The body is ``multipart/form-data``, parsed with the standard library's
 ``response_format`` (``json``, ``verbose_json`` with the segments and the
 duration, or ``text`` as ``text/plain``). The server's upload limit
 applies before the body is read.
+
+``/v1/audio/speech`` takes ``{model, input, voice}`` (the voice, else the
+config's ``tts.voice``), writes the TTS worker's WAV under
+``generated_content_dir`` and answers with it (``audio/x-wav``); 404 when
+no TTS model resolves, 500 with the worker's message when it fails.
 """
 
 from __future__ import annotations
@@ -94,3 +102,35 @@ def transcriptions(h: Handler, app: Application) -> None:
         ]
         out["duration"] = res.segments[-1].end if res.segments else 0.0
     h.send_json(200, out)
+
+
+def speech(h: Handler, app: Application) -> None:
+    """OpenAI /v1/audio/speech: {model, input, voice} -> audio bytes."""
+    body = h.read_body()
+    name = body.get("model")
+    cfg = app.config_loader.resolve(name, Usecase.TTS)
+    if cfg is None:
+        raise HTTPError(404, f"model '{name}' not found" if name
+                        else "no model available")
+    backend = app.model_loader.load(cfg)
+    dst = os.path.join(app.config.generated_content_dir,
+                       f"speech-{uuid.uuid4().hex}.wav")
+    with app.busy(cfg.name):
+        res = backend.tts(text=body.get("input", ""),
+                          voice=body.get("voice", "") or cfg.tts.voice,
+                          dst=dst)
+    if not res.success:
+        raise HTTPError(500, res.message)
+    h.send_file(dst)
+
+
+def generated_file(h: Handler, app: Application) -> None:
+    """A file under ``generated_content_dir`` (any of the three mounts
+    serves the one directory, as the JAX server's static routes do); 404
+    for a missing file or a path that leaves the directory."""
+    root = os.path.realpath(app.config.generated_content_dir)
+    path = os.path.realpath(os.path.join(root, h.path_params["file"]))
+    if os.path.commonpath([root, path]) != root or not os.path.isfile(path):
+        raise HTTPError(404, "not found")
+    h.send_file(path)
+

@@ -2,7 +2,8 @@
 localai_tfp_tpu/server/schema.py; ref: core/schema — openai.go,
 prediction.go, localai.go, jina.go).
 
-Every text route, ``/v1/embeddings`` and ``/v1/rerank`` pass their body
+Every text route, ``/v1/embeddings``, ``/v1/rerank`` and the speech
+routes pass their body
 through a schema here first: fields are type-checked, so a malformed
 request fails with a 400 naming the field (the JAX server's text,
 ``field '<name>' must be <want>``) instead of being coerced or surfacing
@@ -176,6 +177,42 @@ class EmbeddingsRequest:
             if inp is None:
                 inp = v
         return cls(input=inp or "")
+
+
+@dataclass
+class TTSRequest:
+    """POST /tts, /v1/audio/speech and the ElevenLabs route (ref:
+    schema/localai.go TTSRequest): the text as ``input`` or ``text``, the
+    voice as ``voice`` or ``voice_id``; each a string when present."""
+
+    input: str = ""
+    voice: str = ""
+
+    @classmethod
+    def validate(cls, body: dict) -> "TTSRequest":
+        return cls(input=_str(body, "input") or _str(body, "text") or "",
+                   voice=_str(body, "voice") or _str(body, "voice_id") or "")
+
+
+@dataclass
+class SoundGenerationRequest:
+    """POST /v1/sound-generation (ref: schema/elevenlabs.go): the
+    duration as ``duration_seconds`` (ElevenLabs' name) or ``duration``."""
+
+    text: str = ""
+    duration: Optional[float] = None
+    temperature: Optional[float] = None
+
+    @classmethod
+    def validate(cls, body: dict) -> "SoundGenerationRequest":
+        _bool(body, "do_sample")
+        return cls(
+            text=_str(body, "text") or "",
+            duration=_num(body, "duration_seconds")
+            if body.get("duration_seconds") is not None
+            else _num(body, "duration"),
+            temperature=_num(body, "temperature"),
+        )
 
 
 @dataclass

@@ -104,6 +104,7 @@ class ModelLoadOptions:
     lora_adapters: list[str] = field(default_factory=list)  # merged at load
     lora_scales: list[float] = field(default_factory=list)  # missing: 1.0
     options: list[str] = field(default_factory=list)  # backend "k=v" pairs
+    type: str = ""  # the config's ``type`` (the TTS worker: "OuteTTS")
 
 
 @dataclass
@@ -213,6 +214,13 @@ class Backend(abc.ABC):
         raise NotImplementedError
 
     def vad(self, audio: list[float]) -> VADResponse:
+        raise NotImplementedError
+
+    def tts(self, text: str, voice: str = "", dst: str = "",
+            language: str = "") -> Result:
+        raise NotImplementedError
+
+    def sound_generation(self, text: str, dst: str = "", **kw) -> Result:
         raise NotImplementedError
 
     def status(self) -> StatusResponse:
