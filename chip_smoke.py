@@ -386,6 +386,25 @@ after one line naming the phase (``{"phase_failed": "<name>", ...}``):
    noise bands give the host's bytes. B1 runs in OuteTTS's LM
    (``launches_tts``); VITS, piper and Kokoro have no Pallas kernel in the
    JAX package.
+19. tts_ar — (after phase 18) the autoregressive speech and sound
+   families at published widths, random weights from the seed
+   (``phase_tts_ar``): suno/bark-small's three GPTs over encodec_24khz,
+   coqui/XTTS-v2 (30 x 1024 GPT-2, HiFiGAN x256, one voice, a
+   ``Whitespace`` vocab.json) and facebook/musicgen-small (t5-base,
+   24 x 1024 decoder, 4 codebooks, encodec_32khz), each behind its YAML:
+   bark at the worker's defaults by /tts and greedy by /v1/audio/speech
+   (256 semantic tokens, the coarse window sliding past 1024), XTTS by
+   /v1/audio/speech, /tts and /v1/text-to-speech/ana, MusicGen at 5 s
+   with guidance by /v1/sound-generation, sampled and greedy; request ms
+   and real-time factor, host ms a token and device ms by stage; every
+   greedy stage's picks held to a teacher-forced forward of the same
+   model on the CPU (argmax count, worst deficit under a quarter of the
+   logits' std), the card's codes or latents decoded on the CPU within
+   1e-4 of max|CPU| (TF32 off), served samples within one int16 unit of
+   the card's waveform; after each unload the allocated bytes back
+   within 256 MiB of the baseline. Neither kernel runs
+   (``launches_tts_ar``): the JAX package's bark, XTTS and MusicGen
+   loops reach no Pallas kernel.
 
 Not in the default list: ``softcap_witness`` — Gemma-2-2B at full depth
 with every layer's q_proj at 4x and at 1x the softcap: the served greedy ids
@@ -9475,11 +9494,12 @@ def _pcm16(audio) -> "np.ndarray":
     return np.clip(np.asarray(audio) * 32767.0, -32768, 32767).astype("<i2")
 
 
-def tts_requests(port: int, name: str, voice: str, rate: int) -> dict:
+def tts_requests(port: int, name: str, voice: str, rate: int,
+                 routes=("speech", "tts", "elevenlabs")) -> dict:
     """The model behind its YAML through /v1/audio/speech, /tts and
-    /v1/text-to-speech/{voice}: 200, audio/x-wav, the rate in the WAV
-    header; request ms, the audio's seconds and the real-time factor;
-    the samples of each."""
+    /v1/text-to-speech/{voice} (those of ``routes``): 200, audio/x-wav,
+    the rate in the WAV header; request ms, the audio's seconds and the
+    real-time factor; the samples of each."""
     from urllib.parse import quote
 
     out = {}
@@ -9490,6 +9510,8 @@ def tts_requests(port: int, name: str, voice: str, rate: int) -> dict:
             ("tts", "/tts", {"model": name, "input": TTS_TEXT}),
             ("elevenlabs", f"/v1/text-to-speech/{quote(voice or 'alloy')}",
              {"model_id": name, "text": TTS_TEXT})):
+        if route not in routes:
+            continue
         t0 = time.perf_counter()
         status, headers, data = _req(port, "POST", path, body)
         ms = (time.perf_counter() - t0) * 1e3
@@ -9507,9 +9529,9 @@ def tts_requests(port: int, name: str, voice: str, rate: int) -> dict:
     return out
 
 
-def _held(what: str, card, cpu) -> dict:
-    """Card waveform against the CPU's: the same length, within
-    ``TTS_TOL`` of max|CPU|."""
+def _held(what: str, card, cpu, tol: float = TTS_TOL) -> dict:
+    """Card waveform against the CPU's: the same length, within ``tol``
+    of max|CPU|."""
     import numpy as np
 
     card, cpu = np.asarray(card), np.asarray(cpu)
@@ -9518,14 +9540,14 @@ def _held(what: str, card, cpu) -> dict:
                              f"{cpu.shape}, finite {np.isfinite(card).all()}")
     diff = np.abs(card - cpu)
     err = float(diff.max())
-    bound = TTS_TOL * float(np.abs(cpu).max())
+    bound = tol * float(np.abs(cpu).max())
     if not err <= bound:
         raise AssertionError(
             f"tts {what}: card against CPU {err} > {bound} at sample "
             f"{int(diff.argmax())} of {len(cpu)}; "
             f"{int((diff > bound).sum())} samples beyond")
     return {"max_abs_err": err, "max_abs_cpu": float(np.abs(cpu).max()),
-            "tol": f"{TTS_TOL} x max|CPU|, TF32 off", "samples": len(cpu)}
+            "tol": f"{tol} x max|CPU|, TF32 off", "samples": len(cpu)}
 
 
 def _served(what: str, pcm, audio) -> int:
@@ -9847,6 +9869,786 @@ def phase_tts(smi: str, seed: int) -> dict:
     torch.cuda.empty_cache()
     out["phase_s"] = round(time.perf_counter() - t_phase, 3)
     log("tts", phase_s=out["phase_s"], card=smi)
+    return out
+
+
+# ------------------------------------------------------------- phase tts_ar
+#
+# The autoregressive speech and sound families at published widths, random
+# weights from the seed: suno/bark-small's three GPTs over phase tts's
+# encodec_24khz decoder, coqui/XTTS-v2's GPT-2 and HiFiGAN with one voice,
+# facebook/musicgen-small (t5-base's encoder, the 24-layer decoder, the
+# encodec_32khz decoder), each behind its YAML through the speech routes
+# or /v1/sound-generation, each greedy stage held to a teacher-forced
+# forward of the same model on the CPU, and the card's codes or latents
+# decoded on the CPU. Neither kernel runs: the JAX package's three
+# families have their own loops and reach no Pallas kernel.
+
+_BARK_GPT = {"hidden_size": 768, "num_layers": 12, "num_heads": 12,
+             "block_size": 1024, "bias": False, "dropout": 0.0}
+# suno/bark-small's config.json (its codec is facebook/encodec_24khz)
+BARK_SMALL = {
+    "model_type": "bark",
+    "semantic_config": {**_BARK_GPT, "input_vocab_size": 129600,
+                        "output_vocab_size": 10048},
+    "coarse_acoustics_config": {**_BARK_GPT, "input_vocab_size": 12096,
+                                "output_vocab_size": 12096},
+    "fine_acoustics_config": {**_BARK_GPT, "input_vocab_size": 1056,
+                              "output_vocab_size": 1056,
+                              "n_codes_total": 8, "n_codes_given": 1},
+    "codec_config": ENCODEC_24KHZ,
+}
+# coqui/XTTS-v2's config.json: the keys models/xtts.py reads (its XttsSpec
+# defaults); the HiFiGAN geometry, fixed in code there, as config keys
+XTTS_V2 = {
+    "model": "xtts",
+    "model_args": {
+        "gpt_layers": 30, "gpt_n_model_channels": 1024, "gpt_n_heads": 16,
+        "gpt_number_text_tokens": 6681, "gpt_num_audio_tokens": 1026,
+        "gpt_start_audio_token": 1024, "gpt_stop_audio_token": 1025,
+        "gpt_start_text_token": 261, "gpt_stop_text_token": 0,
+        "gpt_max_audio_tokens": 605, "gpt_max_text_tokens": 402,
+        "gpt_num_audio_channels": 80, "decoder_input_dim": 1024,
+        "d_vector_dim": 512},
+    "audio": {"output_sample_rate": 24000},
+}
+XTTS_HIFIGAN = {"up_initial": 512, "up_rates": [8, 8, 2, 2],
+                "up_kernels": [16, 16, 4, 4], "resblock_kernels": [3, 7, 11],
+                "resblock_dilations": [[1, 3, 5]] * 3}
+XTTS_LANGS = ["en", "es", "fr", "de", "it", "pt", "pl", "tr", "ru", "nl",
+              "cs", "ar", "zh-cn", "hu", "ko", "ja", "hi"]
+XTTS_STOP_BIAS = -5.0  # the stop code's logit, ~8 std below the others:
+# a random GPT runs all 605 steps
+# facebook/musicgen-small's config.json: t5-base's encoder, the decoder,
+# facebook/encodec_32khz (its use_conv_shortcut is false: ROADMAP §C 18)
+T5_BASE = {"vocab_size": 32128, "d_model": 768, "d_kv": 64, "d_ff": 3072,
+           "num_layers": 12, "num_heads": 12,
+           "relative_attention_num_buckets": 32,
+           "relative_attention_max_distance": 128,
+           "layer_norm_epsilon": 1e-6, "feed_forward_proj": "relu"}
+MUSICGEN_SMALL_DECODER = {
+    "vocab_size": 2048, "hidden_size": 1024, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "ffn_dim": 4096, "num_codebooks": 4,
+    "pad_token_id": 2048, "bos_token_id": 2048, "scale_embedding": False,
+    "max_position_embeddings": 2048, "activation_function": "gelu"}
+ENCODEC_32KHZ = {
+    "model_type": "encodec", "sampling_rate": 32000, "audio_channels": 1,
+    "num_filters": 64, "upsampling_ratios": [8, 5, 4, 4],
+    "hidden_size": 128, "codebook_size": 2048, "codebook_dim": 128,
+    "num_lstm_layers": 2, "kernel_size": 7, "last_kernel_size": 7,
+    "residual_kernel_size": 3, "dilation_growth_rate": 2,
+    "num_residual_layers": 1, "compress": 2, "target_bandwidths": [2.2],
+    "norm_type": "weight_norm", "use_causal_conv": False,
+    "pad_mode": "reflect", "trim_right_ratio": 1.0,
+    "use_conv_shortcut": False}
+MUSICGEN_SECONDS = 5.0  # /v1/sound-generation's duration (its default)
+MUSICGEN_TEXT = "lo-fi hip hop beat with a warm bass line"
+TTS_AR_TOL = 1e-4  # the card's codes or latents decoded on the CPU
+# against the card's waveform, of max|CPU|; f32, TF32 off
+
+
+def _randn(shape, gen, std):
+    """N(0, std) drawn on the generator's device, returned on the host."""
+    import torch
+
+    return (torch.randn(shape, generator=gen, device=gen.device) * std).cpu()
+
+
+def _codec_tensors(layout: list, gen, prefix: str = "") -> dict:
+    """Random EnCodec tensors for ``encodec_layout``'s names: codebooks
+    N(0, 1), LSTM weights U(+-1/sqrt(H)), convolutions at 1/sqrt(fan-in)
+    (the head at a twentieth: samples inside the clamp), biases 0; each
+    weight norm's magnitude its direction's norm."""
+    import math
+
+    import torch
+
+    sd = {}
+    head = layout[-1][0].rsplit(".", 2)[0]
+    for name, shape in layout:
+        if name.endswith("bias") or "bias_" in name:
+            sd[name] = torch.zeros(shape)
+        elif "weight_ih" in name or "weight_hh" in name:
+            sd[name] = (torch.rand(shape, generator=gen) * 2 - 1) \
+                * (shape[0] // 4) ** -0.5
+        elif name.endswith("codebook.embed"):
+            sd[name] = torch.randn(shape, generator=gen)
+        else:
+            sd[name] = _randn(shape, gen, math.prod(shape[1:]) ** -0.5
+                              * (0.05 if head in name else 1))
+    for n in sd:
+        if n.endswith("original0"):
+            sd[n] = sd[n[:-1] + "1"].flatten(1).norm(dim=1).reshape(-1, 1, 1)
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def write_bark_dir(d: Path, seed: int) -> int:
+    """bark-small's three GPTs (bias-free LayerNorms, fused qkv; the fine
+    stage's tied heads dropped, as the published checkpoint drops them)
+    at N(0, 0.02) as transformers draws them, the semantic head's stop
+    column (10 000) zero so that the random model runs its 256 steps,
+    and encodec_24khz's decoder under ``codec_model.``. Returns the
+    parameter bytes."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_file
+
+    d.mkdir(parents=True)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    sd = {}
+    for pre, key in (("semantic.", "semantic_config"),
+                     ("coarse_acoustics.", "coarse_acoustics_config"),
+                     ("fine_acoustics.", "fine_acoustics_config")):
+        c = BARK_SMALL[key]
+        H = c["hidden_size"]
+        sd[pre + "position_embeds_layer.weight"] = _randn(
+            (c["block_size"], H), gen, 0.02)
+        for i in range(c["num_layers"]):
+            lp = f"{pre}layers.{i}."
+            sd[lp + "layernorm_1.weight"] = torch.ones(H)
+            sd[lp + "layernorm_2.weight"] = torch.ones(H)
+            for name, shape in (("attn.att_proj", (3 * H, H)),
+                                ("attn.out_proj", (H, H)),
+                                ("mlp.in_proj", (4 * H, H)),
+                                ("mlp.out_proj", (H, 4 * H))):
+                sd[f"{lp}{name}.weight"] = _randn(shape, gen, 0.02)
+        sd[pre + "layernorm_final.weight"] = torch.ones(H)
+        if "n_codes_total" in c:
+            for i in range(c["n_codes_total"]):
+                sd[f"{pre}input_embeds_layers.{i}.weight"] = _randn(
+                    (c["input_vocab_size"], H), gen, 0.02)
+        else:
+            sd[pre + "input_embeds_layer.weight"] = _randn(
+                (c["input_vocab_size"], H), gen, 0.02)
+            head = _randn((c["output_vocab_size"], H), gen, 0.02)
+            if pre == "semantic.":
+                head[10_000] = 0.0
+            sd[pre + "lm_head.weight"] = head
+    sd.update(_codec_tensors(encodec_layout(ENCODEC_24KHZ),
+                             torch.Generator().manual_seed(seed + 1),
+                             "codec_model."))
+    save_file(sd, str(d / "model.safetensors"))
+    (d / "config.json").write_text(json.dumps(BARK_SMALL, indent=1))
+    return sum(t.numel() * 4 for t in sd.values())
+
+
+def xtts_vocab() -> dict:
+    """An XTTS-layout ``vocab.json`` written without ``tokenizers``:
+    [STOP], [UNK], [SPACE], the printable ASCII characters, merges of
+    every two lowercase letters, the language tags as special added
+    tokens, a ``Whitespace`` pre-tokenizer."""
+    import string
+
+    specials = ["[STOP]", "[UNK]", "[SPACE]"]
+    vocab = {t: i for i, t in enumerate(specials)}
+    for c in (chr(b) for b in range(0x21, 0x7F)):
+        vocab[c] = len(vocab)
+    merges = []
+    for a in string.ascii_lowercase:
+        for b in string.ascii_lowercase:
+            vocab[a + b] = len(vocab)
+            merges.append(f"{a} {b}")
+    added = []
+    for t in specials + [f"[{lang}]" for lang in XTTS_LANGS]:
+        vocab.setdefault(t, len(vocab))
+        added.append({"id": vocab[t], "content": t, "single_word": False,
+                      "lstrip": False, "rstrip": False, "normalized": False,
+                      "special": True})
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": added, "normalizer": None,
+            "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
+            "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "[UNK]",
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False,
+                      "vocab": vocab, "merges": merges}}
+
+
+def write_xtts_dir(d: Path, seed: int) -> int:
+    """XTTS-v2's GPT-2 (30 x 1024, 16 heads; N(0, 0.02), the stop code's
+    bias ``XTTS_STOP_BIAS``) and HiFiGAN (512 channels x 256, weight-normed
+    as ``weight_g``/``weight_v``, convolutions at 0.5 / sqrt(fan-in), the
+    last at a tenth) in the official ``{"model": state_dict}`` layout,
+    config.json, vocab.json and a speakers file with one voice. The
+    conditioning encoder is not written: the served path reads a voice's
+    latents from the speakers file. Returns the parameter bytes."""
+    import torch
+
+    d.mkdir(parents=True)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    a = XTTS_V2["model_args"]
+    D, n_audio = a["gpt_n_model_channels"], a["gpt_num_audio_tokens"]
+    sd = {
+        "gpt.text_embedding.weight": _randn(
+            (a["gpt_number_text_tokens"], D), gen, 0.02),
+        "gpt.text_pos_embedding.emb.weight": _randn(
+            (a["gpt_max_text_tokens"] + 2, D), gen, 0.02),
+        "gpt.mel_embedding.weight": _randn((n_audio, D), gen, 0.02),
+        "gpt.mel_pos_embedding.emb.weight": _randn(
+            (a["gpt_max_audio_tokens"] + 2, D), gen, 0.02),
+        "gpt.mel_head.weight": _randn((n_audio, D), gen, 0.02),
+        "gpt.gpt.ln_f.weight": torch.ones(D),
+        "gpt.gpt.ln_f.bias": torch.zeros(D),
+    }
+    bias = torch.zeros(n_audio)
+    bias[a["gpt_stop_audio_token"]] = XTTS_STOP_BIAS
+    sd["gpt.mel_head.bias"] = bias
+    for i in range(a["gpt_layers"]):
+        lp = f"gpt.gpt.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[lp + ln + ".weight"] = torch.ones(D)
+            sd[lp + ln + ".bias"] = torch.zeros(D)
+        for name, shape in (("attn.c_attn", (D, 3 * D)),
+                            ("attn.c_proj", (D, D)),
+                            ("mlp.c_fc", (D, 4 * D)),
+                            ("mlp.c_proj", (4 * D, D))):
+            sd[lp + name + ".weight"] = _randn(shape, gen, 0.02)
+            sd[lp + name + ".bias"] = torch.zeros(shape[1])
+    wd = "hifigan_decoder.waveform_decoder."
+
+    def conv(name, shape, n_bias, fan, scale=0.5):
+        v = _randn(shape, gen, scale * fan ** -0.5)
+        sd[wd + name + ".weight_v"] = v
+        sd[wd + name + ".weight_g"] = v.flatten(1).norm(dim=1).reshape(
+            -1, 1, 1)
+        sd[wd + name + ".bias"] = torch.zeros(n_bias)
+
+    h = XTTS_HIFIGAN
+    ch, dv = h["up_initial"], a["d_vector_dim"]
+    conv("conv_pre", (ch, a["decoder_input_dim"], 7), ch,
+         a["decoder_input_dim"] * 7)
+    sd[wd + "cond_layer.weight"] = _randn((ch, dv, 1), gen, dv ** -0.5)
+    sd[wd + "cond_layer.bias"] = torch.zeros(ch)
+    n_k = len(h["resblock_kernels"])
+    for u, (r, k) in enumerate(zip(h["up_rates"], h["up_kernels"])):
+        # a ConvTranspose1d: weight [in, out, k], its norm over dim 0
+        conv(f"ups.{u}", (ch, ch // 2, k), ch // 2, ch * k // r)
+        ch //= 2
+        sd[wd + f"conds.{u}.weight"] = _randn((ch, dv, 1), gen, dv ** -0.5)
+        sd[wd + f"conds.{u}.bias"] = torch.zeros(ch)
+        for kk, (rk, dils) in enumerate(zip(h["resblock_kernels"],
+                                            h["resblock_dilations"])):
+            for j in range(len(dils)):
+                for c in ("convs1", "convs2"):
+                    conv(f"resblocks.{u * n_k + kk}.{c}.{j}", (ch, ch, rk),
+                         ch, ch * rk)
+    conv("conv_post", (1, ch, 7), 1, ch * 7, scale=0.1)
+    torch.save({"model": sd}, d / "model.pth")
+    cfg = json.loads(json.dumps(XTTS_V2))
+    cfg["model_args"].update({f"hifigan_{k}": v for k, v in h.items()})
+    (d / "config.json").write_text(json.dumps(cfg, indent=1))
+    (d / "vocab.json").write_text(json.dumps(xtts_vocab()))
+    torch.save({"ana": {
+        "gpt_cond_latent": _randn((1, 32, D), gen, 0.02),
+        "speaker_embedding": _randn((1, dv, 1), gen, 1.0)}},
+        d / "speakers_xtts.pth")
+    return sum(t.numel() * 4 for t in sd.values())
+
+
+def write_musicgen_dir(d: Path, seed: int) -> int:
+    """musicgen-small as an HF MusicgenForConditionalGeneration directory:
+    t5-base's encoder (matrices at 0.5 / sqrt(fan-in), the relative bias
+    at 0.1, the embedding N(0, 1), tied and stored once as ``shared``),
+    the decoder at N(0, 0.02) with ``enc_to_dec_proj`` (768 -> 1024), and
+    encodec_32khz's decoder with the shortcut convolutions the loaders
+    read (ROADMAP §C 18). No tokenizer.json: the text goes in as byte
+    ids. Returns the parameter bytes."""
+    import torch
+
+    from localai_tfp_tpu_torch.models.safetensors_io import save_file
+
+    d.mkdir(parents=True)
+    gen = torch.Generator(device=CARD).manual_seed(seed)
+    t, m = T5_BASE, MUSICGEN_SMALL_DECODER
+    E, inner, F_ = t["d_model"], t["num_heads"] * t["d_kv"], t["d_ff"]
+    sd = {"text_encoder.shared.weight": _randn((t["vocab_size"], E), gen,
+                                               1.0),
+          "text_encoder.encoder.final_layer_norm.weight": torch.ones(E)}
+    te = "text_encoder.encoder.block."
+    sd[te + "0.layer.0.SelfAttention.relative_attention_bias.weight"] = \
+        _randn((t["relative_attention_num_buckets"], t["num_heads"]), gen,
+               0.1)
+    for i in range(t["num_layers"]):
+        b = f"{te}{i}.layer."
+        for w in "qkv":
+            sd[f"{b}0.SelfAttention.{w}.weight"] = _randn((inner, E), gen,
+                                                          0.5 * E ** -0.5)
+        sd[f"{b}0.SelfAttention.o.weight"] = _randn((E, inner), gen,
+                                                    0.5 * inner ** -0.5)
+        sd[f"{b}0.layer_norm.weight"] = torch.ones(E)
+        sd[f"{b}1.layer_norm.weight"] = torch.ones(E)
+        sd[f"{b}1.DenseReluDense.wi.weight"] = _randn((F_, E), gen,
+                                                      0.5 * E ** -0.5)
+        sd[f"{b}1.DenseReluDense.wo.weight"] = _randn((E, F_), gen,
+                                                      0.5 * F_ ** -0.5)
+    D, V, nb = m["hidden_size"], m["vocab_size"], m["num_codebooks"]
+    dd = "decoder.model.decoder."
+    for cb in range(nb):
+        sd[f"{dd}embed_tokens.{cb}.weight"] = _randn((V + 1, D), gen, 0.02)
+        sd[f"decoder.lm_heads.{cb}.weight"] = _randn((V, D), gen, 0.02)
+    sd[dd + "layer_norm.weight"] = torch.ones(D)
+    sd[dd + "layer_norm.bias"] = torch.zeros(D)
+    sd["enc_to_dec_proj.weight"] = _randn((D, E), gen, 0.02)
+    sd["enc_to_dec_proj.bias"] = torch.zeros(D)
+    for i in range(m["num_hidden_layers"]):
+        b = f"{dd}layers.{i}."
+        for ln in ("self_attn_layer_norm", "encoder_attn_layer_norm",
+                   "final_layer_norm"):
+            sd[f"{b}{ln}.weight"] = torch.ones(D)
+            sd[f"{b}{ln}.bias"] = torch.zeros(D)
+        for mod in ("self_attn", "encoder_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                sd[f"{b}{mod}.{proj}.weight"] = _randn((D, D), gen, 0.02)
+        sd[b + "fc1.weight"] = _randn((m["ffn_dim"], D), gen, 0.02)
+        sd[b + "fc2.weight"] = _randn((D, m["ffn_dim"]), gen, 0.02)
+    sd.update(_codec_tensors(encodec_layout(ENCODEC_32KHZ),
+                             torch.Generator().manual_seed(seed + 1),
+                             "audio_encoder."))
+    save_file(sd, str(d / "model.safetensors"))
+    (d / "config.json").write_text(json.dumps({
+        "model_type": "musicgen", "decoder_start_token_id": 2048,
+        "pad_token_id": 2048, "text_encoder": {"model_type": "t5", **t},
+        "decoder": {"model_type": "musicgen_decoder", **m},
+        "audio_encoder": ENCODEC_32KHZ}, indent=1))
+    return sum(t.numel() * 4 for t in sd.values())
+
+
+def _pick_deficits(what: str, rows, picks) -> dict:
+    """Card picks against a teacher-forced CPU forward's rows [n, V]:
+    how many are its argmax, and the worst logit deficit against a
+    tolerance of a quarter of the rows' std (f32 on both sides moves a
+    logit by ~1e-5; a wrong weight or position moves it by whole std)."""
+    import torch
+
+    rows = torch.as_tensor(rows).float()
+    tok = torch.as_tensor(picks, dtype=torch.long)
+    if not bool(torch.isfinite(rows).all()):
+        raise AssertionError(f"tts_ar {what}: CPU logits not finite")
+    deficit = rows.max(-1).values - rows.gather(-1, tok[:, None])[:, 0]
+    out = {"tokens": len(tok),
+           "exact_argmax": int((rows.argmax(-1) == tok).sum()),
+           "worst_logit_deficit": float(deficit.max()),
+           "tol": 0.25 * float(rows.std())}
+    if not out["worst_logit_deficit"] <= out["tol"]:
+        raise AssertionError(f"tts_ar {what}: card picks off the CPU "
+                             f"argmax: {out}")
+    return out
+
+
+def _timed(fn):
+    """(result, host seconds) of ``fn`` ended by a synchronize."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class _Recording:
+    """Within ``with``, each ``(owner, name)`` callable records its last
+    call's result and host seconds (``_timed``) in ``self.last[name]``:
+    the stages of a served request, read by the checks without running
+    them again."""
+
+    def __init__(self, targets) -> None:
+        # (owner, name, the callable, whether the owner itself held it: a
+        # method wrapped on an instance is removed again, not set back)
+        self.targets = [(o, n, getattr(o, n), n in vars(o))
+                        for o, n in targets]
+        self.last: dict = {}
+
+    def __enter__(self) -> "_Recording":
+        for owner, name, fn, _ in self.targets:
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def run(*a, **k):
+            out, s = _timed(lambda: fn(*a, **k))
+            self.last[name] = (out, s)
+            return out
+        return run
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, fn, own in self.targets:
+            if own:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+
+
+def bark_check(bark, model_path: Path, served, rec) -> dict:
+    """The served greedy bark request's stages (``rec``: host ms a token,
+    the codes, the waveform), its served samples the card's waveform;
+    device ms of one step of each stage; each stage's picks held to a
+    teacher-forced forward on the CPU (each of the coarse stage's sliding
+    windows a forward of its own, the fine stage one forward a codebook
+    over the codebooks it had), its codes decoded on the CPU within
+    ``TTS_AR_TOL``."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.device import f32_products
+    from localai_tfp_tpu_torch.models import bark as tb
+    from localai_tfp_tpu_torch.models.encodec import encodec_decode
+
+    ids = [b % 1000 for b in TTS_TEXT.encode()]
+    sem, sem_s = rec["semantic_tokens"]
+    coarse, coarse_s = rec["coarse_tokens"]
+    codes, fine_s = rec["fine_codes"]
+    audio, codec_s = rec["encodec_decode"]
+    codes = codes.cpu()
+    block = bark.coarse_spec.block_size
+    past = len(sem) + 2 + len(coarse) - 1 - block  # steps whose window slid
+    out = {"semantic_tokens": len(sem), "coarse_tokens": len(coarse),
+           "coarse_steps_slid": max(past, 0), "frames": codes.shape[0],
+           "served_lsb": _served("bark", served["speech"]["pcm"], audio),
+           "host_ms_per_token": {
+               "semantic": round(sem_s * 1e3 / len(sem), 4),
+               "coarse": round(coarse_s * 1e3 / len(coarse), 4)},
+           "host_ms": {"fine": round(fine_s * 1e3, 3),
+                       "codec": round(codec_s * 1e3, 3)}}
+    if len(sem) != 256 or past < 1:
+        raise AssertionError(f"tts_ar bark: {len(sem)} semantic tokens, "
+                             f"{past} coarse steps past the window")
+    # device ms: one cached step of each causal stage, one sliding step,
+    # one fine codebook, the codec
+    dev = bark.device
+    with torch.inference_mode(), f32_products():
+        dm = {}
+        for stage, spec, p, n in (
+                ("semantic_step", bark.semantic_spec, bark.semantic, 700),
+                ("coarse_step", bark.coarse_spec, bark.coarse, 1000)):
+            cache = tb.new_cache(spec, p)
+            x = p["embed"][torch.zeros((1, n), dtype=torch.long,
+                                       device=dev)]
+            tb.bark_gpt_hidden(spec, p, x[:, :-1], cache)
+            dm[stage] = _stage_ms(lambda: tb.bark_gpt_hidden(
+                spec, p, x[:, -1:], cache, n - 1)[0, -1] @ p["head"])
+        window = torch.zeros((1, block), dtype=torch.long, device=dev)
+        dm["coarse_slide_step"] = _stage_ms(lambda: tb.bark_causal_logits(
+            bark.coarse_spec, bark.coarse, window)[0, -1])
+        c_dev = codes.to(dev)[None]
+        dm["fine_codebook"] = _stage_ms(lambda: tb.bark_fine_logits(
+            bark.fine_spec, bark.fine, c_dev, 2))
+        dm["codec"] = _stage_ms(lambda: encodec_decode(
+            bark.codec, np.asarray(codes.T), bark.ratios))
+    out["device_ms"] = dm
+    cpu = tb.BarkTTS.load(str(model_path), "cpu")
+    prompt = ([t + tb.TEXT_ENCODING_OFFSET for t in ids]
+              + [tb.TEXT_PAD_TOKEN] * (256 - len(ids))
+              + [tb.SEMANTIC_PAD_TOKEN] * 256 + [tb.SEMANTIC_INFER_TOKEN])
+    with torch.inference_mode():
+        lg = tb.bark_causal_logits(cpu.semantic_spec, cpu.semantic,
+                                   torch.tensor([prompt + sem[:-1]])
+                                   )[0, len(prompt) - 1:]
+        rows = torch.cat([lg[:, :tb.SEMANTIC_VOCAB_SIZE],
+                          lg[:, tb.SEMANTIC_PAD_TOKEN:
+                             tb.SEMANTIC_PAD_TOKEN + 1]], 1)
+        out["semantic_greedy"] = _pick_deficits("bark semantic", rows, sem)
+        full = sem + [tb.COARSE_SEMANTIC_PAD_TOKEN, tb.COARSE_INFER_TOKEN] \
+            + coarse
+        n0 = len(sem) + 2
+        first = tb.bark_causal_logits(cpu.coarse_spec, cpu.coarse,
+                                      torch.tensor([full[:block]]))[0]
+        rows, picks = [], []
+        for j, tok in enumerate(coarse):
+            n = n0 + j
+            if n <= block:
+                row = first[n - 1]
+            else:  # a sliding window: a forward of its own
+                row = tb.bark_causal_logits(
+                    cpu.coarse_spec, cpu.coarse,
+                    torch.tensor([full[n - block:n]]))[0, -1]
+            lo = tb.SEMANTIC_VOCAB_SIZE + (j % 2) * tb.CODEBOOK_SIZE
+            rows.append(row[lo:lo + tb.CODEBOOK_SIZE])
+            picks.append(tok - lo)
+        out["coarse_greedy"] = _pick_deficits("bark coarse",
+                                              torch.stack(rows), picks)
+        fine = []
+        for cb in range(2, cpu.fine_spec.n_codes_total):
+            had = codes.clone()
+            had[:, cb:] = 0  # the codebooks the card's forward saw
+            lg = tb.bark_fine_logits(cpu.fine_spec, cpu.fine, had[None],
+                                     cb)[0, :, :tb.CODEBOOK_SIZE]
+            fine.append(_pick_deficits(f"bark fine {cb}", lg, codes[:, cb]))
+        out["fine_greedy"] = {
+            "tokens": sum(v["tokens"] for v in fine),
+            "exact_argmax": sum(v["exact_argmax"] for v in fine),
+            "worst_logit_deficit": max(v["worst_logit_deficit"]
+                                       for v in fine),
+            "tol": min(v["tol"] for v in fine)}
+        out["held"] = _held("bark codec", audio, encodec_decode(
+            cpu.codec, np.asarray(codes.T), cpu.ratios), TTS_AR_TOL)
+    return out
+
+
+def xtts_check(backend, model_path: Path, served, rec) -> dict:
+    """The served XTTS-v2 request's stages (``rec``: host ms a token of
+    the GPT, its codes and latents, the waveform), its served samples the
+    card's waveform; device ms of one step and of HiFiGAN; the picks held
+    to one teacher-forced forward on the CPU over the card's codes, the
+    card's latents within ``TTS_AR_TOL`` of that forward's, and the
+    card's latents through HiFiGAN on the CPU within ``TTS_AR_TOL``."""
+    import torch
+
+    from localai_tfp_tpu_torch.device import f32_products
+    from localai_tfp_tpu_torch.models import xtts as tx
+
+    spec, p, tok, voices = backend._xtts
+    lat, emb = voices["ana"]
+    ids = tx.text_ids(spec, tok, TTS_TEXT)
+    dev = p["ln_f_w"].device
+    (codes, lats), gpt_s = rec["gpt_generate"]
+    audio, hifi_s = rec["hifigan_decode"]
+    audio = audio.cpu().numpy()
+    with torch.inference_mode(), f32_products():
+        cond = torch.as_tensor(lat, device=dev)
+        prefix = tx.gpt_prefix(spec, p, ids, cond)
+        P = prefix.shape[1]
+        caches = tx.new_caches(spec, p, P + 1)
+        tx.gpt_forward(spec, p, prefix, caches, 0)
+        step = p["audio_emb"][5] + p["audio_pos"][1]
+        dm = {"gpt_step": _stage_ms(lambda: tx.gpt_forward(
+                  spec, p, step[None, None], caches, P)),
+              "hifigan": _stage_ms(lambda: tx.hifigan_decode(
+                  spec, p, lats, emb))}
+    n = len(codes)
+    if n != spec.max_audio_tokens:
+        raise AssertionError(f"tts_ar xtts: {n} codes, not "
+                             f"{spec.max_audio_tokens}")
+    out = {"text_ids": len(ids), "codes": n, "device_ms": dm,
+           "host_ms_per_token": round(gpt_s * 1e3 / n, 4),
+           "host_ms": {"hifigan": round(hifi_s * 1e3, 3)},
+           "served_lsb": _served("xtts", served["elevenlabs"]["pcm"],
+                                 audio)}
+    cspec, cp, _, _ = tx.load_xtts(str(model_path), "cpu")
+    with torch.inference_mode():
+        cprefix = tx.gpt_prefix(cspec, cp, ids, torch.as_tensor(lat))
+        audio_in = cp["audio_emb"][torch.as_tensor(codes)] \
+            + cp["audio_pos"][1:n + 1]
+        seq = torch.cat([cprefix, audio_in[None]], 1)
+        hidden = tx.gpt_forward(cspec, cp, seq,
+                                tx.new_caches(cspec, cp, seq.shape[1]), 0)[0]
+        rows = tx.audio_logits(cspec, cp, hidden[P - 1:P - 1 + n])
+        keep = [c for c in range(rows.shape[1])
+                if c not in (spec.start_audio_token, spec.stop_audio_token)]
+        out["greedy"] = _pick_deficits("xtts gpt", rows[:, keep],
+                                       [keep.index(int(c)) for c in codes])
+        out["latents"] = _held("xtts latents", lats.cpu().numpy(),
+                               hidden[P:P + n].numpy(), TTS_AR_TOL)
+        out["held"] = _held("xtts hifigan", audio, tx.hifigan_decode(
+            cspec, cp, lats.cpu(), emb).numpy(), TTS_AR_TOL)
+    return out
+
+
+def musicgen_check(backend, model_path: Path, served_pcm, rec) -> dict:
+    """The served greedy musicgen-small request's stages (``rec``: host
+    ms a step, its frames, the waveform), its served samples the card's
+    waveform; device ms of the encoder, one step and the codec; the picks
+    held to one teacher-forced pass of the same model on the CPU (the
+    guided logits at each codebook's frames), the card's frames decoded
+    on the CPU within ``TTS_AR_TOL``."""
+    import numpy as np
+    import torch
+
+    from localai_tfp_tpu_torch.device import f32_products
+    from localai_tfp_tpu_torch.models import musicgen as tm
+
+    bundle, tok = backend._musicgen
+    ids = (tok.encode_special(MUSICGEN_TEXT) if tok is not None else
+           [b % bundle[0].vocab_size for b in MUSICGEN_TEXT.encode()])
+    dec, meta = bundle[2], bundle[6]
+    max_new = max(int(MUSICGEN_SECONDS * meta["frame_rate"]), 8) \
+        + dec.n_codebooks - 1
+    frames, mg_s = rec["mg_codes"]
+    audio, codec_s = rec["decode_frames"]
+    if frames.shape != (dec.n_codebooks, max_new + 1 - dec.n_codebooks):
+        raise AssertionError(f"tts_ar musicgen: frames {frames.shape}")
+    with torch.inference_mode(), f32_products():
+        enc = tm.encode_text(bundle, ids, 3.0)
+        cross = tm.mg_cross_kv(bundle[3], enc)
+        shape = (dec.n_layers, 2, max_new + 1, dec.d_model)
+        ck, cv = enc.new_zeros(shape), enc.new_zeros(shape)
+        frame = torch.zeros((2, dec.n_codebooks), dtype=torch.long,
+                            device=enc.device)
+        dm = {"t5_encoder": _stage_ms(lambda: tm.encode_text(bundle, ids,
+                                                             3.0)),
+              "decoder_step": _stage_ms(lambda: tm.mg_step(
+                  dec, bundle[3], frame, cross, ck, cv, max_new // 2)),
+              "codec": _stage_ms(lambda: tm.decode_frames(bundle, frames))}
+    out = {"text_ids": len(ids), "frames": frames.shape[1],
+           "steps": max_new, "device_ms": dm,
+           "host_ms_per_step": round(mg_s * 1e3 / max_new, 4),
+           "host_ms": {"codec": round(codec_s * 1e3, 3)},
+           "served_lsb": _served("musicgen", served_pcm, audio)}
+    cpu = tm.load_musicgen(str(model_path), "cpu")
+    valid = tm.delay_pattern(dec.n_codebooks, max_new)
+    codes = np.full(valid.shape, meta["decoder_start"], np.int64)
+    codes[valid] = frames.reshape(-1)
+    # each step's input frame: the codes where the staircase has them,
+    # the pad token elsewhere
+    inputs = np.where(valid, codes, dec.pad_token)[:, :-1]
+    with torch.inference_mode():
+        x = torch.as_tensor(np.repeat(inputs[None], 2, 0))
+        lg = tm.mg_decode_full(cpu[2], cpu[3], x,
+                               tm.encode_text(cpu, ids, 3.0))
+        guided = lg[1] + 3.0 * (lg[0] - lg[1])  # [nb, T, V]
+        at = torch.as_tensor(valid[:, 1:])  # the picks that became frames
+        out["greedy"] = _pick_deficits("musicgen decoder", guided[at],
+                                       codes[:, 1:][valid[:, 1:]])
+        out["held"] = _held("musicgen codec", audio,
+                            tm.decode_frames(cpu, frames), TTS_AR_TOL)
+    return out
+
+
+def sound_requests(port: int, name: str) -> dict:
+    """MusicGen behind its YAML through /v1/sound-generation at
+    ``MUSICGEN_SECONDS``, sampled (the route's default, seed 0) and greedy
+    (temperature 0): 200, audio/x-wav, 32 kHz, the frames' samples;
+    request ms and real-time factor."""
+    import math
+
+    rate = ENCODEC_32KHZ["sampling_rate"]
+    hop = math.prod(ENCODEC_32KHZ["upsampling_ratios"])
+    frames = max(int(MUSICGEN_SECONDS * (rate // hop)), 8)
+    out = {}
+    for way, extra in (("sampled", {}), ("greedy", {"temperature": 0})):
+        t0 = time.perf_counter()
+        status, headers, data = _req(port, "POST", "/v1/sound-generation", {
+            "model_id": name, "text": MUSICGEN_TEXT,
+            "duration_seconds": MUSICGEN_SECONDS, **extra})
+        ms = (time.perf_counter() - t0) * 1e3
+        ctype = headers.get("Content-Type", "")
+        if status != 200 or ctype != "audio/x-wav":
+            raise AssertionError(f"tts_ar {name} {way}: {status} {ctype} "
+                                 f"{data[:300]!r}")
+        head, pcm = _wav_samples(data)
+        if head != (1, 2, rate) or len(pcm) != frames * hop:
+            raise AssertionError(f"tts_ar {name} {way}: header {head}, "
+                                 f"{len(pcm)} samples for {frames} frames")
+        seconds = len(pcm) / rate
+        out[way] = {"request_ms": round(ms, 3), "audio_s": round(seconds, 3),
+                    "rtf": round(ms / 1e3 / seconds, 4), "pcm": pcm}
+    return out
+
+
+def phase_tts_ar(smi: str, seed: int) -> dict:
+    """bark-small, XTTS-v2 and musicgen-small at published widths (random
+    weights from ``seed``) through the HTTP server: bark at the worker's
+    defaults (temperature 0.7, 256 semantic tokens) by /tts and greedy
+    (``temperature=0``: the coarse window slides) by /v1/audio/speech,
+    XTTS greedy by /v1/audio/speech, /tts and /v1/text-to-speech/ana,
+    MusicGen at 5 s with guidance by /v1/sound-generation, sampled (seed
+    0) and greedy; request ms and real-time factor; each model's greedy
+    stages held to the CPU (``bark_check``, ``xtts_check``,
+    ``musicgen_check``), then unloaded: allocated bytes back within
+    LC_SLACK of the baseline."""
+    import shutil
+    import threading
+
+    import torch
+
+    from localai_tfp_tpu_torch.config.app_config import ApplicationConfig
+    from localai_tfp_tpu_torch.config.model_config import Usecase
+    from localai_tfp_tpu_torch.models import bark as tb
+    from localai_tfp_tpu_torch.models import musicgen as tm
+    from localai_tfp_tpu_torch.models import xtts as tx
+    from localai_tfp_tpu_torch.server.app import Server
+    from localai_tfp_tpu_torch.server.state import Application
+
+    t_phase = time.perf_counter()
+    models = ROOT / "build" / "chip_smoke" / "tts_ar"
+    shutil.rmtree(models, ignore_errors=True)
+    models.mkdir(parents=True)
+    t0 = time.perf_counter()
+    written = {"bark": write_bark_dir(models / "bark-small", seed),
+               "xtts": write_xtts_dir(models / "xtts-v2", seed + 1),
+               "musicgen": write_musicgen_dir(models / "musicgen-small",
+                                              seed + 2)}
+    log("tts_ar_checkpoints", bytes=written,
+        write_s=round(time.perf_counter() - t0, 3), card=smi)
+    yamls = {
+        "bark": {"backend": "bark", "parameters": {"model": "bark-small"}},
+        "bark-greedy": {"backend": "bark",
+                        "parameters": {"model": "bark-small"},
+                        "options": ["temperature=0"]},
+        "xtts": {"backend": "coqui", "parameters": {"model": "xtts-v2"}},
+        "musicgen": {"backend": "tts",
+                     "parameters": {"model": "musicgen-small"}},
+    }
+    for name, doc in yamls.items():
+        (models / f"{name}.yaml").write_text(json.dumps({"name": name,
+                                                         **doc}))
+    out = {"checkpoint_bytes": written}
+    base = _mem()
+    srv = Server(Application(ApplicationConfig(
+        models_path=str(models), address="127.0.0.1", port=0,
+        generated_content_dir=str(models / "generated")), CARD))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = srv.server_address[1]
+        app = srv.app
+        for name, routes in (("bark", ("tts",)), ("bark-greedy", ("speech",)),
+                             ("xtts", ("speech", "tts", "elevenlabs")),
+                             ("musicgen", None)):
+            t_leg = time.perf_counter()
+            # loaded first, so that a request's ms is the request's and
+            # the served stages can be recorded on the loaded model
+            backend = app.model_loader.load(app.config_loader.resolve(
+                name, Usecase.SOUND_GENERATION if routes is None
+                else Usecase.TTS))
+            with _Recording({  # the last request's stages
+                "bark-greedy": [(backend._bark, "semantic_tokens"),
+                                (backend._bark, "coarse_tokens"),
+                                (backend._bark, "fine_codes"),
+                                (tb, "encodec_decode")],
+                "xtts": [(tx, "gpt_generate"), (tx, "hifigan_decode")],
+                "musicgen": [(tm, "mg_codes"), (tm, "decode_frames")],
+            }.get(name, [])) as rec:
+                if routes is None:
+                    served = sound_requests(port, name)
+                else:
+                    served = tts_requests(port, name, "ana" if name == "xtts"
+                                          else "", 24000, routes)
+            leg = {"requests": {k: {kk: vv for kk, vv in v.items()
+                                    if kk != "pcm"}
+                                for k, v in served.items()}}
+            lm = app.model_loader.get(name)
+            leg["load_s"] = round(lm.load_s, 3)
+            leg["family"] = backend.family()
+            path = models / yamls[name]["parameters"]["model"]
+            if name == "bark-greedy":
+                leg.update(bark_check(backend._bark, path, served, rec.last))
+            elif name == "xtts":
+                leg.update(xtts_check(backend, path, served, rec.last))
+            elif name == "musicgen":
+                leg.update(musicgen_check(backend, path,
+                                          served["greedy"]["pcm"], rec.last))
+            loaded = _mem()
+            del rec
+            del backend, lm, served
+            st, _, msg = _req(port, "POST", "/backend/shutdown",
+                              {"model": name})
+            if st != 200:
+                raise AssertionError(f"tts_ar {name}: shutdown {st} {msg!r}")
+            after = _mem()
+            leg["memory"] = {"baseline": base["allocated"],
+                             "loaded": loaded["allocated"],
+                             "after_unload": after["allocated"],
+                             "residue": _back(f"tts_ar {name}",
+                                              after["allocated"], base)}
+            leg["leg_s"] = round(time.perf_counter() - t_leg, 3)
+            log(f"tts_ar_{name}", **leg, card=smi)
+            out[name] = leg
+    finally:
+        _shut(srv, th)
+        shutil.rmtree(models, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    log("tts_ar", phase_s=out["phase_s"], card=smi)
     return out
 
 
@@ -10409,7 +11211,7 @@ def main() -> int:
                     default="device,build,kernels,int8,moe,gguf,main,graphs,"
                             "engine,dispatch,tiers,weights,disagg,spec,text,"
                             "lifecycle,families,recurrent_vision,retrieval,"
-                            "audio,tts")
+                            "audio,tts,tts_ar")
     ap.add_argument("--layers", type=int, default=32,
                     help="decoder depth of the main-path model (8B: 32)")
     ap.add_argument("--gguf-layers", type=int, default=None,
@@ -10732,6 +11534,22 @@ def run_phases(args, at: dict) -> int:
             # VITS, piper and Kokoro run neither kernel (no Pallas kernel
             # in the JAX package either)
             e["launches_tts"] = tts["oute"]["launches"][e["name"]]
+    if "tts_ar" in phases:
+        from localai_tfp_tpu_torch.ops.int8_matmul import int8_matmul
+        from localai_tfp_tpu_torch.ops.ragged_paged_attention import (
+            ragged_paged_attention,
+        )
+
+        for f in (ragged_paged_attention, int8_matmul):
+            f.launches = 0
+        at["phase"] = "tts_ar"
+        phase_tts_ar(smi, args.seed)
+        launched = {"ragged_paged_attention": ragged_paged_attention.launches,
+                    "int8_matmul": int8_matmul.launches}
+        for e in entries:
+            # bark, XTTS and MusicGen run neither kernel: their JAX loops
+            # reach no Pallas kernel either
+            e["launches_tts_ar"] = launched[e["name"]]
     if "softcap_witness" in phases:
         at["phase"] = "softcap_witness"
         phase_softcap_witness(smi, args.seed)

@@ -24,6 +24,9 @@ families the port serves:
   metadata.
 - BERT (``engine/wordpiece.py``): ``BertNormalizer``,
   ``BertPreTokenizer``, a ``WordPiece`` model and decoder.
+- coqui XTTS's ``vocab.json``: a ``Whitespace`` pre-tokenizer (the
+  matches of ``\\w+|[^\\w\\s]+``, Oniguruma's Unicode ``\\w``) over a
+  BPE model with ``[UNK]`` and ``[en]``-style added tokens.
 - ``encode_special`` and ``encode_pair`` add the ``post_processor``'s
   special tokens (``TemplateProcessing``, ``BertProcessing``) and give a
   pair's type ids, as transformers' ``encode(..., add_special_tokens=
@@ -82,6 +85,22 @@ def _range(a: int, b: int) -> str:
     return f"\\U{a:08x}" if a == b else f"\\U{a:08x}-\\U{b:08x}"
 
 
+# Other_Alphabetic characters outside the categories below (circled,
+# squared and negative letters, So): unicodedata has no property table
+_OTHER_ALPHABETIC_SO = ("\U000024b6-\U000024e9\U0001f130-\U0001f149"
+                        "\U0001f150-\U0001f169\U0001f170-\U0001f189")
+
+
+def _word_ranges() -> str:
+    """Oniguruma's Unicode ``\\w`` as a class body: Alphabetic (letters,
+    letter numbers, Other_Alphabetic), marks, decimal digits, connector
+    punctuation and the two joiners; Python's ``\\w`` takes every number
+    and omits the marks and joiners."""
+    return "".join(_category_ranges(c) for c in ("L", "Nl", "M", "Nd",
+                                                 "Pc")) \
+        + "\U0000200c\U0000200d" + _OTHER_ALPHABETIC_SO
+
+
 def _ws_ranges() -> str:
     return "".join(f"\\U{ord(c):08x}" for c in _WHITE_SPACE)
 
@@ -89,8 +108,8 @@ def _ws_ranges() -> str:
 def translate_pattern(pattern: str) -> str:
     """An Oniguruma pattern of a ``tokenizer.json`` as a Python ``re``
     pattern: ``\\p{..}``/``\\P{..}`` and ``\\s``/``\\S`` become explicit
-    classes. An escape whose meanings differ (``\\w``, ``\\b``, ...)
-    raises."""
+    classes, and so does ``\\w``/``\\W`` (``_word_ranges``). An escape
+    whose meanings differ (``\\b``, ``\\d``, ...) raises."""
     out: list[str] = []
     i, n = 0, len(pattern)
     in_class = False
@@ -127,7 +146,19 @@ def translate_pattern(pattern: str) -> str:
                     out.append(f"[{'^' if e == 'S' else ''}{_ws_ranges()}]")
                 i += 2
                 continue
-            if e in "wWbBdDhHAzZGRXK":
+            if e in "wW":
+                body = _word_ranges()
+                if in_class:
+                    if e == "W":
+                        raise NotImplementedError(
+                            f"tokenizer.json pattern {pattern!r}: \\W "
+                            "inside a class")
+                    out.append(body)
+                else:
+                    out.append(f"[{'^' if e == 'W' else ''}{body}]")
+                i += 2
+                continue
+            if e in "bBdDhHAzZGRXK":
                 raise NotImplementedError(
                     f"tokenizer.json pattern {pattern!r}: escape \\{e} "
                     "differs between Oniguruma and Python")
@@ -294,6 +325,13 @@ def _pre_tokenizer(spec: Optional[dict]):
                     out.append(_Piece(t[start:], p.first and start == 0))
             return out
         return metaspace
+    if kind == "Whitespace":
+        # tokenizers' Whitespace: the matches of \w+|[^\w\s]+ (Oniguruma),
+        # each a piece; the whitespace between them dropped
+        rx = re.compile(translate_pattern(r"\w+|[^\w\s]+"))
+        return lambda pieces: [_Piece(m.group(), p.first and m.start() == 0)
+                               for p in pieces
+                               for m in rx.finditer(p.text)]
     if kind == "BertPreTokenizer":
         return lambda pieces: [_Piece(w, p.first and k == 0)
                                for p in pieces

@@ -1,8 +1,8 @@
 """The EnCodec (SEANet) decoder in PyTorch: the decoder half of
 localai_tfp_tpu/models/bark.py (its ``load_encodec_decoder``,
 ``_causal_conv1d``, ``_causal_convtr1d``, ``_lstm_stack`` and
-``encodec_decode``), which OuteTTS-class models decode their audio codes
-with. Bark's three GPTs are not ported yet.
+``encodec_decode``), which bark (``models/bark.py``) and OuteTTS-class
+models decode their audio codes with.
 
 The decoder reads an HF ``EncodecModel`` state dict: the quantizer's
 codebooks, then ``decoder.layers.*`` in order (a stem conv, an LSTM stack,

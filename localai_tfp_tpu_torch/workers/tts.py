@@ -8,15 +8,19 @@ transformers backend's OuteTTS path).
 ``.onnx`` file is a piper voice (``models/piper.py``); a directory with a
 ``codec/`` subdirectory or a config of ``type: OuteTTS`` is an OuteTTS
 model (``models/outetts.py``, its LM through the paged engine); a Kokoro
-config is Kokoro (``models/kokoro.py``); ``model_type: vits`` is an HF
-VITS/MMS checkpoint (``models/vits.py``, its character tokenizer read
-from ``vocab.json``). With no model files the worker is the formant
-voice: grapheme-to-phoneme by rule and a 3-formant source-filter render,
-numpy on the host in both packages, so its WAV bytes are the JAX
-worker's. A model that was named and fails to load is an error
-(``Result(False, "<family> load failed: ...")``), never the formant voice.
-The families the JAX worker also serves and this port does not yet (bark,
-xtts, musicgen) fail their load, naming the family.
+config is Kokoro (``models/kokoro.py``); a coqui XTTS config is XTTS v2
+(``models/xtts.py``, its voices from ``speakers_xtts.pth``, its text
+through ``vocab.json``); ``model_type: vits`` is an HF VITS/MMS checkpoint
+(``models/vits.py``, its character tokenizer read from ``vocab.json``);
+``model_type: musicgen`` is MusicGen (``models/musicgen.py``, served by
+``sound_generation``, its text through ``tokenizer.json``);
+``model_type: bark`` is bark (``models/bark.py``, with the YAML's
+``max_semantic=N`` and ``temperature=x`` options). With no model files
+the worker is the formant voice: grapheme-to-phoneme by rule and a
+3-formant source-filter render, numpy on the host in both packages, so
+its WAV bytes are the JAX worker's. A model that was named and fails to
+load is an error (``Result(False, "<family> load failed: ...")``), never
+the formant voice.
 
 ``sound_generation`` without a MusicGen checkpoint is the JAX worker's
 seeded noise-band texture (host numpy, the same bytes). The models run on
@@ -78,10 +82,6 @@ VOICES = {  # voice id -> (pitch_hz, speed)
     "nova": (175.0, 1.1),
     "shimmer": (200.0, 1.05),
 }
-
-# families of the JAX worker that this port does not serve yet
-_NOT_PORTED = ("bark", "musicgen", "xtts")
-
 
 def _g2p(text: str) -> list[str]:
     out = []
@@ -181,6 +181,10 @@ class TorchTTSBackend(Backend):
         self._kokoro = None  # (spec, params, voices)
         self._piper = None  # models/piper.py PiperVoice
         self._outetts = None  # models/outetts.py OuteTTSModel
+        self._xtts = None  # (spec, params, tokenizer-or-None, voices)
+        self._bark = None  # models/bark.py BarkTTS
+        self._bark_opts: dict = {}
+        self._musicgen = None  # (bundle, tokenizer-or-None)
 
     def load_model(self, opts: ModelLoadOptions) -> Result:
         with self._lock:
@@ -233,19 +237,36 @@ class TorchTTSBackend(Backend):
                 mtype = "kokoro"
                 self._kokoro = load_kokoro(model_dir, self.device)
                 return Result(True, "kokoro ready")
-            with open(cfg_path) as f:
-                config = json.load(f)
-            mtype = (config.get("model_type") or "").lower()
-            if _is_xtts(config):
+            from ..models.xtts import is_xtts_dir
+
+            if is_xtts_dir(model_dir):
+                from ..models.xtts import load_xtts
+
                 mtype = "xtts"
-            if mtype in _NOT_PORTED:
-                raise NotImplementedError(
-                    f"the {mtype} family is not ported to this runtime yet")
+                self._xtts = load_xtts(model_dir, self.device)
+                return Result(True, "xtts ready")
+            with open(cfg_path) as f:
+                mtype = (json.load(f).get("model_type") or "").lower()
             if mtype == "vits":
                 from ..models.vits import load_vits, load_vits_tokenizer
 
                 spec, params = load_vits(model_dir, self.device)
                 self._vits = (spec, params, load_vits_tokenizer(model_dir))
+            elif mtype == "musicgen":
+                from ..models.musicgen import load_musicgen
+
+                self._musicgen = (load_musicgen(model_dir, self.device),
+                                  _musicgen_tokenizer(model_dir))
+            elif mtype == "bark":
+                from ..models.bark import BarkTTS
+
+                self._bark = BarkTTS.load(model_dir, self.device)
+                for kv in opts.options:
+                    k, _, v = kv.partition("=")
+                    if k == "max_semantic":
+                        self._bark_opts["max_semantic"] = int(v)
+                    elif k == "temperature":
+                        self._bark_opts["temperature"] = float(v)
         except Exception as e:  # a load must answer, not raise
             self._clear()
             return Result(False, f"{mtype or 'tts'} load failed: {e}")
@@ -274,8 +295,10 @@ class TorchTTSBackend(Backend):
         return StatusResponse(state=self._state)
 
     def family(self) -> str:
-        """The loaded family: piper, outetts, kokoro, vits or formant."""
-        for name in ("piper", "outetts", "kokoro", "vits"):
+        """The loaded family: piper, outetts, xtts, kokoro, bark, vits,
+        musicgen or formant."""
+        for name in ("piper", "outetts", "xtts", "kokoro", "bark", "vits",
+                     "musicgen"):
             if getattr(self, f"_{name}") is not None:
                 return name
         return "formant"
@@ -316,6 +339,25 @@ class TorchTTSBackend(Backend):
                 return Result(False, str(e))
             write_wav(dst, audio, sr=self._outetts.sample_rate)
             return Result(True, dst)
+        if self._xtts is not None:
+            from ..models.xtts import synthesize, text_ids
+
+            xspec, xparams, xtok, voices = self._xtts
+            if not voices:
+                return Result(
+                    False, "xtts model has no speakers file "
+                           "(speakers_xtts.pth) — voice cloning from "
+                           "reference audio needs precomputed latents")
+            if voice and voice not in voices:
+                return Result(
+                    False, f"unknown xtts voice {voice!r}; available: "
+                           f"{sorted(voices)}")
+            lat, emb = voices[voice or next(iter(voices))]
+            audio = synthesize(xspec, xparams,
+                               text_ids(xspec, xtok, text, language), lat,
+                               emb)
+            write_wav(dst, audio, sr=xspec.sample_rate)
+            return Result(True, dst)
         if self._kokoro is not None:
             from ..models.kokoro import (pick_voice, synthesize_kokoro,
                                          text_to_tokens)
@@ -327,6 +369,10 @@ class TorchTTSBackend(Backend):
             # both ends before the forward
             audio = synthesize_kokoro(kspec, kparams, [0, *ids, 0], ref)
             write_wav(dst, audio, sr=kspec.sampling_rate)
+            return Result(True, dst)
+        if self._bark is not None:
+            audio = self._bark.generate(text, **self._bark_opts)
+            write_wav(dst, audio, sr=self._bark.sample_rate)
             return Result(True, dst)
         if self._vits is not None:
             from ..models.vits import synthesize
@@ -342,15 +388,47 @@ class TorchTTSBackend(Backend):
         return Result(True, dst)
 
     def sound_generation(self, text: str, dst: str = "", **kw) -> Result:
-        """A procedural seeded noise-band texture (no MusicGen checkpoint
-        is served by this port yet), so the endpoint works with zero
-        model files."""
-        write_wav(dst, noise_bands(text, float(kw.get("duration") or 3.0)))
+        """MusicGen when a MusicGen checkpoint is loaded, with the JAX
+        worker's defaults (5 s, capped at 30; guidance 3; seed 0);
+        otherwise the procedural seeded noise-band texture, so the
+        endpoint works with zero model files."""
+        if self._musicgen is None:
+            write_wav(dst, noise_bands(text, float(kw.get("duration")
+                                                   or 3.0)))
+            return Result(True, dst)
+        from ..models.musicgen import mg_generate
+
+        bundle, tok = self._musicgen
+        meta = bundle[6]
+        if tok is not None:
+            ids = tok.encode_special(text)
+        else:
+            ids = [b % bundle[0].vocab_size for b in text.encode()] or [0]
+        dur = kw.get("duration")
+        # an uncapped client duration would be a one-request DoS
+        dur = min(max(5.0 if dur is None else float(dur), 0.0), 30.0)
+        frames = max(int(dur * meta["frame_rate"]), 8)
+        audio = mg_generate(
+            bundle, ids, max_new_tokens=frames + bundle[2].n_codebooks - 1,
+            do_sample=bool(kw.get("do_sample", True)),
+            temperature=float(1.0 if kw.get("temperature") is None
+                              else kw["temperature"]),
+            guidance_scale=float(kw.get("guidance_scale") or 3.0),
+            seed=int(kw.get("seed") or 0))
+        write_wav(dst, audio, sr=meta["sampling_rate"])
         return Result(True, dst)
 
 
-def _is_xtts(config: dict) -> bool:
-    """The JAX package's coqui XTTS v2 detection (``models/xtts.py::
-    is_xtts_dir``) on a parsed config.json."""
-    return "gpt_number_text_tokens" in (config.get("model_args") or {}) \
-        or config.get("model") == "xtts"
+def _musicgen_tokenizer(model_dir: str):
+    """``tokenizer.json`` through ``engine/bpe.py``, post-processor
+    included (T5 appends ``</s>``), or None without one (the byte ids).
+    A file with a component the reader does not know (T5's
+    ``Precompiled`` normalizer) fails the load, naming it."""
+    from ..engine.bpe import BPETokenizer
+
+    path = os.path.join(model_dir, "tokenizer.json")
+    if not os.path.isfile(path):
+        return None
+    tok = BPETokenizer(path)
+    tok.encode_special("")  # a post-processor it cannot apply: now
+    return tok

@@ -6,7 +6,9 @@ One small tokenizer of each family the port serves is built here with
 (``Split`` + ``ByteLevel``, ``ignore_merges``, special and stripped added
 tokens), Qwen2 (``NFC``), GPT-2 (``ByteLevel(use_regex)``), Mistral
 (``Prepend``/``Replace`` normalizer, ``byte_fallback``), a Metaspace
-variant and an ``unk``/``fuse_unk`` one. Each is held to ``tokenizers``
+variant, an ``unk``/``fuse_unk`` one and coqui XTTS's ``Whitespace``
+layout (Oniguruma's Unicode ``\\w``: letters, marks, numbers, connector
+punctuation). Each is held to ``tokenizers``
 exactly: equal ids from ``encode`` and equal text from ``decode`` over a
 multilingual corpus (``\\x1c-\\x1f``, combining marks, CJK, emoji,
 contractions in capitals), hypothesis text and seeded random ids. The
@@ -159,6 +161,19 @@ def _crafted_ignore_merges():
     return tk
 
 
+def _xtts():
+    """coqui XTTS's ``vocab.json`` layout: a BPE with ``[UNK]`` (unfused)
+    under a ``Whitespace`` pre-tokenizer, no decoder, special added
+    tokens in front and language tags."""
+    specials = ["[STOP]", "[UNK]", "[SPACE]"]
+    tk = Tokenizer(BPE(unk_token="[UNK]"))
+    tk.pre_tokenizer = pre_tokenizers.Whitespace()
+    tk.train_from_iterator(CORPUS * 3, trainer=BpeTrainer(
+        vocab_size=400, show_progress=False, special_tokens=specials))
+    tk.add_special_tokens(["[en]", "[de]", "[zh-cn]"])
+    return tk
+
+
 FAMILIES = {
     "llama3": lambda: _byte_level_family("llama3", LLAMA3_SPLIT, None, True),
     "ignore_merges": _crafted_ignore_merges,
@@ -169,6 +184,7 @@ FAMILIES = {
     "mistral": lambda: _sentencepiece("byte_fallback"),
     "mistral_metaspace": lambda: _sentencepiece("metaspace"),
     "unk_fused": lambda: _sentencepiece("unk"),
+    "xtts": _xtts,
 }
 
 
@@ -224,7 +240,7 @@ _TEXT = st.text(alphabet=st.characters(blacklist_categories=("Cs",)),
 
 
 @pytest.mark.parametrize("family", ["llama3", "qwen2", "gpt2", "mistral",
-                                    "mistral_metaspace"])
+                                    "mistral_metaspace", "xtts"])
 def test_hypothesis_text_matches_tokenizers(family_files, family):
     ref, port = _pair(family_files[family])
 
@@ -246,7 +262,7 @@ def _pieces_agree(ref, port, text: str) -> None:
 
 
 @pytest.mark.parametrize("family", ["llama3", "qwen2", "gpt2", "gpt2_prefix",
-                                    "mistral_metaspace"])
+                                    "mistral_metaspace", "xtts"])
 def test_pre_tokenizer_pieces_match_tokenizers(family_files, family):
     """The pieces the model sees, split for split: every character on
     which Python's ``\\s``, ``str.isspace`` and Unicode's White_Space
@@ -290,10 +306,11 @@ def test_chip_smoke_tokenizer_matches_tokenizers(tmp_path):
 
 @pytest.mark.parametrize("component", [
     ("normalizer", {"type": "Lowercase"}),
-    ("pre_tokenizer", {"type": "Whitespace"}),
+    # Whitespace and \w are read since XTTS's vocab.json came
+    ("pre_tokenizer", {"type": "WhitespaceSplit"}),
     ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": "a"},
                        "behavior": "Removed", "invert": False}),
-    ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\w+"},
+    ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\b\w+"},
                        "behavior": "Isolated", "invert": False}),
     # WordPiece is read since the encoders came (engine/wordpiece.py)
     ("decoder", {"type": "CTC", "pad_token": "<pad>",

@@ -172,3 +172,11 @@ def test_the_scans_cover_the_paging_and_migration_modules():
     names = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
     assert {"engine/weight_pager.py", "engine/kv_migrate.py",
             "models/weight_slab.py"} <= names
+
+
+def test_the_scans_cover_the_speech_and_sound_models():
+    """bark, XTTS and MusicGen are among the files the AST scans read
+    (and the fresh interpreter imports)."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
+    assert {"models/bark.py", "models/xtts.py", "models/musicgen.py",
+            "workers/tts.py"} <= names

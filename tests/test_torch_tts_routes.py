@@ -16,6 +16,16 @@
   generated-content mounts serve the same bytes. Kokoro, piper and
   OuteTTS YAMLs through the port's routes serve the WAV of the port's
   worker (held to the JAX models in tests/test_torch_tts.py).
+- bark, XTTS and MusicGen (tiny checkpoints from tests/test_torch_bark.py,
+  test_torch_xtts.py and test_torch_musicgen.py): each loads with the JAX
+  worker's message; ``/tts`` and ``/v1/audio/speech`` with bark at
+  ``temperature=0`` and with XTTS, ``/v1/text-to-speech/{voice_id}`` with
+  an XTTS voice, an unknown voice and a directory without a speakers
+  file, ``/v1/sound-generation`` with MusicGen (greedy and seeded
+  sampled) answer as the JAX server does (samples within one unit plus
+  1e-4 of max|JAX|, errors with the same message); an unload brings back
+  the noise bands and a reload leaves no earlier family reachable, byte
+  for byte as the JAX worker.
 """
 
 import asyncio
@@ -179,7 +189,10 @@ def test_each_family_loads_as_jax(models, rel, kw, family):
     ("piper/missing.onnx", {}, "piper load failed: "),
     ("bad_oute", {"type": "OuteTTS"}, "outetts load failed: "),
     ("bad_kokoro", {}, "kokoro load failed: "),
-    ("bad_vits", {}, "vits load failed: ")])
+    ("bad_vits", {}, "vits load failed: "),
+    ("bad_xtts", {}, "xtts load failed: "),
+    ("bad_bark", {}, "bark load failed: "),
+    ("bad_musicgen", {}, "musicgen load failed: ")])
 def test_a_broken_load_fails_as_jax(models, tmp_path, rel, kw, prefix):
     """A named model that cannot load is an error with the JAX worker's
     family prefix, and the worker does not answer with the formant
@@ -192,6 +205,11 @@ def test_a_broken_load_fails_as_jax(models, tmp_path, rel, kw, prefix):
     (tmp_path / "bad_vits").mkdir()
     (tmp_path / "bad_vits" / "config.json").write_text(
         json.dumps({"model_type": "vits"}))
+    for name, cfg in (("bad_xtts", {"model": "xtts"}),
+                      ("bad_bark", {"model_type": "bark"}),
+                      ("bad_musicgen", {"model_type": "musicgen"})):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "config.json").write_text(json.dumps(cfg))
     base = models if rel.startswith("piper") else tmp_path
     (j, jr), (t, tr) = _both_load(str(base / rel), **kw)
     assert not jr.success and not tr.success
@@ -472,3 +490,201 @@ def test_port_routes_serve_the_worker_wav(models, tmp_path, doc, path, body,
                  dst=ref).success
     t.shutdown()
     assert got == open(ref, "rb").read()
+
+
+# ------------------------------------------ bark, XTTS and MusicGen
+
+
+BARK0 = ["temperature=0", "max_semantic=6"]
+
+
+@pytest.fixture(scope="module")
+def ar_models(tmp_path_factory):
+    """Tiny bark, XTTS (with a vocab.json and two voices; another without
+    a speakers file) and MusicGen (musicgen-small's layout) directories
+    and their YAMLs."""
+    from tests.test_torch_bark import write_bark_dir
+    from tests.test_torch_musicgen import write_musicgen_dir
+    from tests.test_torch_xtts import write_vocab, write_xtts_dir
+
+    root = tmp_path_factory.mktemp("tts_ar")
+    write_bark_dir(root / "bark")
+    write_xtts_dir(root / "xtts")
+    write_vocab(root / "xtts")
+    write_xtts_dir(root / "xtts_nospk", seed=1, speakers=False)
+    write_musicgen_dir(root / "mg", True)
+    for name, doc in (
+            ("voice", {"backend": "tts"}),
+            ("bark0", {"backend": "bark", "parameters": {"model": "bark"},
+                       "options": BARK0}),
+            ("xtts", {"backend": "coqui", "parameters": {"model": "xtts"}}),
+            ("xtts_nospk", {"backend": "coqui",
+                            "parameters": {"model": "xtts_nospk"}}),
+            ("mg", {"backend": "tts", "parameters": {"model": "mg"}})):
+        (root / f"{name}.yaml").write_text(json.dumps({"name": name, **doc}))
+    return root
+
+
+@pytest.mark.parametrize("rel,kw,family", [
+    ("bark", {"options": BARK0}, "bark"), ("bark", {}, "bark"),
+    ("xtts", {}, "xtts"), ("xtts_nospk", {}, "xtts"),
+    ("mg", {}, "musicgen")])
+def test_ar_families_load_as_jax(ar_models, rel, kw, family):
+    (j, jr), (t, tr) = _both_load(str(ar_models / rel), **kw)
+    try:
+        assert (tr.success, tr.message) == (jr.success, jr.message)
+        assert t.family() == family and t.health()
+        if family == "bark":
+            assert t._bark_opts == j._bark_opts
+    finally:
+        t.shutdown()
+        j.shutdown()
+
+
+@pytest.fixture(scope="module")
+def ar_servers(tmp_path_factory, ar_models):
+    s = Servers(tmp_path_factory.mktemp("tts_ar_srv"), ar_models)
+    yield s
+    s.close()
+
+
+@pytest.mark.parametrize("path,body", [
+    ("/tts", {"model": "bark0", "input": "hello world"}),
+    ("/v1/audio/speech", {"model": "bark0", "input": "hi"}),
+    ("/tts", {"model": "xtts", "input": "hello world", "language": "de"}),
+    ("/v1/audio/speech", {"model": "xtts", "input": "the quick fox"}),
+    ("/v1/text-to-speech/alice", {"model_id": "xtts", "text": "hello"}),
+    ("/v1/text-to-speech/bob", {"model_id": "xtts", "text": "speak"}),
+    ("/v1/text-to-speech/nope", {"model_id": "xtts", "text": "hi"}),
+    ("/v1/text-to-speech/alice", {"model_id": "xtts_nospk", "text": "hi"}),
+    ("/v1/sound-generation", {"model_id": "mg", "text": "rain",
+                              "duration_seconds": 0.01, "temperature": 0}),
+    ("/v1/sound-generation", {"model_id": "mg", "text": "rain",
+                              "duration_seconds": 0.01}),
+    ("/v1/sound-generation", {"model_id": "mg", "text": "drums",
+                              "duration": 0.02, "temperature": 0.8}),
+])
+def test_ar_routes_match_jax_server(ar_servers, path, body):
+    """200s with the JAX server's WAV header and samples (within one unit
+    plus 1e-4 of max|JAX|); the unknown voice and the missing speakers
+    file as the JAX server's 500 and message."""
+    status = _same(ar_servers.both(path, body), exact=False)
+    assert status == (500 if "nope" in path or "nospk" in
+                      body.get("model_id", "") else 200)
+
+
+def _sound(b, tmp_path, name, **kw):
+    dst = str(tmp_path / name)
+    assert b.sound_generation("rain", dst=dst, duration=0.01, **kw).success
+    return open(dst, "rb").read()
+
+
+def test_unload_and_reload_leave_no_musicgen(ar_models, tmp_path):
+    """MusicGen's sound, then after an unload the noise bands, byte for
+    byte as the JAX worker; MusicGen then bark loaded into one worker:
+    the noise bands again (no MusicGen reachable) and bark's speech."""
+    (j, jr), (t, tr) = _both_load(str(ar_models / "mg"))
+    assert jr.success and tr.success
+    jm, tm = (_sound(j, tmp_path, "jm.wav", temperature=0.0,
+                     do_sample=False),
+              _sound(t, tmp_path, "tm.wav", temperature=0.0,
+                     do_sample=False))
+    (jh, jpcm), (th, tpcm) = _wav(jm), _wav(tm)
+    assert jh == th and jpcm.shape == tpcm.shape
+    assert np.abs(tpcm.astype(int) - jpcm).max() <= \
+        1 + REL * float(np.abs(jpcm).max())
+    j.shutdown()
+    t.shutdown()
+    noise = _sound(j, tmp_path, "jn.wav")
+    assert _sound(t, tmp_path, "tn.wav") == noise != tm
+    from localai_tfp_tpu.workers.base import ModelLoadOptions as JOpts
+    from localai_tfp_tpu_torch.workers.base import ModelLoadOptions
+
+    for path in ("mg", "bark"):
+        assert j.load_model(JOpts(model=str(ar_models / path),
+                                  options=BARK0)).success
+        assert t.load_model(ModelLoadOptions(model=str(ar_models / path),
+                                             options=BARK0)).success
+    assert t.family() == "bark" and t._musicgen is None
+    assert _sound(t, tmp_path, "tb.wav") == _sound(j, tmp_path, "jb.wav") \
+        == noise
+    a, b = str(tmp_path / "jt.wav"), str(tmp_path / "tt.wav")
+    assert j.tts("hello", dst=a).success and t.tts("hello", dst=b).success
+    (jh, jpcm), (th, tpcm) = _wav(a), _wav(b)
+    assert jh == th and np.abs(tpcm.astype(int) - jpcm).max() <= \
+        1 + REL * float(np.abs(jpcm).max())
+    t.shutdown()
+    j.shutdown()
+
+
+def _unigram_files(d):
+    """A T5-style ``tokenizer.json`` (Unigram, Metaspace, ``$A </s>``)
+    made with ``tokenizers``, ids below the tiny T5's vocabulary, and a
+    ``tokenizer_config.json`` that transformers' AutoTokenizer reads."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    pieces = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)] + [
+        (p, -float(i)) for i, p in enumerate(
+            ["▁", "▁rain", "▁on", "▁a", "▁roof", "r", "a", "i", "n", "o",
+             "f", "▁t", "in", "e", "s", "d", "u", "m"])]
+    tk = Tokenizer(models.Unigram(pieces, unk_id=2))
+    tk.pre_tokenizer = pre_tokenizers.Metaspace()
+    tk.post_processor = processors.TemplateProcessing(
+        single="$A </s>", special_tokens=[("</s>", 1)])
+    tk.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "</s>",
+        "unk_token": "<unk>", "pad_token": "<pad>"}))
+
+
+@pytest.mark.parametrize("text", ["rain on a tin roof", "drums", ""])
+def test_musicgen_tokenizer_ids_equal_jax(ar_models, tmp_path, text):
+    """A readable ``tokenizer.json``: the port's ids (post-processor
+    included) are the JAX worker's AutoTokenizer ids."""
+    import shutil
+
+    d = tmp_path / "mg_tok"
+    shutil.copytree(ar_models / "mg", d)
+    _unigram_files(d)
+    (j, jr), (t, tr) = _both_load(str(d))
+    assert jr.success and tr.success
+    want = j._musicgen[1](text)["input_ids"]
+    assert t._musicgen[1].encode_special(text) == want
+    assert want[-1] == 1
+    t.shutdown()
+
+
+def test_musicgen_precompiled_normalizer_fails_the_load(ar_models, tmp_path):
+    """T5's published ``tokenizer.json`` carries a ``Precompiled``
+    normalizer (a sentencepiece charsmap) the port's reader does not
+    know: the load fails naming it, never the byte ids."""
+    import shutil
+
+    from localai_tfp_tpu_torch.workers.base import ModelLoadOptions
+    from localai_tfp_tpu_torch.workers.tts import TorchTTSBackend
+
+    d = tmp_path / "mg_pre"
+    shutil.copytree(ar_models / "mg", d)
+    _unigram_files(d)
+    spec = json.loads((d / "tokenizer.json").read_text())
+    spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": ""}
+    (d / "tokenizer.json").write_text(json.dumps(spec))
+    t = TorchTTSBackend("cpu")
+    res = t.load_model(ModelLoadOptions(model=str(d)))
+    assert not res.success and t.family() == "formant"
+    assert res.message.startswith("musicgen load failed: ")
+    assert "Precompiled" in res.message
+
+
+@pytest.mark.parametrize("rel", ["bark", "xtts", "mg"])
+def test_ar_loaders_need_a_card_unless_asked(ar_models, monkeypatch, rel):
+    """Each new loader defaults to the card and raises without one; with
+    ``device="cpu"`` it loads."""
+    from localai_tfp_tpu_torch.models import bark, musicgen, xtts
+
+    load = {"bark": bark.BarkTTS.load, "xtts": xtts.load_xtts,
+            "mg": musicgen.load_musicgen}[rel]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load(str(ar_models / rel))
+    assert load(str(ar_models / rel), "cpu") is not None
